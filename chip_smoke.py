@@ -7,18 +7,23 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA source of the port (one ``nvcc`` per source, all
    started together, ``-Xptxas -v`` printed);
-3. holds each hand-written kernel (paged decode, paged prefill, RMSNorm,
-   RoPE) against its plain PyTorch version on the card at the serving
-   shapes of llama-3.2-1b, in bf16, and times kernel, plain version,
-   one PyTorch library call where there is one, and the bytes/operations
-   bound;
+3. holds each hand-written kernel (paged decode, paged prefill, the
+   ragged mixed batch, RMSNorm, RoPE) against its plain PyTorch version
+   on the card at the serving shapes of llama-3.2-1b, in bf16, and times
+   kernel, plain version, one PyTorch library call where there is one,
+   and the bytes/operations bound;
 4. starts ``python -m distributed_inference_server_tpu_torch`` serving
    llama-3.2-1b (full width and depth, random weights from a seed) and
    sends concurrent ``POST /generate`` requests; the kernels' launch
    counts are zeroed just before and read just after, from
-   ``/server/stats``, and every kernel must have launched;
+   ``/server/stats``, and every kernel of that path must have launched.
+   Then a second server with ``--engine-mixed-step-tokens 512``: two
+   chats, and while they decode a ~1500-byte and a 600-byte prompt, so
+   the ragged mixed step runs; its counts are read the same way;
 5. runs the engine at 2 layers of the 1B width in f32 with the kernels and
-   with the plain versions and requires identical greedy tokens.
+   with the plain versions and requires identical greedy tokens; then the
+   mixed step (kernels, plain versions) and the quantum path on one trace
+   (chats mid-decode, then a ~400-token prompt), tokens identical.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures as cf
+import contextlib
 import json
 import os
 import shutil
@@ -266,6 +272,117 @@ def check_prefill(case, T, q_start, valid_list, window=0, softcap=0.0, H=32,
     return rec
 
 
+def _ragged_inputs(decode_valid, chunks, Bm, S, H, KV, D, page_size, P,
+                   num_pages, gen):
+    """The mixed step's packed layout: decode slots first (valid 0 = an
+    inactive slot, -1 in tok_row), then prefill chunks (length, q_start)
+    back to back, then padding up to S. Returns tensors on the card and
+    the host lists."""
+    tok_row, q_pos, valid = [], [], []
+    for b, v in enumerate(decode_valid):
+        tok_row.append(b if v > 0 else -1)
+        q_pos.append(max(v - 1, 0))
+        valid.append(v)
+    for j, (n, start) in enumerate(chunks):
+        tok_row += [len(decode_valid) + j] * n
+        q_pos += list(range(start, start + n))
+        valid.append(start + n)
+    valid += [0] * (Bm - len(valid))
+    assert len(tok_row) <= S and len(valid) == Bm
+    tok_row += [-1] * (S - len(tok_row))
+    q_pos += [0] * (S - len(q_pos))
+    i32 = dict(dtype=torch.int32, device="cuda")
+    pool_k, pool_v, tables = _pool_case(Bm, H, KV, D, page_size, P,
+                                        num_pages, torch.bfloat16, gen)
+    q = torch.randn(S, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+    return (q, pool_k, pool_v, tables, torch.tensor(tok_row, **i32),
+            torch.tensor(q_pos, **i32), torch.tensor(valid, **i32),
+            tok_row, q_pos, valid)
+
+
+def _ragged_work(tok_row, q_pos, valid, window, TQ):
+    """(visible keys summed over tokens, K/V tokens each row must read
+    once, K/V tokens the kernel's segment loops read): what this data
+    needs. A segment is a run of one row's tokens inside a TQ-wide window
+    of the packed axis (csrc/paged_attention.cu)."""
+    pairs, rows, segs, cur = 0, {}, {}, None
+    for i, r in enumerate(tok_row):
+        if r < 0:
+            continue
+        if i % TQ == 0 or tok_row[i - 1] != r:
+            cur = i
+        p = q_pos[i]
+        lo = max(p - window + 1, 0) if window > 0 else 0
+        hi = min(p + 1, valid[r])
+        pairs += max(0, hi - lo)
+        for book, key in ((rows, r), (segs, cur)):
+            old = book.get(key, (lo, hi))
+            book[key] = (min(old[0], lo), max(old[1], hi))
+    def span(book):
+        return sum(max(0, hi - lo) for lo, hi in book.values())
+
+    return pairs, span(rows), span(segs)
+
+
+def check_ragged(case, decode_valid, chunks, Bm=12, S=512, window=0,
+                 softcap=0.0, H=32, KV=8, D=64, page_size=16, P=128,
+                 num_pages=1024, time_it=True):
+    from distributed_inference_server_tpu_torch.ops.kernels import (
+        paged_attention as pa,
+    )
+
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(5000 + S + len(case))
+    (q, pool_k, pool_v, tables, tok_row, q_pos, valid, rows_l, pos_l,
+     valid_l) = _ragged_inputs(decode_valid, chunks, Bm, S, H, KV, D,
+                               page_size, P, num_pages, gen)
+    kw = dict(page_size=page_size, sliding_window=window,
+              attn_softcap=softcap)
+    args = (q, pool_k, pool_v, tables, tok_row, q_pos, valid)
+    got = pa.paged_ragged(*args, **kw)
+    want = pa.paged_ragged_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = compare(f"paged_ragged[{case}]", got, want)
+    if got[tok_row < 0].any():
+        raise AssertionError(f"paged_ragged[{case}]: padding not zero")
+    rec = {"case": case, "max_abs_err": err}
+    if not time_it:
+        return rec
+    e = q.element_size()
+    pairs, row_tokens, seg_tokens = _ragged_work(
+        rows_l, pos_l, valid_l, window, 64 // (H // KV))
+    small = (tables.numel() + 2 * S + Bm) * 4
+    nbytes = 2 * q.numel() * e + 2 * row_tokens * KV * D * e + small
+    rec["ms"] = time_ms(lambda: pa.paged_ragged(*args, **kw))
+    rec["plain_ms"] = time_ms(lambda: pa.paged_ragged_plain(*args, **kw),
+                              iters=5)
+    # library: one SDPA call over every row's visible window concatenated
+    # on the key axis, with a packed boolean mask (gather excluded)
+    kg, vg = _gathered(pool_k, tables, page_size), _gathered(pool_v, tables,
+                                                            page_size)
+    keep = [(b, n) for b, n in enumerate(valid_l) if n > 0]
+    k_cat = torch.cat([kg[b, :, :n] for b, n in keep], dim=1)[None]
+    v_cat = torch.cat([vg[b, :, :n] for b, n in keep], dim=1)[None]
+    key_row = torch.cat([torch.full((n,), b, device="cuda")
+                         for b, n in keep])
+    key_pos = torch.cat([torch.arange(n, device="cuda") for _, n in keep])
+    mask = (key_row[None, :] == tok_row[:, None].long()) & (
+        key_pos[None, :] <= q_pos[:, None].long())
+    if window > 0:
+        mask &= key_pos[None, :] > q_pos[:, None].long() - window
+    qt = q.transpose(0, 1)[None].contiguous()
+    rec["library_ms"] = (time_ms(lambda: _sdpa(qt, k_cat, v_cat,
+                                               mask[None, None]))
+                         if softcap == 0.0 else None)
+    rec.update(bound(nbytes, 4 * pairs * H * D, dt))
+    # what the segment loops read (a prefill row's history once per
+    # segment), beside the read-once bound
+    rec["segment_bytes_bound_ms"] = (
+        (2 * q.numel() * e + 2 * seg_tokens * KV * D * e + small)
+        / HBM_BYTES_PER_S * 1e3)
+    return rec
+
+
 def check_rms_norm(case, shape, time_it=True):
     import torch.nn.functional as F
 
@@ -337,6 +454,20 @@ def phase_kernels(time_it=True) -> dict:
                          softcap=30.0, time_it=False),
             check_decode("D128", lengths, D=128, time_it=False),
         ],
+        "paged_ragged": [
+            # the mixed step at 512 packed tokens: decode slots 0-7 (slot
+            # 0 inactive), chunks of 200 @ 0, 250 @ 1500, 54 @ 100, and an
+            # empty fourth prefill row
+            check_ragged("S512 8 decode + 3 chunks",
+                         [0, 1, 16, 17, 300, 1000, 2047, 2048],
+                         [(200, 0), (250, 1500), (54, 100)],
+                         time_it=time_it),
+            check_ragged("S100 window64 softcap30", [0, 17, 300, 2048],
+                         [(40, 0), (33, 900)], Bm=7, S=100, window=64,
+                         softcap=30.0, time_it=False),
+            check_ragged("D128 S200", [5, 0, 1000, 33], [(100, 50), (60, 0)],
+                         Bm=7, S=200, D=128, time_it=False),
+        ],
         "paged_prefill": [
             check_prefill("B4 T512 q_start>0", 512, [0, 100, 1500, 0],
                           [512, 400, 1537, 0], time_it=time_it),
@@ -401,22 +532,26 @@ def _check_generate(status, body, max_tokens):
     assert u["total_tokens"] == u["prompt_tokens"] + u["completion_tokens"]
 
 
-def phase_serve(card: str, seed: int = 0) -> dict:
+@contextlib.contextmanager
+def _server(seed: int, extra, log_name: str):
+    """Run ``python -m distributed_inference_server_tpu_torch`` serving
+    llama-3.2-1b on a free port until it is healthy; yields its base URL
+    and stops the process on exit."""
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
     cmd = [sys.executable, "-m", "distributed_inference_server_tpu_torch",
            "--model-model-name", "llama-3.2-1b", "--server-port", str(port),
-           "--seed", str(seed)]
+           "--seed", str(seed), *extra]
     log("[serve] " + " ".join(cmd))
     os.makedirs("chiprun_out", exist_ok=True)
-    errlog = open(os.path.join("chiprun_out", "server.log"), "w")
+    errlog = open(os.path.join("chiprun_out", log_name), "w")
     proc = subprocess.Popen(cmd, stdout=errlog, stderr=subprocess.STDOUT)
     try:
         t0 = time.monotonic()
         while True:
             if proc.poll() is not None:
                 raise RuntimeError(f"server exited with {proc.returncode} "
-                                   "(chiprun_out/server.log)")
+                                   f"(chiprun_out/{log_name})")
             try:
                 st, health = _http("GET", base + "/health", timeout=5)
                 if st == 200 and health.get("status") == "ok":
@@ -427,7 +562,39 @@ def phase_serve(card: str, seed: int = 0) -> dict:
                 raise RuntimeError("server did not become healthy in 400 s")
             time.sleep(1.0)
         log(f"[serve] healthy after {time.monotonic() - t0:.1f} s")
+        yield base
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        errlog.close()
 
+
+def _gen(base, prompt, params):
+    t = time.monotonic()
+    st, body = _http("POST", base + "/generate", {"prompt": prompt, **params})
+    return st, body, time.monotonic() - t
+
+
+def _reset_counts(base) -> dict:
+    """Zero the launch counts; returns the stats just after."""
+    _http("POST", base + "/server/kernel_counts/reset", {})
+    _, stats = _http("GET", base + "/server/stats")
+    assert all(v == 0 for v in stats["kernel_launches"].values()), stats
+    return stats
+
+
+# the kernels each served path runs (the quantum server never launches
+# the ragged kernel; the mixed server never the chunked-prefill one)
+QUANTUM_KERNELS = ("paged_decode", "paged_prefill", "rms_norm", "rope")
+MIXED_KERNELS = ("paged_ragged", "paged_decode", "rms_norm", "rope")
+
+
+def phase_serve(card: str, seed: int = 0) -> dict:
+    with _server(seed, [], "server.log") as base:
         greedy = {"temperature": 0.0, "max_tokens": 24}
         prompts = {
             "p20": "The H100 serves this.",  # 21 ids with BOS
@@ -436,30 +603,23 @@ def phase_serve(card: str, seed: int = 0) -> dict:
             "p600": ("Long prompt chunked past the 512 bucket. " * 15)[:600],
         }
 
-        def gen(prompt, params):
-            t = time.monotonic()
-            st, body = _http("POST", base + "/generate",
-                             {"prompt": prompt, **params})
-            return st, body, time.monotonic() - t
-
         # warm pass (kernel builds and first launches), not counted
-        st, body, _ = gen("warm up", {"temperature": 0.0, "max_tokens": 4})
+        st, body, _ = _gen(base, "warm up", {"temperature": 0.0,
+                                             "max_tokens": 4})
         _check_generate(st, body, 4)
-        st, solo, _ = gen(prompts["p20"], greedy)
+        st, solo, _ = _gen(base, prompts["p20"], greedy)
         _check_generate(st, solo, greedy["max_tokens"])
 
-        _http("POST", base + "/server/kernel_counts/reset", {})
-        _, stats0 = _http("GET", base + "/server/stats")
-        assert all(v == 0 for v in stats0["kernel_launches"].values()), stats0
+        _reset_counts(base)
         t_all = time.monotonic()
         jobs = [(prompts["p20"], greedy), (prompts["p100"], greedy),
                 (prompts["p600"], greedy),
                 (prompts["p100"], {"temperature": 0.8, "top_p": 0.9,
                                    "max_tokens": 24})]
         with cf.ThreadPoolExecutor(len(jobs)) as ex:
-            results = list(ex.map(lambda j: gen(*j), jobs))
+            results = list(ex.map(lambda j: _gen(base, *j), jobs))
         wall = time.monotonic() - t_all
-        st, again, dt_again = gen(prompts["p20"], greedy)
+        st, again, dt_again = _gen(base, prompts["p20"], greedy)
         _, stats = _http("GET", base + "/server/stats")
         launches = stats["kernel_launches"]
         log("[serve] launches on the served path: " + json.dumps(launches))
@@ -467,8 +627,9 @@ def phase_serve(card: str, seed: int = 0) -> dict:
         for (prompt, params), (st, body, _) in zip(jobs, results):
             _check_generate(st, body, params["max_tokens"])
         _check_generate(st, again, greedy["max_tokens"])
-        for name, n in launches.items():
-            assert n > 0, f"kernel {name} never launched on the served path"
+        for name in QUANTUM_KERNELS:
+            assert launches[name] > 0, (
+                f"kernel {name} never launched on the served path")
         assert again["choices"][0]["text"] == solo["choices"][0]["text"], (
             "greedy repeat differs", solo, again)
         hits = stats["cache"]["hits"]
@@ -486,14 +647,69 @@ def phase_serve(card: str, seed: int = 0) -> dict:
             "note": "smoke numbers, not a benchmark",
         }))
         return launches
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        errlog.close()
+
+
+def phase_serve_mixed(card: str, seed: int = 0) -> dict:
+    """The ragged mixed step served: two chats decode while a ~1500-byte
+    and a 600-byte prompt load."""
+    with _server(seed, ["--engine-mixed-step-tokens", "512"],
+                 "server_mixed.log") as base:
+        st, body, _ = _gen(base, "warm up", {"temperature": 0.0,
+                                             "max_tokens": 4})
+        _check_generate(st, body, 4)
+        chat = {"temperature": 0.0, "max_tokens": 48}
+        longp = {"temperature": 0.0, "max_tokens": 24}
+        jobs = [("Tell me about paged attention.", chat),
+                ("Why does a mixed step help decode?", chat),
+                (("A long prompt that loads while two chats decode. " * 31)
+                 [:1500], longp),
+                (("A shorter prompt packed into the same steps. " * 14)[:600],
+                 longp)]
+
+        stats0 = _reset_counts(base)
+        mixed0 = stats0["mixed"]
+        t_all = time.monotonic()
+        with cf.ThreadPoolExecutor(len(jobs)) as ex:
+            chats = [ex.submit(_gen, base, *j) for j in jobs[:2]]
+            while True:  # the chats have their first tokens: decoding
+                _, st_now = _http("GET", base + "/server/stats")
+                if st_now["tokens_generated"] >= stats0["tokens_generated"] + 2:
+                    break
+                if time.monotonic() - t_all > 120:
+                    raise RuntimeError("the chats never started decoding")
+                time.sleep(0.002)
+            prompts = [ex.submit(_gen, base, *j) for j in jobs[2:]]
+            results = [f.result() for f in chats + prompts]
+        wall = time.monotonic() - t_all
+        _, stats = _http("GET", base + "/server/stats")
+        launches = stats["kernel_launches"]
+        mixed = {k: stats["mixed"][k] - mixed0[k]
+                 for k in ("steps", "prefill_tokens", "decode_tokens")}
+        log("[serve mixed] launches on the served path: "
+            + json.dumps(launches) + " mixed: " + json.dumps(mixed))
+
+        for (_, params), (st, body, _) in zip(jobs, results):
+            _check_generate(st, body, params["max_tokens"])
+        for name in MIXED_KERNELS:
+            assert launches[name] > 0, (
+                f"kernel {name} never launched on the mixed served path")
+        assert launches["paged_prefill"] == 0, launches
+        assert mixed["steps"] >= 3, mixed
+        assert mixed["decode_tokens"] > 0, mixed
+        assert mixed["prefill_tokens"] >= 1500, mixed
+        toks = sum(b["usage"]["completion_tokens"] for _, b, _ in results)
+        log(json.dumps({
+            "serve_mixed": "llama-3.2-1b bf16 random weights, "
+                           "--engine-mixed-step-tokens 512", "card": card,
+            "requests": len(jobs), "wall_s": wall,
+            "completion_tokens": toks, "tokens_per_s": toks / wall,
+            "request_latency_s": [r[2] for r in results],
+            "prompt_tokens": [b["usage"]["prompt_tokens"]
+                              for _, b, _ in results],
+            "mixed": mixed, "batch_density": stats["mixed"]["batch_density"],
+            "note": "smoke numbers, not a benchmark",
+        }))
+        return launches
 
 
 # ---------------------------------------------------------------------------
@@ -538,6 +754,45 @@ def phase_engine_f32(seed: int = 0) -> dict:
     assert outs["kernel"] == outs["plain"], outs
     log(json.dumps({"engine_f32_2layer": "kernel == plain greedy tokens",
                     "tokens": outs["kernel"]}))
+
+    # the mixed step on one trace: two chats mid-decode, then a ~400-token
+    # prompt; mixed (kernels), mixed (plain versions) and quantum (kernels)
+    chats = ["first chat of the mixed trace", "second chat"]
+    long_prompt = ("a ~400-token prompt loading while the chats decode. "
+                   * 8)[:400]
+    mixed = {}
+    for name, impl, width in (("mixed-kernel", "kernel", 128),
+                              ("mixed-plain", "plain", 128),
+                              ("quantum-kernel", "kernel", 0)):
+        eng = LLMEngine(params, cfg, tok, EngineConfig(
+            attention_impl=impl, mixed_step_tokens=width),
+            dtype=torch.float32, device="cuda")
+        toks = {}
+
+        def step():
+            for o in eng.step():
+                if o.token_id is not None:
+                    toks.setdefault(o.request_id, []).append(o.token_id)
+
+        for i, p in enumerate(chats):
+            eng.add_request(f"c{i}", tok.encode(p),
+                            SamplingParams(max_tokens=24, temperature=0.0))
+        for _ in range(3):
+            step()
+        eng.add_request("long", tok.encode(long_prompt),
+                        SamplingParams(max_tokens=8, temperature=0.0))
+        while eng.has_work():
+            step()
+        mixed[name] = toks
+        if width:
+            stats = eng.mixed_stats()
+            assert stats["decode_tokens"] > 0 and stats["steps"] >= 3, stats
+        del eng
+    assert (mixed["mixed-kernel"] == mixed["mixed-plain"]
+            == mixed["quantum-kernel"]), mixed
+    log(json.dumps({"engine_f32_2layer_mixed":
+                    "mixed kernel == mixed plain == quantum greedy tokens",
+                    "tokens": mixed["mixed-kernel"]}))
     return outs
 
 
@@ -553,6 +808,10 @@ KERNEL_META = {
                       "paged_attention.cu",
                       "distributed_inference_server_tpu/ops/pallas/"
                       "paged_attention.py:406"),
+    "paged_ragged": ("cuda", "distributed_inference_server_tpu_torch/csrc/"
+                     "paged_attention.cu",
+                     "distributed_inference_server_tpu/ops/pallas/"
+                     "paged_attention.py:843"),
     "rms_norm": ("triton", "distributed_inference_server_tpu_torch/ops/"
                  "kernels/_triton_fused.py",
                  "distributed_inference_server_tpu/ops/pallas/fused.py:90"),
@@ -587,7 +846,13 @@ def main(argv=None) -> int:
     log(f"[build] {sorted(built)} in {time.monotonic() - t0:.1f} s")
 
     checks = phase_kernels() if "kernels" in phases else {}
-    launches = phase_serve(card, args.seed) if "serve" in phases else {}
+    launches = {}
+    if "serve" in phases:
+        launches = phase_serve(card, args.seed)
+        # the ragged kernel's count is the mixed server's (the only path
+        # that runs it)
+        launches["paged_ragged"] = phase_serve_mixed(
+            card, args.seed)["paged_ragged"]
     if "engine" in phases:
         phase_engine_f32(args.seed)
 

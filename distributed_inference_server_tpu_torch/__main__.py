@@ -1,6 +1,6 @@
 """Serve a model over HTTP: ``python -m distributed_inference_server_tpu_torch
 --model-model-name llama-3.2-1b --server-port 8000 [--seed S]
-[--device cuda|cpu]``.
+[--device cuda|cpu] [--engine-mixed-step-tokens N]``.
 
 Weights are random, drawn from ``--seed`` (checkpoint loading is not
 ported yet), and the tokenizer is the byte tokenizer. The engine runs on
@@ -46,6 +46,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--engine-mixed-step-tokens", type=int, default=0,
+                    help="packed width of the ragged mixed step (0 = off; "
+                         "otherwise more than the engine's max_batch)")
     return ap
 
 
@@ -53,7 +56,16 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    ecfg = EngineConfig(seed=args.seed,
+                        mixed_step_tokens=args.engine_mixed_step_tokens)
     try:
+        if ecfg.mixed_step_tokens < 0:
+            raise ValueError("engine.mixed_step_tokens must be >= 0")
+        if 0 < ecfg.mixed_step_tokens <= ecfg.max_batch:
+            raise ValueError(
+                f"engine.mixed_step_tokens must exceed engine.max_batch "
+                f"({ecfg.max_batch}): the packed width holds every decode "
+                "slot plus at least one prefill token")
         device = resolve_device(args.device)
         cfg = get_config(args.model_model_name)
         dtype = dtype_from_name(args.model_dtype)
@@ -61,7 +73,6 @@ def main(argv=None) -> int:
         print(f"config error: {e}", file=sys.stderr)
         return 2
     tokenizer = load_tokenizer()
-    ecfg = EngineConfig(seed=args.seed)
 
     def engine_factory() -> LLMEngine:
         gen = torch.Generator(device=device)

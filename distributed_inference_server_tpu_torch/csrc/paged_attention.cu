@@ -1,8 +1,9 @@
 // Paged GQA attention over the flat KV page pool, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels in distributed_inference_server_tpu/ops/pallas/
-// paged_attention.py: paged_attention_decode (_decode_kernel) and
-// paged_attention_prefill (_prefill_kernel), dense pools only.
+// paged_attention.py: paged_attention_decode (_decode_kernel),
+// paged_attention_prefill (_prefill_kernel) and paged_attention_ragged
+// (_ragged_kernel), dense pools only.
 //
 // Contract (identical to the plain versions in ops/kernels/paged_attention.py):
 //   pool_k, pool_v : [num_slots, KV, D], slot = page * page_size + offset
@@ -11,17 +12,37 @@
 //   valid          : [B] int32 tokens valid in each row, incl. this step's
 //   decode         : q [B, H, D], query of row b sits at position valid-1
 //   prefill        : q [B, T, H, D], query t of row b at q_start[b] + t
+//   ragged         : q [S, H, D], a packed token axis: token i belongs to
+//                    row tok_row[i] (-1 = padding; rows >= B clamp to B-1)
+//                    at position q_pos[i]. Each row's tokens are one
+//                    contiguous run (runs of different rows and padding
+//                    may alternate in any order).
 //   mask           : kv <= q_pos, kv < valid, and kv > q_pos - window when
 //                    window > 0; softcap (tanh(s/cap)*cap) BEFORE the mask
-//   rows with nothing visible write zeros.
+//   queries with nothing visible, and padding tokens, write zeros.
 //
-// Common design. A block owns one (row, KV head): the G = H/KV query heads
-// of that KV head share every K/V byte the block loads, so the pool is read
-// once per (row, KV head, query tile) instead of once per query head. The
-// block walks the row's tokens from the window's lower edge to
-// min(valid, last query + 1) in tiles: it reads each token's page id from
-// the table (clamped), loads the tile's K and V into shared memory with
-// 16-byte loads, scores it, and updates an online softmax in f32.
+// Common design. A block owns one tile of queries of one row and one KV
+// head: the G = H/KV query heads of that KV head share every K/V byte the
+// block loads, so the pool is read once per (row, KV head, query tile)
+// instead of once per query head. The block walks the row's tokens from the
+// window's lower edge to min(valid, last query + 1) in tiles: it reads each
+// token's page id from the table (clamped), loads the tile's K and V into
+// shared memory with 16-byte loads, scores it, and updates an online
+// softmax in f32. A Tile says which queries (first token, count, positions)
+// and which KV range a block serves; decode, prefill and ragged differ only
+// in how a block finds its Tile.
+//
+// Ragged (the engine's mixed step: decode rows and prefill chunks in one
+// launch). The packed axis is cut into SEGMENTS: maximal runs of one row's
+// tokens inside one TQ-wide window of the axis (TQ = the body's query tile).
+// Segment starts are the tokens i with tok_row[i] >= 0 and (i % TQ == 0 or
+// tok_row[i-1] != tok_row[i]); with each row contiguous there are at most
+// ceil(S/TQ) + B of them, the grid's static size, so nothing is read back
+// to the host. Block x finds the x-th start itself (a block-wide count over
+// tok_row, a few KB from L2) and exits if there is none; blocks x <
+// ceil(S/TQ) also write the zeros of window x's padding tokens. A decode
+// row is a one-token segment and walks its whole history in one block (no
+// KV split: a long decode row is the launch's longest block).
 //
 // Two bodies:
 // - bf16, D in {64, 128}, G <= 64 (the serving path): tensor cores
@@ -83,8 +104,11 @@ struct Args {
   const int* tables;
   const int* q_start;  // prefill only
   const int* valid;
+  const int* tok_row;  // ragged only: [S] owning row (-1 = padding)
+  const int* q_pos;    // ragged only: [S] absolute positions
   void* out;
-  int T;  // queries per row (1 for decode)
+  int T;  // queries per row (1 for decode); ragged: the packed length S
+  int B;  // rows of tables / valid
   int H, KV, D;
   int page_size, P, num_pages;
   int window;     // <= 0: full causal
@@ -92,6 +116,115 @@ struct Args {
   float scale;    // 1/sqrt(D)
   int TQ, TK;     // queries / kv tokens per tile
 };
+
+// The queries one block serves and the KV tokens [lo, hi) it walks. Query
+// t < n is token tok0 + t of the [tokens, H, D] view of q and out, at
+// position pos[t] (ragged) or pos0 + t (decode, prefill).
+struct Tile {
+  int b;  // page-table row
+  int n;  // queries in the tile (0: nothing to do)
+  size_t tok0;
+  const int* pos;
+  int pos0;
+  int lo, hi;
+};
+
+__device__ __forceinline__ int tile_pos(const Tile& tl, int t) {
+  return tl.pos ? tl.pos[t] : tl.pos0 + t;
+}
+
+__device__ __forceinline__ int window_lo(const Args& a, int first_pos) {
+  return a.window > 0 ? max(first_pos - a.window + 1, 0) : 0;
+}
+
+// Decode (one query per row) or prefill (queries q0 .. q0+TQ-1 of row b).
+__device__ Tile dense_tile(const Args& a, int b, int q0, int TQ,
+                           bool decode) {
+  Tile tl;
+  const int vb = a.valid[b];
+  tl.b = b;
+  tl.n = decode ? 1 : min(TQ, a.T - q0);
+  tl.tok0 = (size_t)b * a.T + q0;
+  tl.pos = nullptr;
+  tl.pos0 = decode ? vb - 1 : a.q_start[b] + q0;
+  tl.lo = window_lo(a, tl.pos0);
+  tl.hi = min(vb, tl.pos0 + tl.n);
+  return tl;
+}
+
+// Ragged: segment `seg` of the packed axis (see the header). Every thread
+// of the block must call it; n == 0 when there are at most `seg` segments.
+__device__ Tile ragged_tile(const Args& a, int seg, int TQ) {
+  __shared__ int sh_cnt[32];
+  __shared__ int sh_start, sh_end, sh_lo, sh_hi;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int S = a.T;
+  if (tid == 0) sh_start = -1;
+  __syncthreads();
+  int base = 0;  // segment starts before this chunk (same in every thread)
+  for (int c0 = 0; c0 < S && base <= seg; c0 += blockDim.x) {
+    const int i = c0 + tid;
+    bool f = false;
+    if (i < S) {
+      const int r = a.tok_row[i];
+      f = r >= 0 && (i % TQ == 0 || a.tok_row[i - 1] != r);
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) sh_cnt[warp] = __popc(m);
+    __syncthreads();
+    int before = base, total = 0;
+    for (int w = 0; w < nw; ++w) {
+      if (w < warp) before += sh_cnt[w];
+      total += sh_cnt[w];
+    }
+    if (f && before + __popc(m & ((1u << lane) - 1u)) == seg) sh_start = i;
+    base += total;
+    __syncthreads();
+  }
+  Tile tl;
+  tl.n = 0;
+  const int start = sh_start;
+  if (start < 0) return tl;
+  const int r0 = a.tok_row[start];
+  if (tid == 0) {
+    sh_end = min((start / TQ + 1) * TQ, S);
+    sh_lo = 0x7fffffff;
+    sh_hi = -0x7fffffff;
+  }
+  __syncthreads();
+  for (int t = tid; t < TQ; t += blockDim.x) {
+    const int j = start + t;
+    if (j < S && a.tok_row[j] != r0) atomicMin(&sh_end, j);
+  }
+  __syncthreads();
+  const int end = sh_end;
+  for (int j = start + tid; j < end; j += blockDim.x) {
+    atomicMin(&sh_lo, a.q_pos[j]);
+    atomicMax(&sh_hi, a.q_pos[j]);
+  }
+  __syncthreads();
+  tl.b = min(r0, a.B - 1);
+  tl.n = end - start;
+  tl.tok0 = start;
+  tl.pos = a.q_pos + start;
+  tl.pos0 = 0;
+  tl.lo = window_lo(a, sh_lo);
+  tl.hi = min(a.valid[tl.b], sh_hi + 1);
+  return tl;
+}
+
+// Ragged: zeros for the padding tokens of window w (the G heads of kvh).
+template <typename T>
+__device__ void zero_padding(const Args& a, int w, int TQ, int kvh) {
+  const int G = a.H / a.KV, GD = G * a.D;
+  T* out = static_cast<T*>(a.out);
+  for (int i = threadIdx.x; i < TQ * GD; i += blockDim.x) {
+    const int tok = w * TQ + i / GD;
+    if (tok < a.T && a.tok_row[tok] < 0)
+      out[((size_t)tok * a.H + kvh * G) * a.D + i % GD] = from_f<T>(0.f);
+  }
+}
 
 template <typename T>
 __host__ __device__ constexpr int kt_pad() {
@@ -108,13 +241,13 @@ size_t smem_bytes(int R, int D, int TK) {
 }
 
 template <typename T, int NT, int MAXACC>
-__device__ void attend(const Args& a, int b, int kvh, int qt, bool decode) {
+__device__ void attend(const Args& a, const Tile& tl, int kvh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int NW = NT / 32;
   constexpr int VEC = 16 / (int)sizeof(T);
   const int G = a.H / a.KV;
-  const int TQ = a.TQ, TK = a.TK, D = a.D;
-  const int R = TQ * G;
+  const int TK = a.TK, D = a.D;
+  const int R = a.TQ * G;
   const int TKP = TK + kt_pad<T>();
   T* v_s = reinterpret_cast<T*>(smem_raw);
   T* q_s = v_s + TK * D;
@@ -130,20 +263,14 @@ __device__ void attend(const Args& a, int b, int kvh, int qt, bool decode) {
   const T* pv = static_cast<const T*>(a.pool_v);
   T* out = static_cast<T*>(a.out);
 
-  const int vb = a.valid[b];
-  const int q0 = qt * TQ;  // first query of this tile within the row
-  const int q_base = decode ? vb - 1 : a.q_start[b] + q0;
-  const int kv_upper = min(vb, q_base + TQ);
-  const int w = a.window;
-  const int lo = w > 0 ? max(q_base - w + 1, 0) : 0;
-  const int eff_w = w > 0 ? w : (1 << 30);
+  const int kv_upper = tl.hi;
+  const int eff_w = a.window > 0 ? a.window : (1 << 30);
 
   for (int i = tid; i < R * D; i += NT) {
     const int r = i / D, d = i - r * D;
     const int t = r / G, g = r - t * G;
-    const int tq = q0 + t;
-    q_s[i] = tq < a.T
-                 ? q[(((size_t)b * a.T + tq) * a.H + kvh * G + g) * D + d]
+    q_s[i] = t < tl.n
+                 ? q[((tl.tok0 + t) * a.H + kvh * G + g) * D + d]
                  : from_f<T>(0.f);
   }
   for (int r = tid; r < R; r += NT) {
@@ -156,7 +283,7 @@ __device__ void attend(const Args& a, int b, int kvh, int qt, bool decode) {
   __syncthreads();
 
   const int DV = D / VEC;
-  for (int k0 = lo; k0 < kv_upper; k0 += TK) {
+  for (int k0 = tl.lo; k0 < kv_upper; k0 += TK) {
     // K (transposed) and V of tokens k0 .. k0+TK-1; past kv_upper: zeros
     for (int i = tid; i < TK * DV; i += NT) {
       const int j = i / DV, dv = i - j * DV;
@@ -164,7 +291,7 @@ __device__ void attend(const Args& a, int b, int kvh, int qt, bool decode) {
       uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
       if (pos < kv_upper) {
         const int pslot = min(pos / a.page_size, a.P - 1);
-        int page = a.tables[(size_t)b * a.P + pslot];
+        int page = a.tables[(size_t)tl.b * a.P + pslot];
         page = min(max(page, 0), a.num_pages - 1);
         const size_t slot = (size_t)page * a.page_size + pos % a.page_size;
         const size_t off = (slot * a.KV + kvh) * D + (size_t)dv * VEC;
@@ -181,8 +308,8 @@ __device__ void attend(const Args& a, int b, int kvh, int qt, bool decode) {
     // scores: one warp per query row, one lane per token
     for (int r = warp; r < R; r += NW) {
       const int t = r / G;
-      const int qpos = q_base + t;
-      const bool row_ok = q0 + t < a.T;
+      const bool row_ok = t < tl.n;
+      const int qpos = row_ok ? tile_pos(tl, t) : 0;
       const T* qr = q_s + r * D;
       for (int j = lane; j < TK; j += 32) {
         float s = 0.f;
@@ -243,9 +370,8 @@ __device__ void attend(const Args& a, int b, int kvh, int qt, bool decode) {
     if (idx < R * D) {
       const int r = idx / D, d = idx - r * D;
       const int t = r / G, g = r - t * G;
-      const int tq = q0 + t;
-      if (tq < a.T) {
-        out[(((size_t)b * a.T + tq) * a.H + kvh * G + g) * D + d] =
+      if (t < tl.n) {
+        out[((tl.tok0 + t) * a.H + kvh * G + g) * D + d] =
             from_f<T>(acc[i] / fmaxf(l_s[r], 1e-30f));
       }
     }
@@ -257,12 +383,28 @@ constexpr int kPrefillThreads = 256, kPrefillAcc = 32, kPrefillTK = 32;
 
 template <typename T, int NT, int MAXACC>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(Args a) {
-  attend<T, NT, MAXACC>(a, blockIdx.x, blockIdx.y, 0, true);
+  attend<T, NT, MAXACC>(a, dense_tile(a, blockIdx.x, 0, 1, true),
+                        blockIdx.y);
 }
 
 template <typename T, int NT, int MAXACC>
 __global__ void __launch_bounds__(NT) paged_prefill_kernel(Args a) {
-  attend<T, NT, MAXACC>(a, blockIdx.x, blockIdx.y, blockIdx.z, false);
+  attend<T, NT, MAXACC>(
+      a, dense_tile(a, blockIdx.x, blockIdx.z * a.TQ, a.TQ, false),
+      blockIdx.y);
+}
+
+template <typename T, int NT, int MAXACC>
+__global__ void __launch_bounds__(NT) paged_ragged_kernel(Args a) {
+  if (blockIdx.x * a.TQ < a.T) zero_padding<T>(a, blockIdx.x, a.TQ, blockIdx.y);
+  const Tile tl = ragged_tile(a, blockIdx.x, a.TQ);
+  if (tl.n == 0) return;
+  attend<T, NT, MAXACC>(a, tl, blockIdx.y);
+}
+
+// Ragged grid width: one block per possible segment (see the header).
+inline int ragged_blocks(const Args& a, int TQ) {
+  return (a.T + TQ - 1) / TQ + a.B;
 }
 
 template <typename Kern>
@@ -288,22 +430,44 @@ int launch_decode(Args a, int B, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// Scalar prefill/ragged query tile: the largest power of two whose outputs
+// fit the registers and that a short chunk does not overshoot by more than
+// 2x; 0 when even one query's G heads do not fit.
+int scalar_tq(const Args& a) {
+  const int cap = kPrefillThreads * kPrefillAcc;
+  const int G = a.H / a.KV;
+  int TQ = 32;
+  while (TQ > 1 && (TQ * G * a.D > cap || TQ / 2 >= a.T)) TQ /= 2;
+  return TQ * G * a.D > cap ? 0 : TQ;
+}
+
 template <typename T>
 int launch_prefill(Args a, int B, cudaStream_t st) {
   constexpr int NT = kPrefillThreads, MAXACC = kPrefillAcc;
-  const int G = a.H / a.KV;
-  // largest power-of-two query tile whose outputs fit the registers and
-  // that a short chunk does not overshoot by more than 2x
-  int TQ = 32;
-  while (TQ > 1 && (TQ * G * a.D > NT * MAXACC || TQ / 2 >= a.T)) TQ /= 2;
-  if (TQ * G * a.D > NT * MAXACC) return (int)cudaErrorInvalidValue;
+  const int TQ = scalar_tq(a);
+  if (TQ == 0) return (int)cudaErrorInvalidValue;
   a.TQ = TQ;
   a.TK = kPrefillTK;
-  const size_t smem = smem_bytes<T>(TQ * G, a.D, a.TK);
+  const size_t smem = smem_bytes<T>(TQ * (a.H / a.KV), a.D, a.TK);
   auto kern = paged_prefill_kernel<T, NT, MAXACC>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<dim3(B, a.KV, (a.T + TQ - 1) / TQ), NT, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_ragged(Args a, cudaStream_t st) {
+  constexpr int NT = kPrefillThreads, MAXACC = kPrefillAcc;
+  const int TQ = scalar_tq(a);
+  if (TQ == 0) return (int)cudaErrorInvalidValue;
+  a.TQ = TQ;
+  a.TK = kPrefillTK;
+  const size_t smem = smem_bytes<T>(TQ * (a.H / a.KV), a.D, a.TK);
+  auto kern = paged_ragged_kernel<T, NT, MAXACC>;
+  cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(ragged_blocks(a, TQ), a.KV), NT, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -340,9 +504,12 @@ struct Split {
 //   A: rows l/4 and l/4+8, cols 2(l%4)+{0,1} and +8 (4 regs of 2 values);
 //   B: k rows 2(l%4)+{0,1} and +8, col l/4 (2 regs);
 //   C: rows l/4 (c0, c1) and l/4+8 (c2, c3), cols 2(l%4)+{0,1}.
+//
+// A block serves the tile's TQ queries (TQ * G <= 64 rows); z is its KV
+// split (decode with sp.NS > 1) and selects the partial-output slot.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    mma_attend_kernel(Args a, Split sp, int decode) {
+__device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
+                           int kvh, int z, int TQ) {
   constexpr int TK = kMmaTK;
   constexpr int KS = D + 8;   // k_s row stride (elements)
   constexpr int VS = TK + 8;  // vt_s row stride (elements)
@@ -353,28 +520,23 @@ __global__ void __launch_bounds__(kMmaThreads)
   __shared__ __align__(16) __nv_bfloat16 k_s[TK * KS];
   __shared__ __align__(16) __nv_bfloat16 vt_s[D * VS];
 
-  const int b = blockIdx.x, kvh = blockIdx.y, z = blockIdx.z;
+  const int b = tl.b;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = a.H / a.KV;
-  const int TQ = decode ? 1 : kMmaRows / G;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
   const __nv_bfloat16* pk = static_cast<const __nv_bfloat16*>(a.pool_k);
   const __nv_bfloat16* pv = static_cast<const __nv_bfloat16*>(a.pool_v);
 
-  const int vb = a.valid[b];
-  const int q0 = decode ? 0 : z * TQ;  // first query of this tile
-  const int q_base = decode ? vb - 1 : a.q_start[b] + q0;
-  const int w = a.window;
-  const int eff_w = w > 0 ? w : (1 << 30);
-  int t_begin = w > 0 ? max(q_base - w + 1, 0) : 0;
-  int t_end = min(vb, q_base + TQ);
+  const int eff_w = a.window > 0 ? a.window : (1 << 30);
+  int t_begin = tl.lo;
+  int t_end = tl.hi;
   if (sp.NS > 1) {  // this block's share of the row's KV range
     t_begin = max(t_begin, z * sp.chunk);
     t_end = min(t_end, (z + 1) * sp.chunk);
   }
 
   // the two rows this lane owns: row r = t * G + g (query t, head g)
-  bool live[2];       // rows past the tile or the chunk are dead
+  bool live[2];       // rows past the tile are dead
   int row_q[2];       // query position (-1 for a decode row with valid 0)
   size_t row_off[2];  // element offset of the row's q / out vector
   int row_h[2];
@@ -382,11 +544,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + (lane >> 2) + 8 * i;
     const int t = r / G, g = r - t * G;
-    const int tq = q0 + t;
-    live[i] = r < TQ * G && tq < a.T;
-    row_q[i] = q_base + t;
+    live[i] = r < TQ * G && t < tl.n;
+    row_q[i] = live[i] ? tile_pos(tl, t) : 0;
     row_h[i] = kvh * G + g;
-    row_off[i] = live[i] ? (((size_t)b * a.T + tq) * a.H + row_h[i]) * D : 0;
+    row_off[i] = live[i] ? ((tl.tok0 + t) * a.H + row_h[i]) * D : 0;
   }
   const bool warp_live = __any_sync(0xffffffffu, live[0] || live[1]);
 
@@ -537,6 +698,27 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// Decode (grid z = KV split) and prefill (grid z = query tile).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    mma_attend_kernel(Args a, Split sp, int decode) {
+  const int TQ = decode ? 1 : kMmaRows / (a.H / a.KV);
+  const int z = blockIdx.z;
+  const Tile tl = dense_tile(a, blockIdx.x, decode ? 0 : z * TQ, TQ, decode);
+  mma_attend<D>(a, sp, tl, blockIdx.y, z, TQ);
+}
+
+// Ragged: grid x = segment, y = KV head.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) mma_ragged_kernel(Args a) {
+  const int TQ = kMmaRows / (a.H / a.KV);
+  if (blockIdx.x * TQ < a.T)
+    zero_padding<__nv_bfloat16>(a, blockIdx.x, TQ, blockIdx.y);
+  const Tile tl = ragged_tile(a, blockIdx.x, TQ);
+  if (tl.n == 0) return;
+  mma_attend<D>(a, Split{nullptr, nullptr, 1, 0}, tl, blockIdx.y, 0, TQ);
+}
+
 // Merge the decode splits of one (row, head): one thread per output dim.
 template <int D>
 __global__ void __launch_bounds__(D)
@@ -580,10 +762,19 @@ int dispatch_mma(const Args& a, int B, int decode, const Split& sp,
   return launch_mma<128>(a, B, decode, sp, st);
 }
 
+int dispatch_mma_ragged(const Args& a, cudaStream_t st) {
+  const dim3 grid(ragged_blocks(a, kMmaRows / (a.H / a.KV)), a.KV);
+  if (a.D == 64)
+    mma_ragged_kernel<64><<<grid, kMmaThreads, 0, st>>>(a);
+  else
+    mma_ragged_kernel<128><<<grid, kMmaThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 Args make_args(const void* q, const void* pk, const void* pv,
                const void* tables, const void* q_start, const void* valid,
-               void* out, int T, int H, int KV, int D, int page_size, int P,
-               int num_pages, int window, float softcap) {
+               void* out, int T, int B, int H, int KV, int D, int page_size,
+               int P, int num_pages, int window, float softcap) {
   Args a;
   a.q = q;
   a.pool_k = pk;
@@ -591,8 +782,11 @@ Args make_args(const void* q, const void* pk, const void* pv,
   a.tables = static_cast<const int*>(tables);
   a.q_start = static_cast<const int*>(q_start);
   a.valid = static_cast<const int*>(valid);
+  a.tok_row = nullptr;
+  a.q_pos = nullptr;
   a.out = out;
   a.T = T;
+  a.B = B;
   a.H = H;
   a.KV = KV;
   a.D = D;
@@ -619,8 +813,8 @@ extern "C" int paged_decode(int dtype, const void* q, const void* pool_k,
                             int num_pages, int window, float softcap,
                             void* part_o, void* part_ml, int splits,
                             int split_chunk, void* stream) {
-  Args a = make_args(q, pool_k, pool_v, tables, nullptr, valid, out, 1, H, KV,
-                     D, page_size, P, num_pages, window, softcap);
+  Args a = make_args(q, pool_k, pool_v, tables, nullptr, valid, out, 1, B, H,
+                     KV, D, page_size, P, num_pages, window, softcap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mma_ok(dtype, D, H / KV)) {
     Split sp{static_cast<float*>(part_o), static_cast<float*>(part_ml),
@@ -641,13 +835,34 @@ extern "C" int paged_prefill(int dtype, const void* q, const void* pool_k,
                              void* out, int B, int T, int H, int KV, int D,
                              int page_size, int P, int num_pages, int window,
                              float softcap, void* stream) {
-  Args a = make_args(q, pool_k, pool_v, tables, q_start, valid, out, T, H, KV,
-                     D, page_size, P, num_pages, window, softcap);
+  Args a = make_args(q, pool_k, pool_v, tables, q_start, valid, out, T, B, H,
+                     KV, D, page_size, P, num_pages, window, softcap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mma_ok(dtype, D, H / KV))
     return dispatch_mma(a, B, 0, Split{nullptr, nullptr, 1, 0}, st);
   if (dtype == 0) return launch_prefill<float>(a, B, st);
   if (dtype == 1) return launch_prefill<__nv_bfloat16>(a, B, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q, out [S, H, D]; tok_row, q_pos [S]; tables [B, P]; valid [B] (B >= 1).
+extern "C" int paged_ragged(int dtype, const void* q, const void* pool_k,
+                            const void* pool_v, const void* tables,
+                            const void* tok_row, const void* q_pos,
+                            const void* valid, void* out, int S, int B,
+                            int H, int KV, int D, int page_size, int P,
+                            int num_pages, int window, float softcap,
+                            void* stream) {
+  if (S <= 0) return (int)cudaSuccess;
+  if (B < 1) return (int)cudaErrorInvalidValue;
+  Args a = make_args(q, pool_k, pool_v, tables, nullptr, valid, out, S, B, H,
+                     KV, D, page_size, P, num_pages, window, softcap);
+  a.tok_row = static_cast<const int*>(tok_row);
+  a.q_pos = static_cast<const int*>(q_pos);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mma_ok(dtype, D, H / KV)) return dispatch_mma_ragged(a, st);
+  if (dtype == 0) return launch_ragged<float>(a, st);
+  if (dtype == 1) return launch_ragged<__nv_bfloat16>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,6 @@
 """Continuous-batching inference engine over the paged KV cache (port of
-``distributed_inference_server_tpu/engine/engine.py``, the quantum path
-with every ``EngineConfig`` default).
+``distributed_inference_server_tpu/engine/engine.py``: the quantum path
+with every ``EngineConfig`` default, and the ragged mixed step).
 
 - **Continuous batching** over a fixed pool of ``max_batch`` decode slots;
   requests join and leave between steps. Inactive slots run masked: their
@@ -19,11 +19,18 @@ with every ``EngineConfig`` default).
   goes back to the queue, its pages released) when the pool runs dry.
 - **Per-request failure isolation**: host-side processing of each request
   is fenced; a failing request errors out alone.
+- **Ragged mixed step** (``mixed_step_tokens > 0``): while a seated
+  prompt is loading, one packed dispatch replaces the prefill quantum and
+  the decode block: every seated decode row advances one token and prompt
+  chunks fill the rest of the token budget, attended by the ragged paged
+  kernel. Its decode ids, their log-probabilities and the first-token
+  candidates come back in one host read.
 
-Not in this slice: the pipelined blocks (``pipeline_depth``), the mixed
-step, looped blocks, speculation, meshes, quantized pools, the host tier,
-KV handoff and embeddings. Without pipelining each block is read right
-after it is issued; the tokens are the same.
+Not in this slice: the pipelined blocks (``pipeline_depth``), looped
+blocks (and so the mixed step's K-block form), speculation, meshes,
+quantized pools, the host tier, KV handoff and embeddings. Without
+pipelining each block is read right after its launch; the tokens are the
+same.
 
 Threading: the engine is synchronous and single-owner (one ``step()``
 caller); the serving layer runs it on a dedicated thread.
@@ -71,6 +78,11 @@ def _chosen_logprob(logits: torch.Tensor, tokens: torch.Tensor
     return chosen - torch.logsumexp(x, dim=-1)
 
 
+def _mid_prefill(s: "_Seq") -> bool:
+    """Seated and still loading its prompt (no first token sampled yet)."""
+    return s.next_token is None and s.seq_len < len(s.token_ids)
+
+
 def _sample_mode(rows: Sequence["_Seq"]) -> int:
     """Cheapest sampler the rows need: 0 all greedy (argmax only), 1
     sampled without a nucleus, 2 nucleus rows present."""
@@ -112,6 +124,10 @@ class EngineConfig:
     # padded prefill tokens (rows x bucket) per engine step; at least one
     # chunk always runs
     prefill_token_budget: int = 2048
+    # > 0 enables the ragged mixed step: the TOTAL packed width of one
+    # mixed dispatch (every decode slot plus the prefill budget), so it
+    # must exceed max_batch; 0 = the quantum path only
+    mixed_step_tokens: int = 0
 
 
 @dataclass
@@ -192,6 +208,12 @@ class LLMEngine:
             raise ValueError(
                 f"decode_block_size must be >= 1, got "
                 f"{self.ecfg.decode_block_size}")
+        if self.ecfg.mixed_step_tokens and (
+                self.ecfg.mixed_step_tokens <= self.ecfg.max_batch):
+            raise ValueError(
+                f"mixed_step_tokens ({self.ecfg.mixed_step_tokens}) must "
+                f"exceed max_batch ({self.ecfg.max_batch}): the packed width "
+                "holds every decode slot plus at least one prefill token")
         self.params = _to_device(params, self.device)
         if self.params["embed"].dtype != torch.float32:
             # f32 logits every step: keep the f32 unembedding once
@@ -225,6 +247,12 @@ class LLMEngine:
         self._carry: Optional[Tuple[torch.Tensor, ...]] = None
         self._eos = torch.tensor(sorted(tokenizer.eos_ids), dtype=torch.int32,
                                  device=self.device)
+        # mixed-step control and traffic counters (mixed_stats)
+        self._mixed_prefill_frac = 1.0
+        self._mixed_steps = 0
+        self._mixed_prefill_tokens = 0
+        self._mixed_decode_tokens = 0
+        self._mixed_density_sum = 0.0
 
     # ------------------------------------------------------------------
     # public API
@@ -262,14 +290,42 @@ class LLMEngine:
         """One engine iteration: admit waiting requests into free slots,
         run up to one prefill quantum (first tokens sampled on the
         device), then issue one K-step decode block and read its tokens
-        back once."""
+        back once. With ``mixed_step_tokens`` set and a seated prompt
+        still loading, one ragged mixed dispatch replaces the quantum and
+        the block."""
         outputs: List[StepOutput] = []
         self._admit(outputs)
+        if self.ecfg.mixed_step_tokens and any(
+                s is not None and _mid_prefill(s) for s in self.slots):
+            self._mixed_step(outputs)
+            return outputs
         self._prefill_quantum(outputs)
         block = self._maybe_launch(outputs)
         if block is not None:
             self._process_block(block, outputs)
         return outputs
+
+    def set_mixed_prefill_frac(self, frac: float) -> None:
+        """Shrink (or restore) the prefill share of the mixed step's packed
+        budget; floor 0.05 so prompts always progress. Engine-thread
+        only."""
+        self._mixed_prefill_frac = min(1.0, max(0.05, float(frac)))
+
+    def mixed_stats(self) -> Optional[Dict[str, object]]:
+        """Mixed-step traffic since construction; None when the mixed step
+        is off. ``batch_density``: mean (real packed tokens) /
+        mixed_step_tokens over the mixed dispatches."""
+        if not self.ecfg.mixed_step_tokens:
+            return None
+        steps = self._mixed_steps
+        return {
+            "steps": steps,
+            "prefill_tokens": self._mixed_prefill_tokens,
+            "decode_tokens": self._mixed_decode_tokens,
+            "batch_density": round(
+                self._mixed_density_sum / steps, 4) if steps else 0.0,
+            "prefill_frac": self._mixed_prefill_frac,
+        }
 
     def cache_stats(self):
         return self.allocator.stats()
@@ -358,11 +414,8 @@ class LLMEngine:
         P = self.pcfg.max_pages_per_seq
         dispatched = []
         while budget > 0:
-            group = [
-                (i, s) for i, s in enumerate(self.slots)
-                if s is not None and s.next_token is None
-                and s.seq_len < len(s.token_ids)
-            ][:Bp]
+            group = [(i, s) for i, s in enumerate(self.slots)
+                     if s is not None and _mid_prefill(s)][:Bp]
             if not group:
                 break
             bucket = self._pick_bucket(max(
@@ -425,22 +478,27 @@ class LLMEngine:
             if not any(done):
                 continue
             both = torch.stack([toks.float(), lps]).cpu().numpy()
-            for j, (slot, s) in enumerate(group):
-                if not done[j] or self._by_id.get(s.request_id) is not s:
-                    continue
-                try:
-                    self._emit_token(s, int(both[0, j]), outputs,
-                                     float(both[1, j]))
-                except Exception as e:  # failure isolation
-                    self.slots[slot] = None
-                    self._by_id.pop(s.request_id, None)
-                    self._release_seq(s)
-                    outputs.append(StepOutput(
-                        request_id=s.request_id, finished=True,
-                        error=str(e)))
-                    continue
-                if self._by_id.get(s.request_id) is s:
-                    self._stage_seat(slot, s)
+            self._reap_first_tokens(group, done, both[0], both[1], outputs)
+
+    def _reap_first_tokens(self, group, done, toks, lps,
+                           outputs: List[StepOutput]) -> None:
+        """Emit the first sampled token of every prompt in ``group`` whose
+        prefill completed (``done[j]``) and stage it for decode. ``toks``
+        and ``lps`` are host arrays indexed like ``group``."""
+        for j, (slot, s) in enumerate(group):
+            if not done[j] or self._by_id.get(s.request_id) is not s:
+                continue
+            try:
+                self._emit_token(s, int(toks[j]), outputs, float(lps[j]))
+            except Exception as e:  # failure isolation
+                self.slots[slot] = None
+                self._by_id.pop(s.request_id, None)
+                self._release_seq(s)
+                outputs.append(StepOutput(
+                    request_id=s.request_id, finished=True, error=str(e)))
+                continue
+            if self._by_id.get(s.request_id) is s:
+                self._stage_seat(slot, s)
 
     def _pick_bucket(self, remaining: int) -> int:
         for b in self.ecfg.prefill_buckets:
@@ -530,6 +588,18 @@ class LLMEngine:
             s.dev_steps_left -= adv
         return block
 
+    def _merged_carry(self) -> Tuple[torch.Tensor, ...]:
+        """The device decode carry (tokens, positions, steps_left, active)
+        with the staged host overrides merged in (admissions and
+        deactivations); shared by the decode block and the mixed step."""
+        set_mask, set_active, set_tokens, set_pos, set_steps = (
+            self._drain_slot_updates())
+        tokens, positions, steps_left, active = self._carry
+        return (torch.where(set_mask, set_tokens, tokens),
+                torch.where(set_mask, set_pos, positions),
+                torch.where(set_mask, set_steps, steps_left),
+                torch.where(set_mask, set_active, active))
+
     def _drain_slot_updates(self) -> Tuple[torch.Tensor, ...]:
         B = self.ecfg.max_batch
         set_mask = np.zeros((B,), bool)
@@ -559,14 +629,7 @@ class LLMEngine:
         issued without reading anything back. Returns ([2, K, B] f32
         device tensor of tokens (-1 = frozen row) and their
         log-probabilities, launch snapshot)."""
-        set_mask, set_active, set_tokens, set_pos, set_steps = (
-            self._drain_slot_updates())
-        tokens, positions, steps_left, active = self._carry
-        tokens = torch.where(set_mask, set_tokens, tokens)
-        positions = torch.where(set_mask, set_pos, positions)
-        steps_left = torch.where(set_mask, set_steps, steps_left)
-        active = torch.where(set_mask, set_active, active)
-
+        tokens, positions, steps_left, active = self._merged_carry()
         dev = self.device
         ps = self.pcfg.page_size
         num_slots = self._num_slots_flat
@@ -609,7 +672,13 @@ class LLMEngine:
         reconcile each row's projected advance with what it emitted."""
         result, snapshot = block
         both = result.cpu().numpy()  # the block's one host read
-        toks, lps = both[0], both[1]
+        self._walk_block(both[0], both[1], snapshot, outputs)
+
+    def _walk_block(self, toks: np.ndarray, lps: np.ndarray, snapshot,
+                    outputs: List[StepOutput]) -> None:
+        """Emit a block's host-side [K, B] tokens (-1 = frozen row) and
+        log-probabilities row by row, then reconcile each row's projected
+        advance with what it emitted."""
         K = toks.shape[0]
         for slot, seq, assumed in snapshot:
             if self._by_id.get(seq.request_id) is not seq:
@@ -642,6 +711,137 @@ class LLMEngine:
                 delta = assumed - emitted_here
                 seq.dev_pos -= delta
                 seq.dev_steps_left += delta
+
+    # ------------------------------------------------------------------
+    # ragged mixed step
+    # ------------------------------------------------------------------
+
+    def _mixed_step(self, outputs: List[StepOutput]) -> None:
+        """One ragged mixed dispatch: every seated decode row advances one
+        token from the device carry while up to ``prefill_batch`` loading
+        prompts pack exact-length chunks (no bucket padding) into the rest
+        of the budget. Under page pressure the youngest sequence is
+        preempted until the decode rows' pages fit. The packed layout is
+        decode slots 0..B-1 (inactive ones -1 in ``tok_row``), then the
+        chunks back to back, then padding."""
+        S = self.ecfg.mixed_step_tokens
+        B = self.ecfg.max_batch
+        Sp = S - B
+        Bp = min(self.ecfg.prefill_batch, Sp)
+        ps = self.pcfg.page_size
+        P = self.pcfg.max_pages_per_seq
+        while True:
+            decode_seated = [(i, s) for i, s in enumerate(self.slots)
+                             if s is not None and not _mid_prefill(s)]
+            advs = {id(s): min(1, max(0, s.dev_steps_left))
+                    for _, s in decode_seated}
+            try:
+                for _, s in decode_seated:
+                    self._ensure_block_pages(s, advs[id(s)])
+                break
+            except CacheFull:
+                if not decode_seated:
+                    break  # prefill rows already hold their prompt pages
+                self._preempt_youngest(outputs)
+
+        group = [(i, s) for i, s in enumerate(self.slots)
+                 if s is not None and _mid_prefill(s)][:Bp]
+        budget = max(1, min(Sp, int(Sp * self._mixed_prefill_frac)))
+        # int32 rows: ids, positions, tok_row, write slots (each [Sp]),
+        # then kv_valid and logits index (each [Bp])
+        p_int = np.zeros((4 * Sp + 2 * Bp,), np.int32)
+        p_ids, p_pos, p_row, p_write = (p_int[k * Sp:(k + 1) * Sp]
+                                        for k in range(4))
+        p_valid = p_int[4 * Sp:4 * Sp + Bp]
+        p_last = p_int[4 * Sp + Bp:]
+        p_row[:] = -1
+        p_write[:] = self._num_slots_flat
+        p_temp = np.ones((Bp,), np.float32)
+        p_topp = np.ones((Bp,), np.float32)
+        tables = np.zeros((B + Bp, P), np.int32)
+        chunk_lens: List[int] = []
+        off = 0
+        for j, (_, s) in enumerate(group):
+            tb = s.block_table[:P]
+            tables[B + j, :len(tb)] = tb
+            start = s.seq_len
+            t = min(len(s.token_ids) - start, budget - off)
+            chunk_lens.append(max(t, 0))
+            if t <= 0:
+                continue
+            flat = np.arange(start, start + t, dtype=np.int32)
+            table = np.asarray(s.block_table, np.int32)
+            p_ids[off:off + t] = s.token_ids[start:start + t]
+            p_pos[off:off + t] = flat
+            p_write[off:off + t] = table[flat // ps] * ps + flat % ps
+            p_row[off:off + t] = B + j
+            p_valid[j] = start + t
+            p_last[j] = B + off + t - 1
+            p_temp[j] = s.params.temperature
+            p_topp[j] = s.params.top_p
+            off += t
+        for i, s in decode_seated:
+            if self._bt_pages[i] != len(s.block_table):
+                self._refresh_bt_row(i, s)
+        tables[:B] = self._bt
+
+        dev = self.device
+        tokens, positions, steps_left, active = self._merged_carry()
+        p_dev = torch.from_numpy(p_int).to(dev)
+        d_ids, d_pos, d_row, d_write = (p_dev[k * Sp:(k + 1) * Sp]
+                                        for k in range(4))
+        d_valid = p_dev[4 * Sp:4 * Sp + Bp]
+        d_last = p_dev[4 * Sp + Bp:]
+        samp = torch.from_numpy(np.concatenate(
+            [self._temp, p_temp, self._topp, p_topp])).to(dev)
+        tables_dev = torch.from_numpy(tables).to(dev)
+        rows = torch.arange(B, device=dev)
+        page = tables_dev[rows, (positions // ps).clamp(max=P - 1)]
+        none = torch.full_like(positions, -1)
+        write = torch.where(active, page * ps + positions % ps,
+                            torch.full_like(positions, self._num_slots_flat))
+        logits, _, _ = llama.ragged_paged_forward(
+            self.params, self.cfg,
+            torch.cat([tokens, d_ids])[None], torch.cat([positions, d_pos])[None],
+            self.state.k, self.state.v, torch.cat([write, d_write])[None],
+            torch.cat([torch.where(active, rows.int(), none), d_row]),
+            tables_dev,
+            torch.cat([torch.where(active, positions + 1, none + 1), d_valid]),
+            torch.cat([rows, d_last.long()]),
+            impl=self.ecfg.attention_impl, page_size=ps,
+        )  # [B + Bp, V]
+        nxt = _sample(logits, samp[:B + Bp], samp[B + Bp:], self._decode_gen,
+                      _sample_mode([s for _, s in decode_seated + group]))
+        lps = _chosen_logprob(logits, nxt)
+        d_next = nxt[:B]
+        steps_left = torch.where(active, steps_left - 1, steps_left)
+        self._carry = (
+            torch.where(active, d_next, tokens),
+            torch.where(active, positions + 1, positions),
+            steps_left,
+            active & ~torch.isin(d_next, self._eos) & (steps_left > 0))
+        # decode ids (-1 = frozen row), first-token candidates and their
+        # log-probabilities: the dispatch's one host read
+        ids = torch.cat([torch.where(active, d_next, none), nxt[B:]])
+        both = torch.stack([ids.float(), lps]).cpu().numpy()
+
+        for _, s in decode_seated:
+            s.dev_pos += advs[id(s)]
+            s.dev_steps_left -= advs[id(s)]
+        prefill_tokens, decode_tokens = sum(chunk_lens), sum(advs.values())
+        self._mixed_steps += 1
+        self._mixed_prefill_tokens += prefill_tokens
+        self._mixed_decode_tokens += decode_tokens
+        self._mixed_density_sum += (prefill_tokens + decode_tokens) / S
+        done = []
+        for j, (_, s) in enumerate(group):
+            s.seq_len += chunk_lens[j]
+            done.append(chunk_lens[j] > 0 and s.seq_len >= len(s.token_ids))
+        self._reap_first_tokens(group, done, both[0, B:], both[1, B:],
+                                outputs)
+        self._walk_block(both[:1, :B], both[1:, :B],
+                         [(i, s, advs[id(s)]) for i, s in decode_seated],
+                         outputs)
 
     # ------------------------------------------------------------------
     # token emission & completion

@@ -1,7 +1,7 @@
 """Llama-family transformer over the paged KV pool, in PyTorch (port of
 ``distributed_inference_server_tpu/models/llama.py``: ``init_params``, the
 paged write, the layer block, ``gather_kv_window``, ``paged_forward``,
-``_mlp`` and ``_unembed``).
+``ragged_paged_forward``, ``_mlp`` and ``_unembed``).
 
 - Parameters are a dict of **stacked** per-layer tensors (leading axis =
   layer), linear weights stored [in, out] so the hot path is ``x @ W`` —
@@ -33,10 +33,14 @@ import torch
 import torch.nn.functional as F
 
 from distributed_inference_server_tpu_torch.models.configs import ModelConfig
-from distributed_inference_server_tpu_torch.ops.attention import gqa_attention
+from distributed_inference_server_tpu_torch.ops.attention import (
+    gqa_attention,
+    ragged_gqa_attention,
+)
 from distributed_inference_server_tpu_torch.ops.kernels.paged_attention import (
     paged_decode,
     paged_prefill,
+    paged_ragged,
 )
 from distributed_inference_server_tpu_torch.ops.norms import rms_norm
 from distributed_inference_server_tpu_torch.ops.rotary import (
@@ -232,6 +236,26 @@ def layer_block(
     return h + _mlp(x, layers, l)
 
 
+def _run_layers(params: Params, cfg: ModelConfig, input_ids: torch.Tensor,
+                positions: torch.Tensor, pool_k: torch.Tensor,
+                pool_v: torch.Tensor, write_slots: torch.Tensor, attend_fn,
+                impl: str) -> torch.Tensor:
+    """Embed, run every layer block (each writes its new K/V at
+    ``write_slots``, then attends through ``attend_fn``) and the final
+    norm. Returns the hidden state [B, T, hidden]."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
+                         str(pool_k.device))
+    write_fn = make_paged_write_fn(write_slots, pool_k.shape[1] - 1)
+    vocab = params["embed"].shape[0]
+    h = params["embed"][input_ids.long().clamp(0, vocab - 1)]  # [B, T, H]
+    for l, window in enumerate(cfg.layer_windows()):
+        h = layer_block(cfg, params["layers"], l, h, positions, pool_k,
+                        pool_v, write_fn, attend_fn, inv_freq, impl, window)
+    return rms_norm(h, params["final_norm"], cfg.rms_norm_eps, impl)
+
+
 def paged_forward(
     params: Params,
     cfg: ModelConfig,
@@ -265,13 +289,6 @@ def paged_forward(
 
     Returns (logits [B, T or 1, V] f32, pool_k, pool_v).
     """
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    layers = params["layers"]
-    num_slots = pool_k.shape[1] - 1
-    device = pool_k.device
-    inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
-                         str(device))
     softcap = cfg.attn_logit_softcap or 0.0
     page_tables = page_tables.to(torch.int32).contiguous()
     kv_valid_len = kv_valid_len.to(torch.int32).contiguous()
@@ -295,14 +312,69 @@ def paged_forward(
         return gqa_attention(q, k_seq, v_seq, positions, kv_valid_len,
                              window, cfg.attn_logit_softcap)
 
-    write_fn = make_paged_write_fn(write_slots, num_slots)
-    vocab = params["embed"].shape[0]
-    h = params["embed"][input_ids.long().clamp(0, vocab - 1)]  # [B, T, H]
-    for l, window in enumerate(cfg.layer_windows()):
-        h = layer_block(cfg, layers, l, h, positions, pool_k, pool_v,
-                        write_fn, attend_fn, inv_freq, impl, window)
-    h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps, impl)
+    h = _run_layers(params, cfg, input_ids, positions, pool_k, pool_v,
+                    write_slots, attend_fn, impl)
     if logits_idx is not None:
-        rows = torch.arange(h.shape[0], device=device)
+        rows = torch.arange(h.shape[0], device=h.device)
         h = h[rows, logits_idx.long()][:, None]
     return _unembed(params, cfg, h), pool_k, pool_v
+
+
+def ragged_paged_forward(
+    params: Params,
+    cfg: ModelConfig,
+    input_ids: torch.Tensor,
+    positions: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    write_slots: torch.Tensor,
+    tok_row: torch.Tensor,
+    page_tables: torch.Tensor,
+    kv_valid_len: torch.Tensor,
+    logits_idx: torch.Tensor,
+    impl: str = "kernel",
+    page_size: int = 16,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Forward pass over a PACKED ragged mixed batch (the engine's mixed
+    step): one flat token axis carries decode rows (one token each) and
+    prefill chunks back-to-back, each token attending its own row's pages.
+
+    Args:
+      input_ids, positions: [1, S] packed tokens and absolute positions.
+      pool_k, pool_v: [L, num_slots + 1, KV, D] stacked pools (updated IN
+        PLACE; the last slot is the drop slot).
+      write_slots: [1, S] flat slot per packed token (>= num_slots drops:
+        padding and inactive decode slots).
+      tok_row: [S] owning row per token (-1 = padding); each row's tokens
+        are one contiguous run.
+      page_tables: [Bm, P] int32 page ids per row.
+      kv_valid_len: [Bm] int32 tokens valid per row INCLUDING its new ones.
+      logits_idx: [N] packed positions to unembed (decode slots and the
+        chunk-final tokens).
+      impl: "kernel" (``paged_ragged``) or "plain" (gathered windows +
+        ``ragged_gqa_attention``).
+
+    Returns (logits [N, V] f32, pool_k, pool_v).
+    """
+    softcap = cfg.attn_logit_softcap or 0.0
+    page_tables = page_tables.to(torch.int32).contiguous()
+    kv_valid_len = kv_valid_len.to(torch.int32).contiguous()
+    tok_row = tok_row.to(torch.int32).contiguous()
+    flat_pos = positions[0].to(torch.int32).contiguous()
+
+    def attend_fn(q, k_layer, v_layer, window):
+        if impl == "kernel":
+            return paged_ragged(
+                q[0], k_layer, v_layer, page_tables, tok_row, flat_pos,
+                kv_valid_len, page_size=page_size, sliding_window=window,
+                attn_softcap=softcap)[None]
+        k_seq, v_seq = gather_kv_window(k_layer, v_layer, page_tables,
+                                        page_size)
+        return ragged_gqa_attention(
+            q[0], k_seq, v_seq, tok_row, flat_pos, kv_valid_len, window,
+            cfg.attn_logit_softcap)[None]
+
+    h = _run_layers(params, cfg, input_ids, positions, pool_k, pool_v,
+                    write_slots, attend_fn, impl)
+    # unembed only the sampled positions: [1, S, H] -> [N, V]
+    return _unembed(params, cfg, h[0, logits_idx.long()]), pool_k, pool_v

@@ -4,6 +4,7 @@
 |-----------------|--------|---------------------------|-----------------------------------------|
 | paged_decode    | cuda   | csrc/paged_attention.cu   | ops/pallas/paged_attention.py:paged_attention_decode |
 | paged_prefill   | cuda   | csrc/paged_attention.cu   | ops/pallas/paged_attention.py:paged_attention_prefill |
+| paged_ragged    | cuda   | csrc/paged_attention.cu   | ops/pallas/paged_attention.py:paged_attention_ragged |
 | rms_norm        | triton | ops/kernels/_triton_fused.py | ops/pallas/fused.py:rms_norm_pallas  |
 | rope            | triton | ops/kernels/_triton_fused.py | ops/pallas/fused.py:apply_rope_pallas |
 """
@@ -19,11 +20,13 @@ from distributed_inference_server_tpu_torch.ops.kernels.fused import (
 from distributed_inference_server_tpu_torch.ops.kernels.paged_attention import (
     paged_decode,
     paged_prefill,
+    paged_ragged,
 )
 
 KERNELS = {
     "paged_decode": paged_decode,
     "paged_prefill": paged_prefill,
+    "paged_ragged": paged_ragged,
     "rms_norm": rms_norm,
     "rope": apply_rope,
 }

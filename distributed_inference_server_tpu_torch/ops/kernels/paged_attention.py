@@ -1,7 +1,9 @@
-"""Paged GQA attention over the flat KV page pool: decode and chunked prefill.
+"""Paged GQA attention over the flat KV page pool: decode, chunked prefill
+and the ragged mixed batch.
 
 Counterpart of ``distributed_inference_server_tpu/ops/pallas/paged_attention.py``
-(``paged_attention_decode`` and ``paged_attention_prefill``, dense pools).
+(``paged_attention_decode``, ``paged_attention_prefill`` and
+``paged_attention_ragged``, dense pools).
 The kernels are CUDA C++ for Hopper in ``csrc/paged_attention.cu`` (design
 and bound notes there), built by ``_build.py`` and bound with ctypes.
 
@@ -15,8 +17,11 @@ bf16, page_size 16): decode is bound by bytes — it reads ``4 * KV * D``
 bytes of K/V per valid token and row (~2 KB) for ~4 flops per byte — so
 the bf16 decode kernel splits each row's KV range over several blocks to
 keep the card's memory system busy at max_batch 8; a 512-token prefill
-chunk sits near the balance point and runs on tensor cores. ``PERF.md``
-has the measured times beside their bounds.
+chunk sits near the balance point and runs on tensor cores. The ragged
+kernel (the mixed step's packed axis of decode tokens and prefill chunks)
+reuses the tensor-core body on per-row segments of the axis; its long
+decode rows run unsplit, so the longest row's history sets its time.
+``PERF.md`` has the measured times beside their bounds.
 """
 
 from __future__ import annotations
@@ -26,12 +31,18 @@ import functools
 
 import torch
 
-from distributed_inference_server_tpu_torch.ops.attention import gqa_attention
+from distributed_inference_server_tpu_torch.ops.attention import (
+    gqa_attention,
+    ragged_gqa_attention,
+)
 from distributed_inference_server_tpu_torch.ops.kernels import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DECODE_MAX_GD = 128 * 8  # threads x register accumulators (csrc)
 _PREFILL_MAX_GD = 256 * 32
+# packed tokens per ragged_gqa_attention call in the plain ragged version:
+# each token gathers its row's whole window, so chunks bound the memory
+_RAGGED_PLAIN_CHUNK = 128
 
 
 def _tables_slots(page_tables: torch.Tensor, page_size: int,
@@ -100,10 +111,47 @@ def paged_decode_plain(
     )[:, 0]
 
 
+def paged_ragged_plain(
+    q: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    page_tables: torch.Tensor,
+    tok_row: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_valid_len: torch.Tensor,
+    *,
+    page_size: int,
+    sliding_window: int = 0,
+    attn_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Plain version of ``paged_ragged``: gather every row's pages, run
+    ``ragged_gqa_attention`` over the packed tokens, and zero padding
+    tokens and tokens that see no key (the kernel's contract)."""
+    S = q.shape[0]
+    Bm = page_tables.shape[0]
+    if S == 0 or Bm == 0:
+        return torch.zeros_like(q)
+    num_pages = pool_k.shape[0] // page_size
+    slots = _tables_slots(page_tables, page_size, num_pages)
+    k_seq, v_seq = pool_k[slots], pool_v[slots]  # [Bm, P * page_size, KV, D]
+    rows = tok_row.long()
+    pos = q_pos.long()
+    valid = kv_valid_len.long()
+    out = torch.cat([
+        ragged_gqa_attention(
+            q[c:c + _RAGGED_PLAIN_CHUNK], k_seq, v_seq,
+            rows[c:c + _RAGGED_PLAIN_CHUNK], pos[c:c + _RAGGED_PLAIN_CHUNK],
+            valid, sliding_window, attn_softcap or None)
+        for c in range(0, S, _RAGGED_PLAIN_CHUNK)])
+    seen = _visible(pos[:, None], valid[rows.clamp(0, Bm - 1)],
+                    int(sliding_window))[:, 0] & (rows >= 0)
+    return torch.where(seen[:, None, None], out, torch.zeros_like(out))
+
+
 def _check(q, pool_k, pool_v, page_tables, rows, page_size, max_gd, ints):
-    """``max_gd`` bounds G * D for the scalar body; the tensor-core body
+    """Validate what the CUDA kernels take; raises ValueError otherwise.
+    ``max_gd`` bounds G * D for the scalar body; the tensor-core body
     (bf16, D 64 or 128, G <= 64) has no such limit."""
-    """Validate what the CUDA kernels take; raises ValueError otherwise."""
     dev = q.device
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"paged attention takes float32/bfloat16, got {q.dtype}")
@@ -150,6 +198,9 @@ def _lib():
         lib.paged_prefill.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                       ci, ci, ci, ci, ci, ci, ci, cf, vp]
         lib.paged_prefill.restype = ci
+        lib.paged_ragged.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+                                     ci, ci, ci, ci, ci, ci, ci, ci, cf, vp]
+        lib.paged_ragged.restype = ci
         lib.paged_attention_uses_mma.argtypes = [ci, ci, ci]
         lib.paged_attention_uses_mma.restype = ci
         lib._argtypes_set = True
@@ -278,6 +329,61 @@ def paged_prefill(
     return out
 
 
+def paged_ragged(
+    q: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    page_tables: torch.Tensor,
+    tok_row: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_valid_len: torch.Tensor,
+    *,
+    page_size: int,
+    sliding_window: int = 0,
+    attn_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Ragged mixed-batch paged GQA attention: q [S, H, D] -> [S, H, D].
+
+    One packed token axis carries decode rows (one token each) and prefill
+    chunks; token i attends only row ``tok_row[i]``'s pages (-1 =
+    padding) at position ``q_pos[i]``. Each row's tokens must be one
+    contiguous run; runs and padding may alternate in any order (the
+    engine marks inactive decode slots -1 between active ones).
+    page_tables [Bm, P], tok_row / q_pos [S], kv_valid_len [Bm]: int32,
+    kv_valid_len counting each row's new tokens. Padding tokens and tokens
+    that see no key give zeros."""
+    if q.device.type == "cpu":
+        return paged_ragged_plain(
+            q, pool_k, pool_v, page_tables, tok_row, q_pos, kv_valid_len,
+            page_size=page_size, sliding_window=sliding_window,
+            attn_softcap=attn_softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_ragged runs on cpu or cuda, not {q.device}")
+    if q.dim() != 3:
+        raise ValueError(f"q must be [S, H, D], got {tuple(q.shape)}")
+    S = q.shape[0]
+    Bm, P = page_tables.shape if page_tables.dim() == 2 else (-1, -1)
+    num_slots, KV, D, H = _check(
+        q, pool_k, pool_v, page_tables, Bm, page_size, _PREFILL_MAX_GD,
+        [("page_tables", page_tables, (Bm, P)),
+         ("tok_row", tok_row, (S,)),
+         ("q_pos", q_pos, (S,)),
+         ("kv_valid_len", kv_valid_len, (Bm,))])
+    if S == 0 or Bm == 0:  # nothing but padding
+        return torch.zeros_like(q)
+    out = torch.empty_like(q)
+    err = _lib().paged_ragged(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), pool_k.data_ptr(),
+        pool_v.data_ptr(), page_tables.data_ptr(), tok_row.data_ptr(),
+        q_pos.data_ptr(), kv_valid_len.data_ptr(), out.data_ptr(), S, Bm, H,
+        KV, D, page_size, P, num_slots // page_size, int(sliding_window),
+        float(attn_softcap), _stream(q))
+    _build.check(err, "paged_ragged launch")
+    paged_ragged.launches += 1
+    return out
+
+
 paged_decode.launches = 0
 paged_prefill.launches = 0
+paged_ragged.launches = 0
 

@@ -5,8 +5,9 @@ not available where the port runs).
 - ``POST /generate`` — non-streaming, the JAX package's request and
   response schema (``core/models.py``);
 - ``GET /health`` — liveness of the engine;
-- ``GET /server/stats`` — request, token and cache counters and each
-  kernel's launch count;
+- ``GET /server/stats`` — request, token and cache counters, the mixed
+  step's traffic (``mixed``, null when it is off) and each kernel's
+  launch count;
 - ``POST /server/kernel_counts/reset`` — zero the kernels' launch counts
   (a measurement run brackets the path it measures with it).
 

@@ -177,6 +177,15 @@ class EngineRunner:
             raise RuntimeError("engine call failed")
         return box[0]
 
+    def set_mixed_prefill_frac(self, frac: float) -> None:
+        """Shrink (or restore) the mixed step's prefill share, on the
+        engine thread (a no-op while the mixed step is off)."""
+
+        def _do() -> None:
+            self._engine.set_mixed_prefill_frac(frac)
+
+        self._post(_do)
+
     def _post(self, fn: Callable[[], None]) -> None:
         with self._inbox_lock:
             self._inbox.append(fn)

@@ -142,13 +142,16 @@ class InferenceServer:
         return str(eng_dev)
 
     def stats(self) -> dict:
+        """Counters for ``/server/stats``; ``mixed`` is the engine's
+        ``mixed_stats()`` (null while the mixed step is off)."""
         r = self.runner
-        cache = None
+        cache = mixed = None
         if r.is_healthy():
             try:
-                cache = r.call(lambda e: e.cache_stats().to_dict())
+                cache, mixed = r.call(lambda e: (e.cache_stats().to_dict(),
+                                                 e.mixed_stats()))
             except (TimeoutError, RuntimeError):
-                cache = None
+                pass
         return {
             "model": self.model_name,
             "device": self.device_name(),
@@ -160,5 +163,6 @@ class InferenceServer:
             "engine_steps": r.steps,
             "engine_step_seconds": r.step_seconds,
             "cache": cache,
+            "mixed": mixed,
             "kernel_launches": self.kernel_counts(),
         }

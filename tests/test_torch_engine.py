@@ -6,7 +6,10 @@ repeating one byte) and the same requests, and run in float32 on the CPU;
 the JAX engine on its reference path (``attention_impl="xla"``,
 ``native_allocator=False``). Covered: prompts spanning the prefill buckets,
 a prompt chunked over several quanta, prefix reuse, preemption on
-``CacheFull`` with a small pool, and stop sequences.
+``CacheFull`` with a small pool, and stop sequences; and the ragged mixed
+step (``mixed_step_tokens``), whose tokens must equal both the JAX
+engine's mixed step and the port's own quantum path, in the scenarios of
+``tests/test_engine_mixed.py``.
 
 Before comparing tokens each test checks that the top-2 logit gap at every
 generated step exceeds ``TIE_TOL`` (from an independent dense forward over
@@ -242,6 +245,196 @@ def test_sampled_rows_run_and_stay_in_vocab(shared):
     res = _drive(te, requests, SamplingParams)
     assert len(res["t"]["tokens"]) == 8
     assert all(0 <= t < TINY.vocab_size for t in res["t"]["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# the ragged mixed step
+# ---------------------------------------------------------------------------
+
+MIXED_KW = dict(max_batch=4, prefill_buckets=(8, 32), decode_block_size=4)
+
+
+def _mixed_engines(shared, mixed, paged=(64, 4, 24), **kw):
+    """(JAX mixed, port mixed, port quantum) on the same weights."""
+    kw = {**MIXED_KW, **kw}
+    je, tm = _engines(shared, paged=paged, mixed_step_tokens=mixed, **kw)
+    _, tq = _engines(shared, paged=paged, **kw)
+    return je, tm, tq
+
+
+def _script(engine, sp_cls, actions):
+    """Run ``actions`` — ("add", rid, prompt, kw) or ("steps", n) — then
+    drain; returns {rid: tokens, text, finish, error, usage}."""
+    out = {}
+
+    def step():
+        for o in engine.step():
+            r = out.setdefault(o.request_id, {"tokens": [], "text": "",
+                                              "finish": None, "error": None,
+                                              "usage": None})
+            r["text"] += o.text
+            if o.token_id is not None:
+                r["tokens"].append(o.token_id)
+            if o.finished:
+                r["finish"] = getattr(o.finish_reason, "value", None)
+                r["error"] = o.error
+                r["usage"] = o.usage
+
+    for act in actions:
+        if act[0] == "add":
+            engine.add_request(act[1], list(act[2]), sp_cls(**act[3]))
+        else:
+            for _ in range(act[1]):
+                step()
+    for _ in range(1000):
+        if not engine.has_work():
+            break
+        step()
+    assert not engine.has_work(), "engine did not drain"
+    return out
+
+
+def _mixed_compare(shared, actions, je, tm, tq):
+    """The port's mixed step against the JAX mixed step and the port's
+    quantum path: tokens, text, finish reason and usage."""
+    requests = [(a[1], a[2], a[3]) for a in actions if a[0] == "add"]
+    jres = _script(je, JSamplingParams, actions)
+    mres = _script(tm, SamplingParams, actions)
+    qres = _script(tq, SamplingParams, actions)
+    _compare(shared, requests, jres, mres)
+    _compare(shared, requests, qres, mres)
+    assert tm.audit_pages() == []
+    return mres
+
+
+def _greedy(n):
+    return dict(temperature=0.0, max_tokens=n)
+
+
+def test_mixed_long_prompt_during_chats(shared):
+    rng = np.random.default_rng(3)
+    chats = [rng.integers(1, 200, size=6).tolist() for _ in range(2)]
+    long_prompt = rng.integers(1, 200, size=60).tolist()
+    actions = [("add", f"c{i}", c, _greedy(12)) for i, c in enumerate(chats)]
+    actions += [("steps", 3), ("add", "long", long_prompt, _greedy(8))]
+    je, tm, tq = _mixed_engines(shared, 20)
+    _mixed_compare(shared, actions, je, tm, tq)
+    stats = tm.mixed_stats()
+    assert stats["steps"] > 0 and stats["decode_tokens"] > 0
+    assert stats["prefill_tokens"] >= len(long_prompt) - 1
+    assert 0.0 < stats["batch_density"] <= 1.0
+
+
+def test_mixed_decodes_advance_every_step(shared):
+    """While a long prompt loads, every mixed step advances the seated
+    decode row by one token and loads more of the prompt."""
+    rng = np.random.default_rng(5)
+    chat = rng.integers(1, 200, size=6).tolist()
+    long_prompt = rng.integers(1, 200, size=64).tolist()
+    je, tm, tq = _mixed_engines(shared, 12)
+    tm.add_request("chat", chat, SamplingParams(**_greedy(40)))
+    for _ in range(3):
+        tm.step()
+    tm.add_request("long", long_prompt, SamplingParams(**_greedy(2)))
+    tm.step()  # admit + first mixed dispatch
+    before = tm.mixed_stats()
+    tm.step()
+    after = tm.mixed_stats()
+    assert after["steps"] == before["steps"] + 1
+    assert after["decode_tokens"] == before["decode_tokens"] + 1
+    assert after["prefill_tokens"] > before["prefill_tokens"]
+    _, tm, _ = _mixed_engines(shared, 12)
+    actions = [("add", "chat", chat, _greedy(40)), ("steps", 3),
+               ("add", "long", long_prompt, _greedy(2))]
+    _mixed_compare(shared, actions, je, tm, tq)
+
+
+def test_mixed_multi_prompt_batch_and_prefix_reuse(shared):
+    """Several prompts share one packed budget, and prefix sharing still
+    applies under the mixed step."""
+    rng = np.random.default_rng(9)
+    shared_ids = rng.integers(1, 200, size=16).tolist()
+    prompts = [shared_ids + rng.integers(1, 200, size=4 + i).tolist()
+               for i in range(3)]
+    # p0 completes (and publishes its pages) before p1 and p2 arrive
+    actions = [("add", "p0", prompts[0], _greedy(6)), ("steps", 20),
+               ("add", "p1", prompts[1], _greedy(6)),
+               ("add", "p2", prompts[2], _greedy(6))]
+    je, tm, tq = _mixed_engines(shared, 24)
+    _mixed_compare(shared, actions, je, tm, tq)
+    assert tm.cache_stats().hits > 0
+
+
+def test_mixed_prefill_frac_shrinks_share(shared):
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(1, 200, size=64).tolist()
+
+    def first_step_tokens(frac):
+        _, tm, _ = _mixed_engines(shared, 20)
+        tm.set_mixed_prefill_frac(frac)
+        tm.add_request("p", prompt, SamplingParams(**_greedy(2)))
+        tm.step()
+        return tm.mixed_stats()["prefill_tokens"]
+
+    full, half = first_step_tokens(1.0), first_step_tokens(0.5)
+    assert 1 <= half < full
+    _, tm, _ = _mixed_engines(shared, 20)
+    tm.set_mixed_prefill_frac(0.0)  # floors at 0.05
+    assert tm.mixed_stats()["prefill_frac"] == 0.05
+    je, tm, tq = _mixed_engines(shared, 20)
+    je.set_mixed_prefill_frac(0.5)
+    tm.set_mixed_prefill_frac(0.5)
+    _mixed_compare(shared, [("add", "p", prompt, _greedy(6))], je, tm, tq)
+
+
+def test_mixed_preemption_under_page_pressure(shared, monkeypatch):
+    preempted = []
+    orig = LLMEngine._preempt
+
+    def spy(self, seq, outputs):
+        preempted.append(self)
+        return orig(self, seq, outputs)
+
+    monkeypatch.setattr(LLMEngine, "_preempt", spy)
+    rng = np.random.default_rng(13)
+    actions = [("add", f"r{i}", rng.integers(1, 200, size=10).tolist(),
+                _greedy(10)) for i in range(3)]
+    je, tm, tq = _mixed_engines(shared, 12, paged=(9, 4, 10), max_batch=2)
+    res = _mixed_compare(shared, actions, je, tm, tq)
+    assert tm in preempted, "the small pool never forced a preemption"
+    assert all(len(r["tokens"]) == 10 for r in res.values())
+
+
+def test_mixed_abort_mid_prefill(shared):
+    rng = np.random.default_rng(17)
+    gone = rng.integers(1, 200, size=40).tolist()
+    stay = rng.integers(1, 200, size=8).tolist()
+    _, tm, _ = _mixed_engines(shared, 12)
+    tm.add_request("gone", gone, SamplingParams(**_greedy(4)))
+    tm.add_request("stay", stay, SamplingParams(**_greedy(4)))
+    tm.step()  # first mixed dispatch: "gone" is mid-prefill
+    assert tm.abort("gone")
+    res = _script(tm, SamplingParams, [])
+    s = tm.cache_stats()
+    assert s.pages_total - s.pages_free == s.pages_cached  # all released
+    assert tm.audit_pages() == []
+    je, _ = _engines(shared, paged=(64, 4, 24), mixed_step_tokens=12,
+                     **MIXED_KW)
+    want = _script(je, JSamplingParams, [("add", "stay", stay, _greedy(4))])
+    assert "gone" not in res and len(res["stay"]["tokens"]) == 4
+    assert res["stay"]["tokens"] == want["stay"]["tokens"]
+
+
+def test_mixed_stats_none_when_off(shared):
+    _, te = _engines(shared, max_batch=4, prefill_buckets=(8, 32))
+    assert te.mixed_stats() is None
+
+
+def test_mixed_step_tokens_must_exceed_max_batch(shared):
+    with pytest.raises(ValueError, match="must exceed max_batch"):
+        LLMEngine(shared[1], TINY, TOK, EngineConfig(
+            max_batch=4, mixed_step_tokens=4), dtype=torch.float32,
+            device="cpu")
 
 
 def test_engine_defaults_to_cuda():

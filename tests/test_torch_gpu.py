@@ -104,6 +104,66 @@ def test_paged_prefill_kernel(cuda, dtype, T, H, KV, D, window, softcap):
     assert not got[3].any()
 
 
+def _ragged_layout(rows_tokens, history):
+    """Packed tok_row / q_pos from a per-token row list (-1 = padding):
+    row b's k-th token sits at position history[b] + k."""
+    seen = {}
+    tok_row, q_pos = [], []
+    for r in rows_tokens:
+        tok_row.append(r)
+        if r < 0:
+            q_pos.append(0)
+            continue
+        q_pos.append(history[r] + seen.get(r, 0))
+        seen[r] = seen.get(r, 0) + 1
+    valid = [history[b] + seen.get(b, 0) for b in range(len(history))]
+    return tok_row, q_pos, valid
+
+
+# decode slots 0-5 (slot 0 inactive: -1 mid-axis), then prefill chunks of
+# 37, 50 and 13 tokens, an empty fourth prefill row, a padding tail;
+# S = 113 is no multiple of 16
+_MIXED = ([-1, 1, 2, 3, 4, 5] + [6] * 37 + [7] * 50 + [8] * 13 + [-1] * 7,
+          [0, 0, 15, 16, 200, 255, 0, 150, 40, 0])
+RAGGED_CASES = {
+    "mixed": _MIXED,
+    "one window": ([0, 1, -1, 2, 3], [0, 16, 0, 100]),  # S 5 < TQ
+    "all padding": ([-1] * 9, [0, 0]),
+    "row sees nothing": ([0, 1, 1], [0, 3]),  # row 0: valid 1, pos 0 ok
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(RAGGED_CASES))
+@pytest.mark.parametrize("H,KV,D,window,softcap", [
+    (32, 8, 64, 0, 0.0), (32, 8, 128, 0, 0.0), (16, 8, 64, 0, 0.0),
+    (32, 8, 64, 37, 30.0)])
+def test_paged_ragged_kernel(cuda, dtype, case, H, KV, D, window, softcap):
+    layout, history = RAGGED_CASES[case]
+    tok_row, q_pos, valid = _ragged_layout(layout, history)
+    Bm = len(history)
+    q, pk, pv, tables = _pool_case(cuda, dtype, Bm, H, KV, D, 16, 16, 256,
+                                   T=len(tok_row), seed=3)
+    q = q[0].contiguous()  # [S, H, D]
+    i32 = dict(dtype=torch.int32, device=cuda)
+    tok_row, q_pos = torch.tensor(tok_row, **i32), torch.tensor(q_pos, **i32)
+    valid = torch.tensor(valid, **i32)
+    if case == "row sees nothing":
+        valid[0] = 0  # its token has no key to attend
+    kw = dict(page_size=16, sliding_window=window, attn_softcap=softcap)
+    n = pa.paged_ragged.launches
+    got = pa.paged_ragged(q, pk, pv, tables, tok_row, q_pos, valid, **kw)
+    want = pa.paged_ragged_plain(q, pk, pv, tables, tok_row, q_pos, valid,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_ragged.launches == n + 1
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert not got[tok_row < 0].any()
+    if case == "row sees nothing":
+        assert not got[0].any()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 64), (8, 1, 2048), (4, 33, 2048),
@@ -146,6 +206,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pa.paged_decode(q, pk, pv, tables, valid.long(), page_size=16)
     with pytest.raises(ValueError):
         fused.rms_norm(q.transpose(0, 1), torch.ones(64, device=cuda), 1e-5)
+    tok = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # q_pos of the wrong length
+        pa.paged_ragged(q, pk, pv, tables, tok, tok[:1], valid, page_size=16)
+
+
+def _drive_tiny(eng, tok, chats, long_prompt):
+    """Two chats mid-decode, then a long prompt: greedy tokens per id."""
+    toks = {}
+
+    def step():
+        for o in eng.step():
+            if o.token_id is not None:
+                toks.setdefault(o.request_id, []).append(o.token_id)
+
+    for i, p in enumerate(chats):
+        eng.add_request(f"c{i}", tok.encode(p),
+                        SamplingParams(max_tokens=16, temperature=0.0))
+    for _ in range(3):
+        step()
+    eng.add_request("long", tok.encode(long_prompt),
+                    SamplingParams(max_tokens=8, temperature=0.0))
+    while eng.has_work():
+        step()
+    return toks
 
 
 @pytest.mark.gpu
@@ -176,5 +260,34 @@ def test_engine_kernel_path_matches_plain_path(cuda):
         outs[impl] = toks
         if impl == "kernel":
             counts = kernels.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    quantum = ("paged_decode", "paged_prefill", "rms_norm", "rope")
+    assert all(counts[k] > 0 for k in quantum), counts
     assert outs["kernel"] == outs["plain"]
+
+
+@pytest.mark.gpu
+def test_mixed_engine_kernel_path_matches_plain_and_quantum(cuda):
+    """TINY in f32 on the card: the mixed step's greedy tokens through the
+    ragged kernel equal those through its plain version and the quantum
+    path's, and the ragged kernel launched."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = llama.init_params(TINY, gen, dtype=torch.float32, device=cuda)
+    for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        params["layers"][k] *= 8.0
+    params["embed"] *= 8.0
+    tok = ByteTokenizer()
+    chats, long_prompt = ["chat one", "chat two!"], "a long prompt " * 5
+    outs = {}
+    for name, impl, mixed in (("mixed-kernel", "kernel", 20),
+                              ("mixed-plain", "plain", 20),
+                              ("quantum", "kernel", 0)):
+        kernels.reset_launch_counts()
+        eng = LLMEngine(params, TINY, tok, EngineConfig(
+            attention_impl=impl, max_batch=4, prefill_buckets=(8, 32),
+            paged=PagedCacheConfig(64, 4, 24), mixed_step_tokens=mixed),
+            dtype=torch.float32, device=cuda)
+        outs[name] = _drive_tiny(eng, tok, chats, long_prompt)
+        if name == "mixed-kernel":
+            assert kernels.launch_counts()["paged_ragged"] > 0
+            assert eng.mixed_stats()["decode_tokens"] > 0
+    assert outs["mixed-kernel"] == outs["mixed-plain"] == outs["quantum"]

@@ -5,9 +5,11 @@ the same weights (TINY, float32). A batched prefill chunk (with bucket
 padding and a padded row) and then a decode step run through both
 ``paged_forward``s on the same pools; the logits must agree within
 atol 1e-4 (f32 on both sides, other summation orders over 2 layers) and
-the pools must hold the same K/V. The JAX side runs its reference
-``attention_impl="xla"``; the port runs both of its paths ("kernel", whose
-wrappers take their plain versions for CPU tensors, and "plain").
+the pools must hold the same K/V. The same holds for one packed mixed
+step through both ``ragged_paged_forward``s. The JAX side runs its
+reference ``attention_impl="xla"``; the port runs both of its paths
+("kernel", whose wrappers take their plain versions for CPU tensors, and
+"plain").
 """
 
 import jax
@@ -124,6 +126,64 @@ def test_paged_forward_matches_jax(shared_params, impl, window):
         torch.from_numpy(valid1), impl=impl, page_size=PS)
     np.testing.assert_allclose(t_logits.numpy()[:2],
                                np.asarray(j_logits)[:2], atol=ATOL)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+@pytest.mark.parametrize("window", [0, 5])
+def test_ragged_paged_forward_matches_jax(shared_params, impl, window):
+    """One mixed step on random resident K/V: decode slots 0-3 (slot 0
+    inactive, -1 in tok_row), prefill chunks of 7 and 4 tokens, an empty
+    prefill row and a padding tail; logits at the decode slots and the
+    chunk-final tokens, and the written pools, must match."""
+    j_cfg, t_cfg = _configs(window)
+    jp, tp = shared_params
+    rng = np.random.default_rng(10 + window)
+    L, KV, D = J_TINY.num_layers, J_TINY.num_kv_heads, J_TINY.head_dim
+    pool_k = rng.standard_normal((L, NUM_PAGES * PS, KV, D)).astype(
+        np.float32)
+    pool_v = rng.standard_normal(pool_k.shape).astype(np.float32)
+    Bm = 7
+    # 3 distinct pages per row (the pool holds 24), repeated to P columns
+    tables = rng.permutation(NUM_PAGES)[: Bm * 3].reshape(Bm, 3)
+    tables = np.concatenate([tables] * 3, axis=1)[:, :P].astype(np.int32)
+    history = np.array([0, 3, 9, 10, 0, 5, 0], np.int32)
+    layout = [-1, 1, 2, 3] + [4] * 7 + [5] * 4 + [-1] * 3  # row 6 empty
+    S = len(layout)
+    tok_row = np.asarray(layout, np.int32)
+    pos = np.zeros((S,), np.int32)
+    counts = np.zeros((Bm,), np.int32)
+    write = np.full((S,), NUM_PAGES * PS, np.int32)
+    for i, r in enumerate(layout):
+        if r >= 0:
+            pos[i] = history[r] + counts[r]
+            counts[r] += 1
+            write[i] = tables[r, pos[i] // PS] * PS + pos[i] % PS
+    valid = (history + counts).astype(np.int32)
+    ids = rng.integers(0, 256, size=(1, S)).astype(np.int32)
+    logits_idx = np.array([0, 1, 2, 3, 10, 14, 0], np.int32)
+    j_logits, j_pk, j_pv = j_llama.ragged_paged_forward(
+        jp, j_cfg, jnp.asarray(ids), jnp.asarray(pos[None]),
+        jnp.asarray(pool_k), jnp.asarray(pool_v), jnp.asarray(write[None]),
+        jnp.asarray(tok_row), jnp.asarray(_gather(tables)),
+        jnp.asarray(valid), attention_impl="xla", page_size=PS,
+        logits_idx=jnp.asarray(logits_idx))
+    drop = np.zeros((L, 1, KV, D), np.float32)
+    t_pk = torch.from_numpy(np.concatenate([pool_k, drop], axis=1))
+    t_pv = torch.from_numpy(np.concatenate([pool_v, drop], axis=1))
+    t_logits, _, _ = t_llama.ragged_paged_forward(
+        tp, t_cfg, torch.from_numpy(ids), torch.from_numpy(pos[None]), t_pk,
+        t_pv, torch.from_numpy(write[None]), torch.from_numpy(tok_row),
+        torch.from_numpy(tables), torch.from_numpy(valid),
+        torch.from_numpy(logits_idx), impl=impl, page_size=PS)
+    assert t_logits.dtype == torch.float32
+    assert t_logits.shape == (len(logits_idx), J_TINY.vocab_size)
+    real = [1, 2, 3, 4, 5]  # slot 0 is inactive, index 6 an empty row
+    np.testing.assert_allclose(t_logits.numpy()[real],
+                               np.asarray(j_logits)[real], atol=ATOL)
+    np.testing.assert_allclose(t_pk[:, :-1].numpy(), np.asarray(j_pk),
+                               atol=ATOL)
+    np.testing.assert_allclose(t_pv[:, :-1].numpy(), np.asarray(j_pv),
+                               atol=ATOL)
 
 
 def test_gather_kv_window_matches_jax():

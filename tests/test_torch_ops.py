@@ -104,6 +104,39 @@ def test_gqa_attention_matches_jax(B, T, H, KV, D, S, window, softcap):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("tok_row,KV,window,softcap", [
+    ([0, 1, 1, 1, 2, 2, -1, -1], 2, None, None),  # decode + chunks + tail
+    ([-1, 1, -1, 3, 4, 4, 4, 4, 4], 4, None, None),  # -1 between rows
+    ([0, 0, 0, 2, 2, 2, 2, -1], 1, 3, None),  # MQA, window, empty row 1
+    ([1, 0, 0, 0, 0, 2], 4, None, 30.0),  # softcap, rows out of order
+    ([-1, -1, -1], 2, None, None),  # all padding
+])
+def test_ragged_gqa_attention_matches_jax(tok_row, KV, window, softcap):
+    """Packed tokens against per-row windows, every token compared (JAX's
+    padding outputs are the mean of V, and so are the port's)."""
+    rng = np.random.default_rng(len(tok_row) * 10 + KV)
+    S, H, D, Bm, Smax = len(tok_row), 4, 16, 5, 24
+    q = rng.standard_normal((S, H, D)).astype(np.float32)
+    k = rng.standard_normal((Bm, Smax, KV, D)).astype(np.float32)
+    v = rng.standard_normal((Bm, Smax, KV, D)).astype(np.float32)
+    tok_row = np.asarray(tok_row, np.int32)
+    hist = rng.integers(0, 12, size=Bm)
+    pos = np.zeros((S,), np.int32)
+    counts = np.zeros((Bm,), np.int32)
+    for i, r in enumerate(tok_row):
+        if r >= 0:
+            pos[i] = hist[r] + counts[r]
+            counts[r] += 1
+    valid = (hist + counts).astype(np.int32)
+    want = np.asarray(j_attn.ragged_gqa_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tok_row),
+        jnp.asarray(pos), jnp.asarray(valid), window, softcap))
+    got = t_attn.ragged_gqa_attention(_t(q), _t(k), _t(v), _t(tok_row),
+                                      _t(pos), _t(valid), window,
+                                      softcap).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("top_p", [0.0, 0.3, 0.9, 0.999, 1.0])
 def test_nucleus_cutoff_matches_jax_kept_sets(top_p):
     rng = np.random.default_rng(int(top_p * 1000))

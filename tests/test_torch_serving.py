@@ -5,7 +5,10 @@ engine (float32, every matrix scaled by 8 so greedy continuations vary),
 on an ephemeral port. ``POST /generate`` bodies must parse as the JAX
 package's ``GenerateResponse`` with the same fields, and their text and
 usage must be what the JAX engine (reference path) produces for the same
-request; errors must parse as its ``ErrorResponse``.
+request; errors must parse as its ``ErrorResponse``. A second server runs
+the ragged mixed step (``mixed_step_tokens``) and is held against the
+JAX engine's mixed step the same way; ``/server/stats`` carries its
+``mixed`` block (null when the step is off).
 """
 
 import json
@@ -62,8 +65,8 @@ PAGED = (64, 4, 32)
 BUCKETS = (8, 32)
 
 
-@pytest.fixture(scope="module")
-def stack():
+def _serve(mixed_step_tokens):
+    """(base URL, JAX engine, server) on shared TINY weights."""
     jp = j_llama.init_params(jax.random.PRNGKey(0), J_TINY, jnp.float32)
     tree = jax.tree_util.tree_map(np.asarray, jp)
     tree["embed"] = tree["embed"] * 8.0
@@ -74,7 +77,8 @@ def stack():
     def factory():
         return LLMEngine(t_params, TINY, ByteTokenizer(), EngineConfig(
             max_batch=4, prefill_buckets=BUCKETS,
-            paged=PagedCacheConfig(*PAGED)), dtype=torch.float32,
+            paged=PagedCacheConfig(*PAGED),
+            mixed_step_tokens=mixed_step_tokens), dtype=torch.float32,
             device="cpu")
 
     server = InferenceServer(factory, ByteTokenizer(), model_name="tiny")
@@ -84,9 +88,16 @@ def stack():
                        JByteTokenizer(), JEngineConfig(
                            max_batch=4, prefill_buckets=BUCKETS,
                            paged=JPagedCacheConfig(*PAGED),
+                           mixed_step_tokens=mixed_step_tokens,
                            attention_impl="xla", native_allocator=False),
                        dtype=jnp.float32)
-    yield f"http://127.0.0.1:{port}", j_engine, server
+    return f"http://127.0.0.1:{port}", j_engine, server
+
+
+@pytest.fixture(scope="module")
+def stack():
+    base, j_engine, server = _serve(0)
+    yield base, j_engine, server
     server.shutdown()
 
 
@@ -186,9 +197,56 @@ def test_health_and_stats(stack):
     status, stats = _get(base, "/server/stats")
     assert status == 200
     assert set(stats["kernel_launches"]) == {
-        "paged_decode", "paged_prefill", "rms_norm", "rope"}
+        "paged_decode", "paged_prefill", "paged_ragged", "rms_norm", "rope"}
+    assert stats["mixed"] is None  # the mixed step is off
     assert stats["requests_finished"] >= 1 and stats["tokens_generated"] >= 2
     assert stats["cache"]["pages_total"] == PAGED[0]
     status, reset = _post(base, "/server/kernel_counts/reset", {})
     assert status == 200
     assert all(v == 0 for v in reset["kernel_launches"].values())
+
+
+MIXED = 12
+
+
+@pytest.fixture(scope="module")
+def mixed_stack():
+    base, j_engine, server = _serve(MIXED)
+    yield base, j_engine, server
+    server.shutdown()
+
+
+def test_mixed_server_matches_jax_mixed_engine(mixed_stack):
+    base, j_engine, _ = mixed_stack
+    prompt = "a prompt long enough for several mixed steps of twelve."
+    status, body = _post(base, "/generate", {"prompt": prompt,
+                                             "temperature": 0.0,
+                                             "max_tokens": 7})
+    assert status == 200, body
+    text, finish, usage = _jax_text(j_engine, prompt, temperature=0.0,
+                                    max_tokens=7)
+    assert body["choices"][0]["text"] == text
+    assert body["choices"][0]["finish_reason"] == finish
+    assert body["usage"] == usage
+    _, stats = _get(base, "/server/stats")
+    mixed = stats["mixed"]
+    assert mixed["steps"] >= 5 and mixed["prefill_tokens"] >= len(prompt)
+    assert stats["kernel_launches"]["paged_prefill"] == 0
+
+
+def test_mixed_prefill_frac_reaches_stats(mixed_stack):
+    base, _, server = mixed_stack
+    server.runner.set_mixed_prefill_frac(0.5)
+    _post(base, "/generate", {"prompt": "after the change", "max_tokens": 2})
+    _, stats = _get(base, "/server/stats")
+    assert stats["mixed"]["prefill_frac"] == 0.5
+    server.runner.set_mixed_prefill_frac(1.0)
+
+
+@pytest.mark.parametrize("value", ["4", "8", "-1"])
+def test_cli_rejects_mixed_step_tokens_up_to_max_batch(value, capsys):
+    from distributed_inference_server_tpu_torch.__main__ import main
+
+    assert main(["--device", "cpu", "--engine-mixed-step-tokens",
+                 value]) == 2
+    assert "mixed_step_tokens" in capsys.readouterr().err
