@@ -11,7 +11,12 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    ragged mixed batch, RMSNorm, RoPE) against its plain PyTorch version
    on the card at the serving shapes of llama-3.2-1b, in bf16, and times
    kernel, plain version, one PyTorch library call where there is one,
-   and the bytes/operations bound;
+   and the bytes/operations bound; then the quantized kernels the same
+   way: the group-dequant matmul's int8 body at the seven products of a
+   llama-3-8b layer and its int4 body at llama-3.2-1b's, each at M = 8
+   (decode) and M = 2048 (a [4, 512] prefill chunk), plus odd M, K of
+   one group and N off the tile; and the int8-pool paged decode at D =
+   128 and D = 64, plus window 64 + softcap 30;
 4. starts ``python -m distributed_inference_server_tpu_torch`` serving
    llama-3.2-1b (full width and depth, random weights from a seed) and
    sends concurrent ``POST /generate`` requests; the kernels' launch
@@ -19,16 +24,23 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    ``/server/stats``, and every kernel of that path must have launched.
    Then a second server with ``--engine-mixed-step-tokens 512``: two
    chats, and while they decode a ~1500-byte and a 600-byte prompt, so
-   the ragged mixed step runs; its counts are read the same way;
+   the ragged mixed step runs; its counts are read the same way. Then
+   the quantized servers with the first one's request mix: llama-3-8b
+   (32 layers, 4096 wide) with ``--model-quantization int8
+   --engine-kv-quant int8``, and llama-3.2-1b with
+   ``--model-quantization int4``;
 5. runs the engine at 2 layers of the 1B width in f32 with the kernels and
    with the plain versions and requires identical greedy tokens; then the
    mixed step (kernels, plain versions) and the quantum path on one trace
-   (chats mid-decode, then a ~400-token prompt), tokens identical.
+   (chats mid-decode, then a ~400-token prompt), tokens identical; then
+   int8 weights over int8 KV, and int4 weights, kernels against plain
+   versions, tokens identical.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
-and prints no result. ``--phases kernels,serve,engine`` selects phases
-(default: all).
+and prints no result. ``--phases kernels,serve,quant,engine`` selects
+phases (default: all; ``quant`` is phase 3's quantized kernels and phase
+4's quantized servers).
 """
 
 from __future__ import annotations
@@ -500,6 +512,160 @@ def phase_kernels(time_it=True) -> dict:
     return out
 
 
+# the seven (K, N) of a layer's products: q, k, v, o, gate, up, down
+LAYER_8B = [("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
+            ("wo", 4096, 4096), ("w_gate", 4096, 14336),
+            ("w_up", 4096, 14336), ("w_down", 14336, 4096)]
+LAYER_1B = [("wq", 2048, 2048), ("wk", 2048, 512), ("wv", 2048, 512),
+            ("wo", 2048, 2048), ("w_gate", 2048, 8192), ("w_up", 2048, 8192),
+            ("w_down", 8192, 2048)]
+
+
+def check_quant_matmul(case, M, K, N, packed, group=None, time_it=True):
+    """One product x [M, K] @ dequant(w [K, N]): int8 codes with group 128
+    or packed int4 with group 64 (the serving defaults) unless ``group``
+    is given; weights 0.02 * N(0, 1) as init_params draws them."""
+    from distributed_inference_server_tpu_torch.ops.kernels import (
+        quant_matmul as qm,
+    )
+    from distributed_inference_server_tpu_torch.ops.quant import (
+        dequantize,
+        quantize_int4,
+        quantize_int8,
+    )
+
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(6000 + M + K + N)
+    w = torch.randn(K, N, generator=gen, device="cuda") * 0.02
+    w = (quantize_int4(w, group or 64) if packed
+         else quantize_int8(w, group or 128))
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dt)
+    fn = qm.quant_matmul_q4 if packed else qm.quant_matmul_q8
+    got = fn(x, w)
+    want = qm.quant_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    name = "quant_matmul_q4" if packed else "quant_matmul_q8"
+    rec = {"case": case, "max_abs_err": compare(f"{name}[{case}]", got, want)}
+    if not time_it:
+        return rec
+    rec["ms"] = time_ms(lambda: fn(x, w))
+    rec["plain_ms"] = time_ms(lambda: qm.quant_matmul_plain(x, w))
+    w_dense = dequantize(w, dt)  # the library call's weight, built once
+    rec["library_ms"] = time_ms(lambda: torch.matmul(x, w_dense))
+    nbytes = (x.numel() * 2 + w.q.numel() + w.s.numel() * 4 + M * N * 2)
+    rec.update(bound(nbytes, 2.0 * M * K * N, dt))
+    return rec
+
+
+def check_quant_layer(case, M, layer, packed):
+    """The seven products of one layer at M rows, each checked and timed;
+    returns their records and one record of their sums."""
+    recs = [check_quant_matmul(f"{case} {name} [{M}x{K}]@[{K}x{N}]", M, K, N,
+                               packed) for name, K, N in layer]
+    total = {"case": f"{case}: the seven products of one layer at M={M}, "
+                     "summed",
+             "max_abs_err": max(r["max_abs_err"] for r in recs)}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_bound_ms"):
+        total[key] = sum(r[key] for r in recs)
+    kinds = {r["bound_by"] for r in recs}
+    total["bound_by"] = kinds.pop() if len(kinds) == 1 else "operations"
+    return [total] + recs
+
+
+def check_decode_int8(case, valid_list, window=0, softcap=0.0, H=32, KV=8,
+                      D=128, page_size=16, P=128, num_pages=1024,
+                      time_it=True):
+    """The int8-pool decode: pools drawn as N(0, 1) in bf16 and quantized
+    with quantize_kv (codes int8, one f32 scale per slot and KV head)."""
+    from distributed_inference_server_tpu_torch.ops.kernels import (
+        paged_attention as pa,
+    )
+    from distributed_inference_server_tpu_torch.ops.quant import (
+        QuantPool,
+        dequantize_kv,
+        quantize_kv,
+    )
+
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(7000 + D + len(case))
+    B = len(valid_list)
+    pk, pv, tables = _pool_case(B, H, KV, D, page_size, P, num_pages, dt, gen)
+    pool_k, pool_v = QuantPool(*quantize_kv(pk)), QuantPool(*quantize_kv(pv))
+    del pk, pv
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dt)
+    valid = torch.tensor(valid_list, dtype=torch.int32, device="cuda")
+    kw = dict(page_size=page_size, sliding_window=window, attn_softcap=softcap)
+    got = pa.paged_decode_int8(q, pool_k, pool_v, tables, valid, **kw)
+    want = pa.paged_decode_int8_plain(q, pool_k, pool_v, tables, valid, **kw)
+    torch.cuda.synchronize()
+    rec = {"case": case,
+           "max_abs_err": compare(f"paged_decode_int8[{case}]", got, want)}
+    if not time_it:
+        return rec
+    e = q.element_size()
+    seen = [min(v, window) if window > 0 else v for v in valid_list]
+    pages = sum(-(-v // page_size) for v in valid_list)
+    # codes of K and V (2 D bytes) and their two f32 scales per token and
+    # KV head, q and out once, the table entries read
+    nbytes = (2 * q.numel() * e + sum(seen) * KV * (2 * D + 8) + pages * 4
+              + B * 4)
+    ops = 4 * sum(seen) * H * D
+    rec["ms"] = time_ms(lambda: pa.paged_decode_int8(q, pool_k, pool_v,
+                                                     tables, valid, **kw))
+    rec["plain_ms"] = time_ms(lambda: pa.paged_decode_int8_plain(
+        q, pool_k, pool_v, tables, valid, **kw))
+    # library: SDPA on the dequantized gathered window (gather and dequant
+    # excluded), as for the bf16 decode
+    kg = _gathered(dequantize_kv(pool_k.data, pool_k.scale, dt), tables,
+                   page_size)
+    vg = _gathered(dequantize_kv(pool_v.data, pool_v.scale, dt), tables,
+                   page_size)
+    kv_pos = torch.arange(kg.shape[2], device="cuda")
+    mask = kv_pos[None, :] < valid[:, None]
+    if window > 0:
+        mask &= kv_pos[None, :] >= (valid[:, None] - window)
+    q4 = q[:, :, None, :]
+    rec["library_ms"] = (time_ms(lambda: _sdpa(q4, kg, vg,
+                                               mask[:, None, None, :]))
+                         if softcap == 0.0 else None)
+    rec.update(bound(nbytes, ops, dt))
+    return rec
+
+
+def phase_quant_kernels() -> dict:
+    """The quantized kernels against their plain versions; the first
+    record of each kernel is its main-path shape (the served decode step
+    of its model: one layer's seven products at M = 8, or the int8 decode
+    over eight rows at llama-3-8b's D = 128)."""
+    lengths = [1, 15, 16, 17, 300, 1000, 2047, 2048]
+    out = {}
+    for name, packed, layer, model in (
+            ("quant_matmul_q8", False, LAYER_8B, "llama-3-8b int8"),
+            ("quant_matmul_q4", True, LAYER_1B, "llama-3.2-1b int4")):
+        out[name] = (check_quant_layer(model, 8, layer, packed)
+                     + check_quant_layer(model, 2048, layer, packed)
+                     + [check_quant_matmul(f"M={M} K={K} N={N} group={g}", M,
+                                           K, N, packed, group=g,
+                                           time_it=False)
+                        for M, K, N, g in ((1, 4096, 1024, None),
+                                           (5, 2048, 200, None),
+                                           (3, 128, 8200, 128),
+                                           (37, 512, 72, None))])
+        torch.cuda.empty_cache()
+    out["paged_decode_int8"] = [
+        check_decode_int8("B8 8B D128", lengths),
+        check_decode_int8("B8 1B D64", lengths, D=64),
+        check_decode_int8("D128 window64 softcap30", lengths, window=64,
+                          softcap=30.0, time_it=False),
+        check_decode_int8("D64 with valid=0", [0] + lengths[1:], D=64,
+                          time_it=False),
+    ]
+    for name, recs in out.items():
+        for r in recs:
+            log(json.dumps({"kernel_check": name, **r}))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the served /generate path
 # ---------------------------------------------------------------------------
@@ -533,14 +699,14 @@ def _check_generate(status, body, max_tokens):
 
 
 @contextlib.contextmanager
-def _server(seed: int, extra, log_name: str):
+def _server(seed: int, extra, log_name: str, model: str = "llama-3.2-1b"):
     """Run ``python -m distributed_inference_server_tpu_torch`` serving
-    llama-3.2-1b on a free port until it is healthy; yields its base URL
-    and stops the process on exit."""
+    ``model`` on a free port until it is healthy; yields its base URL and
+    stops the process on exit."""
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
     cmd = [sys.executable, "-m", "distributed_inference_server_tpu_torch",
-           "--model-model-name", "llama-3.2-1b", "--server-port", str(port),
+           "--model-model-name", model, "--server-port", str(port),
            "--seed", str(seed), *extra]
     log("[serve] " + " ".join(cmd))
     os.makedirs("chiprun_out", exist_ok=True)
@@ -591,10 +757,30 @@ def _reset_counts(base) -> dict:
 # the ragged kernel; the mixed server never the chunked-prefill one)
 QUANTUM_KERNELS = ("paged_decode", "paged_prefill", "rms_norm", "rope")
 MIXED_KERNELS = ("paged_ragged", "paged_decode", "rms_norm", "rope")
+# the quantized servers: (label, model, flags, kernels that must launch,
+# kernels that must not); int8 pools have no prefill kernel (the JAX
+# package has none either), so a prefill chunk attends on the plain path
+QUANT_SERVERS = (
+    ("llama-3-8b int8 weights + int8 KV, random weights", "llama-3-8b",
+     ["--model-quantization", "int8", "--engine-kv-quant", "int8"],
+     ("quant_matmul_q8", "paged_decode_int8", "rms_norm", "rope"),
+     ("paged_prefill", "paged_decode", "quant_matmul_q4")),
+    ("llama-3.2-1b int4 weights, random weights", "llama-3.2-1b",
+     ["--model-quantization", "int4"],
+     ("quant_matmul_q4", "paged_decode", "paged_prefill", "rms_norm",
+      "rope"),
+     ("paged_decode_int8", "quant_matmul_q8")),
+)
 
 
-def phase_serve(card: str, seed: int = 0) -> dict:
-    with _server(seed, [], "server.log") as base:
+def phase_serve(card: str, seed: int = 0, model: str = "llama-3.2-1b",
+                extra=(), log_name: str = "server.log",
+                label: str = "llama-3.2-1b bf16 random weights",
+                required=QUANTUM_KERNELS, absent=()) -> dict:
+    """Four concurrent requests (greedy and sampled, ~20 to 600 bytes),
+    then a greedy repeat; every kernel in ``required`` must launch and
+    none in ``absent``."""
+    with _server(seed, list(extra), log_name, model) as base:
         greedy = {"temperature": 0.0, "max_tokens": 24}
         prompts = {
             "p20": "The H100 serves this.",  # 21 ids with BOS
@@ -627,16 +813,19 @@ def phase_serve(card: str, seed: int = 0) -> dict:
         for (prompt, params), (st, body, _) in zip(jobs, results):
             _check_generate(st, body, params["max_tokens"])
         _check_generate(st, again, greedy["max_tokens"])
-        for name in QUANTUM_KERNELS:
+        for name in required:
             assert launches[name] > 0, (
-                f"kernel {name} never launched on the served path")
+                f"kernel {name} never launched on the served path ({label})")
+        for name in absent:
+            assert launches[name] == 0, (
+                f"kernel {name} launched on the served path ({label})")
         assert again["choices"][0]["text"] == solo["choices"][0]["text"], (
             "greedy repeat differs", solo, again)
         hits = stats["cache"]["hits"]
         assert hits > 0, f"no prefix hit in /server/stats: {stats['cache']}"
         toks = sum(b["usage"]["completion_tokens"] for _, b, _ in results)
         log(json.dumps({
-            "serve": "llama-3.2-1b bf16 random weights", "card": card,
+            "serve": label, "card": card, "launches": launches,
             "concurrent_requests": len(jobs), "wall_s": wall,
             "completion_tokens": toks, "tokens_per_s": toks / wall,
             "request_latency_s": [r[2] for r in results],
@@ -796,6 +985,71 @@ def phase_engine_f32(seed: int = 0) -> dict:
     return outs
 
 
+def phase_engine_quant_f32(seed: int = 0) -> dict:
+    """2 layers of the 1B width in f32: int8 weights over int8 KV, and int4
+    weights; the kernels and the plain versions give identical greedy
+    tokens, the kernel run launches the quantized kernels and the plain
+    run none."""
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distributed_inference_server_tpu_torch.models import llama
+    from distributed_inference_server_tpu_torch.models.configs import (
+        LLAMA_3_2_1B,
+    )
+    from distributed_inference_server_tpu_torch.models.tokenizer import (
+        ByteTokenizer,
+    )
+    from distributed_inference_server_tpu_torch.ops import kernels
+    from distributed_inference_server_tpu_torch.ops.quant import (
+        quantize_params,
+    )
+
+    cfg = LLAMA_3_2_1B.with_overrides(num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dense = llama.init_params(cfg, gen, dtype=torch.float32, device="cuda")
+    tok = ByteTokenizer()
+    prompts = ["quantized f32 identity", "int8 codes, f32 scales " * 3,
+               "q" * 40]
+    outs = {}
+    for weights, kv, need in (
+            ("int8", "int8", ("quant_matmul_q8", "paged_decode_int8")),
+            ("int4", "none", ("quant_matmul_q4", "paged_decode",
+                              "paged_prefill"))):
+        params = quantize_params(dense, weights)
+        toks = {}
+        for impl in ("kernel", "plain"):
+            kernels.reset_launch_counts()
+            eng = LLMEngine(params, cfg, tok, EngineConfig(
+                attention_impl=impl, kv_quant=kv), dtype=torch.float32,
+                device="cuda")
+            for i, p in enumerate(prompts):
+                eng.add_request(f"r{i}", tok.encode(p),
+                                SamplingParams(max_tokens=16,
+                                               temperature=0.0))
+            run = {}
+            while eng.has_work():
+                for o in eng.step():
+                    if o.token_id is not None:
+                        run.setdefault(o.request_id, []).append(o.token_id)
+            toks[impl] = run
+            counts = kernels.launch_counts()
+            if impl == "kernel":
+                assert all(counts[k] > 0 for k in need), counts
+            else:
+                assert not any(counts.values()), counts
+            del eng
+        assert toks["kernel"] == toks["plain"], (weights, kv, toks)
+        outs[f"{weights}+kv_{kv}"] = toks["kernel"]
+        del params
+    log(json.dumps({"engine_f32_2layer_quant":
+                    "kernel == plain greedy tokens (int8 + int8 KV, int4)",
+                    "tokens": outs}))
+    return outs
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -818,12 +1072,24 @@ KERNEL_META = {
     "rope": ("triton", "distributed_inference_server_tpu_torch/ops/kernels/"
              "_triton_fused.py",
              "distributed_inference_server_tpu/ops/pallas/fused.py:132"),
+    "quant_matmul_q8": ("cuda", "distributed_inference_server_tpu_torch/csrc/"
+                        "quant_matmul.cu",
+                        "distributed_inference_server_tpu/ops/pallas/"
+                        "fused.py:260"),
+    "quant_matmul_q4": ("cuda", "distributed_inference_server_tpu_torch/csrc/"
+                        "quant_matmul.cu",
+                        "distributed_inference_server_tpu/ops/pallas/"
+                        "fused.py:260"),
+    "paged_decode_int8": ("cuda", "distributed_inference_server_tpu_torch/"
+                          "csrc/paged_attention.cu",
+                          "distributed_inference_server_tpu/ops/pallas/"
+                          "paged_attention.py:546"),
 }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,engine")
+    ap.add_argument("--phases", default="kernels,serve,quant,engine")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -835,6 +1101,8 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the plain versions' bf16 products keep f32 sums throughout
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
@@ -846,6 +1114,8 @@ def main(argv=None) -> int:
     log(f"[build] {sorted(built)} in {time.monotonic() - t0:.1f} s")
 
     checks = phase_kernels() if "kernels" in phases else {}
+    if "quant" in phases:
+        checks.update(phase_quant_kernels())
     launches = {}
     if "serve" in phases:
         launches = phase_serve(card, args.seed)
@@ -853,8 +1123,19 @@ def main(argv=None) -> int:
         # that runs it)
         launches["paged_ragged"] = phase_serve_mixed(
             card, args.seed)["paged_ragged"]
+    if "quant" in phases:
+        # each quantized kernel's count is its server's
+        torch.cuda.empty_cache()
+        for label, model, flags, need, absent in QUANT_SERVERS:
+            got = phase_serve(card, args.seed, model, flags,
+                              f"server_{model}_{flags[1]}.log", label, need,
+                              absent)
+            for name in need:
+                if name.startswith(("quant_matmul", "paged_decode_int8")):
+                    launches[name] = got[name]
     if "engine" in phases:
         phase_engine_f32(args.seed)
+        phase_engine_quant_f32(args.seed)
 
     rows = []
     for name, (route, source, replaces) in KERNEL_META.items():

@@ -1,10 +1,14 @@
 """Serve a model over HTTP: ``python -m distributed_inference_server_tpu_torch
 --model-model-name llama-3.2-1b --server-port 8000 [--seed S]
-[--device cuda|cpu] [--engine-mixed-step-tokens N]``.
+[--device cuda|cpu] [--engine-mixed-step-tokens N]
+[--model-quantization none|int8|int4] [--engine-kv-quant none|int8]``.
 
 Weights are random, drawn from ``--seed`` (checkpoint loading is not
 ported yet), and the tokenizer is the byte tokenizer. The engine runs on
 ``cuda`` unless ``--device cpu`` is given; a missing card is an error.
+``--model-quantization`` quantizes the seven linear families after
+initialization (``ops/quant.py quantize_params``, layer by layer);
+``--engine-kv-quant int8`` keeps the KV pools as int8 codes + scales.
 """
 
 from __future__ import annotations
@@ -20,10 +24,15 @@ from distributed_inference_server_tpu_torch.engine.engine import (
     EngineConfig,
     LLMEngine,
 )
+from distributed_inference_server_tpu_torch.engine.kv_cache import KV_QUANTS
 from distributed_inference_server_tpu_torch.models import llama
 from distributed_inference_server_tpu_torch.models.configs import get_config
 from distributed_inference_server_tpu_torch.models.tokenizer import (
     load_tokenizer,
+)
+from distributed_inference_server_tpu_torch.ops.quant import (
+    MODES,
+    quantize_params,
 )
 from distributed_inference_server_tpu_torch.serving.server import (
     InferenceServer,
@@ -49,6 +58,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine-mixed-step-tokens", type=int, default=0,
                     help="packed width of the ragged mixed step (0 = off; "
                          "otherwise more than the engine's max_batch)")
+    ap.add_argument("--model-quantization", default="none",
+                    help="weight-only quantization: none | int8 | int4")
+    ap.add_argument("--engine-kv-quant", default="none",
+                    help="KV pool quantization: none | int8")
     return ap
 
 
@@ -57,8 +70,18 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     ecfg = EngineConfig(seed=args.seed,
-                        mixed_step_tokens=args.engine_mixed_step_tokens)
+                        mixed_step_tokens=args.engine_mixed_step_tokens,
+                        kv_quant=args.engine_kv_quant)
     try:
+        if args.model_quantization not in MODES:
+            raise ValueError(f"model.quantization must be none/int8/int4, "
+                             f"got {args.model_quantization!r}")
+        if ecfg.kv_quant not in KV_QUANTS:
+            raise ValueError(f"engine.kv_quant must be none/int8, got "
+                             f"{ecfg.kv_quant!r}")
+        if ecfg.mixed_step_tokens and ecfg.kv_quant != "none":
+            raise ValueError("engine.mixed_step_tokens with engine.kv_quant "
+                             "int8 is not ported yet")
         if ecfg.mixed_step_tokens < 0:
             raise ValueError("engine.mixed_step_tokens must be >= 0")
         if 0 < ecfg.mixed_step_tokens <= ecfg.max_batch:
@@ -78,6 +101,7 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
         params = llama.init_params(cfg, gen, dtype=dtype, device=device)
+        params = quantize_params(params, args.model_quantization)
         return LLMEngine(params, cfg, tokenizer, ecfg, dtype=dtype,
                          device=device)
 

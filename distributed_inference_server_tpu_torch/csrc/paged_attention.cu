@@ -3,7 +3,8 @@
 // Replaces the TPU kernels in distributed_inference_server_tpu/ops/pallas/
 // paged_attention.py: paged_attention_decode (_decode_kernel),
 // paged_attention_prefill (_prefill_kernel) and paged_attention_ragged
-// (_ragged_kernel), dense pools only.
+// (_ragged_kernel), dense pools; and paged_attention_decode over int8
+// QuantPool pools (the int8 branches of _decode_kernel).
 //
 // Contract (identical to the plain versions in ops/kernels/paged_attention.py):
 //   pool_k, pool_v : [num_slots, KV, D], slot = page * page_size + offset
@@ -20,6 +21,10 @@
 //   mask           : kv <= q_pos, kv < valid, and kv > q_pos - window when
 //                    window > 0; softcap (tanh(s/cap)*cap) BEFORE the mask
 //   queries with nothing visible, and padding tokens, write zeros.
+//   int8 decode    : pool_k, pool_v hold int8 codes [num_slots, KV, D] and
+//                    k_scale, v_scale [num_slots, KV] f32 (K/V = code x
+//                    scale, ops/quant.py quantize_kv); only decode reads
+//                    them.
 //
 // Common design. A block owns one tile of queries of one row and one KV
 // head: the G = H/KV query heads of that KV head share every K/V byte the
@@ -56,6 +61,14 @@
 // - everything else (f32, other head sizes): a scalar body — one warp per
 //   query row for the scores, one thread per (row, dim) output for P @ V.
 //
+// int8 pools (decode only). The codes are loaded 16 bytes at a time and
+// converted to the body's type in shared memory, which is exact (|code| <=
+// 127); the scales are folded in as the TPU kernel folds them: each score
+// is multiplied by its key's k_scale after Q.K and before softcap and mask,
+// and each probability by its key's v_scale before P.V (the softmax
+// denominator keeps the unscaled probabilities). A token costs 2 D + 8
+// bytes per KV head instead of 4 D (bf16): about half the bytes, the bound.
+//
 // Bound. Decode moves bytes, not operations: ~4 flops per K/V byte pair,
 // far below the card's ~295 bf16 flops per byte; the design reads only the
 // pages a row can see and never the dense [B, S_max] gather the plain path
@@ -67,6 +80,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -117,6 +132,14 @@ struct Args {
   int TQ, TK;     // queries / kv tokens per tile
 };
 
+// int8 pools only: the f32 scales [num_slots, KV] of the K and V codes. Kept
+// out of Args, which every kernel takes by value: growing Args changed the
+// register allocation of the bf16 bodies and slowed them.
+struct Scales {
+  const float* k;
+  const float* v;
+};
+
 // The queries one block serves and the KV tokens [lo, hi) it walks. Query
 // t < n is token tok0 + t of the [tokens, H, D] view of q and out, at
 // position pos[t] (ragged) or pos0 + t (decode, prefill).
@@ -135,6 +158,38 @@ __device__ __forceinline__ int tile_pos(const Tile& tl, int t) {
 
 __device__ __forceinline__ int window_lo(const Args& a, int first_pos) {
   return a.window > 0 ? max(first_pos - a.window + 1, 0) : 0;
+}
+
+// Pool slot of position pos of page-table row b (page ids clamped).
+__device__ __forceinline__ size_t pool_slot(const Args& a, int b, int pos) {
+  const int pslot = min(pos / a.page_size, a.P - 1);
+  int page = a.tables[(size_t)b * a.P + pslot];
+  page = min(max(page, 0), a.num_pages - 1);
+  return (size_t)page * a.page_size + pos % a.page_size;
+}
+
+// int8 pools: the K and V scales of tokens k0 .. k0+TK-1 (zeros past hi).
+__device__ __forceinline__ void load_kv_scales(const Args& a, const Scales& sc,
+                                               int b, int kvh, int k0, int TK,
+                                               int hi, float* ks_s,
+                                               float* vs_s) {
+  for (int j = threadIdx.x; j < TK; j += blockDim.x) {
+    const int pos = k0 + j;
+    float ks = 0.f, vs = 0.f;
+    if (pos < hi) {
+      const size_t i = pool_slot(a, b, pos) * a.KV + kvh;
+      ks = sc.k[i];
+      vs = sc.v[i];
+    }
+    ks_s[j] = ks;
+    vs_s[j] = vs;
+  }
+}
+
+// The 16 int8 codes of a uint4 as floats.
+__device__ __forceinline__ float code_at(const uint4& v, int e) {
+  const uint32_t w = e < 4 ? v.x : e < 8 ? v.y : e < 12 ? v.z : v.w;
+  return (float)(int8_t)(uint8_t)(w >> (8 * (e & 3)));
 }
 
 // Decode (one query per row) or prefill (queries q0 .. q0+TQ-1 of row b).
@@ -232,19 +287,24 @@ __host__ __device__ constexpr int kt_pad() {
 }
 
 // Shared memory: [v TK x D][q R x D][kT D x (TK+pad)] in T, then f32
-// [scores R x TK][m R][l R][alpha R].
+// [scores R x TK][m R][l R][alpha R] and, for int8 pools, [k scales TK]
+// [v scales TK].
 template <typename T>
-size_t smem_bytes(int R, int D, int TK) {
+size_t smem_bytes(int R, int D, int TK, bool int8_pool = false) {
   const size_t e = sizeof(T);
   return (size_t)TK * D * e + (size_t)R * D * e +
-         (size_t)D * (TK + kt_pad<T>()) * e + ((size_t)R * TK + 3 * R) * 4;
+         (size_t)D * (TK + kt_pad<T>()) * e + ((size_t)R * TK + 3 * R) * 4 +
+         (int8_pool ? (size_t)2 * TK * 4 : 0);
 }
 
-template <typename T, int NT, int MAXACC>
-__device__ void attend(const Args& a, const Tile& tl, int kvh) {
+// KT: the pool's element type — T (dense) or int8_t (codes + scales).
+template <typename T, typename KT, int NT, int MAXACC>
+__device__ void attend(const Args& a, const Tile& tl, int kvh,
+                       const Scales& sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr bool Q8 = std::is_same<KT, int8_t>::value;
   constexpr int NW = NT / 32;
-  constexpr int VEC = 16 / (int)sizeof(T);
+  constexpr int VEC = 16 / (int)sizeof(KT);  // pool elements per 16 bytes
   const int G = a.H / a.KV;
   const int TK = a.TK, D = a.D;
   const int R = a.TQ * G;
@@ -256,11 +316,13 @@ __device__ void attend(const Args& a, const Tile& tl, int kvh) {
   float* m_s = s_s + R * TK;
   float* l_s = m_s + R;
   float* al_s = l_s + R;
+  float* ks_s = al_s + R;  // int8 pools only
+  float* vs_s = ks_s + TK;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const T* q = static_cast<const T*>(a.q);
-  const T* pk = static_cast<const T*>(a.pool_k);
-  const T* pv = static_cast<const T*>(a.pool_v);
+  const KT* pk = static_cast<const KT*>(a.pool_k);
+  const KT* pv = static_cast<const KT*>(a.pool_v);
   T* out = static_cast<T*>(a.out);
 
   const int kv_upper = tl.hi;
@@ -298,11 +360,21 @@ __device__ void attend(const Args& a, const Tile& tl, int kvh) {
         kk = *reinterpret_cast<const uint4*>(pk + off);
         vv = *reinterpret_cast<const uint4*>(pv + off);
       }
-      *reinterpret_cast<uint4*>(v_s + j * D + dv * VEC) = vv;
-      const T* ke = reinterpret_cast<const T*>(&kk);
+      if constexpr (Q8) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) kT_s[(dv * VEC + e) * TKP + j] = ke[e];
+        for (int e = 0; e < VEC; ++e) {
+          v_s[j * D + dv * VEC + e] = from_f<T>(code_at(vv, e));
+          kT_s[(dv * VEC + e) * TKP + j] = from_f<T>(code_at(kk, e));
+        }
+      } else {
+        *reinterpret_cast<uint4*>(v_s + j * D + dv * VEC) = vv;
+        const T* ke = reinterpret_cast<const T*>(&kk);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) kT_s[(dv * VEC + e) * TKP + j] = ke[e];
+      }
     }
+    if constexpr (Q8)
+      load_kv_scales(a, sc, tl.b, kvh, k0, TK, kv_upper, ks_s, vs_s);
     __syncthreads();
 
     // scores: one warp per query row, one lane per token
@@ -314,6 +386,7 @@ __device__ void attend(const Args& a, const Tile& tl, int kvh) {
       for (int j = lane; j < TK; j += 32) {
         float s = 0.f;
         for (int d = 0; d < D; ++d) s += to_f(qr[d]) * to_f(kT_s[d * TKP + j]);
+        if constexpr (Q8) s *= ks_s[j];
         s *= a.scale;
         if (a.softcap > 0.f) s = tanhf(s / a.softcap) * a.softcap;
         const int kv = k0 + j;
@@ -357,7 +430,12 @@ __device__ void attend(const Args& a, const Tile& tl, int kvh) {
         const int r = idx / D, d = idx - r * D;
         const float* pr = s_s + r * TK;
         float v = acc[i] * al_s[r];
-        for (int j = 0; j < TK; ++j) v += pr[j] * to_f(v_s[j * D + d]);
+        if constexpr (Q8) {
+          for (int j = 0; j < TK; ++j)
+            v += pr[j] * vs_s[j] * to_f(v_s[j * D + d]);
+        } else {
+          for (int j = 0; j < TK; ++j) v += pr[j] * to_f(v_s[j * D + d]);
+        }
         acc[i] = v;
       }
     }
@@ -381,17 +459,17 @@ __device__ void attend(const Args& a, const Tile& tl, int kvh) {
 constexpr int kDecodeThreads = 128, kDecodeAcc = 8, kDecodeTK = 64;
 constexpr int kPrefillThreads = 256, kPrefillAcc = 32, kPrefillTK = 32;
 
-template <typename T, int NT, int MAXACC>
-__global__ void __launch_bounds__(NT) paged_decode_kernel(Args a) {
-  attend<T, NT, MAXACC>(a, dense_tile(a, blockIdx.x, 0, 1, true),
-                        blockIdx.y);
+template <typename T, typename KT, int NT, int MAXACC>
+__global__ void __launch_bounds__(NT) paged_decode_kernel(Args a, Scales sc) {
+  attend<T, KT, NT, MAXACC>(a, dense_tile(a, blockIdx.x, 0, 1, true),
+                            blockIdx.y, sc);
 }
 
 template <typename T, int NT, int MAXACC>
 __global__ void __launch_bounds__(NT) paged_prefill_kernel(Args a) {
-  attend<T, NT, MAXACC>(
+  attend<T, T, NT, MAXACC>(
       a, dense_tile(a, blockIdx.x, blockIdx.z * a.TQ, a.TQ, false),
-      blockIdx.y);
+      blockIdx.y, Scales{nullptr, nullptr});
 }
 
 template <typename T, int NT, int MAXACC>
@@ -399,7 +477,7 @@ __global__ void __launch_bounds__(NT) paged_ragged_kernel(Args a) {
   if (blockIdx.x * a.TQ < a.T) zero_padding<T>(a, blockIdx.x, a.TQ, blockIdx.y);
   const Tile tl = ragged_tile(a, blockIdx.x, a.TQ);
   if (tl.n == 0) return;
-  attend<T, NT, MAXACC>(a, tl, blockIdx.y);
+  attend<T, T, NT, MAXACC>(a, tl, blockIdx.y, Scales{nullptr, nullptr});
 }
 
 // Ragged grid width: one block per possible segment (see the header).
@@ -414,19 +492,21 @@ cudaError_t set_smem(Kern kern, size_t smem) {
                               (int)smem);
 }
 
-template <typename T>
-int launch_decode(Args a, int B, cudaStream_t st) {
+template <typename T, typename KT = T>
+int launch_decode(Args a, int B, cudaStream_t st,
+                  Scales sc = Scales{nullptr, nullptr}) {
   constexpr int NT = kDecodeThreads, MAXACC = kDecodeAcc;
   const int G = a.H / a.KV;
   a.T = 1;
   a.TQ = 1;
   a.TK = kDecodeTK;
   if (G * a.D > NT * MAXACC) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T>(G, a.D, a.TK);
-  auto kern = paged_decode_kernel<T, NT, MAXACC>;
+  const size_t smem =
+      smem_bytes<T>(G, a.D, a.TK, std::is_same<KT, int8_t>::value);
+  auto kern = paged_decode_kernel<T, KT, NT, MAXACC>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(B, a.KV), NT, smem, st>>>(a);
+  kern<<<dim3(B, a.KV), NT, smem, st>>>(a, sc);
   return (int)cudaGetLastError();
 }
 
@@ -506,10 +586,11 @@ struct Split {
 //   C: rows l/4 (c0, c1) and l/4+8 (c2, c3), cols 2(l%4)+{0,1}.
 //
 // A block serves the tile's TQ queries (TQ * G <= 64 rows); z is its KV
-// split (decode with sp.NS > 1) and selects the partial-output slot.
-template <int D>
+// split (decode with sp.NS > 1) and selects the partial-output slot. Q8:
+// int8 pools (codes converted to bf16 in shared memory, scales folded in).
+template <int D, bool Q8>
 __device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
-                           int kvh, int z, int TQ) {
+                           int kvh, int z, int TQ, const Scales& sc) {
   constexpr int TK = kMmaTK;
   constexpr int KS = D + 8;   // k_s row stride (elements)
   constexpr int VS = TK + 8;  // vt_s row stride (elements)
@@ -519,6 +600,7 @@ __device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
   constexpr int DV = D / 8;   // 16-byte vectors per token row
   __shared__ __align__(16) __nv_bfloat16 k_s[TK * KS];
   __shared__ __align__(16) __nv_bfloat16 vt_s[D * VS];
+  __shared__ float ks_s[Q8 ? TK : 1], vs_s[Q8 ? TK : 1];
 
   const int b = tl.b;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -571,23 +653,50 @@ __device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
 
   for (int k0 = t_begin; k0 < t_end; k0 += TK) {
-    for (int i = tid; i < TK * DV; i += kMmaThreads) {
-      const int j = i / DV, dv = i - j * DV;
-      const int pos = k0 + j;
-      uint4 kk4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kk4;
-      if (pos < t_end) {
-        const int pslot = min(pos / a.page_size, a.P - 1);
-        int page = a.tables[(size_t)b * a.P + pslot];
-        page = min(max(page, 0), a.num_pages - 1);
-        const size_t slot = (size_t)page * a.page_size + pos % a.page_size;
-        const size_t off = (slot * a.KV + kvh) * D + (size_t)dv * 8;
-        kk4 = *reinterpret_cast<const uint4*>(pk + off);
-        vv4 = *reinterpret_cast<const uint4*>(pv + off);
-      }
-      *reinterpret_cast<uint4*>(k_s + j * KS + dv * 8) = kk4;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
+    if constexpr (Q8) {
+      // 16 int8 codes per load, converted to bf16 (exact)
+      const int8_t* ck = static_cast<const int8_t*>(a.pool_k);
+      const int8_t* cv = static_cast<const int8_t*>(a.pool_v);
+      for (int i = tid; i < TK * (D / 16); i += kMmaThreads) {
+        const int j = i / (D / 16), dv = i - j * (D / 16);
+        const int pos = k0 + j;
+        uint4 kk4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kk4;
+        if (pos < t_end) {
+          const size_t off = (pool_slot(a, b, pos) * a.KV + kvh) * D + dv * 16;
+          kk4 = *reinterpret_cast<const uint4*>(ck + off);
+          vv4 = *reinterpret_cast<const uint4*>(cv + off);
+        }
+        uint32_t kw[8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vt_s[(dv * 8 + e) * VS + j] = ve[e];
+        for (int e = 0; e < 16; e += 2)
+          kw[e >> 1] = pack_bf16(code_at(kk4, e), code_at(kk4, e + 1));
+        uint4* kd = reinterpret_cast<uint4*>(k_s + j * KS + dv * 16);
+        kd[0] = make_uint4(kw[0], kw[1], kw[2], kw[3]);
+        kd[1] = make_uint4(kw[4], kw[5], kw[6], kw[7]);
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          vt_s[(dv * 16 + e) * VS + j] = __float2bfloat16_rn(code_at(vv4, e));
+      }
+      load_kv_scales(a, sc, b, kvh, k0, TK, t_end, ks_s, vs_s);
+    } else {
+      for (int i = tid; i < TK * DV; i += kMmaThreads) {
+        const int j = i / DV, dv = i - j * DV;
+        const int pos = k0 + j;
+        uint4 kk4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kk4;
+        if (pos < t_end) {
+          const int pslot = min(pos / a.page_size, a.P - 1);
+          int page = a.tables[(size_t)b * a.P + pslot];
+          page = min(max(page, 0), a.num_pages - 1);
+          const size_t slot = (size_t)page * a.page_size + pos % a.page_size;
+          const size_t off = (slot * a.KV + kvh) * D + (size_t)dv * 8;
+          kk4 = *reinterpret_cast<const uint4*>(pk + off);
+          vv4 = *reinterpret_cast<const uint4*>(pv + off);
+        }
+        *reinterpret_cast<uint4*>(k_s + j * KS + dv * 8) = kk4;
+        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) vt_s[(dv * 8 + e) * VS + j] = ve[e];
+      }
     }
     __syncthreads();
 
@@ -613,6 +722,7 @@ __device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
           const int i = e >> 1;
           const int key = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
           float x = s[j][e] * a.scale;
+          if constexpr (Q8) x *= ks_s[key - k0];
           if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
           const int qp = row_q[i];
           const bool ok =
@@ -637,8 +747,11 @@ __device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
           const int i = e >> 1;
           const float p =
               s[j][e] > 0.5f * kNegInf ? expf(s[j][e] - m_r[i]) : 0.f;
-          s[j][e] = p;
           sum[i] += p;
+          if constexpr (Q8)  // v scales fold into P; the sum keeps raw p
+            s[j][e] = p * vs_s[j * 8 + (lane & 3) * 2 + (e & 1)];
+          else
+            s[j][e] = p;
         }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -705,7 +818,15 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int TQ = decode ? 1 : kMmaRows / (a.H / a.KV);
   const int z = blockIdx.z;
   const Tile tl = dense_tile(a, blockIdx.x, decode ? 0 : z * TQ, TQ, decode);
-  mma_attend<D>(a, sp, tl, blockIdx.y, z, TQ);
+  mma_attend<D, false>(a, sp, tl, blockIdx.y, z, TQ, Scales{nullptr, nullptr});
+}
+
+// Decode over int8 pools (grid z = KV split).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    mma_decode_int8_kernel(Args a, Split sp, Scales sc) {
+  const Tile tl = dense_tile(a, blockIdx.x, 0, 1, true);
+  mma_attend<D, true>(a, sp, tl, blockIdx.y, blockIdx.z, 1, sc);
 }
 
 // Ragged: grid x = segment, y = KV head.
@@ -716,7 +837,8 @@ __global__ void __launch_bounds__(kMmaThreads) mma_ragged_kernel(Args a) {
     zero_padding<__nv_bfloat16>(a, blockIdx.x, TQ, blockIdx.y);
   const Tile tl = ragged_tile(a, blockIdx.x, TQ);
   if (tl.n == 0) return;
-  mma_attend<D>(a, Split{nullptr, nullptr, 1, 0}, tl, blockIdx.y, 0, TQ);
+  mma_attend<D, false>(a, Split{nullptr, nullptr, 1, 0}, tl, blockIdx.y, 0,
+                       TQ, Scales{nullptr, nullptr});
 }
 
 // Merge the decode splits of one (row, head): one thread per output dim.
@@ -742,13 +864,18 @@ bool mma_ok(int dtype, int D, int G) {
   return dtype == 1 && (D == 64 || D == 128) && G >= 1 && G <= kMmaRows;
 }
 
+// sc.k != nullptr: decode over int8 pools.
 template <int D>
 int launch_mma(const Args& a, int B, int decode, const Split& sp,
-               cudaStream_t st) {
+               cudaStream_t st, const Scales& sc) {
   const int TQ = decode ? 1 : kMmaRows / (a.H / a.KV);
   const int gz = decode ? sp.NS : (a.T + TQ - 1) / TQ;
-  mma_attend_kernel<D><<<dim3(B, a.KV, gz), kMmaThreads, 0, st>>>(a, sp,
-                                                                   decode);
+  if (sc.k != nullptr)
+    mma_decode_int8_kernel<D><<<dim3(B, a.KV, gz), kMmaThreads, 0, st>>>(
+        a, sp, sc);
+  else
+    mma_attend_kernel<D><<<dim3(B, a.KV, gz), kMmaThreads, 0, st>>>(a, sp,
+                                                                  decode);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !(decode && sp.NS > 1)) return (int)e;
   combine_splits_kernel<D><<<B * a.H, D, 0, st>>>(
@@ -757,9 +884,10 @@ int launch_mma(const Args& a, int B, int decode, const Split& sp,
 }
 
 int dispatch_mma(const Args& a, int B, int decode, const Split& sp,
-                 cudaStream_t st) {
-  if (a.D == 64) return launch_mma<64>(a, B, decode, sp, st);
-  return launch_mma<128>(a, B, decode, sp, st);
+                 cudaStream_t st,
+                 const Scales& sc = Scales{nullptr, nullptr}) {
+  if (a.D == 64) return launch_mma<64>(a, B, decode, sp, st, sc);
+  return launch_mma<128>(a, B, decode, sp, st, sc);
 }
 
 int dispatch_mma_ragged(const Args& a, cudaStream_t st) {
@@ -826,6 +954,35 @@ extern "C" int paged_decode(int dtype, const void* q, const void* pool_k,
   }
   if (dtype == 0) return launch_decode<float>(a, B, st);
   if (dtype == 1) return launch_decode<__nv_bfloat16>(a, B, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// int8 pools: codes_k, codes_v [num_slots, KV, D] int8, scale_k, scale_v
+// [num_slots, KV] f32; the rest as paged_decode.
+extern "C" int paged_decode_int8(int dtype, const void* q, const void* codes_k,
+                                 const void* codes_v, const void* scale_k,
+                                 const void* scale_v, const void* tables,
+                                 const void* valid, void* out, int B, int H,
+                                 int KV, int D, int page_size, int P,
+                                 int num_pages, int window, float softcap,
+                                 void* part_o, void* part_ml, int splits,
+                                 int split_chunk, void* stream) {
+  if (D % 16) return (int)cudaErrorInvalidValue;
+  Args a = make_args(q, codes_k, codes_v, tables, nullptr, valid, out, 1, B,
+                     H, KV, D, page_size, P, num_pages, window, softcap);
+  const Scales sc{static_cast<const float*>(scale_k),
+                  static_cast<const float*>(scale_v)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mma_ok(dtype, D, H / KV)) {
+    Split sp{static_cast<float*>(part_o), static_cast<float*>(part_ml),
+             splits, split_chunk};
+    if (splits > 1 && (part_o == nullptr || part_ml == nullptr))
+      return (int)cudaErrorInvalidValue;
+    if (splits < 1) sp.NS = 1;
+    return dispatch_mma(a, B, 1, sp, st, sc);
+  }
+  if (dtype == 0) return launch_decode<float, int8_t>(a, B, st, sc);
+  if (dtype == 1) return launch_decode<__nv_bfloat16, int8_t>(a, B, st, sc);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -26,11 +26,17 @@ with every ``EngineConfig`` default, and the ragged mixed step).
   kernel. Its decode ids, their log-probabilities and the first-token
   candidates come back in one host read.
 
-Not in this slice: the pipelined blocks (``pipeline_depth``), looped
-blocks (and so the mixed step's K-block form), speculation, meshes,
-quantized pools, the host tier, KV handoff and embeddings. Without
-pipelining each block is read right after its launch; the tokens are the
-same.
+- **Quantized serving**: the params may carry ``Q8Tensor`` /
+  ``Q4Tensor`` weights (``ops/quant.py quantize_params``), which the
+  engine passes through to the model as they are; ``kv_quant="int8"``
+  keeps the pools as int8 ``QuantPool`` pairs (half the KV bytes per
+  decode step).
+
+Not ported yet: the pipelined blocks (``pipeline_depth``), looped
+blocks (and so the mixed step's K-block form), speculation, meshes, the
+mixed step over int8 pools, the host tier, KV handoff and embeddings.
+Without pipelining each block is read right after its launch; the tokens
+are the same.
 
 Threading: the engine is synchronous and single-owner (one ``step()``
 caller); the serving layer runs it on a dedicated thread.
@@ -60,6 +66,7 @@ from distributed_inference_server_tpu_torch.engine.kv_cache import (
 from distributed_inference_server_tpu_torch.models import llama
 from distributed_inference_server_tpu_torch.models.configs import ModelConfig
 from distributed_inference_server_tpu_torch.models.tokenizer import Tokenizer
+from distributed_inference_server_tpu_torch.ops.quant import is_quantized
 from distributed_inference_server_tpu_torch.ops.sampling import sample_tokens
 from distributed_inference_server_tpu_torch.utils.device import (
     DeviceLike,
@@ -128,6 +135,9 @@ class EngineConfig:
     # mixed dispatch (every decode slot plus the prefill budget), so it
     # must exceed max_batch; 0 = the quantum path only
     mixed_step_tokens: int = 0
+    # KV pool quantization: "none" (pools in the engine's dtype) or
+    # "int8" (QuantPool: int8 codes + one f32 scale per slot and KV head)
+    kv_quant: str = "none"
 
 
 @dataclass
@@ -192,7 +202,8 @@ class LLMEngine:
     ):
         """``params``: the ``models/llama.py`` tree (moved to ``device`` if
         it lives elsewhere); ``dtype``: the KV pools' dtype; ``device``:
-        ``cuda`` unless the caller asks for ``cpu``."""
+        ``cuda`` unless the caller asks for ``cpu``. Quantized weights
+        (``Q8Tensor`` / ``Q4Tensor`` leaves) pass through as they are."""
         llama.check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -214,13 +225,18 @@ class LLMEngine:
                 f"mixed_step_tokens ({self.ecfg.mixed_step_tokens}) must "
                 f"exceed max_batch ({self.ecfg.max_batch}): the packed width "
                 "holds every decode slot plus at least one prefill token")
+        if self.ecfg.mixed_step_tokens and self.ecfg.kv_quant != "none":
+            raise ValueError(
+                "mixed_step_tokens with kv_quant='int8' is not ported yet: "
+                "the ragged mixed step does not read int8 pools")
         self.params = _to_device(params, self.device)
         if self.params["embed"].dtype != torch.float32:
             # f32 logits every step: keep the f32 unembedding once
             self.params["unembed_f32"] = llama.unembed_weight_f32(
                 self.params, cfg)
         self.state = PagedKVState.create(cfg, self.pcfg, dtype=dtype,
-                                         device=self.device)
+                                         device=self.device,
+                                         kv_quant=self.ecfg.kv_quant)
         self.allocator = PageAllocator(self.pcfg)
         self.waiting: Deque[_Seq] = deque()
         self.slots: List[Optional[_Seq]] = [None] * self.ecfg.max_batch
@@ -974,5 +990,10 @@ class LLMEngine:
 
 
 def _to_device(params, device: torch.device):
-    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
+    def leaf(v):
+        if is_quantized(v):
+            return type(v)(*(t.to(device) for t in v))
+        return v.to(device)
+
+    return {k: _to_device(v, device) if isinstance(v, dict) else leaf(v)
             for k, v in params.items()}

@@ -12,7 +12,7 @@ block tables (page-id lists):
 - **LRU eviction**: pages whose refcount drops to zero stay in the prefix
   cache, reclaimed least-recently-used first when the free list runs dry.
 
-Not ported in this slice: the C++ allocator binding, the host tier, the
+Not ported yet: the C++ allocator binding, the host tier, the
 device-held free-list of looped decode blocks, and the KV byte paths
 (serialize / wire quantization / latent codec).
 """
@@ -27,6 +27,9 @@ import torch
 
 from distributed_inference_server_tpu_torch.core.errors import CacheFull
 from distributed_inference_server_tpu_torch.models.configs import ModelConfig
+from distributed_inference_server_tpu_torch.ops.quant import QuantPool
+
+KV_QUANTS = ("none", "int8")
 
 
 @dataclass(frozen=True)
@@ -42,7 +45,10 @@ class PagedCacheConfig:
 
 class PagedKVState:
     """Device pools for the paged cache: k, v are
-    [num_layers, num_pages * page_size + 1, num_kv_heads, head_dim].
+    [num_layers, num_pages * page_size + 1, num_kv_heads, head_dim], or
+    with ``kv_quant="int8"`` ``QuantPool`` pairs of int8 codes of that
+    shape and f32 scales [num_layers, num_pages * page_size + 1,
+    num_kv_heads].
 
     The one slot past ``num_pages * page_size`` is the drop slot that
     padded and inactive writes land in (``models/llama.py``
@@ -58,9 +64,21 @@ class PagedKVState:
     @classmethod
     def create(cls, cfg: ModelConfig, pcfg: PagedCacheConfig,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cuda") -> "PagedKVState":
+               device: torch.device | str = "cuda",
+               kv_quant: str = "none") -> "PagedKVState":
         shape = (cfg.num_layers, pcfg.num_pages * pcfg.page_size + 1,
                  cfg.num_kv_heads, cfg.head_dim)
+        if kv_quant == "int8":
+            def pool():
+                return QuantPool(
+                    torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device))
+
+            return cls(pool(), pool())
+        if kv_quant != "none":
+            raise ValueError(
+                f"unknown kv_quant {kv_quant!r}; known: none|int8")
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 

@@ -98,6 +98,19 @@ LLAMA_3_2_1B = ModelConfig(
     tie_word_embeddings=True,
 )
 
+LLAMA_3_8B = ModelConfig(
+    name="llama-3-8b",
+    vocab_size=128256,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    rope_theta=500000.0,
+    tie_word_embeddings=False,
+)
+
 # Tiny config for tests: small enough to run on the CPU in milliseconds.
 TINY = ModelConfig(
     name="tiny",
@@ -113,7 +126,7 @@ TINY = ModelConfig(
     max_position_embeddings=512,
 )
 
-PRESETS = {c.name: c for c in (LLAMA_3_2_1B, TINY)}
+PRESETS = {c.name: c for c in (LLAMA_3_2_1B, LLAMA_3_8B, TINY)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -19,6 +19,14 @@ paged write, the layer block, ``gather_kv_window``, ``paged_forward``,
   those is ``table[p] * page_size + offset`` by the engine's construction
   (the contract ``paged_forward`` documents there), so the [B, P] tables
   carry the same information without a [B, S_max] slot array.
+- Quantized serving: linear weights may be ``Q8Tensor`` / ``Q4Tensor``
+  (``ops/quant.py``); ``_mm`` runs them through the group-dequant matmul
+  kernel (``impl="kernel"``) or its plain version. The pools may be int8
+  ``QuantPool`` pairs: the write quantizes the new K/V, decode reads the
+  codes through the int8 decode kernel, and a prefill chunk gathers,
+  dequantizes and runs ``gqa_attention`` — the JAX package's own path for
+  quantized prefill, which has no int8 prefill kernel. The ragged mixed
+  step does not take int8 pools yet.
 
 This slice serves dense Llama models (Llama 3.x). MoE, attention biases,
 sandwich norms and the Gemma scalings are rejected by ``check_supported``.
@@ -42,7 +50,18 @@ from distributed_inference_server_tpu_torch.ops.kernels.paged_attention import (
     paged_prefill,
     paged_ragged,
 )
+from distributed_inference_server_tpu_torch.ops.kernels.quant_matmul import (
+    quant_matmul,
+    quant_matmul_plain,
+)
 from distributed_inference_server_tpu_torch.ops.norms import rms_norm
+from distributed_inference_server_tpu_torch.ops.quant import (
+    QuantPool,
+    dequantize_kv,
+    is_quantized,
+    layer_weight,
+    quantize_kv,
+)
 from distributed_inference_server_tpu_torch.ops.rotary import (
     apply_rope,
     rope_frequencies,
@@ -130,7 +149,8 @@ def unembed_weight_f32(params: Params, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def make_paged_write_fn(write_slots: torch.Tensor, num_slots: int):
+def make_paged_write_fn(write_slots: torch.Tensor, num_slots: int,
+                        kv_quantized: bool = False):
     """Write_fn for the paged pool: ``write_fn(pool, l, new)`` copies the
     new tokens' K or V ([B, T, KV, D]) into layer ``l`` at ``write_slots``
     ([B, T] flat slots), IN PLACE, and returns the pool.
@@ -139,20 +159,31 @@ def make_paged_write_fn(write_slots: torch.Tensor, num_slots: int):
     slot that no reader ever sees. A write whose slot is >= ``num_slots``
     (bucket padding, inactive decode rows) lands there — the JAX package's
     ``mode="drop"``, realized with a clamp instead of a data-dependent
-    mask so the write never synchronizes with the host."""
+    mask so the write never synchronizes with the host. ``kv_quantized``:
+    the pools are ``QuantPool`` pairs (codes [L, num_slots + 1, KV, D],
+    scales [L, num_slots + 1, KV], both with the drop slot); the new K/V
+    are quantized (``quantize_kv``) and codes and scales written."""
     idx = write_slots.reshape(-1).long().clamp(0, num_slots)
 
-    def write_fn(pool: torch.Tensor, l: int, new: torch.Tensor) -> torch.Tensor:
-        pool[l].index_copy_(0, idx, new.reshape(-1, *new.shape[2:])
-                            .to(pool.dtype))
+    def write_fn(pool, l: int, new: torch.Tensor):
+        flat = new.reshape(-1, *new.shape[2:])
+        if kv_quantized:
+            codes, scale = quantize_kv(flat)
+            pool.data[l].index_copy_(0, idx, codes)
+            pool.scale[l].index_copy_(0, idx, scale)
+        else:
+            pool[l].index_copy_(0, idx, flat.to(pool.dtype))
         return pool
 
     return write_fn
 
 
-def pool_at(pool: torch.Tensor, l: int) -> torch.Tensor:
+def pool_at(pool, l: int):
     """Layer ``l``'s readable pool [num_slots, KV, D] (the drop slot cut
-    off; still contiguous, so the kernels take it as is)."""
+    off; still contiguous, so the kernels take it as is); a ``QuantPool``
+    gives a ``QuantPool`` of that layer's codes and scales."""
+    if isinstance(pool, QuantPool):
+        return QuantPool(pool.data[l, :-1], pool.scale[l, :-1])
     return pool[l, :-1]
 
 
@@ -185,12 +216,22 @@ def _inv_freq(head_dim, theta, scaling, device: str) -> torch.Tensor:
     return rope_frequencies(head_dim, theta, scaling, device=device)
 
 
-def _mlp(h: torch.Tensor, layer: Dict[str, torch.Tensor], l: int
+def _mm(x: torch.Tensor, w, impl: str) -> torch.Tensor:
+    """x @ w for a dense or quantized 2-D weight: a ``Q8Tensor`` /
+    ``Q4Tensor`` goes through the group-dequant matmul kernel
+    (``impl="kernel"``) or its plain version ``x @ dequantize(w)``."""
+    if is_quantized(w):
+        return quant_matmul(x, w) if impl == "kernel" else \
+            quant_matmul_plain(x, w)
+    return x @ w
+
+
+def _mlp(h: torch.Tensor, layers: Dict[str, object], l: int, impl: str
          ) -> torch.Tensor:
     """SwiGLU: down(silu(gate(x)) * up(x))."""
-    gate = F.silu(h @ layer["w_gate"][l])
-    up = h @ layer["w_up"][l]
-    return (gate * up) @ layer["w_down"][l]
+    gate = F.silu(_mm(h, layer_weight(layers["w_gate"], l), impl))
+    up = _mm(h, layer_weight(layers["w_up"], l), impl)
+    return _mm(gate * up, layer_weight(layers["w_down"], l), impl)
 
 
 def _unembed(params: Params, cfg: ModelConfig, h: torch.Tensor
@@ -222,18 +263,22 @@ def layer_block(
     new hidden state [B, T, hidden]."""
     B, T, _ = h.shape
     eps = cfg.rms_norm_eps
+
+    def w(name):
+        return layer_weight(layers[name], l)
+
     x = rms_norm(h, layers["attn_norm"][l], eps, impl)
-    q = (x @ layers["wq"][l]).view(B, T, cfg.num_heads, cfg.head_dim)
-    k = (x @ layers["wk"][l]).view(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ layers["wv"][l]).view(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q = _mm(x, w("wq"), impl).view(B, T, cfg.num_heads, cfg.head_dim)
+    k = _mm(x, w("wk"), impl).view(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = _mm(x, w("wv"), impl).view(B, T, cfg.num_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, inv_freq, impl)
     k = apply_rope(k, positions, inv_freq, impl)
     write_fn(pool_k, l, k)
     write_fn(pool_v, l, v)
     attn = attend_fn(q, pool_at(pool_k, l), pool_at(pool_v, l), window)
-    h = h + attn.reshape(B, T, cfg.q_size) @ layers["wo"][l]
+    h = h + _mm(attn.reshape(B, T, cfg.q_size), w("wo"), impl)
     x = rms_norm(h, layers["mlp_norm"][l], eps, impl)
-    return h + _mlp(x, layers, l)
+    return h + _mlp(x, layers, l, impl)
 
 
 def _run_layers(params: Params, cfg: ModelConfig, input_ids: torch.Tensor,
@@ -245,9 +290,12 @@ def _run_layers(params: Params, cfg: ModelConfig, input_ids: torch.Tensor,
     norm. Returns the hidden state [B, T, hidden]."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    kv_quantized = isinstance(pool_k, QuantPool)
+    codes = pool_k.data if kv_quantized else pool_k
     inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
-                         str(pool_k.device))
-    write_fn = make_paged_write_fn(write_slots, pool_k.shape[1] - 1)
+                         str(codes.device))
+    write_fn = make_paged_write_fn(write_slots, codes.shape[1] - 1,
+                                   kv_quantized)
     vocab = params["embed"].shape[0]
     h = params["embed"][input_ids.long().clamp(0, vocab - 1)]  # [B, T, H]
     for l, window in enumerate(cfg.layer_windows()):
@@ -275,7 +323,10 @@ def paged_forward(
     Args:
       input_ids, positions: [B, T] new tokens and absolute positions (int).
       pool_k, pool_v: [L, num_slots + 1, KV, D] stacked pools (the last
-        slot is the drop slot); updated IN PLACE.
+        slot is the drop slot); updated IN PLACE. Or int8 ``QuantPool``
+        pairs (codes [L, num_slots + 1, KV, D], scales [L, num_slots + 1,
+        KV]): decode then runs the int8 decode kernel, and T > 1 the plain
+        gather + dequantize + ``gqa_attention`` on both paths.
       write_slots: [B, T] flat slot per new token (>= num_slots drops).
       page_tables: [B, P] int32 page ids per row.
       kv_valid_len: [B] int32 tokens valid per row INCLUDING this step's.
@@ -293,10 +344,20 @@ def paged_forward(
     page_tables = page_tables.to(torch.int32).contiguous()
     kv_valid_len = kv_valid_len.to(torch.int32).contiguous()
     decode_step = input_ids.shape[1] == 1
+    kv_quantized = isinstance(pool_k, QuantPool)
     if impl == "kernel" and not decode_step:
         q_start = positions[:, 0].to(torch.int32).contiguous()
 
     def attend_fn(q, k_layer, v_layer, window):
+        if kv_quantized and not (impl == "kernel" and decode_step):
+            kd, vd = gather_kv_window(k_layer.data, v_layer.data,
+                                      page_tables, page_size)
+            ks, vs = gather_kv_window(k_layer.scale, v_layer.scale,
+                                      page_tables, page_size)
+            return gqa_attention(q, dequantize_kv(kd, ks, q.dtype),
+                                 dequantize_kv(vd, vs, q.dtype), positions,
+                                 kv_valid_len, window,
+                                 cfg.attn_logit_softcap)
         if impl == "kernel":
             if decode_step:
                 return paged_decode(
@@ -356,6 +417,10 @@ def ragged_paged_forward(
 
     Returns (logits [N, V] f32, pool_k, pool_v).
     """
+    if isinstance(pool_k, QuantPool):
+        raise NotImplementedError(
+            "the ragged mixed step over int8 (QuantPool) pools is not ported "
+            "yet")
     softcap = cfg.attn_logit_softcap or 0.0
     page_tables = page_tables.to(torch.int32).contiguous()
     kv_valid_len = kv_valid_len.to(torch.int32).contiguous()

@@ -1,12 +1,15 @@
 """Hand-written Hopper kernels of the port and their launch counters.
 
-| kernel          | route  | source                    | replaces (TPU kernel)                   |
-|-----------------|--------|---------------------------|-----------------------------------------|
-| paged_decode    | cuda   | csrc/paged_attention.cu   | ops/pallas/paged_attention.py:paged_attention_decode |
-| paged_prefill   | cuda   | csrc/paged_attention.cu   | ops/pallas/paged_attention.py:paged_attention_prefill |
-| paged_ragged    | cuda   | csrc/paged_attention.cu   | ops/pallas/paged_attention.py:paged_attention_ragged |
-| rms_norm        | triton | ops/kernels/_triton_fused.py | ops/pallas/fused.py:rms_norm_pallas  |
-| rope            | triton | ops/kernels/_triton_fused.py | ops/pallas/fused.py:apply_rope_pallas |
+| kernel            | route  | source                       | replaces (TPU kernel)                                  |
+|-------------------|--------|------------------------------|--------------------------------------------------------|
+| paged_decode      | cuda   | csrc/paged_attention.cu      | ops/pallas/paged_attention.py:paged_attention_decode   |
+| paged_decode_int8 | cuda   | csrc/paged_attention.cu      | the same, over int8 QuantPool pools                    |
+| paged_prefill     | cuda   | csrc/paged_attention.cu      | ops/pallas/paged_attention.py:paged_attention_prefill  |
+| paged_ragged      | cuda   | csrc/paged_attention.cu      | ops/pallas/paged_attention.py:paged_attention_ragged   |
+| rms_norm          | triton | ops/kernels/_triton_fused.py | ops/pallas/fused.py:rms_norm_pallas                    |
+| rope              | triton | ops/kernels/_triton_fused.py | ops/pallas/fused.py:apply_rope_pallas                  |
+| quant_matmul_q8   | cuda   | csrc/quant_matmul.cu         | ops/pallas/fused.py:quant_matmul_pallas (int8 body)    |
+| quant_matmul_q4   | cuda   | csrc/quant_matmul.cu         | ops/pallas/fused.py:quant_matmul_pallas (int4 body)    |
 """
 
 from __future__ import annotations
@@ -19,16 +22,24 @@ from distributed_inference_server_tpu_torch.ops.kernels.fused import (
 )
 from distributed_inference_server_tpu_torch.ops.kernels.paged_attention import (
     paged_decode,
+    paged_decode_int8,
     paged_prefill,
     paged_ragged,
+)
+from distributed_inference_server_tpu_torch.ops.kernels.quant_matmul import (
+    quant_matmul_q4,
+    quant_matmul_q8,
 )
 
 KERNELS = {
     "paged_decode": paged_decode,
+    "paged_decode_int8": paged_decode_int8,
     "paged_prefill": paged_prefill,
     "paged_ragged": paged_ragged,
     "rms_norm": rms_norm,
     "rope": apply_rope,
+    "quant_matmul_q8": quant_matmul_q8,
+    "quant_matmul_q4": quant_matmul_q4,
 }
 
 

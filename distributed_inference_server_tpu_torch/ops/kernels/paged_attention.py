@@ -3,7 +3,9 @@ and the ragged mixed batch.
 
 Counterpart of ``distributed_inference_server_tpu/ops/pallas/paged_attention.py``
 (``paged_attention_decode``, ``paged_attention_prefill`` and
-``paged_attention_ragged``, dense pools).
+``paged_attention_ragged`` over dense pools, and ``paged_attention_decode``
+over int8 ``QuantPool`` pools: ``paged_decode`` hands those to
+``paged_decode_int8``, which has its own launch count).
 The kernels are CUDA C++ for Hopper in ``csrc/paged_attention.cu`` (design
 and bound notes there), built by ``_build.py`` and bound with ctypes.
 
@@ -21,6 +23,9 @@ chunk sits near the balance point and runs on tensor cores. The ragged
 kernel (the mixed step's packed axis of decode tokens and prefill chunks)
 reuses the tensor-core body on per-row segments of the axis; its long
 decode rows run unsplit, so the longest row's history sets its time.
+The int8 decode reads 2 D + 8 bytes per valid
+token and KV head (codes and two f32 scales) instead of 4 D: about half
+the bytes of the bf16 kernel, whose split plan and body it shares.
 ``PERF.md`` has the measured times beside their bounds.
 """
 
@@ -36,6 +41,10 @@ from distributed_inference_server_tpu_torch.ops.attention import (
     ragged_gqa_attention,
 )
 from distributed_inference_server_tpu_torch.ops.kernels import _build
+from distributed_inference_server_tpu_torch.ops.quant import (
+    QuantPool,
+    dequantize_kv,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DECODE_MAX_GD = 128 * 8  # threads x register accumulators (csrc)
@@ -111,6 +120,32 @@ def paged_decode_plain(
     )[:, 0]
 
 
+def paged_decode_int8_plain(
+    q: torch.Tensor,
+    pool_k: QuantPool,
+    pool_v: QuantPool,
+    page_tables: torch.Tensor,
+    kv_valid_len: torch.Tensor,
+    *,
+    page_size: int,
+    sliding_window: int = 0,
+    attn_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Plain version of ``paged_decode_int8``: gather each row's codes and
+    scales page by page, ``dequantize_kv`` them to q.dtype, run
+    ``gqa_attention``; rows that see nothing give zeros."""
+    num_pages = pool_k.data.shape[0] // page_size
+    slots = _tables_slots(page_tables, page_size, num_pages)
+    k_seq = dequantize_kv(pool_k.data[slots], pool_k.scale[slots], q.dtype)
+    v_seq = dequantize_kv(pool_v.data[slots], pool_v.scale[slots], q.dtype)
+    valid = kv_valid_len.long()
+    q_pos = (valid - 1)[:, None]
+    out = gqa_attention(q[:, None], k_seq, v_seq, q_pos, valid,
+                        sliding_window, attn_softcap or None)
+    seen = _visible(q_pos, valid, int(sliding_window))
+    return torch.where(seen[:, :, None, None], out, torch.zeros_like(out))[:, 0]
+
+
 def paged_ragged_plain(
     q: torch.Tensor,
     pool_k: torch.Tensor,
@@ -148,27 +183,46 @@ def paged_ragged_plain(
     return torch.where(seen[:, None, None], out, torch.zeros_like(out))
 
 
+def _check_pools(pools, dtype, dim, dev):
+    """Each (name, tensor) must be a contiguous ``dtype`` tensor of ``dim``
+    axes on ``dev``, all of one shape."""
+    for name, t in pools:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} on {dev}")
+        if t.dim() != dim or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous with {dim} axes")
+    if len({tuple(t.shape) for _, t in pools}) != 1:
+        raise ValueError(f"{' and '.join(n for n, _ in pools)} shapes differ")
+
+
 def _check(q, pool_k, pool_v, page_tables, rows, page_size, max_gd, ints):
     """Validate what the CUDA kernels take; raises ValueError otherwise.
     ``max_gd`` bounds G * D for the scalar body; the tensor-core body
-    (bf16, D 64 or 128, G <= 64) has no such limit."""
+    (bf16, D 64 or 128, G <= 64) has no such limit. Int8 pools
+    (``QuantPool``) need int8 codes [num_slots, KV, D] with D a multiple
+    of 16 and f32 scales [num_slots, KV]."""
     dev = q.device
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"paged attention takes float32/bfloat16, got {q.dtype}")
-    for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
-        if t.device != dev or t.dtype != q.dtype:
-            raise ValueError(f"{name} must be {q.dtype} on {dev}")
-        if t.dim() != 3 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous [num_slots, KV, D]")
-    if pool_k.shape != pool_v.shape:
-        raise ValueError("pool_k and pool_v shapes differ")
-    num_slots, KV, D = pool_k.shape
+    if isinstance(pool_k, QuantPool):
+        _check_pools((("pool_k codes", pool_k.data),
+                      ("pool_v codes", pool_v.data)), torch.int8, 3, dev)
+        _check_pools((("pool_k scales", pool_k.scale),
+                      ("pool_v scales", pool_v.scale)), torch.float32, 2, dev)
+        if tuple(pool_k.scale.shape) != tuple(pool_k.data.shape[:2]):
+            raise ValueError("scales must be [num_slots, KV]")
+        codes, load = pool_k.data, 16
+    else:
+        _check_pools((("pool_k", pool_k), ("pool_v", pool_v)), q.dtype, 3,
+                     dev)
+        codes, load = pool_k, 16 // q.element_size()
+    num_slots, KV, D = codes.shape
     H = q.shape[-2]
     if q.shape[-1] != D or H % KV or num_slots % page_size:
         raise ValueError(
-            f"bad geometry: q {tuple(q.shape)}, pool {tuple(pool_k.shape)}, "
+            f"bad geometry: q {tuple(q.shape)}, pool {tuple(codes.shape)}, "
             f"page_size {page_size}")
-    if D % (16 // q.element_size()):
+    if D % load:
         raise ValueError(f"head_dim {D} must allow 16-byte loads")
     if (not _uses_mma(q.dtype, D, H // KV)) and (H // KV) * D > max_gd:
         raise ValueError(f"G*D = {(H // KV) * D} exceeds the kernel's {max_gd}")
@@ -195,6 +249,10 @@ def _lib():
                                      ci, ci, ci, ci, ci, cf, vp, vp, ci, ci,
                                      vp]
         lib.paged_decode.restype = ci
+        lib.paged_decode_int8.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp,
+                                          ci, ci, ci, ci, ci, ci, ci, ci, cf,
+                                          vp, vp, ci, ci, vp]
+        lib.paged_decode_int8.restype = ci
         lib.paged_prefill.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                       ci, ci, ci, ci, ci, ci, ci, cf, vp]
         lib.paged_prefill.restype = ci
@@ -231,6 +289,20 @@ def _decode_splits(B: int, KV: int, capacity: int, device) -> tuple:
     return -(-capacity // chunk), chunk
 
 
+def _split_buffers(q, B, H, KV, D, P, page_size) -> tuple:
+    """(splits, tokens per split, partial outputs, partial max/sum) of a
+    decode launch; the buffers are None unsplit."""
+    splits, chunk, part_o, part_ml = 1, P * page_size, None, None
+    if _uses_mma(q.dtype, D, H // KV):
+        splits, chunk = _decode_splits(B, KV, P * page_size, q.device)
+    if splits > 1:
+        part_o = torch.empty((B, H, splits, D), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((B, H, splits, 2), dtype=torch.float32,
+                              device=q.device)
+    return splits, chunk, part_o, part_ml
+
+
 def paged_decode(
     q: torch.Tensor,
     pool_k: torch.Tensor,
@@ -244,10 +316,15 @@ def paged_decode(
 ) -> torch.Tensor:
     """Decode-step paged GQA attention: q [B, H, D] -> [B, H, D].
 
-    pool_k/pool_v: one layer's [num_slots, KV, D] pool; page_tables [B, P]
+    pool_k/pool_v: one layer's [num_slots, KV, D] pool, or its int8
+    ``QuantPool`` (then ``paged_decode_int8`` runs); page_tables [B, P]
     int32; kv_valid_len [B] int32 including the just-written token.
     ``sliding_window`` (0 = full) and ``attn_softcap`` (0 = off) are host
     scalars."""
+    if isinstance(pool_k, QuantPool):
+        return paged_decode_int8(
+            q, pool_k, pool_v, page_tables, kv_valid_len, page_size=page_size,
+            sliding_window=sliding_window, attn_softcap=attn_softcap)
     if q.device.type == "cpu":
         return paged_decode_plain(
             q, pool_k, pool_v, page_tables, kv_valid_len, page_size=page_size,
@@ -263,14 +340,8 @@ def paged_decode(
     out = torch.empty_like(q)
     if B == 0:
         return out
-    splits, chunk, part_o, part_ml = 1, P * page_size, None, None
-    if _uses_mma(q.dtype, D, H // KV):
-        splits, chunk = _decode_splits(B, KV, P * page_size, q.device)
-    if splits > 1:
-        part_o = torch.empty((B, H, splits, D), dtype=torch.float32,
-                             device=q.device)
-        part_ml = torch.empty((B, H, splits, 2), dtype=torch.float32,
-                              device=q.device)
+    splits, chunk, part_o, part_ml = _split_buffers(q, B, H, KV, D, P,
+                                                    page_size)
     err = _lib().paged_decode(
         _DTYPE_CODES[q.dtype], q.data_ptr(), pool_k.data_ptr(),
         pool_v.data_ptr(), page_tables.data_ptr(), kv_valid_len.data_ptr(),
@@ -281,6 +352,51 @@ def paged_decode(
         _stream(q))
     _build.check(err, "paged_decode launch")
     paged_decode.launches += 1
+    return out
+
+
+def paged_decode_int8(
+    q: torch.Tensor,
+    pool_k: QuantPool,
+    pool_v: QuantPool,
+    page_tables: torch.Tensor,
+    kv_valid_len: torch.Tensor,
+    *,
+    page_size: int,
+    sliding_window: int = 0,
+    attn_softcap: float = 0.0,
+) -> torch.Tensor:
+    """``paged_decode`` over int8 pools: pool_k/pool_v are one layer's
+    ``QuantPool`` (int8 codes [num_slots, KV, D], f32 scales [num_slots,
+    KV]); q [B, H, D] -> [B, H, D] in q.dtype."""
+    if q.device.type == "cpu":
+        return paged_decode_int8_plain(
+            q, pool_k, pool_v, page_tables, kv_valid_len, page_size=page_size,
+            sliding_window=sliding_window, attn_softcap=attn_softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_int8 runs on cpu or cuda, not {q.device}")
+    B = q.shape[0]
+    P = page_tables.shape[1] if page_tables.dim() == 2 else -1
+    num_slots, KV, D, H = _check(
+        q, pool_k, pool_v, page_tables, B, page_size, _DECODE_MAX_GD,
+        [("page_tables", page_tables, (B, P)),
+         ("kv_valid_len", kv_valid_len, (B,))])
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    splits, chunk, part_o, part_ml = _split_buffers(q, B, H, KV, D, P,
+                                                    page_size)
+    err = _lib().paged_decode_int8(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), pool_k.data.data_ptr(),
+        pool_v.data.data_ptr(), pool_k.scale.data_ptr(),
+        pool_v.scale.data_ptr(), page_tables.data_ptr(),
+        kv_valid_len.data_ptr(), out.data_ptr(), B, H, KV, D, page_size, P,
+        num_slots // page_size, int(sliding_window), float(attn_softcap),
+        part_o.data_ptr() if part_o is not None else None,
+        part_ml.data_ptr() if part_ml is not None else None, splits, chunk,
+        _stream(q))
+    _build.check(err, "paged_decode_int8 launch")
+    paged_decode_int8.launches += 1
     return out
 
 
@@ -384,6 +500,7 @@ def paged_ragged(
 
 
 paged_decode.launches = 0
+paged_decode_int8.launches = 0
 paged_prefill.launches = 0
 paged_ragged.launches = 0
 

@@ -9,7 +9,11 @@ a prompt chunked over several quanta, prefix reuse, preemption on
 ``CacheFull`` with a small pool, and stop sequences; and the ragged mixed
 step (``mixed_step_tokens``), whose tokens must equal both the JAX
 engine's mixed step and the port's own quantum path, in the scenarios of
-``tests/test_engine_mixed.py``.
+``tests/test_engine_mixed.py``; and quantized serving: int8 and int4
+weights (``quantize_params``, group 32) and int8 KV pools
+(``kv_quant="int8"``), alone and together, with prefix reuse and
+preemption under int8 KV (the scenarios of ``tests/test_quant.py`` and
+``tests/test_kv_quant.py``).
 
 Before comparing tokens each test checks that the top-2 logit gap at every
 generated step exceeds ``TIE_TOL`` (from an independent dense forward over
@@ -38,6 +42,7 @@ from distributed_inference_server_tpu.models.configs import TINY as J_TINY
 from distributed_inference_server_tpu.models.tokenizer import (
     ByteTokenizer as JByteTokenizer,
 )
+from distributed_inference_server_tpu.ops import quant as jq
 from distributed_inference_server_tpu_torch.core.models import FinishReason
 from distributed_inference_server_tpu_torch.engine.engine import (
     EngineConfig,
@@ -55,6 +60,7 @@ from distributed_inference_server_tpu_torch.models.convert import (
 from distributed_inference_server_tpu_torch.models.tokenizer import (
     ByteTokenizer,
 )
+from distributed_inference_server_tpu_torch.ops.quant import QuantPool
 
 SCALE = 8.0
 TIE_TOL = 1e-3  # >> the ~1e-5 f32 logit difference between the packages
@@ -106,15 +112,19 @@ def _engines(shared, paged=(64, 4, 16), **kw):
     return je, te
 
 
-def _dense_logits(t_params, ids):
+def _dense_logits(t_params, ids, kv_quant="none"):
     """Reference logits [len(ids), V]: one plain forward over the whole
-    sequence in a fresh pool."""
+    sequence in a fresh pool (int8 pools with ``kv_quant="int8"``)."""
     n = len(ids)
     ps = 4
     pages = -(-n // ps)
-    pool = torch.zeros(TINY.num_layers, pages * ps + 1, TINY.num_kv_heads,
-                       TINY.head_dim)
-    pv = torch.zeros_like(pool)
+    shape = (TINY.num_layers, pages * ps + 1, TINY.num_kv_heads,
+             TINY.head_dim)
+    if kv_quant == "int8":
+        pool, pv = (QuantPool(torch.zeros(shape, dtype=torch.int8),
+                              torch.zeros(shape[:-1])) for _ in range(2))
+    else:
+        pool, pv = torch.zeros(shape), torch.zeros(shape)
     tables = torch.arange(pages, dtype=torch.int32)[None]
     pos = torch.arange(n, dtype=torch.int32)[None]
     logits, _, _ = t_llama.paged_forward(
@@ -124,10 +134,10 @@ def _dense_logits(t_params, ids):
     return logits[0]
 
 
-def _assert_no_near_ties(t_params, prompt, tokens):
+def _assert_no_near_ties(t_params, prompt, tokens, kv_quant="none"):
     if not tokens:
         return
-    logits = _dense_logits(t_params, list(prompt) + tokens[:-1])
+    logits = _dense_logits(t_params, list(prompt) + tokens[:-1], kv_quant)
     steps = logits[len(prompt) - 1:]
     top2 = torch.topk(steps, 2, dim=-1).values
     gaps = (top2[:, 0] - top2[:, 1]).tolist()
@@ -137,9 +147,10 @@ def _assert_no_near_ties(t_params, prompt, tokens):
             f"{TIE_TOL} — a tie, not a fault")
 
 
-def _compare(shared, requests, jres, tres):
+def _compare(shared, requests, jres, tres, kv_quant="none"):
     for rid, prompt, _ in requests:
-        _assert_no_near_ties(shared[1], prompt, jres[rid]["tokens"])
+        _assert_no_near_ties(shared[1], prompt, jres[rid]["tokens"],
+                             kv_quant)
         assert tres[rid]["tokens"] == jres[rid]["tokens"], rid
         assert tres[rid]["text"] == jres[rid]["text"], rid
         assert tres[rid]["finish"] == jres[rid]["finish"], rid
@@ -445,3 +456,87 @@ def test_engine_defaults_to_cuda():
                                  device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LLMEngine(params, TINY, TOK)
+
+
+# ---------------------------------------------------------------------------
+# quantized serving: int8 / int4 weights, int8 KV pools
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def quantized(shared):
+    """{mode: (JAX params, port params)} for weights none / int8 / int4
+    (the same scaled TINY weights, quantized by the JAX package with group
+    32 and converted)."""
+    out = {"none": shared}
+    for mode in ("int8", "int4"):
+        jp = jq.quantize_params(shared[0], mode, 32)
+        out[mode] = (jp, params_from_numpy(
+            jax.tree_util.tree_map(np.asarray, jp), device="cpu",
+            dtype=torch.float32))
+    return out
+
+
+QUANT_KW = dict(max_batch=4, prefill_buckets=(8, 32), prefill_batch=2,
+                prefill_token_budget=64)
+
+
+@pytest.mark.parametrize("weights,kv", [("int8", "none"), ("int4", "none"),
+                                        ("none", "int8"), ("int8", "int8")])
+def test_quantized_engine_matches_jax(quantized, weights, kv):
+    """Prompts over both buckets, one chunked across quanta, under
+    quantized weights and/or int8 KV: tokens, text, finish and usage equal
+    the JAX engine's."""
+    prompts = [TOK.encode("hi!"), TOK.encode("quantized bucket of 32?"),
+               TOK.encode("a prompt that is chunked across two quanta.."),
+               TOK.encode("x")]
+    requests = _reqs(prompts, max_tokens=10)
+    je, te = _engines(quantized[weights], kv_quant=kv, **QUANT_KW)
+    jres = _drive(je, requests, JSamplingParams)
+    tres = _drive(te, requests, SamplingParams)
+    _compare(quantized[weights], requests, jres, tres, kv)
+    assert te.audit_pages() == []
+    assert isinstance(te.state.k, QuantPool) == (kv == "int8")
+
+
+def test_int8_kv_prefix_reuse(quantized):
+    prompt = TOK.encode("shared prefix, reused twice")
+    je, te = _engines(quantized["int8"], kv_quant="int8", max_batch=2,
+                      prefill_buckets=(8, 32))
+    for rid in ("first", "second"):
+        requests = [(rid, prompt, dict(temperature=0.0, max_tokens=9))]
+        jres = _drive(je, requests, JSamplingParams)
+        tres = _drive(te, requests, SamplingParams)
+        _compare(quantized["int8"], requests, jres, tres, "int8")
+    assert te.cache_stats().hits == je.allocator.stats().hits > 0
+    assert te.audit_pages() == []
+
+
+def test_int8_kv_preemption_on_cache_full(quantized, monkeypatch):
+    preempted = []
+    orig = LLMEngine._preempt
+
+    def spy(self, seq, outputs):
+        preempted.append(seq.request_id)
+        return orig(self, seq, outputs)
+
+    monkeypatch.setattr(LLMEngine, "_preempt", spy)
+    requests = _reqs([TOK.encode("ABCDEFGH"), TOK.encode("87654321")],
+                     max_tokens=10)
+    je, te = _engines(quantized["none"], paged=(8, 4, 6), max_batch=2,
+                      prefill_buckets=(8, 32), kv_quant="int8")
+    jres = _drive(je, requests, JSamplingParams)
+    tres = _drive(te, requests, SamplingParams)
+    assert preempted, "the small pool never forced a preemption"
+    _compare(quantized["none"], requests, jres, tres, "int8")
+    assert te.audit_pages() == []
+
+
+def test_kv_quant_config_errors(shared):
+    with pytest.raises(ValueError, match="unknown kv_quant"):
+        LLMEngine(shared[1], TINY, TOK, EngineConfig(kv_quant="fp8"),
+                  dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="not ported yet"):
+        LLMEngine(shared[1], TINY, TOK, EngineConfig(
+            max_batch=4, mixed_step_tokens=12, kv_quant="int8"),
+            dtype=torch.float32, device="cpu")

@@ -34,6 +34,16 @@ from distributed_inference_server_tpu_torch.ops.kernels import fused
 from distributed_inference_server_tpu_torch.ops.kernels import (
     paged_attention as pa,
 )
+from distributed_inference_server_tpu_torch.ops.kernels import (
+    quant_matmul as qm,
+)
+from distributed_inference_server_tpu_torch.ops.quant import (
+    QUANT_KEYS,
+    QuantPool,
+    quantize_int4,
+    quantize_int8,
+    quantize_kv,
+)
 from distributed_inference_server_tpu_torch.ops.rotary import (
     rope_frequencies,
 )
@@ -45,6 +55,8 @@ def cuda():
         pytest.skip("needs a CUDA card: the hand-written kernels have no "
                     "CPU mode (run with -m gpu on a GPU machine)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the plain versions' bf16 products keep f32 sums throughout
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -211,6 +223,76 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pa.paged_ragged(q, pk, pv, tables, tok, tok[:1], valid, page_size=16)
 
 
+# M, K, N, group: llama shapes at decode and prefill, odd M, K of one
+# group, N not a multiple of 16 or 128, M just past the decode tile
+QMM_CASES = [(8, 4096, 1024, 128), (8, 2048, 8192, 64), (1, 128, 200, 128),
+             (5, 512, 72, 64), (17, 256, 136, 32), (300, 1024, 384, 128),
+             (64, 64, 256, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("M,K,N,group", QMM_CASES)
+def test_quant_matmul_kernel(cuda, dtype, packed, M, K, N, group):
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    w = torch.randn(K, N, generator=g, device=cuda) * 0.02
+    w = quantize_int4(w, group) if packed else quantize_int8(w, group)
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    fn = qm.quant_matmul_q4 if packed else qm.quant_matmul_q8
+    n = fn.launches
+    got = qm.quant_matmul(x, w)
+    want = qm.quant_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def _int8_pools(dev, dtype, B, H, KV, D, ps, P, num_pages, seed=0):
+    q, pk, pv, tables = _pool_case(dev, torch.float32, B, H, KV, D, ps, P,
+                                   num_pages, seed=seed)
+    pk[5] = 0.0  # zero vectors: scale 0
+    kq, vq = quantize_kv(pk), quantize_kv(pv)
+    return q.to(dtype), QuantPool(*kq), QuantPool(*vq), tables
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D,window,softcap", [
+    (32, 8, 64, 0, 0.0), (32, 8, 128, 0, 0.0), (16, 2, 64, 0, 0.0),
+    (8, 8, 16, 0, 0.0), (32, 8, 128, 64, 30.0), (32, 8, 64, 37, 0.0)])
+def test_paged_decode_int8_kernel(cuda, dtype, H, KV, D, window, softcap):
+    q, pk, pv, tables = _int8_pools(cuda, dtype, 8, H, KV, D, 16, 16, 128)
+    valid = torch.tensor([0, 1, 15, 16, 17, 100, 200, 256],
+                         dtype=torch.int32, device=cuda)
+    kw = dict(page_size=16, sliding_window=window, attn_softcap=softcap)
+    n, dense = pa.paged_decode_int8.launches, pa.paged_decode.launches
+    got = pa.paged_decode(q, pk, pv, tables, valid, **kw)
+    want = pa.paged_decode_int8_plain(q, pk, pv, tables, valid, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_int8.launches == n + 1
+    assert pa.paged_decode.launches == dense
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert not got[0].any()
+
+
+@pytest.mark.gpu
+def test_quant_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(4, 64, device=cuda).bfloat16()
+    w = quantize_int8(torch.randn(64, 32, device=cuda), 32)
+    with pytest.raises(ValueError):  # codes of the wrong type
+        qm.quant_matmul_q8(x, type(w)(w.q.view(torch.uint8), w.s))
+    with pytest.raises(ValueError):  # scales that do not fit the codes
+        qm.quant_matmul_q8(x, type(w)(w.q, w.s[:, :16].contiguous()))
+    with pytest.raises(ValueError):  # x of the wrong width
+        qm.quant_matmul_q8(x[:, :32].contiguous(), w)
+    q, pk, pv, tables = _int8_pools(cuda, torch.bfloat16, 2, 8, 4, 8, 16, 4,
+                                    16)
+    valid = torch.tensor([3, 9], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # head_dim 8: no 16-byte code loads
+        pa.paged_decode(q, pk, pv, tables, valid, page_size=16)
+
+
 def _drive_tiny(eng, tok, chats, long_prompt):
     """Two chats mid-decode, then a long prompt: greedy tokens per id."""
     toks = {}
@@ -291,3 +373,43 @@ def test_mixed_engine_kernel_path_matches_plain_and_quantum(cuda):
             assert kernels.launch_counts()["paged_ragged"] > 0
             assert eng.mixed_stats()["decode_tokens"] > 0
     assert outs["mixed-kernel"] == outs["mixed-plain"] == outs["quantum"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weights,kv", [("int8", "int8"), ("int4", "none")])
+def test_quantized_engine_kernel_path_matches_plain_path(cuda, weights, kv):
+    """TINY in f32 on the card with quantized weights (and int8 KV): greedy
+    tokens through the kernels equal those through the plain versions,
+    and the quantized kernels launched."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = llama.init_params(TINY, gen, dtype=torch.float32, device=cuda)
+    params["embed"] *= 8.0
+    # group 32: several groups per layer at TINY's in-dims (64, 128)
+    quantize = quantize_int8 if weights == "int8" else quantize_int4
+    for k in QUANT_KEYS:
+        params["layers"][k] = quantize(params["layers"][k] * 8.0, 32)
+    tok = ByteTokenizer()
+    outs = {}
+    for impl in ("kernel", "plain"):
+        kernels.reset_launch_counts()
+        eng = LLMEngine(params, TINY, tok, EngineConfig(
+            attention_impl=impl, max_batch=4, prefill_buckets=(8, 32),
+            paged=PagedCacheConfig(64, 4, 16), kv_quant=kv),
+            dtype=torch.float32, device=cuda)
+        for i, p in enumerate(["gpu path", "a longer prompt " * 3, "z"]):
+            eng.add_request(f"r{i}", tok.encode(p),
+                            SamplingParams(max_tokens=12, temperature=0.0))
+        toks = {}
+        while eng.has_work():
+            for o in eng.step():
+                if o.token_id is not None:
+                    toks.setdefault(o.request_id, []).append(o.token_id)
+        outs[impl] = toks
+        counts = kernels.launch_counts()
+        if impl == "kernel":
+            mm = "quant_matmul_q8" if weights == "int8" else "quant_matmul_q4"
+            dec = "paged_decode_int8" if kv == "int8" else "paged_decode"
+            assert counts[mm] > 0 and counts[dec] > 0, counts
+        else:
+            assert not any(counts.values()), counts
+    assert outs["kernel"] == outs["plain"]

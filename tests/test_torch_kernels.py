@@ -279,8 +279,9 @@ def test_cpu_calls_do_not_count_as_launches():
                     torch.zeros(1, dtype=torch.int32),
                     torch.ones(1, dtype=torch.int32), page_size=4)
     assert kernels.launch_counts() == {
-        "paged_decode": 0, "paged_prefill": 0, "paged_ragged": 0,
-        "rms_norm": 0, "rope": 0}
+        "paged_decode": 0, "paged_decode_int8": 0, "paged_prefill": 0,
+        "paged_ragged": 0, "rms_norm": 0, "rope": 0, "quant_matmul_q8": 0,
+        "quant_matmul_q4": 0}
 
 
 def test_other_devices_raise():

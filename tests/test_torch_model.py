@@ -6,7 +6,8 @@ padding and a padded row) and then a decode step run through both
 ``paged_forward``s on the same pools; the logits must agree within
 atol 1e-4 (f32 on both sides, other summation orders over 2 layers) and
 the pools must hold the same K/V. The same holds for one packed mixed
-step through both ``ragged_paged_forward``s. The JAX side runs its
+step through both ``ragged_paged_forward``s, and for quantized weights
+(int8, int4) and int8 ``QuantPool`` pools. The JAX side runs its
 reference ``attention_impl="xla"``; the port runs both of its paths
 ("kernel", whose wrappers take their plain versions for CPU tensors, and
 "plain").
@@ -20,11 +21,13 @@ import torch
 
 from distributed_inference_server_tpu.models import llama as j_llama
 from distributed_inference_server_tpu.models.configs import TINY as J_TINY
+from distributed_inference_server_tpu.ops import quant as jq
 from distributed_inference_server_tpu_torch.models import llama as t_llama
 from distributed_inference_server_tpu_torch.models.configs import TINY
 from distributed_inference_server_tpu_torch.models.convert import (
     params_from_numpy,
 )
+from distributed_inference_server_tpu_torch.ops import quant as tq
 
 ATOL = 1e-4
 PS, P, NUM_PAGES = 4, 8, 24
@@ -228,3 +231,106 @@ def test_init_params_shapes_match_jax():
 def test_unsupported_families_raise():
     with pytest.raises(NotImplementedError, match="num_experts"):
         t_llama.check_supported(TINY.with_overrides(num_experts=4))
+
+
+# ---------------------------------------------------------------------------
+# quantized weights and int8 pools
+# ---------------------------------------------------------------------------
+
+
+def _pools(quant, L, KV, D, drop):
+    """(JAX pools, port pools) of NUM_PAGES * PS slots (+1 drop slot on
+    the port's side), dense f32 or int8 QuantPool pairs."""
+    n = NUM_PAGES * PS
+    if quant == "int8":
+        j = [jq.QuantPool(jnp.zeros((L, n, KV, D), jnp.int8),
+                          jnp.zeros((L, n, KV), jnp.float32))
+             for _ in range(2)]
+        t = [tq.QuantPool(torch.zeros(L, n + drop, KV, D, dtype=torch.int8),
+                          torch.zeros(L, n + drop, KV)) for _ in range(2)]
+        return j, t
+    return ([jnp.zeros((L, n, KV, D), jnp.float32) for _ in range(2)],
+            [torch.zeros(L, n + drop, KV, D) for _ in range(2)])
+
+
+def _assert_pools_equal(t_pool, j_pool):
+    """int8 pools: codes identical, scales within 1e-6 relative (both are
+    absmax/127 of K/V that agree to f32 rounding); dense: within ATOL."""
+    if isinstance(t_pool, tq.QuantPool):
+        np.testing.assert_array_equal(t_pool.data[:, :-1].numpy(),
+                                      np.asarray(j_pool.data))
+        np.testing.assert_allclose(t_pool.scale[:, :-1].numpy(),
+                                   np.asarray(j_pool.scale), rtol=1e-6,
+                                   atol=0)
+    else:
+        np.testing.assert_allclose(t_pool[:, :-1].numpy(),
+                                   np.asarray(j_pool), atol=ATOL)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+@pytest.mark.parametrize("weights,kv", [("int8", "int8"), ("int4", "none"),
+                                        ("int8", "none"), ("none", "int8")])
+def test_quantized_paged_forward_matches_jax(shared_params, impl, weights, kv):
+    """Quantized weights (group 32) and/or int8 pools: a batched prefill
+    chunk, then a decode step (the int8 decode kernel's path on the port's
+    kernel side), through both packages. Logits within ATOL, pools as
+    ``_assert_pools_equal`` says."""
+    jp = jq.quantize_params(shared_params[0], weights, 32)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                           device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(21)
+    tables = rng.permutation(NUM_PAGES)[: 3 * P].reshape(3, P).astype(
+        np.int32)
+    L, KV, D = J_TINY.num_layers, J_TINY.num_kv_heads, J_TINY.head_dim
+    (j_pk, j_pv), (t_pk, t_pv) = _pools(kv, L, KV, D, drop=1)
+    T = 8
+    starts = np.array([0, 3, 0], np.int32)
+    lens = np.array([8, 5, 0], np.int32)
+    ids = rng.integers(0, 256, size=(3, T)).astype(np.int32)
+    positions = (starts[:, None] + np.arange(T)).astype(np.int32)
+    ws = _slots(tables, positions, lens)
+    valid = (starts + lens).astype(np.int32)
+    steps = [(ids, positions, ws, valid)]
+    tok = rng.integers(0, 256, size=(3, 1)).astype(np.int32)
+    pos = valid[:, None].astype(np.int32)
+    steps.append((tok, pos, _slots(tables, pos, np.array([1, 1, 0])),
+                  np.array([valid[0] + 1, valid[1] + 1, 0], np.int32)))
+    for ids_, pos_, ws_, valid_ in steps:
+        j_logits, j_pk, j_pv = j_llama.paged_forward(
+            jp, J_TINY, jnp.asarray(ids_), jnp.asarray(pos_), j_pk, j_pv,
+            jnp.asarray(ws_), jnp.asarray(_gather(tables)),
+            jnp.asarray(valid_), attention_impl="xla", page_size=PS)
+        t_logits, _, _ = t_llama.paged_forward(
+            tp, TINY, torch.from_numpy(ids_), torch.from_numpy(pos_), t_pk,
+            t_pv, torch.from_numpy(ws_), torch.from_numpy(tables),
+            torch.from_numpy(valid_), impl=impl, page_size=PS)
+        for b in (0, 1):  # row 2 is padding / inactive
+            n = max(1, lens[b]) if ids_.shape[1] > 1 else 1
+            np.testing.assert_allclose(t_logits.numpy()[b, :n],
+                                       np.asarray(j_logits)[b, :n],
+                                       atol=ATOL)
+        _assert_pools_equal(t_pk, j_pk)
+        _assert_pools_equal(t_pv, j_pv)
+
+
+def test_ragged_forward_rejects_int8_pools(shared_params):
+    pools = _pools("int8", TINY.num_layers, TINY.num_kv_heads, TINY.head_dim,
+                   drop=1)[1]
+    z = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        t_llama.ragged_paged_forward(
+            shared_params[1], TINY, z, z, *pools, z, z[0],
+            torch.zeros(1, P, dtype=torch.int32), z[0, :1], z[0, :1])
+
+
+def test_quantized_write_drops_out_of_range_slots():
+    pool = tq.QuantPool(torch.zeros(1, 9, 1, 2, dtype=torch.int8),
+                        torch.zeros(1, 9, 1))
+    new = torch.tensor([[[[1.0, -2.0]], [[5.0, 6.0]], [[0.0, 0.0]]]])
+    write = t_llama.make_paged_write_fn(torch.tensor([[2, 8, 50]]), 8,
+                                        kv_quantized=True)
+    assert write(pool, 0, new) is pool
+    assert pool.data[0, 2].tolist() == [[64, -127]]
+    assert pool.scale[0, 2, 0] == torch.tensor(2.0) / 127.0
+    assert pool.data[0, :8].sum() == 64 - 127  # only slot 2 of the readable
+    assert pool.scale[0, :8].sum() == pool.scale[0, 2].sum()

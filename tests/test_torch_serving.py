@@ -8,7 +8,9 @@ usage must be what the JAX engine (reference path) produces for the same
 request; errors must parse as its ``ErrorResponse``. A second server runs
 the ragged mixed step (``mixed_step_tokens``) and is held against the
 JAX engine's mixed step the same way; ``/server/stats`` carries its
-``mixed`` block (null when the step is off).
+``mixed`` block (null when the step is off). A third server serves int8
+weights over int8 KV pools and is held against the JAX engine with the
+same quantized weights and ``kv_quant="int8"``.
 """
 
 import json
@@ -43,6 +45,7 @@ from distributed_inference_server_tpu.models.configs import TINY as J_TINY
 from distributed_inference_server_tpu.models.tokenizer import (
     ByteTokenizer as JByteTokenizer,
 )
+from distributed_inference_server_tpu.ops.quant import quantize_params
 from distributed_inference_server_tpu_torch.engine.engine import (
     EngineConfig,
     LLMEngine,
@@ -65,21 +68,25 @@ PAGED = (64, 4, 32)
 BUCKETS = (8, 32)
 
 
-def _serve(mixed_step_tokens):
-    """(base URL, JAX engine, server) on shared TINY weights."""
+def _serve(mixed_step_tokens, quantization="none", kv_quant="none"):
+    """(base URL, JAX engine, server) on shared TINY weights (quantized by
+    the JAX package with group 32 when ``quantization`` is not none)."""
     jp = j_llama.init_params(jax.random.PRNGKey(0), J_TINY, jnp.float32)
     tree = jax.tree_util.tree_map(np.asarray, jp)
     tree["embed"] = tree["embed"] * 8.0
     for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
         tree["layers"][k] = tree["layers"][k] * 8.0
+    if quantization != "none":
+        tree = jax.tree_util.tree_map(np.asarray, quantize_params(
+            jax.tree_util.tree_map(jnp.asarray, tree), quantization, 32))
     t_params = params_from_numpy(tree, device="cpu", dtype=torch.float32)
 
     def factory():
         return LLMEngine(t_params, TINY, ByteTokenizer(), EngineConfig(
             max_batch=4, prefill_buckets=BUCKETS,
             paged=PagedCacheConfig(*PAGED),
-            mixed_step_tokens=mixed_step_tokens), dtype=torch.float32,
-            device="cpu")
+            mixed_step_tokens=mixed_step_tokens, kv_quant=kv_quant),
+            dtype=torch.float32, device="cpu")
 
     server = InferenceServer(factory, ByteTokenizer(), model_name="tiny")
     server.start()
@@ -89,7 +96,8 @@ def _serve(mixed_step_tokens):
                            max_batch=4, prefill_buckets=BUCKETS,
                            paged=JPagedCacheConfig(*PAGED),
                            mixed_step_tokens=mixed_step_tokens,
-                           attention_impl="xla", native_allocator=False),
+                           kv_quant=kv_quant, attention_impl="xla",
+                           native_allocator=False),
                        dtype=jnp.float32)
     return f"http://127.0.0.1:{port}", j_engine, server
 
@@ -197,7 +205,8 @@ def test_health_and_stats(stack):
     status, stats = _get(base, "/server/stats")
     assert status == 200
     assert set(stats["kernel_launches"]) == {
-        "paged_decode", "paged_prefill", "paged_ragged", "rms_norm", "rope"}
+        "paged_decode", "paged_decode_int8", "paged_prefill", "paged_ragged",
+        "rms_norm", "rope", "quant_matmul_q8", "quant_matmul_q4"}
     assert stats["mixed"] is None  # the mixed step is off
     assert stats["requests_finished"] >= 1 and stats["tokens_generated"] >= 2
     assert stats["cache"]["pages_total"] == PAGED[0]
@@ -250,3 +259,36 @@ def test_cli_rejects_mixed_step_tokens_up_to_max_batch(value, capsys):
     assert main(["--device", "cpu", "--engine-mixed-step-tokens",
                  value]) == 2
     assert "mixed_step_tokens" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,what", [
+    (["--model-quantization", "int2"], "model.quantization"),
+    (["--engine-kv-quant", "fp8"], "engine.kv_quant"),
+    (["--engine-kv-quant", "int8", "--engine-mixed-step-tokens", "12"],
+     "not ported yet"),
+])
+def test_cli_rejects_bad_quantization(argv, what, capsys):
+    from distributed_inference_server_tpu_torch.__main__ import main
+
+    assert main(["--device", "cpu", *argv]) == 2
+    err = capsys.readouterr().err
+    assert "config error:" in err and what in err
+
+
+def test_int8_server_matches_jax_engine():
+    """int8 weights over int8 KV pools, served: the text, finish and usage
+    of the JAX engine with the same quantized weights and int8 KV."""
+    base, j_engine, server = _serve(0, "int8", "int8")
+    try:
+        prompt = "quantized serving on the port"
+        status, body = _post(base, "/generate", {"prompt": prompt,
+                                                 "temperature": 0.0,
+                                                 "max_tokens": 8})
+        assert status == 200, body
+        text, finish, usage = _jax_text(j_engine, prompt, temperature=0.0,
+                                        max_tokens=8)
+        assert body["choices"][0]["text"] == text
+        assert body["choices"][0]["finish_reason"] == finish
+        assert body["usage"] == usage
+    finally:
+        server.shutdown()
