@@ -14,9 +14,10 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    and the bytes/operations bound; then the quantized kernels the same
    way: the group-dequant matmul's int8 body at the seven products of a
    llama-3-8b layer and its int4 body at llama-3.2-1b's, each at M = 8
-   (decode) and M = 2048 (a [4, 512] prefill chunk), plus odd M, K of
-   one group and N off the tile; and the int8-pool paged decode at D =
-   128 and D = 64, plus window 64 + softcap 30;
+   (decode), M = 512 (one 512-bucket chunk) and M = 2048 (a [4, 512]
+   prefill chunk), plus odd M, K of one group, K off the 64-row tile and
+   N off the tiles; and the int8-pool paged decode at D = 128 and D = 64,
+   plus window 64 + softcap 30;
 4. starts ``python -m distributed_inference_server_tpu_torch`` serving
    llama-3.2-1b (full width and depth, random weights from a seed) and
    sends concurrent ``POST /generate`` requests; the kernels' launch
@@ -36,7 +37,8 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    int8 weights over int8 KV, and int4 weights, kernels against plain
    versions, tokens identical.
 
-Before the last line it prints one JSON object ``{"kernels": [...]}``; the
+Before the last line it prints one JSON object ``{"kernels": [...]}`` (the
+quantized matmuls' rows add ``*_prefill`` keys: their M = 2048 layer); the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
 and prints no result. ``--phases kernels,serve,quant,engine`` selects
 phases (default: all; ``quant`` is phase 3's quantized kernels and phase
@@ -643,6 +645,7 @@ def phase_quant_kernels() -> dict:
             ("quant_matmul_q8", False, LAYER_8B, "llama-3-8b int8"),
             ("quant_matmul_q4", True, LAYER_1B, "llama-3.2-1b int4")):
         out[name] = (check_quant_layer(model, 8, layer, packed)
+                     + check_quant_layer(model, 512, layer, packed)
                      + check_quant_layer(model, 2048, layer, packed)
                      + [check_quant_matmul(f"M={M} K={K} N={N} group={g}", M,
                                            K, N, packed, group=g,
@@ -650,7 +653,9 @@ def phase_quant_kernels() -> dict:
                         for M, K, N, g in ((1, 4096, 1024, None),
                                            (5, 2048, 200, None),
                                            (3, 128, 8200, 128),
-                                           (37, 512, 72, None))])
+                                           (37, 512, 72, None),
+                                           (129, 512, 136, 32),
+                                           (16, 192, 8200, 32))])
         torch.cuda.empty_cache()
     out["paged_decode_int8"] = [
         check_decode_int8("B8 8B D128", lengths),
@@ -1140,7 +1145,7 @@ def main(argv=None) -> int:
     rows = []
     for name, (route, source, replaces) in KERNEL_META.items():
         rec = (checks.get(name) or [{}])[0]
-        rows.append({
+        row = {
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             "launches": launches.get(name),
@@ -1149,7 +1154,15 @@ def main(argv=None) -> int:
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
             "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
             "library_ms": rec.get("library_ms"),
-        })
+        }
+        if name.startswith("quant_matmul"):
+            # the prefill regime: one layer's seven products at M = 2048
+            pre = next((r for r in checks.get(name, [])
+                        if r["case"].endswith("at M=2048, summed")), {})
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by"):
+                row[f"{key}_prefill"] = pre.get(key)
+        rows.append(row)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,15 +9,17 @@ built by ``_build.py`` and bound with ctypes.
 ``quant_matmul(x, w)`` takes a ``Q8Tensor`` (int8 codes [K, N]) or a
 ``Q4Tensor`` (packed int4 [K/2, N]) and dispatches to ``quant_matmul_q8``
 or ``quant_matmul_q4``; each counts its launches in ``<wrapper>.launches``
-(a split-K call launches the product and its merge; it counts once). On
+(one per call: a split-K call merges its partial sums in the same launch). On
 CPU tensors the wrappers run ``quant_matmul_plain`` — the JAX package's
 default ``_mm``, ``x @ dequantize(w, x.dtype)`` — and never count; on CUDA
 tensors they launch the kernel or raise. The JAX package's shape gate and
 XLA fallback are not ported: the kernel takes any M, any N and any K that
 its group size divides.
 
-Bound on the H100: bytes at decode (M <= 8: every code is read once for
-~2M flops per byte), operations at a prefill chunk (M = 2048).
+Bound on the H100: bytes at decode (M <= 16: every code is read once for
+~2M flops per byte), operations at a prefill chunk (M = 2048). ``plan``
+picks the decode body's column block and K split from the shapes and the
+card's SM count; it is plain Python, tested on the CPU.
 """
 
 from __future__ import annotations
@@ -35,9 +37,14 @@ from distributed_inference_server_tpu_torch.ops.quant import (
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SMALL_M = 16  # csrc: the decode tile (BM = 16, BK = 64) splits K
-_SPLIT_ROWS = 64  # a split covers whole 64-row tiles
-_MAX_SPLITS = 16
+_SMALL_M = 16  # csrc: M <= 16 runs the decode body (K split over blocks)
+_TILE_K = 64  # csrc: k rows per tile; a split covers whole tiles
+_DECODE_BN = (128, 64, 32)  # csrc: the decode body's column blocks
+_MIN_PER_SM = 2  # the fewest decode blocks per SM before the block narrows
+_MAX_SPLITS = 32  # the last block of a column adds this many partial tiles
+# csrc: the prefill body's tiles (rows, columns), in order of preference:
+# fewer dequantizations and shared-memory bytes per product first
+_PREFILL_TILES = ((256, 128), (128, 128))
 
 
 def quant_matmul_plain(x: torch.Tensor, w) -> torch.Tensor:
@@ -49,9 +56,12 @@ def _lib():
     lib = _build.load("quant_matmul")
     if not getattr(lib, "_argtypes_set", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.quant_matmul.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci, ci,
-                                     ci, ci, ci, ci, ci, vp]
+        lib.quant_matmul.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, ci, ci,
+                                     ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.quant_matmul.restype = ci
+        lib.quant_matmul_decode_blocks_per_sm.argtypes = [
+            ci, ci, ctypes.POINTER(ci)]
+        lib.quant_matmul_decode_blocks_per_sm.restype = ci
         lib._argtypes_set = True
     return lib
 
@@ -61,20 +71,71 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _splits(M: int, K: int, N: int, dtype: torch.dtype, device) -> tuple:
-    """(splits, rows per split) of K for the bf16 decode tile: about four
-    blocks per SM over (N / 128 column blocks) x splits, each split a
-    whole number of 64-row tiles. Larger M (its own tile) and f32 run
-    unsplit."""
-    if dtype != torch.bfloat16 or M > _SMALL_M:
-        return 1, K
-    tiles = -(-K // _SPLIT_ROWS)
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    want = -(-4 * _num_sms(index) // -(-N // 128))
-    splits = max(1, min(tiles, want, _MAX_SPLITS))
-    rows = -(-tiles // splits) * _SPLIT_ROWS
-    return -(-K // rows), rows
+def plan(M: int, K: int, N: int, dtype: torch.dtype, sms: int,
+         resident=None) -> tuple:
+    """(rows, columns of a block's tile, splits, rows of K per split) of a
+    call on a card with ``sms`` SMs. bf16 with M <= 16 runs the decode body: the widest column
+    block (128, 64, 32) whose grid, with K split into whole 64-row tiles
+    (at most ``_MAX_SPLITS``, none empty), can reach ``_MIN_PER_SM`` blocks
+    per SM; then the split count that finishes soonest, counting the waves
+    of ``resident[bn]`` blocks per SM times the tiles of one block (fewer
+    splits on a tie). bf16 with M > 16 runs the prefill body unsplit on
+    the first tile (256 x 128, else 128 x 128) whose grid still gives
+    every SM a block. float32 runs one unsplit launch (tile 0 x 0: the
+    body's own)."""
+    if dtype != torch.bfloat16:
+        return 0, 0, 1, K
+    if M > _SMALL_M:
+        for bm, bn in _PREFILL_TILES:
+            if -(-M // bm) * -(-N // bn) >= sms:
+                break
+        return bm, bn, 1, K
+    units = -(-K // _TILE_K)
+    top = min(units, _MAX_SPLITS)
+    for bn in _DECODE_BN:
+        cols = -(-N // bn)
+        if cols * top >= _MIN_PER_SM * sms or bn == _DECODE_BN[-1]:
+            break
+    slots = resident[bn] * sms
+    best = None
+    for splits in range(1, top + 1):
+        per = -(-units // splits)
+        if -(-units // per) != splits:  # an empty split: take fewer
+            continue
+        fill = cols * splits >= min(_MIN_PER_SM * sms, cols * top)
+        cost = -(-cols * splits // slots) * per
+        key = (not fill, cost, splits)
+        if best is None or key < best[0]:
+            best = (key, splits, per * _TILE_K)
+    return 16, bn, best[1], best[2]
+
+
+@functools.lru_cache(maxsize=16)
+def _resident(index: int, packed: bool) -> dict:
+    """Decode blocks one SM holds, per column block (the kernel's own
+    occupancy query)."""
+    out = {}
+    for bn in _DECODE_BN:
+        n = ctypes.c_int(0)
+        _build.check(_lib().quant_matmul_decode_blocks_per_sm(
+            bn, int(packed), ctypes.byref(n)), "quant_matmul occupancy")
+        out[bn] = n.value
+    return out
+
+
+_tickets: dict = {}
+
+
+def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """One int32 counter per column block for split-K calls on ``stream``,
+    zeroed once here; the kernel's last block of a column puts it back to
+    zero, so the buffer is reused without a memset per call."""
+    key = (device.index, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                          device=device)
+    return buf
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -105,17 +166,25 @@ def _launch(x: torch.Tensor, w, packed: bool) -> torch.Tensor:
     out = torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
-    splits, rows = _splits(M, K, N, x.dtype, x.device)
-    part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    index = x.device.index if x.device.index is not None else \
+        torch.cuda.current_device()
+    resident = (_resident(index, packed)
+                if x.dtype == torch.bfloat16 and M <= _SMALL_M else None)
+    bm, bn, splits, rows = plan(M, K, N, x.dtype, _num_sms(index), resident)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    part = ticket = None
+    if splits > 1:
+        part = torch.empty((splits, M, N), dtype=torch.float32,
+                           device=x.device)
+        ticket = _ticket_buffer(x.device, stream, -(-N // bn))
     vec_x = int(K % (16 // x.element_size()) == 0 and _aligned(x))
     vec_q = int(N % 16 == 0 and _aligned(q) and _aligned(s))
     err = _lib().quant_matmul(
         _DTYPE_CODES[x.dtype], int(packed), x.data_ptr(), q.data_ptr(),
         s.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part is not None else None, M, K, N, G, splits,
-        rows, vec_x, vec_q,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        part.data_ptr() if part is not None else None,
+        ticket.data_ptr() if ticket is not None else None, M, K, N, G, bm,
+        bn, splits, rows, vec_x, vec_q, ctypes.c_void_p(stream))
     _build.check(err, "quant_matmul launch")
     return out
 

@@ -224,10 +224,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 # M, K, N, group: llama shapes at decode and prefill, odd M, K of one
-# group, N not a multiple of 16 or 128, M just past the decode tile
+# group, N not a multiple of 16 or 128, M just past the decode tile; then
+# the edges of the redesigned tiles: a llama-3-8b MLP product at a prefill
+# chunk, M just past a 128-row prefill tile and just past the decode body,
+# N off the 128 / 256 column blocks at both bodies, K = 192 (not a
+# multiple of the 64-row tile) with group 32, and K = 160 (int4: 80 code
+# rows, not a multiple of the 32-row code tile)
 QMM_CASES = [(8, 4096, 1024, 128), (8, 2048, 8192, 64), (1, 128, 200, 128),
              (5, 512, 72, 64), (17, 256, 136, 32), (300, 1024, 384, 128),
-             (64, 64, 256, 64)]
+             (64, 64, 256, 64), (2048, 4096, 14336, 128),
+             (129, 1024, 256, 128), (8, 256, 136, 32), (40, 512, 8200, 64),
+             (16, 512, 8200, 64), (8, 192, 256, 32), (100, 192, 256, 32),
+             (8, 160, 128, 32), (20, 160, 128, 32)]
 
 
 @pytest.mark.gpu
@@ -246,6 +254,21 @@ def test_quant_matmul_kernel(cuda, dtype, packed, M, K, N, group):
     torch.cuda.synchronize()
     assert fn.launches == n + 1 and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (2048, 1024, 1024)])
+def test_quant_matmul_kernel_is_deterministic(cuda, packed, M, K, N):
+    """Two calls on the same inputs give the same bits: at M = 8 the split
+    K's partial sums are added in split order whichever block ends last."""
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    w = torch.randn(K, N, generator=g, device=cuda) * 0.02
+    w = quantize_int4(w, 64) if packed else quantize_int8(w, 128)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    first = qm.quant_matmul(x, w)
+    for _ in range(3):
+        assert torch.equal(qm.quant_matmul(x, w), first)
 
 
 def _int8_pools(dev, dtype, B, H, KV, D, ps, P, num_pages, seed=0):
