@@ -6,12 +6,17 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA source of the port (one ``nvcc`` per source, all
-   started together, ``-Xptxas -v`` printed);
-3. holds each hand-written kernel (paged decode, paged prefill, the
-   ragged mixed batch, RMSNorm, RoPE) against its plain PyTorch version
-   on the card at the serving shapes of llama-3.2-1b, in bf16, and times
-   kernel, plain version, one PyTorch library call where there is one,
-   and the bytes/operations bound; then the quantized kernels the same
+   started together, ``-Xptxas -v`` printed), then prints the decode
+   bodies' report (registers, shared memory, spills: ``decode_body``
+   lines) and the decode split plan at the served shape (B = 8, KV 8,
+   128 pages of 16 tokens: splits, tokens per split, blocks, blocks per
+   SM; ``decode_plan`` lines);
+3. holds each hand-written kernel (paged decode at D = 64 and D = 128,
+   paged prefill, the ragged mixed batch, RMSNorm, RoPE) against its
+   plain PyTorch version on the card at the serving shapes of
+   llama-3.2-1b, in bf16, and times kernel, plain version, one PyTorch
+   library call where there is one, and the bytes/operations bound;
+   then the quantized kernels the same
    way: the group-dequant matmul's int8 body at the seven products of a
    llama-3-8b layer and its int4 body at llama-3.2-1b's, each at M = 8
    (decode), M = 512 (one 512-bucket chunk) and M = 2048 (a [4, 512]
@@ -456,6 +461,46 @@ def check_rope(case, shape, pos_start, time_it=True):
     return rec
 
 
+def ptxas_entries(report: str, needle: str) -> dict:
+    """{kernel: its -Xptxas -v lines} for the entry functions of a build
+    report whose (mangled) name contains ``needle``."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            cur = name if needle in name else None
+            if cur:
+                out[cur] = []
+        elif cur and ("Function properties" not in line):
+            out[cur].append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def decode_report() -> None:
+    """The decode bodies' compiler report (registers, shared memory,
+    spills) and the split plan at the served shapes (B = 8, KV 8, a table
+    of 128 pages of 16 tokens)."""
+    from distributed_inference_server_tpu_torch.ops.kernels import (
+        _build,
+    )
+    from distributed_inference_server_tpu_torch.ops.kernels import (
+        paged_attention as pa,
+    )
+
+    for name, lines in ptxas_entries(_build.reports.get("paged_attention",
+                                                        ""),
+                                     "decode_attend").items():
+        log(json.dumps({"decode_body": name, "ptxas": lines}))
+    sms = pa._num_sms(0)
+    for D, int8 in ((64, False), (128, False), (64, True), (128, True)):
+        per_sm = pa._decode_per_sm(0, D, int8)
+        splits, chunk = pa.decode_plan(8, 8, 128 * 16, 16, sms, per_sm)
+        log(json.dumps({"decode_plan": {
+            "D": D, "pools": "int8" if int8 else "bf16", "B": 8, "KV": 8,
+            "capacity": 2048, "splits": splits, "tokens_per_split": chunk,
+            "blocks": 8 * 8 * splits, "blocks_per_sm": per_sm, "sms": sms}}))
+
+
 def phase_kernels(time_it=True) -> dict:
     """Returns {kernel: [records]}; the first record of each kernel is its
     main-path shape (the one the summary line reports)."""
@@ -466,7 +511,7 @@ def phase_kernels(time_it=True) -> dict:
             check_decode("B8 with valid=0", [0] + lengths[1:], time_it=False),
             check_decode("window64 softcap30", lengths, window=64,
                          softcap=30.0, time_it=False),
-            check_decode("D128", lengths, D=128, time_it=False),
+            check_decode("D128", lengths, D=128, time_it=time_it),
         ],
         "paged_ragged": [
             # the mixed step at 512 packed tokens: decode slots 0-7 (slot
@@ -1117,6 +1162,7 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     built = _build.build_all(verbose=True)
     log(f"[build] {sorted(built)} in {time.monotonic() - t0:.1f} s")
+    decode_report()
 
     checks = phase_kernels() if "kernels" in phases else {}
     if "quant" in phases:

@@ -26,16 +26,16 @@
 //                    scale, ops/quant.py quantize_kv); only decode reads
 //                    them.
 //
-// Common design. A block owns one tile of queries of one row and one KV
-// head: the G = H/KV query heads of that KV head share every K/V byte the
-// block loads, so the pool is read once per (row, KV head, query tile)
-// instead of once per query head. The block walks the row's tokens from the
-// window's lower edge to min(valid, last query + 1) in tiles: it reads each
-// token's page id from the table (clamped), loads the tile's K and V into
-// shared memory with 16-byte loads, scores it, and updates an online
-// softmax in f32. A Tile says which queries (first token, count, positions)
-// and which KV range a block serves; decode, prefill and ragged differ only
-// in how a block finds its Tile.
+// Common design (prefill, ragged, the scalar bodies). A block owns one tile
+// of queries of one row and one KV head: the G = H/KV query heads of that
+// KV head share every K/V byte the block loads, so the pool is read once
+// per (row, KV head, query tile) instead of once per query head. The block
+// walks the row's tokens from the window's lower edge to min(valid, last
+// query + 1) in tiles: it reads each token's page id from the table
+// (clamped), loads the tile's K and V into shared memory with 16-byte
+// loads, scores it, and updates an online softmax in f32. A Tile says which
+// queries (first token, count, positions) and which KV range a block
+// serves; prefill and ragged differ only in how a block finds its Tile.
 //
 // Ragged (the engine's mixed step: decode rows and prefill chunks in one
 // launch). The packed axis is cut into SEGMENTS: maximal runs of one row's
@@ -49,33 +49,66 @@
 // row is a one-token segment and walks its whole history in one block (no
 // KV split: a long decode row is the launch's longest block).
 //
-// Two bodies:
-// - bf16, D in {64, 128}, G <= 64 (the serving path): tensor cores
-//   (mma.sync m16n8k16, FlashAttention-2 layout). A block serves 64
-//   (query, head) rows, 16 per warp; K sits row-major and V transposed in
-//   shared memory (rows padded by 8 elements so fragment loads are
-//   bank-conflict free); the scores stay in registers and are reused as
-//   the A operand of P @ V. Decode splits each row's KV range over grid z
-//   (flash-decoding) and a second kernel merges the partial softmaxes, so
-//   B x KV x splits blocks fill the card instead of B x KV.
-// - everything else (f32, other head sizes): a scalar body — one warp per
-//   query row for the scores, one thread per (row, dim) output for P @ V.
+// Bodies:
+// - decode_attend<D, Q8>: bf16 decode, D in {64, 128}, G <= 64, dense or
+//   int8 pools (below).
+// - mma_attend<D>: bf16 prefill and ragged, D in {64, 128}, G <= 64:
+//   tensor cores (mma.sync m16n8k16, FlashAttention-2 layout). A block
+//   serves 64 (query, head) rows, 16 per warp; K sits row-major and V
+//   transposed in shared memory (rows padded by 8 elements so fragment
+//   loads are bank-conflict free); the scores stay in registers and are
+//   reused as the A operand of P @ V.
+// - everything else (f32, other head sizes, decode too): a scalar body —
+//   one warp per query row for the scores, one thread per (row, dim)
+//   output for P @ V.
 //
-// int8 pools (decode only). The codes are loaded 16 bytes at a time and
-// converted to the body's type in shared memory, which is exact (|code| <=
-// 127); the scales are folded in as the TPU kernel folds them: each score
-// is multiplied by its key's k_scale after Q.K and before softcap and mask,
-// and each probability by its key's v_scale before P.V (the softmax
-// denominator keeps the unscaled probabilities). A token costs 2 D + 8
-// bytes per KV head instead of 4 D (bf16): about half the bytes, the bound.
+// The decode body (replaces _decode_kernel of paged_attention_decode, dense
+// and int8 QuantPool pools). Bound: bytes. A row's visible K/V is read once
+// for ~4 flops per K/V byte pair, far below the card's ~295 bf16 flops per
+// byte (B = 8 rows of up to 2048 keys at llama-3.2-1b's shape: 11.1 MB,
+// 3.35 us at 3.35 TB/s). What kept the first tensor-core decode far from
+// that was latency and layout, not bytes, and the design answers each:
+// - A ring of 64-token K/V stages in dynamic shared memory filled by
+//   cp.async 16-byte copies, one commit group per stage: the next stages
+//   stay in flight while one is computed, and a stage costs one block
+//   barrier. Three stages where three blocks still fit an SM (D 64), else
+//   two (D 128): a smaller ring lets more blocks share an SM, so the
+//   one-wave plan takes more, shorter splits (dense D 64: 4 blocks per SM
+//   and 8 splits of 256 tokens at the served shape, against 3 and 6 with
+//   four stages), and a block's stages run one after another. The split's page ids are loaded into
+//   shared memory once; a copy's slot is a shift and a shared read.
+// - Every warp computes. The G query heads fill m16 tiles (one for G <= 16,
+//   the served shapes); the warps split the keys: with one m16 tile, warp w
+//   takes the 16-key slice w of every stage (with MT tiles, 4 / MT groups
+//   of warps take every (4 / MT)-th slice). Each warp keeps its own running
+//   max, sum and accumulator; the block merges them through shared memory
+//   at its end.
+// - Fragments come from ldmatrix: K from row-major rows, V from row-major
+//   rows with .trans (no scalar transpose).
+// - flash-decoding: each row's KV range is split over grid z so B x KV x
+//   splits blocks fill the SMs; the wrapper plans the split from the table
+//   capacity and the body's resident blocks per SM (one wave), never from
+//   the data. Blocks whose split has no keys exit at once. A row whose keys
+//   fall in one split writes its output directly; otherwise each split
+//   writes a partial (max, sum, unnormalized output) and the last split of
+//   the (row, KV head) to finish, found with an atomic ticket, adds them in
+//   split order and resets the ticket: one launch, and the result does not
+//   depend on which block came last.
+// - int8 pools (Q8): the ring holds the raw codes and their f32 scales
+//   (2 D + 8 bytes per token and KV head instead of 4 D: about half the
+//   bytes in flight); each warp converts its slice to bf16 (exact, |code|
+//   <= 127; a byte permute into 2^23's mantissa, no I2F) into a slice of
+//   its own before the MMAs. The scales fold in as the TPU kernel folds
+//   them: each score is multiplied by its key's k_scale after Q.K and
+//   before softcap and mask, each probability by its key's v_scale before
+//   P.V, and the softmax sum keeps the unscaled probabilities.
+// Known limits, left for later work: no TMA, no warp specialisation, and a
+// split plan that cannot know which rows are long, so a long row's few
+// busy blocks may share an SM.
 //
-// Bound. Decode moves bytes, not operations: ~4 flops per K/V byte pair,
-// far below the card's ~295 bf16 flops per byte; the design reads only the
-// pages a row can see and never the dense [B, S_max] gather the plain path
-// builds. Prefill at a 512-token chunk is near the balance point; the
-// tensor-core body is what keeps it off the scalar pipes. Known limits,
-// left for later work: no double-buffered (cp.async / TMA) tile loads and
-// no wgmma.
+// Prefill at a 512-token chunk is near the balance point; its tensor-core
+// body is what keeps it off the scalar pipes. Known limits: no
+// double-buffered (cp.async / TMA) tile loads and no wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -585,12 +618,12 @@ struct Split {
 //   B: k rows 2(l%4)+{0,1} and +8, col l/4 (2 regs);
 //   C: rows l/4 (c0, c1) and l/4+8 (c2, c3), cols 2(l%4)+{0,1}.
 //
-// A block serves the tile's TQ queries (TQ * G <= 64 rows); z is its KV
-// split (decode with sp.NS > 1) and selects the partial-output slot. Q8:
-// int8 pools (codes converted to bf16 in shared memory, scales folded in).
-template <int D, bool Q8>
+// Prefill and ragged: a block serves the tile's TQ queries (TQ * G <= 64
+// rows). The kernels still take a Split (always unsplit since decode has
+// its own body below) so their compiled code stays as it was.
+template <int D>
 __device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
-                           int kvh, int z, int TQ, const Scales& sc) {
+                           int kvh, int z, int TQ) {
   constexpr int TK = kMmaTK;
   constexpr int KS = D + 8;   // k_s row stride (elements)
   constexpr int VS = TK + 8;  // vt_s row stride (elements)
@@ -600,7 +633,6 @@ __device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
   constexpr int DV = D / 8;   // 16-byte vectors per token row
   __shared__ __align__(16) __nv_bfloat16 k_s[TK * KS];
   __shared__ __align__(16) __nv_bfloat16 vt_s[D * VS];
-  __shared__ float ks_s[Q8 ? TK : 1], vs_s[Q8 ? TK : 1];
 
   const int b = tl.b;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -653,50 +685,23 @@ __device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
 
   for (int k0 = t_begin; k0 < t_end; k0 += TK) {
-    if constexpr (Q8) {
-      // 16 int8 codes per load, converted to bf16 (exact)
-      const int8_t* ck = static_cast<const int8_t*>(a.pool_k);
-      const int8_t* cv = static_cast<const int8_t*>(a.pool_v);
-      for (int i = tid; i < TK * (D / 16); i += kMmaThreads) {
-        const int j = i / (D / 16), dv = i - j * (D / 16);
-        const int pos = k0 + j;
-        uint4 kk4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kk4;
-        if (pos < t_end) {
-          const size_t off = (pool_slot(a, b, pos) * a.KV + kvh) * D + dv * 16;
-          kk4 = *reinterpret_cast<const uint4*>(ck + off);
-          vv4 = *reinterpret_cast<const uint4*>(cv + off);
-        }
-        uint32_t kw[8];
-#pragma unroll
-        for (int e = 0; e < 16; e += 2)
-          kw[e >> 1] = pack_bf16(code_at(kk4, e), code_at(kk4, e + 1));
-        uint4* kd = reinterpret_cast<uint4*>(k_s + j * KS + dv * 16);
-        kd[0] = make_uint4(kw[0], kw[1], kw[2], kw[3]);
-        kd[1] = make_uint4(kw[4], kw[5], kw[6], kw[7]);
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-          vt_s[(dv * 16 + e) * VS + j] = __float2bfloat16_rn(code_at(vv4, e));
+    for (int i = tid; i < TK * DV; i += kMmaThreads) {
+      const int j = i / DV, dv = i - j * DV;
+      const int pos = k0 + j;
+      uint4 kk4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kk4;
+      if (pos < t_end) {
+        const int pslot = min(pos / a.page_size, a.P - 1);
+        int page = a.tables[(size_t)b * a.P + pslot];
+        page = min(max(page, 0), a.num_pages - 1);
+        const size_t slot = (size_t)page * a.page_size + pos % a.page_size;
+        const size_t off = (slot * a.KV + kvh) * D + (size_t)dv * 8;
+        kk4 = *reinterpret_cast<const uint4*>(pk + off);
+        vv4 = *reinterpret_cast<const uint4*>(pv + off);
       }
-      load_kv_scales(a, sc, b, kvh, k0, TK, t_end, ks_s, vs_s);
-    } else {
-      for (int i = tid; i < TK * DV; i += kMmaThreads) {
-        const int j = i / DV, dv = i - j * DV;
-        const int pos = k0 + j;
-        uint4 kk4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kk4;
-        if (pos < t_end) {
-          const int pslot = min(pos / a.page_size, a.P - 1);
-          int page = a.tables[(size_t)b * a.P + pslot];
-          page = min(max(page, 0), a.num_pages - 1);
-          const size_t slot = (size_t)page * a.page_size + pos % a.page_size;
-          const size_t off = (slot * a.KV + kvh) * D + (size_t)dv * 8;
-          kk4 = *reinterpret_cast<const uint4*>(pk + off);
-          vv4 = *reinterpret_cast<const uint4*>(pv + off);
-        }
-        *reinterpret_cast<uint4*>(k_s + j * KS + dv * 8) = kk4;
-        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
+      *reinterpret_cast<uint4*>(k_s + j * KS + dv * 8) = kk4;
+      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) vt_s[(dv * 8 + e) * VS + j] = ve[e];
-      }
+      for (int e = 0; e < 8; ++e) vt_s[(dv * 8 + e) * VS + j] = ve[e];
     }
     __syncthreads();
 
@@ -722,7 +727,6 @@ __device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
           const int i = e >> 1;
           const int key = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
           float x = s[j][e] * a.scale;
-          if constexpr (Q8) x *= ks_s[key - k0];
           if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
           const int qp = row_q[i];
           const bool ok =
@@ -748,10 +752,7 @@ __device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
           const float p =
               s[j][e] > 0.5f * kNegInf ? expf(s[j][e] - m_r[i]) : 0.f;
           sum[i] += p;
-          if constexpr (Q8)  // v scales fold into P; the sum keeps raw p
-            s[j][e] = p * vs_s[j * 8 + (lane & 3) * 2 + (e & 1)];
-          else
-            s[j][e] = p;
+          s[j][e] = p;
         }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -811,22 +812,16 @@ __device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
   }
 }
 
-// Decode (grid z = KV split) and prefill (grid z = query tile).
+// Prefill (grid z = query tile). Decode has its own body below since the
+// Hopper redesign, so `decode` is 0 and `sp` unsplit on every launch; both
+// stay in the signature so this kernel compiles to the same code as before.
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
     mma_attend_kernel(Args a, Split sp, int decode) {
   const int TQ = decode ? 1 : kMmaRows / (a.H / a.KV);
   const int z = blockIdx.z;
   const Tile tl = dense_tile(a, blockIdx.x, decode ? 0 : z * TQ, TQ, decode);
-  mma_attend<D, false>(a, sp, tl, blockIdx.y, z, TQ, Scales{nullptr, nullptr});
-}
-
-// Decode over int8 pools (grid z = KV split).
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    mma_decode_int8_kernel(Args a, Split sp, Scales sc) {
-  const Tile tl = dense_tile(a, blockIdx.x, 0, 1, true);
-  mma_attend<D, true>(a, sp, tl, blockIdx.y, blockIdx.z, 1, sc);
+  mma_attend<D>(a, sp, tl, blockIdx.y, z, TQ);
 }
 
 // Ragged: grid x = segment, y = KV head.
@@ -837,57 +832,567 @@ __global__ void __launch_bounds__(kMmaThreads) mma_ragged_kernel(Args a) {
     zero_padding<__nv_bfloat16>(a, blockIdx.x, TQ, blockIdx.y);
   const Tile tl = ragged_tile(a, blockIdx.x, TQ);
   if (tl.n == 0) return;
-  mma_attend<D, false>(a, Split{nullptr, nullptr, 1, 0}, tl, blockIdx.y, 0,
-                       TQ, Scales{nullptr, nullptr});
-}
-
-// Merge the decode splits of one (row, head): one thread per output dim.
-template <int D>
-__global__ void __launch_bounds__(D)
-    combine_splits_kernel(const float* part_o, const float* part_ml,
-                          __nv_bfloat16* out, int NS) {
-  const size_t bh = blockIdx.x;  // row * H + head
-  const int d = threadIdx.x;
-  const float* ml = part_ml + bh * NS * 2;
-  float m = kNegInf;
-  for (int s = 0; s < NS; ++s) m = fmaxf(m, ml[2 * s]);
-  float l = 0.f, acc = 0.f;
-  for (int s = 0; s < NS; ++s) {
-    const float wgt = expf(ml[2 * s] - m);
-    l += ml[2 * s + 1] * wgt;
-    acc += part_o[(bh * NS + s) * D + d] * wgt;
-  }
-  out[bh * D + d] = __float2bfloat16(acc / fmaxf(l, 1e-30f));
+  mma_attend<D>(a, Split{nullptr, nullptr, 1, 0}, tl, blockIdx.y, 0, TQ);
 }
 
 bool mma_ok(int dtype, int D, int G) {
   return dtype == 1 && (D == 64 || D == 128) && G >= 1 && G <= kMmaRows;
 }
 
-// sc.k != nullptr: decode over int8 pools.
-template <int D>
-int launch_mma(const Args& a, int B, int decode, const Split& sp,
-               cudaStream_t st, const Scales& sc) {
-  const int TQ = decode ? 1 : kMmaRows / (a.H / a.KV);
-  const int gz = decode ? sp.NS : (a.T + TQ - 1) / TQ;
-  if (sc.k != nullptr)
-    mma_decode_int8_kernel<D><<<dim3(B, a.KV, gz), kMmaThreads, 0, st>>>(
-        a, sp, sc);
+int dispatch_mma_prefill(const Args& a, int B, cudaStream_t st) {
+  const int TQ = kMmaRows / (a.H / a.KV);
+  const dim3 grid(B, a.KV, (a.T + TQ - 1) / TQ);
+  const Split sp{nullptr, nullptr, 1, 0};
+  if (a.D == 64)
+    mma_attend_kernel<64><<<grid, kMmaThreads, 0, st>>>(a, sp, 0);
   else
-    mma_attend_kernel<D><<<dim3(B, a.KV, gz), kMmaThreads, 0, st>>>(a, sp,
-                                                                  decode);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !(decode && sp.NS > 1)) return (int)e;
-  combine_splits_kernel<D><<<B * a.H, D, 0, st>>>(
-      sp.part_o, sp.part_ml, static_cast<__nv_bfloat16*>(a.out), sp.NS);
+    mma_attend_kernel<128><<<grid, kMmaThreads, 0, st>>>(a, sp, 0);
   return (int)cudaGetLastError();
 }
 
-int dispatch_mma(const Args& a, int B, int decode, const Split& sp,
-                 cudaStream_t st,
-                 const Scales& sc = Scales{nullptr, nullptr}) {
-  if (a.D == 64) return launch_mma<64>(a, B, decode, sp, st, sc);
-  return launch_mma<128>(a, B, decode, sp, st, sc);
+// ---------------------------------------------------------------------------
+// bf16 decode body (see the header): a cp.async ring, every warp on the
+// keys, the split merge in the same launch
+// ---------------------------------------------------------------------------
+
+constexpr int kDecThreads = 128;   // 4 warps
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecTK = 64;         // KV tokens per ring stage, 16 per warp
+constexpr int kDecMaxPages = 256;  // page ids a block keeps in shared memory
+constexpr int kDecMergeBatch = 8;  // partials the merge requests at once
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct DecArgs {
+  const __nv_bfloat16* q;  // [B, H, D]
+  const void* pool_k;      // [slots, KV, D] bf16, or int8 codes
+  const void* pool_v;
+  const float* k_scale;    // int8 pools: [slots, KV]
+  const float* v_scale;
+  const int* tables;       // [B, P]
+  const int* valid;        // [B]
+  __nv_bfloat16* out;      // [B, H, D]
+  float* part_o;           // [B, H, NS, D] unnormalized partial outputs
+  float* part_ml;          // [B, H, NS, 2] partial max (log2 units), sum
+  int* ticket;             // [B * KV] split counters, zero between launches
+  int H, KV, G;
+  int page_size, ps_shift;  // ps_shift = log2(page_size), or -1
+  int P, num_pages;
+  int window;     // <= 0: full causal
+  float softcap;  // <= 0: off
+  float scale;    // 1/sqrt(D)
+  int NS, chunk;  // KV splits per row, tokens per split (whole stages)
+};
+
+// Dynamic shared memory of decode_attend<D, Q8>: the ring of K and V tiles
+// (bf16 rows padded by 8 elements so ldmatrix rows land on distinct banks,
+// or raw int8 codes plus their f32 scales), then for int8 pools one bf16
+// K and V slice per warp (the converted codes), then the block's page ids.
+// The end-of-block merge reuses the ring.
+constexpr int cmax(int x, int y) { return x > y ? x : y; }
+
+template <int D, bool Q8>
+struct DecSmem {
+  static constexpr int KS = D + 8;  // bf16 row stride (elements)
+  static constexpr int ROW = Q8 ? D : KS * 2;  // bytes per token row
+  static constexpr int TILE = kDecTK * ROW;    // K (or V) bytes per stage
+  static constexpr int STAGE = 2 * TILE + (Q8 ? 2 * kDecTK * 4 : 0);
+  static constexpr int RED = kDecWarps * (16 * D + 32) * 4;  // o, m, l
+  static constexpr int SLICE = 16 * KS * 2;  // one warp's K (or V) slice
+  static constexpr int CONV = Q8 ? kDecWarps * 2 * SLICE : 0;
+  static constexpr int OTHER = CONV + kDecMaxPages * 4;
+  // three stages where three blocks (and their 1 KB of reserve) still
+  // fit an SM's 228 KB, else two
+  static constexpr int STAGES =
+      3 * (cmax(3 * STAGE, RED) + OTHER + 1024) <= 233472 ? 3 : 2;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int BODY = cmax(RING, RED);
+  static constexpr int BYTES = BODY + OTHER;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte (or 4-byte) copy global -> shared in the background; the bytes
+// past `n` (0 or the full size here) are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory (lanes 8i .. 8i+7 give the
+// row addresses of matrix i); .trans transposes each.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// Two int8 codes (bytes j, j + 1 of `u`, sign bits flipped: c + 128) as a
+// packed bf16 pair, exactly: each byte becomes the low mantissa byte of
+// 2^23, 2^23 + 128 is subtracted in f32, and |c| <= 128 rounds to itself.
+__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t u, int j) {
+  const float lo =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | j)) - 8388736.f;
+  const float hi =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | (j + 1))) -
+      8388736.f;
+  return pack_bf16(lo, hi);
+}
+
+// 16 consecutive codes of a slice row -> 16 bf16 values in `dst`.
+__device__ __forceinline__ void convert16(const int8_t* src,
+                                          __nv_bfloat16* dst) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  const uint32_t u[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
+                         w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  d[0] = make_uint4(codes_bf16x2(u[0], 0), codes_bf16x2(u[0], 2),
+                    codes_bf16x2(u[1], 0), codes_bf16x2(u[1], 2));
+  d[1] = make_uint4(codes_bf16x2(u[2], 0), codes_bf16x2(u[2], 2),
+                    codes_bf16x2(u[3], 0), codes_bf16x2(u[3], 2));
+}
+
+// One block per (row b, KV head, split z): grid (B, KV, NS). The G query
+// heads of the KV head take MT = ceil(G / 16) m16 tiles; warp w serves
+// tile w % MT and key group w / MT (KW = 4 / MT groups): within every
+// 64-token stage, group k takes the 16-key slices k, k + KW, ... Each warp
+// keeps its own running max, sum and accumulator; the block merges its
+// warps at the end, then (NS > 1) the last block of the (row, KV head) to
+// finish merges the splits.
+template <int D, bool Q8>
+__global__ void __launch_bounds__(kDecThreads) decode_attend(DecArgs a) {
+  using L = DecSmem<D, Q8>;
+  constexpr int KS = L::KS;
+  constexpr int DK = D / 16;                 // k16 steps over the head dim
+  constexpr int DN = D / 8;                  // output n8 tiles
+  constexpr int CPR = Q8 ? D / 16 : D / 8;   // 16-byte chunks per token row
+  constexpr int CPT = kDecTK * CPR / kDecThreads;  // per thread, K or V
+  constexpr int JSTEP = kDecThreads / CPR;   // tokens between them
+  constexpr int RW = 16 * D + 32;            // merge floats per warp
+  extern __shared__ __align__(16) unsigned char dsm[];
+  int* pg_s = reinterpret_cast<int*>(dsm + L::BODY + L::CONV);
+  __shared__ int last;
+
+  const int b = blockIdx.x, kvh = blockIdx.y, z = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.G;
+  const size_t head0 = (size_t)b * a.H + (size_t)kvh * G;  // first head
+
+  // Three loads at once, none waiting on another: the row's length, the
+  // page ids of this split's range of the table (clamped into the pool),
+  // and this warp's query fragments.
+  auto page_of = [&](int pos) {
+    return a.ps_shift >= 0 ? pos >> a.ps_shift : pos / a.page_size;
+  };
+  const int cap = a.P * a.page_size;
+  const int p_first = page_of(min(z * a.chunk, cap - 1));
+  const int np =
+      cap > 0 ? page_of(min((z + 1) * a.chunk, cap) - 1) - p_first + 1 : 0;
+  int pg[kDecMaxPages / kDecThreads];
+#pragma unroll
+  for (int r = 0; r < kDecMaxPages / kDecThreads; ++r) {
+    const int i = tid + r * kDecThreads;
+    pg[r] = i < np ? a.tables[(size_t)b * a.P + p_first + i] : 0;
+  }
+  // this warp's m16 tile of heads and key group
+  const int MT = (G + 15) / 16, KW = kDecWarps / MT;
+  const int mt = warp % MT, kg = warp / MT;
+  const bool computes = kg < KW;
+  uint32_t qf[DK][4];
+#pragma unroll
+  for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+    for (int rg = 0; rg < 4; ++rg) {
+      const int g = mt * 16 + (lane >> 2) + ((rg & 1) ? 8 : 0);
+      const int col = kk * 16 + (lane & 3) * 2 + ((rg & 2) ? 8 : 0);
+      qf[kk][rg] = g < G ? *reinterpret_cast<const uint32_t*>(
+                               a.q + (head0 + g) * D + col)
+                         : 0u;
+    }
+  const int valid = a.valid[b];
+
+  // the row's visible keys [lo, hi): the query sits at valid - 1; keys
+  // past the table's capacity are not read
+  const int hi = max(0, min(valid, cap));
+  const int lo = a.window > 0 ? max(valid - a.window, 0) : 0;
+  if (hi <= lo) {  // nothing visible: zeros, written by split 0
+    if (z == 0)
+      for (int i = tid; i < G * D; i += kDecThreads)
+        a.out[head0 * D + i] = __float2bfloat16(0.f);
+    return;
+  }
+  const int z0 = lo / a.chunk, z1 = (hi - 1) / a.chunk;
+  if (z < z0 || z > z1) return;  // a split with no keys
+  const int nact = z1 - z0 + 1;  // splits of this row with keys
+  const int t_begin = max(lo, z * a.chunk);
+  const int t_end = min(hi, (z + 1) * a.chunk);
+  const int ntiles = (t_end - t_begin + kDecTK - 1) / kDecTK;
+#pragma unroll
+  for (int r = 0; r < kDecMaxPages / kDecThreads; ++r)
+    if (tid + r * kDecThreads < np)
+      pg_s[tid + r * kDecThreads] = min(max(pg[r], 0), a.num_pages - 1);
+  __syncthreads();  // pg_s
+
+  // stage copies: this thread moves the 16-byte chunk cc of token rows
+  // j0, j0 + JSTEP, ... of K and V (the same pool offsets for both)
+  const char* pk = static_cast<const char*>(a.pool_k);
+  const char* pv = static_cast<const char*>(a.pool_v);
+  const int cc = tid % CPR, j0 = tid / CPR;
+  const size_t slot_bytes = (size_t)a.KV * D * (Q8 ? 1 : 2);
+  const size_t col_bytes = (size_t)kvh * D * (Q8 ? 1 : 2) + cc * 16;
+  auto slot_of = [&](int pos) {
+    const int p = page_of(pos);
+    return (size_t)pg_s[p - p_first] * a.page_size + (pos - p * a.page_size);
+  };
+  auto issue = [&](int t) {  // tile t -> stage t % STAGES, one group each
+    if (t < ntiles) {
+      unsigned char* st = dsm + (t % L::STAGES) * L::STAGE;
+      const int k0 = t_begin + t * kDecTK;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int j = j0 + c * JSTEP, pos = k0 + j;
+        const bool in = pos < t_end;
+        const size_t off = in ? slot_of(pos) * slot_bytes + col_bytes : 0;
+        cp_async16(st + j * L::ROW + cc * 16, pk + off, in ? 16 : 0);
+        cp_async16(st + L::TILE + j * L::ROW + cc * 16, pv + off,
+                   in ? 16 : 0);
+      }
+      if constexpr (Q8) {  // threads 0-63: k scales; 64-127: v scales
+        const int j = tid % kDecTK, pos = k0 + j;
+        const bool in = pos < t_end;
+        const size_t i = in ? slot_of(pos) * a.KV + kvh : 0;
+        cp_async4(st + 2 * L::TILE + (tid / kDecTK) * kDecTK * 4 + j * 4,
+                  (tid < kDecTK ? a.k_scale : a.v_scale) + i, in ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float o[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+  // running max (log2 units, shared by the 4 lanes of a row) and this
+  // lane's share of the row's sum (added over the 4 lanes at the end)
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  const float inv_cap = a.softcap > 0.f ? 1.f / a.softcap : 0.f;
+
+#pragma unroll
+  for (int t = 0; t < L::STAGES - 1; ++t) issue(t);
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<L::STAGES - 2>();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    issue(t + L::STAGES - 1);  // into the stage tile t - 1 used
+    if (!computes) continue;
+    const unsigned char* st = dsm + (t % L::STAGES) * L::STAGE;
+    const int k0 = t_begin + t * kDecTK;
+    for (int s = kg; s < kDecTK / 16 && k0 + 16 * s < t_end; s += KW) {
+      const __nv_bfloat16 *kt, *vt;  // the slice's 16 K and V rows
+      const float *ksc = nullptr, *vsc = nullptr;
+      if constexpr (Q8) {
+        __nv_bfloat16* ck = reinterpret_cast<__nv_bfloat16*>(
+            dsm + L::BODY + warp * 2 * L::SLICE);
+        __nv_bfloat16* cv = ck + 16 * KS;
+        const int8_t* sk = reinterpret_cast<const int8_t*>(st) + 16 * s * D;
+        const int8_t* sv = sk + L::TILE;
+        __syncwarp();  // the previous slice's ldmatrix reads are done
+#pragma unroll
+        for (int u = lane; u < D; u += 32) {  // D chunks of 16 codes each
+          const int r = u / (D / 16), c16 = (u % (D / 16)) * 16;
+          convert16(sk + r * D + c16, ck + r * KS + c16);
+          convert16(sv + r * D + c16, cv + r * KS + c16);
+        }
+        __syncwarp();
+        kt = ck;
+        vt = cv;
+        ksc = reinterpret_cast<const float*>(st + 2 * L::TILE) + 16 * s;
+        vsc = ksc + kDecTK;
+      } else {
+        kt = reinterpret_cast<const __nv_bfloat16*>(st) + 16 * s * KS;
+        vt = reinterpret_cast<const __nv_bfloat16*>(st + L::TILE) +
+             16 * s * KS;
+      }
+
+      // scores of the slice: [16 heads x 16 keys], keys 0-7 in sc[0];
+      // even and odd k-steps sum into separate registers (two chains of
+      // dependent MMAs instead of one)
+      float sc[2][4], sc2[2][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[0][e] = sc[1][e] = sc2[0][e] = sc2[1][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t kb[4];
+        ldsm_x4(kb, kt + ((lane & 7) + ((lane >> 4) << 3)) * KS + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        float(&acc)[2][4] = (kk & 1) ? sc2 : sc;
+        mma_bf16(acc[0], qf[kk], kb[0], kb[1]);
+        mma_bf16(acc[1], qf[kk], kb[2], kb[3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[0][e] += sc2[0][e];
+        sc[1][e] += sc2[1][e];
+      }
+      // scale, k scale, softcap (before the mask), mask; row maxima
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j * 8 + (lane & 3) * 2 + (e & 1);
+          float x = sc[j][e] * a.scale;
+          if constexpr (Q8) x *= ksc[key];
+          if (a.softcap > 0.f) x = tanhf(x * inv_cap) * a.softcap;
+          x = k0 + 16 * s + key < t_end ? x * kLog2e : kNegInf;
+          sc[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      // online softmax in f32; the four lanes of a row share its stats
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_r[i], mx[i]);
+        alpha[i] = exp2f(m_r[i] - m_new);
+        m_r[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = sc[j][e] > 0.5f * kNegInf
+                              ? exp2f(sc[j][e] - m_r[e >> 1])
+                              : 0.f;
+          sum[e >> 1] += p;
+          if constexpr (Q8)  // v scales fold into P; the sum keeps raw p
+            sc[j][e] = p * vsc[j * 8 + (lane & 3) * 2 + (e & 1)];
+          else
+            sc[j][e] = p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * alpha[i] + sum[i];
+      // O = O * alpha + P @ V, P re-packed from the score registers
+      const uint32_t pa[4] = {
+          pack_bf16(sc[0][0], sc[0][1]), pack_bf16(sc[0][2], sc[0][3]),
+          pack_bf16(sc[1][0], sc[1][1]), pack_bf16(sc[1][2], sc[1][3])};
+#pragma unroll
+      for (int i = 0; i < D / 16; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          o[2 * i][e] *= alpha[e >> 1];
+          o[2 * i + 1][e] *= alpha[e >> 1];
+        }
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * KS +
+                              16 * i + (lane >> 4) * 8);
+        mma_bf16(o[2 * i], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * i + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warps' results now
+
+  float* red = reinterpret_cast<float*>(dsm);  // [warp][o 16 x D, m 16, l 16]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+  }
+  if (computes) {
+    float* rw = red + warp * RW;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float2*>(rw + ((lane >> 2) + 8 * i) * D + dn * 8 +
+                                   (lane & 3) * 2) =
+            make_float2(o[dn][2 * i], o[dn][2 * i + 1]);
+    if ((lane & 3) == 0)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        rw[16 * D + (lane >> 2) + 8 * i] = m_r[i];
+        rw[16 * D + 16 + (lane >> 2) + 8 * i] = l_r[i];
+      }
+  }
+  __syncthreads();
+
+  // merge the key groups of each head (in group order), then write the
+  // output (one split with keys) or this split's partial; a thread takes
+  // two adjacent dims
+  for (int i = tid; i < G * D / 2; i += kDecThreads) {
+    const int g = 2 * i / D, d = 2 * i - g * D;
+    const float* rw = red + (g / 16) * RW;  // key group 0 of the head's tile
+    const int r = g % 16;
+    float m = kNegInf;
+    for (int k = 0; k < KW; ++k) m = fmaxf(m, rw[k * MT * RW + 16 * D + r]);
+    float l = 0.f;
+    float2 acc = make_float2(0.f, 0.f);
+    for (int k = 0; k < KW; ++k) {
+      const float* rk = rw + k * MT * RW;
+      const float w = exp2f(rk[16 * D + r] - m);
+      const float2 o2 = *reinterpret_cast<const float2*>(rk + r * D + d);
+      l += rk[16 * D + 16 + r] * w;
+      acc.x += o2.x * w;
+      acc.y += o2.y * w;
+    }
+    if (nact == 1) {
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      *reinterpret_cast<__nv_bfloat162*>(a.out + (head0 + g) * D + d) =
+          __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
+    } else {
+      const size_t part = (head0 + g) * a.NS + z;
+      *reinterpret_cast<float2*>(a.part_o + part * D + d) = acc;
+      if (d == 0)
+        *reinterpret_cast<float2*>(a.part_ml + part * 2) = make_float2(m, l);
+    }
+  }
+  if (nact == 1) return;
+
+  // the last of the row's nact splits to finish adds the partials in split
+  // order (the result does not depend on which block came last) and puts
+  // the ticket back to zero for the next launch; every partial it reads is
+  // requested at once
+  int* ticket = a.ticket + (size_t)b * a.KV + kvh;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1) == nact - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = tid; i < G * D / 2; i += kDecThreads) {
+    const int g = 2 * i / D, d = 2 * i - g * D;
+    const size_t part = (head0 + g) * a.NS + z0;
+    float m = kNegInf, l = 0.f, x = 0.f, y = 0.f;
+    for (int s0 = 0; s0 < nact; s0 += kDecMergeBatch) {
+      float2 ml[kDecMergeBatch], ov[kDecMergeBatch];
+#pragma unroll
+      for (int s = 0; s < kDecMergeBatch; ++s)
+        if (s0 + s < nact) {
+          ml[s] = __ldcg(reinterpret_cast<const float2*>(a.part_ml) + part +
+                         s0 + s);
+          ov[s] = __ldcg(reinterpret_cast<const float2*>(
+              a.part_o + (part + s0 + s) * D + d));
+        }
+      float mb = m;
+#pragma unroll
+      for (int s = 0; s < kDecMergeBatch; ++s)
+        if (s0 + s < nact) mb = fmaxf(mb, ml[s].x);
+      const float c = exp2f(m - mb);
+      l *= c;
+      x *= c;
+      y *= c;
+#pragma unroll
+      for (int s = 0; s < kDecMergeBatch; ++s)
+        if (s0 + s < nact) {
+          const float w = exp2f(ml[s].x - mb);
+          l += ml[s].y * w;
+          x += ov[s].x * w;
+          y += ov[s].y * w;
+        }
+      m = mb;
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    *reinterpret_cast<__nv_bfloat162*>(a.out + (head0 + g) * D + d) =
+        __floats2bfloat162_rn(x * inv, y * inv);
+  }
+  if (tid == 0) *ticket = 0;
+}
+
+template <int D, bool Q8>
+int launch_decode_attend(const DecArgs& a, int B, cudaStream_t st) {
+  using L = DecSmem<D, Q8>;
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_attend<D, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  decode_attend<D, Q8><<<dim3(B, a.KV, a.NS), kDecThreads, L::BYTES, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core decode over dense (k_scale null) or int8 pools. The
+// split plan must cover the table: NS splits of `chunk` tokens (whole
+// stages, few enough pages for pg_s), none empty; NS > 1 needs the partial
+// buffers and the ticket.
+int dispatch_decode(DecArgs a, int B, int D, int page_size, int P,
+                    cudaStream_t st) {
+  const long long cap = (long long)P * page_size;
+  if (a.NS < 1 || a.chunk < kDecTK || a.chunk % kDecTK ||
+      (a.chunk + page_size - 1) / page_size + 1 > kDecMaxPages ||
+      (long long)a.NS * a.chunk < cap ||
+      (cap > 0 && (long long)(a.NS - 1) * a.chunk >= cap) ||
+      (a.NS > 1 && (a.part_o == nullptr || a.part_ml == nullptr ||
+                    a.ticket == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  a.ps_shift = (page_size & (page_size - 1)) == 0 ? __builtin_ctz(page_size)
+                                                  : -1;
+  const bool q8 = a.k_scale != nullptr;
+  if (D == 64)
+    return q8 ? launch_decode_attend<64, true>(a, B, st)
+              : launch_decode_attend<64, false>(a, B, st);
+  return q8 ? launch_decode_attend<128, true>(a, B, st)
+            : launch_decode_attend<128, false>(a, B, st);
+}
+
+DecArgs make_dec_args(const void* q, const void* pk, const void* pv,
+                      const void* k_scale, const void* v_scale,
+                      const void* tables, const void* valid, void* out,
+                      void* part_o, void* part_ml, void* ticket, int H,
+                      int KV, int D, int page_size, int P, int num_pages,
+                      int window, float softcap, int splits, int chunk) {
+  DecArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.pool_k = pk;
+  a.pool_v = pv;
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.tables = static_cast<const int*>(tables);
+  a.valid = static_cast<const int*>(valid);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.part_o = static_cast<float*>(part_o);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.ticket = static_cast<int*>(ticket);
+  a.H = H;
+  a.KV = KV;
+  a.G = H / KV;
+  a.page_size = page_size;
+  a.ps_shift = -1;
+  a.P = P;
+  a.num_pages = num_pages;
+  a.window = window;
+  a.softcap = softcap;
+  a.scale = 1.0f / sqrtf((float)D);
+  a.NS = splits;
+  a.chunk = chunk;
+  return a;
 }
 
 int dispatch_mma_ragged(const Args& a, cudaStream_t st) {
@@ -932,26 +1437,28 @@ Args make_args(const void* q, const void* pk, const void* pv,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
-// Decode with splits > 1 (bf16 tensor-core body only) needs the partial
-// buffers part_o [B, H, splits, D] and part_ml [B, H, splits, 2] (f32).
+// The bf16 tensor-core geometries (paged_attention_uses_mma) run the decode
+// body with the split plan (splits, split_chunk: see dispatch_decode); with
+// splits > 1 it needs part_o [B, H, splits, D] and part_ml [B, H, splits, 2]
+// (f32) and ticket, B * KV int32 that are zero before the launch (the
+// kernel leaves them zero). Other geometries run the scalar body unsplit
+// and ignore the plan and the buffers.
 extern "C" int paged_decode(int dtype, const void* q, const void* pool_k,
                             const void* pool_v, const void* tables,
                             const void* valid, void* out, int B, int H,
                             int KV, int D, int page_size, int P,
                             int num_pages, int window, float softcap,
-                            void* part_o, void* part_ml, int splits,
-                            int split_chunk, void* stream) {
+                            void* part_o, void* part_ml, void* ticket,
+                            int splits, int split_chunk, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mma_ok(dtype, D, H / KV))
+    return dispatch_decode(
+        make_dec_args(q, pool_k, pool_v, nullptr, nullptr, tables, valid, out,
+                      part_o, part_ml, ticket, H, KV, D, page_size, P,
+                      num_pages, window, softcap, splits, split_chunk),
+        B, D, page_size, P, st);
   Args a = make_args(q, pool_k, pool_v, tables, nullptr, valid, out, 1, B, H,
                      KV, D, page_size, P, num_pages, window, softcap);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mma_ok(dtype, D, H / KV)) {
-    Split sp{static_cast<float*>(part_o), static_cast<float*>(part_ml),
-             splits, split_chunk};
-    if (splits > 1 && (part_o == nullptr || part_ml == nullptr))
-      return (int)cudaErrorInvalidValue;
-    if (splits < 1) sp.NS = 1;
-    return dispatch_mma(a, B, 1, sp, st);
-  }
   if (dtype == 0) return launch_decode<float>(a, B, st);
   if (dtype == 1) return launch_decode<__nv_bfloat16>(a, B, st);
   return (int)cudaErrorInvalidValue;
@@ -965,22 +1472,20 @@ extern "C" int paged_decode_int8(int dtype, const void* q, const void* codes_k,
                                  const void* valid, void* out, int B, int H,
                                  int KV, int D, int page_size, int P,
                                  int num_pages, int window, float softcap,
-                                 void* part_o, void* part_ml, int splits,
-                                 int split_chunk, void* stream) {
+                                 void* part_o, void* part_ml, void* ticket,
+                                 int splits, int split_chunk, void* stream) {
   if (D % 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mma_ok(dtype, D, H / KV))
+    return dispatch_decode(
+        make_dec_args(q, codes_k, codes_v, scale_k, scale_v, tables, valid,
+                      out, part_o, part_ml, ticket, H, KV, D, page_size, P,
+                      num_pages, window, softcap, splits, split_chunk),
+        B, D, page_size, P, st);
   Args a = make_args(q, codes_k, codes_v, tables, nullptr, valid, out, 1, B,
                      H, KV, D, page_size, P, num_pages, window, softcap);
   const Scales sc{static_cast<const float*>(scale_k),
                   static_cast<const float*>(scale_v)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mma_ok(dtype, D, H / KV)) {
-    Split sp{static_cast<float*>(part_o), static_cast<float*>(part_ml),
-             splits, split_chunk};
-    if (splits > 1 && (part_o == nullptr || part_ml == nullptr))
-      return (int)cudaErrorInvalidValue;
-    if (splits < 1) sp.NS = 1;
-    return dispatch_mma(a, B, 1, sp, st, sc);
-  }
   if (dtype == 0) return launch_decode<float, int8_t>(a, B, st, sc);
   if (dtype == 1) return launch_decode<__nv_bfloat16, int8_t>(a, B, st, sc);
   return (int)cudaErrorInvalidValue;
@@ -995,8 +1500,7 @@ extern "C" int paged_prefill(int dtype, const void* q, const void* pool_k,
   Args a = make_args(q, pool_k, pool_v, tables, q_start, valid, out, T, B, H,
                      KV, D, page_size, P, num_pages, window, softcap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mma_ok(dtype, D, H / KV))
-    return dispatch_mma(a, B, 0, Split{nullptr, nullptr, 1, 0}, st);
+  if (mma_ok(dtype, D, H / KV)) return dispatch_mma_prefill(a, B, st);
   if (dtype == 0) return launch_prefill<float>(a, B, st);
   if (dtype == 1) return launch_prefill<__nv_bfloat16>(a, B, st);
   return (int)cudaErrorInvalidValue;
@@ -1023,7 +1527,30 @@ extern "C" int paged_ragged(int dtype, const void* q, const void* pool_k,
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core body's eligibility, for the wrapper's split planning.
+// The tensor-core bodies' eligibility, for the wrapper's split planning.
 extern "C" int paged_attention_uses_mma(int dtype, int D, int G) {
   return mma_ok(dtype, D, G) ? 1 : 0;
+}
+
+// Resident decode blocks per SM of the tensor-core decode body at head dim
+// D over dense (int8 = 0) or int8 pools (what its shared memory and
+// registers allow), for the wrapper's split plan. Returns a cudaError_t.
+extern "C" int paged_decode_blocks_per_sm(int D, int int8, int* blocks) {
+  *blocks = 0;
+  cudaError_t e = cudaErrorInvalidValue;
+#define DEC_OCCUPANCY(DD, Q)                                                  \
+  if (D == DD && (int8 != 0) == Q) {                                          \
+    e = cudaFuncSetAttribute(decode_attend<DD, Q>,                            \
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,     \
+                             DecSmem<DD, Q>::BYTES);                          \
+    if (e == cudaSuccess)                                                     \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                      \
+          blocks, decode_attend<DD, Q>, kDecThreads, DecSmem<DD, Q>::BYTES);  \
+  }
+  DEC_OCCUPANCY(64, false)
+  DEC_OCCUPANCY(64, true)
+  DEC_OCCUPANCY(128, false)
+  DEC_OCCUPANCY(128, true)
+#undef DEC_OCCUPANCY
+  return (int)e;
 }

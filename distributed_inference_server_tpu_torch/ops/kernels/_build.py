@@ -8,7 +8,9 @@ the hash covers the source and the flags — a stale library is never loaded, an
 processes (the server and ``chip_smoke.py``) share one build.
 
 Nothing here runs at import time: the first kernel launch builds. A build
-failure raises.
+failure raises. ``ticket_buffer`` keeps the zeroed int32 counters with which
+a kernel's last block finds that it is last (the split merges of the
+quantized matmul and the paged decode).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -31,6 +35,9 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_tickets: Dict[tuple, list] = {}
+# the compiler's report of each source built with verbose=True
+reports: Dict[str, str] = {}
 
 
 def build_root() -> Path:
@@ -59,8 +66,9 @@ def _lib_path(name: str) -> Path:
 
 def compile_source(name: str, verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library already exists.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report
-    (registers, shared memory, spills per kernel). Returns the path."""
+    ``verbose`` adds ``-Xptxas -v``, prints the compiler's report
+    (registers, shared memory, spills per kernel) and keeps it in
+    ``reports[name]``. Returns the path."""
     out = _lib_path(name)
     if out.exists():
         return out
@@ -76,8 +84,8 @@ def compile_source(name: str, verbose: bool = False) -> Path:
             f"{proc.stdout}\n{proc.stderr}"
         )
     if verbose:
-        print(f"[build] {' '.join(cmd)}\n{proc.stdout}{proc.stderr}",
-              flush=True)
+        reports[name] = proc.stdout + proc.stderr
+        print(f"[build] {' '.join(cmd)}\n{reports[name]}", flush=True)
     os.replace(tmp, out)
     return out
 
@@ -104,3 +112,16 @@ def check(err: int, what: str) -> None:
     """Raise if a C launcher reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters for the kernels launched on ``stream``,
+    zeroed once here. Every kernel that takes a ticket puts it back to zero
+    before it ends, so one buffer serves every launch on the stream, one
+    after another, without a memset per call. A buffer too small for ``n``
+    is replaced but kept alive: a captured CUDA graph may still use it."""
+    bufs = _tickets.setdefault((device.index, stream), [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]

@@ -11,22 +11,23 @@ and bound notes there), built by ``_build.py`` and bound with ctypes.
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises. ``<wrapper>.launches``
-counts wrapper calls that launched (a bf16 decode call launches the split
-attention kernel and its merge; it counts once). Plain calls never count.
+counts wrapper calls that launched; every call is one launch (a split
+decode merges its splits in the same launch). Plain calls never count.
 
 Bound on the H100 at the serving shapes (llama-3.2-1b: H=32, KV=8, D=64,
 bf16, page_size 16): decode is bound by bytes — it reads ``4 * KV * D``
 bytes of K/V per valid token and row (~2 KB) for ~4 flops per byte — so
-the bf16 decode kernel splits each row's KV range over several blocks to
-keep the card's memory system busy at max_batch 8; a 512-token prefill
-chunk sits near the balance point and runs on tensor cores. The ragged
-kernel (the mixed step's packed axis of decode tokens and prefill chunks)
-reuses the tensor-core body on per-row segments of the axis; its long
-decode rows run unsplit, so the longest row's history sets its time.
-The int8 decode reads 2 D + 8 bytes per valid
-token and KV head (codes and two f32 scales) instead of 4 D: about half
-the bytes of the bf16 kernel, whose split plan and body it shares.
-``PERF.md`` has the measured times beside their bounds.
+the bf16 decode splits each row's KV range over several blocks, planned by
+``decode_plan`` (plain Python, tested on the CPU) from the table capacity
+and the kernel's own count of resident blocks per SM, so that the blocks
+fill the card in one wave. A 512-token prefill chunk sits near the
+balance point and runs on tensor cores. The ragged kernel (the mixed
+step's packed axis of decode tokens and prefill chunks) reuses the prefill
+body on per-row segments of the axis; its long decode rows run unsplit, so
+the longest row's history sets its time. The int8 decode reads 2 D + 8
+bytes per valid token and KV head (codes and two f32 scales) instead of
+4 D: about half the bytes of the bf16 decode, whose body, split plan and
+merge it shares. ``PERF.md`` has the measured times beside their bounds.
 """
 
 from __future__ import annotations
@@ -246,12 +247,12 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_decode.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                     ci, ci, ci, ci, ci, cf, vp, vp, ci, ci,
-                                     vp]
+                                     ci, ci, ci, ci, ci, cf, vp, vp, vp, ci,
+                                     ci, vp]
         lib.paged_decode.restype = ci
         lib.paged_decode_int8.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp,
                                           ci, ci, ci, ci, ci, ci, ci, ci, cf,
-                                          vp, vp, ci, ci, vp]
+                                          vp, vp, vp, ci, ci, vp]
         lib.paged_decode_int8.restype = ci
         lib.paged_prefill.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                       ci, ci, ci, ci, ci, ci, ci, cf, vp]
@@ -261,6 +262,8 @@ def _lib():
         lib.paged_ragged.restype = ci
         lib.paged_attention_uses_mma.argtypes = [ci, ci, ci]
         lib.paged_attention_uses_mma.restype = ci
+        lib.paged_decode_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.paged_decode_blocks_per_sm.restype = ci
         lib._argtypes_set = True
     return lib
 
@@ -275,32 +278,68 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _decode_splits(B: int, KV: int, capacity: int, device) -> tuple:
-    """(splits, tokens per split) for the tensor-core decode: enough
-    (row, KV head, split) blocks for about four per SM, each split a whole
-    number of 64-token tiles. Planned from the table capacity (P *
-    page_size), never from the data, so nothing is read back."""
-    tiles = -(-capacity // 64)
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    want = -(-4 * _num_sms(index) // max(1, B * KV))
-    splits = max(1, min(tiles, want))
-    chunk = -(-tiles // splits) * 64
-    return -(-capacity // chunk), chunk
+_DECODE_TK = 64  # csrc kDecTK: tokens per ring stage; splits hold whole stages
+_DECODE_MAX_PAGES = 256  # csrc kDecMaxPages: page ids a decode block holds
 
 
-def _split_buffers(q, B, H, KV, D, P, page_size) -> tuple:
-    """(splits, tokens per split, partial outputs, partial max/sum) of a
-    decode launch; the buffers are None unsplit."""
-    splits, chunk, part_o, part_ml = 1, P * page_size, None, None
-    if _uses_mma(q.dtype, D, H // KV):
-        splits, chunk = _decode_splits(B, KV, P * page_size, q.device)
-    if splits > 1:
-        part_o = torch.empty((B, H, splits, D), dtype=torch.float32,
-                             device=q.device)
-        part_ml = torch.empty((B, H, splits, 2), dtype=torch.float32,
-                              device=q.device)
-    return splits, chunk, part_o, part_ml
+def decode_plan(B: int, KV: int, capacity: int, page_size: int, sms: int,
+                per_sm: int) -> tuple:
+    """(splits, tokens per split) of a tensor-core decode launch over
+    tables of ``capacity`` tokens (P * page_size) on a card with ``sms``
+    SMs, each holding ``per_sm`` decode blocks. As many splits as let the
+    B * KV * splits blocks fill the SMs in one wave, each split a whole
+    number of 64-token stages, no split empty; a split spans few enough
+    pages for the block's page-id list (more splits, in more waves, when
+    a split would not). Planned from the capacity, never from the data,
+    so nothing is read back to the host."""
+    tiles = max(1, -(-capacity // _DECODE_TK))
+    splits = max(1, min(tiles, sms * per_sm // max(1, B * KV)))
+    per = min(-(-tiles // splits),
+              max(1, (_DECODE_MAX_PAGES - 2) * page_size // _DECODE_TK))
+    chunk = per * _DECODE_TK
+    return max(1, -(-capacity // chunk)), chunk
+
+
+def partial_shapes(B: int, H: int, D: int, splits: int) -> tuple:
+    """Shapes of a split decode's f32 partial buffers: unnormalized outputs
+    [B, H, splits, D] and (max, sum) pairs [B, H, splits, 2]."""
+    return (B, H, splits, D), (B, H, splits, 2)
+
+
+@functools.lru_cache(maxsize=16)
+def _decode_per_sm(index: int, D: int, int8: bool) -> int:
+    """Decode blocks one SM holds (the kernel's own occupancy query)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(_lib().paged_decode_blocks_per_sm(
+            D, int(int8), ctypes.byref(n)), "paged_decode occupancy")
+    if n.value < 1:
+        raise RuntimeError(f"paged_decode: no block of D={D} fits an SM")
+    return n.value
+
+
+def _split_launch(q, B, H, KV, D, P, page_size, int8: bool) -> tuple:
+    """(splits, tokens per split, partial outputs, partial max/sum, ticket)
+    of a decode launch: the plan and buffers of the tensor-core body; one
+    unsplit pass and no buffers for the scalar body."""
+    if not _uses_mma(q.dtype, D, H // KV):
+        return 1, max(1, P * page_size), None, None, None
+    index = q.device.index
+    splits, chunk = decode_plan(B, KV, P * page_size, page_size,
+                                _num_sms(index), _decode_per_sm(index, D,
+                                                                int8))
+    if splits == 1:
+        return splits, chunk, None, None, None
+    o_shape, ml_shape = partial_shapes(B, H, D, splits)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return (splits, chunk,
+            torch.empty(o_shape, dtype=torch.float32, device=q.device),
+            torch.empty(ml_shape, dtype=torch.float32, device=q.device),
+            _build.ticket_buffer(q.device, stream, B * KV))
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 def paged_decode(
@@ -340,16 +379,14 @@ def paged_decode(
     out = torch.empty_like(q)
     if B == 0:
         return out
-    splits, chunk, part_o, part_ml = _split_buffers(q, B, H, KV, D, P,
-                                                    page_size)
+    splits, chunk, part_o, part_ml, ticket = _split_launch(
+        q, B, H, KV, D, P, page_size, int8=False)
     err = _lib().paged_decode(
         _DTYPE_CODES[q.dtype], q.data_ptr(), pool_k.data_ptr(),
         pool_v.data_ptr(), page_tables.data_ptr(), kv_valid_len.data_ptr(),
         out.data_ptr(), B, H, KV, D, page_size, P, num_slots // page_size,
-        int(sliding_window), float(attn_softcap),
-        part_o.data_ptr() if part_o is not None else None,
-        part_ml.data_ptr() if part_ml is not None else None, splits, chunk,
-        _stream(q))
+        int(sliding_window), float(attn_softcap), _ptr(part_o),
+        _ptr(part_ml), _ptr(ticket), splits, chunk, _stream(q))
     _build.check(err, "paged_decode launch")
     paged_decode.launches += 1
     return out
@@ -384,17 +421,15 @@ def paged_decode_int8(
     out = torch.empty_like(q)
     if B == 0:
         return out
-    splits, chunk, part_o, part_ml = _split_buffers(q, B, H, KV, D, P,
-                                                    page_size)
+    splits, chunk, part_o, part_ml, ticket = _split_launch(
+        q, B, H, KV, D, P, page_size, int8=True)
     err = _lib().paged_decode_int8(
         _DTYPE_CODES[q.dtype], q.data_ptr(), pool_k.data.data_ptr(),
         pool_v.data.data_ptr(), pool_k.scale.data_ptr(),
         pool_v.scale.data_ptr(), page_tables.data_ptr(),
         kv_valid_len.data_ptr(), out.data_ptr(), B, H, KV, D, page_size, P,
         num_slots // page_size, int(sliding_window), float(attn_softcap),
-        part_o.data_ptr() if part_o is not None else None,
-        part_ml.data_ptr() if part_ml is not None else None, splits, chunk,
-        _stream(q))
+        _ptr(part_o), _ptr(part_ml), _ptr(ticket), splits, chunk, _stream(q))
     _build.check(err, "paged_decode_int8 launch")
     paged_decode_int8.launches += 1
     return out

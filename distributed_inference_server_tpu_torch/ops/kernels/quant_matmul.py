@@ -123,21 +123,6 @@ def _resident(index: int, packed: bool) -> dict:
     return out
 
 
-_tickets: dict = {}
-
-
-def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """One int32 counter per column block for split-K calls on ``stream``,
-    zeroed once here; the kernel's last block of a column puts it back to
-    zero, so the buffer is reused without a memset per call."""
-    key = (device.index, stream)
-    buf = _tickets.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                          device=device)
-    return buf
-
-
 def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
@@ -176,7 +161,7 @@ def _launch(x: torch.Tensor, w, packed: bool) -> torch.Tensor:
     if splits > 1:
         part = torch.empty((splits, M, N), dtype=torch.float32,
                            device=x.device)
-        ticket = _ticket_buffer(x.device, stream, -(-N // bn))
+        ticket = _build.ticket_buffer(x.device, stream, -(-N // bn))
     vec_x = int(K % (16 // x.element_size()) == 0 and _aligned(x))
     vec_q = int(N % 16 == 0 and _aligned(q) and _aligned(s))
     err = _lib().quant_matmul(

@@ -299,6 +299,96 @@ def test_paged_decode_int8_kernel(cuda, dtype, H, KV, D, window, softcap):
     assert not got[0].any()
 
 
+# The tensor-core decode at serving depth: rows up to 2048 tokens in a
+# 128-page table, so the split plan takes several splits and the merge runs
+# in the launch. Row 1 sees nothing (valid 0); rows 64 and 17 have all
+# their keys in the first split; 1000 and 2047 span several splits.
+LONG_VALID = [2048, 0, 2047, 1000, 300, 17, 1, 64]
+
+
+def _decode_inputs(dev, pools, D, seed=7):
+    """bf16 q, the pools (dense bf16, or int8 ``QuantPool`` pairs) and
+    tables of 8 rows x 128 pages of 16 tokens over a 1024-page pool."""
+    if pools == "int8":
+        return _int8_pools(dev, torch.bfloat16, 8, 32, 8, D, 16, 128, 1024,
+                           seed=seed)
+    return _pool_case(dev, torch.bfloat16, 8, 32, 8, D, 16, 128, 1024,
+                      seed=seed)
+
+
+def _decode_plain(pools):
+    return pa.paged_decode_int8_plain if pools == "int8" else \
+        pa.paged_decode_plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pools", ["dense", "int8"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 30.0),
+                                            (1500, 0.0)])
+def test_paged_decode_long_rows_split_and_merge(cuda, pools, D, window,
+                                                softcap):
+    q, pk, pv, tables = _decode_inputs(cuda, pools, D)
+    valid = torch.tensor(LONG_VALID, dtype=torch.int32, device=cuda)
+    kw = dict(page_size=16, sliding_window=window, attn_softcap=softcap)
+    splits, _ = pa.decode_plan(8, 8, 128 * 16, 16, pa._num_sms(0),
+                               pa._decode_per_sm(0, D, pools == "int8"))
+    assert splits > 1  # the merge runs
+    counter = pa.paged_decode_int8 if pools == "int8" else pa.paged_decode
+    n = counter.launches
+    got = pa.paged_decode(q, pk, pv, tables, valid, **kw)
+    want = _decode_plain(pools)(q, pk, pv, tables, valid, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == n + 1  # one launch, merge included
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+    assert not got[1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pools", ["dense", "int8"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_decode_is_deterministic(cuda, pools, D):
+    """Two calls on the same inputs give the same bits: the splits are
+    added in split order whichever block ends last."""
+    q, pk, pv, tables = _decode_inputs(cuda, pools, D, seed=11)
+    valid = torch.tensor(LONG_VALID, dtype=torch.int32, device=cuda)
+    first = pa.paged_decode(q, pk, pv, tables, valid, page_size=16)
+    for _ in range(3):
+        assert torch.equal(pa.paged_decode(q, pk, pv, tables, valid,
+                                           page_size=16), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pools", ["dense", "int8"])
+def test_paged_decode_graph_replays_reset_the_ticket(cuda, pools):
+    """A captured decode replayed several times, with new queries and
+    lengths before each replay and the output poisoned, gives the plain
+    version's result every time: the last split of each row puts its
+    ticket back to zero."""
+    q, pk, pv, tables = _decode_inputs(cuda, pools, 64, seed=13)
+    valid = torch.tensor(LONG_VALID, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # the ticket buffer of this stream
+        pa.paged_decode(q, pk, pv, tables, valid, page_size=16)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = pa.paged_decode(q, pk, pv, tables, valid, page_size=16)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    for rep in range(4):
+        q.copy_(torch.randn(q.shape, generator=g, device=cuda))
+        valid.copy_(valid.roll(1))
+        out.fill_(float("nan"))
+        graph.replay()
+        want = _decode_plain(pools)(q, pk, pv, tables, valid, page_size=16)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want.float(),
+                                   **_tol(torch.bfloat16))
+
+
 @pytest.mark.gpu
 def test_quant_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.randn(4, 64, device=cuda).bfloat16()
