@@ -10,9 +10,12 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    bodies' report (registers, shared memory, spills: ``decode_body``
    lines) and the decode split plan at the served shape (B = 8, KV 8,
    128 pages of 16 tokens: splits, tokens per split, blocks, blocks per
-   SM; ``decode_plan`` lines);
+   SM; ``decode_plan`` lines), and the same for the prefill / ragged body
+   (``attend_body``, ``attend_plan``: prefill [4, 512] and ragged S = 512,
+   Bm 12, at D 64 and D 128);
 3. holds each hand-written kernel (paged decode at D = 64 and D = 128,
-   paged prefill, the ragged mixed batch, RMSNorm, RoPE) against its
+   paged prefill and the ragged mixed batch at D = 64 and D = 128, deep
+   histories and splits among their cases, RMSNorm, RoPE) against its
    plain PyTorch version on the card at the serving shapes of
    llama-3.2-1b, in bf16, and times kernel, plain version, one PyTorch
    library call where there is one, and the bytes/operations bound;
@@ -369,7 +372,7 @@ def check_ragged(case, decode_valid, chunks, Bm=12, S=512, window=0,
         return rec
     e = q.element_size()
     pairs, row_tokens, seg_tokens = _ragged_work(
-        rows_l, pos_l, valid_l, window, 64 // (H // KV))
+        rows_l, pos_l, valid_l, window, pa.attend_tq(H, KV))
     small = (tables.numel() + 2 * S + Bm) * 4
     nbytes = 2 * q.numel() * e + 2 * row_tokens * KV * D * e + small
     rec["ms"] = time_ms(lambda: pa.paged_ragged(*args, **kw))
@@ -501,6 +504,39 @@ def decode_report() -> None:
             "blocks": 8 * 8 * splits, "blocks_per_sm": per_sm, "sms": sms}}))
 
 
+def attend_report() -> None:
+    """The prefill / ragged body's compiler report (registers, shared
+    memory, spills) and its split plan at the served shapes: prefill
+    [4, 512] and the ragged S = 512 over Bm = 12 rows, H 32, KV 8, tables
+    of 128 pages of 16 tokens, at D 64 and D 128."""
+    from distributed_inference_server_tpu_torch.ops.kernels import (
+        _build,
+    )
+    from distributed_inference_server_tpu_torch.ops.kernels import (
+        paged_attention as pa,
+    )
+
+    for name, lines in ptxas_entries(_build.reports.get("paged_attention",
+                                                        ""),
+                                     "attend_").items():
+        if "decode" not in name:
+            log(json.dumps({"attend_body": name, "ptxas": lines}))
+    sms = pa._num_sms(0)
+    for D in (64, 128):
+        for kind, T, B in (("prefill", 512, 4), ("ragged", 512, 12)):
+            ragged = kind == "ragged"
+            per_sm = pa._attend_per_sm(0, D, ragged)
+            splits, chunk = pa.attend_plan(32, 8, T, B, 128 * 16, 16, sms,
+                                           per_sm, ragged)
+            tiles = pa.attend_tiles(32, 8, T, B, ragged)
+            log(json.dumps({"attend_plan": {
+                "kernel": kind, "D": D, "T_or_S": T, "B": B, "KV": 8,
+                "TQ": pa.attend_tq(32, 8), "capacity": 2048,
+                "splits": splits, "tokens_per_split": chunk,
+                "blocks": tiles * 8 * splits, "blocks_per_sm": per_sm,
+                "sms": sms}}))
+
+
 def phase_kernels(time_it=True) -> dict:
     """Returns {kernel: [records]}; the first record of each kernel is its
     main-path shape (the one the summary line reports)."""
@@ -526,6 +562,13 @@ def phase_kernels(time_it=True) -> dict:
                          softcap=30.0, time_it=False),
             check_ragged("D128 S200", [5, 0, 1000, 33], [(100, 50), (60, 0)],
                          Bm=7, S=200, D=128, time_it=False),
+            check_ragged("D128 S512 8 decode + 3 chunks",
+                         [0, 1, 16, 17, 300, 1000, 2047, 2048],
+                         [(200, 0), (250, 1500), (54, 100)], D=128,
+                         time_it=time_it),
+            check_ragged("S400 deep chunk to the table's end", [2048],
+                         [(300, 1748), (33, 0)], Bm=3, S=400,
+                         time_it=False),
         ],
         "paged_prefill": [
             check_prefill("B4 T512 q_start>0", 512, [0, 100, 1500, 0],
@@ -537,6 +580,13 @@ def phase_kernels(time_it=True) -> dict:
                           time_it=False),
             check_prefill("D128 T128", 128, [0, 200, 1000, 0],
                           [128, 328, 1100, 0], D=128, time_it=False),
+            check_prefill("D128 B4 T512 q_start>0", 512, [0, 100, 1500, 0],
+                          [512, 400, 1537, 0], D=128, time_it=time_it),
+            check_prefill("B1 T64 q_start 1900 (split)", 64, [1900], [1964],
+                          time_it=False),
+            check_prefill("B4 T77 window300 softcap30", 77,
+                          [0, 100, 1500, 0], [77, 150, 1577, 0], window=300,
+                          softcap=30.0, time_it=False),
         ],
         "rms_norm": [
             check_rms_norm("prefill chunk [4,512,2048]", (4, 512, 2048),
@@ -1163,6 +1213,7 @@ def main(argv=None) -> int:
     built = _build.build_all(verbose=True)
     log(f"[build] {sorted(built)} in {time.monotonic() - t0:.1f} s")
     decode_report()
+    attend_report()
 
     checks = phase_kernels() if "kernels" in phases else {}
     if "quant" in phases:
@@ -1201,6 +1252,12 @@ def main(argv=None) -> int:
             "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
             "library_ms": rec.get("library_ms"),
         }
+        d128 = next((r for r in checks.get(name, [])
+                     if r["case"].startswith("D128") and "ms" in r), None)
+        if d128 is not None:  # the same work at llama-3-8b's head size
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by"):
+                row[f"{key}_d128"] = d128.get(key)
         if name.startswith("quant_matmul"):
             # the prefill regime: one layer's seven products at M = 2048
             pre = next((r for r in checks.get(name, [])

@@ -44,23 +44,65 @@
 // tok_row[i-1] != tok_row[i]); with each row contiguous there are at most
 // ceil(S/TQ) + B of them, the grid's static size, so nothing is read back
 // to the host. Block x finds the x-th start itself (a block-wide count over
-// tok_row, a few KB from L2) and exits if there is none; blocks x <
-// ceil(S/TQ) also write the zeros of window x's padding tokens. A decode
-// row is a one-token segment and walks its whole history in one block (no
-// KV split: a long decode row is the launch's longest block).
+// tok_row, a few KB from L2) and exits if there is none; split 0 of the
+// blocks x < ceil(S/TQ) also writes the zeros of window x's padding tokens.
 //
 // Bodies:
 // - decode_attend<D, Q8>: bf16 decode, D in {64, 128}, G <= 64, dense or
 //   int8 pools (below).
-// - mma_attend<D>: bf16 prefill and ragged, D in {64, 128}, G <= 64:
-//   tensor cores (mma.sync m16n8k16, FlashAttention-2 layout). A block
-//   serves 64 (query, head) rows, 16 per warp; K sits row-major and V
-//   transposed in shared memory (rows padded by 8 elements so fragment
-//   loads are bank-conflict free); the scores stay in registers and are
-//   reused as the A operand of P @ V.
+// - attend_wg<D>: bf16 prefill and ragged, D in {64, 128}, G <= 64 (below).
 // - everything else (f32, other head sizes, decode too): a scalar body —
 //   one warp per query row for the scores, one thread per (row, dim)
 //   output for P @ V.
+//
+// The prefill / ragged body (replaces _prefill_kernel of
+// paged_attention_prefill and _ragged_kernel of paged_attention_ragged).
+// Prefill is bound by operations: a [4, 512] chunk over histories up to
+// 1537 tokens does 4 flops per (query head, visible key, dim), 8.8 GFLOP
+// at llama-3.2-1b's shape, 8.9 us at 989 TFLOP/s, while its bytes (q and
+// out, the visible K/V read once) take 6.5 us. Ragged is bound by bytes at
+// the served mix (most of its 512 tokens are short chunks; its decode rows
+// read 2 KB of K/V per key for 4 flops per byte pair). What kept the first
+// tensor-core body from either bound was a serial chain per block
+// (synchronous loads, scalar fragment loads, a transposed V, every element
+// masked) and, for ragged, the longest row's whole history in one block.
+// The design answers each:
+// - 128 (query, head) rows per block on two warpgroups, 64 each (TQ = 128 /
+//   G queries: 32 at both served geometries), so a row's history is read
+//   once per 32 queries, not per 16.
+// - A ring of four 64-key stages in dynamic shared memory filled by
+//   cp.async 16-byte copies, one commit group per stage; the block's page
+//   ids are loaded into shared memory once. K and V both lie row-major in
+//   128-byte-swizzled rows, and the tensor cores read them as they lie:
+//   S = Q K^T is wgmma m64n64k16 with the query tile and K as K-major
+//   shared-memory operands; O += P V is wgmma m64nDk16 with P from
+//   registers (the S accumulators packed to bf16 are wgmma's A fragment as
+//   they lie) and V as the transposed (N-major) B operand. No scalar
+//   transpose and no fragment loads.
+// - One block barrier per stage. The next stage's copies are issued while
+//   S runs on the tensor cores, and a stage's P V is waited for only in
+//   the next stage's step, under its barrier, copies and Q K^T.
+// - The mask runs only on tiles that cross the causal diagonal, the window
+//   edge or the range's end; O is rescaled only where a row's max moved.
+// - Prefill launches its query tiles heaviest first (a row's last tile,
+//   with the most keys, first; grid z reversed), statically.
+// - KV split: the wrapper's plan (attend_plan: from the table capacity, the
+//   grid's static size and the body's resident blocks per SM, never the
+//   data) cuts every tile's range at multiples of `chunk` tokens over grid
+//   x; prefill splits only where its grid leaves SMs idle, ragged caps a
+//   split at a few stages, so a 2048-token decode row or a 1500-deep chunk
+//   spreads over several blocks. A tile whose keys fall in one split
+//   writes its output directly; otherwise each split writes (max, sum,
+//   unnormalized output) and the last split of the (tile, KV head) to
+//   finish, found with an atomic ticket, adds them in split order and
+//   resets the ticket: one launch, and the result does not depend on which
+//   block came last.
+// Known limits, left for later work: the two warpgroups run each stage in
+// step (one block barrier), so the softmax of one does not overlap the
+// other's products, and the block's chain per stage (Q K^T, wait, softmax,
+// P V) is serial: about 1.9 us a stage at D 64 (PERF.md); no TMA and
+// no producer warp; a decode row in the ragged launch fills 4 (G) of a
+// block's 128 rows; splits without keys still search for their segment.
 //
 // The decode body (replaces _decode_kernel of paged_attention_decode, dense
 // and int8 QuantPool pools). Bound: bytes. A row's visible K/V is read once
@@ -105,10 +147,6 @@
 // Known limits, left for later work: no TMA, no warp specialisation, and a
 // split plan that cannot know which rows are long, so a long row's few
 // busy blocks may share an SM.
-//
-// Prefill at a 512-token chunk is near the balance point; its tensor-core
-// body is what keeps it off the scalar pipes. Known limits: no
-// double-buffered (cp.async / TMA) tile loads and no wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -183,6 +221,7 @@ struct Tile {
   const int* pos;
   int pos0;
   int lo, hi;
+  int qmin, qmax;  // least and greatest query position
 };
 
 __device__ __forceinline__ int tile_pos(const Tile& tl, int t) {
@@ -237,6 +276,8 @@ __device__ Tile dense_tile(const Args& a, int b, int q0, int TQ,
   tl.pos0 = decode ? vb - 1 : a.q_start[b] + q0;
   tl.lo = window_lo(a, tl.pos0);
   tl.hi = min(vb, tl.pos0 + tl.n);
+  tl.qmin = tl.pos0;
+  tl.qmax = tl.pos0 + tl.n - 1;
   return tl;
 }
 
@@ -299,18 +340,32 @@ __device__ Tile ragged_tile(const Args& a, int seg, int TQ) {
   tl.pos0 = 0;
   tl.lo = window_lo(a, sh_lo);
   tl.hi = min(a.valid[tl.b], sh_hi + 1);
+  tl.qmin = sh_lo;
+  tl.qmax = sh_hi;
   return tl;
 }
 
 // Ragged: zeros for the padding tokens of window w (the G heads of kvh).
+// The window's rows are read once into shared memory, then each thread
+// stores 16 zero bytes at a time.
+constexpr int kMaxTQ = 128;  // queries a ragged block serves, at most
+
 template <typename T>
 __device__ void zero_padding(const Args& a, int w, int TQ, int kvh) {
-  const int G = a.H / a.KV, GD = G * a.D;
+  __shared__ bool pad_s[kMaxTQ];
+  const int G = a.H / a.KV, GV = G * a.D * (int)sizeof(T) / 16;
+  for (int t = threadIdx.x; t < TQ; t += blockDim.x) {
+    const int tok = w * TQ + t;
+    pad_s[t] = tok < a.T && a.tok_row[tok] < 0;
+  }
+  __syncthreads();
   T* out = static_cast<T*>(a.out);
-  for (int i = threadIdx.x; i < TQ * GD; i += blockDim.x) {
-    const int tok = w * TQ + i / GD;
-    if (tok < a.T && a.tok_row[tok] < 0)
-      out[((size_t)tok * a.H + kvh * G) * a.D + i % GD] = from_f<T>(0.f);
+  for (int i = threadIdx.x; i < TQ * GV; i += blockDim.x) {
+    const int t = i / GV;
+    if (pad_s[t])
+      reinterpret_cast<uint4*>(
+          out + ((size_t)(w * TQ + t) * a.H + kvh * G) * a.D)[i - t * GV] =
+          make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -585,12 +640,11 @@ int launch_ragged(Args a, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core body
+// tensor-core helpers (the decode body's mma.sync; the prefill / ragged
+// body's wgmma further down)
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;  // 4 warps
-constexpr int kMmaRows = 64;      // (query, head) rows per block, 16 per warp
-constexpr int kMmaTK = 64;        // KV tokens per tile
+constexpr int kMmaMaxG = 64;  // query heads per KV head the bf16 bodies take
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -606,248 +660,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-struct Split {
-  float* part_o;   // [B, H, NS, D] unnormalized partial outputs
-  float* part_ml;  // [B, H, NS, 2] partial running max and sum
-  int NS;          // KV splits per row (decode only; 1 = no split)
-  int chunk;       // KV tokens per split
-};
-
-// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane l holds
-//   A: rows l/4 and l/4+8, cols 2(l%4)+{0,1} and +8 (4 regs of 2 values);
-//   B: k rows 2(l%4)+{0,1} and +8, col l/4 (2 regs);
-//   C: rows l/4 (c0, c1) and l/4+8 (c2, c3), cols 2(l%4)+{0,1}.
-//
-// Prefill and ragged: a block serves the tile's TQ queries (TQ * G <= 64
-// rows). The kernels still take a Split (always unsplit since decode has
-// its own body below) so their compiled code stays as it was.
-template <int D>
-__device__ void mma_attend(const Args& a, const Split& sp, const Tile& tl,
-                           int kvh, int z, int TQ) {
-  constexpr int TK = kMmaTK;
-  constexpr int KS = D + 8;   // k_s row stride (elements)
-  constexpr int VS = TK + 8;  // vt_s row stride (elements)
-  constexpr int NT = TK / 8;  // score n-tiles
-  constexpr int DK = D / 16;  // k-steps over the head dim
-  constexpr int DN = D / 8;   // output n-tiles
-  constexpr int DV = D / 8;   // 16-byte vectors per token row
-  __shared__ __align__(16) __nv_bfloat16 k_s[TK * KS];
-  __shared__ __align__(16) __nv_bfloat16 vt_s[D * VS];
-
-  const int b = tl.b;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int G = a.H / a.KV;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const __nv_bfloat16* pk = static_cast<const __nv_bfloat16*>(a.pool_k);
-  const __nv_bfloat16* pv = static_cast<const __nv_bfloat16*>(a.pool_v);
-
-  const int eff_w = a.window > 0 ? a.window : (1 << 30);
-  int t_begin = tl.lo;
-  int t_end = tl.hi;
-  if (sp.NS > 1) {  // this block's share of the row's KV range
-    t_begin = max(t_begin, z * sp.chunk);
-    t_end = min(t_end, (z + 1) * sp.chunk);
-  }
-
-  // the two rows this lane owns: row r = t * G + g (query t, head g)
-  bool live[2];       // rows past the tile are dead
-  int row_q[2];       // query position (-1 for a decode row with valid 0)
-  size_t row_off[2];  // element offset of the row's q / out vector
-  int row_h[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + (lane >> 2) + 8 * i;
-    const int t = r / G, g = r - t * G;
-    live[i] = r < TQ * G && t < tl.n;
-    row_q[i] = live[i] ? tile_pos(tl, t) : 0;
-    row_h[i] = kvh * G + g;
-    row_off[i] = live[i] ? ((tl.tok0 + t) * a.H + row_h[i]) * D : 0;
-  }
-  const bool warp_live = __any_sync(0xffffffffu, live[0] || live[1]);
-
-  uint32_t qf[DK][4];
-#pragma unroll
-  for (int kk = 0; kk < DK; ++kk)
-#pragma unroll
-    for (int rg = 0; rg < 4; ++rg) {
-      const int i = rg & 1;
-      const int col = kk * 16 + (lane & 3) * 2 + ((rg & 2) ? 8 : 0);
-      qf[kk][rg] = live[i]
-                       ? *reinterpret_cast<const uint32_t*>(q + row_off[i] + col)
-                       : 0u;
-    }
-
-  float o[DN][4];
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-
-  for (int k0 = t_begin; k0 < t_end; k0 += TK) {
-    for (int i = tid; i < TK * DV; i += kMmaThreads) {
-      const int j = i / DV, dv = i - j * DV;
-      const int pos = k0 + j;
-      uint4 kk4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kk4;
-      if (pos < t_end) {
-        const int pslot = min(pos / a.page_size, a.P - 1);
-        int page = a.tables[(size_t)b * a.P + pslot];
-        page = min(max(page, 0), a.num_pages - 1);
-        const size_t slot = (size_t)page * a.page_size + pos % a.page_size;
-        const size_t off = (slot * a.KV + kvh) * D + (size_t)dv * 8;
-        kk4 = *reinterpret_cast<const uint4*>(pk + off);
-        vv4 = *reinterpret_cast<const uint4*>(pv + off);
-      }
-      *reinterpret_cast<uint4*>(k_s + j * KS + dv * 8) = kk4;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt_s[(dv * 8 + e) * VS + j] = ve[e];
-    }
-    __syncthreads();
-
-    if (warp_live) {
-      float s[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < DK; ++kk) {
-          const uint32_t* kr = reinterpret_cast<const uint32_t*>(
-              k_s + (j * 8 + (lane >> 2)) * KS + kk * 16 + (lane & 3) * 2);
-          mma_bf16(s[j], qf[kk], kr[0], kr[4]);
-        }
-      }
-      // scale, softcap (before the mask), mask; row maxima
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const int key = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
-          float x = s[j][e] * a.scale;
-          if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
-          const int qp = row_q[i];
-          const bool ok =
-              live[i] && key < t_end && key <= qp && key > qp - eff_w;
-          s[j][e] = ok ? x : kNegInf;
-          mx[i] = fmaxf(mx[i], s[j][e]);
-        }
-      // online softmax in f32; the four lanes of a row share its stats
-      float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m_r[i], mx[i]);
-        alpha[i] = expf(m_r[i] - m_new);
-        m_r[i] = m_new;
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const float p =
-              s[j][e] > 0.5f * kNegInf ? expf(s[j][e] - m_r[i]) : 0.f;
-          sum[i] += p;
-          s[j][e] = p;
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-        l_r[i] = l_r[i] * alpha[i] + sum[i];
-      }
-#pragma unroll
-      for (int dn = 0; dn < DN; ++dn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[dn][e] *= alpha[e >> 1];
-      // O += P @ V, P re-packed from the score registers as A fragments
-#pragma unroll
-      for (int jj = 0; jj < TK / 16; ++jj) {
-        const uint32_t pa[4] = {
-            pack_bf16(s[2 * jj][0], s[2 * jj][1]),
-            pack_bf16(s[2 * jj][2], s[2 * jj][3]),
-            pack_bf16(s[2 * jj + 1][0], s[2 * jj + 1][1]),
-            pack_bf16(s[2 * jj + 1][2], s[2 * jj + 1][3])};
-#pragma unroll
-        for (int dn = 0; dn < DN; ++dn) {
-          const uint32_t* vr = reinterpret_cast<const uint32_t*>(
-              vt_s + (dn * 8 + (lane >> 2)) * VS + jj * 16 + (lane & 3) * 2);
-          mma_bf16(o[dn], pa, vr[0], vr[4]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!live[i]) continue;
-    if (sp.NS > 1) {
-      const size_t part = ((size_t)b * a.H + row_h[i]) * sp.NS + z;
-      float* po = sp.part_o + part * D;
-#pragma unroll
-      for (int dn = 0; dn < DN; ++dn) {
-        const int d = dn * 8 + (lane & 3) * 2;
-        po[d] = o[dn][2 * i];
-        po[d + 1] = o[dn][2 * i + 1];
-      }
-      if ((lane & 3) == 0) {
-        sp.part_ml[part * 2] = m_r[i];
-        sp.part_ml[part * 2 + 1] = l_r[i];
-      }
-    } else {
-      const float inv = 1.f / fmaxf(l_r[i], 1e-30f);
-      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + row_off[i];
-#pragma unroll
-      for (int dn = 0; dn < DN; ++dn) {
-        const int d = dn * 8 + (lane & 3) * 2;
-        *reinterpret_cast<__nv_bfloat162*>(out + d) =
-            __floats2bfloat162_rn(o[dn][2 * i] * inv, o[dn][2 * i + 1] * inv);
-      }
-    }
-  }
-}
-
-// Prefill (grid z = query tile). Decode has its own body below since the
-// Hopper redesign, so `decode` is 0 and `sp` unsplit on every launch; both
-// stay in the signature so this kernel compiles to the same code as before.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    mma_attend_kernel(Args a, Split sp, int decode) {
-  const int TQ = decode ? 1 : kMmaRows / (a.H / a.KV);
-  const int z = blockIdx.z;
-  const Tile tl = dense_tile(a, blockIdx.x, decode ? 0 : z * TQ, TQ, decode);
-  mma_attend<D>(a, sp, tl, blockIdx.y, z, TQ);
-}
-
-// Ragged: grid x = segment, y = KV head.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) mma_ragged_kernel(Args a) {
-  const int TQ = kMmaRows / (a.H / a.KV);
-  if (blockIdx.x * TQ < a.T)
-    zero_padding<__nv_bfloat16>(a, blockIdx.x, TQ, blockIdx.y);
-  const Tile tl = ragged_tile(a, blockIdx.x, TQ);
-  if (tl.n == 0) return;
-  mma_attend<D>(a, Split{nullptr, nullptr, 1, 0}, tl, blockIdx.y, 0, TQ);
-}
-
 bool mma_ok(int dtype, int D, int G) {
-  return dtype == 1 && (D == 64 || D == 128) && G >= 1 && G <= kMmaRows;
-}
-
-int dispatch_mma_prefill(const Args& a, int B, cudaStream_t st) {
-  const int TQ = kMmaRows / (a.H / a.KV);
-  const dim3 grid(B, a.KV, (a.T + TQ - 1) / TQ);
-  const Split sp{nullptr, nullptr, 1, 0};
-  if (a.D == 64)
-    mma_attend_kernel<64><<<grid, kMmaThreads, 0, st>>>(a, sp, 0);
-  else
-    mma_attend_kernel<128><<<grid, kMmaThreads, 0, st>>>(a, sp, 0);
-  return (int)cudaGetLastError();
+  return dtype == 1 && (D == 64 || D == 128) && G >= 1 && G <= kMmaMaxG;
 }
 
 // ---------------------------------------------------------------------------
@@ -1395,13 +1209,540 @@ DecArgs make_dec_args(const void* q, const void* pk, const void* pv,
   return a;
 }
 
-int dispatch_mma_ragged(const Args& a, cudaStream_t st) {
-  const dim3 grid(ragged_blocks(a, kMmaRows / (a.H / a.KV)), a.KV);
-  if (a.D == 64)
-    mma_ragged_kernel<64><<<grid, kMmaThreads, 0, st>>>(a);
-  else
-    mma_ragged_kernel<128><<<grid, kMmaThreads, 0, st>>>(a);
+// ---------------------------------------------------------------------------
+// bf16 prefill and ragged body (see the header): a cp.async ring of K/V
+// stages, wgmma for both products, the KV split merged in the same launch
+// ---------------------------------------------------------------------------
+
+constexpr int kAttThreads = 256;   // two consumer warpgroups
+constexpr int kAttRows = 128;      // (query, head) rows per block, 64 per wg
+constexpr int kAttTK = 64;         // keys per ring stage
+constexpr int kAttMaxPages = 256;  // page ids a block keeps in shared memory
+constexpr int kAttMergeBatch = 8;  // partials the merge requests at once
+
+// 2^x in one MUFU instruction (no denormal handling: the scores are
+// shifted by the row max, so 2^x lies in [0, 1] and flushes below 2^-126)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Dynamic shared memory of attend_wg<D>, from a 1024-byte aligned base (the
+// 128-byte swizzle's period): the query tile, the ring of K and V stages,
+// the block's page ids. Every tile is 128-byte swizzled rows of 64 bf16
+// (one "atom" column of 64 elements; D 128 keeps two atoms side by side):
+// element (row, d) sits at (d / 64) * rows * 128 + row * 128 +
+// (((d % 64) / 8) ^ (row % 8)) * 16 + (d % 8) * 2.
+template <int D>
+struct AttSmem {
+  static constexpr int Q = kAttRows * D * 2;
+  static constexpr int TILE = kAttTK * D * 2;  // K (or V) bytes per stage
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int STAGES = 4;  // ring depth
+  static constexpr int PAGES = Q + STAGES * STAGE;
+  static constexpr int BYTES = 1024 + PAGES + kAttMaxPages * 4;
+};
+
+// Byte offset of 16-byte chunk c (8 elements along D) of row `row` in a
+// swizzled tile of ROWS rows.
+template <int ROWS>
+__device__ __forceinline__ int sw_off(int row, int c) {
+  return (c >> 3) * (ROWS * 128) + row * 128 + (((c & 7) ^ (row & 7)) << 4);
+}
+
+// The split plan and its buffers (NS > 1): partial outputs [tiles, KV, NS,
+// kAttRows, D] and (max, sum) pairs [tiles, KV, NS, kAttRows, 2] in f32, a
+// ticket per (tile, KV head), zero between launches.
+struct AttPlan {
+  float* part_o;
+  float* part_ml;
+  int* ticket;
+  int NS, chunk;  // KV splits, tokens per split (whole stages)
+  int ps_shift;   // log2(page_size), or -1
+};
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator uses across a wgmma wait
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_operands_u32(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define WG_D8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S[64 x 64] (+)= A[64 x 16] . B[16 x 64], both from shared memory, K-major
+// (B is the K tile as it lies: key rows of D contiguous elements);
+// accumulate = 0 overwrites s.
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O[64 x D] += P[64 x 16] . V[16 x D]: P from registers (the S accumulator
+// packed to bf16), V from shared memory N-major (key rows of D contiguous
+// elements: the transposed B operand).
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
+        WG_D8(48), WG_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef WG_D8
+
+// One block serves tile `tl` (TQ queries x G heads of KV head kvh, rows r =
+// t * G + g, at most kAttRows) over split z of its KV range. Warpgroup wg
+// owns rows 64 wg .. 64 wg + 63; in it warp w holds rows 16 w + lane / 4
+// (+ 8), as wgmma's accumulators lay them out: accumulator j of a thread is
+// row lane / 4 + 8 ((j / 2) % 2), column 8 (j / 4) + 2 (lane % 4) + j % 2.
+// `tile_id` indexes the partial buffers and tickets.
+template <int D>
+__device__ void attend_wg(const Args& a, const AttPlan& sp, const Tile& tl,
+                          int kvh, int z, int tile_id, int TQ) {
+  using L = AttSmem<D>;
+  constexpr int CPR = D / 8;                         // 16-byte chunks a row
+  constexpr int CPT = kAttTK * CPR / kAttThreads;    // per thread, K or V
+  constexpr int QPT = kAttRows * CPR / kAttThreads;  // per thread, Q
+  extern __shared__ __align__(16) unsigned char att_raw[];
+  unsigned char* sm = att_raw + ((1024 - (smem_u32(att_raw) & 1023)) & 1023);
+  unsigned char* ring = sm + L::Q;
+  int* pg_s = reinterpret_cast<int*>(sm + L::PAGES);
+  __shared__ int last;
+
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int G = a.H / a.KV, rows = TQ * G;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  const size_t head0 = (size_t)kvh * G;
+  // the element offset of row r's q / out vector (r live: r < rows and its
+  // query inside the tile)
+  auto row_live = [&](int r) { return r < rows && r / G < tl.n; };
+  auto row_off = [&](int r) {
+    const int t = r / G;
+    return ((tl.tok0 + t) * a.H + head0 + (r - t * G)) * D;
+  };
+
+  // the tile's keys [lo, hi): nothing past the table's capacity
+  const int cap = a.P * a.page_size;
+  const int lo = tl.lo, hi = min(tl.hi, cap);
+  if (hi <= lo) {  // no query of the tile sees a key: zeros, by split 0
+    if (z == 0)
+      for (int i = tid; i < rows * CPR; i += kAttThreads) {
+        const int r = i / CPR;
+        if (row_live(r))
+          *reinterpret_cast<uint4*>(out + row_off(r) + (i - r * CPR) * 8) =
+              make_uint4(0u, 0u, 0u, 0u);
+      }
+    return;
+  }
+  const int z0 = lo / sp.chunk, z1 = (hi - 1) / sp.chunk;
+  if (z < z0 || z > z1) return;  // a split with no keys
+  const int nact = z1 - z0 + 1;  // splits of this tile with keys
+  const int t_begin = max(lo, z * sp.chunk);
+  const int t_end = min(hi, (z + 1) * sp.chunk);
+  const int ntiles = (t_end - t_begin + kAttTK - 1) / kAttTK;
+
+  auto page_of = [&](int pos) {
+    return sp.ps_shift >= 0 ? pos >> sp.ps_shift : pos / a.page_size;
+  };
+  const int p_first = page_of(t_begin);
+  const int np = page_of(t_end - 1) - p_first + 1;
+  for (int i = tid; i < np; i += kAttThreads)
+    pg_s[i] = min(max(a.tables[(size_t)tl.b * a.P + p_first + i], 0),
+                  a.num_pages - 1);
+  // the query tile (rows past the tile zero-filled), in stage 0's group
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) {
+    const int i = tid + u * kAttThreads, r = i / CPR, c = i % CPR;
+    const bool in = row_live(r);
+    cp_async16(sm + sw_off<kAttRows>(r, c), in ? q + row_off(r) + c * 8 : q,
+               in ? 16 : 0);
+  }
+  __syncthreads();  // pg_s
+
+  // stage copies: thread tid moves chunk c of key rows j, j + 256 / CPR, ...
+  // of K and V (the same pool offsets for both)
+  const char* pk = static_cast<const char*>(a.pool_k);
+  const char* pv = static_cast<const char*>(a.pool_v);
+  const size_t slot_bytes = (size_t)a.KV * D * 2;
+  const int cc = tid % CPR, j0 = tid / CPR;
+  const size_t col_bytes = (size_t)kvh * D * 2 + cc * 16;
+  auto issue = [&](int t) {  // tile t -> stage t % L::STAGES, one group
+    if (t < ntiles) {
+      unsigned char* st = ring + (t % L::STAGES) * L::STAGE;
+      const int k0 = t_begin + t * kAttTK;
+#pragma unroll
+      for (int u = 0; u < CPT; ++u) {
+        const int j = j0 + u * (kAttThreads / CPR), pos = k0 + j;
+        const bool in = pos < t_end;
+        size_t off = 0;
+        if (in) {
+          const int p = page_of(pos);
+          off = ((size_t)pg_s[p - p_first] * a.page_size +
+                 (pos - p * a.page_size)) * slot_bytes + col_bytes;
+        }
+        cp_async16(st + sw_off<kAttTK>(j, cc), pk + off, in ? 16 : 0);
+        cp_async16(st + L::TILE + sw_off<kAttTK>(j, cc), pv + off,
+                   in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the two rows this thread holds, and their query positions
+  int r_of[2], qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    r_of[i] = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2) + 8 * i;
+    qp[i] = row_live(r_of[i]) ? tile_pos(tl, r_of[i] / G) : 0;
+  }
+  const int eff_w = a.window > 0 ? a.window : (1 << 30);
+  const float sl2 = a.scale * kLog2e;
+  const float inv_cap = a.softcap > 0.f ? 1.f / a.softcap : 0.f;
+  const float cap_l2 = a.softcap * kLog2e;
+
+  float o[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+  // running max (log2 units, shared by the 4 lanes of a row) and this
+  // lane's share of the row's sum (added over the 4 lanes at the end)
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  const uint32_t q_addr = smem_u32(sm) + wg * 64 * 128;
+  // P of the previous tile, read by its P V wgmma until the next wait
+  uint32_t pa[kAttTK / 16][4] = {};
+
+  // One barrier a tile. Copies run L::STAGES - 2 tiles ahead: the copy
+  // issued in tile t's step refills the stage of tile t - 2, whose P V
+  // wgmma every warpgroup waited for in tile t - 1's step, before this
+  // step's barrier. Tile t's P V is waited for in tile t + 1's step, under
+  // that step's barrier, copies and Q K^T.
+#pragma unroll
+  for (int t = 0; t < L::STAGES - 2; ++t) issue(t);
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<L::STAGES - 3>();
+    // this thread's cp.async writes -> visible to wgmma (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // tile t landed in every thread's copies
+    const uint32_t k_addr = smem_u32(ring + (t % L::STAGES) * L::STAGE);
+    const uint32_t v_addr = k_addr + L::TILE;
+    const int k0 = t_begin + t * kAttTK;
+
+    // S = Q K^T: the K tile is the K-major B operand as it lies; a k16
+    // step moves 32 bytes along the swizzled rows, D 128 changes atom
+    float s[kAttTK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_qk(s,
+               wgmma_desc(q_addr + (kk >> 2) * (kAttRows * 128) + (kk & 3) * 32,
+                          16, 1024),
+               wgmma_desc(k_addr + (kk >> 2) * (kAttTK * 128) + (kk & 3) * 32,
+                          16, 1024),
+               kk > 0);
+    wgmma_commit();
+    issue(t + L::STAGES - 2);  // while the tensor cores work
+    wgmma_wait0();  // this tile's S and the previous tile's O
+    fence_operands(s);
+    fence_operands(o);
+#pragma unroll
+    for (int kb = 0; kb < kAttTK / 16; ++kb) fence_operands_u32(pa[kb]);
+
+    // scale (log2 units) and softcap (before the mask); the mask only on
+    // tiles that cross the diagonal, the window edge or the range's end
+    // scores in log2 units are s * scl: the scale folds into the
+    // exponent's multiply-add, unless the softcap has applied it
+    float scl = sl2;
+    if (a.softcap > 0.f) {
+#pragma unroll
+      for (int j = 0; j < kAttTK / 2; ++j)
+        s[j] = tanhf(s[j] * a.scale * inv_cap) * cap_l2;
+      scl = 1.f;
+    }
+    const bool full = k0 + kAttTK <= t_end && k0 + kAttTK - 1 <= tl.qmin &&
+                      k0 > tl.qmax - eff_w;
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < kAttTK / 2; ++j) {
+        const int i = (j >> 1) & 1;
+        const int key = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        if (!(key < t_end && key <= qp[i] && key > qp[i] - eff_w))
+          s[j] = kNegInf;
+      }
+    }
+    // online softmax in f32; the four lanes of a row share its stats
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kAttTK / 2; ++j)
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      // a row with no key yet keeps a max of about kNegInf * scl: far
+      // below any score, so its alpha and the merge's weights are 0
+      const float m_new = fmaxf(m_r[i], mx[i] * scl);
+      alpha[i] = ex2(m_r[i] - m_new);
+      m_r[i] = m_new;
+    }
+    if (full) {
+#pragma unroll
+      for (int j = 0; j < kAttTK / 2; ++j)
+        s[j] = ex2(fmaf(s[j], scl, -m_r[(j >> 1) & 1]));
+    } else {  // masked keys give exact zeros, whatever the row's max
+#pragma unroll
+      for (int j = 0; j < kAttTK / 2; ++j)
+        s[j] = s[j] > 0.5f * kNegInf
+                   ? ex2(fmaf(s[j], scl, -m_r[(j >> 1) & 1]))
+                   : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kAttTK / 2; ++j) sum[(j >> 1) & 1] += s[j];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * alpha[i] + sum[i];
+    // rescale O only where a row's max moved (a multiply by 1 is exact)
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+    }
+
+    // O += P V: P's k16 block kb is accumulators 8 kb .. 8 kb + 7, which
+    // are wgmma's A fragment as they lie; V's k16 step is 16 key rows
+#pragma unroll
+    for (int kb = 0; kb < kAttTK / 16; ++kb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kb][e] = pack_bf16(s[8 * kb + 2 * e], s[8 * kb + 2 * e + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < kAttTK / 16; ++kb)
+      wgmma_pv(o, pa[kb], wgmma_desc(v_addr + kb * 2048, kAttTK * 128, 1024));
+    wgmma_commit();
+  }
+  wgmma_wait0();
+  fence_operands(o);
+#pragma unroll
+  for (int kb = 0; kb < kAttTK / 16; ++kb) fence_operands_u32(pa[kb]);
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+  }
+  const size_t part0 = ((size_t)tile_id * a.KV + kvh) * sp.NS;  // split 0
+  if (nact == 1) {  // the tile's keys fit one split: the output itself
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!row_live(r_of[i])) continue;
+      const float inv = 1.f / fmaxf(l_r[i], 1e-30f);
+      __nv_bfloat16* orow = out + row_off(r_of[i]) + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 2 * i; j < D / 2; j += 4)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * (j >> 2)) =
+            __floats2bfloat162_rn(o[j] * inv, o[j + 1] * inv);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!row_live(r_of[i])) continue;
+    const size_t part = (part0 + z) * kAttRows + r_of[i];
+    float* po = sp.part_o + part * D + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 2 * i; j < D / 2; j += 4)
+      *reinterpret_cast<float2*>(po + 8 * (j >> 2)) = make_float2(o[j], o[j + 1]);
+    if ((lane & 3) == 0)
+      *reinterpret_cast<float2*>(sp.part_ml + part * 2) =
+          make_float2(m_r[i], l_r[i]);
+  }
+
+  // the last of the tile's nact splits to finish adds the partials in split
+  // order (the result does not depend on which block came last) and puts
+  // the ticket back to zero for the next launch
+  int* ticket = sp.ticket + (size_t)tile_id * a.KV + kvh;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1) == nact - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = tid; i < rows * (D / 2); i += kAttThreads) {
+    const int r = i / (D / 2), d = 2 * (i - r * (D / 2));
+    if (!row_live(r)) continue;
+    const size_t part = (part0 + z0) * kAttRows + r;  // split s: + s * rows
+    float m = kNegInf, l = 0.f, x = 0.f, y = 0.f;
+    for (int s0 = 0; s0 < nact; s0 += kAttMergeBatch) {
+      float2 ml[kAttMergeBatch], ov[kAttMergeBatch];
+#pragma unroll
+      for (int s = 0; s < kAttMergeBatch; ++s)
+        if (s0 + s < nact) {
+          const size_t ps = part + (size_t)(s0 + s) * kAttRows;
+          ml[s] = __ldcg(reinterpret_cast<const float2*>(sp.part_ml) + ps);
+          ov[s] = __ldcg(reinterpret_cast<const float2*>(sp.part_o + ps * D + d));
+        }
+      float mb = m;
+#pragma unroll
+      for (int s = 0; s < kAttMergeBatch; ++s)
+        if (s0 + s < nact) mb = fmaxf(mb, ml[s].x);
+      const float c = exp2f(m - mb);
+      l *= c;
+      x *= c;
+      y *= c;
+#pragma unroll
+      for (int s = 0; s < kAttMergeBatch; ++s)
+        if (s0 + s < nact) {
+          const float w = exp2f(ml[s].x - mb);
+          l += ml[s].y * w;
+          x += ov[s].x * w;
+          y += ov[s].y * w;
+        }
+      m = mb;
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    *reinterpret_cast<__nv_bfloat162*>(out + row_off(r) + d) =
+        __floats2bfloat162_rn(x * inv, y * inv);
+  }
+  if (tid == 0) *ticket = 0;
+}
+
+// Prefill: grid (KV x NS, B, query tiles), the query tiles reversed so the
+// tiles with the most keys (a row's last) launch first.
+template <int D>
+__global__ void __launch_bounds__(kAttThreads, D == 64 ? 2 : 1)
+    attend_prefill_kernel(Args a, AttPlan sp) {
+  const int TQ = kAttRows / (a.H / a.KV);
+  const int kvh = blockIdx.x / sp.NS, z = blockIdx.x - kvh * sp.NS;
+  const int b = blockIdx.y, qt = gridDim.z - 1 - blockIdx.z;
+  attend_wg<D>(a, sp, dense_tile(a, b, qt * TQ, TQ, false), kvh, z,
+               b * gridDim.z + qt, TQ);
+}
+
+// Ragged: grid (KV x NS, segments); split 0 of window x's block also
+// writes the zeros of that window's padding tokens.
+template <int D>
+__global__ void __launch_bounds__(kAttThreads, D == 64 ? 2 : 1)
+    attend_ragged_kernel(Args a, AttPlan sp) {
+  const int TQ = kAttRows / (a.H / a.KV);
+  const int kvh = blockIdx.x / sp.NS, z = blockIdx.x - kvh * sp.NS;
+  if (z == 0 && (int)blockIdx.y * TQ < a.T)
+    zero_padding<__nv_bfloat16>(a, blockIdx.y, TQ, kvh);
+  const Tile tl = ragged_tile(a, blockIdx.y, TQ);
+  if (tl.n == 0) return;
+  attend_wg<D>(a, sp, tl, kvh, z, blockIdx.y, TQ);
+}
+
+template <int D>
+cudaError_t attend_smem_attr(bool ragged) {
+  return cudaFuncSetAttribute(
+      ragged ? attend_ragged_kernel<D> : attend_prefill_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, AttSmem<D>::BYTES);
+}
+
+// The wgmma body over `tiles` query tiles (B x query tiles, or segments)
+// of a.KV heads. The split plan must cover the table: NS splits of `chunk`
+// tokens (whole stages, few enough pages for pg_s), none empty; NS > 1
+// needs the partial buffers and the ticket.
+int dispatch_attend(const Args& a, AttPlan sp, int B, bool ragged,
+                    cudaStream_t st) {
+  const long long cap = (long long)a.P * a.page_size;
+  if (sp.NS < 1 || sp.chunk < kAttTK || sp.chunk % kAttTK ||
+      (sp.chunk + a.page_size - 1) / a.page_size + 1 > kAttMaxPages ||
+      (long long)sp.NS * sp.chunk < cap ||
+      (cap > 0 && (long long)(sp.NS - 1) * sp.chunk >= cap) ||
+      (sp.NS > 1 && (sp.part_o == nullptr || sp.part_ml == nullptr ||
+                     sp.ticket == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  sp.ps_shift = (a.page_size & (a.page_size - 1)) == 0
+                    ? __builtin_ctz(a.page_size)
+                    : -1;
+  const int TQ = kAttRows / (a.H / a.KV);
+  const dim3 grid = ragged ? dim3(a.KV * sp.NS, ragged_blocks(a, TQ))
+                           : dim3(a.KV * sp.NS, B, (a.T + TQ - 1) / TQ);
+  cudaError_t e = a.D == 64 ? attend_smem_attr<64>(ragged)
+                            : attend_smem_attr<128>(ragged);
+  if (e != cudaSuccess) return (int)e;
+  if (a.D == 64) {
+    if (ragged)
+      attend_ragged_kernel<64>
+          <<<grid, kAttThreads, AttSmem<64>::BYTES, st>>>(a, sp);
+    else
+      attend_prefill_kernel<64>
+          <<<grid, kAttThreads, AttSmem<64>::BYTES, st>>>(a, sp);
+  } else {
+    if (ragged)
+      attend_ragged_kernel<128>
+          <<<grid, kAttThreads, AttSmem<128>::BYTES, st>>>(a, sp);
+    else
+      attend_prefill_kernel<128>
+          <<<grid, kAttThreads, AttSmem<128>::BYTES, st>>>(a, sp);
+  }
   return (int)cudaGetLastError();
+}
+
+AttPlan make_att_plan(void* part_o, void* part_ml, void* ticket, int splits,
+                        int chunk) {
+  return AttPlan{static_cast<float*>(part_o), static_cast<float*>(part_ml),
+                  static_cast<int*>(ticket), splits, chunk, -1};
 }
 
 Args make_args(const void* q, const void* pk, const void* pv,
@@ -1491,29 +1832,44 @@ extern "C" int paged_decode_int8(int dtype, const void* q, const void* codes_k,
   return (int)cudaErrorInvalidValue;
 }
 
+// The bf16 tensor-core geometries (paged_attention_uses_mma) of prefill and
+// ragged run the wgmma body with the split plan (splits, split_chunk: see
+// dispatch_attend); with splits > 1 it needs part_o [tiles, KV, splits,
+// 128, D] and part_ml [tiles, KV, splits, 128, 2] (f32) and ticket, tiles *
+// KV int32 that are zero before the launch (the kernel leaves them zero),
+// where tiles = B * ceil(T / TQ) (prefill) or ceil(S / TQ) + B (ragged)
+// and TQ = 128 / (H / KV). Other geometries run the scalar body unsplit and
+// ignore the plan and the buffers.
 extern "C" int paged_prefill(int dtype, const void* q, const void* pool_k,
                              const void* pool_v, const void* tables,
                              const void* q_start, const void* valid,
                              void* out, int B, int T, int H, int KV, int D,
                              int page_size, int P, int num_pages, int window,
-                             float softcap, void* stream) {
+                             float softcap, void* part_o, void* part_ml,
+                             void* ticket, int splits, int split_chunk,
+                             void* stream) {
   Args a = make_args(q, pool_k, pool_v, tables, q_start, valid, out, T, B, H,
                      KV, D, page_size, P, num_pages, window, softcap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mma_ok(dtype, D, H / KV)) return dispatch_mma_prefill(a, B, st);
+  if (mma_ok(dtype, D, H / KV))
+    return dispatch_attend(
+        a, make_att_plan(part_o, part_ml, ticket, splits, split_chunk), B,
+        false, st);
   if (dtype == 0) return launch_prefill<float>(a, B, st);
   if (dtype == 1) return launch_prefill<__nv_bfloat16>(a, B, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// q, out [S, H, D]; tok_row, q_pos [S]; tables [B, P]; valid [B] (B >= 1).
+// q, out [S, H, D]; tok_row, q_pos [S]; tables [B, P]; valid [B] (B >= 1);
+// the split plan and buffers as paged_prefill.
 extern "C" int paged_ragged(int dtype, const void* q, const void* pool_k,
                             const void* pool_v, const void* tables,
                             const void* tok_row, const void* q_pos,
                             const void* valid, void* out, int S, int B,
                             int H, int KV, int D, int page_size, int P,
                             int num_pages, int window, float softcap,
-                            void* stream) {
+                            void* part_o, void* part_ml, void* ticket,
+                            int splits, int split_chunk, void* stream) {
   if (S <= 0) return (int)cudaSuccess;
   if (B < 1) return (int)cudaErrorInvalidValue;
   Args a = make_args(q, pool_k, pool_v, tables, nullptr, valid, out, S, B, H,
@@ -1521,7 +1877,10 @@ extern "C" int paged_ragged(int dtype, const void* q, const void* pool_k,
   a.tok_row = static_cast<const int*>(tok_row);
   a.q_pos = static_cast<const int*>(q_pos);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mma_ok(dtype, D, H / KV)) return dispatch_mma_ragged(a, st);
+  if (mma_ok(dtype, D, H / KV))
+    return dispatch_attend(
+        a, make_att_plan(part_o, part_ml, ticket, splits, split_chunk), B,
+        true, st);
   if (dtype == 0) return launch_ragged<float>(a, st);
   if (dtype == 1) return launch_ragged<__nv_bfloat16>(a, st);
   return (int)cudaErrorInvalidValue;
@@ -1553,4 +1912,22 @@ extern "C" int paged_decode_blocks_per_sm(int D, int int8, int* blocks) {
   DEC_OCCUPANCY(128, true)
 #undef DEC_OCCUPANCY
   return (int)e;
+}
+
+// Resident blocks per SM of the prefill / ragged wgmma body at head dim D
+// (what its shared memory and registers allow), for the wrapper's split
+// plan. Returns a cudaError_t.
+extern "C" int paged_attend_blocks_per_sm(int D, int ragged, int* blocks) {
+  *blocks = 0;
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  cudaError_t e = D == 64 ? attend_smem_attr<64>(ragged != 0)
+                          : attend_smem_attr<128>(ragged != 0);
+  if (e != cudaSuccess) return (int)e;
+  if (D == 64)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, ragged ? attend_ragged_kernel<64> : attend_prefill_kernel<64>,
+        kAttThreads, AttSmem<64>::BYTES);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, ragged ? attend_ragged_kernel<128> : attend_prefill_kernel<128>,
+      kAttThreads, AttSmem<128>::BYTES);
 }

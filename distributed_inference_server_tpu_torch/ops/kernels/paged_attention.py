@@ -12,7 +12,7 @@ and bound notes there), built by ``_build.py`` and bound with ctypes.
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises. ``<wrapper>.launches``
 counts wrapper calls that launched; every call is one launch (a split
-decode merges its splits in the same launch). Plain calls never count.
+launch merges its splits in the same launch). Plain calls never count.
 
 Bound on the H100 at the serving shapes (llama-3.2-1b: H=32, KV=8, D=64,
 bf16, page_size 16): decode is bound by bytes — it reads ``4 * KV * D``
@@ -20,14 +20,26 @@ bytes of K/V per valid token and row (~2 KB) for ~4 flops per byte — so
 the bf16 decode splits each row's KV range over several blocks, planned by
 ``decode_plan`` (plain Python, tested on the CPU) from the table capacity
 and the kernel's own count of resident blocks per SM, so that the blocks
-fill the card in one wave. A 512-token prefill chunk sits near the
-balance point and runs on tensor cores. The ragged kernel (the mixed
-step's packed axis of decode tokens and prefill chunks) reuses the prefill
-body on per-row segments of the axis; its long decode rows run unsplit, so
-the longest row's history sets its time. The int8 decode reads 2 D + 8
-bytes per valid token and KV head (codes and two f32 scales) instead of
-4 D: about half the bytes of the bf16 decode, whose body, split plan and
-merge it shares. ``PERF.md`` has the measured times beside their bounds.
+fill the card in one wave. The int8 decode reads 2 D + 8 bytes per valid
+token and KV head (codes and two f32 scales) instead of 4 D: about half
+the bytes of the bf16 decode, whose body, split plan and merge it shares.
+
+Chunked prefill (replacing ``paged_attention_prefill``) is bound by
+operations: a [4, 512] chunk does ~4 flops per (query head, visible key,
+dim) against a comparable number of bytes. The ragged kernel (replacing
+``paged_attention_ragged``: the mixed step's packed axis of decode tokens
+and prefill chunks, cut into per-row segments of the axis) is bound by
+bytes at the served mix. Both run one Hopper body: 128 (query, head) rows
+per block on two warpgroups, a ``cp.async`` ring of row-major K/V stages
+read by ``wgmma`` for both products, the mask only on tiles that need it,
+and a KV split merged in the same launch, planned by ``attend_plan`` from
+the capacity, the grid's static size and the body's resident blocks per
+SM. Prefill splits only where its grid leaves the card idle; ragged caps
+a split at ``RAGGED_MAX_STAGES`` stages, so its longest block is a few
+stages plus the merge rather than a 2048-token row's whole history. What
+is left: each block's serial chain per stage (Q K^T, softmax, P V, with
+the two warpgroups in step). ``PERF.md`` has the measured times beside
+their bounds.
 """
 
 from __future__ import annotations
@@ -255,15 +267,19 @@ def _lib():
                                           vp, vp, vp, ci, ci, vp]
         lib.paged_decode_int8.restype = ci
         lib.paged_prefill.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci,
-                                      ci, ci, ci, ci, ci, ci, ci, cf, vp]
+                                      ci, ci, ci, ci, ci, ci, ci, cf, vp, vp,
+                                      vp, ci, ci, vp]
         lib.paged_prefill.restype = ci
         lib.paged_ragged.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                                     ci, ci, ci, ci, ci, ci, ci, ci, cf, vp]
+                                     ci, ci, ci, ci, ci, ci, ci, ci, cf, vp,
+                                     vp, vp, ci, ci, vp]
         lib.paged_ragged.restype = ci
         lib.paged_attention_uses_mma.argtypes = [ci, ci, ci]
         lib.paged_attention_uses_mma.restype = ci
         lib.paged_decode_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
         lib.paged_decode_blocks_per_sm.restype = ci
+        lib.paged_attend_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.paged_attend_blocks_per_sm.restype = ci
         lib._argtypes_set = True
     return lib
 
@@ -278,26 +294,75 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_DECODE_TK = 64  # csrc kDecTK: tokens per ring stage; splits hold whole stages
-_DECODE_MAX_PAGES = 256  # csrc kDecMaxPages: page ids a decode block holds
+_STAGE_TK = 64  # csrc kDecTK / kAttTK: tokens per ring stage
+_MAX_PAGES = 256  # csrc kDecMaxPages / kAttMaxPages: page ids a block holds
+_ATTEND_ROWS = 128  # csrc kAttRows: (query, head) rows of a prefill block
+# the most stages one ragged split walks: the launch's longest chain is a
+# few stages plus the merge, whatever the rows' lengths
+RAGGED_MAX_STAGES = 8
+
+
+def split_plan(blocks: int, capacity: int, page_size: int, sms: int,
+               per_sm: int, max_stages: int = 0) -> tuple:
+    """(splits, tokens per split) of a launch of ``blocks`` blocks before
+    the split over tables of ``capacity`` tokens (P * page_size), on a
+    card with ``sms`` SMs each holding ``per_sm`` of the kernel's blocks.
+    As many splits as let the blocks fill the SMs in one wave, each split
+    a whole number of 64-token stages, no split empty; a split spans few
+    enough pages for the block's page-id list, and at most ``max_stages``
+    stages when that is given (more splits, in more waves, when a split
+    would not). Planned from the capacity, never from the data, so
+    nothing is read back to the host."""
+    tiles = max(1, -(-capacity // _STAGE_TK))
+    splits = max(1, min(tiles, sms * per_sm // max(1, blocks)))
+    per = min(-(-tiles // splits),
+              max(1, (_MAX_PAGES - 2) * page_size // _STAGE_TK))
+    if max_stages > 0:
+        per = min(per, max_stages)
+    chunk = per * _STAGE_TK
+    return max(1, -(-capacity // chunk)), chunk
 
 
 def decode_plan(B: int, KV: int, capacity: int, page_size: int, sms: int,
                 per_sm: int) -> tuple:
-    """(splits, tokens per split) of a tensor-core decode launch over
-    tables of ``capacity`` tokens (P * page_size) on a card with ``sms``
-    SMs, each holding ``per_sm`` decode blocks. As many splits as let the
-    B * KV * splits blocks fill the SMs in one wave, each split a whole
-    number of 64-token stages, no split empty; a split spans few enough
-    pages for the block's page-id list (more splits, in more waves, when
-    a split would not). Planned from the capacity, never from the data,
-    so nothing is read back to the host."""
-    tiles = max(1, -(-capacity // _DECODE_TK))
-    splits = max(1, min(tiles, sms * per_sm // max(1, B * KV)))
-    per = min(-(-tiles // splits),
-              max(1, (_DECODE_MAX_PAGES - 2) * page_size // _DECODE_TK))
-    chunk = per * _DECODE_TK
-    return max(1, -(-capacity // chunk)), chunk
+    """(splits, tokens per split) of a tensor-core decode launch: one block
+    per (row, KV head) before the split (``split_plan``)."""
+    return split_plan(B * KV, capacity, page_size, sms, per_sm)
+
+
+def attend_tq(H: int, KV: int) -> int:
+    """Queries per block of the prefill / ragged tensor-core body: its 128
+    (query, head) rows hold 128 // G queries of G = H / KV heads each. The
+    ragged segments are runs of one row inside windows of this width."""
+    return _ATTEND_ROWS // (H // KV)
+
+
+def attend_tiles(H: int, KV: int, T: int, B: int, ragged: bool) -> int:
+    """Query tiles of a prefill (B rows of T queries) or ragged (a packed
+    axis of T tokens over B rows: its static bound of ceil(T / TQ) + B
+    segments) launch, before the KV heads and the split."""
+    tq = attend_tq(H, KV)
+    return -(-T // tq) + B if ragged else B * -(-T // tq)
+
+
+def attend_plan(H: int, KV: int, T: int, B: int, capacity: int,
+                page_size: int, sms: int, per_sm: int, ragged: bool) -> tuple:
+    """(splits, tokens per split) of a prefill or ragged launch of the
+    tensor-core body. Prefill splits only where its grid leaves the card
+    idle (one wave); ragged also caps a split at ``RAGGED_MAX_STAGES``
+    stages, since its long decode rows and deep chunks would otherwise
+    walk their whole history in one block."""
+    blocks = attend_tiles(H, KV, T, B, ragged) * KV
+    return split_plan(blocks, capacity, page_size, sms, per_sm,
+                      RAGGED_MAX_STAGES if ragged else 0)
+
+
+def attend_partial_shapes(tiles: int, KV: int, D: int, splits: int) -> tuple:
+    """Shapes of a split prefill / ragged launch's f32 partial buffers:
+    unnormalized outputs [tiles, KV, splits, 128, D] and (max, sum) pairs
+    [tiles, KV, splits, 128, 2]."""
+    return ((tiles, KV, splits, _ATTEND_ROWS, D),
+            (tiles, KV, splits, _ATTEND_ROWS, 2))
 
 
 def partial_shapes(B: int, H: int, D: int, splits: int) -> tuple:
@@ -316,6 +381,40 @@ def _decode_per_sm(index: int, D: int, int8: bool) -> int:
     if n.value < 1:
         raise RuntimeError(f"paged_decode: no block of D={D} fits an SM")
     return n.value
+
+
+@functools.lru_cache(maxsize=16)
+def _attend_per_sm(index: int, D: int, ragged: bool) -> int:
+    """Prefill / ragged blocks one SM holds (the kernel's own occupancy
+    query)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(_lib().paged_attend_blocks_per_sm(
+            D, int(ragged), ctypes.byref(n)), "paged attention occupancy")
+    if n.value < 1:
+        raise RuntimeError(f"paged attention: no block of D={D} fits an SM")
+    return n.value
+
+
+def _attend_launch(q, T, B, H, KV, D, P, page_size, ragged: bool) -> tuple:
+    """(splits, tokens per split, partial outputs, partial max/sum, ticket)
+    of a prefill or ragged launch: the plan and buffers of the tensor-core
+    body; one unsplit pass and no buffers for the scalar body."""
+    if not _uses_mma(q.dtype, D, H // KV):
+        return 1, max(1, P * page_size), None, None, None
+    index = q.device.index
+    splits, chunk = attend_plan(H, KV, T, B, P * page_size, page_size,
+                                _num_sms(index),
+                                _attend_per_sm(index, D, ragged), ragged)
+    if splits == 1:
+        return splits, chunk, None, None, None
+    tiles = attend_tiles(H, KV, T, B, ragged)
+    o_shape, ml_shape = attend_partial_shapes(tiles, KV, D, splits)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return (splits, chunk,
+            torch.empty(o_shape, dtype=torch.float32, device=q.device),
+            torch.empty(ml_shape, dtype=torch.float32, device=q.device),
+            _build.ticket_buffer(q.device, stream, tiles * KV))
 
 
 def _split_launch(q, B, H, KV, D, P, page_size, int8: bool) -> tuple:
@@ -469,12 +568,14 @@ def paged_prefill(
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
+    splits, chunk, part_o, part_ml, ticket = _attend_launch(
+        q, T, B, H, KV, D, P, page_size, ragged=False)
     err = _lib().paged_prefill(
         _DTYPE_CODES[q.dtype], q.data_ptr(), pool_k.data_ptr(),
         pool_v.data_ptr(), page_tables.data_ptr(), q_start.data_ptr(),
         kv_valid_len.data_ptr(), out.data_ptr(), B, T, H, KV, D, page_size,
         P, num_slots // page_size, int(sliding_window), float(attn_softcap),
-        _stream(q))
+        _ptr(part_o), _ptr(part_ml), _ptr(ticket), splits, chunk, _stream(q))
     _build.check(err, "paged_prefill launch")
     paged_prefill.launches += 1
     return out
@@ -523,12 +624,15 @@ def paged_ragged(
     if S == 0 or Bm == 0:  # nothing but padding
         return torch.zeros_like(q)
     out = torch.empty_like(q)
+    splits, chunk, part_o, part_ml, ticket = _attend_launch(
+        q, S, Bm, H, KV, D, P, page_size, ragged=True)
     err = _lib().paged_ragged(
         _DTYPE_CODES[q.dtype], q.data_ptr(), pool_k.data_ptr(),
         pool_v.data_ptr(), page_tables.data_ptr(), tok_row.data_ptr(),
         q_pos.data_ptr(), kv_valid_len.data_ptr(), out.data_ptr(), S, Bm, H,
         KV, D, page_size, P, num_slots // page_size, int(sliding_window),
-        float(attn_softcap), _stream(q))
+        float(attn_softcap), _ptr(part_o), _ptr(part_ml), _ptr(ticket),
+        splits, chunk, _stream(q))
     _build.check(err, "paged_ragged launch")
     paged_ragged.launches += 1
     return out

@@ -176,6 +176,173 @@ def test_paged_ragged_kernel(cuda, dtype, case, H, KV, D, window, softcap):
         assert not got[0].any()
 
 
+# The prefill / ragged tensor-core body at serving depth: tables of 128
+# pages of 16 tokens (capacity 2048) over a 1024-page pool (2048 for the
+# ragged cases' up to 12 rows), KV 4 heads.
+# Prefill rows: (q_start, valid) per row; "deep" has a 1500-token history
+# beside rows that start at 0 and 100 and an empty row; "one deep row" is a
+# single row whose small grid the plan splits, so the merge runs.
+DEEP_PREFILL = {
+    "deep": ([0, 100, 1500, 0], lambda T: [T, 100 + max(1, T // 2),
+                                           min(1500 + T, 2048), 0]),
+    "one deep row": ([1900], lambda T: [min(1900 + T, 2048)]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows", sorted(DEEP_PREFILL))
+@pytest.mark.parametrize("T,window,softcap", [
+    (512, 0, 0.0), (50, 0, 0.0), (77, 300, 30.0)])
+def test_paged_prefill_deep_history(cuda, D, G, rows, T, window, softcap):
+    """T 512 (whole query tiles at G 1, 2, 4, 8), T 50 and 77 (a partial
+    last tile), with and without window and softcap."""
+    q_start, valid = DEEP_PREFILL[rows]
+    if q_start[0] + T > 2048:
+        T = 2048 - q_start[0]
+    B, KV = len(q_start), 4
+    q, pk, pv, tables = _pool_case(cuda, torch.bfloat16, B, G * KV, KV, D,
+                                   16, 128, 1024, T=T, seed=G + D)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    qs = torch.tensor(q_start, **i32)
+    vl = torch.tensor(valid(T), **i32)
+    kw = dict(page_size=16, sliding_window=window, attn_softcap=softcap)
+    n = pa.paged_prefill.launches
+    got = pa.paged_prefill(q, pk, pv, tables, qs, vl, **kw)
+    want = pa.paged_prefill_plain(q, pk, pv, tables, qs, vl, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_prefill.launches == n + 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+    if B == 4:
+        assert not got[3].any()
+
+
+def _mixed_layout(decode_valid, chunks, S, Bm):
+    """The mixed step's packed axis: decode slots first (valid 0: an
+    inactive slot, -1), then prefill chunks (length, q_start) back to back,
+    then padding up to S. Returns tok_row, q_pos, valid."""
+    tok_row, q_pos, valid = [], [], []
+    for b, v in enumerate(decode_valid):
+        tok_row.append(b if v > 0 else -1)
+        q_pos.append(max(v - 1, 0))
+        valid.append(v)
+    for j, (n, start) in enumerate(chunks):
+        tok_row += [len(decode_valid) + j] * n
+        q_pos += list(range(start, start + n))
+        valid.append(start + n)
+    valid += [0] * (Bm - len(valid))
+    tok_row += [-1] * (S - len(tok_row))
+    q_pos += [0] * (S - len(q_pos))
+    return tok_row, q_pos, valid
+
+
+# (decode valid, chunks (length, q_start), S, Bm): the served mix (a
+# 2048-token decode row and a 1500-deep chunk among shorter rows), decode
+# rows alone, and a chunk reaching the table's end
+LONG_RAGGED = {
+    "served mix": ([0, 1, 16, 17, 300, 1000, 2047, 2048],
+                   [(200, 0), (250, 1500), (54, 100)], 512, 12),
+    "decode rows": ([2048, 2047, 1, 64, 1000], [], 8, 5),
+    "deep chunk": ([2048], [(300, 1748), (33, 0)], 400, 3),
+}
+
+
+def _long_ragged_inputs(dev, case, H, KV, D, seed=5):
+    decode_valid, chunks, S, Bm = LONG_RAGGED[case]
+    tok_row, q_pos, valid = _mixed_layout(decode_valid, chunks, S, Bm)
+    q, pk, pv, tables = _pool_case(dev, torch.bfloat16, Bm, H, KV, D, 16,
+                                   128, 2048, T=S, seed=seed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (q[0].contiguous(), pk, pv, tables, torch.tensor(tok_row, **i32),
+            torch.tensor(q_pos, **i32), torch.tensor(valid, **i32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("case", sorted(LONG_RAGGED))
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (300, 30.0)])
+def test_paged_ragged_long_rows_split_and_merge(cuda, D, G, case, window,
+                                                softcap):
+    args = _long_ragged_inputs(cuda, case, 4 * G, 4, D)
+    splits, _ = pa.attend_plan(4 * G, 4, args[0].shape[0],
+                               args[3].shape[0], 2048, 16, pa._num_sms(0),
+                               pa._attend_per_sm(0, D, True), ragged=True)
+    assert splits > 1  # the merge runs
+    kw = dict(page_size=16, sliding_window=window, attn_softcap=softcap)
+    n = pa.paged_ragged.launches
+    got = pa.paged_ragged(*args, **kw)
+    want = pa.paged_ragged_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_ragged.launches == n + 1  # one launch, merge included
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+    assert not got[args[4] < 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("kernel", ["prefill", "ragged"])
+def test_attend_is_deterministic(cuda, D, kernel):
+    """Two calls on the same inputs give the same bits: the splits are
+    added in split order whichever block ends last."""
+    if kernel == "ragged":
+        args = _long_ragged_inputs(cuda, "served mix", 32, 8, D, seed=9)
+        fn = pa.paged_ragged
+    else:
+        q, pk, pv, tables = _pool_case(cuda, torch.bfloat16, 1, 32, 8, D, 16,
+                                       128, 1024, T=64, seed=9)
+        i32 = dict(dtype=torch.int32, device=cuda)
+        args = (q, pk, pv, tables, torch.tensor([1900], **i32),
+                torch.tensor([1964], **i32))
+        fn = pa.paged_prefill
+    first = fn(*args, page_size=16)
+    for _ in range(3):
+        assert torch.equal(fn(*args, page_size=16), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["prefill", "ragged"])
+def test_attend_graph_replays_reset_the_ticket(cuda, kernel):
+    """A captured prefill (one deep row: split, merged) or ragged launch
+    (the served mix) replayed four times, with new queries and pools
+    before each replay and the output poisoned, gives the plain version's
+    result every time: the last split of each tile puts its ticket back
+    to zero."""
+    if kernel == "ragged":
+        args = list(_long_ragged_inputs(cuda, "served mix", 32, 8, 64,
+                                        seed=13))
+        fn, plain = pa.paged_ragged, pa.paged_ragged_plain
+    else:
+        q, pk, pv, tables = _pool_case(cuda, torch.bfloat16, 1, 32, 8, 64,
+                                       16, 128, 1024, T=100, seed=13)
+        i32 = dict(dtype=torch.int32, device=cuda)
+        args = [q, pk, pv, tables, torch.tensor([1900], **i32),
+                torch.tensor([2000], **i32)]
+        fn, plain = pa.paged_prefill, pa.paged_prefill_plain
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # the ticket buffer of this stream
+        fn(*args, page_size=16)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn(*args, page_size=16)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    for _ in range(4):
+        for t in args[:3]:  # q, pool_k, pool_v
+            t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+        out.fill_(float("nan"))
+        graph.replay()
+        want = plain(*args, page_size=16)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want.float(),
+                                   **_tol(torch.bfloat16))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 64), (8, 1, 2048), (4, 33, 2048),
