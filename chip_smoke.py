@@ -27,30 +27,46 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    N off the tiles; and the int8-pool paged decode at D = 128 and D = 64,
    plus window 64 + softcap 30;
 4. starts ``python -m distributed_inference_server_tpu_torch`` serving
-   llama-3.2-1b (full width and depth, random weights from a seed) and
-   sends concurrent ``POST /generate`` requests; the kernels' launch
-   counts are zeroed just before and read just after, from
-   ``/server/stats``, and every kernel of that path must have launched.
-   Then a second server with ``--engine-mixed-step-tokens 512``: two
-   chats, and while they decode a ~1500-byte and a 600-byte prompt, so
-   the ragged mixed step runs; its counts are read the same way. Then
-   the quantized servers with the first one's request mix: llama-3-8b
-   (32 layers, 4096 wide) with ``--model-quantization int8
-   --engine-kv-quant int8``, and llama-3.2-1b with
-   ``--model-quantization int4``;
+   llama-3.2-1b (full width and depth, random weights from a seed; the
+   server's warmup runs every serving program and captures every CUDA
+   graph before it reports ready), sends the mix's greedy prompts one at
+   a time (their texts are kept for phase 6), then concurrent ``POST
+   /generate`` requests; the kernels' launch counts are zeroed just
+   before and read just after, from ``/server/stats``, and every kernel
+   of that path must have launched. Then a second server with
+   ``--engine-mixed-step-tokens 512``: two chats, and while they decode a
+   ~1500-byte and a 600-byte prompt, so the ragged mixed step runs; its
+   counts are read the same way. Then the quantized servers with the
+   first one's request mix: llama-3-8b (32 layers, 4096 wide) with
+   ``--model-quantization int8 --engine-kv-quant int8``, and
+   llama-3.2-1b with ``--model-quantization int4``. For each server one
+   ``server_timing`` line: the warmup's seconds, the mix's and a lone
+   request's walls, the mean decode-step, prefill-chunk and mixed-step
+   ms of the engine's step clock over the mix, device memory (peak,
+   graph pool) and the device busy share over 12 engine steps of the mix
+   run again and again (``POST /server/profile``, ``torch.profiler``);
 5. runs the engine at 2 layers of the 1B width in f32 with the kernels and
    with the plain versions and requires identical greedy tokens; then the
    mixed step (kernels, plain versions) and the quantum path on one trace
    (chats mid-decode, then a ~400-token prompt), tokens identical; then
    int8 weights over int8 KV, and int4 weights, kernels against plain
-   versions, tokens identical.
+   versions, tokens identical; then the quantum path's CUDA graphs
+   against its eager path (dense, and int8 weights over int8 KV; at
+   pipeline depths 0 and 1): identical greedy tokens and kernel launches;
+6. (``ckpt``) writes the bf16 llama-3.2-1b weights of the seed with the
+   port's ``save_checkpoint`` (bytes, save and load seconds printed),
+   checks that ``load_checkpoint`` gives them back, serves them with
+   ``--model-model-dir`` and requires phase 4's greedy texts.
+
+It also prints whether ``safetensors`` and ``tokenizers`` import (for
+information: the port reads safetensors itself).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (the
 quantized matmuls' rows add ``*_prefill`` keys: their M = 2048 layer); the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
-and prints no result. ``--phases kernels,serve,quant,engine`` selects
-phases (default: all; ``quant`` is phase 3's quantized kernels and phase
-4's quantized servers).
+and prints no result. ``--phases kernels,serve,quant,engine,ckpt``
+selects phases (default: all; ``quant`` is phase 3's quantized kernels
+and phase 4's quantized servers).
 """
 
 from __future__ import annotations
@@ -58,6 +74,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures as cf
 import contextlib
+import importlib.util
 import json
 import os
 import shutil
@@ -80,8 +97,15 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 ATOL, RTOL = 1e-2, 2.0 ** -7
 
 
+T0 = time.monotonic()
+
+
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def phase_done(name: str) -> None:
+    log(f"[phase] {name} done at {time.monotonic() - T0:.1f} s")
 
 
 def card_line() -> str:
@@ -853,6 +877,57 @@ def _reset_counts(base) -> dict:
     return stats
 
 
+def _clock_ms(before: dict, after: dict, kind: str, per: int = 1):
+    """Mean host wall ms per dispatch of ``kind`` between two
+    ``step_clock`` readings (divided by ``per``: the decode block's K
+    steps), or None when none ran."""
+    a, b = before["kinds"][kind], after["kinds"][kind]
+    n = b["dispatches"] - a["dispatches"]
+    return (b["wall_s"] - a["wall_s"]) * 1e3 / (n * per) if n else None
+
+
+def _profiled(base, run, steps: int = 12) -> dict:
+    """The device busy time and share of a trace of the card over
+    ``steps`` engine steps (``POST /server/profile``) while ``run()`` (the
+    server's request mix) runs again and again: the share under that
+    mix's sustained load. A one-step trace first starts the profiler,
+    whose first start is slow."""
+    prof = None
+    for n in (1, steps):
+        with cf.ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(_http, "POST", base + "/server/profile",
+                            {"steps": n, "timeout_s": 120}, 180.0)
+            while not fut.done():
+                run()
+            st, prof = fut.result()
+        assert st == 200, prof
+    assert prof["device_events"] > 0, f"the trace saw no device work: {prof}"
+    return prof
+
+
+def _timing_line(label, card, stats0, before, after, mix_wall, lone_wall,
+                 prof, stats) -> None:
+    """One line per server: warmup, walls, step-clock ms, busy share and
+    device memory."""
+    K = 8  # EngineConfig.decode_block_size
+    mem = stats.get("memory") or {}
+    log(json.dumps({
+        "server_timing": label, "card": card,
+        "warmup_s": stats0["warmup_s"],
+        "mix_wall_s": mix_wall, "lone_request_s": lone_wall,
+        "decode_step_ms": _clock_ms(before, after, "decode_block", K),
+        "prefill_chunk_ms": _clock_ms(before, after, "prefill"),
+        "mixed_step_ms": _clock_ms(before, after, "mixed"),
+        "busy_share": prof["busy_share"], "device_busy_s":
+        prof["device_busy_s"], "profile_window_s": prof["wall_s"],
+        "top_device_ms": prof["top_device_ms"][:4],
+        "events": after["events"],
+        "max_allocated_bytes": mem.get("max_allocated_bytes"),
+        "graph_pool_bytes": mem.get("graph_pool_bytes"),
+        "graphs": mem.get("graphs"),
+    }))
+
+
 # the kernels each served path runs (the quantum server never launches
 # the ragged kernel; the mixed server never the chunked-prefill one)
 QUANTUM_KERNELS = ("paged_decode", "paged_prefill", "rms_norm", "rope")
@@ -872,55 +947,71 @@ QUANT_SERVERS = (
      ("paged_decode_int8", "quant_matmul_q8")),
 )
 
+# the first mix's prompts; its greedy requests, sent one at a time first
+# thing after startup, give the texts the checkpoint phase compares
+MIX_PROMPTS = {
+    "p20": "The H100 serves this.",  # 21 ids with BOS
+    "p100": ("Paged attention reads each row's pages straight from "
+             "the pool; the gather path copies them. ") * 1 + "x" * 4,
+    "p600": ("Long prompt chunked past the 512 bucket. " * 15)[:600],
+}
+GREEDY = {"temperature": 0.0, "max_tokens": 24}
+
+
+def greedy_texts(base) -> dict:
+    """The first mix's greedy prompts, one at a time: {name: text}."""
+    out = {}
+    for name, prompt in MIX_PROMPTS.items():
+        st, body, _ = _gen(base, prompt, GREEDY)
+        _check_generate(st, body, GREEDY["max_tokens"])
+        out[name] = body["choices"][0]["text"]
+    return out
+
 
 def phase_serve(card: str, seed: int = 0, model: str = "llama-3.2-1b",
                 extra=(), log_name: str = "server.log",
                 label: str = "llama-3.2-1b bf16 random weights",
-                required=QUANTUM_KERNELS, absent=()) -> dict:
-    """Four concurrent requests (greedy and sampled, ~20 to 600 bytes),
-    then a greedy repeat; every kernel in ``required`` must launch and
-    none in ``absent``."""
+                required=QUANTUM_KERNELS, absent=()) -> tuple:
+    """The first mix's greedy prompts one at a time, then four concurrent
+    requests (greedy and sampled, ~20 to 600 bytes), then a lone greedy
+    repeat; every kernel in ``required`` must launch and none in
+    ``absent``. Then the mix once more while the server traces the card.
+    Returns (launches, greedy texts)."""
     with _server(seed, list(extra), log_name, model) as base:
-        greedy = {"temperature": 0.0, "max_tokens": 24}
-        prompts = {
-            "p20": "The H100 serves this.",  # 21 ids with BOS
-            "p100": ("Paged attention reads each row's pages straight from "
-                     "the pool; the gather path copies them. ") * 1 + "x" * 4,
-            "p600": ("Long prompt chunked past the 512 bucket. " * 15)[:600],
-        }
-
-        # warm pass (kernel builds and first launches), not counted
-        st, body, _ = _gen(base, "warm up", {"temperature": 0.0,
-                                             "max_tokens": 4})
-        _check_generate(st, body, 4)
-        st, solo, _ = _gen(base, prompts["p20"], greedy)
-        _check_generate(st, solo, greedy["max_tokens"])
+        _, stats0 = _http("GET", base + "/server/stats")
+        texts = greedy_texts(base)
+        phase_done(f"{label}: startup and greedy texts")
 
         _reset_counts(base)
+        _, before = _http("GET", base + "/server/stats")
+        jobs = [(MIX_PROMPTS["p20"], GREEDY), (MIX_PROMPTS["p100"], GREEDY),
+                (MIX_PROMPTS["p600"], GREEDY),
+                (MIX_PROMPTS["p100"], {"temperature": 0.8, "top_p": 0.9,
+                                       "max_tokens": 24})]
+
+        def run_jobs():
+            with cf.ThreadPoolExecutor(len(jobs)) as ex:
+                return list(ex.map(lambda j: _gen(base, *j), jobs))
+
         t_all = time.monotonic()
-        jobs = [(prompts["p20"], greedy), (prompts["p100"], greedy),
-                (prompts["p600"], greedy),
-                (prompts["p100"], {"temperature": 0.8, "top_p": 0.9,
-                                   "max_tokens": 24})]
-        with cf.ThreadPoolExecutor(len(jobs)) as ex:
-            results = list(ex.map(lambda j: _gen(base, *j), jobs))
+        results = run_jobs()
         wall = time.monotonic() - t_all
-        st, again, dt_again = _gen(base, prompts["p20"], greedy)
+        st, again, dt_again = _gen(base, MIX_PROMPTS["p20"], GREEDY)
         _, stats = _http("GET", base + "/server/stats")
         launches = stats["kernel_launches"]
         log("[serve] launches on the served path: " + json.dumps(launches))
 
         for (prompt, params), (st, body, _) in zip(jobs, results):
             _check_generate(st, body, params["max_tokens"])
-        _check_generate(st, again, greedy["max_tokens"])
+        _check_generate(st, again, GREEDY["max_tokens"])
         for name in required:
             assert launches[name] > 0, (
                 f"kernel {name} never launched on the served path ({label})")
         for name in absent:
             assert launches[name] == 0, (
                 f"kernel {name} launched on the served path ({label})")
-        assert again["choices"][0]["text"] == solo["choices"][0]["text"], (
-            "greedy repeat differs", solo, again)
+        assert again["choices"][0]["text"] == texts["p20"], (
+            "greedy repeat differs", texts["p20"], again)
         hits = stats["cache"]["hits"]
         assert hits > 0, f"no prefix hit in /server/stats: {stats['cache']}"
         toks = sum(b["usage"]["completion_tokens"] for _, b, _ in results)
@@ -931,18 +1022,24 @@ def phase_serve(card: str, seed: int = 0, model: str = "llama-3.2-1b",
             "request_latency_s": [r[2] for r in results],
             "repeat_latency_s": dt_again, "prefix_hits": hits,
             "concurrent_p20_matches_solo": (
-                results[0][1]["choices"][0]["text"]
-                == solo["choices"][0]["text"]),
+                results[0][1]["choices"][0]["text"] == texts["p20"]),
             "note": "smoke numbers, not a benchmark",
         }))
-        return launches
+        phase_done(f"{label}: mix and lone request")
+        prof = _profiled(base, run_jobs)
+        phase_done(f"{label}: profile")
+        _timing_line(label, card, stats0, before["step_clock"],
+                     stats["step_clock"], wall, dt_again, prof, stats)
+        return launches, texts
 
 
 def phase_serve_mixed(card: str, seed: int = 0) -> dict:
     """The ragged mixed step served: two chats decode while a ~1500-byte
     and a 600-byte prompt load."""
+    label = "llama-3.2-1b bf16 random weights, --engine-mixed-step-tokens 512"
     with _server(seed, ["--engine-mixed-step-tokens", "512"],
                  "server_mixed.log") as base:
+        _, boot = _http("GET", base + "/server/stats")
         st, body, _ = _gen(base, "warm up", {"temperature": 0.0,
                                              "max_tokens": 4})
         _check_generate(st, body, 4)
@@ -955,21 +1052,27 @@ def phase_serve_mixed(card: str, seed: int = 0) -> dict:
                 (("A shorter prompt packed into the same steps. " * 14)[:600],
                  longp)]
 
+        def run_mix(stats0):
+            t_all = time.monotonic()
+            with cf.ThreadPoolExecutor(len(jobs)) as ex:
+                chats = [ex.submit(_gen, base, *j) for j in jobs[:2]]
+                while True:  # the chats have their first tokens: decoding
+                    _, st_now = _http("GET", base + "/server/stats")
+                    if (st_now["tokens_generated"]
+                            >= stats0["tokens_generated"] + 2):
+                        break
+                    if time.monotonic() - t_all > 120:
+                        raise RuntimeError("the chats never started decoding")
+                    time.sleep(0.002)
+                prompts = [ex.submit(_gen, base, *j) for j in jobs[2:]]
+                results = [f.result() for f in chats + prompts]
+            return results, time.monotonic() - t_all
+
         stats0 = _reset_counts(base)
         mixed0 = stats0["mixed"]
-        t_all = time.monotonic()
-        with cf.ThreadPoolExecutor(len(jobs)) as ex:
-            chats = [ex.submit(_gen, base, *j) for j in jobs[:2]]
-            while True:  # the chats have their first tokens: decoding
-                _, st_now = _http("GET", base + "/server/stats")
-                if st_now["tokens_generated"] >= stats0["tokens_generated"] + 2:
-                    break
-                if time.monotonic() - t_all > 120:
-                    raise RuntimeError("the chats never started decoding")
-                time.sleep(0.002)
-            prompts = [ex.submit(_gen, base, *j) for j in jobs[2:]]
-            results = [f.result() for f in chats + prompts]
-        wall = time.monotonic() - t_all
+        results, wall = run_mix(stats0)
+        st, lone, dt_lone = _gen(base, MIX_PROMPTS["p20"], GREEDY)
+        _check_generate(st, lone, GREEDY["max_tokens"])
         _, stats = _http("GET", base + "/server/stats")
         launches = stats["kernel_launches"]
         mixed = {k: stats["mixed"][k] - mixed0[k]
@@ -988,8 +1091,7 @@ def phase_serve_mixed(card: str, seed: int = 0) -> dict:
         assert mixed["prefill_tokens"] >= 1500, mixed
         toks = sum(b["usage"]["completion_tokens"] for _, b, _ in results)
         log(json.dumps({
-            "serve_mixed": "llama-3.2-1b bf16 random weights, "
-                           "--engine-mixed-step-tokens 512", "card": card,
+            "serve_mixed": label, "card": card,
             "requests": len(jobs), "wall_s": wall,
             "completion_tokens": toks, "tokens_per_s": toks / wall,
             "request_latency_s": [r[2] for r in results],
@@ -998,7 +1100,64 @@ def phase_serve_mixed(card: str, seed: int = 0) -> dict:
             "mixed": mixed, "batch_density": stats["mixed"]["batch_density"],
             "note": "smoke numbers, not a benchmark",
         }))
+        _, now = _http("GET", base + "/server/stats")
+        prof = _profiled(base, lambda: run_mix(now))
+        _timing_line(label, card, boot, stats0["step_clock"],
+                     stats["step_clock"], wall, dt_lone, prof, stats)
         return launches
+
+
+def phase_checkpoint(card: str, seed: int, want: dict) -> None:
+    """The port's saver writes the random llama-3.2-1b bf16 weights of
+    ``seed`` (what the bf16 server draws) to a directory under the
+    gitignored ``build/``; the load is timed in process, then a server
+    started with ``--model-model-dir`` on it must answer the first mix's
+    greedy prompts with the random-weight server's texts (``want``)."""
+    from distributed_inference_server_tpu_torch.models import llama
+    from distributed_inference_server_tpu_torch.models.configs import (
+        LLAMA_3_2_1B,
+    )
+    from distributed_inference_server_tpu_torch.models.loader import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    ckpt = os.path.join("build", "chip_smoke_ckpt", "llama-3.2-1b")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init_params(LLAMA_3_2_1B, gen, dtype=torch.bfloat16,
+                               device="cuda")
+    t0 = time.monotonic()
+    save_checkpoint(params, LLAMA_3_2_1B, ckpt, dtype=None)
+    save_s = time.monotonic() - t0
+    nbytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                 for f in os.listdir(ckpt))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    loaded, cfg = load_checkpoint(ckpt, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+
+    def same(a, b):
+        return all(same(a[k], b[k]) if isinstance(a[k], dict)
+                   else torch.equal(a[k], b[k]) for k in a)
+
+    assert set(loaded) == set(params) and same(params, loaded)
+    assert cfg.with_overrides(name=LLAMA_3_2_1B.name) == LLAMA_3_2_1B, cfg
+    del params, loaded
+    torch.cuda.empty_cache()
+    with _server(seed, ["--model-model-dir", ckpt], "server_ckpt.log") as base:
+        _, stats = _http("GET", base + "/server/stats")
+        got = greedy_texts(base)
+    assert got == want, ("checkpoint server differs from the random-weight "
+                         "server", got, want)
+    log(json.dumps({"checkpoint": "llama-3.2-1b bf16 random weights from "
+                    "--seed, saved and served from --model-model-dir",
+                    "card": card, "bytes": nbytes, "save_s": save_s,
+                    "load_s": load_s, "load_gb_per_s": nbytes / load_s / 1e9,
+                    "server_warmup_s": stats["warmup_s"],
+                    "texts_match_random_weight_server": True}))
+    shutil.rmtree(ckpt, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1150,6 +1309,85 @@ def phase_engine_quant_f32(seed: int = 0) -> dict:
     return outs
 
 
+def phase_engine_graphs(seed: int = 0) -> dict:
+    """The quantum path's CUDA graphs against its eager path, 2 layers of
+    the 1B width in f32, dense and int8 weights over int8 KV, at
+    ``pipeline_depth`` 0 and 1: identical greedy tokens and identical
+    kernel launches, and so identical launches per decode step and per
+    prefill chunk."""
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distributed_inference_server_tpu_torch.models import llama
+    from distributed_inference_server_tpu_torch.models.configs import (
+        LLAMA_3_2_1B,
+    )
+    from distributed_inference_server_tpu_torch.models.tokenizer import (
+        ByteTokenizer,
+    )
+    from distributed_inference_server_tpu_torch.ops import kernels
+    from distributed_inference_server_tpu_torch.ops.quant import (
+        quantize_params,
+    )
+
+    cfg = LLAMA_3_2_1B.with_overrides(num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dense = llama.init_params(cfg, gen, dtype=torch.float32, device="cuda")
+    tok = ByteTokenizer()
+    waves = [["graph path against eager path", "g" * 300, "short"],
+             ["graph path against eager path, again", "after a table change"]]
+    out = {}
+    for weights, kv in (("none", "none"), ("int8", "int8")):
+        params = quantize_params(dense, weights)
+        for depth in (0, 1):
+            runs = {}
+            for graphs in (True, False):
+                kernels.reset_launch_counts()
+                eng = LLMEngine(params, cfg, tok, EngineConfig(
+                    kv_quant=kv, pipeline_depth=depth), dtype=torch.float32,
+                    device="cuda", _graphs=graphs)
+                toks = {}
+                for w, prompts in enumerate(waves):
+                    for i, p in enumerate(prompts):
+                        eng.add_request(f"w{w}r{i}", tok.encode(p),
+                                        SamplingParams(max_tokens=20,
+                                                       temperature=0.0))
+                    while eng.has_work():
+                        for o in eng.step():
+                            if o.token_id is not None:
+                                toks.setdefault(o.request_id, []).append(
+                                    o.token_id)
+                sc = eng.step_clock_stats()["kinds"]
+                counts = {k: v for k, v in kernels.launch_counts().items()
+                          if v}
+                runs[graphs] = (toks, counts, sc, len(eng._graphs))
+                del eng
+            (gt, gc, gsc, ng), (et, ec, esc, _) = runs[True], runs[False]
+            assert ng > 0, "the graph path captured no graph"
+            assert gt == et, (weights, kv, depth, gt, et)
+            assert gc == ec, (weights, kv, depth, gc, ec)
+            steps = gsc["decode_block"]["dispatches"] * 8
+            chunks = gsc["prefill"]["dispatches"]
+            dec = "paged_decode_int8" if kv == "int8" else "paged_decode"
+            out[f"{weights}+kv_{kv} depth {depth}"] = {
+                "graphs": ng, "launches": gc,
+                f"{dec}_per_decode_step": gc[dec] / steps,
+                "paged_prefill_per_chunk": (gc.get("paged_prefill", 0)
+                                            / chunks if chunks else None),
+                "decode_step_ms_graph": gsc["decode_block"]["wall_s"] * 1e3
+                / steps,
+                "decode_step_ms_eager": esc["decode_block"]["wall_s"] * 1e3
+                / (esc["decode_block"]["dispatches"] * 8),
+            }
+        del params
+    log(json.dumps({"engine_f32_2layer_graphs":
+                    "graph == eager greedy tokens and launches (dense, "
+                    "int8 + int8 KV; depth 0 and 1)", "runs": out}))
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1189,7 +1427,7 @@ KERNEL_META = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,quant,engine")
+    ap.add_argument("--phases", default="kernels,serve,quant,engine,ckpt")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1205,6 +1443,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    # informational: the port reads safetensors itself and needs
+    # tokenizers only for a checkpoint that ships tokenizer.json
+    log(json.dumps({"optional_packages": {
+        name: importlib.util.find_spec(name) is not None
+        for name in ("safetensors", "tokenizers")}}))
 
     from distributed_inference_server_tpu_torch.ops import kernels
     from distributed_inference_server_tpu_torch.ops.kernels import _build
@@ -1215,29 +1458,45 @@ def main(argv=None) -> int:
     decode_report()
     attend_report()
 
+    phase_done("build")
     checks = phase_kernels() if "kernels" in phases else {}
+    phase_done("kernels")
     if "quant" in phases:
         checks.update(phase_quant_kernels())
+        phase_done("quant kernels")
     launches = {}
+    texts = None
     if "serve" in phases:
-        launches = phase_serve(card, args.seed)
+        launches, texts = phase_serve(card, args.seed)
         # the ragged kernel's count is the mixed server's (the only path
         # that runs it)
+        phase_done("serve")
         launches["paged_ragged"] = phase_serve_mixed(
             card, args.seed)["paged_ragged"]
+        phase_done("serve mixed")
     if "quant" in phases:
         # each quantized kernel's count is its server's
         torch.cuda.empty_cache()
         for label, model, flags, need, absent in QUANT_SERVERS:
-            got = phase_serve(card, args.seed, model, flags,
-                              f"server_{model}_{flags[1]}.log", label, need,
-                              absent)
+            got, _ = phase_serve(card, args.seed, model, flags,
+                                 f"server_{model}_{flags[1]}.log", label,
+                                 need, absent)
             for name in need:
                 if name.startswith(("quant_matmul", "paged_decode_int8")):
                     launches[name] = got[name]
+            phase_done(f"serve {label}")
+    if "ckpt" in phases:
+        if texts is None:  # the random-weight server's texts to match
+            with _server(args.seed, [], "server.log") as base:
+                texts = greedy_texts(base)
+        phase_checkpoint(card, args.seed, texts)
+        phase_done("checkpoint")
     if "engine" in phases:
         phase_engine_f32(args.seed)
         phase_engine_quant_f32(args.seed)
+        phase_done("engine kernel == plain")
+        phase_engine_graphs(args.seed)
+        phase_done("engine graph == eager")
 
     rows = []
     for name, (route, source, replaces) in KERNEL_META.items():

@@ -1,25 +1,35 @@
 """Serve a model over HTTP: ``python -m distributed_inference_server_tpu_torch
 --model-model-name llama-3.2-1b --server-port 8000 [--seed S]
-[--device cuda|cpu] [--engine-mixed-step-tokens N]
-[--model-quantization none|int8|int4] [--engine-kv-quant none|int8]``.
+[--model-model-dir DIR] [--device cuda|cpu] [--engine-mixed-step-tokens N]
+[--model-quantization none|int8|int4] [--engine-kv-quant none|int8]
+[--engine-pipeline-depth N] [--engine-warmup-compile true|false]``.
 
-Weights are random, drawn from ``--seed`` (checkpoint loading is not
-ported yet), and the tokenizer is the byte tokenizer. The engine runs on
+With ``--model-model-dir`` the config and weights come from that HF
+checkpoint directory (``models/loader.py load_checkpoint``) and the
+tokenizer from its ``tokenizer.json`` (the byte tokenizer when it has
+none); without it the weights are random, drawn from ``--seed``, for the
+``--model-model-name`` preset, with the byte tokenizer. The engine runs on
 ``cuda`` unless ``--device cpu`` is given; a missing card is an error.
 ``--model-quantization`` quantizes the seven linear families after
-initialization (``ops/quant.py quantize_params``, layer by layer);
-``--engine-kv-quant int8`` keeps the KV pools as int8 codes + scales.
+loading or initialization (``ops/quant.py quantize_params``, layer by
+layer); ``--engine-kv-quant int8`` keeps the KV pools as int8 codes +
+scales. ``--engine-pipeline-depth`` (default 1) keeps that many decode
+blocks in flight beyond the one being read; ``--engine-warmup-compile``
+(default true) runs every serving program once, and on ``cuda`` captures
+every CUDA graph, before the server reports ready.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import signal
 import sys
 
 import torch
 
+from distributed_inference_server_tpu_torch.core.errors import ModelLoadError
 from distributed_inference_server_tpu_torch.engine.engine import (
     EngineConfig,
     LLMEngine,
@@ -27,6 +37,9 @@ from distributed_inference_server_tpu_torch.engine.engine import (
 from distributed_inference_server_tpu_torch.engine.kv_cache import KV_QUANTS
 from distributed_inference_server_tpu_torch.models import llama
 from distributed_inference_server_tpu_torch.models.configs import get_config
+from distributed_inference_server_tpu_torch.models.loader import (
+    load_checkpoint,
+)
 from distributed_inference_server_tpu_torch.models.tokenizer import (
     load_tokenizer,
 )
@@ -43,11 +56,24 @@ from distributed_inference_server_tpu_torch.utils.device import (
 )
 
 
+def _bool(text: str) -> bool:
+    low = text.strip().lower()
+    if low in ("1", "true", "yes", "on"):
+        return True
+    if low in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m distributed_inference_server_tpu_torch",
         description="Serve /generate with the PyTorch/CUDA engine.")
     ap.add_argument("--model-model-name", default="llama-3.2-1b")
+    ap.add_argument("--model-model-dir", default="",
+                    help="HF checkpoint directory (config.json, "
+                         "*.safetensors, optional tokenizer.json); empty = "
+                         "random weights for --model-model-name")
     ap.add_argument("--model-dtype", default="bfloat16",
                     help="weights and KV pool dtype")
     ap.add_argument("--server-host", default="0.0.0.0")
@@ -62,6 +88,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="weight-only quantization: none | int8 | int4")
     ap.add_argument("--engine-kv-quant", default="none",
                     help="KV pool quantization: none | int8")
+    ap.add_argument("--engine-pipeline-depth", type=int, default=1,
+                    help="decode blocks in flight beyond the one being "
+                         "read (0 = read each block right after launch)")
+    ap.add_argument("--engine-warmup-compile", type=_bool, default=True,
+                    help="run every serving program (and capture every "
+                         "CUDA graph) before reporting ready")
     return ap
 
 
@@ -71,7 +103,10 @@ def main(argv=None) -> int:
                         format="%(asctime)s %(levelname)s %(message)s")
     ecfg = EngineConfig(seed=args.seed,
                         mixed_step_tokens=args.engine_mixed_step_tokens,
-                        kv_quant=args.engine_kv_quant)
+                        kv_quant=args.engine_kv_quant,
+                        pipeline_depth=args.engine_pipeline_depth,
+                        warmup_compile=args.engine_warmup_compile)
+    model_dir = args.model_model_dir or None
     try:
         if args.model_quantization not in MODES:
             raise ValueError(f"model.quantization must be none/int8/int4, "
@@ -84,25 +119,37 @@ def main(argv=None) -> int:
                              "int8 is not ported yet")
         if ecfg.mixed_step_tokens < 0:
             raise ValueError("engine.mixed_step_tokens must be >= 0")
+        if ecfg.pipeline_depth < 0:
+            raise ValueError("engine.pipeline_depth must be >= 0")
+        if model_dir and not os.path.isfile(
+                os.path.join(model_dir, "config.json")):
+            raise ValueError(f"model.model_dir {model_dir!r} has no "
+                             "config.json")
         if 0 < ecfg.mixed_step_tokens <= ecfg.max_batch:
             raise ValueError(
                 f"engine.mixed_step_tokens must exceed engine.max_batch "
                 f"({ecfg.max_batch}): the packed width holds every decode "
                 "slot plus at least one prefill token")
         device = resolve_device(args.device)
-        cfg = get_config(args.model_model_name)
+        cfg = None if model_dir else get_config(args.model_model_name)
         dtype = dtype_from_name(args.model_dtype)
-    except (RuntimeError, KeyError, ValueError) as e:
+        tokenizer = load_tokenizer(model_dir)
+    except (RuntimeError, KeyError, ValueError, ModelLoadError) as e:
         print(f"config error: {e}", file=sys.stderr)
         return 2
-    tokenizer = load_tokenizer()
 
     def engine_factory() -> LLMEngine:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(args.seed)
-        params = llama.init_params(cfg, gen, dtype=dtype, device=device)
+        if model_dir:
+            params, model_cfg = load_checkpoint(model_dir, dtype=dtype,
+                                                device=device)
+        else:
+            model_cfg = cfg
+            gen = torch.Generator(device=device)
+            gen.manual_seed(args.seed)
+            params = llama.init_params(model_cfg, gen, dtype=dtype,
+                                       device=device)
         params = quantize_params(params, args.model_quantization)
-        return LLMEngine(params, cfg, tokenizer, ecfg, dtype=dtype,
+        return LLMEngine(params, model_cfg, tokenizer, ecfg, dtype=dtype,
                          device=device)
 
     server = InferenceServer(engine_factory, tokenizer,
@@ -117,7 +164,7 @@ def main(argv=None) -> int:
         raise KeyboardInterrupt
 
     signal.signal(signal.SIGTERM, _stop)
-    print(f"serving {args.model_model_name} on {device} at "
+    print(f"serving {model_dir or args.model_model_name} on {device} at "
           f"{args.server_host}:{args.server_port}", flush=True)
     try:
         server.serve(args.server_host, args.server_port)

@@ -1,9 +1,23 @@
 """Error taxonomy with HTTP status mapping (port of
 ``distributed_inference_server_tpu/core/errors.py``: the validation, API and
-cache errors the ``/generate`` path raises). Codes, status codes and
+cache errors the ``/generate`` path raises, and the model-load error of the
+checkpoint loader). Codes, status codes and
 error-type strings are identical to the reference's."""
 
 from __future__ import annotations
+
+
+# -- server errors ------------------------------------------------------------
+
+
+class ServerError(Exception):
+    """Internal server error, not exposed to clients directly."""
+
+
+class ModelLoadError(ServerError):
+    def __init__(self, detail: str):
+        super().__init__(f"Model load error: {detail}")
+        self.detail = detail
 
 
 # -- validation errors --------------------------------------------------------

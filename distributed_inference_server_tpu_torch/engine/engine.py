@@ -31,12 +31,29 @@ with every ``EngineConfig`` default, and the ragged mixed step).
   engine passes through to the model as they are; ``kv_quant="int8"``
   keeps the pools as int8 ``QuantPool`` pairs (half the KV bytes per
   decode step).
+- **Pipelined blocks** (``pipeline_depth``, default 1): launched blocks
+  wait in ``_pending`` and the oldest is read once more than
+  ``pipeline_depth`` are in flight (or nothing new was launched), so the
+  host walks block N-1's tokens while the device runs block N. Each
+  block's result is copied into pinned host memory behind an event right
+  after its launch, and every host input reaches the device through a
+  pinned, non-blocking copy: nothing but that event waits on the device.
+- **CUDA graphs** (on ``cuda``): each K-step decode block is captured once
+  per sampling mode (greedy, temperature, top-p) and each prefill chunk
+  once per (bucket, sampling mode), on the engine's own stream, and
+  replayed; their inputs are static device buffers filled by one copy per
+  launch. The GPU counterpart of the reference's fixed-shape programs: a
+  replay costs one launch from Python instead of hundreds. ``warmup``
+  captures every graph before traffic arrives. A failed capture or replay
+  raises; the mixed step runs eagerly. On the CPU everything runs
+  eagerly.
+- **Step clock** (``step_clock_stats``): host wall time, dispatches,
+  tokens and rows per dispatch kind, and the pressure events, under the
+  JAX engine's kinds and names.
 
-Not ported yet: the pipelined blocks (``pipeline_depth``), looped
-blocks (and so the mixed step's K-block form), speculation, meshes, the
-mixed step over int8 pools, the host tier, KV handoff and embeddings.
-Without pipelining each block is read right after its launch; the tokens
-are the same.
+Not ported yet: looped blocks (and so the mixed step's K-block form),
+speculation, meshes, the mixed step over int8 pools, the host tier, KV
+handoff and embeddings.
 
 Threading: the engine is synchronous and single-owner (one ``step()``
 caller); the serving layer runs it on a dedicated thread.
@@ -44,7 +61,11 @@ caller); the serving layer runs it on a dedicated thread.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
+import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
@@ -66,12 +87,14 @@ from distributed_inference_server_tpu_torch.engine.kv_cache import (
 from distributed_inference_server_tpu_torch.models import llama
 from distributed_inference_server_tpu_torch.models.configs import ModelConfig
 from distributed_inference_server_tpu_torch.models.tokenizer import Tokenizer
+from distributed_inference_server_tpu_torch.ops import kernels
 from distributed_inference_server_tpu_torch.ops.quant import is_quantized
 from distributed_inference_server_tpu_torch.ops.sampling import sample_tokens
 from distributed_inference_server_tpu_torch.utils.device import (
     DeviceLike,
     resolve_device,
 )
+from distributed_inference_server_tpu_torch.utils.profiler import DeviceTrace
 
 logger = logging.getLogger(__name__)
 
@@ -96,6 +119,9 @@ def _sample_mode(rows: Sequence["_Seq"]) -> int:
     if any(s.params.top_p < 1.0 and s.params.temperature > 0.0 for s in rows):
         return 2
     return 1 if any(s.params.temperature > 0.0 for s in rows) else 0
+
+
+SAMPLE_MODES = (0, 1, 2)
 
 
 def _sample(logits, temp, top_p, generator, mode: int) -> torch.Tensor:
@@ -126,6 +152,10 @@ class EngineConfig:
     attention_impl: str = "kernel"
     # decode steps per block: one host read per block, not per token
     decode_block_size: int = 8
+    # blocks kept in flight beyond the one being processed: with depth 1
+    # the host walks block N-1's tokens while the device runs block N;
+    # 0 = read each block right after its launch
+    pipeline_depth: int = 1
     # up to this many waiting prompts share one batched prefill chunk
     prefill_batch: int = 4
     # padded prefill tokens (rows x bucket) per engine step; at least one
@@ -138,6 +168,11 @@ class EngineConfig:
     # KV pool quantization: "none" (pools in the engine's dtype) or
     # "int8" (QuantPool: int8 codes + one f32 scale per slot and KV head)
     kv_quant: str = "none"
+    # run warmup() before serving (the runner does, when set): every
+    # prefill bucket and the decode block run once, and on cuda every
+    # CUDA graph is captured. Off by default, as in the reference: tests
+    # build many engines; the server turns it on
+    warmup_compile: bool = False
 
 
 @dataclass
@@ -188,6 +223,17 @@ class _Seq:
         return len(self.token_ids) - self.prompt_len
 
 
+class _Graph:
+    """One captured CUDA graph and the kernel launches its capture
+    recorded (added to the counts on every replay)."""
+
+    __slots__ = ("graph", "counts")
+
+    def __init__(self, graph, counts: Dict[str, int]):
+        self.graph = graph
+        self.counts = counts
+
+
 class LLMEngine:
     """Single-model continuous-batching engine on one device."""
 
@@ -199,11 +245,14 @@ class LLMEngine:
         engine_cfg: Optional[EngineConfig] = None,
         dtype: torch.dtype = torch.bfloat16,
         device: DeviceLike = None,
+        _graphs: bool = True,
     ):
         """``params``: the ``models/llama.py`` tree (moved to ``device`` if
         it lives elsewhere); ``dtype``: the KV pools' dtype; ``device``:
         ``cuda`` unless the caller asks for ``cpu``. Quantized weights
-        (``Q8Tensor`` / ``Q4Tensor`` leaves) pass through as they are."""
+        (``Q8Tensor`` / ``Q4Tensor`` leaves) pass through as they are.
+        ``_graphs=False`` runs the quantum path eagerly on ``cuda`` too
+        (for comparing the graph path with the eager one)."""
         llama.check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -219,6 +268,10 @@ class LLMEngine:
             raise ValueError(
                 f"decode_block_size must be >= 1, got "
                 f"{self.ecfg.decode_block_size}")
+        if self.ecfg.pipeline_depth < 0:
+            raise ValueError(
+                f"pipeline_depth must be >= 0, got "
+                f"{self.ecfg.pipeline_depth}")
         if self.ecfg.mixed_step_tokens and (
                 self.ecfg.mixed_step_tokens <= self.ecfg.max_batch):
             raise ValueError(
@@ -242,33 +295,95 @@ class LLMEngine:
         self.slots: List[Optional[_Seq]] = [None] * self.ecfg.max_batch
         self._by_id: Dict[RequestId, _Seq] = {}
         self._num_slots_flat = self.pcfg.num_pages * self.pcfg.page_size
+        dev = self.device
         # prefill and decode draw from separate device generators, as the
         # JAX engine keeps separate keys (seed, seed + 1)
-        self._gen = torch.Generator(device=self.device)
+        self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(self.ecfg.seed)
-        self._decode_gen = torch.Generator(device=self.device)
+        self._decode_gen = torch.Generator(device=dev)
         self._decode_gen.manual_seed(self.ecfg.seed + 1)
 
         # host mirror of per-slot block tables / sampling params, uploaded
         # at each block launch
         B = self.ecfg.max_batch
-        self._bt = np.zeros((B, self.pcfg.max_pages_per_seq), np.int32)
+        P = self.pcfg.max_pages_per_seq
+        K = self.ecfg.decode_block_size
+        self._bt = np.zeros((B, P), np.int32)
         self._bt_pages = np.zeros((B,), np.int32)
         self._temp = np.ones((B,), np.float32)
         self._topp = np.ones((B,), np.float32)
         # slot -> (active, token, position, steps) merged into the device
         # carry at the next launch (admissions and deactivations)
         self._slot_updates: Dict[int, Tuple[bool, int, int, int]] = {}
-        # device decode carry: (tokens, positions, steps_left, active)
-        self._carry: Optional[Tuple[torch.Tensor, ...]] = None
-        self._eos = torch.tensor(sorted(tokenizer.eos_ids), dtype=torch.int32,
-                                 device=self.device)
+        # static device buffers, the CUDA graphs' inputs and outputs. The
+        # decode block reads its staged carry overrides (mask, active,
+        # token, position, steps; [B] each) and the block tables [B, P]
+        # from one int32 buffer, the temperatures and top-p from one f32
+        # buffer, and writes [2, K, B] tokens and log-probabilities
+        i32, f32 = torch.int32, torch.float32
+        self._d_int = torch.zeros((5 * B + B * P,), dtype=i32, device=dev)
+        self._d_flt = torch.ones((2 * B,), dtype=f32, device=dev)
+        self._d_out = torch.zeros((2, K, B), dtype=f32, device=dev)
+        # the device decode carry (tokens, positions, steps_left, active),
+        # updated in place by every decode block and mixed step
+        self._carry = (torch.zeros((B,), dtype=i32, device=dev),
+                       torch.zeros((B,), dtype=i32, device=dev),
+                       torch.zeros((B,), dtype=i32, device=dev),
+                       torch.zeros((B,), dtype=torch.bool, device=dev))
+        # per prefill bucket: ids, positions, write slots ([Bp, bucket]
+        # each), tables [Bp, P], kv_valid and the logits index ([Bp] each);
+        # temperatures and top-p; [2, Bp] first tokens and log-probs
+        Bp = self.ecfg.prefill_batch
+        self._p_int = {b: torch.zeros((3 * Bp * b + Bp * P + 2 * Bp,),
+                                      dtype=i32, device=dev)
+                       for b in self.ecfg.prefill_buckets}
+        self._p_flt = {b: torch.ones((2 * Bp,), dtype=f32, device=dev)
+                       for b in self.ecfg.prefill_buckets}
+        self._p_out = {b: torch.zeros((2, Bp), dtype=f32, device=dev)
+                       for b in self.ecfg.prefill_buckets}
+        self._eos = torch.tensor(sorted(tokenizer.eos_ids), dtype=i32,
+                                 device=dev)
+        # launched-but-unprocessed blocks: (host [2, K, B] tokens and
+        # log-probabilities, the event after their copy or None, the
+        # launch snapshot, the step-clock kind)
+        self._pending: Deque[tuple] = deque()
+        # CUDA graphs on the quantum path (cuda only), captured on the
+        # engine's own stream from one shared memory pool
+        self._use_graphs = dev.type == "cuda" and _graphs
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._stream = None
+        self._pool = None
+        if dev.type == "cuda":
+            self._stream = torch.cuda.Stream(device=dev)
+            # params, pools and buffers were made on the caller's stream
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+        if self._use_graphs:
+            self._pool = torch.cuda.graph_pool_handle()
         # mixed-step control and traffic counters (mixed_stats)
         self._mixed_prefill_frac = 1.0
         self._mixed_steps = 0
         self._mixed_prefill_tokens = 0
         self._mixed_decode_tokens = 0
         self._mixed_density_sum = 0.0
+        # engine step clock: host wall time, dispatches, tokens and rows
+        # per dispatch kind (time.monotonic around the host sections,
+        # never a device sync), plus the step loop's pressure events
+        self._sc_kinds: Dict[str, Dict[str, float]] = {
+            k: {"dispatches": 0, "wall_s": 0.0, "tokens": 0, "rows": 0}
+            for k in ("prefill", "decode_block", "mixed", "loop")
+        }
+        self._sc_events: Dict[str, int] = {
+            "cache_full": 0, "preempt": 0, "reclaim": 0, "retrace": 0,
+        }
+        self._sc_samples: List[Tuple[str, float]] = []
+        # warmup() builds every graph up front: boot cost, not the
+        # mid-serving "retrace" event
+        self._in_warmup = False
+        # step-scoped device trace (utils/profiler.py): (n, event, holder)
+        # armed by profile_steps(); the active one is [steps left,
+        # DeviceTrace, event, holder]
+        self._prof_req = None
+        self._prof_active = None
 
     # ------------------------------------------------------------------
     # public API
@@ -283,7 +398,10 @@ class LLMEngine:
 
     def abort(self, request_id: RequestId) -> bool:
         """Abort a queued or running request; returns True if found. Its
-        pages are released at once."""
+        pages are released at once: a block still in flight may write
+        into them, but a reader only gathers slots its own sequence wrote
+        (positions < kv_valid), and the new owner's writes are issued
+        after the in-flight block on the same stream."""
         seq = self._by_id.pop(request_id, None)
         if seq is None:
             return False
@@ -302,24 +420,117 @@ class LLMEngine:
     def num_active(self) -> int:
         return sum(1 for s in self.slots if s is not None)
 
+    def num_waiting(self) -> int:
+        return len(self.waiting)
+
     def step(self) -> List[StepOutput]:
         """One engine iteration: admit waiting requests into free slots,
         run up to one prefill quantum (first tokens sampled on the
-        device), then issue one K-step decode block and read its tokens
-        back once. With ``mixed_step_tokens`` set and a seated prompt
-        still loading, one ragged mixed dispatch replaces the quantum and
-        the block."""
+        device), launch one K-step decode block, and walk the oldest
+        pending block's tokens once more than ``pipeline_depth`` blocks
+        are in flight (or nothing new was launched). Token events arrive
+        in bursts of up to ``decode_block_size`` per sequence,
+        ``pipeline_depth`` blocks behind the device. With
+        ``mixed_step_tokens`` set and a seated prompt still loading, one
+        ragged mixed dispatch replaces the quantum and the block."""
         outputs: List[StepOutput] = []
-        self._admit(outputs)
-        if self.ecfg.mixed_step_tokens and any(
-                s is not None and _mid_prefill(s) for s in self.slots):
-            self._mixed_step(outputs)
-            return outputs
-        self._prefill_quantum(outputs)
-        block = self._maybe_launch(outputs)
-        if block is not None:
-            self._process_block(block, outputs)
+        self._prof_begin()
+        with self._on_stream():
+            self._admit(outputs)
+            if self.ecfg.mixed_step_tokens and any(
+                    s is not None and _mid_prefill(s) for s in self.slots):
+                launched = self._mixed_step(outputs)
+            else:
+                self._prefill_quantum(outputs)
+                launched = self._maybe_launch(outputs)
+            if self._pending and (
+                    len(self._pending) > self.ecfg.pipeline_depth
+                    or not launched):
+                self._process_block(outputs)
+        self._prof_end_step()
         return outputs
+
+    def profile_steps(self, n: int):
+        """Arm a device trace (``utils/profiler.py``) over the next ``n``
+        engine steps. Returns (event, holder): the event is set when the
+        trace is done and ``holder`` then has its summary (or an
+        ``error``). The trace starts at the next step() call, so an idle
+        engine traces nothing until work arrives. Engine-thread only."""
+        ev, holder = threading.Event(), {}
+        if self.device.type != "cuda":
+            holder["error"] = "no CUDA device to trace"
+            ev.set()
+        else:
+            self._prof_req = (max(1, int(n)), ev, holder)
+        return ev, holder
+
+    def cancel_profile(self, holder) -> None:
+        """Disarm a trace that has not started (its waiter gave up)."""
+        if self._prof_req is not None and self._prof_req[2] is holder:
+            self._prof_req = None
+
+    def _prof_begin(self) -> None:
+        if self._prof_req is None or self._prof_active is not None:
+            return
+        n, ev, holder = self._prof_req
+        self._prof_req = None
+        try:
+            trace = DeviceTrace()
+        except Exception as e:  # noqa: BLE001 — e.g. a trace in progress
+            holder["error"] = str(e)
+            ev.set()
+            return
+        self._prof_active = [n, trace, ev, holder]
+
+    def _prof_end_step(self) -> None:
+        if self._prof_active is None:
+            return
+        self._prof_active[0] -= 1
+        if self._prof_active[0] > 0:
+            return
+        n, trace, ev, holder = self._prof_active
+        self._prof_active = None
+        try:
+            holder.update(trace.stop())
+            holder["mode"] = "steps"
+        except Exception as e:  # noqa: BLE001 — profiler teardown failure
+            holder["error"] = str(e)
+        ev.set()
+
+    def warmup(self) -> None:
+        """Run every serving program once before traffic arrives: one
+        throwaway greedy request per prefill bucket, decoded through at
+        least one full block, plus one near the context limit (every
+        chunk of a long prompt). On ``cuda`` this also captures every
+        CUDA graph: the decode block per sampling mode and the prefill
+        chunk per (bucket, sampling mode)."""
+        steps = self.ecfg.decode_block_size + 1
+        cap = self.pcfg.max_seq_len - steps - 2
+        lengths = [min(b, cap) for b in self.ecfg.prefill_buckets]
+        if cap > max(lengths, default=0):
+            lengths.append(cap)
+        self._in_warmup = True
+        try:
+            for i, n in enumerate(lengths):
+                if n < 1:
+                    continue
+                # distinct leading token per warmup: prefix reuse against
+                # an earlier warmup would shrink the chunk into a smaller
+                # bucket and leave this one cold
+                tok_id = 1 + i % max(1, self.cfg.vocab_size - 1)
+                self.add_request(f"__warmup_{i}", [tok_id] * n,
+                                 SamplingParams(max_tokens=steps,
+                                                temperature=0.0))
+                # one at a time: co-seated warmups would share the largest
+                # bucket and leave the others cold
+                while self.has_work():
+                    self.step()  # outputs discarded
+            if self._use_graphs:
+                with self._on_stream():
+                    self._drain_pending([])
+                    self._capture_all()
+        finally:
+            self._in_warmup = False
 
     def set_mixed_prefill_frac(self, frac: float) -> None:
         """Shrink (or restore) the prefill share of the mixed step's packed
@@ -343,6 +554,41 @@ class LLMEngine:
             "prefill_frac": self._mixed_prefill_frac,
         }
 
+    def step_clock_stats(self) -> Dict[str, Dict[str, object]]:
+        """Cumulative step-clock counters: per dispatch kind (prefill,
+        decode_block, mixed, loop) the dispatches, host wall seconds,
+        tokens and rows; and the events (cache_full, preempt, reclaim,
+        retrace: a CUDA graph captured while serving)."""
+        return {
+            "kinds": {k: dict(v) for k, v in self._sc_kinds.items()},
+            "events": dict(self._sc_events),
+        }
+
+    def drain_step_samples(self) -> List[Tuple[str, float]]:
+        """Per-segment (kind, wall_s) samples since the last drain."""
+        out, self._sc_samples = self._sc_samples, []
+        return out
+
+    def memory_stats(self) -> Optional[Dict[str, object]]:
+        """Device memory (cuda only): the allocator's peak, its reserved
+        bytes, the bytes held by the CUDA graphs' private pool and the
+        number of graphs captured."""
+        if self.device.type != "cuda":
+            return None
+        pool_bytes = None
+        if self._pool is not None:
+            pool_bytes = sum(
+                seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id") or ())
+                == tuple(self._pool))
+        return {
+            "max_allocated_bytes": torch.cuda.max_memory_allocated(
+                self.device),
+            "reserved_bytes": torch.cuda.memory_reserved(self.device),
+            "graph_pool_bytes": pool_bytes,
+            "graphs": len(self._graphs),
+        }
+
     def cache_stats(self):
         return self.allocator.stats()
 
@@ -353,6 +599,128 @@ class LLMEngine:
         live = [p for s in self._by_id.values() for p in s.block_table]
         live.extend(extra_pages)
         return self.allocator.audit(live)
+
+    # ------------------------------------------------------------------
+    # step clock
+    # ------------------------------------------------------------------
+
+    def _clock(self, kind: str, wall_s: float, tokens: int = 0,
+               rows: int = 0, dispatches: int = 0) -> None:
+        """Attribute one host wall-time segment to a dispatch kind."""
+        c = self._sc_kinds[kind]
+        c["dispatches"] += dispatches
+        c["wall_s"] += wall_s
+        c["tokens"] += tokens
+        c["rows"] += rows
+        self._sc_samples.append((kind, wall_s))
+        if len(self._sc_samples) > 4096:
+            # a headless engine (tests, tools) must stay bounded too
+            del self._sc_samples[:-2048]
+
+    def _event(self, name: str, n: int = 1) -> None:
+        if name == "retrace" and self._in_warmup:
+            return  # a graph captured at boot, not mid-serving
+        self._sc_events[name] = self._sc_events.get(name, 0) + n
+
+    # ------------------------------------------------------------------
+    # device plumbing: the engine stream, uploads, CUDA graphs
+    # ------------------------------------------------------------------
+
+    def _on_stream(self):
+        """Run on the engine's own stream (cuda): eager work, graph
+        captures and replays share it, so they run in issue order."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _upload(self, dst: torch.Tensor, arr: np.ndarray) -> None:
+        """Copy a host array into a device buffer without waiting for the
+        device: through pinned memory, non-blocking (the pinned block is
+        not reused before its copy has run)."""
+        src = torch.from_numpy(arr)
+        if dst.device.type == "cuda":
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
+
+    def _device_array(self, arr: np.ndarray) -> torch.Tensor:
+        out = torch.empty(arr.shape, dtype=torch.from_numpy(arr[:0]).dtype,
+                          device=self.device)
+        self._upload(out, np.ascontiguousarray(arr))
+        return out
+
+    def _run(self, key: tuple, body, generator: torch.Generator) -> None:
+        """Run ``body`` (which reads and writes only static buffers): as a
+        replay of its CUDA graph, captured on first use right after an
+        eager run that does this call's work; or eagerly (CPU, or
+        ``_graphs=False``)."""
+        if not self._use_graphs:
+            body()
+            return
+        g = self._graphs.get(key)
+        if g is None:
+            body()
+            self._capture(key, body, generator)
+            return
+        g.graph.replay()
+        kernels.add_launch_counts(g.counts)
+
+    def _capture(self, key: tuple, body, generator: torch.Generator) -> None:
+        """Capture ``body`` as the CUDA graph for ``key`` on the engine
+        stream. Sampled modes register ``generator`` with the graph, so
+        each replay draws new numbers. Raises on failure (the eager path
+        is never taken in its place)."""
+        self._event("retrace")
+        graph = torch.cuda.CUDAGraph()
+        if key[-1] != 0:  # a sampled mode draws from the generator
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    "this PyTorch cannot register a generator with a CUDA "
+                    "graph (CUDAGraph.register_generator_state): sampled "
+                    "decode blocks cannot be captured")
+            graph.register_generator_state(generator)
+        before = kernels.launch_counts()
+        # capture on the engine stream (current here) from the shared
+        # pool; unlike torch.cuda.graph(), no garbage collection and no
+        # emptying of the allocator's cache before each capture
+        torch.cuda.synchronize(self.device)
+        graph.capture_begin(pool=self._pool,
+                            capture_error_mode="thread_local")
+        try:
+            body()
+        except BaseException:
+            with contextlib.suppress(Exception):
+                graph.capture_end()
+            raise
+        graph.capture_end()
+        after = kernels.launch_counts()
+        counts = {k: after[k] - before[k] for k in after
+                  if after[k] != before[k]}
+        kernels.add_launch_counts(counts, -1)  # capture launched nothing
+        self._graphs[key] = _Graph(graph, counts)
+
+    def _capture_all(self) -> None:
+        """Capture every graph not captured yet (an idle engine: no row is
+        live, so the eager run before each capture is fed padding, whose
+        writes land in the drop slot)."""
+        B = self.ecfg.max_batch
+        Bp = self.ecfg.prefill_batch
+        for mode in SAMPLE_MODES:
+            if ("decode", mode) in self._graphs:
+                continue
+            ints = np.zeros(self._d_int.shape, np.int32)
+            ints[:B] = 1  # every slot overridden: inactive
+            self._upload(self._d_int, ints)
+            self._run(("decode", mode), functools.partial(
+                self._decode_body, mode), self._decode_gen)
+        for b in self.ecfg.prefill_buckets:
+            ints = np.zeros(self._p_int[b].shape, np.int32)
+            ints[2 * Bp * b:3 * Bp * b] = self._num_slots_flat  # drop
+            self._upload(self._p_int[b], ints)
+            for mode in SAMPLE_MODES:
+                if ("prefill", b, mode) not in self._graphs:
+                    self._run(("prefill", b, mode), functools.partial(
+                        self._prefill_body, b, mode), self._gen)
 
     # ------------------------------------------------------------------
     # admission / prefill
@@ -385,6 +753,7 @@ class LLMEngine:
             try:
                 self._start_prefill(seq)
             except CacheFull:
+                self._event("cache_full")
                 return  # no pages; retry next step
             except Exception as e:  # failure isolation
                 self.waiting.popleft()
@@ -418,12 +787,38 @@ class LLMEngine:
                 self._release_seq(seq)
                 raise
 
+    def _prefill_body(self, bucket: int, mode: int) -> None:
+        """One prefill chunk over the bucket's static buffers: the forward
+        at [prefill_batch, bucket] and each row's first-token sample, into
+        ``_p_out[bucket]``."""
+        Bp = self.ecfg.prefill_batch
+        P = self.pcfg.max_pages_per_seq
+        ints, flts = self._p_int[bucket], self._p_flt[bucket]
+        n = Bp * bucket
+        ids, positions, write_slots = (ints[k * n:(k + 1) * n].view(Bp, bucket)
+                                       for k in range(3))
+        tables = ints[3 * n:3 * n + Bp * P].view(Bp, P)
+        kv_valid = ints[3 * n + Bp * P:3 * n + Bp * P + Bp]
+        last_idx = ints[3 * n + Bp * P + Bp:]
+        logits, _, _ = llama.paged_forward(
+            self.params, self.cfg, ids, positions, self.state.k,
+            self.state.v, write_slots, tables, kv_valid,
+            impl=self.ecfg.attention_impl, page_size=self.pcfg.page_size,
+            logits_idx=last_idx)
+        last = logits[:, 0]
+        toks = _sample(last, flts[:Bp], flts[Bp:], self._gen, mode)
+        out = self._p_out[bucket]
+        out[0].copy_(toks.float())
+        out[1].copy_(_chosen_logprob(last, toks))
+
     def _prefill_quantum(self, outputs: List[StepOutput]) -> None:
         """Run up to ``prefill_token_budget`` prefill tokens: chunks of up
         to ``prefill_batch`` prompts share one forward per length bucket.
         Every chunk is issued before any first token is read back; prompts
         whose last chunk ran sample their first token on the device and
         are staged into the decode carry."""
+        sc_t0 = time.monotonic()
+        sc_tokens = sc_rows = sc_disp = 0
         budget = self.ecfg.prefill_token_budget
         Bp = self.ecfg.prefill_batch
         ps = self.pcfg.page_size
@@ -436,15 +831,15 @@ class LLMEngine:
                 break
             bucket = self._pick_bucket(max(
                 len(s.token_ids) - s.seq_len for _, s in group))
-            ids = np.zeros((Bp, bucket), np.int32)
-            positions = np.zeros((Bp, bucket), np.int32)
-            write_slots = np.full((Bp, bucket), self._num_slots_flat,
-                                  np.int32)
-            tables = np.zeros((Bp, P), np.int32)
-            kv_valid = np.zeros((Bp,), np.int32)
-            last_idx = np.zeros((Bp,), np.int32)
-            temp = np.ones((Bp,), np.float32)
-            top_p = np.ones((Bp,), np.float32)
+            n = Bp * bucket
+            ints = np.zeros((3 * n + Bp * P + 2 * Bp,), np.int32)
+            ids, positions, write_slots = (
+                ints[k * n:(k + 1) * n].reshape(Bp, bucket) for k in range(3))
+            tables = ints[3 * n:3 * n + Bp * P].reshape(Bp, P)
+            kv_valid = ints[3 * n + Bp * P:3 * n + Bp * P + Bp]
+            last_idx = ints[3 * n + Bp * P + Bp:]
+            write_slots[:] = self._num_slots_flat
+            flts = np.ones((2 * Bp,), np.float32)  # temperature, top-p
             chunk_lens: List[int] = []
             for j, (_, s) in enumerate(group):
                 start = s.seq_len
@@ -463,38 +858,34 @@ class LLMEngine:
                     + pos % ps, self._num_slots_flat)
                 kv_valid[j] = start + t
                 last_idx[j] = t - 1
-                temp[j] = s.params.temperature
-                top_p[j] = s.params.top_p
-            dev = self.device
-            logits, _, _ = llama.paged_forward(
-                self.params, self.cfg,
-                torch.from_numpy(ids).to(dev),
-                torch.from_numpy(positions).to(dev),
-                self.state.k, self.state.v,
-                torch.from_numpy(write_slots).to(dev),
-                torch.from_numpy(tables).to(dev),
-                torch.from_numpy(kv_valid).to(dev),
-                impl=self.ecfg.attention_impl, page_size=ps,
-                logits_idx=torch.from_numpy(last_idx).to(dev),
-            )
-            last = logits[:, 0]
-            toks = _sample(last, torch.from_numpy(temp).to(dev),
-                           torch.from_numpy(top_p).to(dev), self._gen,
-                           _sample_mode([s for _, s in group]))
-            lps = _chosen_logprob(last, toks)
+                flts[j] = s.params.temperature
+                flts[Bp + j] = s.params.top_p
+            self._upload(self._p_int[bucket], ints)
+            self._upload(self._p_flt[bucket], flts)
+            mode = _sample_mode([s for _, s in group])
+            self._run(("prefill", bucket, mode), functools.partial(
+                self._prefill_body, bucket, mode), self._gen)
+            # the next chunk of this bucket overwrites the static output
+            res = self._p_out[bucket].clone()
             budget -= Bp * bucket
+            sc_tokens += sum(chunk_lens)
+            sc_rows += len(group)
+            sc_disp += 1
             done: List[bool] = []
             for j, (_, s) in enumerate(group):
                 s.seq_len += chunk_lens[j]
                 done.append(s.seq_len >= len(s.token_ids))
-            dispatched.append((toks, lps, list(group), done))
+            dispatched.append((res, list(group), done))
 
         # reap: one read per chunk that finished a prompt
-        for toks, lps, group, done in dispatched:
+        for res, group, done in dispatched:
             if not any(done):
                 continue
-            both = torch.stack([toks.float(), lps]).cpu().numpy()
+            both = res.cpu().numpy()
             self._reap_first_tokens(group, done, both[0], both[1], outputs)
+        if sc_disp:
+            self._clock("prefill", time.monotonic() - sc_t0,
+                        tokens=sc_tokens, rows=sc_rows, dispatches=sc_disp)
 
     def _reap_first_tokens(self, group, done, toks, lps,
                            outputs: List[StepOutput]) -> None:
@@ -557,10 +948,13 @@ class LLMEngine:
 
     def _assumed_adv(self, seq: _Seq) -> int:
         """Tokens this sequence can emit in one block (the page
-        pre-allocation unit)."""
-        if seq.dev_steps_left <= 0:
-            return 0
-        return min(self.ecfg.decode_block_size, seq.dev_steps_left)
+        pre-allocation unit). With blocks in flight the projection
+        (dev_pos, dev_steps_left) runs ahead of the host view; it is exact
+        for the device row, which freezes once its steps run out, so a
+        projection at or below zero steps means the row writes nothing
+        more, pending blocks or not (the reference's no-floor rule is for
+        speculative rounds, which overshoot their budget)."""
+        return max(0, min(self.ecfg.decode_block_size, seq.dev_steps_left))
 
     def _ensure_block_pages(self, seq: _Seq, steps: int) -> None:
         """Pre-allocate pages covering positions dev_pos ..
@@ -573,89 +967,97 @@ class LLMEngine:
         if missing > 0:
             seq.block_table.extend(self.allocator.allocate(missing))
 
-    def _maybe_launch(self, outputs: List[StepOutput]):
-        """Issue one decode block if a seated row has budget left or a host
-        override is staged. Under page pressure the youngest sequence is
-        preempted until the block's pages fit. Returns the issued block
-        (device tokens + the launch snapshot) or None."""
+    def _maybe_launch(self, outputs: List[StepOutput]) -> bool:
+        """Launch one decode block if a seated row has budget left or a
+        host override is staged. Under page pressure the pending blocks
+        are drained first (finished rows release pages), then the
+        youngest sequence is preempted until the block's pages fit.
+        Returns whether a block was launched."""
+        sc_t0 = time.monotonic()
+        sc_excl = 0.0  # drained frames clock their own processing
         while True:
             seated = [(i, s) for i, s in enumerate(self.slots)
                       if s is not None]
             if not any(u[0] for u in self._slot_updates.values()) and not any(
                     s.dev_steps_left > 0 for _, s in seated):
-                return None
+                return False
             advs = {id(s): self._assumed_adv(s) for _, s in seated}
             try:
                 for _, s in seated:
                     self._ensure_block_pages(s, advs[id(s)])
                 break
             except CacheFull:
+                self._event("cache_full")
+                if self._pending:
+                    drain_t0 = time.monotonic()
+                    self._drain_pending(outputs)
+                    sc_excl += time.monotonic() - drain_t0
+                    continue
                 if seated:
                     self._preempt_youngest(outputs)
                     continue
-                return None
+                return False
         for i, s in seated:
             if self._bt_pages[i] != len(s.block_table):
                 self._refresh_bt_row(i, s)
-        block = self._launch(seated, advs)
+        self._launch(seated, advs)
         for _, s in seated:
             adv = advs[id(s)]
             s.dev_pos += adv
             s.dev_steps_left -= adv
-        return block
+        self._clock("decode_block",
+                    max(0.0, time.monotonic() - sc_t0 - sc_excl),
+                    rows=len(seated), dispatches=1)
+        return True
+
+    def _stage_decode_inputs(self) -> None:
+        """Upload the staged carry overrides (admissions and
+        deactivations), the block tables and the sampling parameters into
+        the decode block's static buffers: one copy each."""
+        B = self.ecfg.max_batch
+        ints = np.zeros(self._d_int.shape, np.int32)
+        for slot, (act, tok, pos, steps) in self._slot_updates.items():
+            ints[slot] = 1
+            ints[B + slot] = act
+            ints[2 * B + slot] = tok
+            ints[3 * B + slot] = pos
+            ints[4 * B + slot] = steps
+        self._slot_updates.clear()
+        ints[5 * B:] = self._bt.reshape(-1)
+        self._upload(self._d_int, ints)
+        self._upload(self._d_flt, np.concatenate([self._temp, self._topp]))
 
     def _merged_carry(self) -> Tuple[torch.Tensor, ...]:
         """The device decode carry (tokens, positions, steps_left, active)
-        with the staged host overrides merged in (admissions and
-        deactivations); shared by the decode block and the mixed step."""
-        set_mask, set_active, set_tokens, set_pos, set_steps = (
-            self._drain_slot_updates())
-        tokens, positions, steps_left, active = self._carry
-        return (torch.where(set_mask, set_tokens, tokens),
-                torch.where(set_mask, set_pos, positions),
-                torch.where(set_mask, set_steps, steps_left),
-                torch.where(set_mask, set_active, active))
-
-    def _drain_slot_updates(self) -> Tuple[torch.Tensor, ...]:
+        with the staged overrides merged in; shared by the decode block and
+        the mixed step."""
         B = self.ecfg.max_batch
-        set_mask = np.zeros((B,), bool)
-        set_active = np.zeros((B,), bool)
-        set_tokens = np.zeros((B,), np.int32)
-        set_pos = np.zeros((B,), np.int32)
-        set_steps = np.zeros((B,), np.int32)
-        for slot, (act, tok, pos, steps) in self._slot_updates.items():
-            set_mask[slot] = True
-            set_active[slot] = act
-            set_tokens[slot] = tok
-            set_pos[slot] = pos
-            set_steps[slot] = steps
-        self._slot_updates.clear()
-        dev = self.device
-        if self._carry is None:
-            z = torch.zeros((B,), dtype=torch.int32, device=dev)
-            self._carry = (z, z.clone(), z.clone(),
-                           torch.zeros((B,), dtype=torch.bool, device=dev))
-        return tuple(torch.from_numpy(a).to(dev) for a in (
-            set_mask, set_active, set_tokens, set_pos, set_steps))
+        ints = self._d_int
+        mask = ints[:B] != 0
+        tokens, positions, steps_left, active = self._carry
+        return (torch.where(mask, ints[2 * B:3 * B], tokens),
+                torch.where(mask, ints[3 * B:4 * B], positions),
+                torch.where(mask, ints[4 * B:5 * B], steps_left),
+                torch.where(mask, ints[B:2 * B] != 0, active))
 
-    def _launch(self, seated: List[Tuple[int, _Seq]],
-                advs: Dict[int, int]):
-        """The K-step decode block: K model steps with on-device sampling,
-        EOS masking, per-row budgets and block-table slot arithmetic, all
-        issued without reading anything back. Returns ([2, K, B] f32
-        device tensor of tokens (-1 = frozen row) and their
-        log-probabilities, launch snapshot)."""
-        tokens, positions, steps_left, active = self._merged_carry()
-        dev = self.device
+    def _store_carry(self, *new: torch.Tensor) -> None:
+        for buf, t in zip(self._carry, new):
+            buf.copy_(t)
+
+    def _decode_body(self, mode: int) -> None:
+        """The K-step decode block over the static buffers: K model steps
+        with on-device sampling, EOS masking, per-row budgets and
+        block-table slot arithmetic; the [2, K, B] tokens (-1 = frozen
+        row) and log-probabilities go to ``_d_out``, the carry is updated
+        in place."""
+        B = self.ecfg.max_batch
+        P = self.pcfg.max_pages_per_seq
         ps = self.pcfg.page_size
-        num_slots = self._num_slots_flat
-        block_tables = torch.from_numpy(self._bt).to(dev)
-        temp = torch.from_numpy(self._temp).to(dev)
-        top_p = torch.from_numpy(self._topp).to(dev)
-        mode = _sample_mode([s for _, s in seated])
-        rows = torch.arange(block_tables.shape[0], device=dev)
-        P = block_tables.shape[1]
-        drop = torch.full_like(positions, num_slots)
+        tokens, positions, steps_left, active = self._merged_carry()
+        block_tables = self._d_int[5 * B:].view(B, P)
+        temp, top_p = self._d_flt[:B], self._d_flt[B:]
+        rows = torch.arange(B, device=self.device)
+        drop = torch.full_like(positions, self._num_slots_flat)
         outs, lps = [], []
         for _ in range(self.ecfg.decode_block_size):
             page = block_tables[rows, (positions // ps).clamp(max=P - 1)]
@@ -671,31 +1073,66 @@ class LLMEngine:
             nxt = _sample(last, temp, top_p, self._decode_gen, mode)
             lps.append(_chosen_logprob(last, nxt))
             outs.append(torch.where(active, nxt, torch.full_like(nxt, -1)))
-            is_eos = torch.isin(nxt, self._eos)
+            is_eos = (nxt[:, None] == self._eos[None, :]).any(-1)
             positions = torch.where(active, positions + 1, positions)
             steps_left = torch.where(active, steps_left - 1, steps_left)
             tokens = torch.where(active, nxt, tokens)
             active = active & ~is_eos & (steps_left > 0)
-        self._carry = (tokens, positions, steps_left, active)
+        self._store_carry(tokens, positions, steps_left, active)
         # token ids are exact in f32 (vocab < 2**24): one tensor, one read
-        result = torch.stack([torch.stack(outs).float(), torch.stack(lps)])
-        snapshot = [(i, s, advs[id(s)]) for i, s in seated]
-        return result, snapshot
+        self._d_out[0].copy_(torch.stack(outs).float())
+        self._d_out[1].copy_(torch.stack(lps))
 
-    def _process_block(self, block, outputs: List[StepOutput]) -> None:
-        """Read a block's [K, B] tokens once and walk each row's tokens
-        through the emission path (EOS / stop sequences / length), then
-        reconcile each row's projected advance with what it emitted."""
-        result, snapshot = block
-        both = result.cpu().numpy()  # the block's one host read
-        self._walk_block(both[0], both[1], snapshot, outputs)
+    def _launch(self, seated: List[Tuple[int, _Seq]],
+                advs: Dict[int, int]) -> None:
+        """Issue one decode block and queue its result: a non-blocking copy
+        into pinned host memory behind an event (a CPU copy on the CPU),
+        with the launch snapshot."""
+        self._stage_decode_inputs()
+        mode = _sample_mode([s for _, s in seated])
+        self._run(("decode", mode), functools.partial(self._decode_body,
+                                                      mode), self._decode_gen)
+        snapshot = [(i, s, advs[id(s)]) for i, s in seated]
+        self._pending.append((*self._read_later(self._d_out), snapshot,
+                              "decode_block"))
+
+    def _read_later(self, t: torch.Tensor) -> Tuple[torch.Tensor, object]:
+        """(host copy of ``t``, event to wait on before reading it)."""
+        if self.device.type != "cuda":
+            return t.clone(), None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(self._stream)
+        return host, ev
+
+    def _drain_pending(self, outputs: List[StepOutput]) -> None:
+        """Process every in-flight block. Afterwards the host view is exact
+        (device position == seq.seq_len for every live row), which
+        preemption requires."""
+        while self._pending:
+            self._process_block(outputs)
+
+    def _process_block(self, outputs: List[StepOutput]) -> None:
+        """Walk the oldest pending block's tokens once its copy is in (the
+        only wait on the device), then reconcile each row's projected
+        advance with what it emitted."""
+        sc_t0 = time.monotonic()
+        host, ev, snapshot, kind = self._pending.popleft()
+        if ev is not None:
+            ev.synchronize()
+        both = host.numpy() if isinstance(host, torch.Tensor) else host
+        emitted = self._walk_block(both[0], both[1], snapshot, outputs)
+        self._clock(kind, time.monotonic() - sc_t0,
+                    tokens=emitted if kind == "decode_block" else 0)
 
     def _walk_block(self, toks: np.ndarray, lps: np.ndarray, snapshot,
-                    outputs: List[StepOutput]) -> None:
+                    outputs: List[StepOutput]) -> int:
         """Emit a block's host-side [K, B] tokens (-1 = frozen row) and
         log-probabilities row by row, then reconcile each row's projected
-        advance with what it emitted."""
+        advance with what it emitted. Returns the tokens emitted."""
         K = toks.shape[0]
+        total = 0
         for slot, seq, assumed in snapshot:
             if self._by_id.get(seq.request_id) is not seq:
                 continue  # finished or aborted meanwhile
@@ -723,23 +1160,29 @@ class LLMEngine:
                 outputs.append(StepOutput(
                     request_id=seq.request_id, finished=True, error=str(e)))
                 continue
+            total += emitted_here
             if self._by_id.get(seq.request_id) is seq:
                 delta = assumed - emitted_here
                 seq.dev_pos -= delta
                 seq.dev_steps_left += delta
+        return total
 
     # ------------------------------------------------------------------
     # ragged mixed step
     # ------------------------------------------------------------------
 
-    def _mixed_step(self, outputs: List[StepOutput]) -> None:
+    def _mixed_step(self, outputs: List[StepOutput]) -> bool:
         """One ragged mixed dispatch: every seated decode row advances one
         token from the device carry while up to ``prefill_batch`` loading
         prompts pack exact-length chunks (no bucket padding) into the rest
-        of the budget. Under page pressure the youngest sequence is
-        preempted until the decode rows' pages fit. The packed layout is
-        decode slots 0..B-1 (inactive ones -1 in ``tok_row``), then the
-        chunks back to back, then padding."""
+        of the budget. Under page pressure the pending blocks are drained
+        first, then the youngest sequence is preempted until the decode
+        rows' pages fit. The packed layout is decode slots 0..B-1
+        (inactive ones -1 in ``tok_row``), then the chunks back to back,
+        then padding. The first tokens of finished prompts are emitted at
+        once; the decode tokens join the pending blocks."""
+        sc_t0 = time.monotonic()
+        sc_excl = 0.0
         S = self.ecfg.mixed_step_tokens
         B = self.ecfg.max_batch
         Sp = S - B
@@ -756,6 +1199,12 @@ class LLMEngine:
                     self._ensure_block_pages(s, advs[id(s)])
                 break
             except CacheFull:
+                self._event("cache_full")
+                if self._pending:
+                    drain_t0 = time.monotonic()
+                    self._drain_pending(outputs)
+                    sc_excl += time.monotonic() - drain_t0
+                    continue
                 if not decode_seated:
                     break  # prefill rows already hold their prompt pages
                 self._preempt_youngest(outputs)
@@ -774,12 +1223,12 @@ class LLMEngine:
         p_write[:] = self._num_slots_flat
         p_temp = np.ones((Bp,), np.float32)
         p_topp = np.ones((Bp,), np.float32)
-        tables = np.zeros((B + Bp, P), np.int32)
+        tables = np.zeros((Bp, P), np.int32)
         chunk_lens: List[int] = []
         off = 0
         for j, (_, s) in enumerate(group):
             tb = s.block_table[:P]
-            tables[B + j, :len(tb)] = tb
+            tables[j, :len(tb)] = tb
             start = s.seq_len
             t = min(len(s.token_ids) - start, budget - off)
             chunk_lens.append(max(t, 0))
@@ -799,20 +1248,21 @@ class LLMEngine:
         for i, s in decode_seated:
             if self._bt_pages[i] != len(s.block_table):
                 self._refresh_bt_row(i, s)
-        tables[:B] = self._bt
 
         dev = self.device
+        self._stage_decode_inputs()
         tokens, positions, steps_left, active = self._merged_carry()
-        p_dev = torch.from_numpy(p_int).to(dev)
+        p_dev = self._device_array(p_int)
         d_ids, d_pos, d_row, d_write = (p_dev[k * Sp:(k + 1) * Sp]
                                         for k in range(4))
         d_valid = p_dev[4 * Sp:4 * Sp + Bp]
         d_last = p_dev[4 * Sp + Bp:]
-        samp = torch.from_numpy(np.concatenate(
-            [self._temp, p_temp, self._topp, p_topp])).to(dev)
-        tables_dev = torch.from_numpy(tables).to(dev)
+        d_tables = self._d_int[5 * B:].view(B, P)
+        samp = torch.cat([self._d_flt[:B], self._device_array(p_temp),
+                          self._d_flt[B:], self._device_array(p_topp)])
+        tables_dev = torch.cat([d_tables, self._device_array(tables)])
         rows = torch.arange(B, device=dev)
-        page = tables_dev[rows, (positions // ps).clamp(max=P - 1)]
+        page = d_tables[rows, (positions // ps).clamp(max=P - 1)]
         none = torch.full_like(positions, -1)
         write = torch.where(active, page * ps + positions % ps,
                             torch.full_like(positions, self._num_slots_flat))
@@ -831,11 +1281,12 @@ class LLMEngine:
         lps = _chosen_logprob(logits, nxt)
         d_next = nxt[:B]
         steps_left = torch.where(active, steps_left - 1, steps_left)
-        self._carry = (
+        self._store_carry(
             torch.where(active, d_next, tokens),
             torch.where(active, positions + 1, positions),
             steps_left,
-            active & ~torch.isin(d_next, self._eos) & (steps_left > 0))
+            active & ~(d_next[:, None] == self._eos[None, :]).any(-1)
+            & (steps_left > 0))
         # decode ids (-1 = frozen row), first-token candidates and their
         # log-probabilities: the dispatch's one host read
         ids = torch.cat([torch.where(active, d_next, none), nxt[B:]])
@@ -853,11 +1304,18 @@ class LLMEngine:
         for j, (_, s) in enumerate(group):
             s.seq_len += chunk_lens[j]
             done.append(chunk_lens[j] > 0 and s.seq_len >= len(s.token_ids))
+        # the decode rows' [1, B] frame joins the pending blocks (its data
+        # is already on the host), so blocks are walked in launch order
+        self._pending.append((both[:, None, :B], None,
+                              [(i, s, advs[id(s)]) for i, s in decode_seated],
+                              "mixed"))
         self._reap_first_tokens(group, done, both[0, B:], both[1, B:],
                                 outputs)
-        self._walk_block(both[:1, :B], both[1:, :B],
-                         [(i, s, advs[id(s)]) for i, s in decode_seated],
-                         outputs)
+        self._clock("mixed", max(0.0, time.monotonic() - sc_t0 - sc_excl),
+                    tokens=prefill_tokens + decode_tokens,
+                    rows=len(decode_seated) + sum(1 for t in chunk_lens if t),
+                    dispatches=1)
+        return True
 
     # ------------------------------------------------------------------
     # token emission & completion
@@ -971,8 +1429,9 @@ class LLMEngine:
             self._preempt(youngest, outputs)
 
     def _preempt(self, seq: _Seq, outputs: List[StepOutput]) -> None:
-        # every issued block has been processed here, so the host state
-        # is exact
+        # only called with the pipeline drained, so the host state is
+        # exact, not a lagging projection
+        self._event("preempt")
         for i, s in enumerate(self.slots):
             if s is seq:
                 self.slots[i] = None

@@ -1,7 +1,9 @@
 """Llama-family transformer over the paged KV pool, in PyTorch (port of
 ``distributed_inference_server_tpu/models/llama.py``: ``init_params``, the
 paged write, the layer block, ``gather_kv_window``, ``paged_forward``,
-``ragged_paged_forward``, ``_mlp`` and ``_unembed``).
+``ragged_paged_forward``, ``_mlp`` and ``_unembed``; and the unpaged
+``forward`` over the dense ``KVCache`` that ``models/generate.py`` and the
+checkpoint parity tests call).
 
 - Parameters are a dict of **stacked** per-layer tensors (leading axis =
   layer), linear weights stored [in, out] so the hot path is ``x @ W`` —
@@ -35,7 +37,7 @@ sandwich norms and the Gemma scalings are rejected by ``check_supported``.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -207,6 +209,50 @@ def gather_kv_window(k_layer: torch.Tensor, v_layer: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Dense contiguous KV cache (the unpaged path; the paged pool is engine/'s)
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    """Contiguous per-layer KV cache: k, v are [L, B, S, KV, D]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def create(cls, cfg: ModelConfig, batch: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: torch.device | str = "cuda") -> "KVCache":
+        shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _write_kv(cache: torch.Tensor, l: int, new: torch.Tensor,
+              write_pos: torch.Tensor) -> torch.Tensor:
+    """Write new K or V ([B, T, KV, D]) into layer ``l`` of the stacked
+    dense cache ([L, B, S, KV, D]) at per-row positions ([B, T]), IN PLACE;
+    positions outside [0, S) are dropped (padding), as the JAX scatter's
+    ``mode="drop"``. No host sync: each cache slot takes the token that
+    targets it (an inverse map built by one scatter, dropped writes routed
+    to a spare column), or keeps its value."""
+    B, T = write_pos.shape
+    S = cache.shape[2]
+    pos = write_pos.long()
+    pos = torch.where((pos >= 0) & (pos < S), pos, torch.full_like(pos, S))
+    src = torch.full((B, S + 1), -1, dtype=torch.long, device=cache.device)
+    src.scatter_(1, pos, torch.arange(T, device=cache.device).expand(B, T))
+    src = src[:, :S]
+    taken = new.gather(1, src.clamp(min=0)[:, :, None, None].expand(
+        B, S, *new.shape[2:]))
+    layer = cache[l]
+    layer.copy_(torch.where((src >= 0)[:, :, None, None],
+                            taken.to(cache.dtype), layer))
+    return cache
+
+
+# ---------------------------------------------------------------------------
 # Transformer forward
 # ---------------------------------------------------------------------------
 
@@ -257,10 +303,12 @@ def layer_block(
     inv_freq: torch.Tensor,
     impl: str,
     window: int = 0,
+    view=pool_at,
 ) -> torch.Tensor:
     """One transformer block: write this step's K/V into layer ``l`` of the
-    stacked pools, then attend against the pool, then the MLP. Returns the
-    new hidden state [B, T, hidden]."""
+    stacked pools, then attend against ``view(pool, l)`` (the paged pool's
+    readable slots by default), then the MLP. Returns the new hidden state
+    [B, T, hidden]."""
     B, T, _ = h.shape
     eps = cfg.rms_norm_eps
 
@@ -275,7 +323,7 @@ def layer_block(
     k = apply_rope(k, positions, inv_freq, impl)
     write_fn(pool_k, l, k)
     write_fn(pool_v, l, v)
-    attn = attend_fn(q, pool_at(pool_k, l), pool_at(pool_v, l), window)
+    attn = attend_fn(q, view(pool_k, l), view(pool_v, l), window)
     h = h + _mm(attn.reshape(B, T, cfg.q_size), w("wo"), impl)
     x = rms_norm(h, layers["mlp_norm"][l], eps, impl)
     return h + _mlp(x, layers, l, impl)
@@ -284,24 +332,66 @@ def layer_block(
 def _run_layers(params: Params, cfg: ModelConfig, input_ids: torch.Tensor,
                 positions: torch.Tensor, pool_k: torch.Tensor,
                 pool_v: torch.Tensor, write_slots: torch.Tensor, attend_fn,
-                impl: str) -> torch.Tensor:
+                impl: str, write_fn=None, view=pool_at) -> torch.Tensor:
     """Embed, run every layer block (each writes its new K/V at
-    ``write_slots``, then attends through ``attend_fn``) and the final
-    norm. Returns the hidden state [B, T, hidden]."""
+    ``write_slots`` through the paged write, or through ``write_fn`` when
+    given, then attends ``view(pool, l)`` through ``attend_fn``) and the
+    final norm. Returns the hidden state [B, T, hidden]."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     kv_quantized = isinstance(pool_k, QuantPool)
     codes = pool_k.data if kv_quantized else pool_k
     inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
                          str(codes.device))
-    write_fn = make_paged_write_fn(write_slots, codes.shape[1] - 1,
-                                   kv_quantized)
+    if write_fn is None:
+        write_fn = make_paged_write_fn(write_slots, codes.shape[1] - 1,
+                                       kv_quantized)
     vocab = params["embed"].shape[0]
     h = params["embed"][input_ids.long().clamp(0, vocab - 1)]  # [B, T, H]
     for l, window in enumerate(cfg.layer_windows()):
         h = layer_block(cfg, params["layers"], l, h, positions, pool_k,
-                        pool_v, write_fn, attend_fn, inv_freq, impl, window)
+                        pool_v, write_fn, attend_fn, inv_freq, impl, window,
+                        view)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps, impl)
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    input_ids: torch.Tensor,
+    positions: torch.Tensor,
+    cache: KVCache,
+    write_pos: torch.Tensor,
+    kv_valid_len: torch.Tensor,
+    impl: str = "kernel",
+) -> Tuple[torch.Tensor, KVCache]:
+    """Run the transformer over new tokens, updating the dense KV cache.
+
+    Args:
+      input_ids: [B, T] new token ids (prefill: the prompt; decode: T=1).
+      positions: [B, T] absolute positions of those tokens.
+      cache: dense KV cache to read and write (updated IN PLACE).
+      write_pos: [B, T] cache slot for each new token's K/V (>= max_seq
+        drops it, e.g. padding).
+      kv_valid_len: [B] valid cache length per row AFTER this write.
+      impl: "kernel" runs RMSNorm and RoPE through the kernel wrappers
+        (their plain versions for CPU tensors), "plain" their plain
+        versions. Attention is the dense GQA of ``ops/attention.py`` on
+        both, as the JAX ``forward`` runs XLA's, not a Pallas kernel.
+
+    Returns: (logits [B, T, vocab] f32, cache).
+    """
+    def write_fn(pool, l, new):
+        return _write_kv(pool, l, new, write_pos)
+
+    def attend_fn(q, k, v, window):
+        return gqa_attention(q, k, v, positions, kv_valid_len, window,
+                             cfg.attn_logit_softcap)
+
+    h = _run_layers(params, cfg, input_ids, positions, cache.k, cache.v,
+                    write_pos, attend_fn, impl, write_fn=write_fn,
+                    view=lambda pool, l: pool[l])
+    return _unembed(params, cfg, h), cache
 
 
 def paged_forward(

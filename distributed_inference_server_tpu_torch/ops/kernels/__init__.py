@@ -51,3 +51,12 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: Dict[str, int], sign: int = 1) -> None:
+    """Add ``sign * counts[name]`` to each wrapper's count: a CUDA graph
+    replay launches the kernels its capture recorded without calling the
+    wrappers, so the graph's owner adds the counts its capture made (and
+    takes them back from the capture itself, which launched nothing)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += sign * n

@@ -6,10 +6,16 @@ not available where the port runs).
   response schema (``core/models.py``);
 - ``GET /health`` — liveness of the engine;
 - ``GET /server/stats`` — request, token and cache counters, the mixed
-  step's traffic (``mixed``, null when it is off) and each kernel's
-  launch count;
+  step's traffic (``mixed``, null when it is off), the engine's step clock
+  (``step_clock``), device memory (``memory``), the warmup's duration and
+  each kernel's launch count;
 - ``POST /server/kernel_counts/reset`` — zero the kernels' launch counts
-  (a measurement run brackets the path it measures with it).
+  (a measurement run brackets the path it measures with it);
+- ``POST /server/profile`` — body ``{"steps": N}`` (optional
+  ``timeout_s``, default 30): trace the card over the next N engine steps
+  with ``torch.profiler`` and return the window's device busy time and
+  share (``utils/profiler.py``); 409 with an ``error`` when the trace
+  could not run (no card, another trace, an idle engine).
 
 Errors are ``ErrorResponse`` JSON with the reference's status mapping
 (400 validation, 408 timeout, 500 engine failure).
@@ -102,6 +108,19 @@ def make_handler(server: "InferenceServer") -> type:
                 if self.path == "/generate":
                     resp = server.generate(self._json_body())
                     self._send(200, resp.to_dict())
+                elif self.path == "/server/profile":
+                    obj = self._json_body()
+                    steps = obj.get("steps")
+                    timeout_s = obj.get("timeout_s", 30.0)
+                    if (not isinstance(steps, int) or isinstance(steps, bool)
+                            or not 1 <= steps <= 1000):
+                        raise _InvalidBody(
+                            "'steps' must be an integer in [1, 1000]")
+                    if (not isinstance(timeout_s, (int, float))
+                            or not 0 < timeout_s <= 600):
+                        raise _InvalidBody("'timeout_s' must be in (0, 600]")
+                    result = server.runner.profile_steps(steps, timeout_s)
+                    self._send(409 if "error" in result else 200, result)
                 elif self.path == "/server/kernel_counts/reset":
                     server.reset_kernel_counts()
                     self._send(200, {"kernel_launches":

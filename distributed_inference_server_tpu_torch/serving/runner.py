@@ -10,6 +10,11 @@ fan out to per-request ``ResultSink``s.
 Failure semantics: a per-request failure arrives as ``StepOutput.error``
 and fails only that request; an exception escaping the step loop marks the
 runner unhealthy and fails every in-flight request.
+
+With ``EngineConfig.warmup_compile`` set, the runner runs
+``engine.warmup()`` (every serving program once; on ``cuda`` every CUDA
+graph captured) before it reports ready, and keeps its duration in
+``warmup_seconds``.
 """
 
 from __future__ import annotations
@@ -108,6 +113,7 @@ class EngineRunner:
         self.tokens_generated = 0
         self.steps = 0
         self.step_seconds = 0.0
+        self.warmup_seconds: Optional[float] = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -177,6 +183,29 @@ class EngineRunner:
             raise RuntimeError("engine call failed")
         return box[0]
 
+    def profile_steps(self, n: int, timeout_s: float = 30.0) -> dict:
+        """A device trace over the next ``n`` engine steps (the engine
+        starts and stops it between steps, on its own thread). Blocks up
+        to ``timeout_s`` for it to finish (an idle engine only traces once
+        work arrives). Returns the summary, or a dict with ``error``."""
+        if not self._healthy:
+            return {"error": self._last_error or "engine unavailable"}
+        box: dict = {}
+        armed = threading.Event()
+
+        def _do() -> None:
+            box["ev"], box["holder"] = self._engine.profile_steps(n)
+            armed.set()
+
+        self._post(_do)
+        if not armed.wait(timeout_s):
+            return {"error": "engine thread did not arm the trace in time"}
+        if not box["ev"].wait(timeout_s):
+            self._post(lambda: self._engine.cancel_profile(box["holder"]))
+            return {"error": f"trace did not complete within {timeout_s}s "
+                             "(engine idle? send traffic while tracing)"}
+        return dict(box["holder"])
+
     def set_mixed_prefill_frac(self, frac: float) -> None:
         """Shrink (or restore) the mixed step's prefill share, on the
         engine thread (a no-op while the mixed step is off)."""
@@ -207,6 +236,12 @@ class EngineRunner:
     def _run(self, ready: threading.Event) -> None:
         try:
             self._engine = self._factory()
+            if self._engine.ecfg.warmup_compile:
+                # every serving program before reporting ready: the first
+                # request must not pay graph capture in its latency
+                t0 = time.monotonic()
+                self._engine.warmup()
+                self.warmup_seconds = time.monotonic() - t0
             self._healthy = True
         except Exception as e:  # noqa: BLE001 — startup failure isolation
             logger.exception("engine %s failed to start", self.engine_id)

@@ -143,13 +143,18 @@ class InferenceServer:
 
     def stats(self) -> dict:
         """Counters for ``/server/stats``; ``mixed`` is the engine's
-        ``mixed_stats()`` (null while the mixed step is off)."""
+        ``mixed_stats()`` (null while the mixed step is off),
+        ``step_clock`` its ``step_clock_stats()`` (host wall time,
+        dispatches, tokens and rows per dispatch kind, and the pressure
+        events) and ``memory`` its ``memory_stats()`` (null on the
+        CPU)."""
         r = self.runner
-        cache = mixed = None
+        cache = mixed = step_clock = memory = None
         if r.is_healthy():
             try:
-                cache, mixed = r.call(lambda e: (e.cache_stats().to_dict(),
-                                                 e.mixed_stats()))
+                cache, mixed, step_clock, memory = r.call(lambda e: (
+                    e.cache_stats().to_dict(), e.mixed_stats(),
+                    e.step_clock_stats(), e.memory_stats()))
             except (TimeoutError, RuntimeError):
                 pass
         return {
@@ -162,7 +167,10 @@ class InferenceServer:
             "tokens_generated": r.tokens_generated,
             "engine_steps": r.steps,
             "engine_step_seconds": r.step_seconds,
+            "warmup_s": r.warmup_seconds,
             "cache": cache,
             "mixed": mixed,
+            "step_clock": step_clock,
+            "memory": memory,
             "kernel_launches": self.kernel_counts(),
         }

@@ -693,3 +693,238 @@ def test_quantized_engine_kernel_path_matches_plain_path(cuda, weights, kv):
         else:
             assert not any(counts.values()), counts
     assert outs["kernel"] == outs["plain"]
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs on the quantum path, the checkpoint loader on the card
+# ---------------------------------------------------------------------------
+
+
+def _scaled_params(cfg, dev, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = llama.init_params(cfg, gen, dtype=torch.float32, device=dev)
+    if cfg is TINY:  # varied greedy continuations at TINY's width
+        for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            params["layers"][k] *= 8.0
+        params["embed"] *= 8.0
+    return {k: ({n: w.to(dtype) for n, w in v.items()} if isinstance(v, dict)
+                else v.to(dtype)) for k, v in params.items()}
+
+
+def _graph_trace(eng, tok, waves, first_wave=0):
+    """Run ``waves`` of greedy prompts, each wave drained before the next
+    (so later waves get other pages and block tables); returns the tokens
+    per request (``w<wave>r<i>``, waves numbered from ``first_wave``) and
+    the kernel launches."""
+    kernels.reset_launch_counts()
+    toks = {}
+    for w, prompts in enumerate(waves, first_wave):
+        for i, (p, n) in enumerate(prompts):
+            eng.add_request(f"w{w}r{i}", tok.encode(p),
+                            SamplingParams(max_tokens=n, temperature=0.0))
+        while eng.has_work():
+            for o in eng.step():
+                if o.token_id is not None:
+                    toks.setdefault(o.request_id, []).append(o.token_id)
+    return toks, kernels.launch_counts()
+
+
+GRAPH_WAVES = [
+    [("graph path", 20), ("a longer prompt " * 3, 12), ("z", 30)],
+    # after the first wave: freed and cached pages, other tables, a prefix
+    # hit, rows crossing page boundaries mid-block
+    [("a longer prompt " * 3 + "again", 25), ("fresh", 9)],
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["tiny-f32", "1b-width-2-layers-bf16"])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_graph_path_matches_eager_path(cuda, model, depth):
+    """The captured decode blocks and prefill chunks give the eager path's
+    greedy tokens and the same kernel launches (so the same launches per
+    decode step and per prefill chunk), pipelined and not."""
+    from distributed_inference_server_tpu_torch.models.configs import (
+        LLAMA_3_2_1B,
+    )
+
+    if model == "tiny-f32":
+        cfg, dtype, paged = TINY, torch.float32, PagedCacheConfig(64, 4, 16)
+        ecfg = dict(max_batch=4, prefill_buckets=(8, 32))
+    else:
+        cfg = LLAMA_3_2_1B.with_overrides(num_layers=2)
+        dtype, paged, ecfg = torch.bfloat16, PagedCacheConfig(), {}
+    params = _scaled_params(cfg, cuda, dtype)
+    tok = ByteTokenizer()
+    outs = {}
+    for graphs in (True, False):
+        eng = LLMEngine(params, cfg, tok, EngineConfig(
+            paged=paged, pipeline_depth=depth, **ecfg), dtype=dtype,
+            device=cuda, _graphs=graphs)
+        outs[graphs] = _graph_trace(eng, tok, GRAPH_WAVES)
+        assert bool(eng._graphs) == graphs
+        if graphs:
+            assert eng.step_clock_stats()["events"]["retrace"] == len(
+                eng._graphs)
+        del eng
+    assert outs[True][0] == outs[False][0]
+    assert outs[True][1] == outs[False][1]
+    assert outs[True][1]["paged_decode"] > 0
+    assert outs[True][1]["paged_prefill"] > 0
+
+
+@pytest.mark.gpu
+def test_graph_captured_before_a_table_change_replays_after_it(cuda):
+    """The decode graph is captured on the first wave's block tables; the
+    second wave's rows hold other pages (and grow their tables while they
+    decode), and the replays still give the eager path's tokens, with no
+    new capture."""
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    kw = dict(paged=PagedCacheConfig(64, 4, 16), max_batch=4,
+              prefill_buckets=(8, 32))
+    eng = LLMEngine(params, TINY, tok, EngineConfig(**kw),
+                    dtype=torch.float32, device=cuda)
+    ref = LLMEngine(params, TINY, tok, EngineConfig(**kw),
+                    dtype=torch.float32, device=cuda, _graphs=False)
+    first = _graph_trace(eng, tok, GRAPH_WAVES[:1])[0]
+    captured = dict(eng._graphs)
+    assert ("decode", 0) in captured
+    tables_before = eng._bt.copy()
+    second = _graph_trace(eng, tok, GRAPH_WAVES[1:], first_wave=1)[0]
+    assert (eng._bt != tables_before).any()
+    assert eng._graphs[("decode", 0)] is captured[("decode", 0)]
+    want = _graph_trace(ref, tok, GRAPH_WAVES)[0]
+    assert {**first, **second} == want
+
+
+@pytest.mark.gpu
+def test_sampled_graph_replays_draw_new_numbers(cuda):
+    """A decode block replayed twice from the carry it was launched with
+    (its pages are ensured, its inputs unchanged): the sampled block draws
+    different tokens each time (the engine's generator is registered with
+    the graph), the greedy block repeats its own tokens."""
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    eng = LLMEngine(params, TINY, tok, EngineConfig(
+        paged=PagedCacheConfig(64, 4, 16), max_batch=4,
+        prefill_buckets=(8, 32)), dtype=torch.float32, device=cuda)
+    for rid, temp in (("hot", 5.0), ("cold", 0.0)):
+        eng.add_request(rid, tok.encode("sampled " + rid),
+                        SamplingParams(max_tokens=60, temperature=temp))
+        eng.step()  # prefill; the first block runs eagerly, then captures
+        eng.step()  # a replay
+        mode = 1 if temp else 0
+        assert ("decode", mode) in eng._graphs
+        with torch.cuda.stream(eng._stream):
+            torch.cuda.current_stream().synchronize()
+            saved = [t.clone() for t in eng._carry]
+        eng.step()  # the block replayed below: its pages are ensured
+        with torch.cuda.stream(eng._stream):
+            torch.cuda.current_stream().synchronize()
+            draws = [eng._d_out[0].clone()]
+            for _ in range(2):
+                for buf, t in zip(eng._carry, saved):
+                    buf.copy_(t)
+                eng._graphs[("decode", mode)].graph.replay()
+                draws.append(eng._d_out[0].clone())
+            torch.cuda.current_stream().synchronize()
+        live = draws[0] >= 0
+        assert live.any() and all(torch.equal(d >= 0, live) for d in draws)
+        if temp:
+            assert not torch.equal(draws[1][live], draws[2][live])
+        else:
+            assert torch.equal(draws[0], draws[1])
+            assert torch.equal(draws[1], draws[2])
+        eng.abort(rid)
+        with torch.cuda.stream(eng._stream):
+            eng._drain_pending([])
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A capture that fails raises out of step(); the engine does not run
+    the eager path in its place."""
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    eng = LLMEngine(params, TINY, tok, EngineConfig(
+        paged=PagedCacheConfig(64, 4, 16), max_batch=4,
+        prefill_buckets=(8, 32)), dtype=torch.float32, device=cuda)
+
+    def refuse(*a, **k):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", refuse)
+    eng.add_request("r", tok.encode("no fallback"),
+                    SamplingParams(max_tokens=4, temperature=0.0))
+    with pytest.raises(RuntimeError, match="capture refused"):
+        eng.step()
+
+
+@pytest.mark.gpu
+def test_warmup_captures_every_graph(cuda):
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    eng = LLMEngine(params, TINY, tok, EngineConfig(
+        paged=PagedCacheConfig(64, 4, 16), max_batch=4,
+        prefill_buckets=(8, 32)), dtype=torch.float32, device=cuda)
+    eng.warmup()
+    assert len(eng._graphs) == 3 + 2 * 3  # decode per mode, prefill per
+    assert eng.audit_pages() == [] and not eng.has_work()
+    mem = eng.memory_stats()
+    assert mem["graphs"] == 9 and mem["graph_pool_bytes"] > 0
+    kernels.reset_launch_counts()
+    toks, counts = _graph_trace(eng, tok, GRAPH_WAVES[:1])
+    assert eng.step_clock_stats()["events"]["retrace"] == 0
+    ref = LLMEngine(params, TINY, tok, EngineConfig(
+        paged=PagedCacheConfig(64, 4, 16), max_batch=4,
+        prefill_buckets=(8, 32)), dtype=torch.float32, device=cuda,
+        _graphs=False)
+    assert (toks, counts) == _graph_trace(ref, tok, GRAPH_WAVES[:1])
+
+
+@pytest.mark.gpu
+def test_load_checkpoint_to_cuda_equals_cpu(cuda):
+    import os
+
+    from distributed_inference_server_tpu_torch.models.loader import (
+        load_checkpoint,
+    )
+
+    ckpt = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "tiny_llama_hf")
+    for dtype in (torch.float32, torch.bfloat16):
+        on_card, cfg = load_checkpoint(ckpt, dtype=dtype, device=cuda)
+        on_cpu, cfg2 = load_checkpoint(ckpt, dtype=dtype, device="cpu")
+        assert cfg == cfg2
+
+        def walk(a, b):
+            assert set(a) == set(b)
+            for k in a:
+                if isinstance(a[k], dict):
+                    walk(a[k], b[k])
+                else:
+                    assert a[k].device.type == "cuda"
+                    assert torch.equal(a[k].cpu(), b[k]), k
+
+        walk(on_card, on_cpu)
+
+
+@pytest.mark.gpu
+def test_profile_steps_traces_the_card(cuda):
+    """A trace over engine steps, started and stopped by the engine between
+    steps, sees the graph replays' kernels and a busy share in (0, 1]."""
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    eng = LLMEngine(params, TINY, tok, EngineConfig(
+        paged=PagedCacheConfig(64, 4, 16), max_batch=4,
+        prefill_buckets=(8, 32)), dtype=torch.float32, device=cuda)
+    eng.add_request("r", tok.encode("trace me"),
+                    SamplingParams(max_tokens=40, temperature=0.0))
+    eng.step()
+    ev, holder = eng.profile_steps(3)
+    for _ in range(3):
+        eng.step()
+    assert ev.is_set() and "error" not in holder, holder
+    assert holder["device_events"] > 0
+    assert 0.0 < holder["busy_share"] <= 1.0 + 1e-6
