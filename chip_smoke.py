@@ -6,7 +6,8 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA source of the port (one ``nvcc`` per source, all
-   started together, ``-Xptxas -v`` printed), then prints the decode
+   started together, ``-Xptxas -v`` printed; ``graph_loop.cu`` is the
+   looped block's WHILE graph, not a kernel), then prints the decode
    bodies' report (registers, shared memory, spills: ``decode_body``
    lines) and the decode split plan at the served shape (B = 8, KV 8,
    128 pages of 16 tokens: splits, tokens per split, blocks, blocks per
@@ -33,18 +34,28 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    a time (their texts are kept for phase 6), then concurrent ``POST
    /generate`` requests; the kernels' launch counts are zeroed just
    before and read just after, from ``/server/stats``, and every kernel
-   of that path must have launched. Then a second server with
-   ``--engine-mixed-step-tokens 512``: two chats, and while they decode a
-   ~1500-byte and a 600-byte prompt, so the ragged mixed step runs; its
-   counts are read the same way. Then the quantized servers with the
+   of that path must have launched. Then the same with
+   ``--engine-loop-to-completion true`` (each looped block one WHILE-graph
+   launch; its greedy texts must equal the first server's), and in
+   process the device ms per decode step of looped and K-step blocks at
+   full depth, read with CUDA events around each launch (the profiler
+   does not see kernels inside a WHILE node's body). Then a server
+   with ``--engine-mixed-step-tokens 512`` (each mixed step one graph
+   replay): two chats, and while they decode a ~1500-byte and a 600-byte
+   prompt, so the ragged mixed step runs; its counts are read the same
+   way; then the same in the K-block form (``--engine-loop-to-completion
+   true --engine-loop-max-steps 8``). Then the quantized servers with the
    first one's request mix: llama-3-8b (32 layers, 4096 wide) with
    ``--model-quantization int8 --engine-kv-quant int8``, and
-   llama-3.2-1b with ``--model-quantization int4``. For each server one
+   llama-3.2-1b with ``--model-quantization int4``; and llama-3-8b int8 +
+   int8 KV with ``--engine-mixed-step-tokens 512`` (the mixed step over
+   int8 pools) on the mixed server's traffic. For each server one
    ``server_timing`` line: the warmup's seconds, the mix's and a lone
-   request's walls, the mean decode-step, prefill-chunk and mixed-step
-   ms of the engine's step clock over the mix, device memory (peak,
-   graph pool) and the device busy share over 12 engine steps of the mix
-   run again and again (``POST /server/profile``, ``torch.profiler``);
+   request's walls, the mean decode-step, prefill-chunk, mixed-step and
+   looped-block ms of the engine's step clock over the mix (and ms per
+   looped iteration), looped-block traffic, device memory (peak, graph
+   pool) and the device busy share over 12 engine steps of the mix run
+   again and again (``POST /server/profile``, ``torch.profiler``);
 5. runs the engine at 2 layers of the 1B width in f32 with the kernels and
    with the plain versions and requires identical greedy tokens; then the
    mixed step (kernels, plain versions) and the quantum path on one trace
@@ -53,6 +64,10 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    versions, tokens identical; then the quantum path's CUDA graphs
    against its eager path (dense, and int8 weights over int8 KV; at
    pipeline depths 0 and 1): identical greedy tokens and kernel launches;
+   then looped blocks (WHILE graphs) against the eager loop and the fixed
+   path, and the mixed step's graphs against eager (K = 1 and the K-block
+   form; dense, and int8 + int8 KV, whose kernel path must give the plain
+   path's tokens): identical greedy tokens and launches;
 6. (``ckpt``) writes the bf16 llama-3.2-1b weights of the seed with the
    port's ``save_checkpoint`` (bytes, save and load seconds printed),
    checks that ``load_checkpoint`` gives them back, serves them with
@@ -905,23 +920,45 @@ def _profiled(base, run, steps: int = 12) -> dict:
     return prof
 
 
+def _loop_delta(before: dict, after: dict):
+    """Looped-block traffic between two ``/server/stats`` readings (None
+    when the server runs no looped blocks)."""
+    a, b = before.get("loop"), after.get("loop")
+    if not a or not b:
+        return None
+    out = {k: b[k] - a[k] for k in ("blocks", "steps", "decode_tokens")}
+    out["exits"] = {k: b["exits"][k] - a["exits"][k] for k in b["exits"]}
+    return out
+
+
 def _timing_line(label, card, stats0, before, after, mix_wall, lone_wall,
-                 prof, stats) -> None:
-    """One line per server: warmup, walls, step-clock ms, busy share and
-    device memory."""
+                 prof) -> None:
+    """One line per server: warmup, walls, step-clock ms per dispatch kind
+    (a decode step: the K-step block's wall over K, or a looped block's
+    over its iterations), looped-block traffic, busy share and device
+    memory; ``before`` and ``after`` are ``/server/stats`` readings around
+    the mix and the lone request."""
     K = 8  # EngineConfig.decode_block_size
-    mem = stats.get("memory") or {}
+    sc0, sc1 = before["step_clock"], after["step_clock"]
+    mem = after.get("memory") or {}
+    loop = _loop_delta(before, after)
+    loop_wall = (sc1["kinds"]["loop"]["wall_s"]
+                 - sc0["kinds"]["loop"]["wall_s"])
     log(json.dumps({
         "server_timing": label, "card": card,
         "warmup_s": stats0["warmup_s"],
         "mix_wall_s": mix_wall, "lone_request_s": lone_wall,
-        "decode_step_ms": _clock_ms(before, after, "decode_block", K),
-        "prefill_chunk_ms": _clock_ms(before, after, "prefill"),
-        "mixed_step_ms": _clock_ms(before, after, "mixed"),
+        "decode_step_ms": _clock_ms(sc0, sc1, "decode_block", K),
+        "prefill_chunk_ms": _clock_ms(sc0, sc1, "prefill"),
+        "mixed_step_ms": _clock_ms(sc0, sc1, "mixed"),
+        "loop_block_ms": _clock_ms(sc0, sc1, "loop"),
+        "loop_step_ms": (loop_wall * 1e3 / loop["steps"]
+                         if loop and loop["steps"] else None),
+        "loop": loop,
         "busy_share": prof["busy_share"], "device_busy_s":
         prof["device_busy_s"], "profile_window_s": prof["wall_s"],
         "top_device_ms": prof["top_device_ms"][:4],
-        "events": after["events"],
+        "events": sc1["events"],
         "max_allocated_bytes": mem.get("max_allocated_bytes"),
         "graph_pool_bytes": mem.get("graph_pool_bytes"),
         "graphs": mem.get("graphs"),
@@ -1015,8 +1052,15 @@ def phase_serve(card: str, seed: int = 0, model: str = "llama-3.2-1b",
         hits = stats["cache"]["hits"]
         assert hits > 0, f"no prefix hit in /server/stats: {stats['cache']}"
         toks = sum(b["usage"]["completion_tokens"] for _, b, _ in results)
+        loop = _loop_delta(before, stats)
+        if "--engine-loop-to-completion" in extra:
+            assert loop and loop["blocks"] > 0, (label, stats["loop"])
+            assert stats["step_clock"]["kinds"]["decode_block"][
+                "dispatches"] == before["step_clock"]["kinds"][
+                "decode_block"]["dispatches"], "a fixed block ran"
         log(json.dumps({
             "serve": label, "card": card, "launches": launches,
+            "loop": loop,
             "concurrent_requests": len(jobs), "wall_s": wall,
             "completion_tokens": toks, "tokens_per_s": toks / wall,
             "request_latency_s": [r[2] for r in results],
@@ -1028,17 +1072,25 @@ def phase_serve(card: str, seed: int = 0, model: str = "llama-3.2-1b",
         phase_done(f"{label}: mix and lone request")
         prof = _profiled(base, run_jobs)
         phase_done(f"{label}: profile")
-        _timing_line(label, card, stats0, before["step_clock"],
-                     stats["step_clock"], wall, dt_again, prof, stats)
+        _timing_line(label, card, stats0, before, stats, wall, dt_again,
+                     prof)
         return launches, texts
 
 
-def phase_serve_mixed(card: str, seed: int = 0) -> dict:
-    """The ragged mixed step served: two chats decode while a ~1500-byte
-    and a 600-byte prompt load."""
-    label = "llama-3.2-1b bf16 random weights, --engine-mixed-step-tokens 512"
-    with _server(seed, ["--engine-mixed-step-tokens", "512"],
-                 "server_mixed.log") as base:
+def phase_serve_mixed(card: str, seed: int = 0, extra=(),
+                      label: str = "llama-3.2-1b bf16 random weights, "
+                      "--engine-mixed-step-tokens 512",
+                      log_name: str = "server_mixed.log",
+                      model: str = "llama-3.2-1b",
+                      required=MIXED_KERNELS,
+                      absent=("paged_prefill",)) -> dict:
+    """The ragged mixed step served (each mixed step one CUDA graph
+    replay): two chats decode while a ~1500-byte and a 600-byte prompt
+    load. ``extra`` adds server flags (the K-block form under
+    ``--engine-loop-to-completion true``, the quantized servers); every
+    kernel in ``required`` must launch and none in ``absent``."""
+    with _server(seed, ["--engine-mixed-step-tokens", "512", *extra],
+                 log_name, model) as base:
         _, boot = _http("GET", base + "/server/stats")
         st, body, _ = _gen(base, "warm up", {"temperature": 0.0,
                                              "max_tokens": 4})
@@ -1082,16 +1134,21 @@ def phase_serve_mixed(card: str, seed: int = 0) -> dict:
 
         for (_, params), (st, body, _) in zip(jobs, results):
             _check_generate(st, body, params["max_tokens"])
-        for name in MIXED_KERNELS:
+        for name in required:
             assert launches[name] > 0, (
-                f"kernel {name} never launched on the mixed served path")
-        assert launches["paged_prefill"] == 0, launches
+                f"kernel {name} never launched on the mixed served path "
+                f"({label})")
+        for name in absent:
+            assert launches[name] == 0, (name, launches)
+        mem = stats.get("memory") or {}
+        assert mem.get("graphs"), f"no CUDA graph captured: {mem}"
         assert mixed["steps"] >= 3, mixed
         assert mixed["decode_tokens"] > 0, mixed
         assert mixed["prefill_tokens"] >= 1500, mixed
         toks = sum(b["usage"]["completion_tokens"] for _, b, _ in results)
         log(json.dumps({
-            "serve_mixed": label, "card": card,
+            "serve_mixed": label, "card": card, "launches": launches,
+            "loop": _loop_delta(stats0, stats),
             "requests": len(jobs), "wall_s": wall,
             "completion_tokens": toks, "tokens_per_s": toks / wall,
             "request_latency_s": [r[2] for r in results],
@@ -1102,9 +1159,90 @@ def phase_serve_mixed(card: str, seed: int = 0) -> dict:
         }))
         _, now = _http("GET", base + "/server/stats")
         prof = _profiled(base, lambda: run_mix(now))
-        _timing_line(label, card, boot, stats0["step_clock"],
-                     stats["step_clock"], wall, dt_lone, prof, stats)
+        _timing_line(label, card, boot, stats0, stats, wall, dt_lone, prof)
         return launches
+
+
+def phase_loop_timing(card: str, seed: int = 0) -> dict:
+    """llama-3.2-1b bf16 at full depth, in process: 8 greedy rows of 64 new
+    tokens decoded by looped blocks (one WHILE-graph launch each) and by
+    K = 8 blocks (graph replays), every block's device time read with CUDA
+    events on the engine stream around its launch. Prints the device ms
+    per decode step of both paths, the host wall per step (the step
+    clock) and the looped path's device share of its blocks' wall: the
+    busy share a ``torch.profiler`` trace cannot give for looped blocks,
+    whose kernels inside the WHILE node's body do not appear in it. The
+    two paths' tokens must be identical."""
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distributed_inference_server_tpu_torch.models import llama
+    from distributed_inference_server_tpu_torch.models.configs import (
+        LLAMA_3_2_1B,
+    )
+    from distributed_inference_server_tpu_torch.models.tokenizer import (
+        ByteTokenizer,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init_params(LLAMA_3_2_1B, gen, dtype=torch.bfloat16,
+                               device="cuda")
+    tok = ByteTokenizer()
+    prompts = [f"row {i}: " + "timing the looped block " * (i + 1)
+               for i in range(8)]
+    out, toks = {}, {}
+    for name, kw in (("loop", {"loop_to_completion": True}),
+                     ("fixed", {})):
+        eng = LLMEngine(params, LLAMA_3_2_1B, tok, EngineConfig(**kw),
+                        dtype=torch.bfloat16, device="cuda")
+        eng.warmup()
+        timed = []
+
+        def bracket(fn):
+            def run(*a):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record(eng._stream)
+                r = fn(*a)
+                ev[1].record(eng._stream)
+                timed.append(ev)
+                return r
+            return run
+
+        run_loop, run = eng._run_loop, eng._run
+        eng._run_loop = bracket(run_loop)
+        eng._run = lambda key, body, g: (bracket(run) if key[0] == "decode"
+                                         else run)(key, body, g)
+        sc0 = eng.step_clock_stats()["kinds"]
+        st0 = eng.loop_stats()
+        for i, p in enumerate(prompts):
+            eng.add_request(f"r{i}", tok.encode(p),
+                            SamplingParams(max_tokens=64, temperature=0.0))
+        got = {}
+        while eng.has_work():
+            for o in eng.step():
+                if o.token_id is not None:
+                    got.setdefault(o.request_id, []).append(o.token_id)
+        torch.cuda.synchronize()
+        device_ms = sum(a.elapsed_time(b) for a, b in timed)
+        sc1 = eng.step_clock_stats()["kinds"]
+        kind = "loop" if kw else "decode_block"
+        wall_ms = (sc1[kind]["wall_s"] - sc0[kind]["wall_s"]) * 1e3
+        blocks = sc1[kind]["dispatches"] - sc0[kind]["dispatches"]
+        steps = (eng.loop_stats()["steps"] - st0["steps"] if kw
+                 else blocks * 8)
+        out[name] = {"blocks": blocks, "decode_steps": steps,
+                     "device_ms_per_step": device_ms / steps,
+                     "host_wall_ms_per_step": wall_ms / steps,
+                     "device_share_of_block_wall": device_ms / wall_ms}
+        toks[name] = got
+        del eng
+    assert toks["loop"] == toks["fixed"], "looped tokens differ from fixed"
+    log(json.dumps({"loop_timing": "llama-3.2-1b bf16, 8 greedy rows x 64 "
+                    "tokens, in process", "card": card, **out}))
+    return out
 
 
 def phase_checkpoint(card: str, seed: int, want: dict) -> None:
@@ -1388,6 +1526,137 @@ def phase_engine_graphs(seed: int = 0) -> dict:
     return out
 
 
+def phase_engine_loop_mixed(seed: int = 0) -> dict:
+    """2 layers of the 1B width in f32, dense and int8 weights over int8
+    KV, greedy: looped blocks (WHILE-graph launches) against the eager
+    loop and the fixed K-step path, identical tokens, the graph and eager
+    loops identical launches and the same launches per decode step as the
+    fixed path; then the mixed step (two chats mid-decode, a ~400-token
+    prompt) captured against eager, in its K = 1 form and its K-block form
+    under the loop, identical tokens and launches, and over int8 pools the
+    kernel path against the plain path."""
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distributed_inference_server_tpu_torch.models import llama
+    from distributed_inference_server_tpu_torch.models.configs import (
+        LLAMA_3_2_1B,
+    )
+    from distributed_inference_server_tpu_torch.models.tokenizer import (
+        ByteTokenizer,
+    )
+    from distributed_inference_server_tpu_torch.ops import kernels
+    from distributed_inference_server_tpu_torch.ops.quant import (
+        quantize_params,
+    )
+
+    cfg = LLAMA_3_2_1B.with_overrides(num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dense = llama.init_params(cfg, gen, dtype=torch.float32, device="cuda")
+    tok = ByteTokenizer()
+    prompts = [("looped blocks against fixed blocks", 40),
+               ("l" * 300, 24), ("short", 64)]
+    chats = ["first chat of the mixed trace", "second chat"]
+    long_prompt = ("a ~400-token prompt loading while the chats decode. "
+                   * 8)[:400]
+
+    def run(eng, trace):
+        kernels.reset_launch_counts()
+        toks = {}
+
+        def step():
+            for o in eng.step():
+                if o.token_id is not None:
+                    toks.setdefault(o.request_id, []).append(o.token_id)
+
+        if trace == "loop":
+            for i, (p, n) in enumerate(prompts):
+                eng.add_request(f"r{i}", tok.encode(p),
+                                SamplingParams(max_tokens=n,
+                                               temperature=0.0))
+        else:
+            for i, p in enumerate(chats):
+                eng.add_request(f"c{i}", tok.encode(p),
+                                SamplingParams(max_tokens=24,
+                                               temperature=0.0))
+            for _ in range(3):
+                step()
+            eng.add_request("long", tok.encode(long_prompt),
+                            SamplingParams(max_tokens=8, temperature=0.0))
+        while eng.has_work():
+            step()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        return toks, counts
+
+    out = {}
+    for weights, kv in (("none", "none"), ("int8", "int8")):
+        params = quantize_params(dense, weights)
+        dec = "paged_decode_int8" if kv == "int8" else "paged_decode"
+        runs = {}
+        for name, kw, graphs in (
+                ("fixed", {}, True),
+                ("loop-graph", {"loop_to_completion": True}, True),
+                ("loop-eager", {"loop_to_completion": True}, False)):
+            eng = LLMEngine(params, cfg, tok, EngineConfig(kv_quant=kv, **kw),
+                            dtype=torch.float32, device="cuda",
+                            _graphs=graphs)
+            toks, counts = run(eng, "loop")
+            sc = eng.step_clock_stats()["kinds"]
+            steps = (eng.loop_stats()["steps"] if kw
+                     else sc["decode_block"]["dispatches"] * 8)
+            runs[name] = (toks, counts, eng.loop_stats(), steps,
+                          sc["loop"]["dispatches"], len(eng._graphs))
+            del eng
+        (ft, fc, _, fsteps, _, _) = runs["fixed"]
+        (gt, gc, gst, gsteps, gdisp, ng) = runs["loop-graph"]
+        (et, ec, est, _, _, _) = runs["loop-eager"]
+        assert ng > 0, "the loop captured no graph"
+        assert gt == et == ft, (weights, kv, gt, et, ft)
+        assert gc == ec and gst == est, (weights, kv, gc, ec, gst, est)
+        assert gdisp == gst["blocks"], (gdisp, gst)
+        per_step = gc[dec] / gsteps
+        assert per_step == fc[dec] / fsteps == cfg.num_layers, (
+            gc, gsteps, fc, fsteps)
+        out[f"loop {weights}+kv_{kv}"] = {
+            "loop_stats": gst, f"{dec}_per_decode_step": per_step,
+            "fixed_decode_steps": fsteps, "loop_launches": gc}
+        # the K-block form: looped blocks capped at one iteration keep
+        # the chats mid-decode when the prompt lands (as the reference's
+        # test does)
+        for K_form, kw in (("K=1", {}), ("K-block", {
+                "loop_to_completion": True, "loop_max_steps": 1})):
+            mruns = {}
+            for name, impl, graphs in (("graph", "kernel", True),
+                                       ("eager", "kernel", False),
+                                       ("plain", "plain", False)):
+                if name == "plain" and kv == "none":
+                    continue  # phase_engine_f32 holds dense kernel/plain
+                eng = LLMEngine(params, cfg, tok, EngineConfig(
+                    kv_quant=kv, mixed_step_tokens=128, attention_impl=impl,
+                    **kw), dtype=torch.float32, device="cuda",
+                    _graphs=graphs)
+                toks, counts = run(eng, "mixed")
+                mruns[name] = (toks, counts, eng.mixed_stats())
+                del eng
+            (gt, gc, gms), (et, ec, ems) = mruns["graph"], mruns["eager"]
+            assert gt == et and gc == ec and gms == ems, (
+                weights, kv, K_form, gt, et, gc, ec)
+            assert gms["decode_tokens"] > 0 and gms["steps"] >= 3, gms
+            if "plain" in mruns:
+                assert mruns["plain"][0] == gt, (weights, kv, K_form)
+            out[f"mixed {K_form} {weights}+kv_{kv}"] = {
+                "mixed": gms, "launches": gc}
+        del params
+    log(json.dumps({"engine_f32_2layer_loop_mixed":
+                    "loop graph == loop eager == fixed greedy tokens; mixed "
+                    "graph == eager tokens and launches (K = 1 and K-block; "
+                    "dense, int8 + int8 KV, whose kernel path == plain)",
+                    "runs": out}))
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1471,9 +1740,30 @@ def main(argv=None) -> int:
         # the ragged kernel's count is the mixed server's (the only path
         # that runs it)
         phase_done("serve")
+        _, loop_texts = phase_serve(
+            card, args.seed, extra=["--engine-loop-to-completion", "true"],
+            log_name="server_loop.log",
+            label="llama-3.2-1b bf16 random weights, "
+                  "--engine-loop-to-completion true")
+        assert loop_texts == texts, ("looped server differs from the fixed "
+                                     "server", loop_texts, texts)
+        phase_done("serve looped")
+        phase_loop_timing(card, args.seed)
+        torch.cuda.empty_cache()
+        phase_done("loop timing")
         launches["paged_ragged"] = phase_serve_mixed(
             card, args.seed)["paged_ragged"]
         phase_done("serve mixed")
+        # looped blocks of at most 8 iterations keep the chats decoding
+        # while the prompts load (uncapped, a chat's whole budget is one
+        # block and the prompts find no decode row)
+        phase_serve_mixed(
+            card, args.seed, ["--engine-loop-to-completion", "true",
+                              "--engine-loop-max-steps", "8"],
+            "llama-3.2-1b bf16 random weights, --engine-mixed-step-tokens "
+            "512 --engine-loop-to-completion true --engine-loop-max-steps 8 "
+            "(K-block mixed step)", "server_mixed_loop.log")
+        phase_done("serve mixed K-block")
     if "quant" in phases:
         # each quantized kernel's count is its server's
         torch.cuda.empty_cache()
@@ -1485,6 +1775,16 @@ def main(argv=None) -> int:
                 if name.startswith(("quant_matmul", "paged_decode_int8")):
                     launches[name] = got[name]
             phase_done(f"serve {label}")
+        phase_serve_mixed(
+            card, args.seed,
+            ["--model-quantization", "int8", "--engine-kv-quant", "int8"],
+            "llama-3-8b int8 weights + int8 KV, random weights, "
+            "--engine-mixed-step-tokens 512", "server_llama-3-8b_mixed.log",
+            "llama-3-8b",
+            ("quant_matmul_q8", "paged_decode_int8", "rms_norm", "rope"),
+            ("paged_ragged", "paged_prefill", "paged_decode",
+             "quant_matmul_q4"))
+        phase_done("serve llama-3-8b int8 mixed")
     if "ckpt" in phases:
         if texts is None:  # the random-weight server's texts to match
             with _server(args.seed, [], "server.log") as base:
@@ -1497,6 +1797,8 @@ def main(argv=None) -> int:
         phase_done("engine kernel == plain")
         phase_engine_graphs(args.seed)
         phase_done("engine graph == eager")
+        phase_engine_loop_mixed(args.seed)
+        phase_done("engine loop and mixed graphs")
 
     rows = []
     for name, (route, source, replaces) in KERNEL_META.items():

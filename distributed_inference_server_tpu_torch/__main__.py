@@ -2,7 +2,8 @@
 --model-model-name llama-3.2-1b --server-port 8000 [--seed S]
 [--model-model-dir DIR] [--device cuda|cpu] [--engine-mixed-step-tokens N]
 [--model-quantization none|int8|int4] [--engine-kv-quant none|int8]
-[--engine-pipeline-depth N] [--engine-warmup-compile true|false]``.
+[--engine-pipeline-depth N] [--engine-warmup-compile true|false]
+[--engine-loop-to-completion true|false] [--engine-loop-max-steps N]``.
 
 With ``--model-model-dir`` the config and weights come from that HF
 checkpoint directory (``models/loader.py load_checkpoint``) and the
@@ -17,6 +18,10 @@ scales. ``--engine-pipeline-depth`` (default 1) keeps that many decode
 blocks in flight beyond the one being read; ``--engine-warmup-compile``
 (default true) runs every serving program once, and on ``cuda`` captures
 every CUDA graph, before the server reports ready.
+``--engine-loop-to-completion`` (default false) runs pure-decode
+iterations as run-to-completion looped blocks of at most
+``--engine-loop-max-steps`` (default 256) iterations, one CUDA graph launch
+each on ``cuda``, and the mixed step in its K-block form.
 """
 
 from __future__ import annotations
@@ -94,6 +99,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine-warmup-compile", type=_bool, default=True,
                     help="run every serving program (and capture every "
                          "CUDA graph) before reporting ready")
+    ap.add_argument("--engine-loop-to-completion", default="false",
+                    help="run-to-completion looped decode blocks (one "
+                         "dispatch per block; the mixed step advances "
+                         "decode_block_size tokens per dispatch)")
+    ap.add_argument("--engine-loop-max-steps", type=int, default=256,
+                    help="iteration cap of one looped block (>= 1)")
     return ap
 
 
@@ -101,11 +112,19 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    try:
+        loop = _bool(args.engine_loop_to_completion)
+    except argparse.ArgumentTypeError as e:
+        print(f"config error: engine.loop_to_completion: {e}",
+              file=sys.stderr)
+        return 2
     ecfg = EngineConfig(seed=args.seed,
                         mixed_step_tokens=args.engine_mixed_step_tokens,
                         kv_quant=args.engine_kv_quant,
                         pipeline_depth=args.engine_pipeline_depth,
-                        warmup_compile=args.engine_warmup_compile)
+                        warmup_compile=args.engine_warmup_compile,
+                        loop_to_completion=loop,
+                        loop_max_steps=args.engine_loop_max_steps)
     model_dir = args.model_model_dir or None
     try:
         if args.model_quantization not in MODES:
@@ -114,9 +133,8 @@ def main(argv=None) -> int:
         if ecfg.kv_quant not in KV_QUANTS:
             raise ValueError(f"engine.kv_quant must be none/int8, got "
                              f"{ecfg.kv_quant!r}")
-        if ecfg.mixed_step_tokens and ecfg.kv_quant != "none":
-            raise ValueError("engine.mixed_step_tokens with engine.kv_quant "
-                             "int8 is not ported yet")
+        if ecfg.loop_max_steps < 1:
+            raise ValueError("engine.loop_max_steps must be >= 1")
         if ecfg.mixed_step_tokens < 0:
             raise ValueError("engine.mixed_step_tokens must be >= 0")
         if ecfg.pipeline_depth < 0:

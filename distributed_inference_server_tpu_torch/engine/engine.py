@@ -21,10 +21,22 @@ with every ``EngineConfig`` default, and the ragged mixed step).
   is fenced; a failing request errors out alone.
 - **Ragged mixed step** (``mixed_step_tokens > 0``): while a seated
   prompt is loading, one packed dispatch replaces the prefill quantum and
-  the decode block: every seated decode row advances one token and prompt
-  chunks fill the rest of the token budget, attended by the ragged paged
-  kernel. Its decode ids, their log-probabilities and the first-token
-  candidates come back in one host read.
+  the decode block: every seated decode row advances one token (K tokens
+  under ``loop_to_completion``: the K-block form, whose K - 1 extra steps
+  are the decode block's step math) and prompt chunks fill the rest of the
+  token budget, attended by the ragged paged kernel (over int8 pools: the
+  rows' windows gathered and dequantized, then ``ragged_gqa_attention``,
+  the reference's own path). Its decode ids, their log-probabilities and
+  the first-token candidates come back in one host read.
+- **Looped blocks** (``loop_to_completion``): a pure-decode iteration runs
+  one run-to-completion block instead of a K-step block: the device steps
+  every row until EOS, its budget, an empty device page free-list or the
+  iteration cap (``loop_max_steps``), growing the rows' block tables from
+  pages the allocator drew onto that free-list (``draw_device``); the host
+  reconciles the draw (``reconcile_device``) and walks the tokens right
+  after the block. Greedy tokens equal the fixed path's: each iteration is
+  the decode block's step math. On ``cuda`` a block is ONE graph launch: a
+  conditional WHILE node around a captured iteration (``graph_loop.py``).
 
 - **Quantized serving**: the params may carry ``Q8Tensor`` /
   ``Q4Tensor`` weights (``ops/quant.py quantize_params``), which the
@@ -43,17 +55,19 @@ with every ``EngineConfig`` default, and the ragged mixed step).
   once per (bucket, sampling mode), on the engine's own stream, and
   replayed; their inputs are static device buffers filled by one copy per
   launch. The GPU counterpart of the reference's fixed-shape programs: a
-  replay costs one launch from Python instead of hundreds. ``warmup``
-  captures every graph before traffic arrives. A failed capture or replay
-  raises; the mixed step runs eagerly. On the CPU everything runs
-  eagerly.
+  replay costs one launch from Python instead of hundreds. The mixed step
+  is captured per sampling mode (its packed width and row count are
+  fixed), and a looped block per sampling mode as a prologue and one
+  iteration inside a WHILE node. ``warmup`` captures every graph before
+  traffic arrives. A failed capture, instantiate or launch raises. On the
+  CPU everything runs eagerly.
 - **Step clock** (``step_clock_stats``): host wall time, dispatches,
   tokens and rows per dispatch kind, and the pressure events, under the
   JAX engine's kinds and names.
 
-Not ported yet: looped blocks (and so the mixed step's K-block form),
-speculation, meshes, the mixed step over int8 pools, the host tier, KV
-handoff and embeddings.
+Not ported yet: speculation (and so speculation inside looped blocks),
+meshes, the sliding-window page reclaim of model families with a window,
+the host tier, KV handoff and embeddings.
 
 Threading: the engine is synchronous and single-owner (one ``step()``
 caller); the serving layer runs it on a dedicated thread.
@@ -79,6 +93,7 @@ from distributed_inference_server_tpu_torch.core.models import (
     Usage,
 )
 from distributed_inference_server_tpu_torch.core.types import RequestId
+from distributed_inference_server_tpu_torch.engine.graph_loop import LoopGraph
 from distributed_inference_server_tpu_torch.engine.kv_cache import (
     PageAllocator,
     PagedCacheConfig,
@@ -89,7 +104,10 @@ from distributed_inference_server_tpu_torch.models.configs import ModelConfig
 from distributed_inference_server_tpu_torch.models.tokenizer import Tokenizer
 from distributed_inference_server_tpu_torch.ops import kernels
 from distributed_inference_server_tpu_torch.ops.quant import is_quantized
-from distributed_inference_server_tpu_torch.ops.sampling import sample_tokens
+from distributed_inference_server_tpu_torch.ops.sampling import (
+    counter_uniform,
+    sample_tokens,
+)
 from distributed_inference_server_tpu_torch.utils.device import (
     DeviceLike,
     resolve_device,
@@ -124,10 +142,47 @@ def _sample_mode(rows: Sequence["_Seq"]) -> int:
 SAMPLE_MODES = (0, 1, 2)
 
 
-def _sample(logits, temp, top_p, generator, mode: int) -> torch.Tensor:
+def _sample(logits, temp, top_p, generator, mode: int,
+            key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next tokens for the sampling ``mode``; sampled modes draw from
+    ``generator``, or from ``counter_uniform`` under ``key`` when given."""
     if mode == 0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    return sample_tokens(logits, temp, top_p, generator, use_topp=mode == 2)
+    uniform = None if key is None else counter_uniform(logits.shape, key)
+    return sample_tokens(logits, temp, top_p, generator, use_topp=mode == 2,
+                         uniform=uniform)
+
+
+# looped-block exit reasons by code (0 = still running)
+LOOP_EXITS = ("", "eos", "budget", "pages", "cap")
+
+
+def _device_append_pages(block_tables: torch.Tensor, bt_counts: torch.Tensor,
+                         free_pages: torch.Tensor, n_free: torch.Tensor,
+                         free_used: torch.Tensor, needed: torch.Tensor,
+                         rows: torch.Tensor) -> torch.Tensor:
+    """Grow row block tables from the device-held page free-list inside a
+    looped block (port of the JAX engine's ``_device_append_pages``, one
+    round): each row whose page count is short of ``needed`` (0 for rows
+    that must not grow) takes the next free-list page, in row order, by a
+    cumsum rank over the short rows. ``free_used`` indexes into
+    ``free_pages`` (padded past ``n_free``). Updates ``block_tables``
+    [B, P], ``bt_counts`` [B] and ``free_used`` [1] IN PLACE, with no host
+    read; the order is deterministic, so the host replays it from the
+    returned tables. Returns the rows the list could not cover
+    (``starved``)."""
+    P = block_tables.shape[1]
+    need = (bt_counts < needed) & (bt_counts < P)
+    rank = torch.cumsum(need.to(torch.int32), 0, dtype=torch.int32) - 1
+    draw_idx = free_used + rank
+    got = need & (draw_idx < n_free)
+    new_page = free_pages[draw_idx.clamp(0, free_pages.shape[0] - 1).long()]
+    col = bt_counts.clamp(max=P - 1).long()
+    cur = block_tables[rows, col]
+    block_tables.index_put_((rows, col), torch.where(got, new_page, cur))
+    bt_counts.add_(got.to(torch.int32))
+    free_used.add_(got.sum(dtype=torch.int32))
+    return bt_counts < needed
 
 
 @dataclass(frozen=True)
@@ -168,6 +223,14 @@ class EngineConfig:
     # KV pool quantization: "none" (pools in the engine's dtype) or
     # "int8" (QuantPool: int8 codes + one f32 scale per slot and KV head)
     kv_quant: str = "none"
+    # run-to-completion looped decode blocks: pure-decode iterations step
+    # on the device until every row stops (EOS, budget, device free-list
+    # exhaustion, loop_max_steps), one dispatch per block; the mixed step
+    # then advances decode_block_size decode tokens per dispatch
+    loop_to_completion: bool = False
+    # per-launch iteration cap of a looped block (scaled down by
+    # set_loop_cap_frac); a block that hits it resumes at the next step
+    loop_max_steps: int = 256
     # run warmup() before serving (the runner does, when set): every
     # prefill bucket and the decode block run once, and on cuda every
     # CUDA graph is captured. Off by default, as in the reference: tests
@@ -225,13 +288,18 @@ class _Seq:
 
 class _Graph:
     """One captured CUDA graph and the kernel launches its capture
-    recorded (added to the counts on every replay)."""
+    recorded (added to the counts on every replay). For a looped block
+    ``graph`` is the ``LoopGraph``, ``counts`` its prologue's launches
+    (once per launch) and ``step_counts`` one iteration's (added times the
+    iterations the block ran)."""
 
-    __slots__ = ("graph", "counts")
+    __slots__ = ("graph", "counts", "step_counts")
 
-    def __init__(self, graph, counts: Dict[str, int]):
+    def __init__(self, graph, counts: Dict[str, int],
+                 step_counts: Optional[Dict[str, int]] = None):
         self.graph = graph
         self.counts = counts
+        self.step_counts = step_counts or {}
 
 
 class LLMEngine:
@@ -278,10 +346,10 @@ class LLMEngine:
                 f"mixed_step_tokens ({self.ecfg.mixed_step_tokens}) must "
                 f"exceed max_batch ({self.ecfg.max_batch}): the packed width "
                 "holds every decode slot plus at least one prefill token")
-        if self.ecfg.mixed_step_tokens and self.ecfg.kv_quant != "none":
+        if self.ecfg.loop_to_completion and self.ecfg.loop_max_steps < 1:
             raise ValueError(
-                "mixed_step_tokens with kv_quant='int8' is not ported yet: "
-                "the ragged mixed step does not read int8 pools")
+                f"loop_max_steps must be >= 1, got "
+                f"{self.ecfg.loop_max_steps}")
         self.params = _to_device(params, self.device)
         if self.params["embed"].dtype != torch.float32:
             # f32 logits every step: keep the f32 unembedding once
@@ -343,6 +411,40 @@ class LLMEngine:
                        for b in self.ecfg.prefill_buckets}
         self._eos = torch.tensor(sorted(tokenizer.eos_ids), dtype=i32,
                                  device=dev)
+        # the mixed step (mixed_step_tokens > 0): the prefill share's ids,
+        # positions, tok_row, write slots ([Sp] each), kv_valid, the logits
+        # index ([Bp] each) and tables [Bp, P]; temperatures and top-p
+        # [Bp] each; out: [2, K * B + Bp] decode ids (-1 = frozen row) and
+        # first-token candidates, and their log-probabilities
+        S = self.ecfg.mixed_step_tokens
+        Sp, Bm = max(0, S - B), min(Bp, max(0, S - B))
+        self._m_int = torch.zeros((4 * Sp + 2 * Bm + Bm * P,) if S else (0,),
+                                  dtype=i32, device=dev)
+        self._m_flt = torch.ones((2 * Bm,), dtype=f32, device=dev)
+        self._m_out = torch.zeros((2, self._mixed_block_k() * B + Bm)
+                                  if S else (2, 0), dtype=f32, device=dev)
+        # looped blocks (loop_to_completion). In: the block tables' page
+        # counts [B], the device free-list [num_pages] (padded with
+        # num_pages past its length), its length and the iteration cap;
+        # the noise key of sampled blocks (int64). State: the step
+        # counter k, the continue flag, the free-list pages used, the exit
+        # codes so far [B], the final exit codes [B], the page counts [B]
+        # and the block tables [B, P] the loop grows. Out: [2, C, B] tokens
+        # (-1 = frozen row) and log-probabilities, C = loop_max_steps
+        N = self.pcfg.num_pages
+        C = self.ecfg.loop_max_steps if self.ecfg.loop_to_completion else 0
+        self._l_in = torch.zeros((B + N + 2,), dtype=i32, device=dev)
+        self._l_key = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._l_state = torch.zeros((3 + 3 * B + B * P,), dtype=i32,
+                                    device=dev)
+        st = self._l_state
+        self._l_k, self._l_cont, self._l_used = st[0:1], st[1:2], st[2:3]
+        self._l_exit = st[3:3 + B]
+        self._l_fin = st[3 + B:3 + 2 * B]
+        self._l_cnt = st[3 + 2 * B:3 + 3 * B]
+        self._l_tbl = st[3 + 3 * B:].view(B, P)
+        self._l_out = torch.zeros((2, C, B), dtype=f32, device=dev)
+        self._loop_launches = 0
         # launched-but-unprocessed blocks: (host [2, K, B] tokens and
         # log-probabilities, the event after their copy or None, the
         # launch snapshot, the step-clock kind)
@@ -359,6 +461,12 @@ class LLMEngine:
             self._stream.wait_stream(torch.cuda.current_stream(dev))
         if self._use_graphs:
             self._pool = torch.cuda.graph_pool_handle()
+        # looped-block control and traffic counters (loop_stats)
+        self._loop_cap_frac = 1.0
+        self._loop_blocks = 0
+        self._loop_steps = 0
+        self._loop_decode_tokens = 0
+        self._loop_exits = {r: 0 for r in LOOP_EXITS[1:]}
         # mixed-step control and traffic counters (mixed_stats)
         self._mixed_prefill_frac = 1.0
         self._mixed_steps = 0
@@ -432,7 +540,10 @@ class LLMEngine:
         in bursts of up to ``decode_block_size`` per sequence,
         ``pipeline_depth`` blocks behind the device. With
         ``mixed_step_tokens`` set and a seated prompt still loading, one
-        ragged mixed dispatch replaces the quantum and the block."""
+        ragged mixed dispatch replaces the quantum and the block. With
+        ``loop_to_completion`` a pure-decode iteration runs one looped
+        block instead of the K-step block, processed right after it ends
+        (looped blocks do not pipeline)."""
         outputs: List[StepOutput] = []
         self._prof_begin()
         with self._on_stream():
@@ -440,6 +551,9 @@ class LLMEngine:
             if self.ecfg.mixed_step_tokens and any(
                     s is not None and _mid_prefill(s) for s in self.slots):
                 launched = self._mixed_step(outputs)
+            elif self.ecfg.loop_to_completion:
+                self._prefill_quantum(outputs)
+                launched = self._loop_step(outputs)
             else:
                 self._prefill_quantum(outputs)
                 launched = self._maybe_launch(outputs)
@@ -502,8 +616,9 @@ class LLMEngine:
         throwaway greedy request per prefill bucket, decoded through at
         least one full block, plus one near the context limit (every
         chunk of a long prompt). On ``cuda`` this also captures every
-        CUDA graph: the decode block per sampling mode and the prefill
-        chunk per (bucket, sampling mode)."""
+        CUDA graph: the decode block per sampling mode, the prefill chunk
+        per (bucket, sampling mode), and with them on, the mixed step
+        and the looped block per sampling mode."""
         steps = self.ecfg.decode_block_size + 1
         cap = self.pcfg.max_seq_len - steps - 2
         lengths = [min(b, cap) for b in self.ecfg.prefill_buckets]
@@ -537,6 +652,37 @@ class LLMEngine:
         budget; floor 0.05 so prompts always progress. Engine-thread
         only."""
         self._mixed_prefill_frac = min(1.0, max(0.05, float(frac)))
+
+    def set_loop_cap_frac(self, frac: float) -> None:
+        """Shrink (or restore) the looped block's iteration cap; floor 0.05
+        so decode always progresses. Engine-thread only."""
+        self._loop_cap_frac = min(1.0, max(0.05, float(frac)))
+
+    def _loop_cap(self) -> int:
+        """Iteration cap of the next looped block: ``loop_max_steps``
+        scaled by the cap fraction, never below one step."""
+        return max(1, int(self.ecfg.loop_max_steps * self._loop_cap_frac))
+
+    def loop_stats(self) -> Optional[Dict[str, object]]:
+        """Looped-block traffic since construction; None when
+        ``loop_to_completion`` is off. ``steps`` counts device iterations,
+        ``exits`` the rows' stop reasons at each block's reconcile."""
+        if not self.ecfg.loop_to_completion:
+            return None
+        return {
+            "blocks": self._loop_blocks,
+            "steps": self._loop_steps,
+            "decode_tokens": self._loop_decode_tokens,
+            "exits": dict(self._loop_exits),
+            "cap": self._loop_cap(),
+            "cap_frac": self._loop_cap_frac,
+        }
+
+    def _mixed_block_k(self) -> int:
+        """Decode tokens one mixed dispatch advances: decode_block_size
+        under ``loop_to_completion`` (the K-block form), else 1."""
+        return (self.ecfg.decode_block_size
+                if self.ecfg.loop_to_completion else 1)
 
     def mixed_stats(self) -> Optional[Dict[str, object]]:
         """Mixed-step traffic since construction; None when the mixed step
@@ -705,14 +851,27 @@ class LLMEngine:
         writes land in the drop slot)."""
         B = self.ecfg.max_batch
         Bp = self.ecfg.prefill_batch
+        idle = np.zeros(self._d_int.shape, np.int32)
+        idle[:B] = 1  # every slot overridden: inactive
         for mode in SAMPLE_MODES:
             if ("decode", mode) in self._graphs:
                 continue
-            ints = np.zeros(self._d_int.shape, np.int32)
-            ints[:B] = 1  # every slot overridden: inactive
-            self._upload(self._d_int, ints)
+            self._upload(self._d_int, idle)
             self._run(("decode", mode), functools.partial(
                 self._decode_body, mode), self._decode_gen)
+        K = self._mixed_block_k()
+        for mode in SAMPLE_MODES if self.ecfg.mixed_step_tokens else ():
+            if ("mixed", K, mode) in self._graphs:
+                continue
+            self._upload(self._d_int, idle)
+            self._upload(self._m_int, self._mixed_padding())
+            self._run(("mixed", K, mode), functools.partial(
+                self._mixed_body, mode, K), self._decode_gen)
+        for mode in SAMPLE_MODES if self.ecfg.loop_to_completion else ():
+            if ("loop", mode) not in self._graphs:
+                self._upload(self._d_int, idle)
+                self._stage_loop_inputs([], 1)
+                self._run_loop(mode)
         for b in self.ecfg.prefill_buckets:
             ints = np.zeros(self._p_int[b].shape, np.int32)
             ints[2 * Bp * b:3 * Bp * b] = self._num_slots_flat  # drop
@@ -1044,6 +1203,39 @@ class LLMEngine:
         for buf, t in zip(self._carry, new):
             buf.copy_(t)
 
+    def _decode_step(self, tokens, positions, steps_left, active, tables,
+                     temp, top_p, mode: int, key=None):
+        """One decode step of the K-step block's math over [B, P] block
+        ``tables``: the model step with on-device sampling (from the
+        decode generator, or from ``counter_uniform`` under ``key``), EOS
+        masking and the per-row budget. Returns the step's tokens (-1 =
+        frozen row), their log-probabilities, the EOS mask and the new
+        (tokens, positions, steps_left, active)."""
+        B = self.ecfg.max_batch
+        P = self.pcfg.max_pages_per_seq
+        ps = self.pcfg.page_size
+        rows = torch.arange(B, device=self.device)
+        page = tables[rows, (positions // ps).clamp(max=P - 1)]
+        write = torch.where(active, page * ps + positions % ps,
+                            torch.full_like(positions, self._num_slots_flat))
+        kv_valid = torch.where(active, positions + 1,
+                               torch.zeros_like(positions))
+        logits, _, _ = llama.paged_forward(
+            self.params, self.cfg, tokens[:, None], positions[:, None],
+            self.state.k, self.state.v, write[:, None], tables, kv_valid,
+            impl=self.ecfg.attention_impl, page_size=ps,
+        )
+        last = logits[:, 0]
+        nxt = _sample(last, temp, top_p, self._decode_gen, mode, key)
+        lp = _chosen_logprob(last, nxt)
+        out = torch.where(active, nxt, torch.full_like(nxt, -1))
+        is_eos = (nxt[:, None] == self._eos[None, :]).any(-1)
+        positions = torch.where(active, positions + 1, positions)
+        steps_left = torch.where(active, steps_left - 1, steps_left)
+        tokens = torch.where(active, nxt, tokens)
+        active = active & ~is_eos & (steps_left > 0)
+        return out, lp, is_eos, tokens, positions, steps_left, active
+
     def _decode_body(self, mode: int) -> None:
         """The K-step decode block over the static buffers: K model steps
         with on-device sampling, EOS masking, per-row budgets and
@@ -1052,33 +1244,16 @@ class LLMEngine:
         in place."""
         B = self.ecfg.max_batch
         P = self.pcfg.max_pages_per_seq
-        ps = self.pcfg.page_size
-        tokens, positions, steps_left, active = self._merged_carry()
+        carry = self._merged_carry()
         block_tables = self._d_int[5 * B:].view(B, P)
         temp, top_p = self._d_flt[:B], self._d_flt[B:]
-        rows = torch.arange(B, device=self.device)
-        drop = torch.full_like(positions, self._num_slots_flat)
         outs, lps = [], []
         for _ in range(self.ecfg.decode_block_size):
-            page = block_tables[rows, (positions // ps).clamp(max=P - 1)]
-            write = torch.where(active, page * ps + positions % ps, drop)
-            kv_valid = torch.where(active, positions + 1,
-                                   torch.zeros_like(positions))
-            logits, _, _ = llama.paged_forward(
-                self.params, self.cfg, tokens[:, None], positions[:, None],
-                self.state.k, self.state.v, write[:, None], block_tables,
-                kv_valid, impl=self.ecfg.attention_impl, page_size=ps,
-            )
-            last = logits[:, 0]
-            nxt = _sample(last, temp, top_p, self._decode_gen, mode)
-            lps.append(_chosen_logprob(last, nxt))
-            outs.append(torch.where(active, nxt, torch.full_like(nxt, -1)))
-            is_eos = (nxt[:, None] == self._eos[None, :]).any(-1)
-            positions = torch.where(active, positions + 1, positions)
-            steps_left = torch.where(active, steps_left - 1, steps_left)
-            tokens = torch.where(active, nxt, tokens)
-            active = active & ~is_eos & (steps_left > 0)
-        self._store_carry(tokens, positions, steps_left, active)
+            out, lp, _, *carry = self._decode_step(
+                *carry, block_tables, temp, top_p, mode)
+            outs.append(out)
+            lps.append(lp)
+        self._store_carry(*carry)
         # token ids are exact in f32 (vocab < 2**24): one tensor, one read
         self._d_out[0].copy_(torch.stack(outs).float())
         self._d_out[1].copy_(torch.stack(lps))
@@ -1171,16 +1346,90 @@ class LLMEngine:
     # ragged mixed step
     # ------------------------------------------------------------------
 
+    def _mixed_padding(self) -> np.ndarray:
+        """The mixed step's int32 inputs with no prefill token: tok_row -1
+        and every write into the drop slot."""
+        Sp = self.ecfg.mixed_step_tokens - self.ecfg.max_batch
+        ints = np.zeros(self._m_int.shape, np.int32)
+        ints[2 * Sp:3 * Sp] = -1
+        ints[3 * Sp:4 * Sp] = self._num_slots_flat
+        return ints
+
+    def _mixed_body(self, mode: int, K: int) -> None:
+        """One ragged mixed dispatch over the static buffers: the staged
+        carry overrides merged, one packed forward over [decode rows |
+        prefill chunks | padding], every active decode row and each
+        chunk-final token sampled, the decode carry advanced one token;
+        with K > 1 (the K-block form) K - 1 more steps of the decode
+        block's math over the decode rows' tables. Writes the [K, B]
+        decode ids (-1 = frozen row) and the [Bp] first-token candidates,
+        with their log-probabilities, to ``_m_out``."""
+        B = self.ecfg.max_batch
+        P = self.pcfg.max_pages_per_seq
+        ps = self.pcfg.page_size
+        Sp = self.ecfg.mixed_step_tokens - B
+        Bp = min(self.ecfg.prefill_batch, Sp)
+        m = self._m_int
+        p_ids, p_pos, p_row, p_write = (m[k * Sp:(k + 1) * Sp]
+                                        for k in range(4))
+        p_valid = m[4 * Sp:4 * Sp + Bp]
+        p_last = m[4 * Sp + Bp:4 * Sp + 2 * Bp]
+        p_tables = m[4 * Sp + 2 * Bp:].view(Bp, P)
+        d_tables = self._d_int[5 * B:].view(B, P)
+        temp, top_p = self._d_flt[:B], self._d_flt[B:]
+        tokens, positions, steps_left, active = self._merged_carry()
+        rows = torch.arange(B, device=self.device)
+        page = d_tables[rows, (positions // ps).clamp(max=P - 1)]
+        none = torch.full_like(positions, -1)
+        write = torch.where(active, page * ps + positions % ps,
+                            torch.full_like(positions, self._num_slots_flat))
+        logits, _, _ = llama.ragged_paged_forward(
+            self.params, self.cfg,
+            torch.cat([tokens, p_ids])[None],
+            torch.cat([positions, p_pos])[None],
+            self.state.k, self.state.v, torch.cat([write, p_write])[None],
+            torch.cat([torch.where(active, rows.int(), none), p_row]),
+            torch.cat([d_tables, p_tables]),
+            torch.cat([torch.where(active, positions + 1, none + 1),
+                       p_valid]),
+            torch.cat([rows, p_last.long()]),
+            impl=self.ecfg.attention_impl, page_size=ps,
+        )  # [B + Bp, V]
+        nxt = _sample(logits, torch.cat([temp, self._m_flt[:Bp]]),
+                      torch.cat([top_p, self._m_flt[Bp:]]),
+                      self._decode_gen, mode)
+        lps = _chosen_logprob(logits, nxt)
+        d_next = nxt[:B]
+        outs, d_lps = [torch.where(active, d_next, none)], [lps[:B]]
+        steps_left = torch.where(active, steps_left - 1, steps_left)
+        carry = [torch.where(active, d_next, tokens),
+                 torch.where(active, positions + 1, positions),
+                 steps_left,
+                 active & ~(d_next[:, None] == self._eos[None, :]).any(-1)
+                 & (steps_left > 0)]
+        for _ in range(K - 1):
+            out, lp, _, *carry = self._decode_step(
+                *carry, d_tables, temp, top_p, mode)
+            outs.append(out)
+            d_lps.append(lp)
+        self._store_carry(*carry)
+        out = self._m_out
+        out[0, :K * B].copy_(torch.stack(outs).float().reshape(-1))
+        out[1, :K * B].copy_(torch.stack(d_lps).reshape(-1))
+        out[0, K * B:].copy_(nxt[B:].float())
+        out[1, K * B:].copy_(lps[B:])
+
     def _mixed_step(self, outputs: List[StepOutput]) -> bool:
         """One ragged mixed dispatch: every seated decode row advances one
-        token from the device carry while up to ``prefill_batch`` loading
+        token from the device carry (K = decode_block_size tokens under
+        ``loop_to_completion``) while up to ``prefill_batch`` loading
         prompts pack exact-length chunks (no bucket padding) into the rest
         of the budget. Under page pressure the pending blocks are drained
         first, then the youngest sequence is preempted until the decode
         rows' pages fit. The packed layout is decode slots 0..B-1
         (inactive ones -1 in ``tok_row``), then the chunks back to back,
         then padding. The first tokens of finished prompts are emitted at
-        once; the decode tokens join the pending blocks."""
+        once; the [K, B] decode frame joins the pending blocks."""
         sc_t0 = time.monotonic()
         sc_excl = 0.0
         S = self.ecfg.mixed_step_tokens
@@ -1189,10 +1438,14 @@ class LLMEngine:
         Bp = min(self.ecfg.prefill_batch, Sp)
         ps = self.pcfg.page_size
         P = self.pcfg.max_pages_per_seq
+        K = self._mixed_block_k()
         while True:
             decode_seated = [(i, s) for i, s in enumerate(self.slots)
                              if s is not None and not _mid_prefill(s)]
-            advs = {id(s): min(1, max(0, s.dev_steps_left))
+            # pages for the full K-token advance (exact for active rows:
+            # each emits what it assumes unless it freezes, and frozen
+            # rows stop writing)
+            advs = {id(s): min(K, max(0, s.dev_steps_left))
                     for _, s in decode_seated}
             try:
                 for _, s in decode_seated:
@@ -1212,18 +1465,13 @@ class LLMEngine:
         group = [(i, s) for i, s in enumerate(self.slots)
                  if s is not None and _mid_prefill(s)][:Bp]
         budget = max(1, min(Sp, int(Sp * self._mixed_prefill_frac)))
-        # int32 rows: ids, positions, tok_row, write slots (each [Sp]),
-        # then kv_valid and logits index (each [Bp])
-        p_int = np.zeros((4 * Sp + 2 * Bp,), np.int32)
+        p_int = self._mixed_padding()
         p_ids, p_pos, p_row, p_write = (p_int[k * Sp:(k + 1) * Sp]
                                         for k in range(4))
         p_valid = p_int[4 * Sp:4 * Sp + Bp]
-        p_last = p_int[4 * Sp + Bp:]
-        p_row[:] = -1
-        p_write[:] = self._num_slots_flat
-        p_temp = np.ones((Bp,), np.float32)
-        p_topp = np.ones((Bp,), np.float32)
-        tables = np.zeros((Bp, P), np.int32)
+        p_last = p_int[4 * Sp + Bp:4 * Sp + 2 * Bp]
+        tables = p_int[4 * Sp + 2 * Bp:].reshape(Bp, P)
+        p_flt = np.ones((2 * Bp,), np.float32)  # temperature, top-p
         chunk_lens: List[int] = []
         off = 0
         for j, (_, s) in enumerate(group):
@@ -1242,55 +1490,20 @@ class LLMEngine:
             p_row[off:off + t] = B + j
             p_valid[j] = start + t
             p_last[j] = B + off + t - 1
-            p_temp[j] = s.params.temperature
-            p_topp[j] = s.params.top_p
+            p_flt[j] = s.params.temperature
+            p_flt[Bp + j] = s.params.top_p
             off += t
         for i, s in decode_seated:
             if self._bt_pages[i] != len(s.block_table):
                 self._refresh_bt_row(i, s)
 
-        dev = self.device
         self._stage_decode_inputs()
-        tokens, positions, steps_left, active = self._merged_carry()
-        p_dev = self._device_array(p_int)
-        d_ids, d_pos, d_row, d_write = (p_dev[k * Sp:(k + 1) * Sp]
-                                        for k in range(4))
-        d_valid = p_dev[4 * Sp:4 * Sp + Bp]
-        d_last = p_dev[4 * Sp + Bp:]
-        d_tables = self._d_int[5 * B:].view(B, P)
-        samp = torch.cat([self._d_flt[:B], self._device_array(p_temp),
-                          self._d_flt[B:], self._device_array(p_topp)])
-        tables_dev = torch.cat([d_tables, self._device_array(tables)])
-        rows = torch.arange(B, device=dev)
-        page = d_tables[rows, (positions // ps).clamp(max=P - 1)]
-        none = torch.full_like(positions, -1)
-        write = torch.where(active, page * ps + positions % ps,
-                            torch.full_like(positions, self._num_slots_flat))
-        logits, _, _ = llama.ragged_paged_forward(
-            self.params, self.cfg,
-            torch.cat([tokens, d_ids])[None], torch.cat([positions, d_pos])[None],
-            self.state.k, self.state.v, torch.cat([write, d_write])[None],
-            torch.cat([torch.where(active, rows.int(), none), d_row]),
-            tables_dev,
-            torch.cat([torch.where(active, positions + 1, none + 1), d_valid]),
-            torch.cat([rows, d_last.long()]),
-            impl=self.ecfg.attention_impl, page_size=ps,
-        )  # [B + Bp, V]
-        nxt = _sample(logits, samp[:B + Bp], samp[B + Bp:], self._decode_gen,
-                      _sample_mode([s for _, s in decode_seated + group]))
-        lps = _chosen_logprob(logits, nxt)
-        d_next = nxt[:B]
-        steps_left = torch.where(active, steps_left - 1, steps_left)
-        self._store_carry(
-            torch.where(active, d_next, tokens),
-            torch.where(active, positions + 1, positions),
-            steps_left,
-            active & ~(d_next[:, None] == self._eos[None, :]).any(-1)
-            & (steps_left > 0))
-        # decode ids (-1 = frozen row), first-token candidates and their
-        # log-probabilities: the dispatch's one host read
-        ids = torch.cat([torch.where(active, d_next, none), nxt[B:]])
-        both = torch.stack([ids.float(), lps]).cpu().numpy()
+        self._upload(self._m_int, p_int)
+        self._upload(self._m_flt, p_flt)
+        mode = _sample_mode([s for _, s in decode_seated + group])
+        self._run(("mixed", K, mode), functools.partial(
+            self._mixed_body, mode, K), self._decode_gen)
+        host, ev = self._read_later(self._m_out)
 
         for _, s in decode_seated:
             s.dev_pos += advs[id(s)]
@@ -1304,18 +1517,275 @@ class LLMEngine:
         for j, (_, s) in enumerate(group):
             s.seq_len += chunk_lens[j]
             done.append(chunk_lens[j] > 0 and s.seq_len >= len(s.token_ids))
-        # the decode rows' [1, B] frame joins the pending blocks (its data
-        # is already on the host), so blocks are walked in launch order
-        self._pending.append((both[:, None, :B], None,
+        # the decode rows' [K, B] frame joins the pending blocks, so
+        # blocks are walked in launch order
+        self._pending.append((host[:, :K * B].view(2, K, B), ev,
                               [(i, s, advs[id(s)]) for i, s in decode_seated],
                               "mixed"))
-        self._reap_first_tokens(group, done, both[0, B:], both[1, B:],
-                                outputs)
+        if any(done):  # the first-token candidates: read only when needed
+            if ev is not None:
+                ev.synchronize()
+            both = host.numpy()
+            self._reap_first_tokens(group, done, both[0, K * B:],
+                                    both[1, K * B:], outputs)
         self._clock("mixed", max(0.0, time.monotonic() - sc_t0 - sc_excl),
                     tokens=prefill_tokens + decode_tokens,
                     rows=len(decode_seated) + sum(1 for t in chunk_lens if t),
                     dispatches=1)
         return True
+
+    # ------------------------------------------------------------------
+    # looped blocks (kernel looping)
+    # ------------------------------------------------------------------
+
+    def _stage_loop_inputs(self, drawn: Sequence[int], cap: int) -> None:
+        """Upload a looped block's inputs beside the decode block's staged
+        ones: the tables' page counts, the drawn device free-list (padded
+        with ``num_pages``), its length and the cap; and a new noise key
+        (sampled blocks draw ``counter_uniform`` under key + step)."""
+        B = self.ecfg.max_batch
+        N = self.pcfg.num_pages
+        ints = np.full((B + N + 2,), N, np.int32)
+        ints[:B] = self._bt_pages
+        ints[B:B + len(drawn)] = drawn
+        ints[B + N] = len(drawn)
+        ints[B + N + 1] = cap
+        self._upload(self._l_in, ints)
+        self._loop_launches += 1
+        # disjoint per (seed, launch): the step counter fills the low bits
+        key = ((self.ecfg.seed + 1) << 40) + (self._loop_launches << 16)
+        self._upload(self._l_key, np.array([key], np.int64))
+
+    def _loop_prologue(self) -> None:
+        """Start a looped block: merge the staged carry overrides, reset
+        the loop state (counter, free-list use, exit codes, outputs) and
+        load the tables to grow; the continue flag says whether any row
+        is active."""
+        B = self.ecfg.max_batch
+        P = self.pcfg.max_pages_per_seq
+        carry = self._merged_carry()
+        self._store_carry(*carry)
+        self._l_state[:3 + 2 * B].zero_()
+        self._l_cnt.copy_(self._l_in[:B])
+        self._l_tbl.copy_(self._d_int[5 * B:].view(B, P))
+        self._l_out[0].fill_(-1.0)
+        self._l_out[1].zero_()
+        self._l_cont.copy_(carry[3].any().to(torch.int32).view(1))
+
+    def _loop_body(self, mode: int) -> None:
+        """One looped-block iteration over the static buffers (the JAX
+        ``_build_loop_block`` body): rows whose next write enters a page
+        they lack take one from the device free-list (rows it cannot cover
+        freeze with exit 3), then one step of the decode block's math over
+        the growing full-capacity tables, the freeze law (exit 1 eos, 2
+        budget), the step's tokens and log-probabilities written at row k
+        of ``_l_out``, the final exit codes as if the loop stopped here (4
+        for rows still running: the cap), k + 1, and the continue flag
+        (k < cap and any row active). No host read."""
+        B = self.ecfg.max_batch
+        N = self.pcfg.num_pages
+        ps = self.pcfg.page_size
+        tokens, positions, steps_left, active = self._carry
+        rows = torch.arange(B, device=self.device)
+        needed = torch.where(active, positions // ps + 1,
+                             torch.zeros_like(positions))
+        starved = _device_append_pages(
+            self._l_tbl, self._l_cnt, self._l_in[B:B + N],
+            self._l_in[B + N], self._l_used, needed, rows)
+        exit_code = torch.where(starved & (self._l_exit == 0),
+                                torch.full_like(self._l_exit, 3),
+                                self._l_exit)
+        active = active & ~starved
+        key = self._l_key + self._l_k if mode else None
+        out, lp, is_eos, *carry = self._decode_step(
+            tokens, positions, steps_left, active, self._l_tbl,
+            self._d_flt[:B], self._d_flt[B:], mode, key)
+        froze = active & ~carry[3]
+        zero = exit_code == 0
+        exit_code = torch.where(froze & is_eos & zero,
+                                torch.full_like(exit_code, 1), exit_code)
+        exit_code = torch.where(froze & ~is_eos & zero,
+                                torch.full_like(exit_code, 2), exit_code)
+        k = self._l_k.long()
+        self._l_out[0].index_copy_(0, k, out.float()[None])
+        self._l_out[1].index_copy_(0, k, lp[None])
+        self._store_carry(*carry)
+        self._l_exit.copy_(exit_code)
+        self._l_fin.copy_(torch.where(carry[3] & (exit_code == 0),
+                                      torch.full_like(exit_code, 4),
+                                      exit_code))
+        self._l_k.add_(1)
+        self._l_cont.copy_(((self._l_k < self._l_in[B + N + 1])
+                            & carry[3].any()).to(torch.int32))
+
+    def _run_loop(self, mode: int) -> Optional[_Graph]:
+        """Run one looped block: its WHILE graph's launch (``cuda``,
+        captured on first use right after an eager run of this block), or
+        eagerly, reading the continue flag before each iteration (CPU, or
+        ``_graphs=False``). Returns the graph launched, if one was: its
+        iterations' launches are counted once their number is read."""
+        g = self._graphs.get(("loop", mode)) if self._use_graphs else None
+        if g is not None:
+            g.graph.launch(self._stream)
+            kernels.add_launch_counts(g.counts)
+            return g
+        self._loop_prologue()
+        while int(self._l_cont[0]):
+            self._loop_body(mode)
+        if self._use_graphs:
+            self._capture_loop(mode)
+        return None
+
+    def _capture_loop(self, mode: int) -> None:
+        """Capture the looped block for ``mode``: its prologue and one
+        iteration as two graphs on the engine stream (kept, not
+        instantiated), joined by a WHILE node into one instantiated graph
+        (``graph_loop.LoopGraph``). Sampled iterations draw
+        ``counter_uniform`` noise, not the generator. Raises on failure."""
+        self._event("retrace")
+        parts = []
+        torch.cuda.synchronize(self.device)
+        for fn in (self._loop_prologue,
+                   functools.partial(self._loop_body, mode)):
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            before = kernels.launch_counts()
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                fn()
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+            after = kernels.launch_counts()
+            counts = {k: after[k] - before[k] for k in after
+                      if after[k] != before[k]}
+            kernels.add_launch_counts(counts, -1)  # captured, not launched
+            parts.append((graph, counts))
+        (pro, pro_counts), (body, body_counts) = parts
+        self._graphs[("loop", mode)] = _Graph(
+            LoopGraph(pro, body, self._l_cont), pro_counts, body_counts)
+
+    def _loop_step(self, outputs: List[StepOutput]) -> bool:
+        """Launch ONE looped block and process it right after (looped
+        blocks do not pipeline: the loop itself amortizes the host round
+        trip, and the host view stays exact for admission and
+        preemption). Pending fixed and mixed frames drain first. Page
+        pressure drains or preempts as ``_maybe_launch`` does, but the
+        host guarantees only each row's first write; a device free-list
+        draw covers the worst-case remainder (``min(cap, steps left)`` per
+        row) and is reconciled with the allocator afterwards."""
+        if self._pending:
+            self._drain_pending(outputs)
+        sc_t0 = time.monotonic()
+        sc_excl = 0.0
+        cap = self._loop_cap()
+        while True:
+            seated = [(i, s) for i, s in enumerate(self.slots)
+                      if s is not None]
+            if not any(u[0] for u in self._slot_updates.values()) and not any(
+                    s.dev_steps_left > 0 for _, s in seated):
+                return False
+            try:
+                for _, s in seated:
+                    if s.dev_steps_left > 0:
+                        self._ensure_block_pages(s, 1)
+                break
+            except CacheFull:
+                self._event("cache_full")
+                if self._pending:
+                    drain_t0 = time.monotonic()
+                    self._drain_pending(outputs)
+                    sc_excl += time.monotonic() - drain_t0
+                    continue
+                if seated:
+                    self._preempt_youngest(outputs)
+                    continue
+                return False
+        ps = self.pcfg.page_size
+        P = self.pcfg.max_pages_per_seq
+        advs: Dict[int, int] = {}
+        want = 0
+        for _, s in seated:
+            adv = min(cap, s.dev_steps_left) if s.dev_steps_left > 0 else 0
+            advs[id(s)] = adv
+            if adv:
+                needed = min((s.dev_pos + adv - 1) // ps + 1, P)
+                want += max(0, needed - len(s.block_table))
+        drawn = self.allocator.draw_device(want) if want > 0 else []
+        for i, s in seated:
+            if self._bt_pages[i] != len(s.block_table):
+                self._refresh_bt_row(i, s)
+        # each row's table length at launch: the reconcile reads the
+        # device's appends off the returned tables past it
+        snapshot = [(i, s, advs[id(s)], len(s.block_table))
+                    for i, s in seated]
+        self._stage_decode_inputs()
+        self._stage_loop_inputs(drawn, cap)
+        launched = self._run_loop(_sample_mode([s for _, s in seated]))
+        # both copies behind the second one's event
+        results = (self._read_later(self._l_state)[0],
+                   *self._read_later(self._l_out))
+        for _, s in seated:
+            s.dev_pos += advs[id(s)]
+            s.dev_steps_left -= advs[id(s)]
+        emitted = self._process_loop_block(results, launched, snapshot,
+                                           drawn, outputs)
+        self._clock("loop", max(0.0, time.monotonic() - sc_t0 - sc_excl),
+                    tokens=emitted, rows=len(seated), dispatches=1)
+        return True
+
+    def _process_loop_block(self, results, graph: Optional[_Graph],
+                            snapshot, drawn: List[int],
+                            outputs: List[StepOutput]) -> int:
+        """Reconcile one looped block (its state and outputs come back
+        through pinned memory behind one event, the only wait). Pages
+        first: the device's appends join live rows' block tables (so a row
+        the walk finishes releases them like any other page); appends on
+        rows aborted meanwhile, and the draw's unused pages, go back
+        through ``reconcile_device``. Then the K-step path's token walk,
+        the re-staging of rows the free-list starved (exit 3) and the
+        exit counters; a launched ``graph`` adds its iteration's launches
+        times the iterations run. Returns the tokens emitted."""
+        B = self.ecfg.max_batch
+        P = self.pcfg.max_pages_per_seq
+        state, out, ev = results
+        if ev is not None:
+            ev.synchronize()
+        state, out = state.numpy(), out.numpy()
+        n_steps = int(state[0])
+        codes = state[3 + B:3 + 2 * B]
+        cnt = state[3 + 2 * B:3 + 3 * B]
+        tbl = state[3 + 3 * B:].reshape(B, P)
+        if graph is not None and n_steps:
+            kernels.add_launch_counts(
+                {k: v * n_steps for k, v in graph.step_counts.items()})
+        claimed: List[int] = []
+        for slot, seq, _, n0 in snapshot:
+            n1 = int(cnt[slot])
+            if n1 > n0 and self._by_id.get(seq.request_id) is seq:
+                pages = [int(p) for p in tbl[slot, n0:n1]]
+                claimed.extend(pages)
+                seq.block_table.extend(pages)
+        if drawn:
+            claimed_set = set(claimed)
+            self.allocator.reconcile_device(
+                claimed, [p for p in drawn if p not in claimed_set])
+        emitted = self._walk_block(out[0, :n_steps], out[1, :n_steps],
+                                   [(i, s, a) for i, s, a, _ in snapshot],
+                                   outputs)
+        for slot, seq, _, _ in snapshot:
+            c = int(codes[slot])
+            if c:
+                self._loop_exits[LOOP_EXITS[c]] += 1
+            if (c == 3 and self._by_id.get(seq.request_id) is seq
+                    and self.slots[slot] is seq):
+                self._stage_seat(slot, seq)
+        self._loop_blocks += 1
+        self._loop_steps += n_steps
+        self._loop_decode_tokens += emitted
+        return emitted
 
     # ------------------------------------------------------------------
     # token emission & completion

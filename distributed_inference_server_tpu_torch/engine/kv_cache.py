@@ -21,7 +21,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -148,8 +148,10 @@ class CacheStats:
 
 class PageAllocator:
     """Host bookkeeping for the device page pool. Pages are FREE (never
-    cached / evicted), ACTIVE (refcount > 0) or CACHED (refcount 0 but
-    content-addressed, reclaimable LRU). Single-owner: the engine thread."""
+    cached / evicted), ACTIVE (refcount > 0), CACHED (refcount 0 but
+    content-addressed, reclaimable LRU) or DEVICE-HELD (drawn onto a
+    looped decode block's device free-list until its reconcile).
+    Single-owner: the engine thread."""
 
     def __init__(self, cfg: PagedCacheConfig):
         self.cfg = cfg
@@ -158,6 +160,8 @@ class PageAllocator:
         self._by_page: Dict[int, Tuple[int, _CachedPage]] = {}
         # refcount-0 content-addressed pages, oldest first: page_id -> hash
         self._lru: "OrderedDict[int, int]" = OrderedDict()
+        # pages on an in-flight looped block's device free-list
+        self._device_held: Set[int] = set()
         self._hits = 0
         self._misses = 0
         self._evictions = 0
@@ -216,6 +220,43 @@ class PageAllocator:
             out.append(self._free.pop())
         out.extend(evicted)
         return out
+
+    def draw_device(self, n: int) -> List[int]:
+        """Move up to ``n`` pages into the DEVICE-HELD state for a looped
+        decode block's device free-list: free-list pages first, then LRU
+        reclaim for the remainder. A partial draw is fine (the loop freezes
+        rows with exit reason ``pages`` when the device list runs dry), so
+        this never raises for a shortfall. The draw is settled by
+        ``reconcile_device`` when the block returns."""
+        out: List[int] = []
+        while self._free and len(out) < n:
+            out.append(self._free.pop())
+        deficit = n - len(out)
+        if deficit > 0 and self._lru:
+            out.extend(self._evict_lru_batch(deficit))
+        self._device_held.update(out)
+        return out
+
+    def reconcile_device(self, claimed: Sequence[int],
+                         returned: Sequence[int]) -> None:
+        """Settle a device draw: ``claimed`` pages were appended to a live
+        row's block table inside the loop and are now plain live-held;
+        ``returned`` pages were never assigned (or their row was aborted
+        meanwhile) and go back to the free list. Every drawn page comes
+        back through exactly one of the two lists, else ValueError."""
+        for pid in claimed:
+            if pid not in self._device_held:
+                raise ValueError(f"page {pid} claimed but not device-held")
+            self._device_held.discard(pid)
+        for pid in returned:
+            if pid not in self._device_held:
+                raise ValueError(f"page {pid} returned but not device-held")
+            self._device_held.discard(pid)
+            self._free.append(pid)
+
+    def device_held(self) -> int:
+        """Pages currently drawn onto a looped block's device free-list."""
+        return len(self._device_held)
 
     def _evict_lru_batch(self, count: int) -> List[int]:
         """Evict up to ``count`` LRU cached pages (oldest first)."""
@@ -297,6 +338,14 @@ class PageAllocator:
                 bad(f"free page {pid} out of range [0, {total})")
             if pid in self._by_page:
                 bad(f"page {pid} is both free and content-addressed")
+        for pid in self._device_held:
+            if not (0 <= pid < total):
+                bad(f"device-held page {pid} out of range [0, {total})")
+            if pid in free_set:
+                bad(f"page {pid} is both free and device-held")
+            if pid in self._by_page:
+                bad(f"page {pid} is both device-held and "
+                    "content-addressed")
         for h, entry in self._by_hash.items():
             back = self._by_page.get(entry.page_id)
             if back is None or back[0] != h or back[1] is not entry:
@@ -331,6 +380,9 @@ class PageAllocator:
                 if pid in free_set:
                     bad(f"live page {pid} is on the free list "
                         "(use-after-free)")
+                if pid in self._device_held:
+                    bad(f"live page {pid} is still device-held "
+                        "(unreconciled device draw)")
                 addressed = self._by_page.get(pid)
                 if addressed is not None:
                     if addressed[1].refcount != count:
@@ -345,14 +397,13 @@ class PageAllocator:
                     bad(f"page {pid}: refcount {entry.refcount} with no "
                         "live holder (leaked reference)")
             accounted = (len(free_set) + len(self._lru)
-                         + len(set(held) - set(self._lru)))
+                         + len(set(held) - set(self._lru))
+                         + len(self._device_held))
             if accounted != total:
-                # the reference's report format; this allocator never
-                # holds pages for a looped device block, so that term is 0
                 bad(f"conservation: {len(free_set)} free + "
                     f"{len(self._lru)} cached + "
                     f"{len(set(held) - set(self._lru))} live + "
-                    f"0 device-held = "
+                    f"{len(self._device_held)} device-held = "
                     f"{accounted}, pool has {total} "
                     f"({total - accounted:+d} leaked)")
         return issues

@@ -28,7 +28,9 @@ checkpoint parity tests call).
   codes through the int8 decode kernel, and a prefill chunk gathers,
   dequantizes and runs ``gqa_attention`` — the JAX package's own path for
   quantized prefill, which has no int8 prefill kernel. The ragged mixed
-  step does not take int8 pools yet.
+  step over int8 pools likewise gathers each row's window, dequantizes it
+  and runs ``ragged_gqa_attention`` (the JAX package has no int8 ragged
+  kernel either).
 
 This slice serves dense Llama models (Llama 3.x). MoE, attention biases,
 sandwich norms and the Gemma scalings are rejected by ``check_supported``.
@@ -71,6 +73,9 @@ from distributed_inference_server_tpu_torch.ops.rotary import (
 
 Params = Dict[str, object]
 IMPLS = ("kernel", "plain")
+# packed tokens per ragged_gqa_attention call over int8 pools: each token
+# copies its row's whole dequantized window, so chunks bound that memory
+_RAGGED_TOKEN_CHUNK = 128
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -493,7 +498,9 @@ def ragged_paged_forward(
     Args:
       input_ids, positions: [1, S] packed tokens and absolute positions.
       pool_k, pool_v: [L, num_slots + 1, KV, D] stacked pools (updated IN
-        PLACE; the last slot is the drop slot).
+        PLACE; the last slot is the drop slot), or int8 ``QuantPool``
+        pairs: the write quantizes, and attention runs the plain gather +
+        dequantize + ``ragged_gqa_attention`` on both paths.
       write_slots: [1, S] flat slot per packed token (>= num_slots drops:
         padding and inactive decode slots).
       tok_row: [S] owning row per token (-1 = padding); each row's tokens
@@ -507,10 +514,7 @@ def ragged_paged_forward(
 
     Returns (logits [N, V] f32, pool_k, pool_v).
     """
-    if isinstance(pool_k, QuantPool):
-        raise NotImplementedError(
-            "the ragged mixed step over int8 (QuantPool) pools is not ported "
-            "yet")
+    kv_quantized = isinstance(pool_k, QuantPool)
     softcap = cfg.attn_logit_softcap or 0.0
     page_tables = page_tables.to(torch.int32).contiguous()
     kv_valid_len = kv_valid_len.to(torch.int32).contiguous()
@@ -518,6 +522,22 @@ def ragged_paged_forward(
     flat_pos = positions[0].to(torch.int32).contiguous()
 
     def attend_fn(q, k_layer, v_layer, window):
+        if kv_quantized:
+            kd, vd = gather_kv_window(k_layer.data, v_layer.data,
+                                      page_tables, page_size)
+            ks, vs = gather_kv_window(k_layer.scale, v_layer.scale,
+                                      page_tables, page_size)
+            k_seq = dequantize_kv(kd, ks, q.dtype)
+            v_seq = dequantize_kv(vd, vs, q.dtype)
+            # each packed token attends alone, so chunks of the token axis
+            # give the whole call's result with a bounded window copy
+            return torch.cat([
+                ragged_gqa_attention(
+                    q[0, c:c + _RAGGED_TOKEN_CHUNK], k_seq, v_seq,
+                    tok_row[c:c + _RAGGED_TOKEN_CHUNK],
+                    flat_pos[c:c + _RAGGED_TOKEN_CHUNK], kv_valid_len,
+                    window, cfg.attn_logit_softcap)
+                for c in range(0, q.shape[1], _RAGGED_TOKEN_CHUNK)])[None]
         if impl == "kernel":
             return paged_ragged(
                 q[0], k_layer, v_layer, page_tables, tok_row, flat_pos,

@@ -143,18 +143,19 @@ class InferenceServer:
 
     def stats(self) -> dict:
         """Counters for ``/server/stats``; ``mixed`` is the engine's
-        ``mixed_stats()`` (null while the mixed step is off),
+        ``mixed_stats()`` (null while the mixed step is off), ``loop`` its
+        ``loop_stats()`` (null while looped blocks are off),
         ``step_clock`` its ``step_clock_stats()`` (host wall time,
         dispatches, tokens and rows per dispatch kind, and the pressure
         events) and ``memory`` its ``memory_stats()`` (null on the
         CPU)."""
         r = self.runner
-        cache = mixed = step_clock = memory = None
+        cache = mixed = loop = step_clock = memory = None
         if r.is_healthy():
             try:
-                cache, mixed, step_clock, memory = r.call(lambda e: (
+                cache, mixed, loop, step_clock, memory = r.call(lambda e: (
                     e.cache_stats().to_dict(), e.mixed_stats(),
-                    e.step_clock_stats(), e.memory_stats()))
+                    e.loop_stats(), e.step_clock_stats(), e.memory_stats()))
             except (TimeoutError, RuntimeError):
                 pass
         return {
@@ -170,6 +171,7 @@ class InferenceServer:
             "warmup_s": r.warmup_seconds,
             "cache": cache,
             "mixed": mixed,
+            "loop": loop,
             "step_clock": step_clock,
             "memory": memory,
             "kernel_launches": self.kernel_counts(),

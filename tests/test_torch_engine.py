@@ -13,7 +13,9 @@ engine's mixed step and the port's own quantum path, in the scenarios of
 weights (``quantize_params``, group 32) and int8 KV pools
 (``kv_quant="int8"``), alone and together, with prefix reuse and
 preemption under int8 KV (the scenarios of ``tests/test_quant.py`` and
-``tests/test_kv_quant.py``).
+``tests/test_kv_quant.py``); and the mixed step over int8 pools, with
+dense or int8 weights, in its K = 1 and K-block forms, against the JAX
+mixed step (the scenarios of ``tests/test_engine_mixed.py``).
 
 Before comparing tokens each test checks that the top-2 logit gap at every
 generated step exceeds ``TIE_TOL`` (from an independent dense forward over
@@ -274,8 +276,9 @@ def _mixed_engines(shared, mixed, paged=(64, 4, 24), **kw):
 
 
 def _script(engine, sp_cls, actions):
-    """Run ``actions`` — ("add", rid, prompt, kw) or ("steps", n) — then
-    drain; returns {rid: tokens, text, finish, error, usage}."""
+    """Run ``actions`` — ("add", rid, prompt, kw), ("steps", n) or
+    ("abort", rid) — then drain; returns {rid: tokens, text, finish,
+    error, usage}."""
     out = {}
 
     def step():
@@ -294,6 +297,8 @@ def _script(engine, sp_cls, actions):
     for act in actions:
         if act[0] == "add":
             engine.add_request(act[1], list(act[2]), sp_cls(**act[3]))
+        elif act[0] == "abort":
+            assert engine.abort(act[1])
         else:
             for _ in range(act[1]):
                 step()
@@ -536,7 +541,65 @@ def test_kv_quant_config_errors(shared):
     with pytest.raises(ValueError, match="unknown kv_quant"):
         LLMEngine(shared[1], TINY, TOK, EngineConfig(kv_quant="fp8"),
                   dtype=torch.float32, device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
-        LLMEngine(shared[1], TINY, TOK, EngineConfig(
-            max_batch=4, mixed_step_tokens=12, kv_quant="int8"),
-            dtype=torch.float32, device="cpu")
+    # the mixed step over int8 pools is served (the reference's gather +
+    # dequantize path), so the pair constructs
+    eng = LLMEngine(shared[1], TINY, TOK, EngineConfig(
+        max_batch=4, mixed_step_tokens=12, kv_quant="int8"),
+        dtype=torch.float32, device="cpu")
+    assert isinstance(eng.state.k, QuantPool) and eng.mixed_stats()
+
+
+def _int8_mixed_scenario(name):
+    """(actions, engine kwargs) of the mixed scenarios of
+    ``tests/test_engine_mixed.py``."""
+    rng = np.random.default_rng({"long": 3, "multi": 9, "preempt": 13,
+                                 "abort": 17}[name])
+    if name == "long":
+        chats = [rng.integers(1, 200, size=6).tolist() for _ in range(2)]
+        actions = [("add", f"c{i}", c, _greedy(12))
+                   for i, c in enumerate(chats)]
+        actions += [("steps", 3), ("add", "long",
+                                   rng.integers(1, 200, size=60).tolist(),
+                                   _greedy(8))]
+        return actions, dict(mixed=20)
+    if name == "multi":
+        shared_ids = rng.integers(1, 200, size=16).tolist()
+        prompts = [shared_ids + rng.integers(1, 200, size=4 + i).tolist()
+                   for i in range(3)]
+        return ([("add", "p0", prompts[0], _greedy(6)), ("steps", 20),
+                 ("add", "p1", prompts[1], _greedy(6)),
+                 ("add", "p2", prompts[2], _greedy(6))], dict(mixed=24))
+    if name == "preempt":
+        return ([("add", f"r{i}", rng.integers(1, 200, size=10).tolist(),
+                  _greedy(10)) for i in range(3)],
+                dict(mixed=12, paged=(9, 4, 10), max_batch=2))
+    gone = rng.integers(1, 200, size=40).tolist()
+    stay = rng.integers(1, 200, size=8).tolist()
+    return ([("add", "gone", gone, _greedy(4)),
+             ("add", "stay", stay, _greedy(4)), ("steps", 1),
+             ("abort", "gone")], dict(mixed=12))
+
+
+@pytest.mark.parametrize("loop", [False, True])
+@pytest.mark.parametrize("weights", ["none", "int8"])
+@pytest.mark.parametrize("scenario", ["long", "multi", "preempt", "abort"])
+def test_int8_kv_mixed_matches_jax(quantized, scenario, weights, loop):
+    """The mixed step over int8 pools (the port's gather + dequantize +
+    ``ragged_gqa_attention``, as the JAX package serves it), dense or
+    int8 weights, in its K = 1 form and under ``loop_to_completion`` in
+    its K-block form: tokens, text, finish and usage equal the JAX mixed
+    step's on the same engine config; every page balances."""
+    actions, kw = _int8_mixed_scenario(scenario)
+    mixed = kw.pop("mixed")
+    kw = {**MIXED_KW, **kw, "kv_quant": "int8", "loop_to_completion": loop}
+    je, tm = _engines(quantized[weights], mixed_step_tokens=mixed, **kw)
+    jres = _script(je, JSamplingParams, actions)
+    tres = _script(tm, SamplingParams, actions)
+    # an aborted request may have emitted nothing
+    requests = [(a[1], a[2], a[3]) for a in actions
+                if a[0] == "add" and a[1] in jres]
+    _compare(quantized[weights], requests, jres, tres, "int8")
+    assert set(tres) == set(jres)
+    assert tm.mixed_stats()["steps"] > 0
+    assert tm.mixed_stats() == je.mixed_stats()
+    assert tm.audit_pages() == []

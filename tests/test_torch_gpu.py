@@ -928,3 +928,272 @@ def test_profile_steps_traces_the_card(cuda):
     assert ev.is_set() and "error" not in holder, holder
     assert holder["device_events"] > 0
     assert 0.0 < holder["busy_share"] <= 1.0 + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# looped blocks (one WHILE-graph launch each) and the mixed step's graphs
+# ---------------------------------------------------------------------------
+
+
+def _loop_engine(cuda, cfg, params, dtype, graphs=True, **kw):
+    paged = (PagedCacheConfig(64, 4, 24) if cfg is TINY
+             else PagedCacheConfig())
+    ecfg = dict(max_batch=4, prefill_buckets=(8, 32)) if cfg is TINY else {}
+    return LLMEngine(params, cfg, ByteTokenizer(), EngineConfig(
+        paged=paged, **{**ecfg, **kw}), dtype=dtype, device=cuda,
+        _graphs=graphs)
+
+
+def _loop_model(cuda, model):
+    from distributed_inference_server_tpu_torch.models.configs import (
+        LLAMA_3_2_1B,
+    )
+
+    if model == "tiny-f32":
+        return TINY, torch.float32, _scaled_params(TINY, cuda, torch.float32)
+    cfg = LLAMA_3_2_1B.with_overrides(num_layers=2)
+    return cfg, torch.bfloat16, _scaled_params(cfg, cuda, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["tiny-f32", "1b-width-2-layers-bf16"])
+@pytest.mark.parametrize("cap", [256, 3])
+def test_loop_graph_matches_eager_loop_and_fixed_path(cuda, model, cap):
+    """Looped blocks launched as WHILE graphs give the eager loop's greedy
+    tokens, exits, iterations and kernel launches, and the fixed K-step
+    path's tokens with the same launches per decode step (the iteration's
+    recorded launches times the iterations the block ran)."""
+    cfg, dtype, params = _loop_model(cuda, model)
+    tok = ByteTokenizer()
+    runs = {}
+    for name, loop, graphs in (("graph", True, True), ("eager", True, False),
+                               ("fixed", False, True)):
+        eng = _loop_engine(cuda, cfg, params, dtype, graphs,
+                           loop_to_completion=loop, loop_max_steps=cap)
+        toks, counts = _graph_trace(eng, tok, GRAPH_WAVES)
+        sc = eng.step_clock_stats()["kinds"]
+        if loop:
+            st = eng.loop_stats()
+            steps = st["steps"]
+            assert sc["decode_block"]["dispatches"] == 0
+        else:
+            st = None
+            steps = sc["decode_block"]["dispatches"] * 8
+        runs[name] = (toks, counts, st, steps, eng)
+    (gt, gc, gst, gsteps, geng) = runs["graph"]
+    (et, ec, est, _, _) = runs["eager"]
+    (ft, fc, _, fsteps, _) = runs["fixed"]
+    assert ("loop", 0) in geng._graphs
+    assert gt == et == ft
+    assert gst == est and gc == ec
+    assert gsteps > 0 and gc["paged_decode"] > 0
+    per_step = gc["paged_decode"] / gsteps
+    assert per_step == fc["paged_decode"] / fsteps == cfg.num_layers
+    assert gc["rms_norm"] - fc["rms_norm"] == (
+        (gsteps - fsteps) * (2 * cfg.num_layers + 1))
+    if cap == 3:
+        assert gst["exits"]["cap"] >= 1
+    # a block is one launch: one loop dispatch per block
+    assert sc_dispatches(geng) == gst["blocks"]
+
+
+def sc_dispatches(eng):
+    return eng.step_clock_stats()["kinds"]["loop"]["dispatches"]
+
+
+@pytest.mark.gpu
+def test_loop_graph_pages_and_eos_match_eager(cuda):
+    """A tight pool starves the device free-list mid-block (exit 'pages')
+    and an EOS id fires inside a block: graph and eager loops agree on
+    tokens, exits and iterations, and the page books balance."""
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    probe = _loop_engine(cuda, TINY, params, torch.float32,
+                         loop_to_completion=True)
+    stream = _graph_trace(probe, tok, [[("find eos", 12)]])[0]["w0r0"]
+    firsts = {}
+    for j, t in enumerate(stream):
+        firsts.setdefault(t, j)
+    eos = max(firsts, key=firsts.get)  # fires deepest into the stream
+    assert firsts[eos] >= 1  # after the prefill-sampled token
+    out = {}
+    for graphs in (True, False):
+        eos_tok = ByteTokenizer()
+        eos_tok.eos_ids = (eos,)
+        eng = LLMEngine(params, TINY, eos_tok, EngineConfig(
+            paged=PagedCacheConfig(20, 4, 24), max_batch=4,
+            prefill_buckets=(8, 32), loop_to_completion=True),
+            dtype=torch.float32, device=cuda, _graphs=graphs)
+        waves = [[("find eos", 12), ("a longer prompt " * 2, 20),
+                  ("z", 20)]]
+        toks, counts = _graph_trace(eng, tok, waves)
+        assert eng.audit_pages() == [] and eng.allocator.device_held() == 0
+        events = eng.step_clock_stats()["events"]
+        events.pop("retrace")  # graphs captured (none when eager)
+        out[graphs] = (toks, counts, eng.loop_stats(), events)
+    assert out[True] == out[False]
+    exits = out[True][2]["exits"]
+    assert exits["eos"] >= 1
+    # the 20-page pool runs short: rows starve on the device free-list or
+    # the host preempts
+    assert exits["pages"] >= 1 or out[True][3]["preempt"] >= 1
+
+
+@pytest.mark.gpu
+def test_sampled_loop_draws_new_noise_every_iteration(cuda):
+    """One looped block of a row at temperature 1e4 (logits / temperature
+    nearly flat, so the Gumbel noise picks each token): its iterations
+    draw different tokens (the noise key folds in the step counter), and
+    a second block draws another stream (a new key per launch)."""
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    eng = _loop_engine(cuda, TINY, params, torch.float32,
+                       loop_to_completion=True)
+    streams = []
+    for i in range(2):
+        eng.add_request(f"hot{i}", tok.encode("noise"),
+                        SamplingParams(max_tokens=13, temperature=1e4))
+        toks = []
+        while eng.has_work():
+            for o in eng.step():
+                if o.token_id is not None:
+                    toks.append(o.token_id)
+        streams.append(toks[1:])  # the first token comes from prefill
+    assert ("loop", 1) in eng._graphs
+    for s in streams:
+        assert len(s) == 12 and len(set(s)) >= 6, s
+    assert streams[0] != streams[1]
+
+
+@pytest.mark.gpu
+def test_sampled_loop_tokens_stay_in_the_nucleus(cuda):
+    """Top-p rows through looped graphs: every sampled token lies in the
+    nucleus of the model's distribution at its step (computed from an
+    independent dense forward over the emitted prefix)."""
+    from distributed_inference_server_tpu_torch.ops.sampling import (
+        nucleus_cutoff,
+    )
+
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    eng = _loop_engine(cuda, TINY, params, torch.float32,
+                       loop_to_completion=True)
+    prompts = ["nucleus one", "nucleus two, longer"]
+    for i, p in enumerate(prompts):
+        eng.add_request(f"s{i}", tok.encode(p), SamplingParams(
+            max_tokens=16, temperature=0.7, top_p=0.6))
+    toks = {}
+    while eng.has_work():
+        for o in eng.step():
+            if o.token_id is not None:
+                toks.setdefault(o.request_id, []).append(o.token_id)
+    assert ("loop", 2) in eng._graphs
+    for i, p in enumerate(prompts):
+        ids = tok.encode(p) + toks[f"s{i}"]
+        n = len(ids) - 1
+        pool = torch.zeros(TINY.num_layers, 4 * (n // 4 + 1) + 1,
+                           TINY.num_kv_heads, TINY.head_dim, device=cuda)
+        pos = torch.arange(n, dtype=torch.int32, device=cuda)[None]
+        logits, _, _ = llama.paged_forward(
+            params, TINY, torch.tensor([ids[:n]], dtype=torch.int32,
+                                       device=cuda), pos, pool,
+            pool.clone(), pos, torch.arange(
+                n // 4 + 1, dtype=torch.int32, device=cuda)[None],
+            torch.tensor([n], dtype=torch.int32, device=cuda),
+            impl="plain", page_size=4)
+        first = len(tok.encode(p)) - 1
+        probs = torch.softmax(logits[0, first:] / 0.7, dim=-1)
+        cut = nucleus_cutoff(probs, torch.full((probs.shape[0],), 0.6,
+                                               device=cuda))
+        chosen = torch.tensor(toks[f"s{i}"], device=cuda)
+        p_chosen = probs.gather(1, chosen[:, None])
+        # 1e-6: f32 rounding between the engine's and this forward
+        assert bool((p_chosen >= cut - 1e-6).all()), (p_chosen, cut)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["none", "int8"])
+@pytest.mark.parametrize("loop", [False, True])
+def test_mixed_graph_matches_eager_mixed(cuda, kv, loop):
+    """The mixed step captured per sampling mode (K = 1, or the K-block
+    form under ``loop_to_completion``) gives the eager mixed step's greedy
+    tokens and kernel launches, over dense and int8 pools."""
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    out = {}
+    for graphs in (True, False):
+        kernels.reset_launch_counts()
+        eng = LLMEngine(params, TINY, tok, EngineConfig(
+            max_batch=4, prefill_buckets=(8, 32),
+            paged=PagedCacheConfig(64, 4, 24), mixed_step_tokens=20,
+            kv_quant=kv, loop_to_completion=loop), dtype=torch.float32,
+            device=cuda, _graphs=graphs)
+        toks = _drive_tiny(eng, tok, ["chat one", "chat two!"],
+                           "a long prompt " * 5)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        out[graphs] = (toks, counts, eng.mixed_stats(), eng.loop_stats())
+        if graphs:
+            K = eng.ecfg.decode_block_size if loop else 1
+            assert ("mixed", K, 0) in eng._graphs
+    assert out[True] == out[False]
+    counts = out[True][1]
+    if kv == "none":
+        assert counts["paged_ragged"] > 0
+    else:  # int8 pools: the plain ragged path, the int8 decode kernel
+        assert "paged_ragged" not in counts
+        assert counts["paged_decode_int8"] > 0
+    assert out[True][2]["decode_tokens"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["loop", "mixed"])
+def test_failed_loop_and_mixed_capture_raises(cuda, monkeypatch, path):
+    """A refused WHILE-graph build of a looped block, or a refused capture
+    of a mixed step, raises out of step(); the engine does not run the
+    eager path in its place."""
+    from distributed_inference_server_tpu_torch.engine import engine as em
+
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    kw = (dict(loop_to_completion=True) if path == "loop"
+          else dict(mixed_step_tokens=20))
+    eng = _loop_engine(cuda, TINY, params, torch.float32, **kw)
+
+    def refuse(*a, **k):
+        raise RuntimeError("capture refused")
+
+    if path == "loop":  # the mixed step is off: prefill graphs capture
+        monkeypatch.setattr(em, "LoopGraph", refuse)
+    else:  # the mixed step is the first dispatch
+        monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", refuse)
+    eng.add_request("r", tok.encode("no fallback " * 3),
+                    SamplingParams(max_tokens=6, temperature=0.0))
+    with pytest.raises(RuntimeError, match="capture refused"):
+        for _ in range(6):
+            eng.step()
+    if path == "loop":
+        assert ("loop", 0) not in eng._graphs
+
+
+@pytest.mark.gpu
+def test_warmup_captures_loop_and_mixed_graphs(cuda):
+    """With the loop and the mixed step on, warmup captures the decode,
+    prefill, mixed (K-block form) and loop graphs per sampling mode;
+    serving afterwards captures nothing and matches the eager engine."""
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    kw = dict(loop_to_completion=True, mixed_step_tokens=20)
+    eng = _loop_engine(cuda, TINY, params, torch.float32, **kw)
+    eng.warmup()
+    keys = set(eng._graphs)
+    K = eng.ecfg.decode_block_size
+    for mode in (0, 1, 2):
+        assert {("loop", mode), ("mixed", K, mode),
+                ("decode", mode)} <= keys
+    assert eng.audit_pages() == [] and not eng.has_work()
+    toks = _drive_tiny(eng, tok, ["chat one", "chat two!"],
+                       "a long prompt " * 5)
+    assert eng.step_clock_stats()["events"]["retrace"] == 0
+    ref = _loop_engine(cuda, TINY, params, torch.float32, graphs=False, **kw)
+    assert toks == _drive_tiny(ref, tok, ["chat one", "chat two!"],
+                               "a long prompt " * 5)

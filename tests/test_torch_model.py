@@ -313,14 +313,68 @@ def test_quantized_paged_forward_matches_jax(shared_params, impl, weights, kv):
         _assert_pools_equal(t_pv, j_pv)
 
 
-def test_ragged_forward_rejects_int8_pools(shared_params):
-    pools = _pools("int8", TINY.num_layers, TINY.num_kv_heads, TINY.head_dim,
-                   drop=1)[1]
-    z = torch.zeros(1, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        t_llama.ragged_paged_forward(
-            shared_params[1], TINY, z, z, *pools, z, z[0],
-            torch.zeros(1, P, dtype=torch.int32), z[0, :1], z[0, :1])
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+@pytest.mark.parametrize("weights", ["none", "int8"])
+def test_ragged_forward_over_int8_pools_matches_jax(shared_params, impl,
+                                                    weights):
+    """One mixed step over int8 ``QuantPool`` pools holding random
+    resident codes and scales (the same in both packages): decode slots
+    (one inactive), two prefill chunks and padding. Both packages gather,
+    dequantize and run ``ragged_gqa_attention`` (neither has an int8
+    ragged kernel); logits within ATOL, the quantizing writes as
+    ``_assert_pools_equal`` says."""
+    jp = jq.quantize_params(shared_params[0], weights, 32)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                           device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(31)
+    L, KV, D = J_TINY.num_layers, J_TINY.num_kv_heads, J_TINY.head_dim
+    n = NUM_PAGES * PS
+    codes = [rng.integers(-127, 128, size=(L, n, KV, D)).astype(np.int8)
+             for _ in range(2)]
+    scales = [rng.uniform(0.001, 0.02, size=(L, n, KV)).astype(np.float32)
+              for _ in range(2)]
+    j_pk, j_pv = (jq.QuantPool(jnp.asarray(c), jnp.asarray(sc))
+                  for c, sc in zip(codes, scales))
+    t_pk, t_pv = (tq.QuantPool(
+        torch.from_numpy(np.concatenate(
+            [c, np.zeros((L, 1, KV, D), np.int8)], axis=1)),
+        torch.from_numpy(np.concatenate(
+            [sc, np.zeros((L, 1, KV), np.float32)], axis=1)))
+        for c, sc in zip(codes, scales))
+    Bm = 6
+    tables = rng.permutation(NUM_PAGES)[: Bm * 3].reshape(Bm, 3)
+    tables = np.concatenate([tables] * 3, axis=1)[:, :P].astype(np.int32)
+    history = np.array([0, 6, 9, 0, 5, 0], np.int32)
+    layout = [-1, 1, 2] + [3] * 6 + [4] * 3 + [-1] * 2  # row 5 empty
+    S = len(layout)
+    tok_row = np.asarray(layout, np.int32)
+    pos = np.zeros((S,), np.int32)
+    counts = np.zeros((Bm,), np.int32)
+    write = np.full((S,), n, np.int32)
+    for i, r in enumerate(layout):
+        if r >= 0:
+            pos[i] = history[r] + counts[r]
+            counts[r] += 1
+            write[i] = tables[r, pos[i] // PS] * PS + pos[i] % PS
+    valid = (history + counts).astype(np.int32)
+    ids = rng.integers(0, 256, size=(1, S)).astype(np.int32)
+    logits_idx = np.array([0, 1, 2, 8, 11, 0], np.int32)
+    j_logits, j_pk, j_pv = j_llama.ragged_paged_forward(
+        jp, J_TINY, jnp.asarray(ids), jnp.asarray(pos[None]), j_pk, j_pv,
+        jnp.asarray(write[None]), jnp.asarray(tok_row),
+        jnp.asarray(_gather(tables)), jnp.asarray(valid),
+        attention_impl="xla", page_size=PS,
+        logits_idx=jnp.asarray(logits_idx))
+    t_logits, _, _ = t_llama.ragged_paged_forward(
+        tp, TINY, torch.from_numpy(ids), torch.from_numpy(pos[None]), t_pk,
+        t_pv, torch.from_numpy(write[None]), torch.from_numpy(tok_row),
+        torch.from_numpy(tables), torch.from_numpy(valid),
+        torch.from_numpy(logits_idx), impl=impl, page_size=PS)
+    real = [1, 2, 3, 4]  # slot 0 is inactive, index 5 an empty row
+    np.testing.assert_allclose(t_logits.numpy()[real],
+                               np.asarray(j_logits)[real], atol=ATOL)
+    _assert_pools_equal(t_pk, j_pk)
+    _assert_pools_equal(t_pv, j_pv)
 
 
 def test_quantized_write_drops_out_of_range_slots():

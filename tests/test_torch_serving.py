@@ -68,9 +68,11 @@ PAGED = (64, 4, 32)
 BUCKETS = (8, 32)
 
 
-def _serve(mixed_step_tokens, quantization="none", kv_quant="none"):
+def _serve(mixed_step_tokens, quantization="none", kv_quant="none",
+           loop=False):
     """(base URL, JAX engine, server) on shared TINY weights (quantized by
-    the JAX package with group 32 when ``quantization`` is not none)."""
+    the JAX package with group 32 when ``quantization`` is not none);
+    ``loop``: looped decode blocks on both engines."""
     jp = j_llama.init_params(jax.random.PRNGKey(0), J_TINY, jnp.float32)
     tree = jax.tree_util.tree_map(np.asarray, jp)
     tree["embed"] = tree["embed"] * 8.0
@@ -85,8 +87,8 @@ def _serve(mixed_step_tokens, quantization="none", kv_quant="none"):
         return LLMEngine(t_params, TINY, ByteTokenizer(), EngineConfig(
             max_batch=4, prefill_buckets=BUCKETS,
             paged=PagedCacheConfig(*PAGED),
-            mixed_step_tokens=mixed_step_tokens, kv_quant=kv_quant),
-            dtype=torch.float32, device="cpu")
+            mixed_step_tokens=mixed_step_tokens, kv_quant=kv_quant,
+            loop_to_completion=loop), dtype=torch.float32, device="cpu")
 
     server = InferenceServer(factory, ByteTokenizer(), model_name="tiny")
     server.start()
@@ -97,7 +99,7 @@ def _serve(mixed_step_tokens, quantization="none", kv_quant="none"):
                            paged=JPagedCacheConfig(*PAGED),
                            mixed_step_tokens=mixed_step_tokens,
                            kv_quant=kv_quant, attention_impl="xla",
-                           native_allocator=False),
+                           native_allocator=False, loop_to_completion=loop),
                        dtype=jnp.float32)
     return f"http://127.0.0.1:{port}", j_engine, server
 
@@ -208,6 +210,7 @@ def test_health_and_stats(stack):
         "paged_decode", "paged_decode_int8", "paged_prefill", "paged_ragged",
         "rms_norm", "rope", "quant_matmul_q8", "quant_matmul_q4"}
     assert stats["mixed"] is None  # the mixed step is off
+    assert stats["loop"] is None  # looped blocks are off
     assert stats["requests_finished"] >= 1 and stats["tokens_generated"] >= 2
     assert stats["cache"]["pages_total"] == PAGED[0]
     status, reset = _post(base, "/server/kernel_counts/reset", {})
@@ -264,8 +267,7 @@ def test_cli_rejects_mixed_step_tokens_up_to_max_batch(value, capsys):
 @pytest.mark.parametrize("argv,what", [
     (["--model-quantization", "int2"], "model.quantization"),
     (["--engine-kv-quant", "fp8"], "engine.kv_quant"),
-    (["--engine-kv-quant", "int8", "--engine-mixed-step-tokens", "12"],
-     "not ported yet"),
+    (["--engine-kv-quant", "int4"], "engine.kv_quant"),
 ])
 def test_cli_rejects_bad_quantization(argv, what, capsys):
     from distributed_inference_server_tpu_torch.__main__ import main
@@ -273,6 +275,67 @@ def test_cli_rejects_bad_quantization(argv, what, capsys):
     assert main(["--device", "cpu", *argv]) == 2
     err = capsys.readouterr().err
     assert "config error:" in err and what in err
+
+
+@pytest.mark.parametrize("argv,what", [
+    (["--engine-loop-to-completion", "true", "--engine-loop-max-steps", "0"],
+     "loop_max_steps"),
+    (["--engine-loop-max-steps", "-4"], "loop_max_steps"),
+    (["--engine-loop-to-completion", "sometimes"], "loop_to_completion"),
+])
+def test_cli_rejects_bad_loop_flags(argv, what, capsys):
+    from distributed_inference_server_tpu_torch.__main__ import main
+
+    assert main(["--device", "cpu", *argv]) == 2
+    err = capsys.readouterr().err
+    assert "config error:" in err and what in err
+
+
+def test_cli_accepts_int8_kv_with_mixed_step(monkeypatch, capsys):
+    """``--engine-kv-quant int8`` with ``--engine-mixed-step-tokens`` passes
+    the config checks (it stopped at a config error before the mixed step
+    read int8 pools): the run gets as far as starting the server."""
+    from distributed_inference_server_tpu_torch import __main__ as cli
+
+    def refuse(self):
+        raise RuntimeError("server start stubbed out")
+
+    monkeypatch.setattr(cli.InferenceServer, "start", refuse)
+    assert cli.main(["--device", "cpu", "--model-model-name", "tiny",
+                     "--engine-kv-quant", "int8",
+                     "--engine-mixed-step-tokens", "12",
+                     "--engine-loop-to-completion", "true"]) == 1
+    err = capsys.readouterr().err
+    assert "config error" not in err and "stubbed out" in err
+
+
+def test_int8_mixed_loop_server_matches_jax_engine():
+    """int8 weights over int8 KV pools with the mixed step in its K-block
+    form and looped decode blocks, served: the text, finish and usage of
+    the JAX engine in the same configuration, and ``/server/stats``
+    carries the ``loop`` and ``mixed`` blocks."""
+    base, j_engine, server = _serve(12, "int8", "int8", loop=True)
+    try:
+        prompt = "a prompt long enough for several mixed steps of twelve."
+        status, body = _post(base, "/generate", {"prompt": prompt,
+                                                 "temperature": 0.0,
+                                                 "max_tokens": 10})
+        assert status == 200, body
+        text, finish, usage = _jax_text(j_engine, prompt, temperature=0.0,
+                                        max_tokens=10)
+        assert body["choices"][0]["text"] == text
+        assert body["choices"][0]["finish_reason"] == finish
+        assert body["usage"] == usage
+        _, stats = _get(base, "/server/stats")
+        assert set(stats["loop"]) == {"blocks", "steps", "decode_tokens",
+                                      "exits", "cap", "cap_frac"}
+        assert set(stats["loop"]["exits"]) == {"eos", "budget", "pages",
+                                               "cap"}
+        assert stats["loop"]["cap"] == 256
+        assert stats["mixed"]["steps"] >= 3  # the prompt loads
+        assert stats["loop"]["blocks"] >= 1  # then looped blocks decode
+    finally:
+        server.shutdown()
 
 
 def test_int8_server_matches_jax_engine():
