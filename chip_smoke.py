@@ -71,7 +71,26 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
 6. (``ckpt``) writes the bf16 llama-3.2-1b weights of the seed with the
    port's ``save_checkpoint`` (bytes, save and load seconds printed),
    checks that ``load_checkpoint`` gives them back, serves them with
-   ``--model-model-dir`` and requires phase 4's greedy texts.
+   ``--model-model-dir`` and requires phase 4's greedy texts;
+7. (``families``) the model families. Phase 3's rows at their shapes:
+   decode (bf16 and int8 pools), prefill [4, 512] and ragged S = 512 at
+   gemma2-9b's (H 16, KV 8, D 256, softcap 50, a 4096-token window) and
+   qwen2-7b's (H 28, KV 4: G 7, D 128), RMSNorm at [4, 512, 3584] and
+   RoPE at D 256, each against its plain version and timed beside it,
+   SDPA on the gathered window (without the softcap, which SDPA lacks:
+   ``sdpa_nocap_ms``) and the bound. Phase 4's servers at full width and
+   depth, random weights from the seed, the first mix and a lone
+   request: gemma2-9b, qwen2-7b and mistral-7b in bf16, mixtral-8x7b with
+   ``--model-quantization int8``; each prints a ``server_timing`` line
+   whose ``launches_per_forward`` must show one paged decode a layer per
+   decode step, one paged prefill a layer per chunk and, for Mixtral,
+   32 x (4 + 8 x 3) = 896 ``quant_matmul_q8`` a forward. Phase 5 in
+   process, 2 layers at each family's width: kernels against plain
+   versions in f32 and graphs against eager in bf16, identical greedy
+   tokens (and launches), for the quantum path, the mixed step and looped
+   blocks (Mixtral with int8 experts); then mistral-7b's width with its
+   4096-token window and a ~4400-token prompt: ``reclaim`` events > 0,
+   ``audit_pages()`` clean after every step, kernel tokens == plain.
 
 It also prints whether ``safetensors`` and ``tokenizers`` import (for
 information: the port reads safetensors itself).
@@ -79,9 +98,11 @@ information: the port reads safetensors itself).
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (the
 quantized matmuls' rows add ``*_prefill`` keys: their M = 2048 layer); the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
-and prints no result. ``--phases kernels,serve,quant,engine,ckpt``
+and prints no result. ``--phases kernels,serve,quant,engine,ckpt,families``
 selects phases (default: all; ``quant`` is phase 3's quantized kernels
-and phase 4's quantized servers).
+and phase 4's quantized servers; ``families`` is item 7). The summary
+rows carry the families' times under ``families`` and each family
+server's launches under ``launches_by_model``.
 """
 
 from __future__ import annotations
@@ -89,6 +110,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures as cf
 import contextlib
+import gc
 import importlib.util
 import json
 import os
@@ -226,6 +248,16 @@ def _sdpa(q, k, v, mask):
                                           enable_gqa=True)
 
 
+def _library(rec, softcap, fn) -> None:
+    """SDPA's time as the library yardstick; SDPA has no softcap, so with
+    one it computes another function: then ``library_ms`` is None and the
+    time is kept as ``sdpa_nocap_ms`` (the same attention without it)."""
+    ms = time_ms(fn)
+    rec["library_ms"] = ms if softcap == 0.0 else None
+    if softcap:
+        rec["sdpa_nocap_ms"] = ms
+
+
 def check_decode(case, valid_list, window=0, softcap=0.0, H=32, KV=8, D=64,
                  page_size=16, P=128, num_pages=1024, time_it=True):
     from distributed_inference_server_tpu_torch.ops.kernels import (
@@ -265,8 +297,7 @@ def check_decode(case, valid_list, window=0, softcap=0.0, H=32, KV=8, D=64,
         mask &= kv_pos[None, :] >= (valid[:, None] - window)
     mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
-    rec["library_ms"] = (time_ms(lambda: _sdpa(q4, kg, vg, mask))
-                         if softcap == 0.0 else None)
+    _library(rec, softcap, lambda: _sdpa(q4, kg, vg, mask))
     rec.update(bound(nbytes, ops, dt))
     return rec
 
@@ -327,8 +358,7 @@ def check_prefill(case, T, q_start, valid_list, window=0, softcap=0.0, H=32,
         mask &= kv_pos[None, None, :] > q_pos[:, :, None] - window
     mask = mask[:, None]
     qt = q.transpose(1, 2).contiguous()
-    rec["library_ms"] = (time_ms(lambda: _sdpa(qt, kg, vg, mask))
-                         if softcap == 0.0 else None)
+    _library(rec, softcap, lambda: _sdpa(qt, kg, vg, mask))
     rec.update(bound(nbytes, ops, dt))
     return rec
 
@@ -432,9 +462,7 @@ def check_ragged(case, decode_valid, chunks, Bm=12, S=512, window=0,
     if window > 0:
         mask &= key_pos[None, :] > q_pos[:, None].long() - window
     qt = q.transpose(0, 1)[None].contiguous()
-    rec["library_ms"] = (time_ms(lambda: _sdpa(qt, k_cat, v_cat,
-                                               mask[None, None]))
-                         if softcap == 0.0 else None)
+    _library(rec, softcap, lambda: _sdpa(qt, k_cat, v_cat, mask[None, None]))
     rec.update(bound(nbytes, 4 * pairs * H * D, dt))
     # what the segment loops read (a prefill row's history once per
     # segment), beside the read-once bound
@@ -470,9 +498,9 @@ def check_rms_norm(case, shape, time_it=True):
     return rec
 
 
-def check_rope(case, shape, pos_start, time_it=True):
+def check_rope(case, shape, pos_start, time_it=True, model="llama-3.2-1b"):
     from distributed_inference_server_tpu_torch.models.configs import (
-        LLAMA_3_2_1B as C,
+        get_config,
     )
     from distributed_inference_server_tpu_torch.ops.kernels import fused
     from distributed_inference_server_tpu_torch.ops.rotary import (
@@ -486,6 +514,7 @@ def check_rope(case, shape, pos_start, time_it=True):
     pos = (torch.arange(T, device="cuda", dtype=torch.int32)[None, :]
            + torch.tensor(pos_start, device="cuda",
                           dtype=torch.int32)[:, None]).contiguous()
+    C = get_config(model)
     inv = rope_frequencies(D, C.rope_theta, C.rope_scaling, device="cuda")
     got = fused.apply_rope(x, pos, inv)
     want = fused.apply_rope_plain(x, pos, inv)
@@ -648,6 +677,51 @@ def phase_kernels(time_it=True) -> dict:
     return out
 
 
+# the model families' attention shapes: (H, KV, D, window, softcap) of
+# gemma2-9b (every layer soft-capped at 50; the local layers' 4096-token
+# window) and qwen2-7b (G 7, full causal)
+FAMILY_ATTN = {"gemma2-9b": (16, 8, 256, 4096, 50.0),
+               "qwen2-7b": (28, 4, 128, 0, 0.0)}
+
+
+def phase_family_kernels(time_it=True) -> dict:
+    """The kernels at the model families' shapes, each against its plain
+    version and timed beside it, SDPA on the gathered window and the
+    bound: decode (B 8 rows up to 2048 keys), prefill ([4, 512] over
+    histories up to 1537) and the ragged mixed step (S 512) at gemma2-9b's
+    and qwen2-7b's attention shapes, with a sentinel-free table (the
+    sentinel cases are the ``gpu`` tests'); RMSNorm at H 3584 and RoPE at
+    D 256; the int8-pool decode at gemma2-9b's shape. Cases are named by
+    model."""
+    lengths = [1, 15, 16, 17, 300, 1000, 2047, 2048]
+    out = {"paged_decode": [], "paged_prefill": [], "paged_ragged": []}
+    for model, (H, KV, D, window, softcap) in FAMILY_ATTN.items():
+        kw = dict(H=H, KV=KV, D=D, window=window, softcap=softcap,
+                  time_it=time_it)
+        out["paged_decode"].append(check_decode(
+            f"{model} B8 decode", lengths, **kw))
+        out["paged_prefill"].append(check_prefill(
+            f"{model} B4 T512 q_start>0", 512, [0, 100, 1500, 0],
+            [512, 400, 1537, 0], **kw))
+        out["paged_ragged"].append(check_ragged(
+            f"{model} S512 8 decode + 3 chunks",
+            [0, 1, 16, 17, 300, 1000, 2047, 2048],
+            [(200, 0), (250, 1500), (54, 100)], **kw))
+    H, KV, D, window, softcap = FAMILY_ATTN["gemma2-9b"]
+    out["paged_decode_int8"] = [check_decode_int8(
+        "gemma2-9b B8 decode", lengths, window=window, softcap=softcap, H=H,
+        KV=KV, D=D, time_it=time_it)]
+    out["rms_norm"] = [check_rms_norm("gemma2-9b prefill chunk [4,512,3584]",
+                                      (4, 512, 3584), time_it=time_it)]
+    out["rope"] = [check_rope("gemma2-9b prefill q [4,512,16,256]",
+                              (4, 512, 16, 256), [0, 100, 1500, 0],
+                              time_it=time_it, model="gemma2-9b")]
+    for name, recs in out.items():
+        for r in recs:
+            log(json.dumps({"kernel_check": name, **r}))
+    return out
+
+
 # the seven (K, N) of a layer's products: q, k, v, o, gate, up, down
 LAYER_8B = [("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
             ("wo", 4096, 4096), ("w_gate", 4096, 14336),
@@ -761,9 +835,8 @@ def check_decode_int8(case, valid_list, window=0, softcap=0.0, H=32, KV=8,
     if window > 0:
         mask &= kv_pos[None, :] >= (valid[:, None] - window)
     q4 = q[:, :, None, :]
-    rec["library_ms"] = (time_ms(lambda: _sdpa(q4, kg, vg,
-                                               mask[:, None, None, :]))
-                         if softcap == 0.0 else None)
+    _library(rec, softcap,
+             lambda: _sdpa(q4, kg, vg, mask[:, None, None, :]))
     rec.update(bound(nbytes, ops, dt))
     return rec
 
@@ -931,6 +1004,32 @@ def _loop_delta(before: dict, after: dict):
     return out
 
 
+def _per_forward(before: dict, after: dict):
+    """Kernel launches per model forward between two ``/server/stats``
+    readings of a quantum-path server (None when mixed steps or looped
+    blocks ran): the paged decode per decode step, the chunked prefill per
+    prefill chunk, every other kernel per forward (a decode step or a
+    prefill chunk, which launch it alike). Graph replays count the
+    launches their capture recorded: K decode steps a block."""
+    K = 8  # EngineConfig.decode_block_size
+    sc0, sc1 = before["step_clock"]["kinds"], after["step_clock"]["kinds"]
+
+    def n(kind):
+        return sc1[kind]["dispatches"] - sc0[kind]["dispatches"]
+
+    if n("mixed") or n("loop"):
+        return None
+    steps, chunks = K * n("decode_block"), n("prefill")
+    out = {}
+    for name, count in after["kernel_launches"].items():
+        if not count:
+            continue
+        per = (steps if name.startswith("paged_decode")
+               else chunks if name == "paged_prefill" else steps + chunks)
+        out[name] = count / per if per else None
+    return out
+
+
 def _timing_line(label, card, stats0, before, after, mix_wall, lone_wall,
                  prof) -> None:
     """One line per server: warmup, walls, step-clock ms per dispatch kind
@@ -959,6 +1058,7 @@ def _timing_line(label, card, stats0, before, after, mix_wall, lone_wall,
         prof["device_busy_s"], "profile_window_s": prof["wall_s"],
         "top_device_ms": prof["top_device_ms"][:4],
         "events": sc1["events"],
+        "launches_per_forward": _per_forward(before, after),
         "max_allocated_bytes": mem.get("max_allocated_bytes"),
         "graph_pool_bytes": mem.get("graph_pool_bytes"),
         "graphs": mem.get("graphs"),
@@ -982,6 +1082,30 @@ QUANT_SERVERS = (
      ("quant_matmul_q4", "paged_decode", "paged_prefill", "rms_norm",
       "rope"),
      ("paged_decode_int8", "quant_matmul_q8")),
+)
+
+# the model families at full width and depth, random weights from the
+# seed: (label, model, flags, kernels that must launch, kernels that must
+# not, launches per forward: the attention kernels one a layer, Mixtral's
+# 32 x (4 + 8 x 3) = 896 expert and attention products)
+FAMILY_SERVERS = (
+    ("gemma2-9b bf16, random weights", "gemma2-9b", [], QUANTUM_KERNELS,
+     ("quant_matmul_q8", "paged_decode_int8"),
+     {"paged_decode": 42, "paged_prefill": 42, "rms_norm": 4 * 42 + 1,
+      "rope": 2 * 42}),
+    ("qwen2-7b bf16, random weights", "qwen2-7b", [], QUANTUM_KERNELS,
+     ("quant_matmul_q8", "paged_decode_int8"),
+     {"paged_decode": 28, "paged_prefill": 28, "rms_norm": 2 * 28 + 1,
+      "rope": 2 * 28}),
+    ("mistral-7b bf16, random weights", "mistral-7b", [], QUANTUM_KERNELS,
+     ("quant_matmul_q8", "paged_decode_int8"),
+     {"paged_decode": 32, "paged_prefill": 32}),
+    ("mixtral-8x7b int8 weights, random weights", "mixtral-8x7b",
+     ["--model-quantization", "int8"],
+     ("quant_matmul_q8", *QUANTUM_KERNELS),
+     ("quant_matmul_q4", "paged_decode_int8"),
+     {"quant_matmul_q8": 32 * (4 + 8 * 3), "paged_decode": 32,
+      "paged_prefill": 32}),
 )
 
 # the first mix's prompts; its greedy requests, sent one at a time first
@@ -1008,12 +1132,14 @@ def greedy_texts(base) -> dict:
 def phase_serve(card: str, seed: int = 0, model: str = "llama-3.2-1b",
                 extra=(), log_name: str = "server.log",
                 label: str = "llama-3.2-1b bf16 random weights",
-                required=QUANTUM_KERNELS, absent=()) -> tuple:
+                required=QUANTUM_KERNELS, absent=(), per_forward=None
+                ) -> tuple:
     """The first mix's greedy prompts one at a time, then four concurrent
     requests (greedy and sampled, ~20 to 600 bytes), then a lone greedy
     repeat; every kernel in ``required`` must launch and none in
-    ``absent``. Then the mix once more while the server traces the card.
-    Returns (launches, greedy texts)."""
+    ``absent``, and each kernel in ``per_forward`` must launch exactly that
+    many times a forward (``_per_forward``). Then the mix once more while
+    the server traces the card. Returns (launches, greedy texts)."""
     with _server(seed, list(extra), log_name, model) as base:
         _, stats0 = _http("GET", base + "/server/stats")
         texts = greedy_texts(base)
@@ -1049,6 +1175,9 @@ def phase_serve(card: str, seed: int = 0, model: str = "llama-3.2-1b",
                 f"kernel {name} launched on the served path ({label})")
         assert again["choices"][0]["text"] == texts["p20"], (
             "greedy repeat differs", texts["p20"], again)
+        got_per = _per_forward(before, stats)
+        for name, want in (per_forward or {}).items():
+            assert got_per[name] == want, (label, name, got_per)
         hits = stats["cache"]["hits"]
         assert hits > 0, f"no prefix hit in /server/stats: {stats['cache']}"
         toks = sum(b["usage"]["completion_tokens"] for _, b, _ in results)
@@ -1657,6 +1786,161 @@ def phase_engine_loop_mixed(seed: int = 0) -> dict:
     return out
 
 
+def phase_engine_families(seed: int = 0) -> dict:
+    """Each model family at 2 layers of its preset's width (gemma2-9b,
+    qwen2-7b, mistral-7b, and mixtral-8x7b with int8 experts), random
+    weights from the seed, on one trace (two chats mid-decode, then a
+    ~400-token prompt) in three step modes: the quantum path, the mixed
+    step and looped blocks. In f32 the kernels against the plain versions
+    (identical greedy tokens; the kernel run launches the path's kernels,
+    the plain run none); in bf16 the CUDA graphs against the eager path
+    (identical tokens and launches: the D 256 and G 7 tensor-core bodies
+    inside the captures). Then the sliding-window reclaim at mistral-7b's
+    width: a ~4400-token prompt past the 4096-token window, kernels against
+    plain versions, ``reclaim`` events > 0 and the page books balanced
+    after every step."""
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distributed_inference_server_tpu_torch.engine.kv_cache import (
+        PagedCacheConfig,
+    )
+    from distributed_inference_server_tpu_torch.models.configs import (
+        get_config,
+    )
+    from distributed_inference_server_tpu_torch.models.tokenizer import (
+        ByteTokenizer,
+    )
+    from distributed_inference_server_tpu_torch.ops import kernels
+    from distributed_inference_server_tpu_torch.ops.quant import (
+        init_random_quantized,
+        is_quantized,
+    )
+
+    def weights(cfg, dtype):
+        """Random weights of the seed; at normal(0, 0.02) a 2-layer model
+        repeats one token a row (Gemma-2's scaled, tied embedding outweighs
+        the layers), so the attention projections are scaled by 4 (a
+        quantized one's scales) and a scaled embedding is shrunk by
+        sqrt(hidden): greedy tokens then vary, and the identities below
+        see them."""
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = init_random_quantized(
+            cfg, "int8" if cfg.is_moe else "none", gen, dtype=dtype,
+            device="cuda")
+        for k in ("wq", "wk", "wv", "wo"):
+            w = params["layers"][k]
+            (w.s if is_quantized(w) else w).mul_(4.0)
+        if cfg.scale_embeddings:
+            params["embed"].div_(cfg.hidden_size ** 0.5)
+        return params
+
+    tok = ByteTokenizer()
+    chats = ["first chat of the family trace", "second chat"]
+    long_prompt = ("a ~400-token prompt loading while the chats decode. "
+                   * 8)[:400]
+    modes = {"quantum": {}, "mixed": {"mixed_step_tokens": 128},
+             "loop": {"loop_to_completion": True}}
+
+    def run(eng, script, audit=False):
+        kernels.reset_launch_counts()
+        toks = {}
+
+        def step():
+            for o in eng.step():
+                assert o.error is None, o.error
+                if o.token_id is not None:
+                    toks.setdefault(o.request_id, []).append(o.token_id)
+            if audit:
+                assert eng.audit_pages() == [], eng.audit_pages()
+
+        for rid, text, n, wait in script:
+            eng.add_request(rid, tok.encode(text),
+                            SamplingParams(max_tokens=n, temperature=0.0))
+            for _ in range(wait):
+                step()
+        while eng.has_work():
+            step()
+        return toks, {k: v for k, v in kernels.launch_counts().items() if v}
+
+    def release():
+        # an engine's captured graphs (and their private memory pools)
+        # go with the engine, which reference cycles keep alive until a
+        # collection; the earlier phases' engines too
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    trace = [("c0", chats[0], 24, 0), ("c1", chats[1], 24, 3),
+             ("long", long_prompt, 8, 0)]
+    out = {}
+    release()
+    for name in ("gemma2-9b", "qwen2-7b", "mistral-7b", "mixtral-8x7b"):
+        cfg = get_config(name).with_overrides(num_layers=2)
+        for dtype, pair in ((torch.float32, "kernel/plain"),
+                            (torch.bfloat16, "graph/eager")):
+            params = weights(cfg, dtype)
+            for mode, kw in modes.items():
+                runs = {}
+                for side in pair.split("/"):
+                    eng = LLMEngine(params, cfg, tok, EngineConfig(
+                        attention_impl="plain" if side == "plain"
+                        else "kernel", **kw), dtype=dtype, device="cuda",
+                        _graphs=side != "eager")
+                    runs[side] = run(eng, trace)
+                    del eng
+                    release()
+                (at, ac), (bt, bc) = runs.values()
+                assert at == bt, (name, pair, mode, at, bt)
+                assert all(len(set(t)) > 1 for t in at.values()), (
+                    name, pair, mode, "a row repeats one token", at)
+                if pair == "graph/eager":
+                    assert ac == bc, (name, mode, ac, bc)
+                else:
+                    assert not bc, (name, mode, "plain launched", bc)
+                need = ["rms_norm", "rope",
+                        "paged_ragged" if mode == "mixed" else "paged_decode"]
+                if cfg.is_moe:
+                    need.append("quant_matmul_q8")
+                assert all(ac.get(k, 0) > 0 for k in need), (name, mode, ac)
+                out[f"{name} {pair} {mode}"] = {"tokens": at,
+                                                "launches": ac}
+            del params
+            release()
+    phase_done("engine families kernel == plain, graph == eager")
+
+    # the window reclaim at mistral-7b's width: one ~4400-token prompt (9
+    # prefill chunks, the last ones past the 4096-token window) and a chat
+    cfg = get_config("mistral-7b").with_overrides(num_layers=2)
+    params = weights(cfg, torch.float32)
+    prompt = ("the window reclaims pages behind it. " * 130)[:4400]
+    script = [("long", prompt, 24, 2), ("chat", chats[0], 32, 0)]
+    runs = {}
+    for impl in ("kernel", "plain"):
+        eng = LLMEngine(params, cfg, tok, EngineConfig(
+            attention_impl=impl, paged=PagedCacheConfig(
+                num_pages=1024, page_size=16, max_pages_per_seq=320)),
+            dtype=torch.float32, device="cuda")
+        toks, counts = run(eng, script, audit=True)
+        runs[impl] = (toks, counts, eng.step_clock_stats()["events"])
+        del eng
+        release()
+    (kt, kc, ke), (pt, pc, pe) = runs["kernel"], runs["plain"]
+    assert kt == pt, ("reclaim", kt, pt)
+    assert ke["reclaim"] > 0 and ke == pe, (ke, pe)
+    assert kc.get("paged_decode", 0) > 0 and not pc, (kc, pc)
+    out["mistral-7b reclaim"] = {"tokens": kt, "events": ke,
+                                 "launches": kc}
+    del params
+    release()
+    log(json.dumps({"engine_families_2layer":
+                    "kernel == plain (f32) and graph == eager (bf16) greedy "
+                    "tokens and launches, quantum / mixed / looped, every "
+                    "family; mistral-width window reclaim", "runs": out}))
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1696,7 +1980,8 @@ KERNEL_META = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,quant,engine,ckpt")
+    ap.add_argument("--phases",
+                    default="kernels,serve,quant,engine,ckpt,families")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1733,6 +2018,10 @@ def main(argv=None) -> int:
     if "quant" in phases:
         checks.update(phase_quant_kernels())
         phase_done("quant kernels")
+    if "families" in phases:
+        for name, recs in phase_family_kernels().items():
+            checks.setdefault(name, []).extend(recs)
+        phase_done("family kernels")
     launches = {}
     texts = None
     if "serve" in phases:
@@ -1785,6 +2074,15 @@ def main(argv=None) -> int:
             ("paged_ragged", "paged_prefill", "paged_decode",
              "quant_matmul_q4"))
         phase_done("serve llama-3-8b int8 mixed")
+    if "families" in phases:
+        torch.cuda.empty_cache()
+        for label, model, flags, need, absent, per in FAMILY_SERVERS:
+            got, _ = phase_serve(card, args.seed, model, flags,
+                                 f"server_{model}.log", label, need, absent,
+                                 per)
+            for name in need:  # each family server's own launches
+                launches[f"{name} ({model})"] = got[name]
+            phase_done(f"serve {label}")
     if "ckpt" in phases:
         if texts is None:  # the random-weight server's texts to match
             with _server(args.seed, [], "server.log") as base:
@@ -1799,6 +2097,9 @@ def main(argv=None) -> int:
         phase_done("engine graph == eager")
         phase_engine_loop_mixed(args.seed)
         phase_done("engine loop and mixed graphs")
+    if "families" in phases:
+        phase_engine_families(args.seed)
+        phase_done("engine families and window reclaim")
 
     rows = []
     for name, (route, source, replaces) in KERNEL_META.items():
@@ -1826,6 +2127,17 @@ def main(argv=None) -> int:
             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by"):
                 row[f"{key}_prefill"] = pre.get(key)
+        fam = {r["case"]: {k: r.get(k) for k in (
+            "ms", "plain_ms", "library_ms", "sdpa_nocap_ms", "bound_ms",
+            "bound_by", "max_abs_err")}
+            for r in checks.get(name, [])
+            if r["case"].split()[0] in FAMILY_ATTN}
+        if fam:  # the model families' shapes (phase_family_kernels)
+            row["families"] = fam
+        by_model = {k.split("(")[1][:-1]: v for k, v in launches.items()
+                    if k.startswith(f"{name} (")}
+        if by_model:  # each family server's own launches
+            row["launches_by_model"] = by_model
         rows.append(row)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -9,11 +9,15 @@ With ``--model-model-dir`` the config and weights come from that HF
 checkpoint directory (``models/loader.py load_checkpoint``) and the
 tokenizer from its ``tokenizer.json`` (the byte tokenizer when it has
 none); without it the weights are random, drawn from ``--seed``, for the
-``--model-model-name`` preset, with the byte tokenizer. The engine runs on
-``cuda`` unless ``--device cpu`` is given; a missing card is an error.
-``--model-quantization`` quantizes the seven linear families after
-loading or initialization (``ops/quant.py quantize_params``, layer by
-layer); ``--engine-kv-quant int8`` keeps the KV pools as int8 codes +
+``--model-model-name`` preset (every family: llama-3.2-1b, llama-3-8b,
+llama-3-70b, mistral-7b, qwen2-7b, gemma2-9b, mixtral-8x7b, and the tiny
+test configs), with the byte tokenizer. The engine runs on ``cuda``
+unless ``--device cpu`` is given; a missing card is an error.
+``--model-quantization`` quantizes the seven linear families: a
+checkpoint's after loading (``ops/quant.py quantize_params``, layer by
+layer), a preset's as they are drawn (``init_random_quantized``: random
+codes with no dense intermediate, so mixtral-8x7b's 93 GB bf16 tree never
+exists); ``--engine-kv-quant int8`` keeps the KV pools as int8 codes +
 scales. ``--engine-pipeline-depth`` (default 1) keeps that many decode
 blocks in flight beyond the one being read; ``--engine-warmup-compile``
 (default true) runs every serving program once, and on ``cuda`` captures
@@ -40,7 +44,6 @@ from distributed_inference_server_tpu_torch.engine.engine import (
     LLMEngine,
 )
 from distributed_inference_server_tpu_torch.engine.kv_cache import KV_QUANTS
-from distributed_inference_server_tpu_torch.models import llama
 from distributed_inference_server_tpu_torch.models.configs import get_config
 from distributed_inference_server_tpu_torch.models.loader import (
     load_checkpoint,
@@ -50,6 +53,7 @@ from distributed_inference_server_tpu_torch.models.tokenizer import (
 )
 from distributed_inference_server_tpu_torch.ops.quant import (
     MODES,
+    init_random_quantized,
     quantize_params,
 )
 from distributed_inference_server_tpu_torch.serving.server import (
@@ -160,13 +164,14 @@ def main(argv=None) -> int:
         if model_dir:
             params, model_cfg = load_checkpoint(model_dir, dtype=dtype,
                                                 device=device)
+            params = quantize_params(params, args.model_quantization)
         else:
             model_cfg = cfg
             gen = torch.Generator(device=device)
             gen.manual_seed(args.seed)
-            params = llama.init_params(model_cfg, gen, dtype=dtype,
-                                       device=device)
-        params = quantize_params(params, args.model_quantization)
+            params = init_random_quantized(model_cfg,
+                                           args.model_quantization, gen,
+                                           dtype=dtype, device=device)
         return LLMEngine(params, model_cfg, tokenizer, ecfg, dtype=dtype,
                          device=device)
 

@@ -48,9 +48,10 @@
 // blocks x < ceil(S/TQ) also writes the zeros of window x's padding tokens.
 //
 // Bodies:
-// - decode_attend<D, Q8>: bf16 decode, D in {64, 128}, G <= 64, dense or
-//   int8 pools (below).
-// - attend_wg<D>: bf16 prefill and ragged, D in {64, 128}, G <= 64 (below).
+// - decode_attend<D, Q8>: bf16 decode, D in {64, 128, 256}, G <= 64, dense
+//   or int8 pools (below).
+// - attend_wg<D>: bf16 prefill and ragged, D in {64, 128, 256}, G <= 64
+//   (below).
 // - everything else (f32, other head sizes, decode too): a scalar body —
 //   one warp per query row for the scores, one thread per (row, dim)
 //   output for P @ V.
@@ -70,11 +71,12 @@
 // - 128 (query, head) rows per block on two warpgroups, 64 each (TQ = 128 /
 //   G queries: 32 at both served geometries), so a row's history is read
 //   once per 32 queries, not per 16.
-// - A ring of four 64-key stages in dynamic shared memory filled by
-//   cp.async 16-byte copies, one commit group per stage; the block's page
-//   ids are loaded into shared memory once. K and V both lie row-major in
+// - A ring of four 64-key stages (32-key at D 256, whose query tile takes
+//   64 KB) in dynamic shared memory filled by cp.async 16-byte copies, one
+//   commit group per stage; the block's page ids are loaded into shared
+//   memory once. K and V both lie row-major in
 //   128-byte-swizzled rows, and the tensor cores read them as they lie:
-//   S = Q K^T is wgmma m64n64k16 with the query tile and K as K-major
+//   S = Q K^T is wgmma m64n64k16 (m64n32k16 at D 256) with the query tile and K as K-major
 //   shared-memory operands; O += P V is wgmma m64nDk16 with P from
 //   registers (the S accumulators packed to bf16 are wgmma's A fragment as
 //   they lie) and V as the transposed (N-major) B operand. No scalar
@@ -117,8 +119,12 @@
 //   two (D 128): a smaller ring lets more blocks share an SM, so the
 //   one-wave plan takes more, shorter splits (dense D 64: 4 blocks per SM
 //   and 8 splits of 256 tokens at the served shape, against 3 and 6 with
-//   four stages), and a block's stages run one after another. The split's page ids are loaded into
-//   shared memory once; a copy's slot is a shift and a shared read.
+//   four stages), and a block's stages run one after another; D 256 takes
+//   two. The split's page ids are loaded into shared memory once; a
+//   copy's slot is a shift and a shared read.
+// - At D 256 the query rows sit in shared memory and each k-step's A
+//   fragment comes from ldmatrix: the registers go to the output
+//   accumulator (128 floats a thread) instead of 64 query fragments.
 // - Every warp computes. The G query heads fill m16 tiles (one for G <= 16,
 //   the served shapes); the warps split the keys: with one m16 tile, warp w
 //   takes the 16-key slice w of every stage (with MT tiles, 4 / MT groups
@@ -661,7 +667,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 bool mma_ok(int dtype, int D, int G) {
-  return dtype == 1 && (D == 64 || D == 128) && G >= 1 && G <= kMmaMaxG;
+  return dtype == 1 && (D == 64 || D == 128 || D == 256) && G >= 1 &&
+         G <= kMmaMaxG;
 }
 
 // ---------------------------------------------------------------------------
@@ -700,8 +707,10 @@ struct DecArgs {
 // Dynamic shared memory of decode_attend<D, Q8>: the ring of K and V tiles
 // (bf16 rows padded by 8 elements so ldmatrix rows land on distinct banks,
 // or raw int8 codes plus their f32 scales), then for int8 pools one bf16
-// K and V slice per warp (the converted codes), then the block's page ids.
-// The end-of-block merge reuses the ring.
+// K and V slice per warp (the converted codes), then at D 256 the query
+// tiles (padded rows, read by ldmatrix: the registers go to the output
+// accumulator, 128 a thread), then the block's page ids. The end-of-block
+// merge reuses the ring.
 constexpr int cmax(int x, int y) { return x > y ? x : y; }
 
 template <int D, bool Q8>
@@ -713,7 +722,9 @@ struct DecSmem {
   static constexpr int RED = kDecWarps * (16 * D + 32) * 4;  // o, m, l
   static constexpr int SLICE = 16 * KS * 2;  // one warp's K (or V) slice
   static constexpr int CONV = Q8 ? kDecWarps * 2 * SLICE : 0;
-  static constexpr int OTHER = CONV + kDecMaxPages * 4;
+  static constexpr bool QSM = D > 128;  // query fragments from shared memory
+  static constexpr int QS = QSM ? (kMmaMaxG / 16) * SLICE : 0;
+  static constexpr int OTHER = CONV + QS + kDecMaxPages * 4;
   // three stages where three blocks (and their 1 KB of reserve) still
   // fit an SM's 228 KB, else two
   static constexpr int STAGES =
@@ -809,7 +820,9 @@ __global__ void __launch_bounds__(kDecThreads) decode_attend(DecArgs a) {
   constexpr int JSTEP = kDecThreads / CPR;   // tokens between them
   constexpr int RW = 16 * D + 32;            // merge floats per warp
   extern __shared__ __align__(16) unsigned char dsm[];
-  int* pg_s = reinterpret_cast<int*>(dsm + L::BODY + L::CONV);
+  __nv_bfloat16* q_s =
+      reinterpret_cast<__nv_bfloat16*>(dsm + L::BODY + L::CONV);
+  int* pg_s = reinterpret_cast<int*>(dsm + L::BODY + L::CONV + L::QS);
   __shared__ int last;
 
   const int b = blockIdx.x, kvh = blockIdx.y, z = blockIdx.z;
@@ -837,17 +850,19 @@ __global__ void __launch_bounds__(kDecThreads) decode_attend(DecArgs a) {
   const int MT = (G + 15) / 16, KW = kDecWarps / MT;
   const int mt = warp % MT, kg = warp / MT;
   const bool computes = kg < KW;
-  uint32_t qf[DK][4];
+  uint32_t qf[L::QSM ? 1 : DK][4];
+  if constexpr (!L::QSM) {
 #pragma unroll
-  for (int kk = 0; kk < DK; ++kk)
+    for (int kk = 0; kk < DK; ++kk)
 #pragma unroll
-    for (int rg = 0; rg < 4; ++rg) {
-      const int g = mt * 16 + (lane >> 2) + ((rg & 1) ? 8 : 0);
-      const int col = kk * 16 + (lane & 3) * 2 + ((rg & 2) ? 8 : 0);
-      qf[kk][rg] = g < G ? *reinterpret_cast<const uint32_t*>(
-                               a.q + (head0 + g) * D + col)
-                         : 0u;
-    }
+      for (int rg = 0; rg < 4; ++rg) {
+        const int g = mt * 16 + (lane >> 2) + ((rg & 1) ? 8 : 0);
+        const int col = kk * 16 + (lane & 3) * 2 + ((rg & 2) ? 8 : 0);
+        qf[kk][rg] = g < G ? *reinterpret_cast<const uint32_t*>(
+                                 a.q + (head0 + g) * D + col)
+                           : 0u;
+      }
+  }
   const int valid = a.valid[b];
 
   // the row's visible keys [lo, hi): the query sits at valid - 1; keys
@@ -870,7 +885,16 @@ __global__ void __launch_bounds__(kDecThreads) decode_attend(DecArgs a) {
   for (int r = 0; r < kDecMaxPages / kDecThreads; ++r)
     if (tid + r * kDecThreads < np)
       pg_s[tid + r * kDecThreads] = min(max(pg[r], 0), a.num_pages - 1);
-  __syncthreads();  // pg_s
+  if constexpr (L::QSM) {  // the heads' query rows, zeros past G
+    for (int i = tid; i < MT * 16 * (D / 8); i += kDecThreads) {
+      const int g = i / (D / 8), c = i % (D / 8);
+      *reinterpret_cast<uint4*>(q_s + g * KS + c * 8) =
+          g < G ? *reinterpret_cast<const uint4*>(a.q + (head0 + g) * D +
+                                                  c * 8)
+                : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __syncthreads();  // pg_s, q_s
 
   // stage copies: this thread moves the 16-byte chunk cc of token rows
   // j0, j0 + JSTEP, ... of K and V (the same pool offsets for both)
@@ -966,8 +990,16 @@ __global__ void __launch_bounds__(kDecThreads) decode_attend(DecArgs a) {
         ldsm_x4(kb, kt + ((lane & 7) + ((lane >> 4) << 3)) * KS + kk * 16 +
                         ((lane >> 3) & 1) * 8);
         float(&acc)[2][4] = (kk & 1) ? sc2 : sc;
-        mma_bf16(acc[0], qf[kk], kb[0], kb[1]);
-        mma_bf16(acc[1], qf[kk], kb[2], kb[3]);
+        if constexpr (L::QSM) {
+          uint32_t qa[4];
+          ldsm_x4(qa, q_s + (mt * 16 + (lane & 15)) * KS + kk * 16 +
+                          (lane >> 4) * 8);
+          mma_bf16(acc[0], qa, kb[0], kb[1]);
+          mma_bf16(acc[1], qa, kb[2], kb[3]);
+        } else {
+          mma_bf16(acc[0], qf[kk], kb[0], kb[1]);
+          mma_bf16(acc[1], qf[kk], kb[2], kb[3]);
+        }
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -1172,8 +1204,11 @@ int dispatch_decode(DecArgs a, int B, int D, int page_size, int P,
   if (D == 64)
     return q8 ? launch_decode_attend<64, true>(a, B, st)
               : launch_decode_attend<64, false>(a, B, st);
-  return q8 ? launch_decode_attend<128, true>(a, B, st)
-            : launch_decode_attend<128, false>(a, B, st);
+  if (D == 128)
+    return q8 ? launch_decode_attend<128, true>(a, B, st)
+              : launch_decode_attend<128, false>(a, B, st);
+  return q8 ? launch_decode_attend<256, true>(a, B, st)
+            : launch_decode_attend<256, false>(a, B, st);
 }
 
 DecArgs make_dec_args(const void* q, const void* pk, const void* pv,
@@ -1216,7 +1251,7 @@ DecArgs make_dec_args(const void* q, const void* pk, const void* pv,
 
 constexpr int kAttThreads = 256;   // two consumer warpgroups
 constexpr int kAttRows = 128;      // (query, head) rows per block, 64 per wg
-constexpr int kAttTK = 64;         // keys per ring stage
+constexpr int kAttTK = 64;         // keys per split unit (and ring stage)
 constexpr int kAttMaxPages = 256;  // page ids a block keeps in shared memory
 constexpr int kAttMergeBatch = 8;  // partials the merge requests at once
 
@@ -1231,13 +1266,17 @@ __device__ __forceinline__ float ex2(float x) {
 // Dynamic shared memory of attend_wg<D>, from a 1024-byte aligned base (the
 // 128-byte swizzle's period): the query tile, the ring of K and V stages,
 // the block's page ids. Every tile is 128-byte swizzled rows of 64 bf16
-// (one "atom" column of 64 elements; D 128 keeps two atoms side by side):
-// element (row, d) sits at (d / 64) * rows * 128 + row * 128 +
-// (((d % 64) / 8) ^ (row % 8)) * 16 + (d % 8) * 2.
+// (one "atom" column of 64 elements; D 128 keeps two atoms side by side,
+// D 256 four): element (row, d) sits at (d / 64) * rows * 128 + row * 128 +
+// (((d % 64) / 8) ^ (row % 8)) * 16 + (d % 8) * 2. A stage holds TK keys:
+// 64, or 32 at D 256, where the 64 KB query tile and four 64-key stages
+// (256 KB) would not fit the 227 KB a block may use; four 32-key stages
+// do (194 KB, one block per SM).
 template <int D>
 struct AttSmem {
+  static constexpr int TK = D > 128 ? 32 : kAttTK;  // keys per ring stage
   static constexpr int Q = kAttRows * D * 2;
-  static constexpr int TILE = kAttTK * D * 2;  // K (or V) bytes per stage
+  static constexpr int TILE = TK * D * 2;  // K (or V) bytes per stage
   static constexpr int STAGE = 2 * TILE;
   static constexpr int STAGES = 4;  // ring depth
   static constexpr int PAGES = Q + STAGES * STAGE;
@@ -1312,6 +1351,21 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// The same over a 32-key stage (D 256): S[64 x 32].
+__device__ __forceinline__ void wgmma_qk(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_D8(0), WG_D8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // O[64 x D] += P[64 x 16] . V[16 x D]: P from registers (the S accumulator
 // packed to bf16), V from shared memory N-major (key rows of D contiguous
 // elements: the transposed B operand).
@@ -1329,8 +1383,13 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
       : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
-__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
+// 128 columns of O into accumulators OFF .. OFF + 63 of d (D 128 is one
+// call, D 256 two: columns 128 .. 255 are accumulators 64 .. 127).
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_pv_n128(float (&d)[N],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  static_assert(OFF + 64 <= N, "accumulators past the array");
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -1343,9 +1402,13 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
       "}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
-        WG_D8(48), WG_D8(56)
+      : WG_D8(OFF), WG_D8(OFF + 8), WG_D8(OFF + 16), WG_D8(OFF + 24),
+        WG_D8(OFF + 32), WG_D8(OFF + 40), WG_D8(OFF + 48), WG_D8(OFF + 56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_pv_n128<0>(d, a, db);
 }
 #undef WG_D8
 
@@ -1359,8 +1422,9 @@ template <int D>
 __device__ void attend_wg(const Args& a, const AttPlan& sp, const Tile& tl,
                           int kvh, int z, int tile_id, int TQ) {
   using L = AttSmem<D>;
+  constexpr int TK = L::TK;
   constexpr int CPR = D / 8;                         // 16-byte chunks a row
-  constexpr int CPT = kAttTK * CPR / kAttThreads;    // per thread, K or V
+  constexpr int CPT = TK * CPR / kAttThreads;    // per thread, K or V
   constexpr int QPT = kAttRows * CPR / kAttThreads;  // per thread, Q
   extern __shared__ __align__(16) unsigned char att_raw[];
   unsigned char* sm = att_raw + ((1024 - (smem_u32(att_raw) & 1023)) & 1023);
@@ -1399,7 +1463,7 @@ __device__ void attend_wg(const Args& a, const AttPlan& sp, const Tile& tl,
   const int nact = z1 - z0 + 1;  // splits of this tile with keys
   const int t_begin = max(lo, z * sp.chunk);
   const int t_end = min(hi, (z + 1) * sp.chunk);
-  const int ntiles = (t_end - t_begin + kAttTK - 1) / kAttTK;
+  const int ntiles = (t_end - t_begin + TK - 1) / TK;
 
   auto page_of = [&](int pos) {
     return sp.ps_shift >= 0 ? pos >> sp.ps_shift : pos / a.page_size;
@@ -1429,7 +1493,7 @@ __device__ void attend_wg(const Args& a, const AttPlan& sp, const Tile& tl,
   auto issue = [&](int t) {  // tile t -> stage t % L::STAGES, one group
     if (t < ntiles) {
       unsigned char* st = ring + (t % L::STAGES) * L::STAGE;
-      const int k0 = t_begin + t * kAttTK;
+      const int k0 = t_begin + t * TK;
 #pragma unroll
       for (int u = 0; u < CPT; ++u) {
         const int j = j0 + u * (kAttThreads / CPR), pos = k0 + j;
@@ -1440,8 +1504,8 @@ __device__ void attend_wg(const Args& a, const AttPlan& sp, const Tile& tl,
           off = ((size_t)pg_s[p - p_first] * a.page_size +
                  (pos - p * a.page_size)) * slot_bytes + col_bytes;
         }
-        cp_async16(st + sw_off<kAttTK>(j, cc), pk + off, in ? 16 : 0);
-        cp_async16(st + L::TILE + sw_off<kAttTK>(j, cc), pv + off,
+        cp_async16(st + sw_off<TK>(j, cc), pk + off, in ? 16 : 0);
+        cp_async16(st + L::TILE + sw_off<TK>(j, cc), pv + off,
                    in ? 16 : 0);
       }
     }
@@ -1468,7 +1532,7 @@ __device__ void attend_wg(const Args& a, const AttPlan& sp, const Tile& tl,
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
   const uint32_t q_addr = smem_u32(sm) + wg * 64 * 128;
   // P of the previous tile, read by its P V wgmma until the next wait
-  uint32_t pa[kAttTK / 16][4] = {};
+  uint32_t pa[TK / 16][4] = {};
 
   // One barrier a tile. Copies run L::STAGES - 2 tiles ahead: the copy
   // issued in tile t's step refills the stage of tile t - 2, whose P V
@@ -1484,18 +1548,18 @@ __device__ void attend_wg(const Args& a, const AttPlan& sp, const Tile& tl,
     __syncthreads();  // tile t landed in every thread's copies
     const uint32_t k_addr = smem_u32(ring + (t % L::STAGES) * L::STAGE);
     const uint32_t v_addr = k_addr + L::TILE;
-    const int k0 = t_begin + t * kAttTK;
+    const int k0 = t_begin + t * TK;
 
     // S = Q K^T: the K tile is the K-major B operand as it lies; a k16
     // step moves 32 bytes along the swizzled rows, D 128 changes atom
-    float s[kAttTK / 2];
+    float s[TK / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_qk(s,
                wgmma_desc(q_addr + (kk >> 2) * (kAttRows * 128) + (kk & 3) * 32,
                           16, 1024),
-               wgmma_desc(k_addr + (kk >> 2) * (kAttTK * 128) + (kk & 3) * 32,
+               wgmma_desc(k_addr + (kk >> 2) * (TK * 128) + (kk & 3) * 32,
                           16, 1024),
                kk > 0);
     wgmma_commit();
@@ -1504,7 +1568,7 @@ __device__ void attend_wg(const Args& a, const AttPlan& sp, const Tile& tl,
     fence_operands(s);
     fence_operands(o);
 #pragma unroll
-    for (int kb = 0; kb < kAttTK / 16; ++kb) fence_operands_u32(pa[kb]);
+    for (int kb = 0; kb < TK / 16; ++kb) fence_operands_u32(pa[kb]);
 
     // scale (log2 units) and softcap (before the mask); the mask only on
     // tiles that cross the diagonal, the window edge or the range's end
@@ -1513,15 +1577,15 @@ __device__ void attend_wg(const Args& a, const AttPlan& sp, const Tile& tl,
     float scl = sl2;
     if (a.softcap > 0.f) {
 #pragma unroll
-      for (int j = 0; j < kAttTK / 2; ++j)
+      for (int j = 0; j < TK / 2; ++j)
         s[j] = tanhf(s[j] * a.scale * inv_cap) * cap_l2;
       scl = 1.f;
     }
-    const bool full = k0 + kAttTK <= t_end && k0 + kAttTK - 1 <= tl.qmin &&
+    const bool full = k0 + TK <= t_end && k0 + TK - 1 <= tl.qmin &&
                       k0 > tl.qmax - eff_w;
     if (!full) {
 #pragma unroll
-      for (int j = 0; j < kAttTK / 2; ++j) {
+      for (int j = 0; j < TK / 2; ++j) {
         const int i = (j >> 1) & 1;
         const int key = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
         if (!(key < t_end && key <= qp[i] && key > qp[i] - eff_w))
@@ -1531,7 +1595,7 @@ __device__ void attend_wg(const Args& a, const AttPlan& sp, const Tile& tl,
     // online softmax in f32; the four lanes of a row share its stats
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < kAttTK / 2; ++j)
+    for (int j = 0; j < TK / 2; ++j)
       mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
     float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -1546,17 +1610,17 @@ __device__ void attend_wg(const Args& a, const AttPlan& sp, const Tile& tl,
     }
     if (full) {
 #pragma unroll
-      for (int j = 0; j < kAttTK / 2; ++j)
+      for (int j = 0; j < TK / 2; ++j)
         s[j] = ex2(fmaf(s[j], scl, -m_r[(j >> 1) & 1]));
     } else {  // masked keys give exact zeros, whatever the row's max
 #pragma unroll
-      for (int j = 0; j < kAttTK / 2; ++j)
+      for (int j = 0; j < TK / 2; ++j)
         s[j] = s[j] > 0.5f * kNegInf
                    ? ex2(fmaf(s[j], scl, -m_r[(j >> 1) & 1]))
                    : 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < kAttTK / 2; ++j) sum[(j >> 1) & 1] += s[j];
+    for (int j = 0; j < TK / 2; ++j) sum[(j >> 1) & 1] += s[j];
 #pragma unroll
     for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * alpha[i] + sum[i];
     // rescale O only where a row's max moved (a multiply by 1 is exact)
@@ -1568,20 +1632,29 @@ __device__ void attend_wg(const Args& a, const AttPlan& sp, const Tile& tl,
     // O += P V: P's k16 block kb is accumulators 8 kb .. 8 kb + 7, which
     // are wgmma's A fragment as they lie; V's k16 step is 16 key rows
 #pragma unroll
-    for (int kb = 0; kb < kAttTK / 16; ++kb)
+    for (int kb = 0; kb < TK / 16; ++kb)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         pa[kb][e] = pack_bf16(s[8 * kb + 2 * e], s[8 * kb + 2 * e + 1]);
     wgmma_fence();
 #pragma unroll
-    for (int kb = 0; kb < kAttTK / 16; ++kb)
-      wgmma_pv(o, pa[kb], wgmma_desc(v_addr + kb * 2048, kAttTK * 128, 1024));
+    for (int kb = 0; kb < TK / 16; ++kb) {
+      if constexpr (D == 256) {  // V's atoms 0-1, then 2-3
+        wgmma_pv_n128<0>(o, pa[kb],
+                         wgmma_desc(v_addr + kb * 2048, TK * 128, 1024));
+        wgmma_pv_n128<64>(
+            o, pa[kb],
+            wgmma_desc(v_addr + 2 * TK * 128 + kb * 2048, TK * 128, 1024));
+      } else {
+        wgmma_pv(o, pa[kb], wgmma_desc(v_addr + kb * 2048, TK * 128, 1024));
+      }
+    }
     wgmma_commit();
   }
   wgmma_wait0();
   fence_operands(o);
 #pragma unroll
-  for (int kb = 0; kb < kAttTK / 16; ++kb) fence_operands_u32(pa[kb]);
+  for (int kb = 0; kb < TK / 16; ++kb) fence_operands_u32(pa[kb]);
   cp_async_wait<0>();
 
 #pragma unroll
@@ -1698,6 +1771,29 @@ cudaError_t attend_smem_attr(bool ragged) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, AttSmem<D>::BYTES);
 }
 
+template <int D>
+cudaError_t launch_attend(const Args& a, const AttPlan& sp, dim3 grid,
+                          bool ragged, cudaStream_t st) {
+  cudaError_t e = attend_smem_attr<D>(ragged);
+  if (e != cudaSuccess) return e;
+  if (ragged)
+    attend_ragged_kernel<D>
+        <<<grid, kAttThreads, AttSmem<D>::BYTES, st>>>(a, sp);
+  else
+    attend_prefill_kernel<D>
+        <<<grid, kAttThreads, AttSmem<D>::BYTES, st>>>(a, sp);
+  return cudaSuccess;
+}
+
+template <int D>
+int attend_occupancy(bool ragged, int* blocks) {
+  cudaError_t e = attend_smem_attr<D>(ragged);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, ragged ? attend_ragged_kernel<D> : attend_prefill_kernel<D>,
+      kAttThreads, AttSmem<D>::BYTES);
+}
+
 // The wgmma body over `tiles` query tiles (B x query tiles, or segments)
 // of a.KV heads. The split plan must cover the table: NS splits of `chunk`
 // tokens (whole stages, few enough pages for pg_s), none empty; NS > 1
@@ -1718,24 +1814,10 @@ int dispatch_attend(const Args& a, AttPlan sp, int B, bool ragged,
   const int TQ = kAttRows / (a.H / a.KV);
   const dim3 grid = ragged ? dim3(a.KV * sp.NS, ragged_blocks(a, TQ))
                            : dim3(a.KV * sp.NS, B, (a.T + TQ - 1) / TQ);
-  cudaError_t e = a.D == 64 ? attend_smem_attr<64>(ragged)
-                            : attend_smem_attr<128>(ragged);
+  cudaError_t e = a.D == 64    ? launch_attend<64>(a, sp, grid, ragged, st)
+                  : a.D == 128 ? launch_attend<128>(a, sp, grid, ragged, st)
+                               : launch_attend<256>(a, sp, grid, ragged, st);
   if (e != cudaSuccess) return (int)e;
-  if (a.D == 64) {
-    if (ragged)
-      attend_ragged_kernel<64>
-          <<<grid, kAttThreads, AttSmem<64>::BYTES, st>>>(a, sp);
-    else
-      attend_prefill_kernel<64>
-          <<<grid, kAttThreads, AttSmem<64>::BYTES, st>>>(a, sp);
-  } else {
-    if (ragged)
-      attend_ragged_kernel<128>
-          <<<grid, kAttThreads, AttSmem<128>::BYTES, st>>>(a, sp);
-    else
-      attend_prefill_kernel<128>
-          <<<grid, kAttThreads, AttSmem<128>::BYTES, st>>>(a, sp);
-  }
   return (int)cudaGetLastError();
 }
 
@@ -1910,6 +1992,8 @@ extern "C" int paged_decode_blocks_per_sm(int D, int int8, int* blocks) {
   DEC_OCCUPANCY(64, true)
   DEC_OCCUPANCY(128, false)
   DEC_OCCUPANCY(128, true)
+  DEC_OCCUPANCY(256, false)
+  DEC_OCCUPANCY(256, true)
 #undef DEC_OCCUPANCY
   return (int)e;
 }
@@ -1919,15 +2003,8 @@ extern "C" int paged_decode_blocks_per_sm(int D, int int8, int* blocks) {
 // plan. Returns a cudaError_t.
 extern "C" int paged_attend_blocks_per_sm(int D, int ragged, int* blocks) {
   *blocks = 0;
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
-  cudaError_t e = D == 64 ? attend_smem_attr<64>(ragged != 0)
-                          : attend_smem_attr<128>(ragged != 0);
-  if (e != cudaSuccess) return (int)e;
-  if (D == 64)
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, ragged ? attend_ragged_kernel<64> : attend_prefill_kernel<64>,
-        kAttThreads, AttSmem<64>::BYTES);
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, ragged ? attend_ragged_kernel<128> : attend_prefill_kernel<128>,
-      kAttThreads, AttSmem<128>::BYTES);
+  if (D == 64) return attend_occupancy<64>(ragged != 0, blocks);
+  if (D == 128) return attend_occupancy<128>(ragged != 0, blocks);
+  if (D == 256) return attend_occupancy<256>(ragged != 0, blocks);
+  return (int)cudaErrorInvalidValue;
 }

@@ -65,9 +65,15 @@ with every ``EngineConfig`` default, and the ragged mixed step).
   tokens and rows per dispatch kind, and the pressure events, under the
   JAX engine's kinds and names.
 
+- **Sliding-window page reclaim** (``_reclaim_window_pages``): for a model
+  whose every layer slides (Mistral), pages wholly behind every future
+  query's window go back to the allocator before each dispatch and their
+  table entries become the sentinel ``num_pages``; per-sequence KV is
+  O(window), not O(length). The kernels walk each row from its window's
+  lower edge and never read them; the plain path clamps and masks them.
+
 Not ported yet: speculation (and so speculation inside looped blocks),
-meshes, the sliding-window page reclaim of model families with a window,
-the host tier, KV handoff and embeddings.
+meshes, the host tier, KV handoff and embeddings.
 
 Threading: the engine is synchronous and single-owner (one ``step()``
 caller); the serving layer runs it on a dedicated thread.
@@ -260,6 +266,7 @@ class _Seq:
         "request_id", "token_ids", "prompt_len", "block_table", "seq_len",
         "next_token", "params", "output_text", "emitted_upto",
         "emitted_tokens", "dev_pos", "dev_steps_left", "pending_ids",
+        "freed_upto",
     )
 
     def __init__(self, request_id: RequestId, prompt_ids: List[int],
@@ -268,6 +275,9 @@ class _Seq:
         self.token_ids: List[int] = list(prompt_ids)
         self.prompt_len = len(prompt_ids)
         self.block_table: List[int] = []
+        # table entries below this index were reclaimed behind the sliding
+        # window (sentinel num_pages)
+        self.freed_upto = 0
         self.seq_len = 0  # tokens with K/V resident in pages
         self.next_token: Optional[int] = None  # sampled, not yet decoded
         self.params = params
@@ -321,7 +331,6 @@ class LLMEngine:
         (``Q8Tensor`` / ``Q4Tensor`` leaves) pass through as they are.
         ``_graphs=False`` runs the quantum path eagerly on ``cuda`` too
         (for comparing the graph path with the eager one)."""
-        llama.check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tok = tokenizer
@@ -742,7 +751,9 @@ class LLMEngine:
         """KV-page conservation audit: every page a live sequence holds
         (plus ``extra_pages``) against the allocator's books. Returns
         inconsistency strings (empty = clean)."""
-        live = [p for s in self._by_id.values() for p in s.block_table]
+        sentinel = self.pcfg.num_pages  # reclaimed entries are not pages
+        live = [p for s in self._by_id.values() for p in s.block_table
+                if p != sentinel]
         live.extend(extra_pages)
         return self.allocator.audit(live)
 
@@ -1140,6 +1151,8 @@ class LLMEngine:
             if not any(u[0] for u in self._slot_updates.values()) and not any(
                     s.dev_steps_left > 0 for _, s in seated):
                 return False
+            for _, s in seated:
+                self._reclaim_window_pages(s)
             advs = {id(s): self._assumed_adv(s) for _, s in seated}
             try:
                 for _, s in seated:
@@ -1442,6 +1455,11 @@ class LLMEngine:
         while True:
             decode_seated = [(i, s) for i, s in enumerate(self.slots)
                              if s is not None and not _mid_prefill(s)]
+            # window reclaim for every seated row, as before a decode
+            # block: a prompt backlog keeps the engine on the mixed path
+            for s in self.slots:
+                if s is not None:
+                    self._reclaim_window_pages(s)
             # pages for the full K-token advance (exact for active rows:
             # each emits what it assumes unless it freezes, and frozen
             # rows stop writing)
@@ -1687,6 +1705,8 @@ class LLMEngine:
             if not any(u[0] for u in self._slot_updates.values()) and not any(
                     s.dev_steps_left > 0 for _, s in seated):
                 return False
+            for _, s in seated:  # before the block's tables are staged
+                self._reclaim_window_pages(s)
             try:
                 for _, s in seated:
                     if s.dev_steps_left > 0:
@@ -1873,14 +1893,50 @@ class LLMEngine:
             if s is seq:
                 self.slots[i] = None
         self._by_id.pop(seq.request_id, None)
-        # publish full pages for prefix reuse, then drop our references
-        self.allocator.publish(seq.token_ids, seq.block_table)
+        # publish full pages for prefix reuse, then drop our references;
+        # a window-reclaimed table holds sentinels (K/V gone): not reusable
+        if seq.freed_upto == 0:
+            self.allocator.publish(seq.token_ids, seq.block_table)
         self._release_seq(seq)
 
     def _release_seq(self, seq: _Seq) -> None:
         if seq.block_table:
-            self.allocator.release(seq.block_table)
+            sentinel = self.pcfg.num_pages
+            live = [p for p in seq.block_table if p != sentinel]
+            if live:
+                self.allocator.release(live)
             seq.block_table = []
+            seq.freed_upto = 0
+
+    def _reclaim_window_pages(self, seq: _Seq) -> None:
+        """Sliding-window KV reclaim: pages whose positions all lie behind
+        every future query's window (position <= seq_len - W, seq_len being
+        the exact resident count, a lower bound on the device position)
+        are released and their table entries set to the sentinel
+        ``num_pages``. Nothing attends them again: the kernels walk each
+        row from its window's lower edge, the plain path clamps the
+        sentinel into the pool and masks it. A re-prefill after preemption
+        starts from a fresh table. Alternating local / global layers
+        (Gemma-2's ``sliding_window_pattern``) reclaim nothing: the global
+        layers still attend the whole history."""
+        W = self.cfg.sliding_window
+        if not W or not seq.block_table or self.cfg.sliding_window_pattern:
+            return
+        ps = self.pcfg.page_size
+        sentinel = self.pcfg.num_pages
+        limit = seq.seq_len - W + 1  # positions < limit are dead
+        freed: List[int] = []
+        j = seq.freed_upto
+        while j < len(seq.block_table) and (j + 1) * ps <= limit:
+            page = seq.block_table[j]
+            if page != sentinel:
+                freed.append(page)
+                seq.block_table[j] = sentinel
+            j += 1
+        seq.freed_upto = j
+        if freed:
+            self._event("reclaim", len(freed))
+            self.allocator.release(freed)
 
     # ------------------------------------------------------------------
     # preemption

@@ -1,6 +1,6 @@
 """Model architecture configurations (port of
 ``distributed_inference_server_tpu/models/configs.py``: the dataclasses and
-the presets this slice serves).
+every preset, the test configs included).
 
 ``head_dim`` may differ from ``hidden_size // num_heads`` (e.g. Llama-3.2).
 ``num_kv_heads < num_heads`` gives grouped-query attention.
@@ -24,10 +24,10 @@ class RopeScaling:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Dense Llama-family transformer description. Fields the reference
-    uses for other families (MoE, sandwich norms, Gemma scaling) are kept
-    so configs convert one-to-one; this slice serves dense Llama only and
-    ``models/llama.py`` rejects the others."""
+    """Llama-family transformer description: dense Llama and Mistral, and
+    the fields of the other families the JAX package serves (Mixtral's
+    experts, Qwen2's q/k/v bias, Gemma-2's sandwich norms, soft-caps,
+    scalings and alternating windows)."""
 
     name: str = "unnamed"
     vocab_size: int = 32000
@@ -111,7 +111,90 @@ LLAMA_3_8B = ModelConfig(
     tie_word_embeddings=False,
 )
 
-# Tiny config for tests: small enough to run on the CPU in milliseconds.
+LLAMA_3_70B = ModelConfig(
+    name="llama-3-70b",
+    vocab_size=128256,
+    hidden_size=8192,
+    intermediate_size=28672,
+    num_layers=80,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    rope_theta=500000.0,
+    tie_word_embeddings=False,
+)
+
+MIXTRAL_8X7B = ModelConfig(
+    name="mixtral-8x7b",
+    vocab_size=32000,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    rope_theta=1e6,
+    tie_word_embeddings=False,
+    num_experts=8,
+    num_experts_per_tok=2,
+)
+
+MISTRAL_7B = ModelConfig(
+    name="mistral-7b",
+    vocab_size=32000,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    rms_norm_eps=1e-5,
+    rope_theta=10000.0,
+    tie_word_embeddings=False,
+    max_position_embeddings=32768,
+    sliding_window=4096,
+)
+
+QWEN2_7B = ModelConfig(
+    name="qwen2-7b",
+    vocab_size=152064,
+    hidden_size=3584,
+    intermediate_size=18944,
+    num_layers=28,
+    num_heads=28,
+    num_kv_heads=4,
+    head_dim=128,
+    rms_norm_eps=1e-6,
+    rope_theta=1e6,
+    tie_word_embeddings=False,
+    max_position_embeddings=131072,
+    attention_bias=True,
+)
+
+GEMMA2_9B = ModelConfig(
+    name="gemma2-9b",
+    vocab_size=256000,
+    hidden_size=3584,
+    intermediate_size=14336,
+    num_layers=42,
+    num_heads=16,
+    num_kv_heads=8,
+    head_dim=256,
+    rms_norm_eps=1e-6,
+    rope_theta=10000.0,
+    tie_word_embeddings=True,
+    max_position_embeddings=8192,
+    sliding_window=4096,
+    sliding_window_pattern=2,
+    activation="gelu_tanh",
+    sandwich_norms=True,
+    final_logit_softcap=30.0,
+    attn_logit_softcap=50.0,
+    query_pre_attn_scalar=256.0,
+    scale_embeddings=True,
+)
+
+# Tiny configs for tests: small enough to run on the CPU in milliseconds.
 TINY = ModelConfig(
     name="tiny",
     vocab_size=256,
@@ -126,7 +209,28 @@ TINY = ModelConfig(
     max_position_embeddings=512,
 )
 
-PRESETS = {c.name: c for c in (LLAMA_3_2_1B, LLAMA_3_8B, TINY)}
+TINY_MOE = TINY.with_overrides(name="tiny-moe", num_experts=4,
+                               num_experts_per_tok=2)
+TINY_SWA = TINY.with_overrides(name="tiny-swa", sliding_window=8)
+TINY_BIAS = TINY.with_overrides(name="tiny-bias", attention_bias=True)
+TINY_GEMMA2 = TINY.with_overrides(
+    name="tiny-gemma2",
+    sliding_window=8,
+    sliding_window_pattern=2,
+    activation="gelu_tanh",
+    sandwich_norms=True,
+    final_logit_softcap=30.0,
+    attn_logit_softcap=50.0,
+    query_pre_attn_scalar=24.0,  # deliberately != head_dim
+    scale_embeddings=True,
+)
+
+PRESETS = {
+    c.name: c
+    for c in (LLAMA_3_2_1B, LLAMA_3_8B, LLAMA_3_70B, MIXTRAL_8X7B,
+              MISTRAL_7B, QWEN2_7B, GEMMA2_9B, TINY, TINY_MOE, TINY_SWA,
+              TINY_BIAS, TINY_GEMMA2)
+}
 
 
 def get_config(name: str) -> ModelConfig:

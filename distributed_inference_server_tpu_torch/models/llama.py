@@ -1,9 +1,9 @@
 """Llama-family transformer over the paged KV pool, in PyTorch (port of
 ``distributed_inference_server_tpu/models/llama.py``: ``init_params``, the
 paged write, the layer block, ``gather_kv_window``, ``paged_forward``,
-``ragged_paged_forward``, ``_mlp`` and ``_unembed``; and the unpaged
-``forward`` over the dense ``KVCache`` that ``models/generate.py`` and the
-checkpoint parity tests call).
+``ragged_paged_forward``, ``_mlp``, ``_moe_mlp`` and ``_unembed``; the
+unpaged ``forward`` over the dense ``KVCache`` that ``models/generate.py``
+and the checkpoint parity tests call; and ``hidden_states``).
 
 - Parameters are a dict of **stacked** per-layer tensors (leading axis =
   layer), linear weights stored [in, out] so the hot path is ``x @ W`` —
@@ -32,8 +32,14 @@ checkpoint parity tests call).
   and runs ``ragged_gqa_attention`` (the JAX package has no int8 ragged
   kernel either).
 
-This slice serves dense Llama models (Llama 3.x). MoE, attention biases,
-sandwich norms and the Gemma scalings are rejected by ``check_supported``.
+Every family the JAX package serves on one device: dense Llama, Mistral
+(a sliding window), Qwen2 (q/k/v bias), Gemma-2 (GeGLU, sandwich norms,
+the embedding and query scalings, attention and final-logit soft-caps,
+alternating local / global layers; its unit-offset norms are folded at
+load) and Mixtral (``_moe_mlp``: top-k routing, every expert computed on
+every token, as the JAX engine's single-device ``moe_impl="dense"``). The
+scalings round as the JAX package does: each factor is taken in the
+activations' dtype before it multiplies them.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from distributed_inference_server_tpu_torch.ops.norms import rms_norm
 from distributed_inference_server_tpu_torch.ops.quant import (
     QuantPool,
     dequantize_kv,
+    expert_weight,
     is_quantized,
     layer_weight,
     quantize_kv,
@@ -78,27 +85,44 @@ IMPLS = ("kernel", "plain")
 _RAGGED_TOKEN_CHUNK = 128
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for model features this slice does not port yet."""
-    unsupported = {
-        "num_experts": cfg.is_moe,
-        "attention_bias": cfg.attention_bias,
-        "sandwich_norms": cfg.sandwich_norms,
-        "scale_embeddings": cfg.scale_embeddings,
-        "query_pre_attn_scalar": cfg.query_pre_attn_scalar is not None,
-        "final_logit_softcap": cfg.final_logit_softcap is not None,
-        "activation": cfg.activation != "silu",
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"model {cfg.name!r} uses {bad}, which the port does not serve "
-            "yet (dense Llama only)")
-
-
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, object]:
+    """The parameter tree's leaf shapes, keyed as the JAX package's
+    ``init_params`` keys them: ``layers`` (stacked per layer: the q/k/v
+    biases under ``attention_bias``, the post-attention and post-MLP norms
+    under ``sandwich_norms``, the router [L, H, E] and expert stacks
+    [L, E, in, out] under ``is_moe``), ``embed``, ``final_norm`` and, for
+    an untied head, ``lm_head`` [H, V]."""
+    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    layers = {
+        "attn_norm": (L, H),
+        "wq": (L, H, cfg.q_size),
+        "wk": (L, H, cfg.kv_size),
+        "wv": (L, H, cfg.kv_size),
+        "wo": (L, cfg.q_size, H),
+        "mlp_norm": (L, H),
+    }
+    if cfg.sandwich_norms:
+        layers.update(post_attn_norm=(L, H), post_mlp_norm=(L, H))
+    if cfg.attention_bias:
+        layers.update(bq=(L, cfg.q_size), bk=(L, cfg.kv_size),
+                      bv=(L, cfg.kv_size))
+    E = cfg.num_experts
+    if cfg.is_moe:
+        layers.update(router=(L, H, E), w_gate=(L, E, H, I),
+                      w_up=(L, E, H, I), w_down=(L, E, I, H))
+    else:
+        layers.update(w_gate=(L, H, I), w_up=(L, H, I), w_down=(L, I, H))
+    shapes: Dict[str, object] = {"layers": layers,
+                                 "embed": (cfg.vocab_size, H),
+                                 "final_norm": (H,)}
+    if not cfg.tie_word_embeddings:
+        shapes["lm_head"] = (H, cfg.vocab_size)
+    return shapes
 
 
 def init_params(
@@ -107,40 +131,26 @@ def init_params(
     dtype: torch.dtype = torch.bfloat16,
     device: torch.device | str = "cuda",
 ) -> Params:
-    """Random parameters with HF-compatible shapes (stacked per layer):
-    normal(0, 0.02) drawn in f32 from ``generator`` (which must live on
-    ``device``) and cast to ``dtype``; norm weights are ones."""
-    check_supported(cfg)
-    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    std = 0.02
+    """Random parameters with HF-compatible shapes (``param_shapes``),
+    drawn leaf by leaf in the tree's order by ``random_leaf``."""
+    def leaf(name, shape):
+        return random_leaf(name, shape, generator, dtype, device)
 
-    def w(*shape):
-        x = torch.randn(*shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return (x * std).to(dtype)
+    return {k: ({n: leaf(n, sh) for n, sh in v.items()}
+                if isinstance(v, dict) else leaf(k, v))
+            for k, v in param_shapes(cfg).items()}
 
-    def ones(*shape):
-        return torch.ones(*shape, dtype=dtype, device=device)
 
-    layers = {
-        "attn_norm": ones(L, H),
-        "wq": w(L, H, cfg.q_size),
-        "wk": w(L, H, cfg.kv_size),
-        "wv": w(L, H, cfg.kv_size),
-        "wo": w(L, cfg.q_size, H),
-        "mlp_norm": ones(L, H),
-        "w_gate": w(L, H, I),
-        "w_up": w(L, H, I),
-        "w_down": w(L, I, H),
-    }
-    params: Params = {
-        "embed": w(cfg.vocab_size, H),
-        "layers": layers,
-        "final_norm": ones(H),
-    }
-    if not cfg.tie_word_embeddings:
-        params["lm_head"] = w(H, cfg.vocab_size)
-    return params
+def random_leaf(name: str, shape, generator: torch.Generator,
+                dtype: torch.dtype, device) -> torch.Tensor:
+    """One random parameter: ones for a norm, else normal(0, 0.02) drawn
+    in f32 from ``generator`` (which must live on ``device``) and cast to
+    ``dtype``."""
+    if name.endswith("norm"):
+        return torch.ones(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (x * 0.02).to(dtype)
 
 
 def unembed_weight_f32(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -277,22 +287,86 @@ def _mm(x: torch.Tensor, w, impl: str) -> torch.Tensor:
     return x @ w
 
 
-def _mlp(h: torch.Tensor, layers: Dict[str, object], l: int, impl: str
-         ) -> torch.Tensor:
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
-    gate = F.silu(_mm(h, layer_weight(layers["w_gate"], l), impl))
+def _in_dtype(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``, as a Python float: multiplying a tensor
+    of ``dtype`` by it rounds as the JAX package's multiply by
+    ``jnp.asarray(x, dtype)`` does (bf16: sqrt(3584) = 59.866 becomes
+    59.75)."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
+def _act(x: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "gelu_tanh":  # Gemma GeGLU (HF gelu_pytorch_tanh)
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def _mlp(h: torch.Tensor, layers: Dict[str, object], l: int, impl: str,
+         activation: str = "silu") -> torch.Tensor:
+    """Gated MLP: down(act(gate(x)) * up(x)), SwiGLU or GeGLU."""
+    gate = _act(_mm(h, layer_weight(layers["w_gate"], l), impl), activation)
     up = _mm(h, layer_weight(layers["w_up"], l), impl)
     return _mm(gate * up, layer_weight(layers["w_down"], l), impl)
+
+
+def moe_route(router_logits: torch.Tensor, k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-``k`` routing of f32 logits [N, E]: (softmax weights over the k
+    chosen experts [N, k], their ids [N, k]), largest first and, among
+    equal logits, the lower expert id first — ``lax.top_k``'s order (a
+    stable descending sort keeps equal logits in id order; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(router_logits, dim=-1, descending=True,
+                           stable=True)
+    return torch.softmax(vals[:, :k], dim=-1), idx[:, :k]
+
+
+def _moe_mlp(h: torch.Tensor, layers: Dict[str, object], l: int,
+             cfg: ModelConfig, impl: str) -> torch.Tensor:
+    """Mixtral-style MoE in the dense-compute form the JAX engine runs on
+    one device (``_moe_mlp``, ``moe_impl="dense"``): f32 router logits,
+    softmax over the top k, and EVERY expert's SwiGLU on every token,
+    combined by the [N, E] routing weights (zero off the top k). Static
+    shapes only — no routing-dependent indexing, nothing read back — so it
+    captures into the engine's CUDA graphs. A quantized expert's three
+    products run through the group-dequant matmul (``_mm`` on its 2-D
+    slice); dense experts are batched products, as the JAX einsums."""
+    B, T, H = h.shape
+    x = h.reshape(-1, H)  # [N, H]
+    logits = (x @ layers["router"][l]).float()  # [N, E]
+    weights, idx = moe_route(logits, cfg.num_experts_per_tok)
+    combine = torch.zeros_like(logits).scatter(1, idx, weights)
+    wg, wu, wd = (layers[k] for k in ("w_gate", "w_up", "w_down"))
+    if is_quantized(wg):
+        outs = []
+        for e in range(cfg.num_experts):
+            gate = F.silu(_mm(x, expert_weight(wg, l, e), impl))
+            up = _mm(x, expert_weight(wu, l, e), impl)
+            outs.append(_mm(gate * up, expert_weight(wd, l, e), impl))
+        expert_out = torch.stack(outs)  # [E, N, H]
+    else:
+        gate = F.silu(torch.einsum("nh,ehi->eni", x, wg[l]))
+        up = torch.einsum("nh,ehi->eni", x, wu[l])
+        expert_out = torch.einsum("eni,eih->enh", gate * up, wd[l])
+    out = torch.einsum("enh,ne->nh", expert_out,
+                       combine.to(expert_out.dtype))
+    return out.reshape(B, T, H)
 
 
 def _unembed(params: Params, cfg: ModelConfig, h: torch.Tensor
              ) -> torch.Tensor:
     """f32 logits [..., V]: the hidden state is upcast BEFORE the product
-    (the JAX einsum's preferred_element_type=f32 on bf16 operands)."""
+    (the JAX einsum's preferred_element_type=f32 on bf16 operands); then
+    the final-logit soft-cap ``tanh(logits / cap) * cap`` where the model
+    has one (Gemma-2)."""
     w = params.get("unembed_f32")
     if w is None:
         w = unembed_weight_f32(params, cfg)
-    return F.linear(h.float(), w)
+    logits = F.linear(h.float(), w)
+    if cfg.final_logit_softcap is not None:
+        cap = cfg.final_logit_softcap
+        logits = torch.tanh(logits / cap) * cap
+    return logits
 
 
 def layer_block(
@@ -321,17 +395,33 @@ def layer_block(
         return layer_weight(layers[name], l)
 
     x = rms_norm(h, layers["attn_norm"][l], eps, impl)
-    q = _mm(x, w("wq"), impl).view(B, T, cfg.num_heads, cfg.head_dim)
-    k = _mm(x, w("wk"), impl).view(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = _mm(x, w("wv"), impl).view(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q, k, v = _mm(x, w("wq"), impl), _mm(x, w("wk"), impl), \
+        _mm(x, w("wv"), impl)
+    if cfg.attention_bias:  # Qwen2
+        q, k, v = q + w("bq"), k + w("bk"), v + w("bv")
+    q = q.view(B, T, cfg.num_heads, cfg.head_dim)
+    k = k.view(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = v.view(B, T, cfg.num_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, inv_freq, impl)
     k = apply_rope(k, positions, inv_freq, impl)
+    if cfg.query_pre_attn_scalar is not None:
+        # Gemma: the kernels scale by 1/sqrt(D), so q times
+        # sqrt(D / scalar) nets 1/sqrt(query_pre_attn_scalar)
+        q = q * _in_dtype((cfg.head_dim / cfg.query_pre_attn_scalar) ** 0.5,
+                          q.dtype)
     write_fn(pool_k, l, k)
     write_fn(pool_v, l, v)
     attn = attend_fn(q, view(pool_k, l), view(pool_v, l), window)
-    h = h + _mm(attn.reshape(B, T, cfg.q_size), w("wo"), impl)
+    attn_out = _mm(attn.reshape(B, T, cfg.q_size), w("wo"), impl)
+    if cfg.sandwich_norms:  # Gemma-2 post-attention norm
+        attn_out = rms_norm(attn_out, layers["post_attn_norm"][l], eps, impl)
+    h = h + attn_out
     x = rms_norm(h, layers["mlp_norm"][l], eps, impl)
-    return h + _mlp(x, layers, l, impl)
+    mlp_out = (_moe_mlp(x, layers, l, cfg, impl) if cfg.is_moe
+               else _mlp(x, layers, l, impl, cfg.activation))
+    if cfg.sandwich_norms:  # Gemma-2 post-MLP norm
+        mlp_out = rms_norm(mlp_out, layers["post_mlp_norm"][l], eps, impl)
+    return h + mlp_out
 
 
 def _run_layers(params: Params, cfg: ModelConfig, input_ids: torch.Tensor,
@@ -353,6 +443,8 @@ def _run_layers(params: Params, cfg: ModelConfig, input_ids: torch.Tensor,
                                        kv_quantized)
     vocab = params["embed"].shape[0]
     h = params["embed"][input_ids.long().clamp(0, vocab - 1)]  # [B, T, H]
+    if cfg.scale_embeddings:  # Gemma: sqrt(hidden), in h's dtype
+        h = h * _in_dtype(cfg.hidden_size ** 0.5, h.dtype)
     for l, window in enumerate(cfg.layer_windows()):
         h = layer_block(cfg, params["layers"], l, h, positions, pool_k,
                         pool_v, write_fn, attend_fn, inv_freq, impl, window,
@@ -386,6 +478,15 @@ def forward(
 
     Returns: (logits [B, T, vocab] f32, cache).
     """
+    h = _dense_trunk(params, cfg, input_ids, positions, cache, write_pos,
+                     kv_valid_len, impl)
+    return _unembed(params, cfg, h), cache
+
+
+def _dense_trunk(params, cfg, input_ids, positions, cache: KVCache,
+                 write_pos, kv_valid_len, impl) -> torch.Tensor:
+    """``_run_layers`` over the dense cache: the writes at ``write_pos``,
+    attention by ``gqa_attention``. Returns the normed hidden state."""
     def write_fn(pool, l, new):
         return _write_kv(pool, l, new, write_pos)
 
@@ -393,10 +494,23 @@ def forward(
         return gqa_attention(q, k, v, positions, kv_valid_len, window,
                              cfg.attn_logit_softcap)
 
-    h = _run_layers(params, cfg, input_ids, positions, cache.k, cache.v,
-                    write_pos, attend_fn, impl, write_fn=write_fn,
-                    view=lambda pool, l: pool[l])
-    return _unembed(params, cfg, h), cache
+    return _run_layers(params, cfg, input_ids, positions, cache.k, cache.v,
+                       write_pos, attend_fn, impl, write_fn=write_fn,
+                       view=lambda pool, l: pool[l])
+
+
+def hidden_states(params: Params, cfg: ModelConfig, input_ids: torch.Tensor,
+                  positions: torch.Tensor, kv_valid_len: torch.Tensor,
+                  impl: str = "kernel") -> torch.Tensor:
+    """Final-layer hidden states (after the final norm, before the
+    unembedding) for the embeddings routes: a cache-less full forward over
+    [B, T] ids, each token's K/V written at its position in a scratch
+    dense cache of T slots. Returns [B, T, hidden] f32."""
+    B, T = input_ids.shape
+    cache = KVCache.create(cfg, B, T, dtype=params["embed"].dtype,
+                           device=input_ids.device)
+    return _dense_trunk(params, cfg, input_ids, positions, cache, positions,
+                        kv_valid_len, impl).float()
 
 
 def paged_forward(

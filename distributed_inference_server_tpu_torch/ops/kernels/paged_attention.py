@@ -34,7 +34,10 @@ per block on two warpgroups, a ``cp.async`` ring of row-major K/V stages
 read by ``wgmma`` for both products, the mask only on tiles that need it,
 and a KV split merged in the same launch, planned by ``attend_plan`` from
 the capacity, the grid's static size and the body's resident blocks per
-SM. Prefill splits only where its grid leaves the card idle; ragged caps
+SM. At D 256 (Gemma-2) the prefill / ragged body's ring holds 32-key
+stages and the decode body reads its query fragments from shared memory
+(``csrc`` header); the split plans count in 64-token units either way.
+Prefill splits only where its grid leaves the card idle; ragged caps
 a split at ``RAGGED_MAX_STAGES`` stages, so its longest block is a few
 stages plus the merge rather than a 2048-token row's whole history. What
 is left: each block's serial chain per stage (Q K^T, softmax, P V, with
@@ -210,8 +213,8 @@ def _check_pools(pools, dtype, dim, dev):
 
 def _check(q, pool_k, pool_v, page_tables, rows, page_size, max_gd, ints):
     """Validate what the CUDA kernels take; raises ValueError otherwise.
-    ``max_gd`` bounds G * D for the scalar body; the tensor-core body
-    (bf16, D 64 or 128, G <= 64) has no such limit. Int8 pools
+    ``max_gd`` bounds G * D for the scalar body; the tensor-core bodies
+    (bf16, D 64, 128 or 256, G <= 64) have no such limit. Int8 pools
     (``QuantPool``) need int8 codes [num_slots, KV, D] with D a multiple
     of 16 and f32 scales [num_slots, KV]."""
     dev = q.device
@@ -294,7 +297,7 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_STAGE_TK = 64  # csrc kDecTK / kAttTK: tokens per ring stage
+_STAGE_TK = 64  # csrc kDecTK / kAttTK: tokens per split unit (a stage)
 _MAX_PAGES = 256  # csrc kDecMaxPages / kAttMaxPages: page ids a block holds
 _ATTEND_ROWS = 128  # csrc kAttRows: (query, head) rows of a prefill block
 # the most stages one ragged split walks: the launch's longest chain is a

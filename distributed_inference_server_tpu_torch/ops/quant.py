@@ -1,7 +1,6 @@
 """Weight quantization (symmetric per-group int8, packed int4) and the int8
 KV pool, in PyTorch (port of ``distributed_inference_server_tpu/ops/quant.py``;
-``init_random_quantized``, ``dense_view`` and ``pool_num_slots`` are not
-ported yet: nothing here calls them).
+``pool_num_slots`` is not ported: nothing here calls it).
 
 - ``Q8Tensor``: int8 codes [..., in, out] + f32 scales [..., in/G, out].
 - ``Q4Tensor``: uint8 [..., in/2, out], two int4 codes per byte along the
@@ -14,9 +13,13 @@ Codes and scales are bit-identical to the JAX package's on the same input:
 the same f32 division order, the same ``1e-8`` / ``1e-30`` floors, and
 round half to even on both sides (``torch.round``, ``jnp.round``).
 ``quantize_params`` quantizes the seven linear families of a stacked
-Llama parameter tree layer by layer, so the f32 temporaries of only one
-layer's matrix are alive at a time; embeddings, norms and ``lm_head`` stay
-dense.
+Llama or Mixtral parameter tree ([L, in, out], or [L, E, in, out] for the
+experts) layer by layer, so the f32 temporaries of only one layer's
+matrices are alive at a time; embeddings, norms, biases, the router and
+``lm_head`` stay dense. ``init_random_quantized`` builds a random tree
+with those families already quantized, with no dense intermediate: how a
+random-weight server of a model whose dense tree would not fit the card
+(mixtral-8x7b: 93 GB in bf16) starts.
 """
 
 from __future__ import annotations
@@ -123,11 +126,27 @@ def layer_weight(w: Any, l: int) -> Any:
     return w[l]
 
 
+def expert_weight(w: Any, l: int, e: int) -> Any:
+    """Expert ``e`` of layer ``l`` of a stacked expert weight ([L, E, in,
+    out], quantized or not): the 2-D [in, out] slice, contiguous, that a
+    product takes."""
+    if is_quantized(w):
+        return type(w)(w.q[l, e], w.s[l, e])
+    return w[l, e]
+
+
+def dense_view(w: Any, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Dense tensor of a possibly-quantized weight (a plain tensor passes
+    through as it is)."""
+    return dequantize(w, dtype) if is_quantized(w) else w
+
+
 def quantize_params(params: Dict[str, Any], mode: str) -> Dict[str, Any]:
-    """Quantize a Llama parameter tree's seven stacked linear families
-    ([L, in, out]); mode "int8" (group 128) | "int4" (group 64) | "none".
-    Layer by layer: the result equals quantizing the stacked tensor at
-    once (groups never cross layers)."""
+    """Quantize a Llama or Mixtral parameter tree's seven stacked linear
+    families ([L, in, out], experts [L, E, in, out]); mode "int8" (group
+    128) | "int4" (group 64) | "none". Layer by layer: the result equals
+    quantizing the stacked tensor at once (groups run along the input
+    axis and never cross layers or experts)."""
     if mode == "none":
         return params
     if mode == "int8":
@@ -151,6 +170,51 @@ def quantize_params(params: Dict[str, Any], mode: str) -> Dict[str, Any]:
     out["layers"] = {k: (stacked(v) if k in QUANT_KEYS else v)
                      for k, v in params["layers"].items()}
     return out
+
+
+def init_random_quantized(cfg, mode: str, generator: torch.Generator,
+                          dtype: torch.dtype = torch.bfloat16,
+                          device="cuda") -> Dict[str, Any]:
+    """A random parameter tree (``models/llama.py`` ``param_shapes``) whose
+    seven linear families are created quantized, from random bits, with no
+    dense intermediate (the JAX package's ``init_random_quantized``):
+    int8 codes are uniform over [-128, 127], int4 bytes uniform over
+    [0, 255]; every scale is ``1 / (qmax * sqrt(d_in))`` (qmax 127 or 7),
+    so dequantized magnitudes stay near ``init_params``' normal(0, 0.02).
+    Norms are ones; every other leaf (embeddings, biases, the router,
+    ``lm_head``) is normal(0, 0.02) in ``dtype`` (``llama.random_leaf``).
+    Groups run along the input axis: 128 (int8) or 64 (int4) rows, as
+    ``quantize_params``'. The bits come from ``generator`` (on ``device``), so they
+    differ from the JAX package's; the tree's keys, shapes, dtypes and
+    scales do not. ``mode="none"`` is ``init_params``."""
+    from distributed_inference_server_tpu_torch.models import llama
+
+    if mode == "none":
+        return llama.init_params(cfg, generator, dtype=dtype, device=device)
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"unknown quantization mode {mode!r}")
+    qmax, group = (127, 128) if mode == "int8" else (7, 64)
+
+    def bits(*shape):
+        return torch.empty(shape, dtype=torch.uint8, device=device).random_(
+            0, 256, generator=generator)
+
+    def leaf(name, shape):
+        if name in QUANT_KEYS:
+            *lead, d_in, d_out = shape
+            gs = min(group, d_in)
+            s = torch.full((*lead, d_in // gs, d_out),
+                           1.0 / (qmax * d_in ** 0.5), dtype=torch.float32,
+                           device=device)
+            if mode == "int8":
+                return Q8Tensor(bits(*shape).view(torch.int8), s)
+            return Q4Tensor(bits(*lead, d_in // 2, d_out), s)
+        return llama.random_leaf(name, shape, generator, dtype, device)
+
+    shapes = llama.param_shapes(cfg)
+    return {k: ({n: leaf(n, sh) for n, sh in v.items()}
+                if isinstance(v, dict) else leaf(k, v))
+            for k, v in shapes.items()}
 
 
 # ---------------------------------------------------------------------------

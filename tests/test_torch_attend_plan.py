@@ -6,8 +6,9 @@ The plan (``paged_attention.attend_plan``) is plain Python: how many
 splits each query tile's KV range takes and how many tokens each split
 spans, from the table capacity, the grid's static size and the blocks one
 SM holds (never the data). For the served geometries (llama-3.2-1b: H 32,
-KV 8, D 64; llama-3-8b: D 128; tables of 128 pages of 16 tokens) and edge
-shapes, the splits must cover [0, capacity) in whole 64-token stages, no
+KV 8, D 64; llama-3-8b: D 128; tables of 128 pages of 16 tokens), the
+model families' (gemma2-9b H 16 / KV 8, qwen2-7b G 7, a mistral-7b table
+past its window) and edge shapes, the splits must cover [0, capacity) in whole 64-token stages, no
 split empty, a split must span few enough pages for the block's page-id
 list, a ragged split at most ``RAGGED_MAX_STAGES`` stages. A model of the
 kernel's split rule (split z walks [z * chunk, (z + 1) * chunk) of the
@@ -18,7 +19,8 @@ longest split is a few stages.
 The plain versions are held against the JAX package's Pallas kernels
 (interpret mode, as tests/test_torch_kernels.py runs them) on the same
 numpy inputs in float32, at small H and D, with histories of several
-hundred tokens: the layouts whose KV ranges the kernel splits. Tolerance
+hundred tokens: the layouts whose KV ranges the kernel splits (G 7 with a
+window and softcap 50 among them). Tolerance
 2e-5, the Pallas tests' own.
 """
 
@@ -57,6 +59,11 @@ SHAPES = [
     ("page 5", 16, 2, 40, 3, 5, 40),
     ("page 1, long", 32, 8, 64, 2, 1, 4096),
     ("capacity 32768", 32, 8, 128, 1, 16, 2048),
+    ("gemma2-9b prefill [4, 512]", 16, 8, 512, 4, 16, 128),
+    ("gemma2-9b ragged S512 Bm12", 16, 8, 512, 12, 16, 128),
+    ("qwen2-7b prefill [4, 512] (G 7)", 28, 4, 512, 4, 16, 128),
+    ("qwen2-7b ragged S512 Bm12 (G 7)", 28, 4, 512, 12, 16, 128),
+    ("mistral-7b past the window", 32, 8, 512, 4, 16, 320),
 ]
 PER_SM = (1, 2, 3)
 
@@ -208,6 +215,7 @@ LONG_PREFILL = [
     (2, 24, 8, 2, 32, 8, 40, [296, 0], 0, 0.0),
     (3, 8, 4, 4, 16, 16, 24, [370, 200, 0], 100, 0.0),
     (2, 16, 4, 1, 16, 8, 48, [250, 368], 0, 30.0),
+    (2, 20, 7, 1, 16, 8, 48, [300, 100], 64, 50.0),  # G 7, window, cap
 ]
 
 
@@ -242,6 +250,7 @@ LONG_RAGGED = [
     ([380, 1, 0, 97], [(10, 300), (6, 0)], 24, 4, 2, 16, 48, 0, 0.0),
     ([383], [(13, 370), (9, 150)], 32, 8, 4, 16, 48, 0, 0.0),
     ([200, 350, 17], [(12, 330)], 16, 4, 1, 32, 48, 64, 25.0),
+    ([310, 5], [(11, 290), (4, 0)], 20, 7, 1, 16, 48, 64, 50.0),  # G 7
 ]
 
 

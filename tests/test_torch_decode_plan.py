@@ -5,7 +5,9 @@ The plan is plain Python: how many splits each row's KV range takes and how
 many tokens each split spans, from the table capacity (never the data) and
 the card's SM count times the decode blocks one SM holds. For the served
 shapes (llama-3.2-1b: KV 8, D 64; llama-3-8b int8: KV 8, D 128; capacity
-2048 = 128 pages of 16 tokens) and edge shapes (B = 1, a capacity below
+2048 = 128 pages of 16 tokens), the model families' (gemma2-9b: D 256,
+one block per SM; qwen2-7b: KV 4, G 7; a mistral-7b table past its
+4096-token window) and edge shapes (B = 1, a capacity below
 one 64-token stage, G = 1 and G = 8, odd page sizes), the splits must
 cover [0, capacity) in whole stages without overlap, no split empty, the
 grid must fit one wave of resident blocks, and a split must span few
@@ -27,8 +29,9 @@ H100_SMS = 132
 STAGE = 64  # tokens per ring stage (csrc kDecTK)
 MAX_PAGES = 256  # page ids a decode block holds (csrc kDecMaxPages)
 # decode blocks one SM holds (the kernel's occupancy query reports the
-# card's own; an H100 holds 4 at D 64 and 3 at D 128) and other counts
-PER_SM = (4, 3, 2)
+# card's own; an H100 holds 4 at D 64, 3 at D 128 and 1 at D 256) and
+# other counts
+PER_SM = (4, 3, 2, 1)
 
 # (label, B, H, KV, D, page_size, P)
 SHAPES = [
@@ -46,6 +49,9 @@ SHAPES = [
     ("page 1, long", 2, 32, 8, 64, 1, 4096),
     ("capacity 32768", 1, 32, 8, 128, 16, 2048),
     ("B64 more rows than slots", 64, 32, 8, 64, 16, 128),
+    ("gemma2-9b B8 D256", 8, 16, 8, 256, 16, 128),
+    ("qwen2-7b B8 G7", 8, 28, 4, 128, 16, 128),
+    ("mistral-7b past the window", 8, 32, 8, 128, 16, 320),
 ]
 
 

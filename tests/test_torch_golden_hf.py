@@ -9,8 +9,8 @@ equal at every valid position), the greedy continuation through
 ``greedy_generate`` and through the paged engine (with the checkpoint's
 own tokenizer), the tokenizer's encodings, and the tie reconciliation.
 ``tiny_mistral_hf`` (a sliding window only) gets the family gates too; the
-other families are refused by ``check_supported`` by name until their
-features are ported. Then ``forward``, ``greedy_generate`` and the sampled
+other families' fixtures are held to their goldens in
+``tests/test_torch_families.py``. Then ``forward``, ``greedy_generate`` and the sampled
 ``generate`` against the JAX package on shared TINY weights; sampling is
 compared by the nucleus set, since the two packages' RNGs differ.
 """
@@ -177,25 +177,12 @@ def test_loader_reconciles_tie_with_checkpoint_contents(tmp_path):
     assert "lm_head" in params
 
 
-@pytest.mark.parametrize("family,feature", [
-    ("tiny_qwen2_hf", "attention_bias"),
-    ("tiny_gemma2_hf", "sandwich_norms"),
-    ("tiny_mixtral_hf", "num_experts"),
-])
-def test_unported_families_are_refused_by_name(family, feature):
-    params, cfg = _load(family)
-    with pytest.raises(NotImplementedError, match=feature):
-        llama.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match=feature):
-        LLMEngine(params, cfg, load_tokenizer(None), dtype=torch.float32,
-                  device="cpu")
-
-
 def test_mistral_window_is_served():
-    _, cfg = _load("tiny_mistral_hf")
+    params, cfg = _load("tiny_mistral_hf")
     assert cfg.sliding_window and set(cfg.layer_windows()) == {
         cfg.sliding_window}
-    llama.check_supported(cfg)
+    LLMEngine(params, cfg, load_tokenizer(None), dtype=torch.float32,
+              device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -1197,3 +1197,248 @@ def test_warmup_captures_loop_and_mixed_graphs(cuda):
     ref = _loop_engine(cuda, TINY, params, torch.float32, graphs=False, **kw)
     assert toks == _drive_tiny(ref, tok, ["chat one", "chat two!"],
                                "a long prompt " * 5)
+
+
+# ---------------------------------------------------------------------------
+# the model families' shapes: Gemma-2 (H 16, KV 8, D 256, softcap 50, a
+# 4096 window) and Qwen2 (H 28, KV 4: G 7, D 128)
+# ---------------------------------------------------------------------------
+
+# (H, KV, D, window, softcap): gemma2-9b's local and global layers, a
+# window shorter than the rows, and qwen2-7b's full causal layers
+FAMILY_SHAPES = [(16, 8, 256, 4096, 50.0), (16, 8, 256, 0, 50.0),
+                 (16, 8, 256, 300, 0.0), (28, 4, 128, 0, 0.0),
+                 (28, 4, 128, 300, 30.0)]
+
+
+def _sentinel_below_window(tables, valid, window, ps, num_pages, lows):
+    """Set every table entry whose page lies wholly below the lowest query's
+    window edge to the engine's reclaim sentinel ``num_pages`` (what
+    ``_reclaim_window_pages`` leaves there): the kernels walk from the
+    window's edge and must read none of them. ``lows``: each row's lowest
+    query position."""
+    if window <= 0:
+        return tables
+    t = tables.clone()
+    for b, q in enumerate(lows):
+        dead = max(0, q - window + 1) // ps  # pages wholly below the edge
+        t[b, :dead] = num_pages
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pools", ["dense", "int8"])
+@pytest.mark.parametrize("H,KV,D,window,softcap", FAMILY_SHAPES)
+def test_family_decode_kernel(cuda, pools, H, KV, D, window, softcap):
+    """Decode rows up to 2048 keys in a 128-page table (split, merged in
+    the launch), with sentinel entries below each row's window."""
+    if pools == "int8":
+        q, pk, pv, tables = _int8_pools(cuda, torch.bfloat16, 8, H, KV, D,
+                                        16, 128, 1024, seed=D + H)
+    else:
+        q, pk, pv, tables = _pool_case(cuda, torch.bfloat16, 8, H, KV, D, 16,
+                                       128, 1024, seed=D + H)
+    tables = _sentinel_below_window(tables, LONG_VALID, window, 16, 1024,
+                                    [max(v - 1, 0) for v in LONG_VALID])
+    valid = torch.tensor(LONG_VALID, dtype=torch.int32, device=cuda)
+    kw = dict(page_size=16, sliding_window=window, attn_softcap=softcap)
+    assert pa._uses_mma(torch.bfloat16, D, H // KV)
+    counter = pa.paged_decode_int8 if pools == "int8" else pa.paged_decode
+    n = counter.launches
+    got = pa.paged_decode(q, pk, pv, tables, valid, **kw)
+    want = _decode_plain(pools)(q, pk, pv, tables, valid, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == n + 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+    assert not got[1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", sorted(DEEP_PREFILL))
+@pytest.mark.parametrize("T", [512, 77])
+@pytest.mark.parametrize("H,KV,D,window,softcap", FAMILY_SHAPES)
+def test_family_prefill_kernel(cuda, rows, T, H, KV, D, window, softcap):
+    """A [B, T] chunk over deep histories (whole and partial query tiles:
+    TQ = 64 at G 2, 18 at G 7), sentinels below each row's window."""
+    q_start, valid = DEEP_PREFILL[rows]
+    if q_start[0] + T > 2048:
+        T = 2048 - q_start[0]
+    B = len(q_start)
+    q, pk, pv, tables = _pool_case(cuda, torch.bfloat16, B, H, KV, D, 16,
+                                   128, 1024, T=T, seed=D + T)
+    tables = _sentinel_below_window(tables, None, window, 16, 1024, q_start)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    qs, vl = torch.tensor(q_start, **i32), torch.tensor(valid(T), **i32)
+    kw = dict(page_size=16, sliding_window=window, attn_softcap=softcap)
+    n = pa.paged_prefill.launches
+    got = pa.paged_prefill(q, pk, pv, tables, qs, vl, **kw)
+    want = pa.paged_prefill_plain(q, pk, pv, tables, qs, vl, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_prefill.launches == n + 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+    if B == 4:
+        assert not got[3].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(LONG_RAGGED))
+@pytest.mark.parametrize("H,KV,D,window,softcap", FAMILY_SHAPES)
+def test_family_ragged_kernel(cuda, case, H, KV, D, window, softcap):
+    args = list(_long_ragged_inputs(cuda, case, H, KV, D, seed=D + H))
+    tok_row, q_pos = args[4].tolist(), args[5].tolist()
+    lows = [min([p for r, p in zip(tok_row, q_pos) if r == b] or [0])
+            for b in range(args[3].shape[0])]
+    args[3] = _sentinel_below_window(args[3], None, window, 16, 2048, lows)
+    kw = dict(page_size=16, sliding_window=window, attn_softcap=softcap)
+    n = pa.paged_ragged.launches
+    got = pa.paged_ragged(*args, **kw)
+    want = pa.paged_ragged_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_ragged.launches == n + 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+    assert not got[args[4] < 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["decode", "prefill", "ragged"])
+def test_family_attention_is_deterministic(cuda, kernel):
+    """D 256: two calls on the same split inputs give the same bits."""
+    if kernel == "decode":
+        q, pk, pv, tables = _pool_case(cuda, torch.bfloat16, 8, 16, 8, 256,
+                                       16, 128, 1024, seed=21)
+        args = (q, pk, pv, tables, torch.tensor(LONG_VALID,
+                                                dtype=torch.int32,
+                                                device=cuda))
+        fn = pa.paged_decode
+    elif kernel == "ragged":
+        args = _long_ragged_inputs(cuda, "served mix", 16, 8, 256, seed=21)
+        fn = pa.paged_ragged
+    else:
+        q, pk, pv, tables = _pool_case(cuda, torch.bfloat16, 1, 16, 8, 256,
+                                       16, 128, 1024, T=64, seed=21)
+        i32 = dict(dtype=torch.int32, device=cuda)
+        args = (q, pk, pv, tables, torch.tensor([1900], **i32),
+                torch.tensor([1964], **i32))
+        fn = pa.paged_prefill
+    first = fn(*args, page_size=16, attn_softcap=50.0)
+    for _ in range(3):
+        assert torch.equal(fn(*args, page_size=16, attn_softcap=50.0), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 512, 3584), (8, 1, 3584)])
+def test_family_rms_norm_kernel(cuda, shape):
+    """H 3584 (gemma2-9b, qwen2-7b): a 4096-wide masked block."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(*shape, generator=g, device=cuda).bfloat16()
+    w = (1 + 0.1 * torch.randn(shape[-1], generator=g,
+                               device=cuda)).bfloat16()
+    got = fused.rms_norm(x, w, 1e-6)
+    torch.testing.assert_close(got.float(),
+                               fused.rms_norm_plain(x, w, 1e-6).float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 512, 16, 256), (8, 1, 8, 256)])
+def test_family_rope_kernel(cuda, shape):
+    """D 256 (gemma2-9b): half 128."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(*shape, generator=g, device=cuda).bfloat16()
+    pos = torch.randint(0, 8192, shape[:2], generator=g, device=cuda,
+                        dtype=torch.int32)
+    inv = rope_frequencies(256, 1e4, None, device=cuda)
+    got = fused.apply_rope(x, pos, inv)
+    torch.testing.assert_close(got.float(),
+                               fused.apply_rope_plain(x, pos, inv).float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 2048])
+def test_mixtral_int8_moe_kernel_path_matches_plain(cuda, M):
+    """2 Mixtral MoE layers at full width (8 experts of 4096 x 14336, top
+    2) with int8 experts, at a decode step's and a [4, 512] chunk's token
+    counts: each layer's 24 group-dequant launches give the plain path's
+    output within bf16 tolerance."""
+    from distributed_inference_server_tpu_torch.models.configs import (
+        MIXTRAL_8X7B,
+    )
+    from distributed_inference_server_tpu_torch.ops.quant import (
+        init_random_quantized,
+    )
+
+    cfg = MIXTRAL_8X7B.with_overrides(num_layers=2)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = init_random_quantized(cfg, "int8", gen, device=cuda)
+    x = torch.randn(1, M, cfg.hidden_size, generator=gen,
+                    device=cuda).bfloat16()
+    for layer in range(cfg.num_layers):
+        n = qm.quant_matmul_q8.launches
+        got = llama._moe_mlp(x, params["layers"], layer, cfg, "kernel")
+        torch.cuda.synchronize()
+        assert qm.quant_matmul_q8.launches == n + 3 * cfg.num_experts
+        want = llama._moe_mlp(x, params["layers"], layer, cfg, "plain")
+        assert qm.quant_matmul_q8.launches == n + 3 * cfg.num_experts
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_tol(torch.bfloat16))
+
+
+FAMILY_MODELS = ["gemma2-9b", "qwen2-7b", "mistral-7b", "mixtral-8x7b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", FAMILY_MODELS)
+def test_family_graph_path_matches_eager_path(cuda, model):
+    """2 layers of each family's width in bf16 (Mixtral with int8
+    experts): the captured decode blocks and prefill chunks give the eager
+    path's greedy tokens and launches (the D 256 and G 7 bodies, the MoE's
+    group-dequant products inside the captures)."""
+    from distributed_inference_server_tpu_torch.models.configs import (
+        get_config,
+    )
+    from distributed_inference_server_tpu_torch.ops.quant import (
+        init_random_quantized,
+    )
+
+    cfg = get_config(model).with_overrides(num_layers=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_random_quantized(cfg, "int8" if cfg.is_moe else "none",
+                                   gen, dtype=torch.bfloat16, device=cuda)
+    tok = ByteTokenizer()
+    outs = {}
+    for graphs in (True, False):
+        eng = LLMEngine(params, cfg, tok, EngineConfig(), device=cuda,
+                        _graphs=graphs)
+        outs[graphs] = _graph_trace(eng, tok, GRAPH_WAVES)
+        del eng
+    assert outs[True] == outs[False]
+    counts = outs[True][1]
+    assert counts["paged_decode"] > 0 and counts["paged_prefill"] > 0
+    assert (counts["quant_matmul_q8"] > 0) == cfg.is_moe
+
+
+@pytest.mark.gpu
+def test_window_reclaim_kernel_path_matches_plain(cuda):
+    """TINY with a 16-token window in f32 on the card, rows decoding far
+    past it: the kernels (which walk from the window's edge and never read
+    a sentinel page) give the plain path's tokens, pages are reclaimed and
+    the books balance."""
+    cfg = TINY.with_overrides(sliding_window=16)
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    outs = {}
+    for impl in ("kernel", "plain"):
+        eng = LLMEngine(params, cfg, tok, EngineConfig(
+            attention_impl=impl, max_batch=4, prefill_buckets=(8, 32),
+            paged=PagedCacheConfig(24, 4, 32)), dtype=torch.float32,
+            device=cuda)
+        outs[impl] = _graph_trace(eng, tok, [
+            [("window " * 6, 90), ("b", 100), ("a third row", 80)]])[0]
+        assert eng.step_clock_stats()["events"]["reclaim"] > 0
+        assert eng.audit_pages() == []
+        del eng
+    assert outs["kernel"] == outs["plain"]

@@ -228,11 +228,6 @@ def test_init_params_shapes_match_jax():
     assert 0.015 < std < 0.025
 
 
-def test_unsupported_families_raise():
-    with pytest.raises(NotImplementedError, match="num_experts"):
-        t_llama.check_supported(TINY.with_overrides(num_experts=4))
-
-
 # ---------------------------------------------------------------------------
 # quantized weights and int8 pools
 # ---------------------------------------------------------------------------
