@@ -92,22 +92,55 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    4096-token window and a ~4400-token prompt: ``reclaim`` events > 0,
    ``audit_pages()`` clean after every step, kernel tokens == plain.
 
+8. (``api``) the API surface, on the checkpoint server of item 6 (its
+   directory also holds a ``tokenizer_config.json`` with this script's
+   Llama-3-style Jinja ``chat_template``): the first mix's greedy prompts
+   streamed over SSE (``/generate`` with ``"stream": true``: every frame a
+   ``TokenEvent`` dict, in more than one read, the deltas joined == the
+   non-streamed texts, the tokens' log-probabilities == those of
+   ``/v1/completions`` with ``logprobs`` 0), then the four-request mix
+   streamed (each greedy stream's text and log-probabilities == its lone
+   run's); ``/chat`` and ``/v1/chat/completions``, streamed and not, ==
+   each other and == the in-process engine on the template's rendering
+   (the script renders it with jinja2); ``/v1/completions`` with ``n`` 2,
+   ``logprobs`` 0, a stop string and ``include_usage`` (its OpenAI shape
+   and usage); ``/embeddings`` and ``/v1/embeddings`` on 8 inputs of up
+   to 512 tokens and one past the largest bucket (unit norm, equal across
+   the two calls, == the in-process plain path within 1e-3 an element
+   and a cosine of 0.9999 an input, RMSNorm and RoPE launches rising),
+   and a greedy ``/v1/completions`` sent while a 64-input job runs gives
+   its solo run's text and log-probabilities exactly; a
+   client that closes its stream after three frames leaves no request in
+   flight and the live and allocatable page counts as before; ``/metrics``
+   parsed: ``request_latency_seconds_count`` per path == the POSTs sent,
+   ``time_to_first_token_seconds_count`` == the generation sequences. The
+   paged prefill, paged decode, RMSNorm and RoPE kernels must launch on
+   the streamed routes (counts zeroed just before them, read just after).
+   One ``api_timing`` line: client TTFT (first token-bearing frame) alone
+   and under the mix, frame gaps, tokens per burst, the server's own TTFT
+   over the same requests, embeddings latency and the ``/metrics``
+   scrape's bytes and ms.
+
 It also prints whether ``safetensors`` and ``tokenizers`` import (for
 information: the port reads safetensors itself).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (the
 quantized matmuls' rows add ``*_prefill`` keys: their M = 2048 layer); the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
-and prints no result. ``--phases kernels,serve,quant,engine,ckpt,families``
-selects phases (default: all; ``quant`` is phase 3's quantized kernels
-and phase 4's quantized servers; ``families`` is item 7). The summary
-rows carry the families' times under ``families`` and each family
-server's launches under ``launches_by_model``.
+and prints no result. ``--phases
+kernels,serve,quant,engine,ckpt,api,families`` selects phases (default:
+all; ``quant`` is phase 3's quantized kernels and phase 4's quantized
+servers; ``families`` is item 7, ``api`` item 8, which writes and serves
+item 6's checkpoint itself when ``ckpt`` is not selected). The summary
+rows carry the families' times under ``families``, each family
+server's launches under ``launches_by_model`` and the api phase's under
+``launches_api``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures as cf
 import contextlib
 import gc
@@ -119,7 +152,9 @@ import socket
 import subprocess
 import sys
 import time
+import http.client
 import urllib.error
+import urllib.parse
 import urllib.request
 
 import torch
@@ -132,6 +167,10 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 # ATOL + RTOL * |b| (about two bf16 ulps; both versions accumulate in f32
 # and differ only in summation order and the final rounding)
 ATOL, RTOL = 1e-2, 2.0 ** -7
+# the served embeddings against the plain path: unit vectors 2048 wide
+# (a typical element 1/sqrt(2048) = 0.022), held per element to
+# EMB_ATOL (about 0.05/sqrt(H)) and per input to a cosine of EMB_MIN_COS
+EMB_ATOL, EMB_MIN_COS = 1e-3, 0.9999
 
 
 T0 = time.monotonic()
@@ -889,12 +928,29 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+# POSTs sent per (host:port, path): the api phase holds the server's
+# request_latency_seconds counts against them
+POSTS: "collections.Counter" = collections.Counter()
+
+
+def _count_post(url: str) -> None:
+    parts = urllib.parse.urlsplit(url)
+    POSTS[(parts.netloc, parts.path)] += 1
+
+
 def _http(method, url, body=None, timeout=600.0):
+    if method == "POST":
+        _count_post(url)
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(url, data=data, method=method,
                                  headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=timeout) as resp:
-        return resp.status, json.loads(resp.read().decode())
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read().decode())
+    except urllib.error.HTTPError as e:  # the server's error body, shown
+        raise RuntimeError(f"{method} {url}: HTTP {e.code}: "
+                           f"{e.read().decode(errors='replace')[:2000]}"
+                           ) from None
 
 
 def _check_generate(status, body, max_tokens):
@@ -934,7 +990,8 @@ def _server(seed: int, extra, log_name: str, model: str = "llama-3.2-1b"):
                 st, health = _http("GET", base + "/health", timeout=5)
                 if st == 200 and health.get("status") == "ok":
                     break
-            except (urllib.error.URLError, ConnectionError, OSError):
+            except (urllib.error.URLError, ConnectionError, OSError,
+                    RuntimeError):
                 pass
             if time.monotonic() - t0 > 400:
                 raise RuntimeError("server did not become healthy in 400 s")
@@ -1374,12 +1431,16 @@ def phase_loop_timing(card: str, seed: int = 0) -> dict:
     return out
 
 
-def phase_checkpoint(card: str, seed: int, want: dict) -> None:
+def phase_checkpoint(card: str, seed: int, want, api: bool = False
+                     ) -> dict:
     """The port's saver writes the random llama-3.2-1b bf16 weights of
     ``seed`` (what the bf16 server draws) to a directory under the
-    gitignored ``build/``; the load is timed in process, then a server
-    started with ``--model-model-dir`` on it must answer the first mix's
-    greedy prompts with the random-weight server's texts (``want``)."""
+    gitignored ``build/``, beside a ``tokenizer_config.json`` with this
+    script's Llama-3-style chat template; the load is timed in process,
+    then a server started with ``--model-model-dir`` on it must answer the
+    first mix's greedy prompts with the random-weight server's texts
+    (``want``, when given). With ``api`` the same server then runs the
+    ``api`` phase. Returns the api phase's launches (empty without it)."""
     from distributed_inference_server_tpu_torch.models import llama
     from distributed_inference_server_tpu_torch.models.configs import (
         LLAMA_3_2_1B,
@@ -1413,18 +1474,546 @@ def phase_checkpoint(card: str, seed: int, want: dict) -> None:
     assert cfg.with_overrides(name=LLAMA_3_2_1B.name) == LLAMA_3_2_1B, cfg
     del params, loaded
     torch.cuda.empty_cache()
+    with open(os.path.join(ckpt, "tokenizer_config.json"), "w") as f:
+        json.dump({"chat_template": CHAT_TEMPLATE,
+                   "bos_token": "<|begin_of_text|>",
+                   "eos_token": "<|eot_id|>"}, f)
+    launches = {}
     with _server(seed, ["--model-model-dir", ckpt], "server_ckpt.log") as base:
         _, stats = _http("GET", base + "/server/stats")
         got = greedy_texts(base)
-    assert got == want, ("checkpoint server differs from the random-weight "
-                         "server", got, want)
-    log(json.dumps({"checkpoint": "llama-3.2-1b bf16 random weights from "
-                    "--seed, saved and served from --model-model-dir",
-                    "card": card, "bytes": nbytes, "save_s": save_s,
-                    "load_s": load_s, "load_gb_per_s": nbytes / load_s / 1e9,
-                    "server_warmup_s": stats["warmup_s"],
-                    "texts_match_random_weight_server": True}))
+        if want is not None:
+            assert got == want, ("checkpoint server differs from the "
+                                 "random-weight server", got, want)
+        log(json.dumps({"checkpoint": "llama-3.2-1b bf16 random weights "
+                        "from --seed, saved and served from "
+                        "--model-model-dir", "card": card, "bytes": nbytes,
+                        "save_s": save_s, "load_s": load_s,
+                        "load_gb_per_s": nbytes / load_s / 1e9,
+                        "server_warmup_s": stats["warmup_s"],
+                        "texts_match_random_weight_server":
+                        want is not None}))
+        if api:
+            phase_done("checkpoint")
+            launches = phase_api(card, base, ckpt, got)
     shutil.rmtree(ckpt, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the API surface (SSE, chat, /v1, embeddings, /metrics)
+# ---------------------------------------------------------------------------
+
+# the Llama-3 instruct format as a checkpoint's tokenizer_config.json
+# carries it; the script renders it itself (jinja2) for its reference ids
+CHAT_TEMPLATE = (
+    "{{ bos_token }}{% for m in messages %}<|start_header_id|>"
+    "{{ m['role'] }}<|end_header_id|>\n\n{{ m['content'] }}<|eot_id|>"
+    "{% endfor %}{% if add_generation_prompt %}<|start_header_id|>"
+    "assistant<|end_header_id|>\n\n{% endif %}")
+CHAT_MESSAGES = [{"role": "system", "content": "You answer in one line."},
+                 {"role": "user", "content": "Which prime follows 89?"}]
+API_KERNELS = ("paged_prefill", "paged_decode", "rms_norm", "rope")
+
+
+def _render_chat(messages) -> str:
+    from jinja2.sandbox import ImmutableSandboxedEnvironment
+
+    env = ImmutableSandboxedEnvironment(trim_blocks=True, lstrip_blocks=True)
+    return env.from_string(CHAT_TEMPLATE).render(
+        messages=messages, add_generation_prompt=True,
+        bos_token="<|begin_of_text|>", eos_token="<|eot_id|>")
+
+
+def _sse(base, path, body, close_after=None):
+    """POST ``body`` and read the SSE stream as it arrives: returns
+    ``{"frames": [(arrival s since send, parsed JSON or "[DONE]")],
+    "reads": reads that returned data}``. ``close_after``: close the
+    socket once that many frames arrived (a client that goes away)."""
+    _count_post(base + path)
+    parts = urllib.parse.urlsplit(base)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                      timeout=600)
+    t0 = time.monotonic()
+    conn.request("POST", path, json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200, (resp.status, resp.read()[:500])
+    ctype = resp.getheader("Content-Type") or ""
+    assert ctype.startswith("text/event-stream"), ctype
+    frames, buf, reads = [], b"", 0
+    while True:
+        piece = resp.read1(1 << 16)
+        if not piece:
+            break
+        reads += 1
+        now = time.monotonic() - t0
+        buf += piece
+        while b"\n\n" in buf:
+            frame, buf = buf.split(b"\n\n", 1)
+            text = frame.decode("utf-8")
+            assert text.startswith("data: "), text
+            payload = text[len("data: "):]
+            frames.append((now, payload if payload == "[DONE]"
+                           else json.loads(payload)))
+        if close_after is not None and len(frames) >= close_after:
+            conn.sock.close()
+            break
+    conn.close()
+    assert not buf, buf
+    return {"frames": frames, "reads": reads}
+
+
+def _token_event_ok(d) -> None:
+    """One native frame in the JAX package's ``TokenEvent`` wire shape."""
+    kind = d.get("type")
+    if kind == "token":
+        assert isinstance(d["token"], str) and isinstance(d["index"], int), d
+        assert set(d) <= {"type", "token", "index", "logprob"}, d
+        assert d.get("logprob", 0.0) <= 0.0, d
+    elif kind == "done":
+        assert d["finish_reason"] in ("stop", "length", "stop_sequence"), d
+        u = d["usage"]
+        assert u["total_tokens"] == u["prompt_tokens"] + u[
+            "completion_tokens"], d
+    else:
+        assert kind == "error" and "messages" in d and "code" in d, d
+
+
+def _native_stream(base, path, body) -> dict:
+    """A native stream (/generate, /chat) checked frame by frame: every
+    frame a TokenEvent dict, token frames before one done frame, then
+    ``[DONE]``. Adds ``text``, ``ttft_s`` (first token-bearing frame),
+    ``gaps_s`` (between token frames) and ``bursts`` (token frames per
+    burst: frames less than 1 ms apart)."""
+    out = _sse(base, path, body)
+    frames = out["frames"]
+    assert frames[-1][1] == "[DONE]", frames[-3:]
+    events = [f for f in frames[:-1]]
+    for _, d in events:
+        _token_event_ok(d)
+    assert events[-1][1]["type"] == "done", events[-1]
+    toks = [(t, d) for t, d in events[:-1]]
+    assert all(d["type"] == "token" for _, d in toks), toks
+    out["text"] = "".join(d["token"] for _, d in toks)
+    out["logprobs"] = [d["logprob"] for _, d in toks if "logprob" in d]
+    out["done"] = events[-1][1]
+    out["done_s"] = events[-1][0]
+    assert len(out["logprobs"]) == out["done"]["usage"]["completion_tokens"]
+    # the time of a token-bearing frame: one per sampled token (with a
+    # random-weight model most carry an id past the byte tokenizer's
+    # range, whose text is empty)
+    times = [t for t, d in toks if "logprob" in d]
+    out["ttft_s"] = times[0] if times else None
+    out["gaps_s"] = [b - a for a, b in zip(times, times[1:])]
+    bursts, last = [], None
+    for t in times:
+        if last is not None and t - last < 1e-3:
+            bursts[-1] += 1
+        else:
+            bursts.append(1)
+        last = t
+    out["bursts"] = bursts
+    return out
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, int(round(q * (len(xs) - 1)))))] \
+        if xs else None
+
+
+def _parse_prom(text: str) -> dict:
+    """The text exposition format: {family: {"type", "samples": [(name,
+    {label: value}, value)]}}; every sample belongs to a declared
+    family."""
+    fams, typed = {}, {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            typed[name] = kind
+            fams[name] = {"type": kind, "samples": []}
+            continue
+        if line.startswith("#"):
+            continue
+        head, value = line.rsplit(" ", 1)
+        labels = {}
+        if "{" in head:
+            name, rest = head.split("{", 1)
+            for pair in rest.rstrip("}").split('",'):
+                if pair:
+                    k, v = pair.split("=", 1)
+                    labels[k] = v.strip('"')
+        else:
+            name = head
+        fam = next((f for f in (name, name.rsplit("_", 1)[0])
+                    if f in typed), None)
+        assert fam is not None, f"sample {name} of no declared family"
+        fams[fam]["samples"].append((name, labels, float(value)))
+    return fams
+
+
+def _prom_sum(fams, family, sample, **labels) -> float:
+    return sum(v for n, lab, v in fams[family]["samples"] if n == sample
+               and all(lab.get(k) == x for k, x in labels.items()))
+
+
+def phase_api(card: str, base: str, ckpt: str, texts: dict) -> dict:
+    """The API surface on one llama-3.2-1b bf16 server (the checkpoint
+    server, with its template): streamed /generate == the non-streamed
+    texts; /chat and /v1/chat/completions (streamed and not) == the
+    in-process engine on the template's rendering; /v1/completions with
+    n 2, logprobs 0, a stop string and include_usage; /embeddings and
+    /v1/embeddings against the in-process plain path, with a greedy
+    /v1/completions during an embeddings job held to its solo run's
+    log-probabilities; a client that goes away
+    mid-stream; /metrics counts == the requests sent. Prints one
+    ``api_timing`` line. Returns the kernels' launches on the streamed
+    routes."""
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distributed_inference_server_tpu_torch.models.loader import (
+        load_checkpoint,
+    )
+    from distributed_inference_server_tpu_torch.models.tokenizer import (
+        ByteTokenizer,
+    )
+
+    netloc = urllib.parse.urlsplit(base).netloc
+    gen_sequences = 0  # engine sequences that will record a TTFT
+    gen_sequences += len(MIX_PROMPTS)  # the checkpoint phase's texts
+    _, m0 = _http("GET", base + "/server/stats")
+
+    def server_ttft(run):
+        """(the server's mean TTFT in ms over the requests of ``run()``,
+        their count): ``time_to_first_token_seconds`` sum and count read
+        from /metrics around it."""
+        key = ("time_to_first_token_seconds",
+               "time_to_first_token_seconds_")
+        before = _parse_prom(_get_text(base + "/metrics")[0])
+        out = run()
+        after = _parse_prom(_get_text(base + "/metrics")[0])
+        d = {x: _prom_sum(after, key[0], key[1] + x)
+             - _prom_sum(before, key[0], key[1] + x)
+             for x in ("sum", "count")}
+        return out, d["sum"] / d["count"] * 1e3, d["count"]
+
+    # -- streamed routes, counts zeroed just before and read just after
+    _reset_counts(base)
+    lone, lone_server_ms, n_lone = server_ttft(lambda: {
+        name: _native_stream(base, "/generate", {
+            "prompt": prompt, **GREEDY, "stream": True})
+        for name, prompt in MIX_PROMPTS.items()})
+    assert n_lone == len(MIX_PROMPTS), n_lone
+    solo_v1 = {}  # each prompt's unstreamed (text, token_logprobs)
+    for name, prompt in MIX_PROMPTS.items():
+        s = lone[name]
+        # the same request unstreamed, with its sampled tokens'
+        # log-probabilities: the streamed tokens are the same tokens
+        st, v1 = _http("POST", base + "/v1/completions", {
+            "prompt": prompt, **GREEDY, "logprobs": 0})
+        gen_sequences += 2
+        assert st == 200, v1
+        assert s["text"] == texts[name] == v1["choices"][0]["text"], (
+            "streamed text differs from the non-streamed one", name,
+            s["text"], texts[name])
+        solo_v1[name] = (v1["choices"][0]["text"],
+                         v1["choices"][0]["logprobs"]["token_logprobs"])
+        assert s["logprobs"] == solo_v1[name][1], (name, s["logprobs"], v1)
+        assert s["reads"] > 1 and s["ttft_s"] < s["done_s"], (
+            "the stream arrived all at once", name, s["reads"])
+    mix_jobs = [(MIX_PROMPTS["p20"], GREEDY), (MIX_PROMPTS["p100"], GREEDY),
+                (MIX_PROMPTS["p600"], GREEDY),
+                (MIX_PROMPTS["p100"], {"temperature": 0.8, "top_p": 0.9,
+                                       "max_tokens": 24})]
+
+    def run_mix():
+        with cf.ThreadPoolExecutor(len(mix_jobs)) as ex:
+            return list(ex.map(lambda j: _native_stream(
+                base, "/generate", {"prompt": j[0], **j[1],
+                                    "stream": True}), mix_jobs))
+
+    mix, mix_server_ms, n_mix = server_ttft(run_mix)
+    assert n_mix == len(mix_jobs), n_mix
+    gen_sequences += len(mix_jobs)
+    # the mix's greedy streams against their lone runs: the same text and
+    # the same sampled tokens' log-probabilities, exactly
+    for i, name in ((0, "p20"), (1, "p100"), (2, "p600")):
+        assert (mix[i]["text"], mix[i]["logprobs"]) == (
+            texts[name], lone[name]["logprobs"]), (
+            "a greedy stream of the mix differs from its lone run", name,
+            mix[i]["logprobs"], lone[name]["logprobs"])
+
+    # the conversation's first request runs cold; the next ones find its
+    # full pages in the prefix cache and prefill only the rest, a
+    # different chunk shape whose bf16 rounding may differ: the warm
+    # requests are held against each other, and each kind against the
+    # engine run the same way (below)
+    chat = {"messages": CHAT_MESSAGES, **GREEDY}
+    st, cold = _http("POST", base + "/v1/chat/completions",
+                     {**chat, "logprobs": True})
+    assert st == 200 and cold["object"] == "chat.completion", cold
+    st, chat_json = _http("POST", base + "/chat", chat)
+    assert st == 200 and chat_json["object"] == "chat.completion", chat_json
+    chat_text = chat_json["choices"][0]["message"]["content"]
+    chat_sse = _native_stream(base, "/chat", {**chat, "stream": True})
+    st, v1_json = _http("POST", base + "/v1/chat/completions",
+                        {**chat, "logprobs": True})
+    assert st == 200 and v1_json["object"] == "chat.completion", v1_json
+    v1_sse = _sse(base, "/v1/chat/completions", {**chat, "logprobs": True,
+                                                  "stream": True})
+    gen_sequences += 5
+    assert v1_sse["frames"][-1][1] == "[DONE]"
+    v1_chunks = [d for _, d in v1_sse["frames"][:-1]]
+    assert all(c["object"] == "chat.completion.chunk" for c in v1_chunks)
+    assert v1_chunks[0]["choices"][0]["delta"].get("role") == "assistant"
+    v1_text = "".join(c["choices"][0]["delta"].get("content", "")
+                      for c in v1_chunks)
+    assert (chat_sse["text"] == v1_json["choices"][0]["message"]["content"]
+            == v1_text == chat_text), (chat_text, chat_sse["text"], v1_text)
+    v1_lps = [e["logprob"] for c in v1_chunks
+              if c["choices"][0]["logprobs"]
+              for e in c["choices"][0]["logprobs"]["content"]]
+    json_lps = [e["logprob"] for e in
+                v1_json["choices"][0]["logprobs"]["content"]]
+    assert chat_sse["logprobs"] == v1_lps == json_lps, (
+        chat_sse["logprobs"], v1_lps, json_lps)
+    _, after_streams = _http("GET", base + "/server/stats")
+    launches = after_streams["kernel_launches"]
+    for name in API_KERNELS:
+        assert launches[name] > 0, (
+            f"kernel {name} never launched on the streamed routes")
+    phase_done("api: streamed routes")
+
+    # -- /v1/completions: n 2, logprobs 0, a stop string, include_usage
+    stop = texts["p20"][5:8] or "\n"
+    comp = {"prompt": MIX_PROMPTS["p20"], "n": 2, "logprobs": 0,
+            "stop": stop, **GREEDY}
+    st, cj = _http("POST", base + "/v1/completions", comp)
+    assert st == 200 and cj["object"] == "text_completion", cj
+    assert [c["index"] for c in cj["choices"]] == [0, 1]
+    for c in cj["choices"]:
+        assert set(c) == {"text", "index", "logprobs", "finish_reason"}, c
+        assert c["finish_reason"] in ("stop", "length"), c
+        lp = c["logprobs"]
+        assert set(lp) == {"tokens", "token_logprobs", "top_logprobs",
+                           "text_offset"}, lp
+        assert len(lp["tokens"]) == len(lp["token_logprobs"]) == len(
+            lp["text_offset"]) and lp["top_logprobs"] is None
+        assert stop not in c["text"], (stop, c)
+    u = cj["usage"]
+    assert u["prompt_tokens"] == len(MIX_PROMPTS["p20"].encode()) + 1, u
+    assert u["total_tokens"] == u["prompt_tokens"] + u["completion_tokens"]
+    cs = _sse(base, "/v1/completions", {
+        **comp, "stream": True, "stream_options": {"include_usage": True}})
+    gen_sequences += 4
+    assert cs["frames"][-1][1] == "[DONE]"
+    chunks = [d for _, d in cs["frames"][:-1]]
+    assert all(c["object"] == "text_completion" and "usage" in c
+               for c in chunks)
+    finishes = collections.Counter(
+        c["choices"][0]["index"] for c in chunks
+        if c["choices"] and c["choices"][0]["finish_reason"] is not None)
+    assert finishes == {0: 1, 1: 1}, finishes
+    assert chunks[-1]["choices"] == [] and chunks[-1]["usage"] == u, (
+        chunks[-1], u)
+    assert all(c["usage"] is None for c in chunks[:-1])
+    streamed = ["".join(c["choices"][0]["text"] for c in chunks[:-1]
+                        if c["choices"][0]["index"] == i) for i in (0, 1)]
+    assert streamed == [c["text"] for c in cj["choices"]], (streamed, cj)
+    phase_done("api: /v1/completions")
+
+    # -- the in-process references on the checkpoint's weights
+    tok = ByteTokenizer()
+    params, cfg = load_checkpoint(ckpt, dtype=torch.bfloat16, device="cuda")
+
+    # -- embeddings: 8 inputs of up to 512 tokens and one past the bucket
+    inputs = [("Embeddings pool the final hidden states. " * 13)[:n]
+              for n in (5, 40, 90, 200, 300, 420, 480, 511)]
+    inputs.append(("An input longer than the largest bucket. " * 40)[:1300])
+    counts0 = _http("GET", base + "/server/stats")[1]["kernel_launches"]
+    t = time.monotonic()
+    st, emb = _http("POST", base + "/embeddings", {"input": inputs})
+    emb_s = time.monotonic() - t
+    assert st == 200 and emb["object"] == "list", emb
+    counts1 = _http("GET", base + "/server/stats")[1]["kernel_launches"]
+    for name in ("rms_norm", "rope"):
+        assert counts1[name] > counts0[name], (name, counts0, counts1)
+    t = time.monotonic()
+    st, emb2 = _http("POST", base + "/v1/embeddings", {"input": inputs})
+    emb2_s = time.monotonic() - t
+    assert st == 200
+    got = torch.tensor([d["embedding"] for d in emb["data"]])
+    got2 = torch.tensor([d["embedding"] for d in emb2["data"]])
+    assert torch.equal(got, got2), "two embeddings calls differ"
+    norms = got.norm(dim=-1)
+    assert ((norms - 1).abs() < 1e-4).all(), norms
+    assert emb["usage"]["prompt_tokens"] == sum(
+        len(s.encode()) + 1 for s in inputs)
+    plain = LLMEngine(params, cfg, tok, EngineConfig(attention_impl="plain"),
+                      dtype=torch.bfloat16, device="cuda", _graphs=False)
+    want = torch.from_numpy(plain.embed_ids([tok.encode(s) for s in inputs]))
+    emb_err = float((got - want).abs().max())
+    emb_cos = float(torch.nn.functional.cosine_similarity(got, want).min())
+    assert emb_err <= EMB_ATOL and emb_cos >= EMB_MIN_COS, (
+        "embeddings differ from the plain path", emb_err, emb_cos)
+    del plain
+    # a greedy request while a large embeddings job runs: its text and
+    # sampled tokens' log-probabilities are its solo run's, exactly
+    big = [("Batch after batch of embeddings inputs. " * 13)[:511]
+           for _ in range(64)]
+    with cf.ThreadPoolExecutor(1) as ex:
+        t_emb = time.monotonic()
+        fut = ex.submit(_http, "POST", base + "/embeddings", {"input": big})
+        time.sleep(0.02)
+        t_sent = time.monotonic()
+        st, during = _http("POST", base + "/v1/completions", {
+            "prompt": MIX_PROMPTS["p20"], **GREEDY, "logprobs": 0})
+        gen_sequences += 1
+        st_big, big_body = fut.result()
+        t_big = time.monotonic()
+    assert st == 200 and st_big == 200 and len(big_body["data"]) == 64
+    during = (during["choices"][0]["text"],
+              during["choices"][0]["logprobs"]["token_logprobs"])
+    assert during == solo_v1["p20"], (
+        "a decode beside the embeddings job differs from its solo run",
+        during, solo_v1["p20"])
+    assert t_sent < t_big, "the /generate went out after the job ended"
+    phase_done("api: embeddings")
+
+    # -- a client that goes away mid-stream
+    _, s0 = _http("GET", base + "/server/stats")
+
+    def pages(stats):
+        (w,) = stats["worker_statuses"]
+        return (w["memory_used_pages"] - w["pages_cached"],
+                stats["cache"]["pages_free"] + stats["cache"]["pages_cached"])
+
+    gone = _sse(base, "/generate", {"prompt": MIX_PROMPTS["p100"],
+                                    "max_tokens": 1500, **GREEDY,
+                                    "stream": True}, close_after=3)
+    gen_sequences += 1
+    assert len(gone["frames"]) >= 3
+    deadline = time.monotonic() + 30
+    while True:
+        _, s1 = _http("GET", base + "/server/stats")
+        if s1["requests_in_flight"] == 0 and pages(s1) == pages(s0):
+            break
+        assert time.monotonic() < deadline, (
+            "the abandoned stream still holds its request or pages",
+            s1["requests_in_flight"], pages(s1), pages(s0))
+        time.sleep(0.05)
+    assert s1["tokens_generated"] - s0["tokens_generated"] < 1500
+    phase_done("api: disconnect")
+
+    # -- /metrics against what was sent
+    t = time.monotonic()
+    text, nbytes = _get_text(base + "/metrics")
+    scrape_ms = (time.monotonic() - t) * 1e3
+    prom = _parse_prom(text)
+    sent = {path: n for (loc, path), n in POSTS.items() if loc == netloc}
+    for path, n in sent.items():
+        got_n = _prom_sum(prom, "request_latency_seconds",
+                          "request_latency_seconds_count", endpoint=path)
+        assert got_n == n, (path, got_n, n)
+    ttft_n = _prom_sum(prom, "time_to_first_token_seconds",
+                       "time_to_first_token_seconds_count")
+    assert ttft_n == gen_sequences, (ttft_n, gen_sequences)
+    for fam in ("request_latency_seconds", "tokens_generated_total",
+                "engine_up", "engine_step_dispatches_total", "queue_depth"):
+        assert fam in prom, fam
+    _, s2 = _http("GET", base + "/server/stats")
+    phase_done("api: /metrics")
+
+    # -- /chat against the engine on the template's rendering: the byte
+    # ids of the rendering, no BOS id (/generate would prepend one), so the
+    # reference is the engine itself, run as the server runs it (warmup
+    # first, so every dispatch is the same graph replay)
+    ref = LLMEngine(params, cfg, tok, EngineConfig(),
+                    dtype=torch.bfloat16, device="cuda")
+    ref.warmup()
+    chat_ids = tok.encode(_render_chat(CHAT_MESSAGES), add_bos=False)
+    assert chat_json["usage"]["prompt_tokens"] == len(chat_ids), (
+        chat_json["usage"], len(chat_ids))
+    runs = []
+    for run in ("cold", "warm"):
+        ref.add_request(run, chat_ids, SamplingParams(**GREEDY))
+        text, lps = "", []
+        while ref.has_work():
+            for o in ref.step():
+                text += o.text
+                if o.logprob is not None:
+                    lps.append(o.logprob)
+        runs.append((text, lps))
+    # the embeddings forward alone, in process (no HTTP, no JSON): the
+    # 9 inputs' device batches, once to warm and once timed
+    emb_ids = [tok.encode(x) for x in inputs]
+    ref.embed_ids(emb_ids)
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    ref.embed_ids(emb_ids)
+    torch.cuda.synchronize()
+    emb_engine_ms = (time.monotonic() - t) * 1e3
+    cold_lps = [e["logprob"] for e in cold["choices"][0]["logprobs"]
+                ["content"]]
+    got = [(cold["choices"][0]["message"]["content"], cold_lps),
+           (chat_text, chat_sse["logprobs"])]
+    assert got == runs, ("chat differs from the engine on the template's "
+                         "rendering", got, runs)
+    del ref, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("api: chat against the engine")
+
+    streams = list(lone.values()) + mix + [chat_sse]
+    gaps = [g for s in streams for g in s["gaps_s"]]
+    bursts = [b for s in streams for b in s["bursts"]]
+
+    def mean_ms(xs):
+        return sum(xs) / len(xs) * 1e3
+
+    log(json.dumps({
+        "api_timing": "llama-3.2-1b bf16 checkpoint server, max_batch 8, "
+                      "K 8, pipeline depth 1, CUDA graphs", "card": card,
+        "lone_ttft_ms": {k: v["ttft_s"] * 1e3 for k, v in lone.items()},
+        "mix_ttft_ms_p50": _pct([s["ttft_s"] for s in mix], 0.5) * 1e3,
+        "mix_ttft_ms_max": max(s["ttft_s"] for s in mix) * 1e3,
+        "frame_gap_ms_p50": _pct(gaps, 0.5) * 1e3,
+        "frame_gap_ms_p99": _pct(gaps, 0.99) * 1e3,
+        "tokens_per_burst_mean": sum(bursts) / len(bursts),
+        "tokens_per_burst_p50": _pct(bursts, 0.5),
+        # the same requests' TTFT at the client and at the server (submit
+        # to the first token's dispatch): the difference is the HTTP layer
+        "lone_ttft_ms_mean": {"client": mean_ms(
+            [s["ttft_s"] for s in lone.values()]),
+            "server": lone_server_ms},
+        "mix_ttft_ms_mean": {"client": mean_ms([s["ttft_s"] for s in mix]),
+                             "server": mix_server_ms},
+        "server_average_ttft_ms": s2["average_ttft_ms"],
+        "embeddings_9_inputs_ms": [emb_s * 1e3, emb2_s * 1e3],
+        "embeddings_9_inputs_engine_ms": emb_engine_ms,
+        "embeddings_64x511_ms": (t_big - t_emb) * 1e3,
+        "embeddings_max_abs_err_vs_plain": emb_err,
+        "embeddings_min_cosine_vs_plain": emb_cos,
+        "metrics_scrape_bytes": nbytes, "metrics_scrape_ms": scrape_ms,
+        "requests_sent": sent, "ttft_count": ttft_n,
+        "launches_streamed_routes": {k: launches[k] for k in API_KERNELS},
+        "startup_total_requests": m0["total_requests"],
+    }))
+    return launches
+
+
+def _get_text(url: str):
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        ctype = resp.headers.get("Content-Type", "")
+        assert ctype.startswith("text/plain"), ctype
+        body = resp.read()
+    return body.decode(), len(body)
 
 
 # ---------------------------------------------------------------------------
@@ -1981,7 +2570,7 @@ KERNEL_META = {
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,serve,quant,engine,ckpt,families")
+                    default="kernels,serve,quant,engine,ckpt,api,families")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2083,12 +2672,15 @@ def main(argv=None) -> int:
             for name in need:  # each family server's own launches
                 launches[f"{name} ({model})"] = got[name]
             phase_done(f"serve {label}")
-    if "ckpt" in phases:
-        if texts is None:  # the random-weight server's texts to match
+    api_launches = {}
+    if "ckpt" in phases or "api" in phases:
+        if texts is None and "ckpt" in phases:
+            # the random-weight server's texts to match
             with _server(args.seed, [], "server.log") as base:
                 texts = greedy_texts(base)
-        phase_checkpoint(card, args.seed, texts)
-        phase_done("checkpoint")
+        api_launches = phase_checkpoint(card, args.seed, texts,
+                                        api="api" in phases)
+        phase_done("api" if "api" in phases else "checkpoint")
     if "engine" in phases:
         phase_engine_f32(args.seed)
         phase_engine_quant_f32(args.seed)
@@ -2114,6 +2706,8 @@ def main(argv=None) -> int:
             "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
             "library_ms": rec.get("library_ms"),
         }
+        if api_launches:  # the streamed and OpenAI routes' own launches
+            row["launches_api"] = api_launches.get(name)
         d128 = next((r for r in checks.get(name, [])
                      if r["case"].startswith("D128") and "ms" in r), None)
         if d128 is not None:  # the same work at llama-3-8b's head size

@@ -8,7 +8,8 @@
 With ``--model-model-dir`` the config and weights come from that HF
 checkpoint directory (``models/loader.py load_checkpoint``) and the
 tokenizer from its ``tokenizer.json`` (the byte tokenizer when it has
-none); without it the weights are random, drawn from ``--seed``, for the
+none), with the chat template of its ``tokenizer_config.json`` when it
+has one; without it the weights are random, drawn from ``--seed``, for the
 ``--model-model-name`` preset (every family: llama-3.2-1b, llama-3-8b,
 llama-3-70b, mistral-7b, qwen2-7b, gemma2-9b, mixtral-8x7b, and the tiny
 test configs), with the byte tokenizer. The engine runs on ``cuda``
@@ -77,7 +78,8 @@ def _bool(text: str) -> bool:
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m distributed_inference_server_tpu_torch",
-        description="Serve /generate with the PyTorch/CUDA engine.")
+        description="Serve /generate, /chat, /v1/*, /embeddings and "
+                    "/metrics with the PyTorch/CUDA engine.")
     ap.add_argument("--model-model-name", default="llama-3.2-1b")
     ap.add_argument("--model-model-dir", default="",
                     help="HF checkpoint directory (config.json, "

@@ -40,3 +40,6 @@ class Priority(enum.IntEnum):
             except KeyError:
                 raise ValueError(f"invalid priority: {value!r}") from None
         raise ValueError(f"invalid priority: {value!r}")
+
+    def to_json(self) -> str:
+        return self.name.capitalize()

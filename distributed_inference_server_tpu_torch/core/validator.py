@@ -1,5 +1,6 @@
 """Request validation against configurable limits (port of
-``distributed_inference_server_tpu/core/validator.py``, ``/generate`` only).
+``distributed_inference_server_tpu/core/validator.py``: ``/generate``,
+``/chat`` and ``/embeddings``).
 
 The chars/4 token estimate is the admission check; the engine re-counts with
 the real tokenizer and rejects prompts it cannot seat.
@@ -12,9 +13,14 @@ from dataclasses import dataclass
 from distributed_inference_server_tpu_torch.core.errors import (
     EmptyPrompt,
     InvalidParameter,
+    MissingField,
     TokenLimitExceeded,
 )
-from distributed_inference_server_tpu_torch.core.models import GenerateRequest
+from distributed_inference_server_tpu_torch.core.models import (
+    ChatRequest,
+    EmbeddingsRequest,
+    GenerateRequest,
+)
 
 
 @dataclass(frozen=True)
@@ -37,28 +43,60 @@ class RequestValidator:
             return 0
         return (len(text) + 3) // 4
 
-    def validate_generate(self, request: GenerateRequest) -> GenerateRequest:
+    def _check_sampling_params(self, max_tokens: int, temperature: float,
+                               top_p: float) -> None:
         cfg = self.config
-        if not request.prompt.strip():
-            raise EmptyPrompt()
-        prompt_tokens = self.token_count(request.prompt)
-        if prompt_tokens > cfg.max_context_tokens:
-            raise TokenLimitExceeded(prompt_tokens, cfg.max_context_tokens)
-        if request.max_tokens < 0 or request.max_tokens > cfg.max_output_tokens:
+        if max_tokens < 0 or max_tokens > cfg.max_output_tokens:
             raise InvalidParameter(
                 "max_tokens",
-                f"must be <= {cfg.max_output_tokens}, got {request.max_tokens}",
+                f"must be <= {cfg.max_output_tokens}, got {max_tokens}",
             )
-        if not (cfg.min_temperature <= request.temperature <= cfg.max_temperature):
+        if not (cfg.min_temperature <= temperature <= cfg.max_temperature):
             raise InvalidParameter(
                 "temperature",
                 f"must be between {cfg.min_temperature} and "
-                f"{cfg.max_temperature}, got {request.temperature}",
+                f"{cfg.max_temperature}, got {temperature}",
             )
-        if not (cfg.min_top_p <= request.top_p <= cfg.max_top_p):
+        if not (cfg.min_top_p <= top_p <= cfg.max_top_p):
             raise InvalidParameter(
                 "top_p",
                 f"must be between {cfg.min_top_p} and {cfg.max_top_p}, "
-                f"got {request.top_p}",
+                f"got {top_p}",
             )
+
+    def validate_generate(self, request: GenerateRequest) -> GenerateRequest:
+        if not request.prompt.strip():
+            raise EmptyPrompt()
+        prompt_tokens = self.token_count(request.prompt)
+        if prompt_tokens > self.config.max_context_tokens:
+            raise TokenLimitExceeded(prompt_tokens,
+                                     self.config.max_context_tokens)
+        self._check_sampling_params(request.max_tokens, request.temperature,
+                                    request.top_p)
+        return request
+
+    def validate_chat(self, request: ChatRequest) -> ChatRequest:
+        if not request.messages:
+            raise MissingField("messages")
+        if not any(m.content.strip() for m in request.messages):
+            raise EmptyPrompt()
+        total = sum(self.token_count(m.content) for m in request.messages)
+        if total > self.config.max_context_tokens:
+            raise TokenLimitExceeded(total, self.config.max_context_tokens)
+        self._check_sampling_params(request.max_tokens, request.temperature,
+                                    request.top_p)
+        return request
+
+    def validate_embeddings(self, request: EmbeddingsRequest
+                            ) -> EmbeddingsRequest:
+        inputs = request.input_list()
+        if not inputs:
+            raise MissingField("input")
+        for i, text in enumerate(inputs):
+            if not text.strip():
+                raise InvalidParameter(f"input[{i}]", "cannot be empty")
+            tokens = self.token_count(text)
+            if tokens > self.config.max_context_tokens:
+                raise TokenLimitExceeded(tokens,
+                                         self.config.max_context_tokens)
         return request

@@ -72,8 +72,13 @@ with every ``EngineConfig`` default, and the ragged mixed step).
   O(window), not O(length). The kernels walk each row from its window's
   lower edge and never read them; the plain path clamps and masks them.
 
+- **Embeddings** (``embed_start`` / ``embed_step`` / ``embed_finish``):
+  mean-pooled, L2-normalised final hidden states, one batch of at most
+  ``max_batch`` bucket-sized chunks per step, so the serving runner can
+  interleave an embeddings job with decode.
+
 Not ported yet: speculation (and so speculation inside looped blocks),
-meshes, the host tier, KV handoff and embeddings.
+meshes, the host tier and KV handoff.
 
 Threading: the engine is synchronous and single-owner (one ``step()``
 caller); the serving layer runs it on a dedicated thread.
@@ -294,6 +299,18 @@ class _Seq:
 
     def num_output_tokens(self) -> int:
         return len(self.token_ids) - self.prompt_len
+
+
+@dataclass
+class _EmbedState:
+    """An embeddings job: the (input index, chunk ids) work list, the
+    next chunk to run, the per-input pooled sums (on the engine device)
+    and valid-token counts."""
+
+    work: List[Tuple[int, List[int]]]
+    sums: torch.Tensor
+    counts: np.ndarray
+    idx: int = 0
 
 
 class _Graph:
@@ -756,6 +773,79 @@ class LLMEngine:
                 if p != sentinel]
         live.extend(extra_pages)
         return self.allocator.audit(live)
+
+    # ------------------------------------------------------------------
+    # embeddings (the /embeddings routes' compute)
+    # ------------------------------------------------------------------
+
+    def embed_start(self, ids_list: List[List[int]]) -> "_EmbedState":
+        """Begin an incremental embeddings computation: inputs longer than
+        the largest prefill bucket split into bucket-sized chunks, and the
+        chunks form one work list that ``embed_step`` runs ``max_batch``
+        rows at a time (the serving runner interleaves the steps with
+        decode). The pooled sums stay on the device until
+        ``embed_finish``."""
+        max_bucket = self.ecfg.prefill_buckets[-1]
+        work = [(b, row[start:start + max_bucket])
+                for b, row in enumerate(ids_list)
+                for start in range(0, len(row), max_bucket)]
+        return _EmbedState(
+            work=work,
+            sums=torch.zeros((len(ids_list), self.cfg.hidden_size),
+                             dtype=torch.float32, device=self.device),
+            counts=np.zeros((len(ids_list),), np.float32))
+
+    def embed_step(self, state: "_EmbedState") -> bool:
+        """Run one device batch of the work list; True when done. Each
+        chunk is its own sequence from position 0 (``llama.hidden_states``
+        over the engine's ``attention_impl``: on ``cuda`` the kernel path's
+        RMSNorm and RoPE); its final hidden states, masked to its valid
+        tokens, are summed in f32 into its input's row. On ``cuda`` the
+        batch is queued on the engine stream behind any block in flight,
+        with no wait on the device."""
+        if state.idx >= len(state.work):
+            return True
+        batch = state.work[state.idx:state.idx + self.ecfg.max_batch]
+        state.idx += len(batch)
+        bucket = self._pick_bucket(max(len(c) for _, c in batch))
+        B = len(batch)
+        ids = np.zeros((B, bucket), np.int32)
+        lens = np.zeros((B,), np.int32)
+        for j, (b, chunk) in enumerate(batch):
+            ids[j, :len(chunk)] = chunk
+            lens[j] = len(chunk)
+            state.counts[b] += len(chunk)
+        with self._on_stream():
+            d_lens = self._device_array(lens)
+            pos = torch.arange(bucket, dtype=torch.int32,
+                               device=self.device).repeat(B, 1)
+            h = llama.hidden_states(self.params, self.cfg,
+                                    self._device_array(ids), pos, d_lens,
+                                    impl=self.ecfg.attention_impl)
+            mask = (pos < d_lens[:, None]).to(torch.float32)
+            pooled = (h * mask[:, :, None]).sum(1)
+            # one add per chunk, in work-list order: the sums come out the
+            # same on every run (an atomic scatter would not)
+            for j, (b, _) in enumerate(batch):
+                state.sums[b].add_(pooled[j])
+        return state.idx >= len(state.work)
+
+    def embed_finish(self, state: "_EmbedState") -> np.ndarray:
+        """Mean-pooled, L2-normalised [inputs, hidden] f32: the one read
+        of the pooled sums from the device."""
+        with self._on_stream():
+            sums = state.sums.cpu().numpy()
+        pooled = sums / np.maximum(state.counts, 1.0)[:, None]
+        norms = np.linalg.norm(pooled, axis=-1, keepdims=True)
+        return pooled / np.maximum(norms, 1e-9)
+
+    def embed_ids(self, ids_list: List[List[int]]) -> np.ndarray:
+        """Mean-pooled, L2-normalised final hidden states per input: the
+        one-shot form of the incremental API above."""
+        state = self.embed_start(ids_list)
+        while not self.embed_step(state):
+            pass
+        return self.embed_finish(state)
 
     # ------------------------------------------------------------------
     # step clock

@@ -1,0 +1,514 @@
+"""Serving metrics: Prometheus text for ``GET /metrics`` and the JSON
+snapshot of ``GET /server/stats`` (port of
+``distributed_inference_server_tpu/serving/metrics.py``: ``EngineStatus``,
+``MetricsSnapshot`` and the part of ``MetricsCollector`` that one
+unified-role replica records).
+
+The families, their types, label names and histogram buckets are the
+reference collector's. The text exposition format (version 0.0.4) is
+written here, as ``prometheus_client`` writes it: ``# HELP`` / ``# TYPE``
+per family, a counter's samples under ``<name>_total``, a histogram's as
+``_bucket{le=...}`` (cumulative, ``+Inf`` last), ``_sum`` and ``_count``,
+labels sorted by name. A family with labels shows samples only for the
+label values recorded so far; one without shows its zero from the start.
+
+Not here (they come with their modules): speculation, the host tier,
+disaggregated handoff, peer prefix fetch and routing, the fleet and its
+registry HA, restarts and redispatch, admission shedding and gray-failure
+health, the request-phase tracing and SLO accounting.
+
+Requests, tokens, batches, TTFT and step seconds are recorded as they
+happen; the engine's own cumulative counters (cache, mixed step, looped
+blocks, step clock, waiting queue) are set from its totals when
+``/metrics`` or ``/server/stats`` is read (``observe_engine``), so the
+step loop does no metrics work for them.
+
+Thread-safe: the engine thread, the HTTP handler threads and the
+server all record into one collector.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
+
+# rolling windows for the snapshot's derived values
+_TOKEN_WINDOW_S = 10.0
+_TTFT_WINDOW = 1024
+_LATENCY_WINDOW_S = 60.0
+
+
+@dataclass(frozen=True)
+class EngineStatus:
+    """Health and load of one engine replica (the reference's fields for
+    a unified-role, in-process replica)."""
+
+    engine_id: str
+    healthy: bool
+    active_requests: int
+    waiting_requests: int
+    total_processed: int
+    # raw page occupancy (pages off the free list, cached prefix pages
+    # included); live pressure is used - cached
+    memory_used_pages: int = 0
+    memory_total_pages: int = 0
+    pages_cached: int = 0
+    role: str = "unified"
+    # engine.mixed_stats() / engine.loop_stats(); None while off
+    mixed: Any = None
+    loop: Any = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = {
+            "engine_id": self.engine_id,
+            "healthy": self.healthy,
+            "active_requests": self.active_requests,
+            "waiting_requests": self.waiting_requests,
+            "total_processed": self.total_processed,
+            "memory_used_pages": self.memory_used_pages,
+            "memory_total_pages": self.memory_total_pages,
+            "pages_cached": self.pages_cached,
+            "role": self.role,
+        }
+        if self.mixed is not None:
+            d["mixed"] = self.mixed
+        if self.loop is not None:
+            d["loop"] = self.loop
+        return d
+
+
+@dataclass(frozen=True)
+class MetricsSnapshot:
+    """The JSON stats snapshot (``/server/stats``)."""
+
+    total_requests: int
+    active_requests: int
+    tokens_per_second: float
+    average_ttft_ms: float
+    average_latency_ms: float
+    p99_latency_ms: float
+    average_batch_size: float
+    cache_hit_rate: float
+    queue_depth: int
+    worker_statuses: Tuple[EngineStatus, ...] = ()
+    uptime_seconds: float = 0.0
+    # prefix-cache block: allocator hit / miss / eviction totals and the
+    # page-granular prefix hits by tier
+    cache: Optional[Dict[str, Any]] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        out = {
+            "total_requests": self.total_requests,
+            "active_requests": self.active_requests,
+            "tokens_per_second": round(self.tokens_per_second, 3),
+            "average_ttft_ms": round(self.average_ttft_ms, 3),
+            "average_latency_ms": round(self.average_latency_ms, 3),
+            "p99_latency_ms": round(self.p99_latency_ms, 3),
+            "average_batch_size": round(self.average_batch_size, 3),
+            "cache_hit_rate": round(self.cache_hit_rate, 4),
+            "queue_depth": self.queue_depth,
+            "worker_statuses": [w.to_dict() for w in self.worker_statuses],
+            "uptime_seconds": round(self.uptime_seconds, 1),
+        }
+        if self.cache is not None:
+            out["cache"] = self.cache
+        return out
+
+
+# ---------------------------------------------------------------------------
+# a minimal registry and the text exposition format
+# ---------------------------------------------------------------------------
+
+
+def _num(v: float) -> str:
+    v = float(v)
+    if math.isinf(v):
+        return "+Inf" if v > 0 else "-Inf"
+    if math.isnan(v):
+        return "NaN"
+    return repr(v)
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", r"\\").replace("\n", r"\n").replace('"', r"\"")
+
+
+def _labelstr(pairs: Sequence[Tuple[str, str]]) -> str:
+    if not pairs:
+        return ""
+    return "{" + ",".join(f'{k}="{_escape_label(v)}"'
+                          for k, v in sorted(pairs)) + "}"
+
+
+class _Child:
+    """One labelled series: a value, or a histogram's bucket counts, sum
+    and count."""
+
+    __slots__ = ("_family", "value", "buckets", "sum", "count")
+
+    def __init__(self, family: "_Family"):
+        self._family = family
+        self.value = 0.0
+        self.buckets = [0] * len(family.buckets)
+        self.sum = 0.0
+        self.count = 0
+
+    def inc(self, n: float = 1.0) -> None:
+        if self._family.kind == "counter" and n < 0:
+            raise ValueError("counters only go up")
+        with self._family.lock:
+            self.value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        with self._family.lock:
+            self.value -= n
+
+    def set(self, v: float) -> None:
+        with self._family.lock:
+            self.value = float(v)
+
+    def observe(self, v: float) -> None:
+        with self._family.lock:
+            self.sum += v
+            self.count += 1
+            for i, b in enumerate(self._family.buckets):
+                if v <= b:
+                    self.buckets[i] += 1
+                    break
+
+
+class _Family:
+    """A metric family: counter, gauge or histogram, with label names."""
+
+    def __init__(self, registry: List["_Family"], name: str, doc: str,
+                 kind: str, labels: Sequence[str] = (),
+                 buckets: Sequence[float] = ()):
+        self.kind = kind
+        # counters are named without their _total; samples carry it
+        self.name = (name[:-len("_total")] if kind == "counter"
+                     and name.endswith("_total") else name)
+        self.doc = doc
+        self.labelnames = tuple(labels)
+        self.buckets = (tuple(float(b) for b in buckets) + (math.inf,)
+                        if kind == "histogram" else ())
+        self.lock = threading.Lock()
+        self._children: Dict[Tuple[str, ...], _Child] = {}
+        if not self.labelnames:
+            self._children[()] = _Child(self)
+        registry.append(self)
+
+    def labels(self, **kw: Any) -> _Child:
+        if set(kw) != set(self.labelnames):
+            raise ValueError(f"{self.name} takes labels {self.labelnames}, "
+                             f"got {sorted(kw)}")
+        key = tuple(str(kw[k]) for k in self.labelnames)
+        with self.lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._children[key] = _Child(self)
+        return child
+
+    # unlabelled families act as their one child
+    def inc(self, n: float = 1.0) -> None:
+        self._children[()].inc(n)
+
+    def dec(self, n: float = 1.0) -> None:
+        self._children[()].dec(n)
+
+    def set(self, v: float) -> None:
+        self._children[()].set(v)
+
+    def observe(self, v: float) -> None:
+        self._children[()].observe(v)
+
+    def render(self) -> List[str]:
+        shown = self.name + ("_total" if self.kind == "counter" else "")
+        doc = self.doc.replace("\\", r"\\").replace("\n", r"\n")
+        out = [f"# HELP {shown} {doc}", f"# TYPE {shown} {self.kind}"]
+        with self.lock:
+            for key, c in self._children.items():
+                pairs = list(zip(self.labelnames, key))
+                if self.kind != "histogram":
+                    out.append(f"{shown}{_labelstr(pairs)} {_num(c.value)}")
+                    continue
+                cum = 0
+                for b, n in zip(self.buckets, c.buckets):
+                    cum += n
+                    out.append(f"{self.name}_bucket"
+                               f"{_labelstr(pairs + [('le', _num(b))])} "
+                               f"{_num(cum)}")
+                out.append(f"{self.name}_count{_labelstr(pairs)} "
+                           f"{_num(c.count)}")
+                out.append(f"{self.name}_sum{_labelstr(pairs)} "
+                           f"{_num(c.sum)}")
+        return out
+
+
+class MetricsCollector:
+    """Records serving metrics; renders Prometheus text and JSON
+    snapshots."""
+
+    def __init__(self) -> None:
+        self._families: List[_Family] = []
+        self._lock = threading.Lock()
+        self._started_at = time.monotonic()
+
+        def fam(name, doc, kind, labels=(), buckets=()):
+            return _Family(self._families, name, doc, kind, labels, buckets)
+
+        self.request_latency = fam(
+            "request_latency_seconds", "End-to-end request latency",
+            "histogram", ["endpoint", "status"],
+            (0.005, 0.02, 0.05, 0.1, 0.2, 0.5, 1, 2, 5, 10, 30))
+        self.batch_size = fam(
+            "batch_size", "Requests per dispatched admission batch",
+            "histogram", (), (1, 2, 4, 8, 16, 32, 64))
+        self.batch_padding_ratio = fam(
+            "batch_padding_ratio",
+            "Padding overhead per batch (padded/real - 1)", "histogram",
+            (), (0.0, 0.05, 0.1, 0.25, 0.5, 1.0, 2.0))
+        self.tokens_generated = fam(
+            "tokens_generated_total", "Output tokens generated", "counter")
+        self.inference_seconds = fam(
+            "inference_seconds_total",
+            "Wall-clock seconds spent in engine steps", "counter")
+        self.ttft = fam(
+            "time_to_first_token_seconds",
+            "Admission to first streamed token", "histogram", (),
+            (0.01, 0.05, 0.1, 0.2, 0.5, 1, 2, 5))
+        self.cache_hits = fam("kv_cache_hits_total",
+                              "Prefix-cache page hits", "counter")
+        self.cache_misses = fam("kv_cache_misses_total",
+                                "Prefix-cache misses", "counter")
+        self.cache_evictions = fam("kv_cache_evictions_total",
+                                   "LRU page evictions", "counter")
+        self.prefix_hits = fam(
+            "kv_prefix_hits_total",
+            "Prefix-cache page hits by tier (hbm = shared in place, "
+            "host = re-seated from the host-RAM tier)", "counter", ["tier"])
+        self.mixed_step_tokens = fam(
+            "engine_mixed_step_tokens",
+            "Tokens consumed by ragged mixed-step dispatches (prefill = "
+            "packed prefill-chunk tokens, decode = advanced decode rows)",
+            "counter", ["kind"])
+        self.mixed_density = fam(
+            "engine_mixed_batch_density",
+            "Rolling mean of real packed tokens / mixed_step_tokens per "
+            "mixed dispatch (1.0 = every MXU tile slot carried a real "
+            "token)", "gauge", ["engine_id"])
+        self.loop_steps_total = fam(
+            "engine_loop_steps_total",
+            "Device iterations executed inside run-to-completion looped "
+            "decode blocks (each iteration advances every active row "
+            "one token, or one speculative round, with no host sync)",
+            "counter")
+        self.loop_exit_total = fam(
+            "engine_loop_exit_total",
+            "Looped decode-block row exits by stop condition (eos | "
+            "budget | pages = device free-list exhausted | cap = "
+            "loop_max_steps iteration cap)", "counter", ["reason"])
+        self.queue_depth_g = fam("queue_depth", "Queued requests by priority",
+                                 "gauge", ["priority"])
+        self.active_requests_g = fam(
+            "active_requests", "Requests admitted and not yet finished",
+            "gauge")
+        self.engine_up = fam("engine_up",
+                             "1 if the engine replica is healthy", "gauge",
+                             ["engine_id"])
+        self.errors_total = fam(
+            "errors_total", "Errors absorbed at isolation boundaries, by "
+            "site", "counter", ["site"])
+        self.step_seconds = fam(
+            "engine_step_seconds_total",
+            "Host wall-clock seconds attributed to engine dispatches by "
+            "kind (prefill = chunk quantum, decode_block = K-step block "
+            "launch + reconcile, mixed = ragged mixed dispatch)",
+            "counter", ["engine_id", "kind"])
+        self.step_dispatches = fam(
+            "engine_step_dispatches_total",
+            "Engine dispatches by kind (the step clock's denominator)",
+            "counter", ["engine_id", "kind"])
+        self.step_tokens = fam(
+            "engine_step_tokens_total",
+            "Tokens moved per dispatch kind (prefill = prompt tokens "
+            "computed, decode_block/mixed = sampled tokens reconciled)",
+            "counter", ["engine_id", "kind"])
+        self.step_events = fam(
+            "engine_step_events_total",
+            "Step-loop pressure events (cache_full = allocation failed "
+            "and the step degraded, preempt = youngest sequence evicted, "
+            "reclaim = sliding-window pages released, retrace = a new "
+            "program geometry compiled mid-serving)", "counter",
+            ["engine_id", "event"])
+
+        # snapshot internals
+        self._total_requests = 0
+        self._active_requests = 0
+        self._queue_depth = 0
+        self._token_events: Deque[Tuple[float, int]] = deque()
+        self._latencies: Deque[Tuple[float, float]] = deque()
+        self._ttfts_ms: Deque[float] = deque(maxlen=_TTFT_WINDOW)
+        self._batch_sizes: Deque[int] = deque(maxlen=_TTFT_WINDOW)
+        self._cache_hits = 0
+        self._cache_misses = 0
+        self._cache_evictions = 0
+
+    # -- recording ---------------------------------------------------------
+
+    def record_request(self, endpoint: str, status: int,
+                       latency_s: float) -> None:
+        self.request_latency.labels(endpoint=endpoint,
+                                    status=str(status)).observe(latency_s)
+        now = time.monotonic()
+        with self._lock:
+            self._total_requests += 1
+            self._latencies.append((now, latency_s * 1000.0))
+            self._trim_locked(now)
+
+    def record_batch(self, size: int) -> None:
+        """One admission batch of ``size`` requests; the runner admits
+        requests as they are, unpadded (padding ratio 0)."""
+        self.batch_size.observe(size)
+        self.batch_padding_ratio.observe(0.0)
+        with self._lock:
+            self._batch_sizes.append(size)
+
+    def record_tokens(self, n: int) -> None:
+        if n <= 0:
+            return
+        self.tokens_generated.inc(n)
+        now = time.monotonic()
+        with self._lock:
+            self._token_events.append((now, n))
+            self._trim_locked(now)
+
+    def record_inference(self, duration_s: float) -> None:
+        self.inference_seconds.inc(duration_s)
+
+    def record_ttft(self, seconds: float) -> None:
+        self.ttft.observe(seconds)
+        with self._lock:
+            self._ttfts_ms.append(seconds * 1000.0)
+
+    def observe_engine(self, engine_id: str, cache: Any, waiting: int,
+                       mixed: Optional[Dict[str, Any]],
+                       loop: Optional[Dict[str, Any]],
+                       step_clock: Dict[str, Dict[str, Any]]) -> None:
+        """Take one engine's cumulative counters, read at scrape time
+        (``EngineRunner.status``): the allocator's hits, misses and
+        evictions (``cache``; a hit is a page shared in place, tier
+        ``hbm``), the waiting queue (one priority level, ``normal``),
+        ``mixed_stats()`` and ``loop_stats()`` (None while off) and
+        ``step_clock_stats()``. The engine's totals only grow, so the
+        counters are set to them; a labelled series appears once its
+        total is above zero."""
+
+        def total(family: _Family, value: float, **labels: str) -> None:
+            if value > 0:
+                (family.labels(**labels) if labels else family).set(value)
+
+        total(self.cache_hits, cache.hits)
+        total(self.cache_misses, cache.misses)
+        total(self.cache_evictions, cache.evictions)
+        total(self.prefix_hits, cache.hits, tier="hbm")
+        if mixed is not None:
+            for kind in ("prefill", "decode"):
+                total(self.mixed_step_tokens, mixed[f"{kind}_tokens"],
+                      kind=kind)
+            self.mixed_density.labels(engine_id=engine_id).set(
+                mixed["batch_density"])
+        if loop is not None:
+            total(self.loop_steps_total, loop["steps"])
+            for reason, n in loop["exits"].items():
+                total(self.loop_exit_total, n, reason=reason)
+        for kind, c in step_clock["kinds"].items():
+            total(self.step_dispatches, c["dispatches"],
+                  engine_id=engine_id, kind=kind)
+            total(self.step_seconds, c["wall_s"], engine_id=engine_id,
+                  kind=kind)
+            total(self.step_tokens, c["tokens"], engine_id=engine_id,
+                  kind=kind)
+        for event, n in step_clock["events"].items():
+            total(self.step_events, n, engine_id=engine_id, event=event)
+        for priority, depth in (("high", 0), ("normal", waiting),
+                                ("low", 0)):
+            self.queue_depth_g.labels(priority=priority).set(depth)
+        with self._lock:
+            self._cache_hits = cache.hits
+            self._cache_misses = cache.misses
+            self._cache_evictions = cache.evictions
+            self._queue_depth = waiting
+
+    def request_started(self) -> None:
+        with self._lock:
+            self._active_requests += 1
+        self.active_requests_g.inc()
+
+    def request_finished(self) -> None:
+        with self._lock:
+            self._active_requests = max(0, self._active_requests - 1)
+        self.active_requests_g.dec()
+
+    def set_engine_up(self, engine_id: str, up: bool) -> None:
+        self.engine_up.labels(engine_id=engine_id).set(1 if up else 0)
+
+    def record_error(self, site: str) -> None:
+        self.errors_total.labels(site=site).inc()
+
+    # -- rendering ---------------------------------------------------------
+
+    def prometheus_text(self) -> bytes:
+        lines: List[str] = []
+        for f in self._families:
+            lines.extend(f.render())
+        return ("\n".join(lines) + "\n").encode()
+
+    def _trim_locked(self, now: float) -> None:
+        while (self._token_events
+               and self._token_events[0][0] < now - _TOKEN_WINDOW_S):
+            self._token_events.popleft()
+        while (self._latencies
+               and self._latencies[0][0] < now - _LATENCY_WINDOW_S):
+            self._latencies.popleft()
+
+    def snapshot(self, engine_statuses: Tuple[EngineStatus, ...] = ()
+                 ) -> MetricsSnapshot:
+        """The rates and latencies over trailing windows: tokens per
+        second over 10 s, the request latency's mean and p99 over 60 s
+        (exact, nearest rank), the TTFT and batch-size means over the last
+        1024."""
+        now = time.monotonic()
+        with self._lock:
+            self._trim_locked(now)
+            window_tokens = sum(n for _, n in self._token_events)
+            span = (max(now - self._token_events[0][0], 1e-3)
+                    if self._token_events else _TOKEN_WINDOW_S)
+            lat = sorted(ms for _, ms in self._latencies)
+            p99 = lat[max(0, math.ceil(0.99 * len(lat)) - 1)] if lat else 0.0
+            total_cache = self._cache_hits + self._cache_misses
+            return MetricsSnapshot(
+                total_requests=self._total_requests,
+                active_requests=self._active_requests,
+                tokens_per_second=window_tokens / span,
+                average_ttft_ms=(sum(self._ttfts_ms) / len(self._ttfts_ms)
+                                 if self._ttfts_ms else 0.0),
+                average_latency_ms=sum(lat) / len(lat) if lat else 0.0,
+                p99_latency_ms=p99,
+                average_batch_size=(
+                    sum(self._batch_sizes) / len(self._batch_sizes)
+                    if self._batch_sizes else 0.0),
+                cache_hit_rate=(self._cache_hits / total_cache
+                                if total_cache else 0.0),
+                queue_depth=self._queue_depth,
+                worker_statuses=tuple(engine_statuses),
+                uptime_seconds=now - self._started_at,
+                cache={"hits": self._cache_hits,
+                       "misses": self._cache_misses,
+                       "evictions": self._cache_evictions,
+                       "prefix_hits": {"hbm": self._cache_hits,
+                                       "host": 0}},
+            )

@@ -1,15 +1,28 @@
 """Engine runner: a dedicated thread owning one ``LLMEngine`` (port of
 ``distributed_inference_server_tpu/serving/runner.py``: ``EngineRunner``,
-its inbox and the per-request result sinks).
+its inbox, the per-request result sinks, the embeddings jobs and the
+metrics hooks).
 
 The engine is single-owner and synchronous; every interaction with it —
-admission, aborts, counter reads that touch engine state — goes through a
-thread-safe inbox drained on the runner thread between steps. Step outputs
-fan out to per-request ``ResultSink``s.
+admission, aborts, embeddings jobs, counter reads that touch engine state —
+goes through a thread-safe inbox drained on the runner thread between
+steps. Step outputs fan out to per-request ``ResultSink``s
+(``serving/streamer.py``); a sink with a ``flush`` method gets one call
+per step in which it received events.
+
+Embeddings (``submit_embed``) run as incremental jobs: one device batch
+(``engine.embed_step``) per loop iteration, between engine steps, so a
+large embeddings request never stalls the decoding requests.
+
+Metrics (``serving/metrics.py``): each request's time to first token
+(``submitted_at`` to ``first_token_at``), tokens, admission batch sizes
+and engine-step seconds as they happen; ``status()`` hands the engine's
+cumulative counters (cache, mixed step, looped blocks, step clock,
+waiting queue) to the collector when it is read.
 
 Failure semantics: a per-request failure arrives as ``StepOutput.error``
 and fails only that request; an exception escaping the step loop marks the
-runner unhealthy and fails every in-flight request.
+runner unhealthy and fails every in-flight request and embeddings job.
 
 With ``EngineConfig.warmup_compile`` set, the runner runs
 ``engine.warmup()`` (every serving program once; on ``cuda`` every CUDA
@@ -25,6 +38,8 @@ import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional, Protocol
 
+import numpy as np
+
 from distributed_inference_server_tpu_torch.core.models import (
     FinishReason,
     Usage,
@@ -35,8 +50,14 @@ from distributed_inference_server_tpu_torch.engine.engine import (
     SamplingParams,
     StepOutput,
 )
+from distributed_inference_server_tpu_torch.serving.metrics import (
+    EngineStatus,
+    MetricsCollector,
+)
 
 logger = logging.getLogger(__name__)
+
+EmbedCallback = Callable[[Optional[np.ndarray], Optional[str]], None]
 
 
 class ResultSink(Protocol):
@@ -51,38 +72,11 @@ class ResultSink(Protocol):
     def on_error(self, message: str, code: str) -> None: ...
 
 
-class CollectingSink:
-    """Sink for a non-streaming response: accumulates the text and
-    resolves a ``threading.Event`` with ``(text, finish_reason, usage,
-    error, code)``."""
-
-    def __init__(self) -> None:
-        self._parts: List[str] = []
-        self.result = None
-        self._done = threading.Event()
-
-    def on_token(self, token_id, text, token_index, logprob=None) -> None:
-        if text:
-            self._parts.append(text)
-
-    def on_done(self, finish_reason: FinishReason, usage: Usage) -> None:
-        self.result = ("".join(self._parts), finish_reason, usage, None, None)
-        self._done.set()
-
-    def on_error(self, message: str, code: str) -> None:
-        self.result = (None, None, None, message, code)
-        self._done.set()
-
-    def wait(self, timeout: Optional[float] = None):
-        if not self._done.wait(timeout):
-            return None
-        return self.result
-
-
 class ServerRequest:
     """A validated, tokenized request handed to the runner."""
 
-    __slots__ = ("request_id", "prompt_ids", "params", "sink")
+    __slots__ = ("request_id", "prompt_ids", "params", "sink",
+                 "submitted_at", "first_token_at")
 
     def __init__(self, request_id: RequestId, prompt_ids: List[int],
                  params: SamplingParams, sink: ResultSink):
@@ -90,15 +84,19 @@ class ServerRequest:
         self.prompt_ids = prompt_ids
         self.params = params
         self.sink = sink
+        self.submitted_at = time.monotonic()
+        self.first_token_at: Optional[float] = None
 
 
 class EngineRunner:
     """Runs one engine on a dedicated thread; thread-safe façade."""
 
     def __init__(self, engine_id: str,
-                 engine_factory: Callable[[], LLMEngine]):
+                 engine_factory: Callable[[], LLMEngine],
+                 metrics: MetricsCollector):
         self.engine_id = engine_id
         self._factory = engine_factory
+        self.metrics = metrics
         self._inbox: Deque[Callable[[], None]] = deque()
         self._inbox_lock = threading.Lock()
         self._wake = threading.Event()
@@ -108,6 +106,14 @@ class EngineRunner:
         self._inflight: Dict[RequestId, ServerRequest] = {}
         self._engine: Optional[LLMEngine] = None
         self._thread: Optional[threading.Thread] = None
+        # embeddings: callbacks by job token (each called exactly once)
+        # and the queued jobs, oldest first
+        self._pending_embeds: Dict[int, EmbedCallback] = {}
+        self._embed_seq = 0
+        self._embed_lock = threading.Lock()
+        self._embed_jobs: Deque[dict] = deque()
+        # admissions drained in the current inbox pass (record_batch)
+        self._admitted = 0
         # counters read from other threads (GIL-atomic int updates)
         self.requests_finished = 0
         self.tokens_generated = 0
@@ -139,6 +145,7 @@ class EngineRunner:
         if self._thread is not None:
             self._thread.join(timeout)
         self._healthy = False
+        self.metrics.set_engine_up(self.engine_id, False)
         self._fail_all("engine shut down before request completion")
 
     # -- submission (any thread) -------------------------------------------
@@ -153,15 +160,45 @@ class EngineRunner:
             if req.request_id in self._inflight:  # not aborted meanwhile
                 self._engine.add_request(req.request_id, req.prompt_ids,
                                          req.params)
+                self._admitted += 1
 
         self._post(_do)
 
     def abort(self, request_id: RequestId) -> None:
+        """Drop a request: its pages go back to the allocator; its sink
+        gets no further callback."""
+        self._inflight.pop(request_id, None)
+
         def _do() -> None:
             self._engine.abort(request_id)
-            self._inflight.pop(request_id, None)
 
         self._post(_do)
+
+    def submit_embed(self, ids_list: List[List[int]],
+                     on_result: EmbedCallback) -> None:
+        """Queue an embeddings job; ``on_result(array, error)`` is called
+        exactly once: on the runner thread, or here or at a crash when
+        the engine is (or becomes) unavailable."""
+        with self._embed_lock:
+            # registered before the health check: a crash in between
+            # still finds (and fails) the callback
+            self._embed_seq += 1
+            token = self._embed_seq
+            self._pending_embeds[token] = on_result
+        if not self._healthy:
+            self._resolve_embed(token, None,
+                                self._last_error or "engine unavailable")
+            return
+
+        def _enqueue() -> None:
+            try:
+                state = self._engine.embed_start(ids_list)
+            except Exception as e:  # noqa: BLE001 — called exactly once
+                self._resolve_embed(token, None, str(e))
+                return
+            self._embed_jobs.append({"token": token, "state": state})
+
+        self._post(_enqueue)
 
     def call(self, fn: Callable[[LLMEngine], object],
              timeout: float = 30.0) -> object:
@@ -231,6 +268,31 @@ class EngineRunner:
     def active_count(self) -> int:
         return len(self._inflight)
 
+    def status(self) -> EngineStatus:
+        """This replica's ``EngineStatus``. The engine's page and queue
+        counts and its cumulative counters are read on the runner thread
+        and handed to the collector (zeros, and the collector untouched,
+        when it cannot answer)."""
+        used = total = cached = waiting = 0
+        mixed = loop = None
+        if self._healthy:
+            try:
+                s, waiting, mixed, loop, clock = self.call(lambda e: (
+                    e.cache_stats(), e.num_waiting(), e.mixed_stats(),
+                    e.loop_stats(), e.step_clock_stats()))
+                total, cached = s.pages_total, s.pages_cached
+                used = total - s.pages_free
+                self.metrics.observe_engine(self.engine_id, s, waiting,
+                                            mixed, loop, clock)
+            except (TimeoutError, RuntimeError) as e:
+                self._absorbed("status", e)
+        return EngineStatus(
+            engine_id=self.engine_id, healthy=self._healthy,
+            active_requests=len(self._inflight), waiting_requests=waiting,
+            total_processed=self.requests_finished,
+            memory_used_pages=used, memory_total_pages=total,
+            pages_cached=cached, mixed=mixed, loop=loop)
+
     # -- runner thread -----------------------------------------------------
 
     def _run(self, ready: threading.Event) -> None:
@@ -249,47 +311,94 @@ class EngineRunner:
             self._healthy = False
             ready.set()
             return
+        finally:
+            self.metrics.set_engine_up(self.engine_id, self._healthy)
         ready.set()
         try:
             while not self._stop.is_set():
                 self._drain_inbox()
+                worked = False
                 if self._engine.has_work():
+                    worked = True
                     t0 = time.monotonic()
                     outputs = self._engine.step()
-                    self.step_seconds += time.monotonic() - t0
+                    dt = time.monotonic() - t0
+                    self.step_seconds += dt
                     self.steps += 1
+                    self.metrics.record_inference(dt)
                     self._dispatch(outputs)
-                else:
+                worked |= self._embed_quantum()
+                if not worked:
                     self._wake.wait(0.005)
                     self._wake.clear()
         except Exception as e:  # noqa: BLE001 — engine-level crash
             logger.exception("engine %s crashed", self.engine_id)
             self._last_error = str(e)
             self._healthy = False
+            self.metrics.set_engine_up(self.engine_id, False)
             self._fail_all(str(e))
 
     def _drain_inbox(self) -> None:
+        self._admitted = 0
         while True:
             with self._inbox_lock:
                 if not self._inbox:
-                    return
+                    break
                 fn = self._inbox.popleft()
             try:
                 fn()
             except Exception as e:  # noqa: BLE001 — command isolation
-                self._last_error = str(e)
+                self._absorbed("inbox", e)
+        if self._admitted:
+            self.metrics.record_batch(self._admitted)
+
+    def _embed_quantum(self) -> bool:
+        """Advance the oldest embeddings job by one device batch. Returns
+        True if it did work."""
+        if not self._embed_jobs:
+            return False
+        job = self._embed_jobs[0]
+        if job["token"] not in self._pending_embeds:
+            self._embed_jobs.popleft()  # failed by a crash handler
+            return True
+        result = error = None
+        try:
+            if self._engine.embed_step(job["state"]):
+                result = self._engine.embed_finish(job["state"])
+        except Exception as e:  # noqa: BLE001 — isolation boundary
+            error = str(e)
+        if result is not None or error is not None:
+            self._embed_jobs.popleft()
+            self._resolve_embed(job["token"], result, error)
+        return True
+
+    def _resolve_embed(self, token: int, result, error) -> None:
+        with self._embed_lock:
+            cb = self._pending_embeds.pop(token, None)
+        if cb is not None:
+            try:
+                cb(result, error)
+            except Exception as e:  # noqa: BLE001 — callback isolation
+                self._absorbed("embed_callback", e)
 
     def _dispatch(self, outputs: List[StepOutput]) -> None:
+        tokens = 0
+        touched = {}
         for out in outputs:
             req = self._inflight.get(out.request_id)
             if req is None:
                 continue
+            touched[out.request_id] = req.sink
             try:
                 if out.error is not None:
                     req.sink.on_error(out.error, "inference_failed")
                 elif out.token_id is not None or out.text:
+                    if req.first_token_at is None:
+                        req.first_token_at = time.monotonic()
+                        self.metrics.record_ttft(
+                            req.first_token_at - req.submitted_at)
                     if out.token_id is not None:
-                        self.tokens_generated += 1
+                        tokens += 1
                     if not out.finished:
                         req.sink.on_token(out.token_id, out.text,
                                           out.token_index, out.logprob)
@@ -304,16 +413,34 @@ class EngineRunner:
                     self._inflight.pop(out.request_id, None)
                     self.requests_finished += 1
             except Exception as e:  # noqa: BLE001 — sink isolation
-                self._last_error = f"sink error: {e}"
+                self._absorbed("sink", e)
                 self._inflight.pop(out.request_id, None)
+        for sink in touched.values():
+            flush = getattr(sink, "flush", None)
+            if flush is not None:
+                flush()
+        self.tokens_generated += tokens
+        self.metrics.record_tokens(tokens)
+
+    def _absorbed(self, site: str, exc: BaseException) -> None:
+        """An exception eaten at an isolation boundary: logged, kept as
+        the last error and counted in ``errors_total``."""
+        logger.warning("runner %s: %s absorbed: %s", self.engine_id, site,
+                       exc)
+        self._last_error = f"{site}: {exc}"
+        self.metrics.record_error(f"runner.{site}")
 
     def _fail(self, req: ServerRequest, message: str) -> None:
         self._inflight.pop(req.request_id, None)
         try:
             req.sink.on_error(message, "engine_unavailable")
-        except Exception:  # noqa: BLE001 — sink isolation
-            pass
+        except Exception as e:  # noqa: BLE001 — sink isolation
+            self._absorbed("sink", e)
 
     def _fail_all(self, message: str) -> None:
         for req in list(self._inflight.values()):
             self._fail(req, message)
+        with self._embed_lock:
+            tokens = list(self._pending_embeds)
+        for token in tokens:
+            self._resolve_embed(token, None, message)

@@ -1,13 +1,13 @@
 """Inference server: one engine runner behind a standard-library HTTP
 server (the counterpart of ``distributed_inference_server_tpu/serving/
-server.py`` and ``handler.py`` for the ``/generate`` path).
+server.py`` for one replica).
 
-``generate`` validates and tokenizes a ``GenerateRequest``, submits it to
-the ``EngineRunner`` with a collecting sink, waits, and returns a
-``GenerateResponse`` exactly as the JAX handler builds it. ``serve`` runs a
-``ThreadingHTTPServer`` (one thread per connection) on the app in
-``serving/app.py``. Not in this slice: the multi-replica scheduler, SSE
-streaming, ``/chat``, ``/embeddings`` and Prometheus ``/metrics``.
+It wires the ``MetricsCollector``, the ``EngineRunner`` (which records
+into it) and the ``InferenceHandler`` (``serving/handler.py``: the
+``/generate``, ``/chat``, ``/v1/*`` and ``/embeddings`` lifecycles), and
+``serve`` runs a ``ThreadingHTTPServer`` (one thread per connection) on
+the app in ``serving/app.py``. Not in this slice: the multi-replica
+scheduler, its admission queue, and the fleet.
 """
 
 from __future__ import annotations
@@ -15,40 +15,23 @@ from __future__ import annotations
 import threading
 import time
 from http.server import ThreadingHTTPServer
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from distributed_inference_server_tpu_torch.core.errors import (
-    InternalApiError,
-    RequestTimeoutApiError,
-    ValidationApiError,
-    ValidationError,
-)
-from distributed_inference_server_tpu_torch.core.models import (
-    GenerateChoice,
-    GenerateRequest,
-    GenerateResponse,
-)
-from distributed_inference_server_tpu_torch.core.types import new_request_id
-from distributed_inference_server_tpu_torch.core.validator import (
-    RequestValidator,
-)
-from distributed_inference_server_tpu_torch.engine.engine import (
-    LLMEngine,
-    SamplingParams,
-)
+from distributed_inference_server_tpu_torch.engine.engine import LLMEngine
 from distributed_inference_server_tpu_torch.models.tokenizer import Tokenizer
 from distributed_inference_server_tpu_torch.ops import kernels
 from distributed_inference_server_tpu_torch.serving.app import make_handler
-from distributed_inference_server_tpu_torch.serving.runner import (
-    CollectingSink,
-    EngineRunner,
-    ServerRequest,
+from distributed_inference_server_tpu_torch.serving.handler import (
+    InferenceHandler,
 )
-
-# a request still unanswered after this long is aborted and gets a 408
-REQUEST_TIMEOUT_S = 600.0
+from distributed_inference_server_tpu_torch.serving.metrics import (
+    MetricsCollector,
+)
+from distributed_inference_server_tpu_torch.serving.runner import (
+    EngineRunner,
+)
 
 
 class InferenceServer:
@@ -62,8 +45,11 @@ class InferenceServer:
     ):
         self.tok = tokenizer
         self.model_name = model_name
-        self.validator = RequestValidator()
-        self.runner = EngineRunner("engine-0", engine_factory)
+        self.metrics = MetricsCollector()
+        self.runner = EngineRunner("engine-0", engine_factory, self.metrics)
+        self.handler = InferenceHandler(self.runner, tokenizer, model_name,
+                                        self.metrics)
+        self._accepting = False
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._http_thread: Optional[threading.Thread] = None
         self.started_at = time.time()
@@ -72,6 +58,7 @@ class InferenceServer:
 
     def start(self, wait_ready: bool = True) -> None:
         self.runner.start(wait_ready=wait_ready)
+        self._accepting = True
 
     def serve(self, host: str = "0.0.0.0", port: int = 8000,
               block: bool = True) -> int:
@@ -89,6 +76,7 @@ class InferenceServer:
         return bound
 
     def shutdown(self) -> None:
+        self._accepting = False
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -98,36 +86,6 @@ class InferenceServer:
         self.runner.shutdown()
 
     # -- endpoints ---------------------------------------------------------
-
-    def generate(self, obj: dict) -> GenerateResponse:
-        try:
-            req = GenerateRequest.from_dict(obj)
-            self.validator.validate_generate(req)
-        except ValidationError as e:
-            raise ValidationApiError(e) from None
-        ids = self.tok.encode(req.prompt)
-        params = SamplingParams(
-            max_tokens=req.max_tokens, temperature=req.temperature,
-            top_p=req.top_p, stop_sequences=tuple(req.stop_sequences))
-        sink = CollectingSink()
-        request_id = new_request_id()
-        self.runner.submit(ServerRequest(request_id, ids, params, sink))
-        result = sink.wait(REQUEST_TIMEOUT_S)
-        if result is None:
-            self.runner.abort(request_id)
-            raise RequestTimeoutApiError()
-        text, reason, usage, err, _code = result
-        if err is not None:
-            raise InternalApiError(err)
-        return GenerateResponse(
-            id=f"cmpl-{request_id}",
-            object="text_completion",
-            created=int(time.time()),
-            model=self.model_name,
-            choices=(GenerateChoice(text=text, index=0,
-                                    finish_reason=reason),),
-            usage=usage,
-        )
 
     def kernel_counts(self) -> Dict[str, int]:
         return kernels.launch_counts()
@@ -141,24 +99,48 @@ class InferenceServer:
             return torch.cuda.get_device_name(eng_dev)
         return str(eng_dev)
 
+    def health(self) -> Tuple[int, dict]:
+        """``/health``: the reference's ``{status, accepting, engines}``
+        and the port's ``model``, ``device`` and the runner's last error;
+        503 while the engine is unhealthy."""
+        status = self.runner.status()
+        return (200 if status.healthy else 503), {
+            "status": "ok" if status.healthy else "unhealthy",
+            "accepting": self._accepting,
+            "engines": [status.to_dict()],
+            "model": self.model_name,
+            "device": self.device_name(),
+            "error": None if status.healthy else self.runner.last_error(),
+        }
+
+    def metrics_text(self) -> bytes:
+        """``/metrics``: the collector's Prometheus text, with the
+        engine's cumulative counters read at this scrape."""
+        self.runner.status()
+        return self.metrics.prometheus_text()
+
     def stats(self) -> dict:
-        """Counters for ``/server/stats``; ``mixed`` is the engine's
-        ``mixed_stats()`` (null while the mixed step is off), ``loop`` its
-        ``loop_stats()`` (null while looped blocks are off),
-        ``step_clock`` its ``step_clock_stats()`` (host wall time,
-        dispatches, tokens and rows per dispatch kind, and the pressure
-        events) and ``memory`` its ``memory_stats()`` (null on the
-        CPU)."""
+        """``/server/stats``: the ``MetricsSnapshot`` (its ``cache`` block
+        with the allocator's page counts added) and the port's blocks:
+        ``mixed`` (the engine's ``mixed_stats()``, null while the mixed
+        step is off), ``loop`` (``loop_stats()``, null while looped blocks
+        are off), ``step_clock`` (host wall time, dispatches, tokens and
+        rows per dispatch kind, and the pressure events), ``memory``
+        (device memory, null on the CPU), the warmup's seconds, the
+        runner's counters and each kernel's launch count."""
         r = self.runner
-        cache = mixed = loop = step_clock = memory = None
+        status = r.status()
+        out = self.metrics.snapshot((status,)).to_dict()
+        cache = step_clock = memory = None
         if r.is_healthy():
             try:
-                cache, mixed, loop, step_clock, memory = r.call(lambda e: (
-                    e.cache_stats().to_dict(), e.mixed_stats(),
-                    e.loop_stats(), e.step_clock_stats(), e.memory_stats()))
+                cache, step_clock, memory = r.call(lambda e: (
+                    e.cache_stats().to_dict(), e.step_clock_stats(),
+                    e.memory_stats()))
             except (TimeoutError, RuntimeError):
                 pass
-        return {
+        out["cache"] = {**out["cache"], **(cache or {})}
+        out.update({
             "model": self.model_name,
             "device": self.device_name(),
             "healthy": r.is_healthy(),
@@ -169,10 +151,10 @@ class InferenceServer:
             "engine_steps": r.steps,
             "engine_step_seconds": r.step_seconds,
             "warmup_s": r.warmup_seconds,
-            "cache": cache,
-            "mixed": mixed,
-            "loop": loop,
+            "mixed": status.mixed,
+            "loop": status.loop,
             "step_clock": step_clock,
             "memory": memory,
             "kernel_launches": self.kernel_counts(),
-        }
+        })
+        return out

@@ -162,6 +162,8 @@ def test_tokenizer_parity_with_hf_tokenizers():
         assert tok.encode(text) == [g["bos_id"]] + want_ids
     for text, want_text in g["decodings"].items():
         assert tok.decode(tok.encode(text, add_bos=False)) == want_text
+    # the checkpoint's own chat template travels with the tokenizer
+    assert getattr(tok, "chat_template", None)
 
 
 def test_loader_reconciles_tie_with_checkpoint_contents(tmp_path):

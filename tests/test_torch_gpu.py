@@ -1442,3 +1442,106 @@ def test_window_reclaim_kernel_path_matches_plain(cuda):
         assert eng.audit_pages() == []
         del eng
     assert outs["kernel"] == outs["plain"]
+
+
+# ---------------------------------------------------------------------------
+# the API surface: embeddings and streamed text on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["tiny-f32", "1b-width-2-layers-bf16"])
+def test_embeddings_kernel_path_matches_plain_path(cuda, model):
+    """The embeddings forward on the kernel path (Triton RMSNorm and RoPE,
+    which launch) gives the plain path's vectors; queued on the engine
+    stream behind a decode block in flight, its steps never wait on the
+    device, and the decoding request keeps its solo tokens."""
+    cfg, dtype, params = _loop_model(cuda, model)
+    tok = ByteTokenizer()
+    texts = ["alpha", "a longer input " * 40, "é🙂 mixed"]
+    ids = [tok.encode(t) for t in texts]
+    out = {}
+    for impl in ("kernel", "plain"):
+        eng = _loop_engine(cuda, cfg, params, dtype, attention_impl=impl)
+        out[impl] = eng.embed_ids(ids)
+    tol = _tol(dtype)
+    torch.testing.assert_close(torch.from_numpy(out["kernel"]),
+                               torch.from_numpy(out["plain"]),
+                               atol=max(tol["atol"], 1e-4) / 4, rtol=0)
+
+    eng = _loop_engine(cuda, cfg, params, dtype)
+    solo = _graph_trace(eng, tok, [[("keep decoding", 24)]])[0]
+    eng.add_request("w0r0", tok.encode("keep decoding"),
+                    SamplingParams(max_tokens=24, temperature=0.0))
+    got = {}
+    for o in eng.step():  # prefill, and the first block in flight
+        if o.token_id is not None:
+            got.setdefault(o.request_id, []).append(o.token_id)
+    kernels.reset_launch_counts()
+    state = eng.embed_start(ids)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        while not eng.embed_step(state):
+            pass
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = kernels.launch_counts()
+    assert counts["rms_norm"] > 0 and counts["rope"] > 0
+    torch.testing.assert_close(torch.from_numpy(eng.embed_finish(state)),
+                               torch.from_numpy(out["kernel"]),
+                               atol=1e-5, rtol=0)
+    while eng.has_work():
+        for o in eng.step():
+            if o.token_id is not None:
+                got.setdefault(o.request_id, []).append(o.token_id)
+    assert got == solo
+
+
+@pytest.mark.gpu
+def test_streamed_text_matches_non_streamed_on_the_card(cuda):
+    """The served ``/generate`` on the card: the SSE deltas of a greedy
+    stream join into the non-streamed text, for a lone request and for
+    four concurrent ones."""
+    import concurrent.futures as cf
+    import json
+    import urllib.request
+
+    from distributed_inference_server_tpu_torch.serving.server import (
+        InferenceServer,
+    )
+
+    params = _scaled_params(TINY, cuda, torch.float32)
+
+    def factory():
+        return LLMEngine(params, TINY, ByteTokenizer(), EngineConfig(
+            paged=PagedCacheConfig(64, 4, 16), max_batch=4,
+            prefill_buckets=(8, 32)), dtype=torch.float32, device=cuda)
+
+    server = InferenceServer(factory, ByteTokenizer(), "tiny")
+    server.start()
+    base = f"http://127.0.0.1:{server.serve('127.0.0.1', 0, block=False)}"
+
+    def post(body):
+        req = urllib.request.Request(base + "/generate",
+                                     json.dumps(body).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.read().decode()
+
+    def streamed(prompt):
+        raw = post({"prompt": prompt, "max_tokens": 30, "temperature": 0.0,
+                    "stream": True})
+        frames = [json.loads(f[6:]) for f in raw.split("\n\n")
+                  if f.startswith("data: {")]
+        assert frames[-1]["type"] == "done"
+        return "".join(f["token"] for f in frames if f["type"] == "token")
+
+    try:
+        prompts = ["stream on the card", "a longer prompt " * 3, "z", "é🙂"]
+        want = [json.loads(post({"prompt": p, "max_tokens": 30,
+                                 "temperature": 0.0}))["choices"][0]["text"]
+                for p in prompts]
+        assert [streamed(p) for p in prompts] == want
+        with cf.ThreadPoolExecutor(4) as ex:
+            assert list(ex.map(streamed, prompts)) == want
+    finally:
+        server.shutdown()

@@ -1,5 +1,7 @@
-"""The port stands alone: no module of it imports ``jax`` or the JAX
-package, and it imports in a process where ``import jax`` raises.
+"""The port stands alone: no module of it imports ``jax``, the JAX
+package, ``aiohttp`` or ``prometheus_client`` (the card's machine has
+neither of the last two), and it imports in a process where those imports
+raise.
 
 ``ops/kernels/_triton_fused.py`` imports ``triton`` at module level (it is
 loaded only by the launching functions, on a machine with a card), so the
@@ -17,6 +19,7 @@ import distributed_inference_server_tpu_torch as port
 PKG_DIR = pathlib.Path(port.__file__).resolve().parent
 ROOT = PKG_DIR.parent
 JAX_PKG = "distributed_inference_server_tpu"
+FORBIDDEN = ("jax", "jaxlib", JAX_PKG, "aiohttp", "prometheus_client")
 
 
 def _port_files():
@@ -27,7 +30,7 @@ def _port_files():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", JAX_PKG)
+    return top in FORBIDDEN
 
 
 def test_no_module_imports_jax_or_the_jax_package():
@@ -59,7 +62,7 @@ def test_port_imports_where_jax_cannot():
 
         class Block:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib", {JAX_PKG!r}):
+                if name.split(".")[0] in {FORBIDDEN!r}:
                     raise ImportError("blocked: " + name)
                 return None
 
@@ -70,7 +73,7 @@ def test_port_imports_where_jax_cannot():
                 continue
             importlib.import_module(m)
         leaked = [k for k in sys.modules
-                  if k.split(".")[0] in ("jax", {JAX_PKG!r})]
+                  if k.split(".")[0] in {FORBIDDEN!r}]
         assert not leaked, leaked
         print("ok", len({modules!r}))
     """)
