@@ -121,20 +121,60 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    over the same requests, embeddings latency and the ``/metrics``
    scrape's bytes and ms.
 
+9. (``spec``) speculative decoding. Phase 3 adds the chunked-prefill
+   kernel at the verify forward's shape (B 8, T = gamma + 1 = 5, D 64 and
+   D 128, q_start {0, 15, 16, 17, 300, 1000, 2043, 2045}: the last row's
+   last two queries lie past the 2048-token capacity, kv_valid clamped to
+   it), against its plain version, timed beside it and SDPA, and (with
+   ``quant``) ``quant_matmul_q8`` on one llama-3-8b layer's seven products
+   at the verify forward's M = max_batch * (gamma + 1) = 40 rows, which
+   take its prefill body. Phase 5 adds 2 layers of the 1B width in f32
+   with a draft of the same weights and of another seed: speculative
+   greedy tokens == plain ones on the fixed path (graphs, eager, plain
+   versions), in looped blocks (WHILE graph, eager) and in the mixed step
+   under the loop; graph launches == eager launches; and with int8 weights
+   over int8 KV (the 8B spec server's pairing; a dense draft of another
+   seed, and the quantized target as its own draft, each over an int8
+   draft pool), speculative tokens on the kernels == on the plain
+   versions == plain decoding, the kernel runs launching
+   ``quant_matmul_q8`` and ``paged_decode_int8``. Served: item 6's
+   checkpoint as target AND draft
+   (``--model-draft-model-dir``), the first mix; then llama-3-8b with int8
+   weights and int8 KV and a random llama-3.2-1b draft
+   (``--model-draft-model-name``; the draft pool int8), the first mix.
+   Each prints a ``spec_timing`` line (acceptance and tokens per round
+   over the mix, the trackers, the spec block's step-clock ms, launches,
+   and for the 1B one each greedy text's first character that differs
+   from the plain checkpoint server's); speculation must have run, and
+   ``POST /admin/speculation`` must reset one engine;
+10. (``admission``) on item 6's running server: the admission queue's
+   tier must be native, lone streamed TTFT at the reference's 50 ms
+   batching window, a burst of 24 requests of mixed priorities all 200;
+   then a server with ``--batcher-window-ms 0`` for the lone TTFT without
+   the window, and one with ``--queue-tenant-fairness true``, which takes
+   the Python queue and batcher tier, for the lone TTFT and the burst on
+   that tier (``admission_timing`` line).
+
 It also prints whether ``safetensors`` and ``tokenizers`` import (for
 information: the port reads safetensors itself).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (the
-quantized matmuls' rows add ``*_prefill`` keys: their M = 2048 layer); the
+quantized matmuls' rows add ``*_prefill`` keys: their M = 2048 layer, and
+q8 ``*_verify`` keys: its M = 40 layer); the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
 and prints no result. ``--phases
-kernels,serve,quant,engine,ckpt,api,families`` selects phases (default:
-all; ``quant`` is phase 3's quantized kernels and phase 4's quantized
-servers; ``families`` is item 7, ``api`` item 8, which writes and serves
-item 6's checkpoint itself when ``ckpt`` is not selected). The summary
-rows carry the families' times under ``families``, each family
-server's launches under ``launches_by_model`` and the api phase's under
-``launches_api``.
+kernels,serve,quant,engine,ckpt,api,families,spec,admission`` selects
+phases (default: all; ``quant`` is phase 3's quantized kernels and phase
+4's quantized servers; ``families`` is item 7, ``api`` item 8, ``spec``
+item 9 and ``admission`` item 10, which write and serve item 6's
+checkpoint themselves when ``ckpt`` is not selected). ``--server-flags
+'...'`` adds flags to every server the script starts (an A/B of one
+server option within one tree, e.g. ``--batcher-window-ms 0`` with
+``--phases serve``). The summary rows
+carry the families' times under ``families``, each family server's
+launches under ``launches_by_model``, the api phase's under
+``launches_api``, the spec servers' under ``launches_spec (model)`` and
+the verify shape's times under ``verify``.
 """
 
 from __future__ import annotations
@@ -694,6 +734,7 @@ def phase_kernels(time_it=True) -> dict:
             check_prefill("B4 T77 window300 softcap30", 77,
                           [0, 100, 1500, 0], [77, 150, 1577, 0], window=300,
                           softcap=30.0, time_it=False),
+            *verify_cases(time_it),
         ],
         "rms_norm": [
             check_rms_norm("prefill chunk [4,512,2048]", (4, 512, 2048),
@@ -890,9 +931,14 @@ def phase_quant_kernels() -> dict:
     for name, packed, layer, model in (
             ("quant_matmul_q8", False, LAYER_8B, "llama-3-8b int8"),
             ("quant_matmul_q4", True, LAYER_1B, "llama-3.2-1b int4")):
+        # the speculative verify forward's products (q8 only: the 8B int8
+        # spec server's target) take the prefill body at M = B * (gamma + 1)
+        verify = (check_quant_layer(f"{model} verify", verify_rows(), layer,
+                                    packed) if not packed else [])
         out[name] = (check_quant_layer(model, 8, layer, packed)
                      + check_quant_layer(model, 512, layer, packed)
                      + check_quant_layer(model, 2048, layer, packed)
+                     + verify
                      + [check_quant_matmul(f"M={M} K={K} N={N} group={g}", M,
                                            K, N, packed, group=g,
                                            time_it=False)
@@ -966,6 +1012,11 @@ def _check_generate(status, body, max_tokens):
     assert u["total_tokens"] == u["prompt_tokens"] + u["completion_tokens"]
 
 
+# flags added to every server the script starts (``--server-flags``: an
+# A/B of one server option within one tree)
+SERVER_FLAGS: list = []
+
+
 @contextlib.contextmanager
 def _server(seed: int, extra, log_name: str, model: str = "llama-3.2-1b"):
     """Run ``python -m distributed_inference_server_tpu_torch`` serving
@@ -975,7 +1026,7 @@ def _server(seed: int, extra, log_name: str, model: str = "llama-3.2-1b"):
     base = f"http://127.0.0.1:{port}"
     cmd = [sys.executable, "-m", "distributed_inference_server_tpu_torch",
            "--model-model-name", model, "--server-port", str(port),
-           "--seed", str(seed), *extra]
+           "--seed", str(seed), *extra, *SERVER_FLAGS]
     log("[serve] " + " ".join(cmd))
     os.makedirs("chiprun_out", exist_ok=True)
     errlog = open(os.path.join("chiprun_out", log_name), "w")
@@ -1115,6 +1166,12 @@ def _timing_line(label, card, stats0, before, after, mix_wall, lone_wall,
         prof["device_busy_s"], "profile_window_s": prof["wall_s"],
         "top_device_ms": prof["top_device_ms"][:4],
         "events": sc1["events"],
+        # dispatches and host wall s per kind over the mix and the lone
+        # request: a kind's ms moves when work is attributed differently
+        "dispatches": {
+            k: [v["dispatches"] - sc0["kinds"][k]["dispatches"],
+                v["wall_s"] - sc0["kinds"][k]["wall_s"]]
+            for k, v in sc1["kinds"].items()},
         "launches_per_forward": _per_forward(before, after),
         "max_allocated_bytes": mem.get("max_allocated_bytes"),
         "graph_pool_bytes": mem.get("graph_pool_bytes"),
@@ -1431,8 +1488,8 @@ def phase_loop_timing(card: str, seed: int = 0) -> dict:
     return out
 
 
-def phase_checkpoint(card: str, seed: int, want, api: bool = False
-                     ) -> dict:
+def phase_checkpoint(card: str, seed: int, want, api: bool = False,
+                     spec: bool = False, admission: bool = False) -> dict:
     """The port's saver writes the random llama-3.2-1b bf16 weights of
     ``seed`` (what the bf16 server draws) to a directory under the
     gitignored ``build/``, beside a ``tokenizer_config.json`` with this
@@ -1440,7 +1497,10 @@ def phase_checkpoint(card: str, seed: int, want, api: bool = False
     then a server started with ``--model-model-dir`` on it must answer the
     first mix's greedy prompts with the random-weight server's texts
     (``want``, when given). With ``api`` the same server then runs the
-    ``api`` phase. Returns the api phase's launches (empty without it)."""
+    ``api`` phase, with ``admission`` the admission phase, and with ``spec``
+    a second server serves the same directory as target and draft
+    (phase 9). Returns {"api": the api phase's launches, "spec":
+    {"llama-3.2-1b": the spec server's launches}} (empty without them)."""
     from distributed_inference_server_tpu_torch.models import llama
     from distributed_inference_server_tpu_torch.models.configs import (
         LLAMA_3_2_1B,
@@ -1478,7 +1538,7 @@ def phase_checkpoint(card: str, seed: int, want, api: bool = False
         json.dump({"chat_template": CHAT_TEMPLATE,
                    "bos_token": "<|begin_of_text|>",
                    "eos_token": "<|eot_id|>"}, f)
-    launches = {}
+    launches, spec_launches = {}, {}
     with _server(seed, ["--model-model-dir", ckpt], "server_ckpt.log") as base:
         _, stats = _http("GET", base + "/server/stats")
         got = greedy_texts(base)
@@ -1496,8 +1556,18 @@ def phase_checkpoint(card: str, seed: int, want, api: bool = False
         if api:
             phase_done("checkpoint")
             launches = phase_api(card, base, ckpt, got)
+        if admission:
+            phase_done("api")
+            phase_admission(card, seed, base)
+    if spec:
+        phase_done("admission")
+        spec_launches["llama-3.2-1b"] = phase_serve_spec(
+            card, seed, ["--model-model-dir", ckpt,
+                         "--model-draft-model-dir", ckpt],
+            "llama-3.2-1b bf16 checkpoint, the same checkpoint as draft",
+            "server_spec_1b.log", "llama-3.2-1b", want=got)["launches"]
     shutil.rmtree(ckpt, ignore_errors=True)
-    return launches
+    return {"api": launches, "spec": spec_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2567,13 +2637,396 @@ KERNEL_META = {
 }
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding (phase 9) and the admission layer (phase 10)
+# ---------------------------------------------------------------------------
+
+# the verify forward's shape: B 8 rows of T = gamma + 1 = 5 queries from
+# per-row q_start anywhere in the row (around a 16-token page edge, deep,
+# and at the 2048-token capacity: capacity - 5 is 2043, so the last row
+# starts at capacity - 3 and its last two queries lie past it, with
+# kv_valid clamped to the capacity as the engine's verify forward does)
+VERIFY_Q_START = [0, 15, 16, 17, 300, 1000, 2043, 2045]
+VERIFY_T = 5
+
+
+def verify_rows() -> int:
+    """The rows of the verify forward's products: every decode slot's
+    gamma + 1 tokens, max_batch * (num_draft_tokens + 1) at the engine's
+    defaults (40)."""
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        EngineConfig,
+    )
+    from distributed_inference_server_tpu_torch.engine.speculative import (
+        SpecConfig,
+    )
+
+    return EngineConfig().max_batch * (SpecConfig().num_draft_tokens + 1)
+
+
+def verify_cases(time_it=True) -> list:
+    valid = [min(q + VERIFY_T, 2048) for q in VERIFY_Q_START]
+    return [check_prefill(f"verify D{D} B8 T5", VERIFY_T, VERIFY_Q_START,
+                          valid, D=D, time_it=time_it) for D in (64, 128)]
+
+
+def phase_engine_spec(seed: int = 0) -> dict:
+    """2 layers of the 1B width in f32, greedy, a draft of the same weights
+    and one of another seed: speculative tokens == plain tokens on the
+    fixed path (graphs, eager, and the plain versions), in looped blocks
+    (WHILE graph, eager loop) and in the mixed step under the loop (graph
+    against eager); graph launches == eager launches."""
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distributed_inference_server_tpu_torch.engine.speculative import (
+        SpecConfig,
+    )
+    from distributed_inference_server_tpu_torch.models import llama
+    from distributed_inference_server_tpu_torch.models.configs import (
+        LLAMA_3_2_1B,
+    )
+    from distributed_inference_server_tpu_torch.models.tokenizer import (
+        ByteTokenizer,
+    )
+    from distributed_inference_server_tpu_torch.ops import kernels
+    from distributed_inference_server_tpu_torch.ops.quant import (
+        quantize_params,
+    )
+
+    cfg = LLAMA_3_2_1B.with_overrides(num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    target = llama.init_params(cfg, gen, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    other = llama.init_params(cfg, gen, dtype=torch.float32, device="cuda")
+    tok = ByteTokenizer()
+    prompts = [("speculation against plain decoding", 40),
+               ("s" * 300, 24), ("short", 48)]
+    chats = ["first chat of the mixed trace", "second chat"]
+    long_prompt = ("a ~400-token prompt loading while the chats decode. "
+                   * 8)[:400]
+
+    def run(eng, trace):
+        kernels.reset_launch_counts()
+        toks = {}
+
+        def step():
+            for o in eng.step():
+                assert o.error is None, o.error
+                if o.token_id is not None:
+                    toks.setdefault(o.request_id, []).append(o.token_id)
+
+        if trace == "mixed":
+            for i, p in enumerate(chats):
+                eng.add_request(f"c{i}", tok.encode(p), SamplingParams(
+                    max_tokens=24, temperature=0.0))
+            for _ in range(3):
+                step()
+            eng.add_request("long", tok.encode(long_prompt),
+                            SamplingParams(max_tokens=8, temperature=0.0))
+        else:
+            for i, (p, n) in enumerate(prompts):
+                eng.add_request(f"r{i}", tok.encode(p), SamplingParams(
+                    max_tokens=n, temperature=0.0))
+        while eng.has_work():
+            step()
+        assert eng.audit_pages() == [], eng.audit_pages()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        return toks, counts, eng.spec_stats()
+
+    def engine(draft, graphs=True, **kw):
+        return LLMEngine(target, cfg, tok, EngineConfig(**kw),
+                         dtype=torch.float32, device="cuda", _graphs=graphs,
+                         draft_params=draft,
+                         draft_cfg=cfg if draft is not None else None,
+                         spec=SpecConfig())
+
+    out = {}
+    plain, _, _ = run(engine(None), "loop")
+    plain_mixed, _, _ = run(engine(None, mixed_step_tokens=128), "mixed")
+    for dname, draft in (("same", target), ("other", other)):
+        runs = {}
+        for name, graphs, kw in (
+                ("fixed-graph", True, {}),
+                ("fixed-eager", False, {}),
+                ("fixed-plain", False, {"attention_impl": "plain"}),
+                ("loop-graph", True, {"loop_to_completion": True}),
+                ("loop-eager", False, {"loop_to_completion": True})):
+            eng = engine(draft, graphs, **kw)
+            runs[name] = run(eng, "loop")
+            del eng
+        for name, (toks, _, _) in runs.items():
+            assert toks == plain, (dname, name, toks, plain)
+        for a, b in (("fixed-graph", "fixed-eager"),
+                     ("loop-graph", "loop-eager")):
+            assert runs[a][1] == runs[b][1], (dname, a, runs[a][1],
+                                              runs[b][1])
+            assert runs[a][2]["totals"] == runs[b][2]["totals"]
+        mruns = {}
+        for name, graphs in (("graph", True), ("eager", False)):
+            eng = engine(draft, graphs, loop_to_completion=True,
+                         mixed_step_tokens=128, loop_max_steps=1)
+            mruns[name] = run(eng, "mixed")
+            del eng
+        assert mruns["graph"][0] == mruns["eager"][0] == plain_mixed, (
+            dname, mruns["graph"][0], plain_mixed)
+        assert mruns["graph"][1] == mruns["eager"][1]
+        t = runs["fixed-graph"][2]["totals"]
+        assert t["row_rounds"] > 0 and t["proposed"] > 0
+        if dname == "same":
+            assert t["accepted"] == t["proposed"], t
+        out[dname] = {name: {"launches": r[1], "totals": r[2]["totals"]}
+                      for name, r in {**runs, **{
+                          f"mixed-loop-{k}": v for k, v in mruns.items()
+                      }}.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+    # int8 weights over int8 KV, as the 8B spec server: the verify's
+    # products take quant_matmul_q8's prefill body at M = 40
+    qtarget = quantize_params(target, "int8")
+    qruns = {}
+    for name, draft, graphs, impl in (
+            ("plain-decoding", None, True, "kernel"),
+            ("spec-graph", other, True, "kernel"),
+            ("spec-plain", other, False, "plain"),
+            # the quantized target as its own draft: proposals accepted,
+            # so every verify row decides a token
+            ("self-spec-graph", qtarget, True, "kernel"),
+            ("self-spec-plain", qtarget, False, "plain")):
+        eng = LLMEngine(qtarget, cfg, tok, EngineConfig(
+            attention_impl=impl, kv_quant="int8"), dtype=torch.float32,
+            device="cuda", _graphs=graphs, draft_params=draft,
+            draft_cfg=cfg if draft is not None else None, spec=SpecConfig())
+        qruns[name] = run(eng, "loop")
+        del eng
+    for name in ("spec-graph", "spec-plain", "self-spec-graph",
+                 "self-spec-plain"):
+        assert qruns[name][0] == qruns["plain-decoding"][0], (name, qruns)
+        kernel = name.endswith("graph")
+        counts = qruns[name][1]
+        if kernel:
+            assert counts.get("quant_matmul_q8", 0) > 0, counts
+            assert counts.get("paged_decode_int8", 0) > 0, counts
+        else:
+            assert not counts, (name, counts)
+        t = qruns[name][2]["totals"]
+        assert t["row_rounds"] > 0 and t["proposed"] > 0, (name, t)
+    t = qruns["self-spec-graph"][2]["totals"]
+    assert t["accepted"] > 0, t
+    out["int8+kv_int8"] = {name: {"launches": r[1],
+                                  "totals": (r[2] or {}).get("totals")}
+                           for name, r in qruns.items()}
+    del qtarget
+    log(json.dumps({"engine_f32_2layer_spec":
+                    "spec tokens == plain tokens (fixed graph / eager / "
+                    "plain, loop graph / eager, mixed under the loop graph "
+                    "/ eager); graph launches == eager launches; int8 "
+                    "weights + int8 KV: spec kernels == spec plain == "
+                    "plain decoding",
+                    "runs": out}))
+    return out
+
+
+def _spec_delta(before: dict, after: dict) -> dict:
+    """Speculation traffic between two /server/stats readings."""
+    a = before["worker_statuses"][0]["speculation"]["totals"]
+    b = after["worker_statuses"][0]["speculation"]["totals"]
+    return {k: b[k] - a[k] for k in b}
+
+
+def _first_divergence(a: str, b: str):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def phase_serve_spec(card: str, seed: int, extra, label: str,
+                     log_name: str, model: str, want=None,
+                     required=QUANTUM_KERNELS, need_accepted=True,
+                     draft_pool=None) -> dict:
+    """A speculative server (``extra`` names the draft): the first mix's
+    greedy prompts one at a time, the four-request mix and a lone repeat,
+    counts zeroed just before the mix and read just after. Speculation
+    must have run (rounds and accepted tokens above zero unless the
+    trackers disabled it: then the rounds of the first launches still
+    count), every kernel in ``required`` must launch, and ``POST
+    /admin/speculation`` must reset one engine. Prints a ``spec_timing``
+    line: acceptance and tokens per round over the mix, the spec block's
+    step-clock ms, launches per spec block and, against ``want`` (the
+    plain server's greedy texts, when given), each greedy text's first
+    differing character (bf16: the verify forward is another chunk shape,
+    so equality is not required). Returns the mix's launches."""
+    with _server(seed, list(extra), log_name, model) as base:
+        _, stats0 = _http("GET", base + "/server/stats")
+        texts = greedy_texts(base)
+        phase_done(f"{label}: startup and greedy texts")
+        _, after_texts = _http("GET", base + "/server/stats")
+        _reset_counts(base)
+        _, before = _http("GET", base + "/server/stats")
+        jobs = [(MIX_PROMPTS["p20"], GREEDY), (MIX_PROMPTS["p100"], GREEDY),
+                (MIX_PROMPTS["p600"], GREEDY),
+                (MIX_PROMPTS["p100"], {"temperature": 0.8, "top_p": 0.9,
+                                       "max_tokens": 24})]
+        def run_jobs():
+            with cf.ThreadPoolExecutor(len(jobs)) as ex:
+                return list(ex.map(lambda j: _gen(base, *j), jobs))
+
+        t0 = time.monotonic()
+        results = run_jobs()
+        wall = time.monotonic() - t0
+        st, again, lone = _gen(base, MIX_PROMPTS["p20"], GREEDY)
+        _, after = _http("GET", base + "/server/stats")
+        for (_, params), (st_, body, _) in zip(jobs, results):
+            _check_generate(st_, body, params["max_tokens"])
+        _check_generate(st, again, GREEDY["max_tokens"])
+        launches = after["kernel_launches"]
+        for name in required:
+            assert launches[name] > 0, (label, name, launches)
+        spec = after["worker_statuses"][0]["speculation"]
+        whole = _spec_delta(stats0, after)
+        mix = _spec_delta(before, after)
+        assert whole["row_rounds"] > 0 and whole["proposed"] > 0, spec
+        assert whole["accepted"] > 0 or not need_accepted, spec
+        assert draft_pool is None or spec["draft_pool"] == draft_pool, spec
+        sc0, sc1 = before["step_clock"], after["step_clock"]
+        blocks = (sc1["kinds"]["decode_block"]["dispatches"]
+                  - sc0["kinds"]["decode_block"]["dispatches"])
+        chunks = (sc1["kinds"]["prefill"]["dispatches"]
+                  - sc0["kinds"]["prefill"]["dispatches"])
+        # the device's share and top kernels over 8 engine steps of the mix
+        # run again and again (a spec block is one graph replay: the
+        # profiler sees its kernels)
+        prof = _profiled(base, run_jobs, steps=8)
+        st, reset = _http("POST", base + "/admin/speculation",
+                          {"action": "reset"})
+        assert st == 200 and reset == {"status": "ok", "engines_reset": 1}, \
+            reset
+        rec = {
+            "spec_timing": label, "card": card,
+            "warmup_s": stats0["warmup_s"], "mix_wall_s": wall,
+            "lone_request_s": lone,
+            "acceptance_rate_mix": (mix["accepted"] / mix["proposed"]
+                                    if mix["proposed"] else None),
+            "tokens_per_round_mix": (mix["emitted"] / mix["row_rounds"]
+                                     if mix["row_rounds"] else None),
+            "totals_startup_to_end": whole, "totals_mix": mix,
+            "trackers": {k: spec[k] for k in ("acceptance_rate",
+                                              "estimated_speedup",
+                                              "enabled", "patterns")},
+            "draft_pool": spec["draft_pool"],
+            "spec_block_ms": _clock_ms(sc0, sc1, "decode_block"),
+            "spec_blocks": blocks, "prefill_chunks": chunks,
+            "prefill_chunk_ms": _clock_ms(sc0, sc1, "prefill"),
+            "launches": launches,
+            "events": sc1["events"],
+            "busy_share": prof["busy_share"],
+            "device_busy_s": prof["device_busy_s"],
+            "profile_window_s": prof["wall_s"],
+            "top_device_ms": prof["top_device_ms"][:10],
+            "graphs": (after.get("memory") or {}).get("graphs"),
+            "max_allocated_bytes": (after.get("memory") or {}).get(
+                "max_allocated_bytes"),
+        }
+        if want is not None:
+            rec["greedy_first_divergence_vs_plain"] = {
+                k: _first_divergence(texts[k], want[k]) for k in want}
+        log(json.dumps(rec))
+        assert after_texts["worker_statuses"][0]["speculation"][
+            "totals"]["row_rounds"] > 0
+        return {"launches": launches, "record": rec, "texts": texts}
+
+
+def _lone_ttfts(base, n: int = 6) -> list:
+    """Client TTFT (s) of ``n`` lone streamed greedy requests, one after
+    another (the first token-bearing frame)."""
+    out = []
+    for i in range(n):
+        res = _sse(base, "/generate", {"prompt": MIX_PROMPTS["p20"],
+                                       "stream": True, **GREEDY})
+        first = next(t for t, f in res["frames"]
+                     if isinstance(f, dict) and f.get("type") == "token")
+        out.append(first)
+    return out
+
+
+def _burst(base, prios):
+    """One concurrent greedy request per entry of ``prios`` (its
+    priority); each must answer 200 with 8 tokens. Returns the answers
+    and the burst's wall."""
+    t0 = time.monotonic()
+    with cf.ThreadPoolExecutor(len(prios)) as ex:
+        burst = list(ex.map(lambda i: _gen(base, f"burst {i} " * 3, {
+            "priority": prios[i], "temperature": 0.0, "max_tokens": 8}),
+            range(len(prios))))
+    wall = time.monotonic() - t0
+    for st, body, _ in burst:
+        _check_generate(st, body, 8)
+    return burst, wall
+
+
+def phase_admission(card: str, seed: int, base: str) -> dict:
+    """On an already-running llama-3.2-1b server (the reference's
+    admission defaults): the queue tier must be native; lone streamed TTFT
+    at the 50 ms batching window; a burst of 24 requests of mixed
+    priorities must all answer 200; then a second server with
+    ``--batcher-window-ms 0`` gives the lone TTFT without the window, and
+    a third with ``--queue-tenant-fairness true`` (the Python tier) the
+    lone TTFT and the burst on that tier. Prints one ``admission_timing``
+    line."""
+    _, stats = _http("GET", base + "/server/stats")
+    adm = stats["admission"]
+    assert adm["tier"] == "native", adm
+    assert adm["window_ms"] == 50.0 and adm["max_batch_size"] == 32, adm
+    lone = _lone_ttfts(base)
+    prios = ["high", "normal", "low"] * 8
+    burst, burst_wall = _burst(base, prios)
+    by_prio = {p: sorted(r[2] for r, q in zip(burst, prios) if q == p)
+               for p in ("high", "normal", "low")}
+    _, after = _http("GET", base + "/server/stats")
+    with _server(seed, ["--batcher-window-ms", "0"],
+                 "server_window0.log") as base0:
+        _, s0 = _http("GET", base0 + "/server/stats")
+        assert s0["admission"]["window_ms"] == 0.0, s0["admission"]
+        lone0 = _lone_ttfts(base0)
+    # the Python tier at the same defaults: tenant fairness forces it (one
+    # tenant here, so its lanes order requests as the native queue does)
+    with _server(seed, ["--queue-tenant-fairness", "true"],
+                 "server_python_tier.log") as base_py:
+        _, spy = _http("GET", base_py + "/server/stats")
+        assert spy["admission"]["tier"] == "python", spy["admission"]
+        lone_py = _lone_ttfts(base_py)
+        burst_py, burst_wall_py = _burst(base_py, prios)
+    rec = {"admission_timing": "llama-3.2-1b bf16", "card": card,
+           "tier": adm["tier"],
+           "lone_ttft_ms_window50": [round(t * 1e3, 3) for t in lone],
+           "lone_ttft_ms_window0": [round(t * 1e3, 3) for t in lone0],
+           "lone_ttft_ms_python_tier": [round(t * 1e3, 3) for t in lone_py],
+           "burst_requests": len(prios), "burst_wall_s": burst_wall,
+           "burst_wall_s_python_tier": burst_wall_py,
+           "burst_latency_s_max_python_tier": max(r[2] for r in burst_py),
+           "burst_latency_s_by_priority": by_prio,
+           "average_batch_size": after["average_batch_size"],
+           "queue_after": after["admission"]["queue"]}
+    log(json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,serve,quant,engine,ckpt,api,families")
+                    default="kernels,serve,quant,engine,ckpt,api,families,"
+                            "spec,admission")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--server-flags", default="",
+                    help="flags added to every server started, split on "
+                         "spaces (e.g. '--batcher-window-ms 0' with "
+                         "--phases serve)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    SERVER_FLAGS[:] = args.server_flags.split()
 
     card = card_line()
     log(card)
@@ -2673,14 +3126,29 @@ def main(argv=None) -> int:
                 launches[f"{name} ({model})"] = got[name]
             phase_done(f"serve {label}")
     api_launches = {}
-    if "ckpt" in phases or "api" in phases:
+    spec_launches = {}
+    if phases & {"ckpt", "api", "spec", "admission"}:
         if texts is None and "ckpt" in phases:
             # the random-weight server's texts to match
             with _server(args.seed, [], "server.log") as base:
                 texts = greedy_texts(base)
-        api_launches = phase_checkpoint(card, args.seed, texts,
-                                        api="api" in phases)
-        phase_done("api" if "api" in phases else "checkpoint")
+        got = phase_checkpoint(card, args.seed, texts, api="api" in phases,
+                               spec="spec" in phases,
+                               admission="admission" in phases)
+        api_launches, spec_launches = got["api"], got["spec"]
+        phase_done("checkpoint, api, admission and spec 1B")
+    if "spec" in phases:
+        torch.cuda.empty_cache()
+        spec_launches["llama-3-8b"] = phase_serve_spec(
+            card, args.seed,
+            ["--model-quantization", "int8", "--engine-kv-quant", "int8",
+             "--model-draft-model-name", "llama-3.2-1b"],
+            "llama-3-8b int8 weights + int8 KV, random llama-3.2-1b bf16 "
+            "draft (int8 draft pool)", "server_spec_8b.log", "llama-3-8b",
+            required=("quant_matmul_q8", "paged_decode_int8", "rms_norm",
+                      "rope"), need_accepted=False,
+            draft_pool="int8")["launches"]
+        phase_done("serve spec llama-3-8b int8 + 1B draft")
     if "engine" in phases:
         phase_engine_f32(args.seed)
         phase_engine_quant_f32(args.seed)
@@ -2689,6 +3157,9 @@ def main(argv=None) -> int:
         phase_done("engine graph == eager")
         phase_engine_loop_mixed(args.seed)
         phase_done("engine loop and mixed graphs")
+    if "spec" in phases:
+        phase_engine_spec(args.seed)
+        phase_done("engine spec == plain, graph == eager")
     if "families" in phases:
         phase_engine_families(args.seed)
         phase_done("engine families and window reclaim")
@@ -2708,6 +3179,14 @@ def main(argv=None) -> int:
         }
         if api_launches:  # the streamed and OpenAI routes' own launches
             row["launches_api"] = api_launches.get(name)
+        for model, got in spec_launches.items():  # the spec servers' mixes
+            row[f"launches_spec ({model})"] = got.get(name)
+        verify = {r["case"]: {k: r.get(k) for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")}
+            for r in checks.get(name, []) if r["case"].startswith("verify")}
+        if verify:  # the speculative verify forward's shape
+            row["verify"] = verify
         d128 = next((r for r in checks.get(name, [])
                      if r["case"].startswith("D128") and "ms" in r), None)
         if d128 is not None:  # the same work at llama-3-8b's head size
@@ -2721,6 +3200,13 @@ def main(argv=None) -> int:
             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by"):
                 row[f"{key}_prefill"] = pre.get(key)
+            ver = next((r for r in checks.get(name, []) if r["case"].endswith(
+                f"verify: the seven products of one layer at M="
+                f"{verify_rows()}, summed")), None)
+            if ver is not None:  # the verify forward's products (q8)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by"):
+                    row[f"{key}_verify"] = ver.get(key)
         fam = {r["case"]: {k: r.get(k) for k in (
             "ms", "plain_ms", "library_ms", "sdpa_nocap_ms", "bound_ms",
             "bound_by", "max_abs_err")}

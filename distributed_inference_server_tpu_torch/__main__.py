@@ -3,7 +3,13 @@
 [--model-model-dir DIR] [--device cuda|cpu] [--engine-mixed-step-tokens N]
 [--model-quantization none|int8|int4] [--engine-kv-quant none|int8]
 [--engine-pipeline-depth N] [--engine-warmup-compile true|false]
-[--engine-loop-to-completion true|false] [--engine-loop-max-steps N]``.
+[--engine-loop-to-completion true|false] [--engine-loop-max-steps N]
+[--model-draft-model-name NAME | --model-draft-model-dir DIR]
+[--engine-num-draft-tokens G] [--queue-high-watermark N]
+[--queue-low-watermark N] [--queue-request-timeout-s S]
+[--queue-max-queue-size N] [--queue-tenant-fairness true|false]
+[--queue-tenant-weights a=2,b=1] [--batcher-window-ms MS]
+[--batcher-max-batch-size N]``.
 
 With ``--model-model-dir`` the config and weights come from that HF
 checkpoint directory (``models/loader.py load_checkpoint``) and the
@@ -27,11 +33,26 @@ every CUDA graph, before the server reports ready.
 iterations as run-to-completion looped blocks of at most
 ``--engine-loop-max-steps`` (default 256) iterations, one CUDA graph launch
 each on ``cuda``, and the mixed step in its K-block form.
+
+A draft model (``--model-draft-model-name`` for a random preset drawn from
+its own generator, seeded ``--seed`` + 1, or ``--model-draft-model-dir``
+for a checkpoint, loaded unquantized) turns on speculative decoding with
+``--engine-num-draft-tokens`` (gamma, default 4) proposals a round; it
+must share the target's vocabulary.
+
+Requests pass the admission layer first (``serving/dispatcher.py``): a
+priority queue with hysteresis backpressure (503 above
+``--queue-high-watermark`` until below ``--queue-low-watermark``), a
+``--queue-request-timeout-s`` expiry (408 ``queue_timeout``), optional
+per-tenant fair lanes, and a batching window of ``--batcher-window-ms``
+or ``--batcher-max-batch-size`` requests; the defaults are the
+reference's. A bad value exits 2 with ``config error:``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import signal
@@ -40,13 +61,25 @@ import sys
 import torch
 
 from distributed_inference_server_tpu_torch.core.errors import ModelLoadError
+from distributed_inference_server_tpu_torch.core.queue import (
+    QueueConfig,
+    parse_tenant_weights,
+)
 from distributed_inference_server_tpu_torch.engine.engine import (
     EngineConfig,
     LLMEngine,
 )
 from distributed_inference_server_tpu_torch.engine.kv_cache import KV_QUANTS
-from distributed_inference_server_tpu_torch.models.configs import get_config
+from distributed_inference_server_tpu_torch.engine.speculative import (
+    SpecConfig,
+)
+from distributed_inference_server_tpu_torch.models import llama
+from distributed_inference_server_tpu_torch.models.configs import (
+    ModelConfig,
+    get_config,
+)
 from distributed_inference_server_tpu_torch.models.loader import (
+    config_from_hf_json,
     load_checkpoint,
 )
 from distributed_inference_server_tpu_torch.models.tokenizer import (
@@ -56,6 +89,9 @@ from distributed_inference_server_tpu_torch.ops.quant import (
     MODES,
     init_random_quantized,
     quantize_params,
+)
+from distributed_inference_server_tpu_torch.serving.batcher import (
+    BatcherConfig,
 )
 from distributed_inference_server_tpu_torch.serving.server import (
     InferenceServer,
@@ -73,6 +109,12 @@ def _bool(text: str) -> bool:
     if low in ("0", "false", "no", "off"):
         return False
     raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
+
+
+def _dir_config(model_dir: str) -> ModelConfig:
+    """The model config of an HF checkpoint directory's config.json."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        return config_from_hf_json(json.load(f))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -111,6 +153,36 @@ def _parser() -> argparse.ArgumentParser:
                          "decode_block_size tokens per dispatch)")
     ap.add_argument("--engine-loop-max-steps", type=int, default=256,
                     help="iteration cap of one looped block (>= 1)")
+    ap.add_argument("--model-draft-model-name", default="",
+                    help="speculative decoding: a random draft model of "
+                         "this preset (the target's vocabulary)")
+    ap.add_argument("--model-draft-model-dir", default="",
+                    help="speculative decoding: the draft model's HF "
+                         "checkpoint directory")
+    ap.add_argument("--engine-num-draft-tokens", type=int, default=4,
+                    help="draft proposals per speculative round (gamma)")
+    ap.add_argument("--queue-high-watermark", type=int, default=1000,
+                    help="queued requests above which admission answers "
+                         "503 queue_full")
+    ap.add_argument("--queue-low-watermark", type=int, default=500,
+                    help="queued requests below which admission resumes")
+    ap.add_argument("--queue-request-timeout-s", type=float, default=30.0,
+                    help="seconds a request may wait in the queue (then "
+                         "408 queue_timeout)")
+    ap.add_argument("--queue-max-queue-size", type=int, default=2000,
+                    help="absolute cap on queued requests")
+    ap.add_argument("--queue-tenant-fairness", default="false",
+                    help="per-tenant fair admission lanes (deficit round "
+                         "robin over the body's 'tenant'; Python queue "
+                         "tier)")
+    ap.add_argument("--queue-tenant-weights", default="",
+                    help="DRR weights, 'tenantA=2,tenantB=1' (unlisted "
+                         "tenants weigh 1)")
+    ap.add_argument("--batcher-window-ms", type=float, default=50.0,
+                    help="admission batching window after a batch's first "
+                         "request")
+    ap.add_argument("--batcher-max-batch-size", type=int, default=32,
+                    help="requests that close an admission batch early")
     return ap
 
 
@@ -124,6 +196,11 @@ def main(argv=None) -> int:
         print(f"config error: engine.loop_to_completion: {e}",
               file=sys.stderr)
         return 2
+    try:
+        fair = _bool(args.queue_tenant_fairness)
+    except argparse.ArgumentTypeError as e:
+        print(f"config error: queue.tenant_fairness: {e}", file=sys.stderr)
+        return 2
     ecfg = EngineConfig(seed=args.seed,
                         mixed_step_tokens=args.engine_mixed_step_tokens,
                         kv_quant=args.engine_kv_quant,
@@ -132,7 +209,37 @@ def main(argv=None) -> int:
                         loop_to_completion=loop,
                         loop_max_steps=args.engine_loop_max_steps)
     model_dir = args.model_model_dir or None
+    draft_dir = args.model_draft_model_dir or None
+    draft_name = args.model_draft_model_name or None
     try:
+        if draft_dir and draft_name:
+            raise ValueError("set model.draft_model_name or "
+                             "model.draft_model_dir, not both")
+        if args.engine_num_draft_tokens < 1:
+            raise ValueError("engine.num_draft_tokens must be >= 1")
+        queue_cfg = QueueConfig(
+            high_watermark=args.queue_high_watermark,
+            low_watermark=args.queue_low_watermark,
+            request_timeout_s=args.queue_request_timeout_s,
+            max_queue_size=args.queue_max_queue_size,
+            tenant_fairness=fair,
+            tenant_weights=parse_tenant_weights(args.queue_tenant_weights))
+        if not 0 <= queue_cfg.low_watermark <= queue_cfg.high_watermark:
+            raise ValueError("queue watermarks need 0 <= low_watermark <= "
+                             "high_watermark")
+        if queue_cfg.max_queue_size < 1 or queue_cfg.request_timeout_s <= 0:
+            raise ValueError("queue.max_queue_size must be >= 1 and "
+                             "queue.request_timeout_s > 0")
+        batcher_cfg = BatcherConfig(
+            window_ms=args.batcher_window_ms,
+            max_batch_size=args.batcher_max_batch_size)
+        if batcher_cfg.window_ms < 0 or batcher_cfg.max_batch_size < 1:
+            raise ValueError("batcher.window_ms must be >= 0 and "
+                             "batcher.max_batch_size >= 1")
+        if draft_dir and not os.path.isfile(
+                os.path.join(draft_dir, "config.json")):
+            raise ValueError(f"model.draft_model_dir {draft_dir!r} has no "
+                             "config.json")
         if args.model_quantization not in MODES:
             raise ValueError(f"model.quantization must be none/int8/int4, "
                              f"got {args.model_quantization!r}")
@@ -155,7 +262,19 @@ def main(argv=None) -> int:
                 f"({ecfg.max_batch}): the packed width holds every decode "
                 "slot plus at least one prefill token")
         device = resolve_device(args.device)
-        cfg = None if model_dir else get_config(args.model_model_name)
+        cfg = (_dir_config(model_dir) if model_dir
+               else get_config(args.model_model_name))
+        draft_cfg = (_dir_config(draft_dir) if draft_dir
+                     else get_config(draft_name) if draft_name else None)
+        if draft_cfg is not None and draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"the draft model's vocabulary ({draft_cfg.vocab_size}) "
+                f"differs from the target's ({cfg.vocab_size})")
+        if draft_cfg is not None and (ecfg.mixed_step_tokens
+                                      and not ecfg.loop_to_completion):
+            raise ValueError(
+                "engine.mixed_step_tokens with a draft model needs "
+                "engine.loop_to_completion")
         dtype = dtype_from_name(args.model_dtype)
         tokenizer = load_tokenizer(model_dir)
     except (RuntimeError, KeyError, ValueError, ModelLoadError) as e:
@@ -174,11 +293,27 @@ def main(argv=None) -> int:
             params = init_random_quantized(model_cfg,
                                            args.model_quantization, gen,
                                            dtype=dtype, device=device)
+        draft_params = spec = None
+        draft_model_cfg = draft_cfg
+        if draft_dir:
+            draft_params, draft_model_cfg = load_checkpoint(
+                draft_dir, dtype=dtype, device=device)
+        elif draft_name:
+            # its own generator: the draft's draw differs from the target's
+            dgen = torch.Generator(device=device)
+            dgen.manual_seed(args.seed + 1)
+            draft_params = llama.init_params(draft_cfg, dgen, dtype=dtype,
+                                             device=device)
+        if draft_params is not None:
+            spec = SpecConfig(num_draft_tokens=args.engine_num_draft_tokens)
         return LLMEngine(params, model_cfg, tokenizer, ecfg, dtype=dtype,
-                         device=device)
+                         device=device, draft_params=draft_params,
+                         draft_cfg=draft_model_cfg, spec=spec)
 
     server = InferenceServer(engine_factory, tokenizer,
-                             model_name=args.model_model_name)
+                             model_name=args.model_model_name,
+                             queue_config=queue_cfg,
+                             batcher_config=batcher_cfg)
     try:
         server.start()
     except (RuntimeError, TimeoutError) as e:

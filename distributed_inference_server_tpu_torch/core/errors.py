@@ -1,6 +1,7 @@
 """Error taxonomy with HTTP status mapping (port of
 ``distributed_inference_server_tpu/core/errors.py``: the validation, API and
-cache errors the ``/generate`` path raises, and the model-load error of the
+cache errors the ``/generate`` path raises, the admission queue's
+``QueueFull`` (503 ``queue_full``) and the model-load error of the
 checkpoint loader). Codes, status codes and
 error-type strings are identical to the reference's."""
 
@@ -104,11 +105,30 @@ class ValidationApiError(ApiError):
         return self.cause.code
 
 
-class RequestTimeoutApiError(ApiError):
-    """HTTP 408 / timeout_error."""
+class QueueFullApiError(ApiError):
+    """HTTP 503 / rate_limit_error: the admission queue pushes back."""
 
     def __init__(self) -> None:
+        super().__init__("Queue full, server is overloaded")
+
+    def status_code(self) -> int:
+        return 503
+
+    def error_type(self) -> str:
+        return "rate_limit_error"
+
+    def code(self) -> str:
+        return "queue_full"
+
+
+class RequestTimeoutApiError(ApiError):
+    """HTTP 408 / timeout_error. ``code`` is ``request_timeout``, or
+    ``queue_timeout`` for a request that expired in the admission queue
+    before any engine started it."""
+
+    def __init__(self, code: str = "request_timeout") -> None:
         super().__init__("Request timeout")
+        self._code = code
 
     def status_code(self) -> int:
         return 408
@@ -117,7 +137,7 @@ class RequestTimeoutApiError(ApiError):
         return "timeout_error"
 
     def code(self) -> str:
-        return "request_timeout"
+        return self._code
 
 
 class InternalApiError(ApiError):
@@ -135,6 +155,18 @@ class InternalApiError(ApiError):
 
     def code(self) -> str:
         return "internal_error"
+
+
+# -- queue errors -------------------------------------------------------------
+
+
+class QueueError(Exception):
+    pass
+
+
+class QueueFull(QueueError):
+    def __init__(self) -> None:
+        super().__init__("Queue is full")
 
 
 # -- cache errors -------------------------------------------------------------

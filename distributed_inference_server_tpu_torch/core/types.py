@@ -1,6 +1,6 @@
 """Core identifier types and priority levels (port of
-``distributed_inference_server_tpu/core/types.py``: the subset ``/generate``
-needs)."""
+``distributed_inference_server_tpu/core/types.py``: the request and batch
+ids, the priority levels and the admission tenant key)."""
 
 from __future__ import annotations
 
@@ -9,10 +9,21 @@ import uuid
 
 # Unique identifier for an inference request.
 RequestId = str
+# An admission batch of requests (serving/batcher.py).
+BatchId = str
+
+#: the admission tenant of a request whose body names none; also the only
+#: tenant while per-tenant fair admission is off
+DEFAULT_TENANT = "default"
 
 
 def new_request_id() -> RequestId:
     """Fresh UUID4 request id."""
+    return str(uuid.uuid4())
+
+
+def new_batch_id() -> BatchId:
+    """Fresh UUID4 batch id."""
     return str(uuid.uuid4())
 
 

@@ -77,8 +77,26 @@ with every ``EngineConfig`` default, and the ragged mixed step).
   ``max_batch`` bucket-sized chunks per step, so the serving runner can
   interleave an embeddings job with decode.
 
-Not ported yet: speculation (and so speculation inside looped blocks),
-meshes, the host tier and KV handoff.
+- **Speculative decoding** (``draft_params`` / ``draft_cfg`` / ``spec``):
+  the draft model gets its own page pool (the target's page geometry and
+  ``kv_quant``, the target's block tables and write slots) and prefills
+  beside the target in every prefill chunk (its logits unembedded at
+  ``last_idx`` only, never read). A decode block becomes R =
+  ``decode_block_size`` speculative rounds: gamma draft decodes over the
+  draft pool, then ONE target verify forward over [last, d_1..d_gamma]
+  (T = gamma + 1: the chunked-prefill kernel), then acceptance and
+  resampling on the device (``speculative.accept_and_resample``); a row
+  emits 1..gamma + 1 tokens a round, EOS freezes it, writes past capacity
+  drop. On ``cuda`` the block is a CUDA graph per sampling mode. Rows on
+  request patterns whose tracker is disabled ride along with ``spec_ok``
+  False (one target token a round); a launch where every row is disabled
+  takes the plain decode block. Under ``loop_to_completion`` the rounds
+  run inside the looped block's WHILE graph with its device page
+  free-list, and the mixed step (plain decode rows, as in the reference:
+  it writes no draft KV) composes with them. Greedy tokens equal plain
+  decoding's, whatever the draft.
+
+Not ported yet: meshes, the host tier and KV handoff.
 
 Threading: the engine is synchronous and single-owner (one ``step()``
 caller); the serving layer runs it on a dedicated thread.
@@ -110,6 +128,16 @@ from distributed_inference_server_tpu_torch.engine.kv_cache import (
     PagedCacheConfig,
     PagedKVState,
 )
+from distributed_inference_server_tpu_torch.engine.speculative import (
+    PatternTrackers,
+    SpecConfig,
+    accept_and_resample,
+    categorical,
+    spec_signature,
+)
+from distributed_inference_server_tpu_torch.engine.speculative import (
+    _probs as spec_probs,
+)
 from distributed_inference_server_tpu_torch.models import llama
 from distributed_inference_server_tpu_torch.models.configs import ModelConfig
 from distributed_inference_server_tpu_torch.models.tokenizer import Tokenizer
@@ -117,6 +145,7 @@ from distributed_inference_server_tpu_torch.ops import kernels
 from distributed_inference_server_tpu_torch.ops.quant import is_quantized
 from distributed_inference_server_tpu_torch.ops.sampling import (
     counter_uniform,
+    nucleus_probs,
     sample_tokens,
 )
 from distributed_inference_server_tpu_torch.utils.device import (
@@ -341,13 +370,19 @@ class LLMEngine:
         dtype: torch.dtype = torch.bfloat16,
         device: DeviceLike = None,
         _graphs: bool = True,
+        draft_params: Optional[llama.Params] = None,
+        draft_cfg: Optional[ModelConfig] = None,
+        spec: Optional[SpecConfig] = None,
     ):
         """``params``: the ``models/llama.py`` tree (moved to ``device`` if
         it lives elsewhere); ``dtype``: the KV pools' dtype; ``device``:
         ``cuda`` unless the caller asks for ``cpu``. Quantized weights
         (``Q8Tensor`` / ``Q4Tensor`` leaves) pass through as they are.
         ``_graphs=False`` runs the quantum path eagerly on ``cuda`` too
-        (for comparing the graph path with the eager one)."""
+        (for comparing the graph path with the eager one).
+        ``draft_params`` / ``draft_cfg``: a draft model (the target's
+        vocabulary) enabling speculative decoding with ``spec`` (default
+        ``SpecConfig()``)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tok = tokenizer
@@ -376,6 +411,32 @@ class LLMEngine:
             raise ValueError(
                 f"loop_max_steps must be >= 1, got "
                 f"{self.ecfg.loop_max_steps}")
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_params needs its draft_cfg")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"the draft model's vocabulary ({draft_cfg.vocab_size}) "
+                    f"differs from the target's ({cfg.vocab_size})")
+            if (self.ecfg.mixed_step_tokens
+                    and not self.ecfg.loop_to_completion):
+                raise ValueError(
+                    "mixed_step_tokens does not compose with speculative "
+                    "decoding: the mixed step owns the decode carry one "
+                    "token at a time, the spec block gamma+1 at a time "
+                    "(set engine.loop_to_completion to compose them)")
+        self.spec = spec or SpecConfig()
+        if self.spec.num_draft_tokens < 1:
+            raise ValueError(f"num_draft_tokens must be >= 1, got "
+                             f"{self.spec.num_draft_tokens}")
+        self.draft_cfg = draft_cfg if draft_params is not None else None
+        self.spec_trackers = (PatternTrackers(self.spec)
+                              if draft_params is not None else None)
+        # cumulative speculation traffic (spec_stats "totals"): spec
+        # launches, and over the rows that speculated, their rounds, the
+        # draft tokens proposed and accepted
+        self._spec_totals = {"blocks": 0, "row_rounds": 0, "proposed": 0,
+                             "accepted": 0}
         self.params = _to_device(params, self.device)
         if self.params["embed"].dtype != torch.float32:
             # f32 logits every step: keep the f32 unembedding once
@@ -384,6 +445,17 @@ class LLMEngine:
         self.state = PagedKVState.create(cfg, self.pcfg, dtype=dtype,
                                          device=self.device,
                                          kv_quant=self.ecfg.kv_quant)
+        # the draft's pool: the target's page geometry and kv_quant, the
+        # target's block tables and write slots
+        self.draft_params = self.draft_state = None
+        if draft_params is not None:
+            self.draft_params = _to_device(draft_params, self.device)
+            if self.draft_params["embed"].dtype != torch.float32:
+                self.draft_params["unembed_f32"] = llama.unembed_weight_f32(
+                    self.draft_params, draft_cfg)
+            self.draft_state = PagedKVState.create(
+                draft_cfg, self.pcfg, dtype=dtype, device=self.device,
+                kv_quant=self.ecfg.kv_quant)
         self.allocator = PageAllocator(self.pcfg)
         self.waiting: Deque[_Seq] = deque()
         self.slots: List[Optional[_Seq]] = [None] * self.ecfg.max_batch
@@ -471,6 +543,22 @@ class LLMEngine:
         self._l_tbl = st[3 + 3 * B:].view(B, P)
         self._l_out = torch.zeros((2, C, B), dtype=f32, device=dev)
         self._loop_launches = 0
+        # speculation. In: spec_ok per slot [B] (1 = the row's pattern
+        # speculates). Out of a fixed spec block (R = decode_block_size
+        # rounds of W = gamma + 1) and of a looped one (R = its round cap):
+        # [R, B, W] tokens (-1 = not emitted) and log-probabilities, then
+        # [R, B] emitted counts, accepted and proposed draft tokens, all
+        # f32 in one buffer (one host read)
+        W = self.spec.num_draft_tokens + 1
+        R = K if draft_params is not None else 0
+        # a looped spec block runs whole rounds: at most ceil(C / W)
+        self._spec_loop_rounds = -(-C // W) if draft_params is not None else 0
+        self._s_ok = torch.zeros((B,), dtype=i32, device=dev)
+        self._s_out = torch.zeros((R * B * (2 * W + 3),), dtype=f32,
+                                  device=dev)
+        self._ls_out = torch.zeros(
+            (self._spec_loop_rounds * B * (2 * W + 3),), dtype=f32,
+            device=dev)
         # launched-but-unprocessed blocks: (host [2, K, B] tokens and
         # log-probabilities, the event after their copy or None, the
         # launch snapshot, the step-clock kind)
@@ -703,6 +791,27 @@ class LLMEngine:
             "cap": self._loop_cap(),
             "cap_frac": self._loop_cap_frac,
         }
+
+    def spec_stats(self) -> Optional[Dict[str, object]]:
+        """Speculation for ``/server/stats`` and ``/metrics``: the
+        aggregate acceptance rate, estimated speedup and enabled flag
+        (over each pattern's window), the per-pattern breakdown and gamma,
+        as the reference reports them; and the port's ``totals`` since
+        construction (spec launches; the rounds of the rows that
+        speculated, their draft tokens proposed, accepted, and tokens
+        emitted) and the draft pool's element type. None without a draft
+        model."""
+        if self.spec_trackers is None:
+            return None
+        out = self.spec_trackers.stats()
+        out["num_draft_tokens"] = self.spec.num_draft_tokens
+        t = dict(self._spec_totals)
+        t["emitted"] = t["accepted"] + t["row_rounds"]
+        out["totals"] = t
+        pool = self.draft_state.k
+        out["draft_pool"] = str(getattr(pool, "data", pool).dtype).replace(
+            "torch.", "")
+        return out
 
     def _mixed_block_k(self) -> int:
         """Decode tokens one mixed dispatch advances: decode_block_size
@@ -973,6 +1082,16 @@ class LLMEngine:
                 self._upload(self._d_int, idle)
                 self._stage_loop_inputs([], 1)
                 self._run_loop(mode)
+        for mode in SAMPLE_MODES if self.draft_params is not None else ():
+            if self.ecfg.loop_to_completion:
+                if ("sloop", mode) not in self._graphs:
+                    self._upload(self._d_int, idle)
+                    self._stage_loop_inputs([], 1)
+                    self._run_loop(mode, spec=True)
+            elif ("spec", mode) not in self._graphs:
+                self._upload(self._d_int, idle)
+                self._run(("spec", mode), functools.partial(
+                    self._spec_body, mode), self._decode_gen)
         for b in self.ecfg.prefill_buckets:
             ints = np.zeros(self._p_int[b].shape, np.int32)
             ints[2 * Bp * b:3 * Bp * b] = self._num_slots_flat  # drop
@@ -1065,6 +1184,15 @@ class LLMEngine:
             self.state.v, write_slots, tables, kv_valid,
             impl=self.ecfg.attention_impl, page_size=self.pcfg.page_size,
             logits_idx=last_idx)
+        if self.draft_params is not None:
+            # the draft prefills the same chunk into its own pool (same
+            # slots); its logits are never read, so only last_idx is
+            # unembedded
+            llama.paged_forward(
+                self.draft_params, self.draft_cfg, ids, positions,
+                self.draft_state.k, self.draft_state.v, write_slots, tables,
+                kv_valid, impl=self.ecfg.attention_impl,
+                page_size=self.pcfg.page_size, logits_idx=last_idx)
         last = logits[:, 0]
         toks = _sample(last, flts[:Bp], flts[Bp:], self._gen, mode)
         out = self._p_out[bucket]
@@ -1206,14 +1334,30 @@ class LLMEngine:
             self._bt[slot, p] = table[p]
         self._bt_pages[slot] = len(table)
 
-    def _assumed_adv(self, seq: _Seq) -> int:
-        """Tokens this sequence can emit in one block (the page
-        pre-allocation unit). With blocks in flight the projection
-        (dev_pos, dev_steps_left) runs ahead of the host view; it is exact
+    def _assumed_adv(self, seq: _Seq, use_spec: bool = False) -> int:
+        """Upper bound on the positions this sequence writes in one block
+        (the page pre-allocation and projection unit). Plain blocks: with
+        blocks in flight the projection (dev_pos, dev_steps_left) is exact
         for the device row, which freezes once its steps run out, so a
-        projection at or below zero steps means the row writes nothing
-        more, pending blocks or not (the reference's no-floor rule is for
-        speculative rounds, which overshoot their budget)."""
+        projection at or below zero steps writes nothing more.
+
+        Speculative blocks (the reference's rule): R rounds write up to
+        R * (gamma + 1) positions, and a round may overshoot the budget by
+        gamma before the row freezes. With blocks in flight the projection
+        is an upper bound on the device position but only a LOWER bound on
+        its remaining steps (a round emits fewer tokens than assumed
+        whenever a proposal is rejected; the reconcile restores
+        exactness). dev_pos + dev_steps_left is conserved, so the next
+        block's last write is below min(dev_pos + R * (gamma + 1),
+        dev_pos + dev_steps_left + gamma): the bound must not floor at
+        dev_steps_left <= 0 while a block is pending, or a still-active
+        device row writes past its pages into another sequence's KV."""
+        if use_spec:
+            if seq.dev_steps_left <= 0 and not self._pending:
+                return 0  # host view exact: the row is frozen
+            gamma = self.spec.num_draft_tokens
+            return max(0, min(self.ecfg.decode_block_size * (gamma + 1),
+                              seq.dev_steps_left + gamma))
         return max(0, min(self.ecfg.decode_block_size, seq.dev_steps_left))
 
     def _ensure_block_pages(self, seq: _Seq, steps: int) -> None:
@@ -1241,9 +1385,13 @@ class LLMEngine:
             if not any(u[0] for u in self._slot_updates.values()) and not any(
                     s.dev_steps_left > 0 for _, s in seated):
                 return False
+            use_spec, spec_ok = self._spec_plan(seated)
             for _, s in seated:
                 self._reclaim_window_pages(s)
-            advs = {id(s): self._assumed_adv(s) for _, s in seated}
+            # spec_ok False rows of a spec launch take the spec bound too:
+            # the verify forward writes gamma + 1 positions a round for
+            # every active row
+            advs = {id(s): self._assumed_adv(s, use_spec) for _, s in seated}
             try:
                 for _, s in seated:
                     self._ensure_block_pages(s, advs[id(s)])
@@ -1262,9 +1410,10 @@ class LLMEngine:
         for i, s in seated:
             if self._bt_pages[i] != len(s.block_table):
                 self._refresh_bt_row(i, s)
-        self._launch(seated, advs)
+        self._launch(seated, advs, spec_ok if use_spec else None)
         for _, s in seated:
             adv = advs[id(s)]
+            # no floor: negatives reconcile exactly when the block is read
             s.dev_pos += adv
             s.dev_steps_left -= adv
         self._clock("decode_block",
@@ -1362,17 +1511,234 @@ class LLMEngine:
         self._d_out[1].copy_(torch.stack(lps))
 
     def _launch(self, seated: List[Tuple[int, _Seq]],
-                advs: Dict[int, int]) -> None:
-        """Issue one decode block and queue its result: a non-blocking copy
-        into pinned host memory behind an event (a CPU copy on the CPU),
-        with the launch snapshot."""
+                advs: Dict[int, int],
+                spec_ok: Optional[Dict[int, bool]] = None) -> None:
+        """Issue one decode block (a speculative one when ``spec_ok`` is
+        given) and queue its result: a non-blocking copy into pinned host
+        memory behind an event (a CPU copy on the CPU), with the launch
+        snapshot."""
         self._stage_decode_inputs()
         mode = _sample_mode([s for _, s in seated])
+        snapshot = [(i, s, advs[id(s)]) for i, s in seated]
+        if spec_ok is not None:
+            self._stage_spec_ok(seated, spec_ok)
+            self._run(("spec", mode), functools.partial(self._spec_body,
+                                                        mode),
+                      self._decode_gen)
+            self._pending.append((*self._read_later(self._s_out), snapshot,
+                                  "decode_block"))
+            return
         self._run(("decode", mode), functools.partial(self._decode_body,
                                                       mode), self._decode_gen)
-        snapshot = [(i, s, advs[id(s)]) for i, s in seated]
         self._pending.append((*self._read_later(self._d_out), snapshot,
                               "decode_block"))
+
+    # ------------------------------------------------------------------
+    # speculative blocks
+    # ------------------------------------------------------------------
+
+    def _spec_plan(self, seated: List[Tuple[int, "_Seq"]]
+                   ) -> Tuple[bool, Optional[Dict[int, bool]]]:
+        """Per-launch speculation plan: ``(use_spec, ok_by_slot)``, a
+        seated row speculating iff its request pattern's tracker is
+        enabled. A launch whose rows are all on disabled patterns takes
+        the plain block; a mixed one masks the disabled rows (one target
+        token a round, no acceptance statistics). Engine thread: it owns
+        the probation re-enable."""
+        if self.spec_trackers is None:
+            return False, None
+        ok: Dict[int, bool] = {}
+        for i, s in seated:
+            ok[i] = self.spec_trackers.consume_probation(
+                spec_signature(s.params))
+        return any(ok.values()), ok
+
+    def _stage_spec_ok(self, seated, spec_ok: Dict[int, bool]) -> None:
+        ok = np.zeros((self.ecfg.max_batch,), np.int32)
+        for i, _ in seated:
+            ok[i] = spec_ok.get(i, True)
+        self._upload(self._s_ok, ok)
+
+    def _spec_round(self, tokens, positions, steps_left, active, tables,
+                    mode: int, key=None):
+        """One speculative round over [B, P] block ``tables`` (the JAX
+        ``_build_spec_block`` round): gamma + 1 draft decodes over the
+        draft pool (the last only writes d_gamma's K/V), ONE target verify
+        forward over [last, d_1..d_gamma] at T = gamma + 1, then
+        acceptance and resampling, EOS truncation and the budget freeze.
+        Writes at or past capacity go to the drop slot. Random draws come
+        from the decode generator, or from ``counter_uniform`` under
+        ``key`` (looped blocks); greedy launches (mode 0) draw nothing.
+        Returns the round's [B, W] tokens (-1 = not emitted) and
+        log-probabilities, [B] emitted / accepted / proposed counts, and
+        the new (tokens, positions, steps_left, active)."""
+        B = self.ecfg.max_batch
+        P = self.pcfg.max_pages_per_seq
+        ps = self.pcfg.page_size
+        smax = self.pcfg.max_seq_len
+        gamma = self.spec.num_draft_tokens
+        W = gamma + 1
+        V = self.cfg.vocab_size
+        dev = self.device
+        impl = self.ecfg.attention_impl
+        temp, top_p = self._d_flt[:B], self._d_flt[B:]
+        spec_ok = self._s_ok != 0
+        rows = torch.arange(B, device=dev)
+        drop = torch.full_like(positions, self._num_slots_flat)
+        zero = torch.zeros_like(positions)
+        noise = None
+        if key is not None and mode:
+            noise = counter_uniform((gamma + 2, B, V), key)
+        # ---- draft: gamma proposals, one T = 1 step each ----
+        dtoks, dqs = [], []
+        tok, pos = tokens, positions
+        for i in range(W):
+            page = tables[rows, (pos // ps).clamp(max=P - 1)]
+            write = torch.where(active & (pos < smax), page * ps + pos % ps,
+                                drop)
+            kv_valid = torch.where(active, (pos + 1).clamp(max=smax), zero)
+            logits, _, _ = llama.paged_forward(
+                self.draft_params, self.draft_cfg, tok[:, None],
+                pos[:, None], self.draft_state.k, self.draft_state.v,
+                write[:, None], tables, kv_valid, impl=impl, page_size=ps)
+            if i == gamma:
+                break  # the last step only writes d_gamma's K/V
+            q = spec_probs(logits[:, 0], temp)
+            if mode == 2:
+                # proposals come from the same q~ the verifier scores
+                q = nucleus_probs(q, top_p)
+            if mode == 0:
+                nxt = torch.argmax(q, dim=-1).to(torch.int32)
+            else:
+                nxt = categorical(q, self._decode_gen,
+                                  None if noise is None else noise[i])
+            dtoks.append(nxt)
+            dqs.append(q)
+            tok, pos = nxt, pos + 1
+        draft_toks = torch.stack(dtoks, 1)
+        draft_qs = torch.stack(dqs, 1)
+        # ---- target: one verify forward over [last, d_1..d_gamma] ----
+        ver_pos = positions[:, None] + torch.arange(
+            W, dtype=positions.dtype, device=dev)[None]
+        vpage = tables[rows[:, None], (ver_pos // ps).clamp(max=P - 1)]
+        write = torch.where(active[:, None] & (ver_pos < smax),
+                            vpage * ps + ver_pos % ps,
+                            torch.full_like(ver_pos, self._num_slots_flat))
+        kv_valid = torch.where(active, (positions + W).clamp(max=smax), zero)
+        logits, _, _ = llama.paged_forward(
+            self.params, self.cfg,
+            torch.cat([tokens[:, None], draft_toks], 1), ver_pos,
+            self.state.k, self.state.v, write, tables, kv_valid, impl=impl,
+            page_size=ps)
+        x32 = logits.float()
+        lse = torch.logsumexp(x32, dim=-1)  # [B, W]
+        u = None
+        if noise is not None:
+            u = noise[gamma][:, :gamma]
+        toks_out, num_acc = accept_and_resample(
+            spec_probs(x32, temp[:, None]), draft_toks, draft_qs,
+            self._decode_gen, spec_ok=spec_ok,
+            top_p=top_p if mode == 2 else None, greedy_only=mode == 0, u=u,
+            noise=None if noise is None else noise[gamma + 1])
+        idx = torch.arange(W, device=dev)[None]
+        base = num_acc + 1
+        is_eos = ((toks_out[..., None] == self._eos[None, None, :]).any(-1)
+                  & (idx < base[:, None]))
+        has_eos = is_eos.any(-1)
+        first_eos = torch.argmax(is_eos.to(torch.int32), dim=-1)
+        emitted = torch.where(has_eos, torch.minimum(base, first_eos + 1),
+                              base)
+        emitted = torch.where(active, emitted, zero)
+        ok = active & spec_ok
+        acc = torch.where(ok, num_acc, zero)
+        prop = torch.where(ok, torch.full_like(num_acc, gamma), zero)
+        toks_out = torch.where((idx < emitted[:, None]) & active[:, None],
+                               toks_out, torch.full_like(toks_out, -1))
+        lp_out = (x32.gather(-1, toks_out.clamp(min=0).long()[..., None])
+                  [..., 0] - lse)
+        new_last = toks_out[rows, (emitted.clamp(min=1) - 1).long()]
+        tokens = torch.where(active & (emitted > 0), new_last, tokens)
+        positions = positions + emitted
+        steps_left = steps_left - emitted
+        active = active & ~has_eos & (steps_left > 0)
+        return (toks_out, lp_out, emitted, acc, prop,
+                (tokens, positions, steps_left, active))
+
+    def _spec_pack(self, out: torch.Tensor, R: int, k, toks, lps, emitted,
+                   acc, prop) -> None:
+        """Write round ``k`` (an int, or a one-element device index) into
+        a flat spec output buffer of R rounds (layout at ``_s_out``)."""
+        B = self.ecfg.max_batch
+        W = self.spec.num_draft_tokens + 1
+        n = R * B * W
+        parts = (out[:n].view(R, B, W), out[n:2 * n].view(R, B, W),
+                 out[2 * n:2 * n + R * B].view(R, B),
+                 out[2 * n + R * B:2 * n + 2 * R * B].view(R, B),
+                 out[2 * n + 2 * R * B:].view(R, B))
+        vals = (toks.float(), lps, emitted.float(), acc.float(),
+                prop.float())
+        for dst, v in zip(parts, vals):
+            if isinstance(k, int):
+                dst[k].copy_(v)
+            else:
+                dst.index_copy_(0, k, v[None])
+
+    def _spec_unpack(self, flat: np.ndarray, R: int):
+        """(tokens [R, B, W] int, log-probabilities [R, B, W], emitted,
+        accepted, proposed [R, B] int) of a host spec output buffer."""
+        B = self.ecfg.max_batch
+        W = self.spec.num_draft_tokens + 1
+        n = R * B * W
+        ints = lambda a: np.rint(a).astype(np.int64)  # noqa: E731
+        return (ints(flat[:n].reshape(R, B, W)),
+                flat[n:2 * n].reshape(R, B, W),
+                ints(flat[2 * n:2 * n + R * B].reshape(R, B)),
+                ints(flat[2 * n + R * B:2 * n + 2 * R * B].reshape(R, B)),
+                ints(flat[2 * n + 2 * R * B:].reshape(R, B)))
+
+    def _spec_body(self, mode: int) -> None:
+        """The speculative decode block over the static buffers: the
+        staged carry overrides merged, R = decode_block_size rounds, each
+        round's outputs into ``_s_out``, the carry updated in place."""
+        B = self.ecfg.max_batch
+        P = self.pcfg.max_pages_per_seq
+        R = self.ecfg.decode_block_size
+        carry = self._merged_carry()
+        tables = self._d_int[5 * B:].view(B, P)
+        for k in range(R):
+            *res, carry = self._spec_round(*carry, tables, mode)
+            self._spec_pack(self._s_out, R, k, *res)
+        self._store_carry(*carry)
+
+    def _record_acceptance(self, acc: np.ndarray, prop: np.ndarray,
+                           snapshot) -> None:
+        """Per-pattern acceptance from a spec frame's [R, B] accepted and
+        proposed counts: each seated row's rounds update its own request
+        pattern's tracker (masked and inactive rows proposed nothing)."""
+        agg: Dict[tuple, List[int]] = {}
+        for entry in snapshot:
+            slot, seq = entry[0], entry[1]
+            p = int(prop[:, slot].sum())
+            if p <= 0:
+                continue
+            a = agg.setdefault(spec_signature(seq.params), [0, 0, 0])
+            a[0] += int(acc[:, slot].sum())
+            a[1] += p
+            a[2] += int((prop[:, slot] > 0).sum())
+        t = self._spec_totals
+        t["blocks"] += 1
+        for sig, (acc_n, prop_n, rows_n) in agg.items():
+            self.spec_trackers.update(sig, acc_n, prop_n, rows=rows_n)
+            t["accepted"] += acc_n
+            t["proposed"] += prop_n
+            t["row_rounds"] += rows_n
+
+    def _walk_spec_frame(self, flat: np.ndarray, snapshot,
+                         outputs: List[StepOutput]) -> int:
+        R = self.ecfg.decode_block_size
+        toks, lps, counts, acc, prop = self._spec_unpack(flat, R)
+        self._record_acceptance(acc, prop, snapshot)
+        return self._walk_block(toks, lps, snapshot, outputs, counts)
 
     def _read_later(self, t: torch.Tensor) -> Tuple[torch.Tensor, object]:
         """(host copy of ``t``, event to wait on before reading it)."""
@@ -1400,34 +1766,52 @@ class LLMEngine:
         if ev is not None:
             ev.synchronize()
         both = host.numpy() if isinstance(host, torch.Tensor) else host
-        emitted = self._walk_block(both[0], both[1], snapshot, outputs)
+        if both.ndim == 1:  # a speculative block's flat frame
+            emitted = self._walk_spec_frame(both, snapshot, outputs)
+        else:
+            emitted = self._walk_block(both[0], both[1], snapshot, outputs)
         self._clock(kind, time.monotonic() - sc_t0,
                     tokens=emitted if kind == "decode_block" else 0)
 
     def _walk_block(self, toks: np.ndarray, lps: np.ndarray, snapshot,
-                    outputs: List[StepOutput]) -> int:
-        """Emit a block's host-side [K, B] tokens (-1 = frozen row) and
-        log-probabilities row by row, then reconcile each row's projected
-        advance with what it emitted. Returns the tokens emitted."""
-        K = toks.shape[0]
+                    outputs: List[StepOutput],
+                    counts: Optional[np.ndarray] = None) -> int:
+        """Emit a block's host-side tokens row by row, then reconcile each
+        row's projected advance with what it emitted: [K, B] tokens (-1 =
+        frozen row) and log-probabilities, or a speculative block's
+        [R, B, W] with ``counts`` [R, B] tokens emitted per round (0 = the
+        row was frozen). Returns the tokens emitted."""
+        if counts is None:
+            toks, lps = toks[:, :, None], lps[:, :, None]
+            counts = (toks[:, :, 0] >= 0).astype(np.int32)
+        R = toks.shape[0]
         total = 0
         for slot, seq, assumed in snapshot:
             if self._by_id.get(seq.request_id) is not seq:
                 continue  # finished or aborted meanwhile
             emitted_here = 0
             try:
-                for k in range(K):
-                    t = int(toks[k, slot])
-                    if t < 0:
+                done = False
+                for k in range(R):
+                    c = int(counts[k, slot])
+                    if c <= 0:
                         break  # row frozen on the device
-                    seq.token_ids.append(seq.next_token)
-                    seq.seq_len += 1
-                    emitted_here += 1
-                    self._emit_token(seq, t, outputs, float(lps[k, slot]))
-                    if self._by_id.get(seq.request_id) is not seq:
-                        # finished (stop sequences are host-only): the
-                        # device row may still be live
-                        self._deact_slot(slot)
+                    for w in range(c):
+                        t = int(toks[k, slot, w])
+                        if t < 0:
+                            break
+                        seq.token_ids.append(seq.next_token)
+                        seq.seq_len += 1
+                        emitted_here += 1
+                        self._emit_token(seq, t, outputs,
+                                         float(lps[k, slot, w]))
+                        if self._by_id.get(seq.request_id) is not seq:
+                            # finished (stop sequences are host-only):
+                            # the device row may still be live
+                            self._deact_slot(slot)
+                            done = True
+                            break
+                    if done:
                         break
             except Exception as e:  # failure isolation
                 if self.slots[slot] is seq:
@@ -1664,11 +2048,11 @@ class LLMEngine:
         key = ((self.ecfg.seed + 1) << 40) + (self._loop_launches << 16)
         self._upload(self._l_key, np.array([key], np.int64))
 
-    def _loop_prologue(self) -> None:
+    def _loop_prologue(self, spec: bool = False) -> None:
         """Start a looped block: merge the staged carry overrides, reset
-        the loop state (counter, free-list use, exit codes, outputs) and
-        load the tables to grow; the continue flag says whether any row
-        is active."""
+        the loop state (counter, free-list use, exit codes, outputs: the
+        spec outputs for a speculative block) and load the tables to grow;
+        the continue flag says whether any row is active."""
         B = self.ecfg.max_batch
         P = self.pcfg.max_pages_per_seq
         carry = self._merged_carry()
@@ -1676,8 +2060,11 @@ class LLMEngine:
         self._l_state[:3 + 2 * B].zero_()
         self._l_cnt.copy_(self._l_in[:B])
         self._l_tbl.copy_(self._d_int[5 * B:].view(B, P))
-        self._l_out[0].fill_(-1.0)
-        self._l_out[1].zero_()
+        if spec:
+            self._ls_out.zero_()
+        else:
+            self._l_out[0].fill_(-1.0)
+            self._l_out[1].zero_()
         self._l_cont.copy_(carry[3].any().to(torch.int32).view(1))
 
     def _loop_body(self, mode: int) -> None:
@@ -1726,25 +2113,78 @@ class LLMEngine:
         self._l_cont.copy_(((self._l_k < self._l_in[B + N + 1])
                             & carry[3].any()).to(torch.int32))
 
-    def _run_loop(self, mode: int) -> Optional[_Graph]:
-        """Run one looped block: its WHILE graph's launch (``cuda``,
-        captured on first use right after an eager run of this block), or
-        eagerly, reading the continue flag before each iteration (CPU, or
-        ``_graphs=False``). Returns the graph launched, if one was: its
-        iterations' launches are counted once their number is read."""
-        g = self._graphs.get(("loop", mode)) if self._use_graphs else None
+    def _spec_loop_body(self, mode: int) -> None:
+        """One iteration of a speculative looped block (the JAX
+        ``_build_spec_loop_block`` body): rows take device free-list pages
+        until their table covers this round's gamma + 1 writes (rows it
+        cannot cover freeze with exit 3), then one speculative round over
+        the growing tables, its outputs at round k of ``_ls_out``, the
+        exit codes (1 eos, 2 budget, 4 still running), k + 1 and the
+        continue flag (k below the round cap and any row active)."""
+        B = self.ecfg.max_batch
+        N = self.pcfg.num_pages
+        ps = self.pcfg.page_size
+        W = self.spec.num_draft_tokens + 1
+        smax = self.pcfg.max_seq_len
+        tokens, positions, steps_left, active = self._carry
+        rows = torch.arange(B, device=self.device)
+        last = (positions + W - 1).clamp(max=smax - 1)
+        needed = torch.where(active, last // ps + 1,
+                             torch.zeros_like(positions))
+        # one page per row per pass; a round spans at most W // ps + 2
+        for _ in range(W // ps + 2):
+            starved = _device_append_pages(
+                self._l_tbl, self._l_cnt, self._l_in[B:B + N],
+                self._l_in[B + N], self._l_used, needed, rows)
+        exit_code = torch.where(starved & (self._l_exit == 0),
+                                torch.full_like(self._l_exit, 3),
+                                self._l_exit)
+        active = active & ~starved
+        key = self._l_key + self._l_k if mode else None
+        *res, carry = self._spec_round(tokens, positions, steps_left,
+                                       active, self._l_tbl, mode, key)
+        toks_out = res[0]  # -1 past each row's emitted tokens
+        is_eos = ((toks_out[..., None] == self._eos[None, None, :]).any(-1)
+                  .any(-1))
+        froze = active & ~carry[3]
+        zero = exit_code == 0
+        exit_code = torch.where(froze & is_eos & zero,
+                                torch.full_like(exit_code, 1), exit_code)
+        exit_code = torch.where(froze & ~is_eos & zero,
+                                torch.full_like(exit_code, 2), exit_code)
+        self._spec_pack(self._ls_out, self._spec_loop_rounds,
+                        self._l_k.long(), *res)
+        self._store_carry(*carry)
+        self._l_exit.copy_(exit_code)
+        self._l_fin.copy_(torch.where(carry[3] & (exit_code == 0),
+                                      torch.full_like(exit_code, 4),
+                                      exit_code))
+        self._l_k.add_(1)
+        self._l_cont.copy_(((self._l_k < self._l_in[B + N + 1])
+                            & carry[3].any()).to(torch.int32))
+
+    def _run_loop(self, mode: int, spec: bool = False) -> Optional[_Graph]:
+        """Run one looped block (a speculative one with ``spec``): its
+        WHILE graph's launch (``cuda``, captured on first use right after
+        an eager run of this block), or eagerly, reading the continue flag
+        before each iteration (CPU, or ``_graphs=False``). Returns the
+        graph launched, if one was: its iterations' launches are counted
+        once their number is read."""
+        key = ("sloop" if spec else "loop", mode)
+        g = self._graphs.get(key) if self._use_graphs else None
         if g is not None:
             g.graph.launch(self._stream)
             kernels.add_launch_counts(g.counts)
             return g
-        self._loop_prologue()
+        body = self._spec_loop_body if spec else self._loop_body
+        self._loop_prologue(spec)
         while int(self._l_cont[0]):
-            self._loop_body(mode)
+            body(mode)
         if self._use_graphs:
-            self._capture_loop(mode)
+            self._capture_loop(mode, spec)
         return None
 
-    def _capture_loop(self, mode: int) -> None:
+    def _capture_loop(self, mode: int, spec: bool = False) -> None:
         """Capture the looped block for ``mode``: its prologue and one
         iteration as two graphs on the engine stream (kept, not
         instantiated), joined by a WHILE node into one instantiated graph
@@ -1753,8 +2193,9 @@ class LLMEngine:
         self._event("retrace")
         parts = []
         torch.cuda.synchronize(self.device)
-        for fn in (self._loop_prologue,
-                   functools.partial(self._loop_body, mode)):
+        body = self._spec_loop_body if spec else self._loop_body
+        for fn in (functools.partial(self._loop_prologue, spec),
+                   functools.partial(body, mode)):
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             before = kernels.launch_counts()
             graph.capture_begin(pool=self._pool,
@@ -1771,9 +2212,9 @@ class LLMEngine:
                       if after[k] != before[k]}
             kernels.add_launch_counts(counts, -1)  # captured, not launched
             parts.append((graph, counts))
-        (pro, pro_counts), (body, body_counts) = parts
-        self._graphs[("loop", mode)] = _Graph(
-            LoopGraph(pro, body, self._l_cont), pro_counts, body_counts)
+        (pro, pro_counts), (it, it_counts) = parts
+        self._graphs[("sloop" if spec else "loop", mode)] = _Graph(
+            LoopGraph(pro, it, self._l_cont), pro_counts, it_counts)
 
     def _loop_step(self, outputs: List[StepOutput]) -> bool:
         """Launch ONE looped block and process it right after (looped
@@ -1795,12 +2236,14 @@ class LLMEngine:
             if not any(u[0] for u in self._slot_updates.values()) and not any(
                     s.dev_steps_left > 0 for _, s in seated):
                 return False
+            use_spec, spec_ok = self._spec_plan(seated)
+            W = self.spec.num_draft_tokens + 1 if use_spec else 1
             for _, s in seated:  # before the block's tables are staged
                 self._reclaim_window_pages(s)
             try:
                 for _, s in seated:
                     if s.dev_steps_left > 0:
-                        self._ensure_block_pages(s, 1)
+                        self._ensure_block_pages(s, W)
                 break
             except CacheFull:
                 self._event("cache_full")
@@ -1815,10 +2258,18 @@ class LLMEngine:
                 return False
         ps = self.pcfg.page_size
         P = self.pcfg.max_pages_per_seq
+        # a speculative block runs whole rounds: the cap rounds up to
+        # ceil(cap / W) of them, and a round may overshoot by gamma
+        rounds = max(1, -(-cap // W))
         advs: Dict[int, int] = {}
         want = 0
         for _, s in seated:
-            adv = min(cap, s.dev_steps_left) if s.dev_steps_left > 0 else 0
+            if s.dev_steps_left <= 0:
+                adv = 0
+            elif use_spec:
+                adv = min(rounds * W, s.dev_steps_left + W - 1)
+            else:
+                adv = min(cap, s.dev_steps_left)
             advs[id(s)] = adv
             if adv:
                 needed = min((s.dev_pos + adv - 1) // ps + 1, P)
@@ -1832,11 +2283,15 @@ class LLMEngine:
         snapshot = [(i, s, advs[id(s)], len(s.block_table))
                     for i, s in seated]
         self._stage_decode_inputs()
-        self._stage_loop_inputs(drawn, cap)
-        launched = self._run_loop(_sample_mode([s for _, s in seated]))
+        if use_spec:
+            self._stage_spec_ok(seated, spec_ok)
+        self._stage_loop_inputs(drawn, rounds if use_spec else cap)
+        launched = self._run_loop(_sample_mode([s for _, s in seated]),
+                                  use_spec)
         # both copies behind the second one's event
         results = (self._read_later(self._l_state)[0],
-                   *self._read_later(self._l_out))
+                   *self._read_later(self._ls_out if use_spec
+                                     else self._l_out))
         for _, s in seated:
             s.dev_pos += advs[id(s)]
             s.dev_steps_left -= advs[id(s)]
@@ -1864,6 +2319,7 @@ class LLMEngine:
         if ev is not None:
             ev.synchronize()
         state, out = state.numpy(), out.numpy()
+        # iterations run: steps, or rounds of a speculative block
         n_steps = int(state[0])
         codes = state[3 + B:3 + 2 * B]
         cnt = state[3 + 2 * B:3 + 3 * B]
@@ -1882,9 +2338,16 @@ class LLMEngine:
             claimed_set = set(claimed)
             self.allocator.reconcile_device(
                 claimed, [p for p in drawn if p not in claimed_set])
-        emitted = self._walk_block(out[0, :n_steps], out[1, :n_steps],
-                                   [(i, s, a) for i, s, a, _ in snapshot],
-                                   outputs)
+        walk = [(i, s, a) for i, s, a, _ in snapshot]
+        if out.ndim == 1:  # a speculative block's rounds
+            toks, lps, counts, acc, prop = self._spec_unpack(
+                out, self._spec_loop_rounds)
+            self._record_acceptance(acc[:n_steps], prop[:n_steps], walk)
+            emitted = self._walk_block(toks[:n_steps], lps[:n_steps], walk,
+                                       outputs, counts[:n_steps])
+        else:
+            emitted = self._walk_block(out[0, :n_steps], out[1, :n_steps],
+                                       walk, outputs)
         for slot, seq, _, _ in snapshot:
             c = int(codes[slot])
             if c:

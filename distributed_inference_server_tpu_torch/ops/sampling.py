@@ -117,3 +117,26 @@ def sample_tokens(
         filtered = scaled
     sampled = _gumbel_argmax(filtered, generator, uniform).to(torch.int32)
     return torch.where(temperature > 0, sampled, greedy)
+
+
+def top_p_filter_probs(probs: torch.Tensor, top_p: torch.Tensor
+                       ) -> torch.Tensor:
+    """Zero the probabilities outside each row's top-p nucleus (the row
+    argmax always stays); unnormalized. probs [B, V], top_p [B] (1 keeps
+    every token)."""
+    cutoff = nucleus_cutoff(probs, top_p)
+    return torch.where(probs >= cutoff, probs, torch.zeros_like(probs))
+
+
+def nucleus_probs(probs: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """The NORMALIZED nucleus distribution: top-p filter, then renormalize.
+    Speculative verification needs true distributions on both sides (the
+    accept ratio and the residual max(p - q, 0)). probs [..., V] rows
+    summing to 1; top_p broadcastable to probs.shape[:-1]."""
+    lead = probs.shape[:-1]
+    V = probs.shape[-1]
+    f = top_p_filter_probs(
+        probs.reshape(-1, V),
+        torch.broadcast_to(top_p.to(probs.dtype), lead).reshape(-1))
+    f = f / f.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    return f.reshape(*lead, V)

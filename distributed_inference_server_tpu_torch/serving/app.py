@@ -15,6 +15,10 @@ not available where the port runs). One thread per connection, HTTP/1.1.
   ``model`` and ``device``;
 - ``GET /server/stats``: the ``MetricsSnapshot`` plus the port's own
   blocks (``serving/server.py stats``);
+- ``POST /admin/speculation``: body ``{"action": "reset"}`` clears every
+  replica's speculation acceptance trackers and answers ``{"status":
+  "ok", "engines_reset": n}`` (replicas without a draft count too, as in
+  the reference); any other body is 400 ``invalid_body``;
 - ``POST /server/kernel_counts/reset``: zero the kernels' launch counts
   (a measurement run brackets the path it measures with it);
 - ``POST /server/profile``: body ``{"steps": N}`` (optional
@@ -28,7 +32,8 @@ frame, each written straight to the socket. A write that fails (the client
 went away) aborts every request of the stream, whose pages go back to the
 allocator; so does a client that closes its socket while the stream waits
 for its next event. Errors are ``ErrorResponse`` JSON with the reference's
-status mapping (400 validation, 408 timeout, 500 engine failure). Every
+status mapping (400 validation, 503 queue_full when the admission queue
+pushes back, 408 timeout or queue_timeout, 500 engine failure). Every
 POST to a route is observed in ``request_latency_seconds`` by path and
 status; as in the reference, a stream its client abandoned counts as 500.
 """
@@ -453,6 +458,19 @@ def make_handler(server: "InferenceServer") -> type:
             result = server.runner.profile_steps(steps, timeout_s)
             self._send(409 if "error" in result else 200, result)
 
+        def _speculation(self) -> None:
+            obj = self._json_body()
+            if obj.get("action") != "reset":
+                self._send(400, ErrorResponse.of(
+                    "'action' must be 'reset'", "invalid_request_error",
+                    "invalid_body").to_dict())
+                return
+            n = 0
+            for runner in server.dispatcher.scheduler.engines():
+                runner.reset_speculation()
+                n += 1
+            self._send(200, {"status": "ok", "engines_reset": n})
+
         def _reset_counts(self) -> None:
             server.reset_kernel_counts()
             self._send(200, {"kernel_launches": server.kernel_counts()})
@@ -466,6 +484,7 @@ def make_handler(server: "InferenceServer") -> type:
                                                                   True),
             "/v1/embeddings": _embeddings,
             "/server/profile": _profile,
+            "/admin/speculation": _speculation,
             "/server/kernel_counts/reset": _reset_counts,
         }
 

@@ -1,10 +1,15 @@
 """Inference handler: the endpoint-facing request lifecycle (port of
-``distributed_inference_server_tpu/serving/handler.py`` for one engine
-runner and a threaded HTTP server).
+``distributed_inference_server_tpu/serving/handler.py`` for one replica
+behind the dispatcher and a threaded HTTP server).
 
     parse JSON -> validate (400) -> tokenize (chat: render the template)
-    -> submit to the runner -> wait on the sink (408 after the timeout)
-    -> build the response
+    -> submit to the dispatcher (503 queue_full under backpressure) ->
+    wait on the sink (408: queue_timeout when the request expired in the
+    admission queue, request_timeout after REQUEST_TIMEOUT_S) -> build the
+    response
+
+The body's ``priority`` picks the admission queue's level and its
+``tenant`` (``_tenant_of``) the fair-admission lane.
 
 Transport-agnostic: ``serving/app.py`` only frames HTTP and SSE around
 these calls, which block the calling (handler) thread. The streaming calls
@@ -22,6 +27,8 @@ from typing import Iterator, List, Sequence, Tuple
 from distributed_inference_server_tpu_torch.core.errors import (
     ApiError,
     InternalApiError,
+    QueueFull,
+    QueueFullApiError,
     RequestTimeoutApiError,
     ValidationApiError,
     ValidationError,
@@ -42,6 +49,8 @@ from distributed_inference_server_tpu_torch.core.models import (
     Usage,
 )
 from distributed_inference_server_tpu_torch.core.types import (
+    DEFAULT_TENANT,
+    Priority,
     RequestId,
     new_request_id,
 )
@@ -56,11 +65,13 @@ from distributed_inference_server_tpu_torch.models.tokenizer import (
     chat_template_family,
     render_chat,
 )
+from distributed_inference_server_tpu_torch.serving.dispatcher import (
+    Dispatcher,
+)
 from distributed_inference_server_tpu_torch.serving.metrics import (
     MetricsCollector,
 )
 from distributed_inference_server_tpu_torch.serving.runner import (
-    EngineRunner,
     ServerRequest,
 )
 from distributed_inference_server_tpu_torch.serving.streamer import (
@@ -71,6 +82,23 @@ from distributed_inference_server_tpu_torch.serving.streamer import (
 
 # a request still unanswered (or a stream silent) this long is aborted
 REQUEST_TIMEOUT_S = 600.0
+
+
+def _tenant_of(obj: dict) -> str:
+    """The fair-admission tenant: the body's optional ``tenant`` field,
+    ``default`` when absent or blank. A non-string value is coerced, and
+    cut at 128 characters: admission must never 400 a request that
+    validated."""
+    tenant = obj.get("tenant") if isinstance(obj, dict) else None
+    if not tenant:
+        return DEFAULT_TENANT
+    return str(tenant)[:128]
+
+
+def _error_to_api(message: str, code: str) -> ApiError:
+    if code in ("request_timeout", "queue_timeout"):
+        return RequestTimeoutApiError(code)
+    return InternalApiError(message)
 
 
 class EventStream:
@@ -107,7 +135,7 @@ class EventStream:
         except TimeoutError:
             for i, rid in enumerate(self._rids):
                 if not self._ended[i]:
-                    self._handler.runner.abort(rid)
+                    self._handler.dispatcher.abort(rid)
                     self._end(i)
                     yield i, TokenEvent.error_event("request timed out",
                                                     "request_timeout")
@@ -124,12 +152,12 @@ class EventStream:
 class InferenceHandler:
     """Endpoint logic shared by the HTTP layer and the tests."""
 
-    def __init__(self, runner: EngineRunner, tokenizer: Tokenizer,
-                 model_name: str, metrics: MetricsCollector):
-        self.runner = runner
+    def __init__(self, dispatcher: Dispatcher, tokenizer: Tokenizer,
+                 model_name: str, metrics: MetricsCollector, validator=None):
+        self.dispatcher = dispatcher
         self.tok = tokenizer
         self.model_name = model_name
-        self.validator = RequestValidator()
+        self.validator = validator or RequestValidator()
         self.metrics = metrics
 
     @property
@@ -141,11 +169,16 @@ class InferenceHandler:
     # -- shared internals --------------------------------------------------
 
     def _submit(self, prompt_ids: List[int], params: SamplingParams,
-                sink) -> RequestId:
+                sink, priority: Priority, tenant: str) -> RequestId:
         request_id = new_request_id()
         self.metrics.request_started()
-        self.runner.submit(ServerRequest(request_id, prompt_ids, params,
-                                         sink))
+        try:
+            self.dispatcher.submit(
+                ServerRequest(request_id, prompt_ids, params, sink,
+                              tenant=tenant), priority)
+        except QueueFull:
+            self.metrics.request_finished()
+            raise QueueFullApiError() from None
         return request_id
 
     def _finished(self) -> None:
@@ -157,18 +190,18 @@ class InferenceHandler:
         finally:
             self._finished()
         if result is None:
-            self.runner.abort(request_id)
+            self.dispatcher.abort(request_id)
             raise RequestTimeoutApiError()
-        text, reason, usage, err, _code = result
+        text, reason, usage, err, code = result
         if err is not None:
-            raise InternalApiError(err)
+            raise _error_to_api(err, code)
         return text, reason, usage
 
     def abort(self, request_ids: Sequence[RequestId]) -> None:
-        """Abort requests whose client went away (their pages go back to
-        the allocator)."""
+        """Abort requests whose client went away: out of the admission
+        queue, or out of the engine (their pages go back)."""
         for rid in request_ids:
-            self.runner.abort(rid)
+            self.dispatcher.abort(rid)
 
     # -- parsing -----------------------------------------------------------
 
@@ -195,18 +228,21 @@ class InferenceHandler:
             add_bos=False)
 
     def _parse_one(self, obj: dict, chat: bool
-                   ) -> Tuple[List[int], SamplingParams]:
-        """Validate once; the (prompt ids, params) every fanned-out choice
-        shares."""
+                   ) -> Tuple[List[int], SamplingParams, Priority]:
+        """Validate once; the (prompt ids, params, priority) every
+        fanned-out choice shares."""
         if chat:
             req = self.parse_chat(obj)
             ids = self._chat_ids(req)
+            priority = Priority.NORMAL  # chat bodies carry none
         else:
             req = self.parse_generate(obj)
             ids = self.tok.encode(req.prompt)
+            priority = req.priority or Priority.NORMAL
         return ids, SamplingParams(
             max_tokens=req.max_tokens, temperature=req.temperature,
-            top_p=req.top_p, stop_sequences=tuple(req.stop_sequences))
+            top_p=req.top_p, stop_sequences=tuple(req.stop_sequences)
+        ), priority
 
     # -- /generate and /chat -----------------------------------------------
 
@@ -246,17 +282,19 @@ class InferenceHandler:
     # -- n-choice fan-out (/v1) ---------------------------------------------
 
     def _submit_fanout(self, obj: dict, chat: bool, n: int, make_sink):
-        ids, params = self._parse_one(obj, chat)
+        ids, params, priority = self._parse_one(obj, chat)
+        tenant = _tenant_of(obj)
         sinks, rids = [], []
         try:
             for i in range(n):
                 sink = make_sink(i)
-                rids.append(self._submit(ids, params, sink))
+                rids.append(self._submit(ids, params, sink, priority,
+                                         tenant))
                 sinks.append(sink)
         except ApiError:
             # a refused choice takes its submitted siblings with it
             for rid in rids:
-                self.runner.abort(rid)
+                self.dispatcher.abort(rid)
                 self._finished()
             raise
         return sinks, rids
@@ -321,9 +359,13 @@ class InferenceHandler:
             box.append((array, error))
             done.set()
 
+        # embeddings bypass the admission queue, as in the reference
+        runner = self.dispatcher.scheduler.schedule()
+        if runner is None:
+            raise InternalApiError("no healthy inference engine available")
         self.metrics.request_started()
         try:
-            self.runner.submit_embed(ids_list, on_result)
+            runner.submit_embed(ids_list, on_result)
             if not done.wait(REQUEST_TIMEOUT_S):
                 raise RequestTimeoutApiError()
         finally:

@@ -12,16 +12,17 @@ per family, a counter's samples under ``<name>_total``, a histogram's as
 labels sorted by name. A family with labels shows samples only for the
 label values recorded so far; one without shows its zero from the start.
 
-Not here (they come with their modules): speculation, the host tier,
-disaggregated handoff, peer prefix fetch and routing, the fleet and its
-registry HA, restarts and redispatch, admission shedding and gray-failure
-health, the request-phase tracing and SLO accounting.
+Not here (they come with their modules): the host tier, disaggregated
+handoff, peer prefix fetch and routing, the fleet and its registry HA,
+restarts and redispatch, admission shedding and gray-failure health, the
+request-phase tracing and SLO accounting.
 
-Requests, tokens, batches, TTFT and step seconds are recorded as they
-happen; the engine's own cumulative counters (cache, mixed step, looped
-blocks, step clock, waiting queue) are set from its totals when
-``/metrics`` or ``/server/stats`` is read (``observe_engine``), so the
-step loop does no metrics work for them.
+Requests, tokens, admission batches, the admission queue's depth by
+priority and tenant, queue expiries, TTFT and step seconds are recorded as
+they happen; the engine's own cumulative counters (cache, mixed step,
+looped blocks, step clock) and its speculation gauges are set from its
+totals when ``/metrics`` or ``/server/stats`` is read (``observe_engine``,
+``set_speculation``), so the step loop does no metrics work for them.
 
 Thread-safe: the engine thread, the HTTP handler threads and the
 server all record into one collector.
@@ -58,7 +59,9 @@ class EngineStatus:
     memory_total_pages: int = 0
     pages_cached: int = 0
     role: str = "unified"
-    # engine.mixed_stats() / engine.loop_stats(); None while off
+    # engine.spec_stats() (None without a draft model) and
+    # engine.mixed_stats() / engine.loop_stats() (None while off)
+    speculation: Any = None
     mixed: Any = None
     loop: Any = None
 
@@ -74,6 +77,8 @@ class EngineStatus:
             "pages_cached": self.pages_cached,
             "role": self.role,
         }
+        if self.speculation is not None:
+            d["speculation"] = self.speculation
         if self.mixed is not None:
             d["mixed"] = self.mixed
         if self.loop is not None:
@@ -99,6 +104,9 @@ class MetricsSnapshot:
     # prefix-cache block: allocator hit / miss / eviction totals and the
     # page-granular prefix hits by tier
     cache: Optional[Dict[str, Any]] = None
+    # the reference's resilience block; None until a queued request
+    # expires (the port's only resilience counter so far)
+    resilience: Optional[Dict[str, Any]] = None
 
     def to_dict(self) -> Dict[str, Any]:
         out = {
@@ -116,6 +124,8 @@ class MetricsSnapshot:
         }
         if self.cache is not None:
             out["cache"] = self.cache
+        if self.resilience is not None:
+            out["resilience"] = self.resilience
         return out
 
 
@@ -211,6 +221,11 @@ class _Family:
             if child is None:
                 child = self._children[key] = _Child(self)
         return child
+
+    def remove(self, *values: str) -> None:
+        """Drop the child of these label values (KeyError if absent)."""
+        with self.lock:
+            del self._children[tuple(str(v) for v in values)]
 
     # unlabelled families act as their one child
     def inc(self, n: float = 1.0) -> None:
@@ -316,6 +331,17 @@ class MetricsCollector:
         self.active_requests_g = fam(
             "active_requests", "Requests admitted and not yet finished",
             "gauge")
+        self.spec_acceptance = fam(
+            "speculation_acceptance_rate",
+            "Rolling draft-token acceptance rate", "gauge", ["engine_id"])
+        self.spec_speedup = fam(
+            "speculation_estimated_speedup",
+            "Tokens emitted per target forward (>= 1)", "gauge",
+            ["engine_id"])
+        self.spec_enabled = fam(
+            "speculation_enabled",
+            "1 while speculation is active (auto-disables below "
+            "threshold)", "gauge", ["engine_id"])
         self.engine_up = fam("engine_up",
                              "1 if the engine replica is healthy", "gauge",
                              ["engine_id"])
@@ -337,6 +363,14 @@ class MetricsCollector:
             "Tokens moved per dispatch kind (prefill = prompt tokens "
             "computed, decode_block/mixed = sampled tokens reconciled)",
             "counter", ["engine_id", "kind"])
+        self.requests_expired = fam(
+            "requests_expired_total",
+            "Queued requests expired by the dispatcher sweep before "
+            "dispatch (queue_timeout)", "counter")
+        self.queue_tenant_depth = fam(
+            "queue_tenant_depth",
+            "Queued requests per tenant (per-tenant fair admission, "
+            "queue.tenant_fairness)", "gauge", ["tenant"])
         self.step_events = fam(
             "engine_step_events_total",
             "Step-loop pressure events (cache_full = allocation failed "
@@ -356,6 +390,8 @@ class MetricsCollector:
         self._cache_hits = 0
         self._cache_misses = 0
         self._cache_evictions = 0
+        self._requests_expired = 0
+        self._tenants_seen: set = set()
 
     # -- recording ---------------------------------------------------------
 
@@ -369,13 +405,55 @@ class MetricsCollector:
             self._latencies.append((now, latency_s * 1000.0))
             self._trim_locked(now)
 
-    def record_batch(self, size: int) -> None:
-        """One admission batch of ``size`` requests; the runner admits
-        requests as they are, unpadded (padding ratio 0)."""
+    def record_batch(self, size: int, padding_ratio: float = 0.0) -> None:
+        """One dispatched admission batch of ``size`` requests and the
+        padding it would carry if padded to its longest prompt (nothing is
+        padded: the engine is paged)."""
         self.batch_size.observe(size)
-        self.batch_padding_ratio.observe(0.0)
+        self.batch_padding_ratio.observe(padding_ratio)
         with self._lock:
             self._batch_sizes.append(size)
+
+    def set_queue_depth(self, high: int, normal: int, low: int) -> None:
+        """The admission queue's depth by priority."""
+        for priority, depth in (("high", high), ("normal", normal),
+                                ("low", low)):
+            self.queue_depth_g.labels(priority=priority).set(depth)
+        with self._lock:
+            self._queue_depth = high + normal + low
+
+    def set_tenant_depths(self, depths: Dict[str, int]) -> None:
+        """Queued requests per tenant. A tenant that drained since the last
+        call loses its series (tenant is a client-chosen string, so keeping
+        every one ever seen would grow /metrics without bound)."""
+        with self._lock:
+            stale = self._tenants_seen - set(depths)
+            self._tenants_seen = set(depths)
+            for tenant in stale:
+                try:
+                    self.queue_tenant_depth.remove(tenant)
+                except KeyError:
+                    pass
+            for tenant, depth in depths.items():
+                self.queue_tenant_depth.labels(tenant=tenant).set(depth)
+
+    def record_expired(self, n: int = 1) -> None:
+        """``n`` queued requests expired by the dispatcher sweep (answered
+        with the ``queue_timeout`` code)."""
+        if n <= 0:
+            return
+        self.requests_expired.inc(n)
+        with self._lock:
+            self._requests_expired += n
+
+    def set_speculation(self, engine_id: str, stats: Dict[str, Any]) -> None:
+        """The speculation gauges from ``engine.spec_stats()``."""
+        self.spec_acceptance.labels(engine_id=engine_id).set(
+            stats.get("acceptance_rate", 0.0))
+        self.spec_speedup.labels(engine_id=engine_id).set(
+            stats.get("estimated_speedup", 1.0))
+        self.spec_enabled.labels(engine_id=engine_id).set(
+            1 if stats.get("enabled") else 0)
 
     def record_tokens(self, n: int) -> None:
         if n <= 0:
@@ -394,15 +472,14 @@ class MetricsCollector:
         with self._lock:
             self._ttfts_ms.append(seconds * 1000.0)
 
-    def observe_engine(self, engine_id: str, cache: Any, waiting: int,
+    def observe_engine(self, engine_id: str, cache: Any,
                        mixed: Optional[Dict[str, Any]],
                        loop: Optional[Dict[str, Any]],
                        step_clock: Dict[str, Dict[str, Any]]) -> None:
         """Take one engine's cumulative counters, read at scrape time
         (``EngineRunner.status``): the allocator's hits, misses and
         evictions (``cache``; a hit is a page shared in place, tier
-        ``hbm``), the waiting queue (one priority level, ``normal``),
-        ``mixed_stats()`` and ``loop_stats()`` (None while off) and
+        ``hbm``), ``mixed_stats()`` and ``loop_stats()`` (None while off) and
         ``step_clock_stats()``. The engine's totals only grow, so the
         counters are set to them; a labelled series appears once its
         total is above zero."""
@@ -434,14 +511,10 @@ class MetricsCollector:
                   kind=kind)
         for event, n in step_clock["events"].items():
             total(self.step_events, n, engine_id=engine_id, event=event)
-        for priority, depth in (("high", 0), ("normal", waiting),
-                                ("low", 0)):
-            self.queue_depth_g.labels(priority=priority).set(depth)
         with self._lock:
             self._cache_hits = cache.hits
             self._cache_misses = cache.misses
             self._cache_evictions = cache.evictions
-            self._queue_depth = waiting
 
     def request_started(self) -> None:
         with self._lock:
@@ -511,4 +584,7 @@ class MetricsCollector:
                        "evictions": self._cache_evictions,
                        "prefix_hits": {"hbm": self._cache_hits,
                                        "host": 0}},
+                resilience=({"engine_restarts": {}, "redispatched": {},
+                             "requests_expired": self._requests_expired}
+                            if self._requests_expired else None),
             )

@@ -14,11 +14,15 @@ Embeddings (``submit_embed``) run as incremental jobs: one device batch
 (``engine.embed_step``) per loop iteration, between engine steps, so a
 large embeddings request never stalls the decoding requests.
 
+Requests arrive as admission batches from the dispatcher
+(``serving/dispatcher.py``), which has already recorded the batch.
+
 Metrics (``serving/metrics.py``): each request's time to first token
-(``submitted_at`` to ``first_token_at``), tokens, admission batch sizes
-and engine-step seconds as they happen; ``status()`` hands the engine's
-cumulative counters (cache, mixed step, looped blocks, step clock,
-waiting queue) to the collector when it is read.
+(``submitted_at``, its arrival at the admission queue, to
+``first_token_at``), tokens and engine-step seconds as they happen;
+``status()`` hands the engine's cumulative counters (cache, mixed step,
+looped blocks, step clock, waiting queue, speculation) to the collector
+when it is read.
 
 Failure semantics: a per-request failure arrives as ``StepOutput.error``
 and fails only that request; an exception escaping the step loop marks the
@@ -36,7 +40,8 @@ import logging
 import threading
 import time
 from collections import deque
-from typing import Callable, Deque, Dict, List, Optional, Protocol
+from typing import (Callable, Deque, Dict, List, Optional, Protocol,
+                    Sequence)
 
 import numpy as np
 
@@ -44,7 +49,10 @@ from distributed_inference_server_tpu_torch.core.models import (
     FinishReason,
     Usage,
 )
-from distributed_inference_server_tpu_torch.core.types import RequestId
+from distributed_inference_server_tpu_torch.core.types import (
+    DEFAULT_TENANT,
+    RequestId,
+)
 from distributed_inference_server_tpu_torch.engine.engine import (
     LLMEngine,
     SamplingParams,
@@ -73,17 +81,20 @@ class ResultSink(Protocol):
 
 
 class ServerRequest:
-    """A validated, tokenized request handed to the runner."""
+    """A validated, tokenized request on its way to the runner (through the
+    admission queue); ``tenant`` is its fair-admission lane."""
 
     __slots__ = ("request_id", "prompt_ids", "params", "sink",
-                 "submitted_at", "first_token_at")
+                 "submitted_at", "first_token_at", "tenant")
 
     def __init__(self, request_id: RequestId, prompt_ids: List[int],
-                 params: SamplingParams, sink: ResultSink):
+                 params: SamplingParams, sink: ResultSink,
+                 tenant: str = DEFAULT_TENANT):
         self.request_id = request_id
         self.prompt_ids = prompt_ids
         self.params = params
         self.sink = sink
+        self.tenant = tenant
         self.submitted_at = time.monotonic()
         self.first_token_at: Optional[float] = None
 
@@ -112,8 +123,6 @@ class EngineRunner:
         self._embed_seq = 0
         self._embed_lock = threading.Lock()
         self._embed_jobs: Deque[dict] = deque()
-        # admissions drained in the current inbox pass (record_batch)
-        self._admitted = 0
         # counters read from other threads (GIL-atomic int updates)
         self.requests_finished = 0
         self.tokens_generated = 0
@@ -150,17 +159,24 @@ class EngineRunner:
 
     # -- submission (any thread) -------------------------------------------
 
-    def submit(self, req: ServerRequest) -> None:
-        self._inflight[req.request_id] = req
+    def submit(self, requests: Sequence[ServerRequest]) -> None:
+        """Admit one admission batch: its requests reach the engine in the
+        batch's order (strict priority, then FIFO)."""
+        reqs = list(requests)
+        # registered here, not on the runner thread: a crash before the
+        # inbox drains still fails these sinks
+        for r in reqs:
+            self._inflight[r.request_id] = r
         if not self._healthy:
-            self._fail(req, self._last_error or "engine unavailable")
+            for r in reqs:
+                self._fail(r, self._last_error or "engine unavailable")
             return
 
         def _do() -> None:
-            if req.request_id in self._inflight:  # not aborted meanwhile
-                self._engine.add_request(req.request_id, req.prompt_ids,
-                                         req.params)
-                self._admitted += 1
+            for r in reqs:
+                if r.request_id in self._inflight:  # not aborted meanwhile
+                    self._engine.add_request(r.request_id, r.prompt_ids,
+                                             r.params)
 
         self._post(_do)
 
@@ -243,6 +259,17 @@ class EngineRunner:
                              "(engine idle? send traffic while tracing)"}
         return dict(box["holder"])
 
+    def reset_speculation(self) -> None:
+        """Clear every request pattern's acceptance tracker, on the engine
+        thread: speculation is enabled again with fresh windows (a no-op
+        without a draft model)."""
+
+        def _do() -> None:
+            if self._engine.spec_trackers is not None:
+                self._engine.spec_trackers.reset()
+
+        self._post(_do)
+
     def set_mixed_prefill_frac(self, frac: float) -> None:
         """Shrink (or restore) the mixed step's prefill share, on the
         engine thread (a no-op while the mixed step is off)."""
@@ -274,16 +301,19 @@ class EngineRunner:
         and handed to the collector (zeros, and the collector untouched,
         when it cannot answer)."""
         used = total = cached = waiting = 0
-        mixed = loop = None
+        mixed = loop = speculation = None
         if self._healthy:
             try:
-                s, waiting, mixed, loop, clock = self.call(lambda e: (
-                    e.cache_stats(), e.num_waiting(), e.mixed_stats(),
-                    e.loop_stats(), e.step_clock_stats()))
+                s, waiting, mixed, loop, clock, speculation = self.call(
+                    lambda e: (e.cache_stats(), e.num_waiting(),
+                               e.mixed_stats(), e.loop_stats(),
+                               e.step_clock_stats(), e.spec_stats()))
                 total, cached = s.pages_total, s.pages_cached
                 used = total - s.pages_free
-                self.metrics.observe_engine(self.engine_id, s, waiting,
-                                            mixed, loop, clock)
+                self.metrics.observe_engine(self.engine_id, s, mixed, loop,
+                                            clock)
+                if speculation is not None:
+                    self.metrics.set_speculation(self.engine_id, speculation)
             except (TimeoutError, RuntimeError) as e:
                 self._absorbed("status", e)
         return EngineStatus(
@@ -291,7 +321,8 @@ class EngineRunner:
             active_requests=len(self._inflight), waiting_requests=waiting,
             total_processed=self.requests_finished,
             memory_used_pages=used, memory_total_pages=total,
-            pages_cached=cached, mixed=mixed, loop=loop)
+            pages_cached=cached, speculation=speculation, mixed=mixed,
+            loop=loop)
 
     # -- runner thread -----------------------------------------------------
 
@@ -339,7 +370,6 @@ class EngineRunner:
             self._fail_all(str(e))
 
     def _drain_inbox(self) -> None:
-        self._admitted = 0
         while True:
             with self._inbox_lock:
                 if not self._inbox:
@@ -349,8 +379,6 @@ class EngineRunner:
                 fn()
             except Exception as e:  # noqa: BLE001 — command isolation
                 self._absorbed("inbox", e)
-        if self._admitted:
-            self.metrics.record_batch(self._admitted)
 
     def _embed_quantum(self) -> bool:
         """Advance the oldest embeddings job by one device batch. Returns

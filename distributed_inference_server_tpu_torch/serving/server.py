@@ -3,11 +3,14 @@ server (the counterpart of ``distributed_inference_server_tpu/serving/
 server.py`` for one replica).
 
 It wires the ``MetricsCollector``, the ``EngineRunner`` (which records
-into it) and the ``InferenceHandler`` (``serving/handler.py``: the
+into it), the ``Dispatcher`` in front of it (``serving/dispatcher.py``:
+the priority queue with backpressure, the windowed admission batcher and
+the timeout sweep; the server starts it after the runner and drains it on
+shutdown) and the ``InferenceHandler`` (``serving/handler.py``: the
 ``/generate``, ``/chat``, ``/v1/*`` and ``/embeddings`` lifecycles), and
 ``serve`` runs a ``ThreadingHTTPServer`` (one thread per connection) on
-the app in ``serving/app.py``. Not in this slice: the multi-replica
-scheduler, its admission queue, and the fleet.
+the app in ``serving/app.py``. Not ported yet: several replicas behind a
+scheduler, and the fleet.
 """
 
 from __future__ import annotations
@@ -19,10 +22,18 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from distributed_inference_server_tpu_torch.core.queue import QueueConfig
 from distributed_inference_server_tpu_torch.engine.engine import LLMEngine
 from distributed_inference_server_tpu_torch.models.tokenizer import Tokenizer
 from distributed_inference_server_tpu_torch.ops import kernels
 from distributed_inference_server_tpu_torch.serving.app import make_handler
+from distributed_inference_server_tpu_torch.serving.batcher import (
+    BatcherConfig,
+)
+from distributed_inference_server_tpu_torch.serving.dispatcher import (
+    Dispatcher,
+    SingleRunnerScheduler,
+)
 from distributed_inference_server_tpu_torch.serving.handler import (
     InferenceHandler,
 )
@@ -34,6 +45,13 @@ from distributed_inference_server_tpu_torch.serving.runner import (
 )
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # the listen backlog: the standard library's 5 drops the connection
+    # attempts of a burst beyond it, which the client's TCP retries a
+    # second later; 128 is aiohttp's default, the reference's transport
+    request_queue_size = 128
+
+
 class InferenceServer:
     """Serving spine for one engine replica."""
 
@@ -42,13 +60,28 @@ class InferenceServer:
         engine_factory: Callable[[], LLMEngine],
         tokenizer: Tokenizer,
         model_name: str,
+        queue_config: Optional[QueueConfig] = None,
+        batcher_config: Optional[BatcherConfig] = None,
     ):
+        """``queue_config`` / ``batcher_config``: the admission queue's
+        watermarks, timeout, cap and tenant lanes, and the batching window
+        (the reference defaults when None). The queue takes the native C++
+        tier when it builds and tenant lanes are off."""
+        from distributed_inference_server_tpu_torch import native
+
         self.tok = tokenizer
         self.model_name = model_name
         self.metrics = MetricsCollector()
         self.runner = EngineRunner("engine-0", engine_factory, self.metrics)
-        self.handler = InferenceHandler(self.runner, tokenizer, model_name,
-                                        self.metrics)
+        self.batcher_config = batcher_config or BatcherConfig()
+        self.dispatcher = Dispatcher(
+            SingleRunnerScheduler(self.runner), queue_config,
+            self.batcher_config, self.metrics)
+        # the validator's tier, as the reference picks it: native when the
+        # library builds
+        self.handler = InferenceHandler(self.dispatcher, tokenizer,
+                                        model_name, self.metrics,
+                                        native.make_validator())
         self._accepting = False
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._http_thread: Optional[threading.Thread] = None
@@ -58,13 +91,14 @@ class InferenceServer:
 
     def start(self, wait_ready: bool = True) -> None:
         self.runner.start(wait_ready=wait_ready)
+        self.dispatcher.start()
         self._accepting = True
 
     def serve(self, host: str = "0.0.0.0", port: int = 8000,
               block: bool = True) -> int:
         """Serve HTTP on ``host:port`` (0 = an ephemeral port). Blocks
         unless ``block`` is False; returns the bound port."""
-        self._httpd = ThreadingHTTPServer((host, port), make_handler(self))
+        self._httpd = _HTTPServer((host, port), make_handler(self))
         self._httpd.daemon_threads = True
         bound = self._httpd.server_address[1]
         if block:
@@ -75,8 +109,12 @@ class InferenceServer:
             self._http_thread.start()
         return bound
 
-    def shutdown(self) -> None:
+    def shutdown(self, drain_timeout_s: float = 30.0) -> None:
+        """Stop accepting, drain the admission queue and the in-flight
+        requests (up to ``drain_timeout_s``), then stop HTTP and the
+        runner."""
         self._accepting = False
+        self.dispatcher.shutdown(drain_timeout_s)
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -86,6 +124,17 @@ class InferenceServer:
         self.runner.shutdown()
 
     # -- endpoints ---------------------------------------------------------
+
+    def admission_stats(self) -> dict:
+        d = self.dispatcher.queue.queue_depth()
+        return {
+            "tier": self.dispatcher.tier,
+            "accepting": self.dispatcher.is_accepting(),
+            "queue": {"high": d.high, "normal": d.normal, "low": d.low,
+                      "total": d.total},
+            "window_ms": self.batcher_config.window_ms,
+            "max_batch_size": self.batcher_config.max_batch_size,
+        }
 
     def kernel_counts(self) -> Dict[str, int]:
         return kernels.launch_counts()
@@ -106,7 +155,7 @@ class InferenceServer:
         status = self.runner.status()
         return (200 if status.healthy else 503), {
             "status": "ok" if status.healthy else "unhealthy",
-            "accepting": self._accepting,
+            "accepting": self._accepting and self.dispatcher.is_accepting(),
             "engines": [status.to_dict()],
             "model": self.model_name,
             "device": self.device_name(),
@@ -125,7 +174,9 @@ class InferenceServer:
         ``mixed`` (the engine's ``mixed_stats()``, null while the mixed
         step is off), ``loop`` (``loop_stats()``, null while looped blocks
         are off), ``step_clock`` (host wall time, dispatches, tokens and
-        rows per dispatch kind, and the pressure events), ``memory``
+        rows per dispatch kind, and the pressure events), ``admission``
+        (the queue tier, native or python, the queue's depth by priority,
+        whether it accepts, the batching window and size), ``memory``
         (device memory, null on the CPU), the warmup's seconds, the
         runner's counters and each kernel's launch count."""
         r = self.runner
@@ -151,6 +202,7 @@ class InferenceServer:
             "engine_steps": r.steps,
             "engine_step_seconds": r.step_seconds,
             "warmup_s": r.warmup_seconds,
+            "admission": self.admission_stats(),
             "mixed": status.mixed,
             "loop": status.loop,
             "step_clock": step_clock,

@@ -1545,3 +1545,72 @@ def test_streamed_text_matches_non_streamed_on_the_card(cuda):
             assert list(ex.map(streamed, prompts)) == want
     finally:
         server.shutdown()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_prefill_kernel_at_the_verify_shape(cuda, dtype, D):
+    """The speculative verify forward: B 8 rows of T = gamma + 1 = 5
+    queries from per-row q_start around a page edge, deep in the row and
+    at the capacity (the last row's last two queries past it, kv_valid
+    clamped to the capacity, as the engine's verify forward does)."""
+    P, ps, T = 128, 16, 5
+    q, pk, pv, tables = _pool_case(cuda, dtype, 8, 32, 8, D, ps, P, 1024,
+                                   T=T, seed=3)
+    starts = [0, 15, 16, 17, 300, 1000, 2043, 2045]
+    q_start = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    valid = torch.tensor([min(s + T, P * ps) for s in starts],
+                         dtype=torch.int32, device=cuda)
+    got = pa.paged_prefill(q, pk, pv, tables, q_start, valid, page_size=ps)
+    want = pa.paged_prefill_plain(q, pk, pv, tables, q_start, valid,
+                                  page_size=ps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_spec_engine_graph_matches_eager_and_plain_decoding(cuda, kv_quant):
+    """A speculative engine on the card (TINY, f32, a draft of another
+    seed): greedy tokens equal the plain engine's on the fixed path, in
+    looped blocks and in the mixed step under the loop; graph launches
+    equal eager launches."""
+    from distributed_inference_server_tpu_torch.engine.speculative import (
+        SpecConfig,
+    )
+
+    params = _scaled_params(TINY, cuda, torch.float32)
+    draft = _scaled_params(TINY, cuda, torch.float32, seed=7)
+    tok = ByteTokenizer()
+    prompts = ["speculate on the card", "a longer prompt " * 3, "z"]
+
+    def run(draft_params, graphs=True, **kw):
+        eng = LLMEngine(params, TINY, tok, EngineConfig(
+            paged=PagedCacheConfig(64, 4, 16), max_batch=4,
+            prefill_buckets=(8, 32), decode_block_size=3, kv_quant=kv_quant,
+            **kw), dtype=torch.float32, device=cuda, _graphs=graphs,
+            draft_params=draft_params,
+            draft_cfg=TINY if draft_params is not None else None,
+            spec=SpecConfig(num_draft_tokens=3))
+        kernels.reset_launch_counts()
+        for i, p in enumerate(prompts):
+            eng.add_request(f"r{i}", tok.encode(p), SamplingParams(
+                max_tokens=20, temperature=0.0))
+        toks = {}
+        while eng.has_work():
+            for o in eng.step():
+                assert o.error is None, o.error
+                if o.token_id is not None:
+                    toks.setdefault(o.request_id, []).append(o.token_id)
+        assert eng.audit_pages() == []
+        return toks, dict(kernels.launch_counts())
+
+    want, _ = run(None)
+    for kw in ({}, {"loop_to_completion": True},
+               {"loop_to_completion": True, "mixed_step_tokens": 12,
+                "loop_max_steps": 1}):
+        got, counts = run(draft, **kw)
+        eager, eager_counts = run(draft, graphs=False, **kw)
+        assert got == eager == want, kw
+        assert counts == eager_counts, kw

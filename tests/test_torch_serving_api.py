@@ -531,9 +531,9 @@ def test_metrics_read_the_engine_totals_at_scrape(stack):
 
 
 # the JAX collector's families that one unified replica records; the rest
-# (speculation, host tier, handoff, prefix fetch and routing, fleet,
-# registry HA, restarts, shedding, health scoring, tracing, SLO) come with
-# their modules
+# (host tier, handoff, prefix fetch and routing, fleet, registry HA,
+# restarts, shedding, health scoring, tracing, SLO) come with their
+# modules
 SINGLE_REPLICA_FAMILIES = {
     "request_latency_seconds", "batch_size", "batch_padding_ratio",
     "tokens_generated", "inference_seconds", "time_to_first_token_seconds",
@@ -542,7 +542,9 @@ SINGLE_REPLICA_FAMILIES = {
     "engine_mixed_batch_density", "engine_loop_steps", "engine_loop_exit",
     "queue_depth", "active_requests", "engine_up", "errors",
     "engine_step_seconds", "engine_step_dispatches", "engine_step_tokens",
-    "engine_step_events",
+    "engine_step_events", "requests_expired", "queue_tenant_depth",
+    "speculation_acceptance_rate", "speculation_estimated_speedup",
+    "speculation_enabled",
 }
 
 
@@ -557,12 +559,18 @@ def _record_common(c):
     c.request_finished()
     c.set_engine_up("engine-0", True)
     c.record_error("runner.sink")
+    c.set_queue_depth(0, 2, 0)
+    c.set_tenant_depths({"a": 2})
+    c.record_expired(1)
+    c.set_speculation("engine-0", {"acceptance_rate": 0.75,
+                                   "estimated_speedup": 2.5,
+                                   "enabled": True})
 
 
 # the engine's counters: deltas into the JAX collector, the same values
 # as the engine's totals into the port's (which reads them at a scrape)
 ENGINE_TOTALS = (
-    "engine-0", types.SimpleNamespace(hits=2, misses=1, evictions=1), 2,
+    "engine-0", types.SimpleNamespace(hits=2, misses=1, evictions=1),
     {"prefill_tokens": 5, "decode_tokens": 3, "batch_density": 0.5},
     {"steps": 4, "exits": {"eos": 1, "budget": 2}},
     {"kinds": {"prefill": {"dispatches": 2, "wall_s": 0.1, "tokens": 9}},
@@ -576,7 +584,6 @@ def _record_jax(c):
     c.record_mixed_step(prefill_tokens=5, decode_tokens=3)
     c.set_mixed_density("engine-0", 0.5)
     c.record_loop_block(steps=4, exits={"eos": 1, "budget": 2})
-    c.set_queue_depth(0, 2, 0)
     c.record_step_clock("engine-0", "prefill", dispatches=2, wall_s=0.1,
                         tokens=9)
     c.record_step_events("engine-0", {"preempt": 1})
@@ -639,10 +646,10 @@ def test_engine_totals_are_set_not_added():
     once = _families(c.prometheus_text().decode())
     c.observe_engine(*ENGINE_TOTALS)
     assert _families(c.prometheus_text().decode()) == once
-    eid, _, waiting, mixed, loop, clock = ENGINE_TOTALS
+    eid, _, mixed, loop, clock = ENGINE_TOTALS
     c.observe_engine(eid, types.SimpleNamespace(hits=5, misses=1,
                                                 evictions=1),
-                     waiting, mixed, {**loop, "steps": 9}, clock)
+                     mixed, {**loop, "steps": 9}, clock)
     fams = _families(c.prometheus_text().decode())
     assert fams["kv_cache_hits"][2] == [("kv_cache_hits_total", (), 5.0)]
     assert fams["engine_loop_steps"][2] == [
@@ -685,13 +692,20 @@ def test_disconnect_aborts_the_stream(stack, path, read_first):
         assert in_flight[0] == 1 and in_flight[1] > before[1]
     conn.sock.close()
     conn.close()
+
+    def active():
+        return _count(_metrics(stack), "active_requests", "active_requests")
+
+    # a request closed before reading may still sit in the admission
+    # window, where neither the runner nor the pages see it: wait for the
+    # gauge too
     deadline = time.monotonic() + 60
-    while time.monotonic() < deadline and _live_pages(stack) != before:
+    while time.monotonic() < deadline and (
+            _live_pages(stack) != before or active() != 0):
         time.sleep(0.05)
     assert _live_pages(stack) == before
     assert stack.server.runner.call(lambda e: e.audit_pages()) == []
-    fams = _metrics(stack)
-    assert _count(fams, "active_requests", "active_requests") == 0
+    assert active() == 0
 
 
 # ---------------------------------------------------------------------------
