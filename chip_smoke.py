@@ -153,7 +153,17 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    then a server with ``--batcher-window-ms 0`` for the lone TTFT without
    the window, and one with ``--queue-tenant-fairness true``, which takes
    the Python queue and batcher tier, for the lone TTFT and the burst on
-   that tier (``admission_timing`` line).
+   that tier (``admission_timing`` line);
+11. (``kvpaths``) the KV byte paths on llama-3.2-1b bf16 (``phase_kvpaths``):
+   raw and streamed handoffs between two engines token-identical to plain
+   decoding, the int8 and latent wires' agreement and bytes, a peer
+   prefix fetch equal to a warm hit, three 1B servers with a host tier
+   (``none`` / ``int8`` / ``latent``) reloading an evicted prompt (the
+   ``none`` tier's text == a warm HBM hit), the native allocator tier at
+   the defaults and its tokens == the Python tier's, and two latent
+   codecs calibrated bit-identically (``kvpaths_timing`` line: payload
+   bytes per kind, export / import ms per MB, the streamed stall,
+   host-tier reload ms per page, PCIe rates).
 
 It also prints whether ``safetensors`` and ``tokenizers`` import (for
 information: the port reads safetensors itself).
@@ -163,7 +173,7 @@ quantized matmuls' rows add ``*_prefill`` keys: their M = 2048 layer, and
 q8 ``*_verify`` keys: its M = 40 layer); the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
 and prints no result. ``--phases
-kernels,serve,quant,engine,ckpt,api,families,spec,admission`` selects
+kernels,serve,quant,engine,ckpt,api,families,spec,admission,kvpaths`` selects
 phases (default: all; ``quant`` is phase 3's quantized kernels and phase
 4's quantized servers; ``families`` is item 7, ``api`` item 8, ``spec``
 item 9 and ``admission`` item 10, which write and serve item 6's
@@ -173,8 +183,10 @@ server option within one tree, e.g. ``--batcher-window-ms 0`` with
 ``--phases serve``). The summary rows
 carry the families' times under ``families``, each family server's
 launches under ``launches_by_model``, the api phase's under
-``launches_api``, the spec servers' under ``launches_spec (model)`` and
-the verify shape's times under ``verify``.
+``launches_api``, the spec servers' under ``launches_spec (model)``, each
+KV byte path's (phase 11's handoff decode, peer-prefix serve and each
+host-tier server's repeat) under ``launches_kvpaths`` and the verify
+shape's times under ``verify``.
 """
 
 from __future__ import annotations
@@ -1017,11 +1029,9 @@ def _check_generate(status, body, max_tokens):
 SERVER_FLAGS: list = []
 
 
-@contextlib.contextmanager
-def _server(seed: int, extra, log_name: str, model: str = "llama-3.2-1b"):
-    """Run ``python -m distributed_inference_server_tpu_torch`` serving
-    ``model`` on a free port until it is healthy; yields its base URL and
-    stops the process on exit."""
+def _launch(seed: int, extra, log_name: str, model: str):
+    """Start ``python -m distributed_inference_server_tpu_torch`` serving
+    ``model`` on a free port: (process, base URL, its log file)."""
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
     cmd = [sys.executable, "-m", "distributed_inference_server_tpu_torch",
@@ -1031,32 +1041,57 @@ def _server(seed: int, extra, log_name: str, model: str = "llama-3.2-1b"):
     os.makedirs("chiprun_out", exist_ok=True)
     errlog = open(os.path.join("chiprun_out", log_name), "w")
     proc = subprocess.Popen(cmd, stdout=errlog, stderr=subprocess.STDOUT)
-    try:
-        t0 = time.monotonic()
-        while True:
-            if proc.poll() is not None:
-                raise RuntimeError(f"server exited with {proc.returncode} "
-                                   f"(chiprun_out/{log_name})")
-            try:
-                st, health = _http("GET", base + "/health", timeout=5)
-                if st == 200 and health.get("status") == "ok":
-                    break
-            except (urllib.error.URLError, ConnectionError, OSError,
-                    RuntimeError):
-                pass
-            if time.monotonic() - t0 > 400:
-                raise RuntimeError("server did not become healthy in 400 s")
-            time.sleep(1.0)
-        log(f"[serve] healthy after {time.monotonic() - t0:.1f} s")
-        yield base
-    finally:
-        proc.terminate()
+    return proc, base, errlog
+
+
+def _wait_healthy(proc, base: str, log_name: str, t0: float) -> None:
+    while True:
+        if proc.poll() is not None:
+            raise RuntimeError(f"server exited with {proc.returncode} "
+                               f"(chiprun_out/{log_name})")
         try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        errlog.close()
+            st, health = _http("GET", base + "/health", timeout=5)
+            if st == 200 and health.get("status") == "ok":
+                break
+        except (urllib.error.URLError, ConnectionError, OSError,
+                RuntimeError):
+            pass
+        if time.monotonic() - t0 > 400:
+            raise RuntimeError("server did not become healthy in 400 s")
+        time.sleep(1.0)
+    log(f"[serve] {log_name} healthy after {time.monotonic() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def _servers(seed: int, specs):
+    """Start one server per (extra flags, log name, model) in ``specs``,
+    all at once, and wait until each is healthy; yields their base URLs
+    and stops every process on exit."""
+    launched = []
+    try:
+        for extra, log_name, model in specs:
+            launched.append((*_launch(seed, extra, log_name, model),
+                             log_name))
+        t0 = time.monotonic()
+        for proc, base, _, log_name in launched:
+            _wait_healthy(proc, base, log_name, t0)
+        yield [base for _, base, _, _ in launched]
+    finally:
+        for proc, _, errlog, _ in launched:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            errlog.close()
+
+
+@contextlib.contextmanager
+def _server(seed: int, extra, log_name: str, model: str = "llama-3.2-1b"):
+    """One server (``_servers``); yields its base URL."""
+    with _servers(seed, [(extra, log_name, model)]) as (base,):
+        yield base
 
 
 def _gen(base, prompt, params):
@@ -3014,11 +3049,411 @@ def phase_admission(card: str, seed: int, base: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the KV byte paths (handoff, peer prefix, host tier, allocator, codec)
+# ---------------------------------------------------------------------------
+
+KV_RANK = 16  # --cache-latent-rank of the kvpaths phase
+# the kernels every part of the kvpaths phase must launch (a handoff's
+# import decodes on without a prefill); no other kernel may launch there
+KVPATH_KERNELS = ("paged_prefill", "paged_decode", "rms_norm", "rope")
+# the host-tier servers' pool: 64 pages of 16 tokens, so two ~600-token
+# prompts evict a third's pages
+HOST_TIER_PAGES = 64
+HOST_TIER_BYTES = 268435456
+CHURN_PROMPTS = [(f"Churn {i}: another long prompt pushes pages out. " * 14)
+                 [:600] for i in range(2)]
+PCIE_LANE_GBPS = {3: 0.985, 4: 1.969, 5: 3.938}  # per lane, each direction
+# the H100 SXM's host link per its data sheet (PCIe Gen5 x16), for when
+# nvidia-smi does not report the link
+PCIE_NOMINAL = {"gen": 5, "width": 16, "nominal_gb_s": 63.01}
+
+
+def _pcie(card_smi: str) -> dict:
+    """Pinned host<->device copy rates of 256 MB (CUDA events, median of
+    5) against the link's nominal rate from ``nvidia-smi``."""
+    n = 256 << 20
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    out = {}
+    for name, dst, src in (("d2h", host, dev), ("h2d", dev, host)):
+        times = []
+        for _ in range(6):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            dst.copy_(src, non_blocking=True)
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        ms = sorted(times[1:])[2]
+        out[f"{name}_gb_s"] = round(n / ms / 1e6, 2)
+    exe = shutil.which("nvidia-smi")
+    link = dict(PCIE_NOMINAL, source="data sheet")
+    if exe is not None:
+        res = subprocess.run(
+            [exe, "--query-gpu=pcie.link.gen.current,pcie.link.width.current",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        try:
+            gen, width = (int(x) for x in res.stdout.split(",")[:2])
+            link = {"gen": gen, "width": width,
+                    "nominal_gb_s": round(PCIE_LANE_GBPS.get(gen, 0.0)
+                                          * width, 2),
+                    "source": "nvidia-smi"}
+        except ValueError:  # e.g. "[N/A], [N/A]": the data sheet's
+            link["nvidia_smi"] = res.stdout.strip() or res.stderr.strip()
+    out["link"] = link
+    return out
+
+
+def _v1_logprobs(base: str, prompt: str):
+    """A greedy ``/v1/completions`` with ``logprobs`` 0: (text, the sampled
+    tokens' log-probabilities), which tells tokens apart where a random
+    model's byte texts are mostly empty."""
+    st, v1 = _http("POST", base + "/v1/completions",
+                   {"prompt": prompt, **GREEDY, "logprobs": 0})
+    assert st == 200, v1
+    ch = v1["choices"][0]
+    assert len(ch["logprobs"]["token_logprobs"]) >= 1, v1
+    return ch["text"], ch["logprobs"]["token_logprobs"]
+
+
+def phase_kvpaths(card: str, seed: int = 0) -> dict:
+    """The KV byte paths on llama-3.2-1b (16 layers, 2048 wide, bf16,
+    random weights from ``seed``), checks first, numbers after:
+
+    (a) handoff: engine A takes each of the first mix's greedy prompts
+        with ``prefill_only``; its export (monolithic raw; streamed in
+        8-page chunks while A keeps decoding; the int8 and latent wires)
+        imports into engine B (warmed up: its decode blocks are graph
+        replays), which decodes on. raw and streamed: tokens identical to
+        B's own cold run of the prompt (prefilled whole, then decoded);
+        int8 and latent: agreement printed, byte ratios asserted. The
+        decode kernel must launch over the imported pages.
+    (b) peer prefix: A holds a ~1200-token prompt's pages; B imports them
+        (``import_prefix`` of A's ``export_prefix_chunks``) and serves the
+        prompt: B's tokens == A serving it warm from its own cache; the
+        prefill kernel must launch on the tail.
+    (c) the host tier served through ``/generate``: three 1B servers with
+        a 64-page pool and a 256 MB host tier (``none``, ``int8``,
+        ``latent`` at rank 16) and one at the defaults, started together:
+        a prompt, two prompts that evict it, the prompt again; host hits
+        > 0, pages demoted, the ``python`` allocator tier; for ``none``
+        the repeat's greedy text and its tokens' log-probabilities
+        (``/v1/completions``) == the default server's warm HBM hit.
+    (d) the allocator: the default server reports the ``native`` tier; in
+        process A (``native_allocator=False``) gives B's (native) greedy
+        tokens for the mix.
+    (e) A's and B's latent codecs (rank 16, each calibrated at
+        construction) are bit-identical.
+
+    Prints payload bytes per kind, export / import ms per MB (monolithic
+    and streamed), the streamed stall, host-tier reload ms per page and
+    PCIe rates in one ``kvpaths_timing`` line beside the card. Returns
+    that line's fields and each part's launches: (a) B's decodes of the
+    imports (decode, RMSNorm and RoPE, no prefill), (b) B's serve of the
+    fetched prefix and (c) each host-tier server's repeat (the prefill
+    kernel too); no other kernel may launch in any part."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_inference_server_tpu_torch.engine import kv_cache as kv
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distributed_inference_server_tpu_torch.models import llama
+    from distributed_inference_server_tpu_torch.models.configs import (
+        LLAMA_3_2_1B,
+    )
+    from distributed_inference_server_tpu_torch.models.tokenizer import (
+        ByteTokenizer,
+    )
+    from distributed_inference_server_tpu_torch.ops import kernels
+
+    t_phase = time.monotonic()
+    cfg = LLAMA_3_2_1B
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    tok = ByteTokenizer()
+    ps = EngineConfig().paged.page_size
+
+    def engine(**kw):
+        return LLMEngine(params, cfg, tok, EngineConfig(**kw),
+                         dtype=torch.bfloat16, device="cuda")
+
+    def drain(eng, toks):
+        while eng.has_work() and not eng.handoff_ready_ids():
+            for o in eng.step():
+                assert o.error is None, o.error
+                if o.token_id is not None:
+                    toks.append(o.token_id)
+        return toks
+
+    def cold(eng, rid, ids, n, prefill_only=False):
+        eng.evict_cache(0.0)
+        eng.add_request(rid, ids, SamplingParams(max_tokens=n,
+                                                 temperature=0.0),
+                        prefill_only=prefill_only)
+        toks = drain(eng, [])
+        assert eng.handoff_ready_ids() == ([rid] if prefill_only else [])
+        return toks
+
+    def synced(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, (time.monotonic() - t0) * 1000.0
+
+    def first_divergence(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None if len(a) == len(b) else min(len(a), len(b)))
+
+    # each part's own launches: the counts are zeroed just before the part
+    # and added up just after it
+    path_launches = {part: dict.fromkeys(kernels.KERNELS, 0)
+                     for part in ("handoff", "peer_prefix")}
+
+    def counted(part, fn, *a):
+        kernels.reset_launch_counts()
+        out = fn(*a)
+        for name, n in kernels.launch_counts().items():
+            path_launches[part][name] += n
+        return out
+
+    def b_decode(toks):  # B decodes an imported sequence to its end
+        stall = None
+        while b.has_work():
+            for o in b.step():
+                assert o.error is None, o.error
+                if o.token_id is not None:
+                    if stall is None:
+                        stall = time.monotonic()
+                    toks.append(o.token_id)
+        return stall
+
+    a = engine(native_allocator=False, latent_rank=KV_RANK)
+    b = engine(latent_rank=KV_RANK)
+    # (e) codec determinism, (d) the tiers
+    assert a.latent_codec is not None and b.latent_codec is not None
+    assert np.array_equal(a.latent_codec.k_proj, b.latent_codec.k_proj)
+    assert np.array_equal(a.latent_codec.v_proj, b.latent_codec.v_proj)
+    assert (a.allocator_tier(), b.allocator_tier()) == ("python", "native")
+    b.warmup()  # B's decode blocks and prefill chunks: graph replays
+    log(f"[kvpaths] engines calibrated, B warmed up at "
+        f"{time.monotonic() - t_phase:.1f} s")
+
+    want, nbytes, timing, agree = {}, {}, {}, {}
+    for name, prompt in MIX_PROMPTS.items():
+        ids = tok.encode(prompt)
+        want[name] = cold(b, f"ref-{name}", ids, 40)
+        got = cold(a, f"d-{name}", ids, 40)
+        assert got == want[name], ("(d) python tier != native tier", name,
+                                   first_divergence(got, want[name]))
+        # (a) monolithic raw
+        got = cold(a, f"m-{name}", ids, 24, prefill_only=True)
+        exp, t_exp = synced(a.export_handoff, f"m-{name}")
+        _, t_imp = synced(b.import_sequence, exp)
+        counted("handoff", b_decode, got)
+        assert got == want[name][:24], ("(a) raw handoff", name,
+                                         first_divergence(got, want[name]))
+        if name == "p600":
+            mb = len(exp.kv) / 1e6
+            nbytes["raw"] = len(exp.kv)
+            timing["export_ms_per_mb"] = round(t_exp / mb, 3)
+            timing["import_ms_per_mb"] = round(t_imp / mb, 3)
+        # (a) streamed, 8-page chunks, A decoding meanwhile
+        got = cold(a, f"s-{name}", ids, 40, prefill_only=True)
+        sess = a.export_handoff_begin(f"s-{name}", chunk_pages=8)
+        assert sess is not None, name
+        got += [o.token_id for o in a.step() if o.token_id is not None]
+        _, t_pump = synced(a.export_handoff_pump, sess)
+        isess = b.import_stream_open(f"s-{name}", len(sess.prefix_pages))
+        _, t_add = synced(b.import_stream_add, isess, sess.chunks)
+        got += [o.token_id for o in a.step() if o.token_id is not None]
+        (exp, outs), t_fin = synced(a.export_handoff_finish, sess)
+        assert exp is not None, name
+        got += [o.token_id for o in outs if o.token_id is not None]
+        tail = exp.kv_chunks[len(sess.chunks):]
+        _, t_commit = synced(b.import_stream_commit, isess,
+                             dataclasses.replace(exp, kv_chunks=tail))
+        stall = (counted("handoff", b_decode, got) - exp.stalled_at) * 1e3
+        assert got == want[name], ("(a) streamed handoff", name,
+                                   first_divergence(got, want[name]))
+        if name == "p600":
+            pre_mb = sum(len(c.payload) for c in sess.chunks) / 1e6
+            tail_mb = sum(len(c.payload) for c in tail) / 1e6
+            timing["streamed"] = {
+                "prefix_mb": round(pre_mb, 3), "tail_mb": round(tail_mb, 3),
+                "pump_ms_per_mb": round(t_pump / pre_mb, 3),
+                "import_add_ms_per_mb": round(t_add / pre_mb, 3),
+                "finish_ms": round(t_fin, 3), "commit_ms": round(t_commit, 3),
+                "stall_ms": round(stall, 3)}
+        # (a) the lossy wires: agreement printed, bytes asserted
+        for wire in ("int8", "latent", "latent_int8"):
+            got = cold(a, f"{wire}-{name}", ids, 24, prefill_only=True)
+            exp = a.export_handoff(f"{wire}-{name}", wire_quant=wire)
+            assert exp.wire_quant == wire
+            b.import_sequence(exp)
+            counted("handoff", b_decode, got)
+            ref = want[name][:24]
+            agree[f"{wire} {name}"] = {
+                "agree": sum(x == y for x, y in zip(got, ref)),
+                "of": len(ref), "first_divergence": first_divergence(got,
+                                                                     ref)}
+            if name == "p600":
+                nbytes[wire] = len(exp.kv)
+    # each wire's bytes: the raw payload's times its encoded fraction (at D
+    # 64 in bf16: int8 68 / 128, latent 2r / 128, latent_int8 (r + 4) / 128)
+    for wire in ("int8", "latent", "latent_int8"):
+        frac = kv.encoded_page_fraction(wire, a.state.k.element_size(),
+                                        cfg.head_dim, KV_RANK)
+        assert nbytes[wire] <= nbytes["raw"] * frac + 64 < nbytes["raw"], (
+            wire, frac, nbytes)
+    assert a.audit_pages() == [] and b.audit_pages() == []
+    log(f"[kvpaths] (a) handoffs checked at {time.monotonic() - t_phase:.1f}"
+        " s")
+
+    # (b) peer prefix: B's tokens == A serving the prompt warm
+    long_ids = tok.encode(("Long prompt chunked past the 512 bucket. " * 30)
+                          [:1200])
+    cold(a, "pf-cold", long_ids, 1)
+    a.add_request("pf-warm", long_ids, SamplingParams(max_tokens=24,
+                                                      temperature=0.0))
+    warm_a = drain(a, [])
+    hashes = kv.chain_hashes(long_ids, ps,
+                             max_pages=(len(long_ids) - 1) // ps)
+    (depth, chunks), t_pf_exp = synced(a.export_prefix_chunks, hashes,
+                                       chunk_pages=8)
+    assert depth == len(hashes), (depth, len(hashes))
+    b.evict_cache(0.0)
+    seated, t_pf_imp = synced(b.import_prefix, long_ids[: depth * ps],
+                              chunks)
+    assert seated == depth
+    b.add_request("pf-b", long_ids, SamplingParams(max_tokens=24,
+                                                   temperature=0.0))
+    got = counted("peer_prefix", drain, b, [])
+    assert got == warm_a, ("(b) peer prefix", first_divergence(got, warm_a))
+    pf_mb = sum(len(c.payload) for c in chunks) / 1e6
+    timing["prefix_fetch"] = {
+        "pages": depth, "mb": round(pf_mb, 3),
+        "export_ms_per_mb": round(t_pf_exp / pf_mb, 3),
+        "import_ms_per_mb": round(t_pf_imp / pf_mb, 3)}
+    assert a.audit_pages() == [] and b.audit_pages() == []
+    del a, b
+    gc.collect()
+
+    # qpool payload bytes: 2 layers of the 1B width over int8 pools
+    cfg2 = cfg.with_overrides(num_layers=2)
+    q = LLMEngine(llama.init_params(cfg2, gen, dtype=torch.bfloat16,
+                                    device="cuda"), cfg2, tok,
+                  EngineConfig(kv_quant="int8"), dtype=torch.bfloat16,
+                  device="cuda")
+    p600 = tok.encode(MIX_PROMPTS["p600"])
+    cold(q, "q", p600, 2, prefill_only=True)
+    qexp = q.export_handoff("q", wire_quant="latent")  # native codes
+    nbytes["qpool (2 layers)"] = len(qexp.kv)
+    q.import_sequence(qexp)
+    drain(q, [])
+    assert q.audit_pages() == []
+    per_vec = {  # K and V of one token, one layer, one KV head
+        k: round(v / ((2 if k.startswith("qpool") else cfg.num_layers)
+                      * len(p600) * 2 * cfg.num_kv_heads), 2)
+        for k, v in nbytes.items()}
+    del q
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[kvpaths] (b) peer prefix checked at "
+        f"{time.monotonic() - t_phase:.1f} s")
+
+    # (c) host-tier servers and (d) a default server, started together
+    host = ["--engine-warmup-compile", "false", "--engine-num-pages",
+            str(HOST_TIER_PAGES), "--cache-host-tier-bytes",
+            str(HOST_TIER_BYTES)]
+    tiers = {"none": [], "int8": [],
+             "latent": ["--cache-latent-rank", str(KV_RANK)]}
+    specs = [([], "server_kv_default.log", "llama-3.2-1b")] + [
+        (host + ["--cache-host-tier-quant", t] + extra,
+         f"server_kv_host_{t}.log", "llama-3.2-1b")
+        for t, extra in tiers.items()]
+    served = {}
+    prompt = MIX_PROMPTS["p600"]
+    with _servers(seed, specs) as bases:
+        default, host_bases = bases[0], dict(zip(tiers, bases[1:]))
+        _, st = _http("GET", default + "/server/stats")
+        assert st["cache"]["allocator_tier"] == "native", st["cache"]
+        _v1_logprobs(default, prompt)  # cold
+        warm_hbm = _v1_logprobs(default, prompt)  # the warm HBM hit
+        for t, base in host_bases.items():
+            _v1_logprobs(base, prompt)
+            for c in CHURN_PROMPTS:
+                code, body, _ = _gen(base, c, GREEDY)
+                _check_generate(code, body, GREEDY["max_tokens"])
+            _reset_counts(base)
+            repeat = _v1_logprobs(base, prompt)
+            _, st = _http("GET", base + "/server/stats")
+            c = st["cache"]
+            host_stats = st["worker_statuses"][0]["host_tier"]
+            metrics, _ = _get_text(base + "/metrics")
+            prom = _parse_prom(metrics)
+            host_hits = _prom_sum(prom, "kv_prefix_hits_total",
+                                  "kv_prefix_hits_total", tier="host")
+            assert c["allocator_tier"] == "python", c
+            assert host_stats["offloads"] > 0, ("(c) nothing demoted", t, c)
+            assert c["prefix_hits"]["host"] > 0 and host_hits > 0, (
+                "(c) no host-tier hit", t, c)
+            path_launches[f"host_tier {t}"] = st["kernel_launches"]
+            if t == "none":
+                assert repeat == warm_hbm, ("(c) host-tier reload != warm "
+                                            "HBM hit", repeat, warm_hbm)
+            served[t] = {
+                "host_hit_pages": c["prefix_hits"]["host"],
+                "reloads": c["reload_count"],
+                "reload_ms_per_page": round(
+                    c["reload_avg_ms"] * c["reload_count"]
+                    / c["prefix_hits"]["host"], 4),
+                "tier_pages": c["host_tier_pages"],
+                "tier_bytes": c["host_tier_bytes"],
+                "payload_bytes": c.get("payload_bytes"),
+                "equals_warm_hbm": repeat == warm_hbm,
+                "first_logprob_divergence": next(
+                    (i for i, (x, y) in enumerate(zip(repeat[1],
+                                                      warm_hbm[1]))
+                     if x != y), None)}
+    log(f"[kvpaths] (c) host-tier servers checked at "
+        f"{time.monotonic() - t_phase:.1f} s")
+    # an imported sequence decodes on (no prefill); a fetched or reloaded
+    # prefix's tail prefills, then decodes
+    for part, got in path_launches.items():
+        need = KVPATH_KERNELS if part != "handoff" else tuple(
+            k for k in KVPATH_KERNELS if k != "paged_prefill")
+        for name in need:
+            assert got[name] > 0, (f"kernel {name} never launched on the "
+                                   f"kvpaths part {part}", got)
+        for name in set(got) - set(need):
+            assert got[name] == 0, (f"kernel {name} launched on the kvpaths "
+                                    f"part {part}", got)
+    log("[kvpaths] launches per part: " + json.dumps(path_launches))
+
+    line = {"kvpaths_timing": {
+        "card": card, "model": "llama-3.2-1b bf16 random weights",
+        "latent_rank": KV_RANK, "payload_bytes_p600": nbytes,
+        "payload_bytes_per_kv_vector": per_vec, **timing,
+        "lossy_wire_agreement": agree, "host_tier": served,
+        "pcie": _pcie(card), "phase_s": round(time.monotonic() - t_phase, 1)}}
+    log(json.dumps(line))
+    return {"timing": line["kvpaths_timing"], "launches": path_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,serve,quant,engine,ckpt,api,families,"
-                            "spec,admission")
+                            "spec,admission,kvpaths")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--server-flags", default="",
                     help="flags added to every server started, split on "
@@ -3127,6 +3562,7 @@ def main(argv=None) -> int:
             phase_done(f"serve {label}")
     api_launches = {}
     spec_launches = {}
+    kv_launches = {}
     if phases & {"ckpt", "api", "spec", "admission"}:
         if texts is None and "ckpt" in phases:
             # the random-weight server's texts to match
@@ -3163,6 +3599,11 @@ def main(argv=None) -> int:
     if "families" in phases:
         phase_engine_families(args.seed)
         phase_done("engine families and window reclaim")
+    if "kvpaths" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        kv_launches = phase_kvpaths(card, args.seed)["launches"]
+        phase_done("kv byte paths")
 
     rows = []
     for name, (route, source, replaces) in KERNEL_META.items():
@@ -3181,6 +3622,9 @@ def main(argv=None) -> int:
             row["launches_api"] = api_launches.get(name)
         for model, got in spec_launches.items():  # the spec servers' mixes
             row[f"launches_spec ({model})"] = got.get(name)
+        if kv_launches:  # each KV byte path's own launches
+            row["launches_kvpaths"] = {part: got.get(name)
+                                       for part, got in kv_launches.items()}
         verify = {r["case"]: {k: r.get(k) for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")}

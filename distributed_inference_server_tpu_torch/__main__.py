@@ -9,7 +9,9 @@
 [--queue-low-watermark N] [--queue-request-timeout-s S]
 [--queue-max-queue-size N] [--queue-tenant-fairness true|false]
 [--queue-tenant-weights a=2,b=1] [--batcher-window-ms MS]
-[--batcher-max-batch-size N]``.
+[--batcher-max-batch-size N] [--engine-num-pages N]
+[--cache-host-tier-bytes B] [--cache-host-tier-quant
+none|int8|latent|latent_int8] [--cache-latent-rank R]``.
 
 With ``--model-model-dir`` the config and weights come from that HF
 checkpoint directory (``models/loader.py load_checkpoint``) and the
@@ -47,6 +49,15 @@ priority queue with hysteresis backpressure (503 above
 per-tenant fair lanes, and a batching window of ``--batcher-window-ms``
 or ``--batcher-max-batch-size`` requests; the defaults are the
 reference's. A bad value exits 2 with ``config error:``.
+
+``--engine-num-pages`` sizes the KV page pool (default 1024 pages of 16
+tokens). ``--cache-host-tier-bytes`` (default 0: off) keeps evicted prefix
+pages in host RAM up to that many bytes, stored as
+``--cache-host-tier-quant`` (latent encodings need ``--cache-latent-rank``
+> 0, the rank of the latent page codec the engine calibrates at start);
+the host tier runs on the Python page allocator (it needs the eviction
+hook), otherwise the port's native C++ allocator is taken when it builds
+(``/server/stats`` ``cache.allocator_tier``).
 """
 
 from __future__ import annotations
@@ -69,7 +80,12 @@ from distributed_inference_server_tpu_torch.engine.engine import (
     EngineConfig,
     LLMEngine,
 )
-from distributed_inference_server_tpu_torch.engine.kv_cache import KV_QUANTS
+from distributed_inference_server_tpu_torch.engine.kv_cache import (
+    KV_QUANTS,
+    LATENT_QUANTS,
+    WIRE_QUANTS,
+    PagedCacheConfig,
+)
 from distributed_inference_server_tpu_torch.engine.speculative import (
     SpecConfig,
 )
@@ -181,6 +197,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batcher-window-ms", type=float, default=50.0,
                     help="admission batching window after a batch's first "
                          "request")
+    ap.add_argument("--engine-num-pages", type=int,
+                    default=PagedCacheConfig().num_pages,
+                    help="KV page pool size in pages")
+    ap.add_argument("--cache-host-tier-bytes", type=int, default=0,
+                    help="host-RAM prefix tier budget in bytes (0 = off)")
+    ap.add_argument("--cache-host-tier-quant", default="none",
+                    help="host-tier encoding: none|int8|latent|latent_int8")
+    ap.add_argument("--cache-latent-rank", type=int, default=0,
+                    help="latent page codec rank (0 = no codec)")
     ap.add_argument("--batcher-max-batch-size", type=int, default=32,
                     help="requests that close an admission batch early")
     return ap
@@ -202,6 +227,11 @@ def main(argv=None) -> int:
         print(f"config error: queue.tenant_fairness: {e}", file=sys.stderr)
         return 2
     ecfg = EngineConfig(seed=args.seed,
+                        paged=PagedCacheConfig(
+                            num_pages=args.engine_num_pages),
+                        host_tier_bytes=args.cache_host_tier_bytes,
+                        host_tier_quant=args.cache_host_tier_quant,
+                        latent_rank=args.cache_latent_rank,
                         mixed_step_tokens=args.engine_mixed_step_tokens,
                         kv_quant=args.engine_kv_quant,
                         pipeline_depth=args.engine_pipeline_depth,
@@ -252,6 +282,21 @@ def main(argv=None) -> int:
             raise ValueError("engine.mixed_step_tokens must be >= 0")
         if ecfg.pipeline_depth < 0:
             raise ValueError("engine.pipeline_depth must be >= 0")
+        if ecfg.paged.num_pages < 1:
+            raise ValueError("engine.num_pages must be >= 1")
+        if ecfg.host_tier_bytes < 0:
+            raise ValueError("cache.host_tier_bytes must be >= 0")
+        if ecfg.host_tier_quant not in WIRE_QUANTS:
+            raise ValueError(
+                f"cache.host_tier_quant must be none/int8/latent/"
+                f"latent_int8, got {ecfg.host_tier_quant!r}")
+        if ecfg.latent_rank < 0:
+            raise ValueError("cache.latent_rank must be >= 0")
+        if ecfg.latent_rank == 0 and ecfg.host_tier_quant in LATENT_QUANTS:
+            raise ValueError(
+                f"cache.host_tier_quant={ecfg.host_tier_quant!r} needs "
+                "cache.latent_rank > 0 (the engine has no codec to encode "
+                "with)")
         if model_dir and not os.path.isfile(
                 os.path.join(model_dir, "config.json")):
             raise ValueError(f"model.model_dir {model_dir!r} has no "

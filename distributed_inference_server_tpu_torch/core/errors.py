@@ -176,6 +176,12 @@ class CacheError(Exception):
     pass
 
 
+class CacheDeserializationError(CacheError):
+    def __init__(self, detail: str):
+        super().__init__(f"Deserialization error: {detail}")
+        self.detail = detail
+
+
 class CacheFull(CacheError):
     def __init__(self) -> None:
         super().__init__("Cache full")

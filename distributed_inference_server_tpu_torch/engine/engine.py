@@ -96,7 +96,34 @@ with every ``EngineConfig`` default, and the ragged mixed step).
   it writes no draft KV) composes with them. Greedy tokens equal plain
   decoding's, whatever the draft.
 
-Not ported yet: meshes, the host tier and KV handoff.
+- **KV handoff** (the JAX package's disaggregated prefill/decode byte
+  paths): ``add_request(..., prefill_only=True)`` parks a sequence after
+  its first token (``handoff_ready_ids``); ``export_handoff`` lifts it
+  off as a ``SequenceExport`` (a KVP1 payload, raw, ``int8`` or latent on
+  the wire), ``export_handoff_begin`` / ``_pump`` / ``_finish`` stream its
+  immutable full-page prefix in chunks while it keeps decoding here, and
+  ``import_sequence`` / ``import_stream_*`` seat an export into a decode
+  slot straight away (no prefill). ``export_prefix_chunks`` /
+  ``import_prefix`` move a cached prefix between engines (a peer fetch).
+  Payloads are the JAX package's bytes, so either package imports the
+  other's.
+- **Host tier** (``host_tier_bytes > 0``): LRU-evicted prefix pages are
+  demoted to host RAM (``HostTier``; raw, int8 or latent) by the
+  allocator's offload hook, gathered on the engine stream before their
+  ids are recycled and copied into pinned memory behind an event; a
+  prompt's prefix match falls through HBM into the tier and reloads its
+  pages with one in-place scatter.
+- **Latent codec** (``latent_rank > 0``): per-(layer, KV head)
+  projections calibrated at construction from two seeded prompts run
+  through the engine (which is then reset in place), used by the latent
+  wire and host-tier encodings.
+- **Allocator tier**: the port's native C++ allocator
+  (``native/allocator.cpp``) when it builds, as the JAX engine chooses;
+  the Python one when the host tier needs the offload hook or the
+  library is missing (``native_allocator`` forces either). The choice is
+  logged.
+
+Not ported yet: meshes.
 
 Threading: the engine is synchronous and single-owner (one ``step()``
 caller); the serving layer runs it on a dedicated thread.
@@ -111,12 +138,16 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from dataclasses import replace as dc_replace
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from distributed_inference_server_tpu_torch.core.errors import CacheFull
+from distributed_inference_server_tpu_torch.core.errors import (
+    CacheDeserializationError,
+    CacheFull,
+)
 from distributed_inference_server_tpu_torch.core.models import (
     FinishReason,
     Usage,
@@ -124,9 +155,32 @@ from distributed_inference_server_tpu_torch.core.models import (
 from distributed_inference_server_tpu_torch.core.types import RequestId
 from distributed_inference_server_tpu_torch.engine.graph_loop import LoopGraph
 from distributed_inference_server_tpu_torch.engine.kv_cache import (
+    _KIND_LATENT,
+    _KIND_QPOOL,
+    _KIND_WIRE8,
+    DIGEST_DEPTH,
+    LATENT_QUANTS,
+    WIRE_QUANTS,
+    HostTier,
+    KvChunk,
+    KvImportSession,
+    LatentCodec,
     PageAllocator,
     PagedCacheConfig,
     PagedKVState,
+    _encode_group,
+    _page_slots,
+    _pull_group,
+    _scatter_payload,
+    _to_device as _host_to_device,
+    chunk_crc,
+    deserialize_into_allocator,
+    deserialize_kv,
+    encoded_page_fraction,
+    iter_chain_hashes,
+    payload_kind,
+    serialize_kv,
+    serialize_kv_chunks,
 )
 from distributed_inference_server_tpu_torch.engine.speculative import (
     PatternTrackers,
@@ -142,7 +196,10 @@ from distributed_inference_server_tpu_torch.models import llama
 from distributed_inference_server_tpu_torch.models.configs import ModelConfig
 from distributed_inference_server_tpu_torch.models.tokenizer import Tokenizer
 from distributed_inference_server_tpu_torch.ops import kernels
-from distributed_inference_server_tpu_torch.ops.quant import is_quantized
+from distributed_inference_server_tpu_torch.ops.quant import (
+    QuantPool,
+    is_quantized,
+)
 from distributed_inference_server_tpu_torch.ops.sampling import (
     counter_uniform,
     nucleus_probs,
@@ -225,6 +282,36 @@ def _device_append_pages(block_tables: torch.Tensor, bt_counts: torch.Tensor,
     return bt_counts < needed
 
 
+def _make_allocator(pcfg: PagedCacheConfig, force: Optional[bool],
+                    need_offload_hook: bool = False):
+    """The page-allocator tier, chosen as the JAX engine chooses: the
+    native C++ allocator (``native/allocator.cpp``) when its library is
+    available, the Python one otherwise; the host tier's offload hook
+    needs the Python one (the native allocator has no eviction
+    callback). ``force`` True / False demands the native / Python tier."""
+    if need_offload_hook:
+        if force is True:
+            raise RuntimeError(
+                "native_allocator=True is incompatible with the host-tier "
+                "prefix cache (host_tier_bytes > 0): the native allocator "
+                "has no offload hook")
+        logger.info("page allocator tier: python (the host tier needs the "
+                    "offload hook)")
+        return PageAllocator(pcfg)
+    if force is not False:
+        from distributed_inference_server_tpu_torch import native
+
+        if native.available():
+            logger.info("page allocator tier: native")
+            return native.NativePageAllocator(pcfg)
+        if force is True:
+            raise RuntimeError(
+                "native_allocator=True but the native library is unavailable")
+        logger.info("native allocator unavailable; page allocator tier: "
+                    "python")
+    return PageAllocator(pcfg)
+
+
 @dataclass(frozen=True)
 class SamplingParams:
     max_tokens: int = 256
@@ -276,6 +363,74 @@ class EngineConfig:
     # CUDA graph is captured. Off by default, as in the reference: tests
     # build many engines; the server turns it on
     warmup_compile: bool = False
+    # page allocator tier: None = the native C++ allocator when its library
+    # builds, else the Python one; True / False force native / Python
+    native_allocator: Optional[bool] = None
+    # host-RAM second tier of the prefix cache, in bytes (0 = off): evicted
+    # prefix pages demote there and prefix matching falls through into it.
+    # Takes the Python allocator tier (the offload hook)
+    host_tier_bytes: int = 0
+    # host-tier encoding of float pools: "none", "int8" (per-vector codes +
+    # scales), "latent" / "latent_int8" (rank-r codes; needs latent_rank);
+    # quantized pools always keep their native codes
+    host_tier_quant: str = "none"
+    # rank of the latent page codec calibrated at construction (0 = no
+    # codec; latent wire and tier settings then degrade to "none"). Float
+    # pools without a draft model only
+    latent_rank: int = 0
+
+
+@dataclass
+class SequenceExport:
+    """A live sequence lifted off its engine for KV handoff: everything a
+    receiving engine needs to resume decoding where the source stopped
+    (the K/V payload, the host text and emission state, the sampling
+    params). ``kv_chunks`` replaces ``kv`` for a streamed export;
+    ``stalled_at`` is the host-local instant the sequence stopped decoding
+    on the source (never on the wire)."""
+
+    request_id: RequestId
+    token_ids: List[int]  # tokens whose K/V is resident
+    prompt_len: int
+    seq_len: int  # == len(token_ids) at a decode boundary
+    next_token: int  # sampled, not yet decoded (the migration point)
+    params: "SamplingParams"
+    output_text: str
+    emitted_upto: int
+    emitted_tokens: int
+    pending_ids: List[int]
+    kv: bytes
+    draft_kv: Optional[bytes] = None
+    source_engine: str = ""
+    kv_chunks: Optional[List[KvChunk]] = None
+    wire_quant: str = "none"
+    stalled_at: float = 0.0
+
+    def kv_bytes(self) -> int:
+        n = len(self.kv) + len(self.draft_kv or b"")
+        if self.kv_chunks is not None:
+            n += sum(len(c.payload) for c in self.kv_chunks)
+        return n
+
+
+@dataclass
+class HandoffExportSession:
+    """One streamed (decode-overlapped) export, owned by the engine
+    thread: the immutable full-page prefix taken at
+    ``export_handoff_begin``, the chunks serialized so far, and liveness
+    (``dead``: the migration is off; the request itself is unaffected)."""
+
+    seq: "_Seq"
+    prefix_pages: List[int]
+    chunk_pages: int
+    wire_quant: str
+    chunks: List[KvChunk] = field(default_factory=list)
+    prefix_done: bool = False
+    dead: bool = False
+
+    @property
+    def request_id(self) -> RequestId:
+        return self.seq.request_id
 
 
 @dataclass
@@ -300,7 +455,7 @@ class _Seq:
         "request_id", "token_ids", "prompt_len", "block_table", "seq_len",
         "next_token", "params", "output_text", "emitted_upto",
         "emitted_tokens", "dev_pos", "dev_steps_left", "pending_ids",
-        "freed_upto",
+        "freed_upto", "prefill_only", "exporting",
     )
 
     def __init__(self, request_id: RequestId, prompt_ids: List[int],
@@ -325,6 +480,11 @@ class _Seq:
         # incremental detokenization: ids whose text is an incomplete
         # UTF-8 sequence
         self.pending_ids: List[int] = []
+        # KV handoff: park after the first token instead of decoding here
+        self.prefill_only = False
+        # a streamed export is in flight: the sequence decodes here while
+        # its prefix pages serialize (window reclaim must not free them)
+        self.exporting = False
 
     def num_output_tokens(self) -> int:
         return len(self.token_ids) - self.prompt_len
@@ -456,7 +616,47 @@ class LLMEngine:
             self.draft_state = PagedKVState.create(
                 draft_cfg, self.pcfg, dtype=dtype, device=self.device,
                 kv_quant=self.ecfg.kv_quant)
-        self.allocator = PageAllocator(self.pcfg)
+        if self.ecfg.host_tier_bytes < 0:
+            raise ValueError("host_tier_bytes must be >= 0")
+        if self.ecfg.host_tier_quant not in WIRE_QUANTS:
+            raise ValueError(
+                f"host_tier_quant must be one of {'/'.join(WIRE_QUANTS)}, "
+                f"got {self.ecfg.host_tier_quant!r}")
+        if self.ecfg.latent_rank < 0:
+            raise ValueError("latent_rank must be >= 0")
+        # a speculative engine never gets a host tier (its shared pages
+        # cover both pools; the tier would re-seat prefixes with a stale
+        # draft half), so it neither needs nor rejects the native tier
+        self._need_offload_hook = (self.ecfg.host_tier_bytes > 0
+                                   and self.draft_state is None)
+        self.allocator = _make_allocator(self.pcfg,
+                                         self.ecfg.native_allocator,
+                                         self._need_offload_hook)
+        self.host_tier: Optional[HostTier] = None
+        if self.ecfg.host_tier_bytes > 0:
+            if self.draft_state is not None:
+                logger.warning(
+                    "host-tier prefix cache disabled: speculative engines "
+                    "would re-seat prefixes with a stale draft KV pool")
+            else:
+                self.host_tier = HostTier(
+                    self.ecfg.host_tier_bytes,
+                    quant=self.ecfg.host_tier_quant,
+                    inflight_window=self._OFFLOAD_GROUP)
+                self.allocator.offload_hook = self._offload_pages
+        # host-tier traffic: pages reloaded, and each reload's seconds
+        self._host_hit_pages = 0
+        self._host_reload_durations: List[float] = []
+        # prefill_only sequences whose first token is out, pages held,
+        # waiting for export_handoff
+        self._handoff_ready: Dict[RequestId, _Seq] = {}
+        # encoded payload bytes by kind (every encode site), and the raw
+        # bytes the latent encodes stood in for
+        self._payload_bytes: Dict[str, int] = {
+            k: 0 for k in ("raw", "int8", "qpool", "latent", "latent_int8")}
+        self._latent_raw_equiv_bytes = 0
+        self.latent_codec: Optional[LatentCodec] = None
+        self._warned_latent_off = False
         self.waiting: Deque[_Seq] = deque()
         self.slots: List[Optional[_Seq]] = [None] * self.ecfg.max_batch
         self._by_id: Dict[RequestId, _Seq] = {}
@@ -606,15 +806,33 @@ class LLMEngine:
         # DeviceTrace, event, holder]
         self._prof_req = None
         self._prof_active = None
+        # the latent page codec: calibrated last, through the normal
+        # request path, before any graph is captured (gated like the host
+        # tier: float pools, no draft model)
+        if self.ecfg.latent_rank > 0:
+            if self.draft_state is not None or isinstance(self.state.k,
+                                                          QuantPool):
+                logger.warning(
+                    "latent KV codec disabled: %s",
+                    "speculative engines need the draft pool bit-exact"
+                    if self.draft_state is not None
+                    else "quantized pools ship native codes exactly")
+            else:
+                self.latent_codec = self._calibrate_latent(
+                    self.ecfg.latent_rank)
 
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
 
     def add_request(self, request_id: RequestId, prompt_ids: List[int],
-                    params: SamplingParams) -> None:
-        """Queue a tokenized request."""
+                    params: SamplingParams,
+                    prefill_only: bool = False) -> None:
+        """Queue a tokenized request. ``prefill_only``: emit the first
+        sampled token, then park the sequence for KV handoff
+        (``handoff_ready_ids``) instead of decoding here."""
         seq = _Seq(request_id, prompt_ids, params)
+        seq.prefill_only = prefill_only
         self._by_id[request_id] = seq
         self.waiting.append(seq)
 
@@ -627,6 +845,7 @@ class LLMEngine:
         seq = self._by_id.pop(request_id, None)
         if seq is None:
             return False
+        self._handoff_ready.pop(request_id, None)
         if seq in self.waiting:
             self.waiting.remove(seq)
         for i, s in enumerate(self.slots):
@@ -875,13 +1094,697 @@ class LLMEngine:
 
     def audit_pages(self, extra_pages: Sequence[int] = ()) -> List[str]:
         """KV-page conservation audit: every page a live sequence holds
-        (plus ``extra_pages``) against the allocator's books. Returns
+        (waiting, seated, handoff-ready and mid-export ones alike; plus
+        ``extra_pages``, e.g. open import sessions' reservations) against
+        the allocator's books, on either allocator tier. Returns
         inconsistency strings (empty = clean)."""
         sentinel = self.pcfg.num_pages  # reclaimed entries are not pages
         live = [p for s in self._by_id.values() for p in s.block_table
                 if p != sentinel]
         live.extend(extra_pages)
         return self.allocator.audit(live)
+
+    # ------------------------------------------------------------------
+    # host-tier prefix cache
+    # ------------------------------------------------------------------
+
+    #: pages per demotion gather (and the host tier's in-flight window)
+    _OFFLOAD_GROUP = 32
+
+    def _offload_pages(self, victims) -> None:
+        """Allocator offload hook: demote a batch of LRU-evicted pages to
+        the host tier. Each group of at most 32 pages is gathered (and
+        encoded) on the engine stream BEFORE the ids are recycled, so the
+        gather reads their old content and every later write to them is
+        ordered after it; its copy into pinned host memory starts here and
+        the tier reads it only behind the copy's event."""
+        tier = self.host_tier
+        if tier is None:
+            return
+        victims = [v for v in victims if not tier.has(v.hash)]
+        ps = self.pcfg.page_size
+        cap = self._OFFLOAD_GROUP
+        quant = self._effective_wire_quant(tier.quant)
+        with self._on_stream():
+            for start in range(0, len(victims), cap):
+                group = victims[start:start + cap]
+                kind, host = _pull_group(
+                    self.state, _page_slots([v.page_id for v in group], ps),
+                    quant, self.latent_codec)
+                self._note_payload(kind, quant, sum(
+                    a.numel() * a.element_size() for a in host.tensors))
+                # groups past the first continue this burst: the window
+                # never drains the burst's own copies in flight
+                tier.offer([(v.hash, v.depth, v.root) for v in group], kind,
+                           host, ps, new_burst=(start == 0))
+
+    def _host_tier_reload(self, seq: _Seq, prompt: List[int]) -> None:
+        """Prefix-match fallthrough: continue the content-hash chain past
+        the HBM match into the host tier, write every matched page into
+        fresh pages with ONE in-place scatter on the engine stream (codes
+        uploaded through pinned memory and decoded on the device), and
+        content-address them so the next prompt hits them in HBM. Always
+        leaves at least one token to compute. Best-effort: a failure
+        releases the pages and the prefill recomputes."""
+        tier = self.host_tier
+        ps = self.pcfg.page_size
+        n = len(prompt)
+        start = len(seq.block_table)  # pages already shared from HBM
+        if tier.empty or (start + 1) * ps >= n:
+            return
+        hash_it = iter_chain_hashes(prompt, ps)
+        for _ in range(start):  # the hashes the HBM match covered
+            next(hash_it)
+        entries = []
+        idx = start
+        while (idx + 1) * ps < n:
+            h = next(hash_it, None)
+            if h is None:
+                break
+            e = tier.get(h)
+            if e is None or (entries and e.kind != entries[0].kind):
+                break
+            entries.append(e)
+            idx += 1
+        if not entries:
+            return
+        t0 = time.monotonic()
+        try:
+            pages = self.allocator.allocate(len(entries))
+        except CacheFull:
+            return  # pool too tight to re-seat; the prefill recomputes
+        try:
+            kind = entries[0].kind
+            merged = tuple(
+                _host_to_device(
+                    torch.cat([e.parts[m] for e in entries], dim=1),
+                    self.device)
+                for m in range(len(entries[0].parts)))
+            dt = None if kind == _KIND_QPOOL else self.state.k.dtype
+            if kind == _KIND_WIRE8:
+                k_q, v_q, k_s, v_s = merged
+                parts = ((k_q.float() * k_s[..., None]).to(dt),
+                         (v_q.float() * v_s[..., None]).to(dt))
+            elif kind == _KIND_LATENT:
+                if self.latent_codec is None:
+                    raise CacheDeserializationError(
+                        "host tier holds latent pages but the engine has "
+                        "no codec")
+                if len(merged) == 4:  # latent_int8: codes dequantized
+                    k_q, v_q, k_s, v_s = merged
+                    codes = (k_q.float() * k_s[..., None],
+                             v_q.float() * v_s[..., None])
+                else:
+                    codes = merged
+                k, v = self.latent_codec.decode_device(*codes)
+                parts = (k.to(dt), v.to(dt))
+            else:  # raw into a float pool, qpool into a QuantPool
+                parts = merged
+            _scatter_payload(self.state, _page_slots(pages, ps), parts)
+        except Exception as e:  # noqa: BLE001 — reload is best-effort
+            # not yet in the table nor addressed: straight back to free
+            self.allocator.release(pages)
+            logger.warning("host-tier reload of %d pages failed: %s",
+                           len(entries), e)
+            return
+        seq.block_table.extend(pages)
+        seq.seq_len = (start + len(entries)) * ps
+        self.allocator.publish(prompt[:seq.seq_len], seq.block_table)
+        self._host_hit_pages += len(entries)
+        self._host_reload_durations.append(time.monotonic() - t0)
+        if len(self._host_reload_durations) > 1024:
+            del self._host_reload_durations[:-1024]
+
+    def evict_cache(self, target_frac: float,
+                    drop_host_tier: bool = False) -> None:
+        """Reclaim cached pages down to ``target_frac`` of the pool,
+        demoting them to the host tier on the way out;
+        ``drop_host_tier`` drops them and clears the tier instead."""
+        with self._on_stream():
+            if self.host_tier is not None:
+                self.allocator.evict_below(target_frac,
+                                           demote=not drop_host_tier)
+                if drop_host_tier:
+                    self.host_tier.clear()
+                else:
+                    # one demotion burst may exceed the window with
+                    # nothing later to drain it
+                    self.host_tier.drain_to_window()
+            else:
+                self.allocator.evict_below(target_frac)
+
+    def prefix_digest(self, max_depth: int = DIGEST_DEPTH) -> frozenset:
+        """Cached prefix chains' first ``max_depth`` page hashes (HBM and
+        host tier). Empty on the native allocator tier (it addresses pages
+        by its own hash)."""
+        dig = getattr(self.allocator, "prefix_digest", None)
+        out = dig(max_depth) if dig is not None else frozenset()
+        if self.host_tier is not None:
+            out = frozenset(out) | frozenset(
+                self.host_tier.digest_hashes(max_depth))
+        return out
+
+    def host_tier_stats(self) -> Optional[Dict[str, int]]:
+        """Host-tier occupancy and traffic; None when the tier is off."""
+        if self.host_tier is None:
+            return None
+        s = self.host_tier.stats()
+        return {"budget_bytes": s.budget_bytes, "bytes": s.bytes_used,
+                "pages": s.pages, "hits": s.hits,
+                "hit_pages": self._host_hit_pages, "offloads": s.offloads,
+                "evictions": s.evictions}
+
+    def drain_reload_durations(self) -> List[float]:
+        """The host-tier reload durations since the last drain."""
+        out, self._host_reload_durations = self._host_reload_durations, []
+        return out
+
+    def allocator_tier(self) -> str:
+        """The page allocator's tier: ``native`` or ``python``."""
+        return ("python" if isinstance(self.allocator, PageAllocator)
+                else "native")
+
+    # ------------------------------------------------------------------
+    # latent page codec
+    # ------------------------------------------------------------------
+
+    def _calibrate_latent(self, rank: int) -> Optional[LatentCodec]:
+        """Fit the projections by SVD over a deterministic calibration
+        pass (the JAX engine's): two seeded prompts prefill through the
+        normal request path, the touched pool slots are the samples, and
+        the engine is reset to pristine IN PLACE (pools zeroed, a fresh
+        allocator, the generators reseeded, the step clock cleared). It
+        runs eagerly, before any graph is captured."""
+        head_dim = self.cfg.head_dim
+        if not 0 < rank <= head_dim:
+            raise ValueError(f"latent_rank must be in (0, head_dim="
+                             f"{head_dim}], got {rank}")
+        cap = self.pcfg.max_seq_len - 2
+        n_tok = min(max(2 * head_dim, 32), cap)
+        rng = np.random.default_rng(0x7A7E)
+        vocab = max(2, self.cfg.vocab_size - 1)
+        greedy = SamplingParams(max_tokens=1, temperature=0.0)
+        graphs, self._use_graphs = self._use_graphs, False
+        try:
+            for i in range(2):
+                prompt = [1 + int(t) for t in rng.integers(0, vocab, n_tok)]
+                self.add_request(f"__latent_calib_{i}", prompt, greedy)
+                while self.has_work():
+                    self.step()
+        finally:
+            self._use_graphs = graphs
+        with self._on_stream():
+            k, v = self.state.k[:, :-1], self.state.v[:, :-1]  # no drop slot
+            used = ((k != 0).any(dim=(0, 2, 3)) | (v != 0).any(dim=(0, 2, 3)))
+            idx = torch.nonzero(used)[:, 0]
+            k_s = k.index_select(1, idx).float().cpu().numpy()
+            v_s = v.index_select(1, idx).float().cpu().numpy()
+            # reset to pristine, in place: graphs read these buffers
+            self.state.k.zero_()
+            self.state.v.zero_()
+            for t in self._carry:
+                t.zero_()
+        if k_s.shape[1] < 2:
+            logger.warning("latent KV codec disabled: calibration pass "
+                           "touched %d pool slots", k_s.shape[1])
+            codec = None
+        else:
+            codec = LatentCodec.calibrate(k_s, v_s, rank)
+        self.allocator = _make_allocator(self.pcfg,
+                                         self.ecfg.native_allocator,
+                                         self._need_offload_hook)
+        if self.host_tier is not None:
+            self.host_tier.clear()
+            self.allocator.offload_hook = self._offload_pages
+        self._by_id.clear()
+        self.waiting.clear()
+        self._handoff_ready.clear()
+        self.slots = [None] * self.ecfg.max_batch
+        self._slot_updates.clear()
+        self._pending.clear()
+        self._bt.fill(0)
+        self._bt_pages.fill(0)
+        self._gen.manual_seed(self.ecfg.seed)
+        self._decode_gen.manual_seed(self.ecfg.seed + 1)
+        self._loop_launches = 0
+        for d in self._sc_kinds.values():
+            d.update(dispatches=0, wall_s=0.0, tokens=0, rows=0)
+        self._sc_events = {k: 0 for k in self._sc_events}
+        self._sc_samples.clear()
+        self._host_hit_pages = 0
+        self._host_reload_durations.clear()
+        self._payload_bytes = {k: 0 for k in self._payload_bytes}
+        self._warned_latent_off = False
+        self._latent_raw_equiv_bytes = 0
+        return codec
+
+    def _effective_wire_quant(self, wire_quant: str) -> str:
+        """A latent wire request degrades to "none" (one warning) on an
+        engine with no codec and a float pool; QuantPool exports pass
+        their native codes whatever the setting."""
+        if (wire_quant in LATENT_QUANTS and self.latent_codec is None
+                and not isinstance(self.state.k, QuantPool)):
+            if not self._warned_latent_off:
+                self._warned_latent_off = True
+                logger.warning(
+                    "wire_quant %r degraded to \"none\": engine has no "
+                    "latent codec (latent_rank unset or codec gated off)",
+                    wire_quant)
+            return "none"
+        return wire_quant
+
+    def _payload_label(self, kind: int, wire_quant: str) -> str:
+        if kind == _KIND_QPOOL:
+            return "qpool"
+        if kind == _KIND_LATENT:
+            return "latent_int8" if wire_quant == "latent_int8" else "latent"
+        return "int8" if kind == _KIND_WIRE8 else "raw"
+
+    def _note_payload(self, kind: int, wire_quant: str, nbytes: int) -> None:
+        """Account encoded payload bytes by kind (handoff, streamed
+        chunks, prefix export, host-tier offload)."""
+        self._payload_bytes[self._payload_label(kind, wire_quant)] += int(
+            nbytes)
+        if kind == _KIND_LATENT and self.latent_codec is not None:
+            frac = encoded_page_fraction(
+                wire_quant, self.state.k.element_size(), self.cfg.head_dim,
+                self.latent_codec.rank)
+            if frac > 0:
+                self._latent_raw_equiv_bytes += int(nbytes / frac)
+
+    def payload_byte_counters(self) -> Dict[str, int]:
+        """Cumulative encoded bytes by payload kind."""
+        return dict(self._payload_bytes)
+
+    def latent_stats(self) -> Optional[Dict[str, int]]:
+        """The codec's rank and its encoded vs saved bytes; None without
+        a codec."""
+        if self.latent_codec is None:
+            return None
+        encoded = (self._payload_bytes["latent"]
+                   + self._payload_bytes["latent_int8"])
+        return {"rank": self.latent_codec.rank, "encoded_bytes": encoded,
+                "saved_bytes": max(0, self._latent_raw_equiv_bytes
+                                   - encoded)}
+
+    # ------------------------------------------------------------------
+    # KV handoff (disaggregated prefill / decode) and peer prefix fetch
+    # ------------------------------------------------------------------
+
+    def handoff_ready_ids(self) -> List[RequestId]:
+        """Requests parked after their first token under ``prefill_only``
+        (pages held), waiting for export."""
+        return list(self._handoff_ready)
+
+    def _export(self, seq: _Seq, kv: bytes = b"", **kw) -> SequenceExport:
+        return SequenceExport(
+            request_id=seq.request_id, token_ids=list(seq.token_ids),
+            prompt_len=seq.prompt_len, seq_len=seq.seq_len,
+            next_token=int(seq.next_token), params=seq.params,
+            output_text=seq.output_text, emitted_upto=seq.emitted_upto,
+            emitted_tokens=seq.emitted_tokens,
+            pending_ids=list(seq.pending_ids), kv=kv, **kw)
+
+    def _lift(self, seq: _Seq) -> None:
+        """Take an exported sequence off this engine: publish its full
+        pages (the prefix cache stays warm) and release them."""
+        self._by_id.pop(seq.request_id, None)
+        if seq.freed_upto == 0:
+            self.allocator.publish(seq.token_ids, seq.block_table)
+        self._release_seq(seq)
+
+    def export_handoff(self, request_id: RequestId,
+                       wire_quant: str = "none"
+                       ) -> Optional[SequenceExport]:
+        """Lift a handoff-ready sequence off this engine: its K/V as one
+        payload (``wire_quant`` applies to float pools; the draft pool,
+        when speculating, always raw), its host emission state and
+        sampling params; then publish and release its pages. None if the
+        request is unknown (e.g. aborted meanwhile)."""
+        seq = self._handoff_ready.pop(request_id, None)
+        if seq is None or self._by_id.get(request_id) is not seq:
+            return None
+        if seq.freed_upto or self.pcfg.num_pages in seq.block_table:
+            self._handoff_ready[request_id] = seq
+            raise RuntimeError("handoff candidate has window-reclaimed "
+                               "pages")
+        ps = self.pcfg.page_size
+        wire_quant = self._effective_wire_quant(wire_quant)
+        with self._on_stream():
+            kv = serialize_kv(self.state, seq.block_table, ps, seq.seq_len,
+                              wire_quant=wire_quant, codec=self.latent_codec)
+            self._note_payload(payload_kind(self.state.k, wire_quant),
+                               wire_quant, len(kv))
+            draft_kv = (serialize_kv(self.draft_state, seq.block_table, ps,
+                                     seq.seq_len)
+                        if self.draft_state is not None else None)
+        exp = self._export(seq, kv, draft_kv=draft_kv, wire_quant=wire_quant)
+        self._lift(seq)
+        return exp
+
+    def export_handoff_begin(self, request_id: RequestId,
+                             chunk_pages: int = 8, wire_quant: str = "none"
+                             ) -> Optional[HandoffExportSession]:
+        """Start a streamed export: the sequence's full prefix pages are
+        immutable, so they serialize while the sequence goes back to
+        decoding here (re-queued; admission seats it straight into the
+        carry). Returns the session to pump between steps and finish at
+        the switchover, or None (use ``export_handoff``) when there is no
+        full page to stream or the budget left would finish inside the
+        overlap window (about 3 decode blocks)."""
+        seq = self._handoff_ready.get(request_id)
+        if seq is None or self._by_id.get(request_id) is not seq:
+            return None
+        if seq.freed_upto or self.pcfg.num_pages in seq.block_table:
+            raise RuntimeError("handoff candidate has window-reclaimed "
+                               "pages")
+        n_full = seq.seq_len // self.pcfg.page_size
+        overlap = 3 * self.ecfg.decode_block_size
+        if n_full == 0 or (seq.params.max_tokens - seq.emitted_tokens
+                           <= overlap + 2):
+            return None
+        self._handoff_ready.pop(request_id, None)
+        session = HandoffExportSession(
+            seq=seq, prefix_pages=list(seq.block_table[:n_full]),
+            chunk_pages=max(1, chunk_pages),
+            wire_quant=self._effective_wire_quant(wire_quant))
+        seq.exporting = True
+        seq.prefill_only = False
+        self.waiting.append(seq)  # decode resumes here during the stream
+        return session
+
+    def _session_alive(self, session: HandoffExportSession) -> bool:
+        seq = session.seq
+        return (self._by_id.get(seq.request_id) is seq and seq.seq_len > 0
+                and seq.freed_upto == 0
+                and seq.block_table[:len(session.prefix_pages)]
+                == session.prefix_pages)
+
+    def _chunks(self, pages: Sequence[int], chunk_pages: int,
+                wire_quant: str, **kw) -> List[KvChunk]:
+        """Serialize pages as chunks on the engine stream, counted."""
+        with self._on_stream():
+            chunks = list(serialize_kv_chunks(
+                self.state, pages, self.pcfg.page_size,
+                chunk_pages=chunk_pages, wire_quant=wire_quant,
+                codec=self.latent_codec, **kw))
+        kind = payload_kind(self.state.k, wire_quant)
+        for c in chunks:
+            self._note_payload(kind, wire_quant, len(c.payload))
+        return chunks
+
+    def export_handoff_pump(self, session: HandoffExportSession) -> bool:
+        """Serialize the session's immutable prefix (double-buffered
+        pulls) while the sequence keeps decoding; engine thread, between
+        steps. True once the prefix is done or the session died (aborted,
+        finished in place, preempted: the caller drops the migration)."""
+        if session.prefix_done or session.dead:
+            return True
+        if not self._session_alive(session):
+            session.dead = True
+            session.seq.exporting = False
+            return True
+        session.chunks.extend(self._chunks(
+            session.prefix_pages, session.chunk_pages, session.wire_quant))
+        session.prefix_done = True
+        return True
+
+    def export_handoff_cancel(self, session: HandoffExportSession) -> None:
+        """Abandon a streamed export: the sequence keeps decoding here."""
+        session.dead = True
+        seq = session.seq
+        if self._by_id.get(seq.request_id) is seq:
+            seq.exporting = False
+
+    def export_handoff_finish(self, session: HandoffExportSession
+                              ) -> Tuple[Optional[SequenceExport],
+                                         List[StepOutput]]:
+        """Switch over: drain the blocks in flight (host view exact), stop
+        the sequence, serialize the TAIL pages written during the overlap
+        as the last chunks, and lift the sequence off (publish + release).
+        Returns (None, outputs) when it finished or died meanwhile; the
+        drained outputs carry its token events either way."""
+        outputs: List[StepOutput] = []
+        seq = session.seq
+        if session.dead:
+            return None, outputs
+        with self._on_stream():
+            self._drain_pending(outputs)
+        if not self._session_alive(session):
+            session.dead = True
+            seq.exporting = False
+            return None, outputs
+        stalled_at = time.monotonic()
+        for i, s in enumerate(self.slots):
+            if s is seq:
+                self.slots[i] = None
+                self._deact_slot(i)
+        if seq in self.waiting:  # switchover before a seat opened
+            self.waiting.remove(seq)
+        n_prefix = len(session.prefix_pages)
+        chunks = list(session.chunks)
+        tail_pages = seq.block_table[n_prefix:]
+        if tail_pages:
+            chunks.extend(self._chunks(
+                tail_pages, session.chunk_pages, session.wire_quant,
+                first_chunk_index=len(chunks), first_page_index=n_prefix))
+        chunks = [dc_replace(c, total=len(chunks)) for c in chunks]
+        exp = self._export(seq, b"", kv_chunks=chunks,
+                           wire_quant=session.wire_quant,
+                           stalled_at=stalled_at)
+        self._lift(seq)
+        seq.exporting = False
+        session.dead = True
+        return exp, outputs
+
+    def import_sequence(self, exp: SequenceExport) -> None:
+        """Resume an exported sequence here: allocate pages, write its K/V
+        in place and content-address its full pages (the monolithic
+        payload, or streamed chunks through a ``KvImportSession``), and
+        queue it for an immediate decode seat: no prefill. Raises
+        CacheFull / CacheDeserializationError with the engine unchanged
+        (modulo bytes in freed pages, which nothing reads)."""
+        n = exp.seq_len
+        ps = self.pcfg.page_size
+        self._validate_import(exp)
+        if (exp.draft_kv is None) != (self.draft_params is None):
+            raise CacheDeserializationError(
+                "draft-model topology mismatch between source and target "
+                "engines (speculation must match across a handoff)")
+        with self._on_stream():
+            if exp.kv_chunks is not None:
+                session = KvImportSession(self.state, self.allocator, ps,
+                                          codec=self.latent_codec)
+                try:
+                    session.reserve(-(-n // ps))
+                    for chunk in exp.kv_chunks:
+                        session.add_chunk(chunk)
+                    _, pages = session.finish(self.state, exp.token_ids)
+                except Exception as e:
+                    session.abort()
+                    if isinstance(e, (CacheDeserializationError, CacheFull)):
+                        raise
+                    raise CacheDeserializationError(str(e)) from None
+            elif exp.draft_kv is None:
+                _, pages = deserialize_into_allocator(
+                    self.state, self.allocator, exp.kv, exp.token_ids, ps,
+                    codec=self.latent_codec)
+            else:
+                # both pools into the SAME pages; publish only once both
+                # are in, so no address covers a torn draft half
+                pages = self.allocator.allocate(-(-n // ps))
+                try:
+                    for state, blob, what in (
+                            (self.state, exp.kv, "payload"),
+                            (self.draft_state, exp.draft_kv,
+                             "draft payload")):
+                        _, tc = deserialize_kv(state, blob, pages, ps)
+                        if tc != n:
+                            raise CacheDeserializationError(
+                                f"{what} carries {tc} tokens, expected {n}")
+                except Exception:
+                    self.allocator.release(pages)
+                    raise
+                self.allocator.publish(exp.token_ids, pages)
+        self._seat_imported(exp, pages)
+
+    def _validate_import(self, exp: SequenceExport) -> None:
+        """Import preconditions shared by ``import_sequence`` and
+        ``import_stream_commit``."""
+        n = exp.seq_len
+        if n != len(exp.token_ids) or exp.next_token is None:
+            raise CacheDeserializationError(
+                "export is not at a decode boundary (seq_len != resident "
+                "tokens or no sampled token)")
+        if n + 1 > self.pcfg.max_seq_len:
+            raise CacheDeserializationError(
+                f"sequence of {n} tokens exceeds this engine's capacity "
+                f"({self.pcfg.max_seq_len} tokens)")
+        if exp.request_id in self._by_id:
+            raise CacheDeserializationError(
+                f"request {exp.request_id} is already live on this engine")
+
+    def _seat_imported(self, exp: SequenceExport, pages: List[int]) -> None:
+        seq = _Seq(exp.request_id, list(exp.token_ids), exp.params)
+        seq.prompt_len = exp.prompt_len
+        seq.block_table = list(pages)
+        seq.seq_len = exp.seq_len
+        seq.next_token = int(exp.next_token)
+        seq.output_text = exp.output_text
+        seq.emitted_upto = int(exp.emitted_upto)
+        seq.emitted_tokens = int(exp.emitted_tokens)
+        seq.pending_ids = list(exp.pending_ids)
+        self._by_id[seq.request_id] = seq
+        self.waiting.append(seq)
+
+    def import_stream_open(self, request_id: RequestId,
+                           prefix_pages: int) -> KvImportSession:
+        """Open an incremental import for a streamed handoff, reserving
+        the prefix pages up front (a CacheFull surfaces here, while the
+        source still decodes in place)."""
+        if request_id in self._by_id:
+            raise CacheDeserializationError(
+                f"request {request_id} is already live on this engine")
+        if self.draft_params is not None:
+            raise CacheDeserializationError(
+                "streamed handoff carries no draft pool; this engine "
+                "speculates (topology must match across a handoff)")
+        if prefix_pages > self.pcfg.max_pages_per_seq:
+            raise CacheDeserializationError(
+                f"prefix of {prefix_pages} pages exceeds this engine's "
+                f"per-sequence capacity ({self.pcfg.max_pages_per_seq})")
+        session = KvImportSession(self.state, self.allocator,
+                                  self.pcfg.page_size,
+                                  codec=self.latent_codec)
+        try:
+            with self._on_stream():
+                session.reserve(prefix_pages)
+        except Exception:
+            session.abort()
+            raise
+        return session
+
+    def import_stream_add(self, session: KvImportSession,
+                          chunks: List[KvChunk]) -> None:
+        """Validate arrived chunks and write them into the reserved pages
+        now (invisible to prefix matching until the commit)."""
+        with self._on_stream():
+            for chunk in chunks:
+                session.add_chunk(chunk)
+            session.apply_ready(self.state)
+
+    def import_stream_commit(self, session: KvImportSession,
+                             exp: SequenceExport) -> None:
+        """Absorb the last chunks, validate the stream complete, publish
+        and seat the sequence. On any failure the session is aborted
+        (every reserved page released) and the error propagates."""
+        try:
+            self._validate_import(exp)
+            with self._on_stream():
+                for chunk in exp.kv_chunks or []:
+                    session.add_chunk(chunk)
+                _, pages = session.finish(self.state, exp.token_ids)
+        except Exception as e:
+            session.abort()
+            if isinstance(e, (CacheDeserializationError, CacheFull)):
+                raise
+            raise CacheDeserializationError(str(e)) from None
+        self._seat_imported(exp, pages)
+
+    def import_stream_abort(self, session: KvImportSession) -> None:
+        """Drop a phased import: every reserved page is released."""
+        session.abort()
+
+    def export_prefix_chunks(self, hashes: Sequence[int],
+                             chunk_pages: int = 8, wire_quant: str = "none"
+                             ) -> Tuple[int, List[KvChunk]]:
+        """Peer-fetch export: walk ``hashes`` (a request's content-hash
+        chain) from the head through the HBM prefix cache, then the host
+        tier, and serialize every consecutive match as KvChunks (HBM pages
+        through the double-buffered pull, ``wire_quant`` applied;
+        host-tier pages in their stored encoding). Returns (depth served,
+        chunks). Touches nothing but host-tier clocks. Under the native
+        allocator tier no HBM page is addressable by these hashes."""
+        ps = self.pcfg.page_size
+        wire_quant = self._effective_wire_quant(wire_quant)
+        lookup = getattr(self.allocator, "cached_page", None)
+        entries: List[Tuple[str, object]] = []
+        for h in hashes:
+            pid = lookup(h) if lookup is not None else None
+            if pid is not None:
+                entries.append(("hbm", pid))
+                continue
+            hp = self.host_tier.get(h) if self.host_tier is not None else None
+            if hp is None:
+                break
+            entries.append(("host", hp))
+        chunks: List[KvChunk] = []
+        chunk_pages = max(1, chunk_pages)
+        i = 0
+        while i < len(entries):
+            j = i + 1
+            if entries[i][0] == "hbm":
+                while j < len(entries) and entries[j][0] == "hbm":
+                    j += 1
+                chunks.extend(self._chunks(
+                    [p for _, p in entries[i:j]], chunk_pages, wire_quant,
+                    first_chunk_index=len(chunks), first_page_index=i))
+            else:
+                kind = entries[i][1].kind
+                while (j < len(entries) and entries[j][0] == "host"
+                       and entries[j][1].kind == kind
+                       and j - i < chunk_pages):
+                    j += 1
+                group = [e for _, e in entries[i:j]]
+                merged = tuple(
+                    torch.cat([g.parts[m] for g in group], dim=1)
+                    for m in range(len(group[0].parts)))
+                # the handoff wire's one encoder; kind 3 derives its int8
+                # flag from the part count
+                payload = _encode_group(self.state, kind, merged, 0)
+                self._note_payload(kind, self.host_tier.quant, len(payload))
+                chunks.append(KvChunk(
+                    index=len(chunks), total=0, page_start=i,
+                    page_count=len(group), payload=payload,
+                    crc32=chunk_crc(payload)))
+            i = j
+        return len(entries), chunks
+
+    def import_prefix(self, tokens: Sequence[int],
+                      chunks: Sequence[KvChunk]) -> int:
+        """Peer-fetch import: seat a peer's exported prefix pages (the
+        whole-page prefix ``tokens`` they cover) into this engine's prefix
+        cache through a ``KvImportSession`` (validated, published only
+        when complete), then release them: refcount-0 addressed pages are
+        the CACHED state ``match_prefix`` shares from. Returns pages
+        seated. Raises CacheFull / CacheDeserializationError with nothing
+        leaked."""
+        ps = self.pcfg.page_size
+        n = len(tokens)
+        if n <= 0 or n % ps != 0:
+            raise CacheDeserializationError(
+                f"prefix import must cover whole pages (got {n} tokens, "
+                f"page_size {ps})")
+        if self.draft_params is not None:
+            raise CacheDeserializationError(
+                "peer-fetched prefix carries no draft pool; seating it on "
+                "a speculative engine would publish pages whose draft KV "
+                "is garbage")
+        session = KvImportSession(self.state, self.allocator, ps,
+                                  codec=self.latent_codec)
+        try:
+            with self._on_stream():
+                session.reserve(n // ps)
+                for chunk in chunks:
+                    session.add_chunk(chunk)
+                _, pages = session.finish(self.state, list(tokens))
+        except Exception as e:
+            session.abort()
+            if isinstance(e, (CacheDeserializationError, CacheFull)):
+                raise
+            raise CacheDeserializationError(str(e)) from None
+        self.allocator.release(pages)
+        return len(pages)
 
     # ------------------------------------------------------------------
     # embeddings (the /embeddings routes' compute)
@@ -1129,6 +2032,14 @@ class LLMEngine:
                           f"capacity ({self.pcfg.max_seq_len} tokens)",
                 ))
                 continue
+            if (seq.next_token is not None and seq.block_table
+                    and seq.seq_len >= len(seq.token_ids)):
+                # imported (KV handoff): its K/V is already in this
+                # engine's pages; seat it straight into the decode carry
+                self.waiting.popleft()
+                self.slots[slot] = seq
+                self._stage_seat(slot, seq)
+                continue
             try:
                 self._start_prefill(seq)
             except CacheFull:
@@ -1158,6 +2069,9 @@ class LLMEngine:
         seq.block_table = list(shared_pages)
         seq.seq_len = shared_tokens
         seq.next_token = None
+        # host-tier fallthrough: HBM misses may still be warm in host RAM
+        if self.host_tier is not None:
+            self._host_tier_reload(seq, prompt)
         pages_needed = -(-n // ps) - len(seq.block_table)
         if pages_needed > 0:
             try:
@@ -1293,7 +2207,14 @@ class LLMEngine:
                     request_id=s.request_id, finished=True, error=str(e)))
                 continue
             if self._by_id.get(s.request_id) is s:
-                self._stage_seat(slot, s)
+                if s.prefill_only:
+                    # the handoff point (quantum and mixed paths alike):
+                    # the first token is out; free the slot, keep the
+                    # pages for export_handoff
+                    self.slots[slot] = None
+                    self._handoff_ready[s.request_id] = s
+                else:
+                    self._stage_seat(slot, s)
 
     def _pick_bucket(self, remaining: int) -> int:
         for b in self.ecfg.prefill_buckets:
@@ -2474,6 +3395,10 @@ class LLMEngine:
         layers still attend the whole history."""
         W = self.cfg.sliding_window
         if not W or not seq.block_table or self.cfg.sliding_window_pattern:
+            return
+        if seq.prefill_only or seq.exporting:
+            # a handoff candidate keeps every page serializable, also while
+            # a streamed export is in flight
             return
         ps = self.pcfg.page_size
         sentinel = self.pcfg.num_pages

@@ -1,13 +1,16 @@
-"""The port's native C++ admission tier, reached over a C ABI via ctypes (port
+"""The port's native C++ serving tier, reached over a C ABI via ctypes (port
 of ``distributed_inference_server_tpu/native/__init__.py``: the queue, the
-admission batcher and the request validator; the page allocator is not
-ported yet).
+admission batcher, the request validator and the page allocator).
 
-``pqueue.cpp``, ``batcher.cpp`` and ``validator.cpp`` (this package's own
-copies) have the exact contracts of ``core/queue.py``,
-``serving/batcher.py`` and ``core/validator.py``; the Python modules are
-the canonical semantics, and ``tests/test_torch_admission.py`` drives both
-tiers with the same operation sequences.
+``pqueue.cpp``, ``batcher.cpp``, ``validator.cpp`` and ``allocator.cpp``
+(this package's own copies) have the exact contracts of ``core/queue.py``,
+``serving/batcher.py``, ``core/validator.py`` and ``engine/kv_cache.py``'s
+``PageAllocator``; the Python modules are the canonical semantics, and
+``tests/test_torch_admission.py`` and ``tests/test_torch_kv_bytes.py``
+drive both tiers with the same operation sequences. The native allocator
+content-addresses pages by its own FNV-1a chain, so it has no prefix
+digest, no ``cached_page`` and no offload hook; the engine takes the
+Python allocator when the host tier needs the hook.
 
 The shared library is built with ``g++`` on first use into
 ``build/native/libdis_torch_native-<hash>.so`` in the checkout (gitignored;
@@ -27,12 +30,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 logger = logging.getLogger(__name__)
 
 _DIR = Path(__file__).resolve().parent
-_SOURCES = ("pqueue.cpp", "batcher.cpp", "validator.cpp")
+_SOURCES = ("pqueue.cpp", "batcher.cpp", "validator.cpp", "allocator.cpp")
 _FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared"]
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -117,6 +120,25 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.batcher_poll.argtypes = [ctypes.c_void_p, ctypes.c_double, u64p,
                                  ctypes.c_int]
     lib.batcher_flush.argtypes = [ctypes.c_void_p, u64p, ctypes.c_int]
+
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.pa_create.restype = ctypes.c_void_p
+    lib.pa_create.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.pa_destroy.argtypes = [ctypes.c_void_p]
+    lib.pa_num_free.argtypes = [ctypes.c_void_p]
+    lib.pa_match_prefix.argtypes = [ctypes.c_void_p, i32p, ctypes.c_int, i32p]
+    lib.pa_allocate.argtypes = [ctypes.c_void_p, ctypes.c_int, i32p]
+    lib.pa_publish.argtypes = [ctypes.c_void_p, i32p, ctypes.c_int, i32p,
+                               ctypes.c_int]
+    lib.pa_retain.argtypes = [ctypes.c_void_p, i32p, ctypes.c_int]
+    lib.pa_release.argtypes = [ctypes.c_void_p, i32p, ctypes.c_int]
+    lib.pa_touch.argtypes = [ctypes.c_void_p, i32p, ctypes.c_int]
+    lib.pa_evict_below.argtypes = [ctypes.c_void_p, ctypes.c_double]
+    lib.pa_stats.argtypes = [ctypes.c_void_p, i64p]
+    lib.pa_snapshot_sizes.argtypes = [ctypes.c_void_p, i64p]
+    lib.pa_snapshot.argtypes = [ctypes.c_void_p, ctypes.c_int64, i32p,
+                                ctypes.c_int64, i32p, ctypes.c_int64, i32p,
+                                i32p, i32p]
 
     u8pp = ctypes.POINTER(ctypes.c_char_p)
     lib.val_token_count.restype = ctypes.c_int64
@@ -433,6 +455,170 @@ class NativeRequestValidator:
         return request if rc == 0 else self._py.validate_embeddings(request)
 
 
+def _i32arr(values: Sequence[int]):
+    return (ctypes.c_int32 * max(len(values), 1))(*values)
+
+
+class NativePageAllocator:
+    """ctypes façade over ``allocator.cpp`` with the contract of
+    ``engine.kv_cache.PageAllocator`` (a drop-in for the engine), audit
+    included (over ``pa_snapshot``'s copy of the books)."""
+
+    def __init__(self, cfg):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self.cfg = cfg
+        self._ptr = lib.pa_create(cfg.num_pages, cfg.page_size)
+        # pages drawn onto a looped block's device free-list: tracked here
+        # (the native core sees a plain allocate; returned pages go back
+        # through release())
+        self._device_held: set = set()
+
+    def __del__(self):
+        ptr = getattr(self, "_ptr", None)
+        if ptr:
+            self._lib.pa_destroy(ptr)
+            self._ptr = None
+
+    def num_free(self) -> int:
+        return self._lib.pa_num_free(self._ptr)
+
+    def match_prefix(self, tokens: Sequence[int]) -> Tuple[List[int], int]:
+        out = (ctypes.c_int32 * max(len(tokens) // self.cfg.page_size, 1))()
+        n = self._lib.pa_match_prefix(self._ptr, _i32arr(list(tokens)),
+                                      len(tokens), out)
+        return [out[i] for i in range(n)], n * self.cfg.page_size
+
+    def allocate(self, n: int) -> List[int]:
+        from distributed_inference_server_tpu_torch.core.errors import (
+            CacheFull,
+        )
+
+        out = (ctypes.c_int32 * max(n, 1))()
+        if self._lib.pa_allocate(self._ptr, n, out) != 0:
+            raise CacheFull()
+        return [out[i] for i in range(n)]
+
+    def draw_device(self, n: int) -> List[int]:
+        """``PageAllocator.draw_device``: up to ``n`` pages (free list
+        first, then LRU reclaim) into the DEVICE-HELD state; a partial
+        draw never raises."""
+        m = min(n, self.num_free())
+        if m <= 0:
+            return []
+        pages = self.allocate(m)
+        self._device_held.update(pages)
+        return pages
+
+    def reconcile_device(self, claimed: Sequence[int],
+                         returned: Sequence[int]) -> None:
+        """``PageAllocator.reconcile_device``: ``claimed`` pages are now
+        live-held, ``returned`` ones go back to the free list."""
+        for pid in list(claimed) + list(returned):
+            if pid not in self._device_held:
+                raise ValueError(f"page {pid} reconciled but not "
+                                 "device-held")
+            self._device_held.discard(pid)
+        if returned:
+            self.release(list(returned))
+
+    def device_held(self) -> int:
+        return len(self._device_held)
+
+    def publish(self, tokens: Sequence[int], page_ids: Sequence[int]) -> None:
+        self._lib.pa_publish(self._ptr, _i32arr(list(tokens)), len(tokens),
+                             _i32arr(list(page_ids)), len(page_ids))
+
+    def retain(self, page_ids: Sequence[int]) -> None:
+        self._lib.pa_retain(self._ptr, _i32arr(list(page_ids)), len(page_ids))
+
+    def release(self, page_ids: Sequence[int]) -> None:
+        self._lib.pa_release(self._ptr, _i32arr(list(page_ids)),
+                             len(page_ids))
+
+    def touch(self, page_ids: Sequence[int]) -> None:
+        self._lib.pa_touch(self._ptr, _i32arr(list(page_ids)), len(page_ids))
+
+    def evict_below(self, target_frac: float) -> int:
+        return self._lib.pa_evict_below(self._ptr,
+                                        ctypes.c_double(target_frac))
+
+    def stats(self):
+        from distributed_inference_server_tpu_torch.engine.kv_cache import (
+            CacheStats,
+        )
+
+        out = (ctypes.c_int64 * 6)()
+        self._lib.pa_stats(self._ptr, out)
+        hits, misses, evictions, total, free, cached = (int(x) for x in out)
+        return CacheStats(
+            hits=hits, misses=misses, evictions=evictions, pages_total=total,
+            pages_free=free, pages_cached=cached,
+            memory_used_frac=1.0 - (free + cached) / total if total else 0.0)
+
+    def hit_rate(self) -> float:
+        s = self.stats()
+        total = s.hits + s.misses
+        return s.hits / total if total else 0.0
+
+    def _snapshot(self):
+        """(free list, LRU oldest first, {page: (refcount, in_lru)})."""
+        while True:
+            sizes = (ctypes.c_int64 * 3)()
+            self._lib.pa_snapshot_sizes(self._ptr, sizes)
+            nf, nl, na = (int(x) for x in sizes)
+            bufs = [(ctypes.c_int32 * max(n, 1))() for n in
+                    (nf, nl, na, na, na)]
+            if self._lib.pa_snapshot(self._ptr, nf, bufs[0], nl, bufs[1], na,
+                                     bufs[2], bufs[3], bufs[4]) == 0:
+                break
+        free, lru = list(bufs[0][:nf]), list(bufs[1][:nl])
+        addressed = {bufs[2][i]: (bufs[3][i], bool(bufs[4][i]))
+                     for i in range(na)}
+        return free, lru, addressed
+
+    def audit(self, live_pages: Optional[Sequence[int]] = None) -> List[str]:
+        """``PageAllocator.audit`` over the native books: free-list
+        uniqueness and range, free and device-held pages never addressed,
+        refcount 0 exactly for LRU pages; with ``live_pages`` (every page
+        a live holder references, with multiplicity) conservation and
+        refcounts equal to holder counts. Returns inconsistency strings
+        (empty = clean)."""
+        issues: List[str] = []
+        bad = issues.append
+        total = self.cfg.num_pages
+        free, lru, addressed = self._snapshot()
+        free_set, lru_set = set(free), set(lru)
+        if len(free_set) != len(free):
+            bad(f"free list holds duplicates ({len(free) - len(free_set)})")
+        for pid in free_set:
+            if not 0 <= pid < total:
+                bad(f"free page {pid} out of range [0, {total})")
+            if pid in addressed:
+                bad(f"page {pid} is both free and content-addressed")
+        for pid in self._device_held:
+            if pid in free_set or pid in addressed:
+                bad(f"device-held page {pid} is free or content-addressed")
+        for pid in lru_set - set(addressed):
+            bad(f"LRU page {pid} is not content-addressed")
+        for pid, (ref, in_lru) in addressed.items():
+            if ref < 0:
+                bad(f"page {pid} refcount {ref} < 0")
+            if (ref == 0) != (pid in lru_set) or in_lru != (pid in lru_set):
+                bad(f"page {pid}: refcount {ref} disagrees with the LRU")
+        if live_pages is not None:
+            from distributed_inference_server_tpu_torch.engine.kv_cache import (
+                audit_live_pages,
+            )
+
+            refs = {pid: ref for pid, (ref, _) in addressed.items()}
+            audit_live_pages(bad, total, free_set, lru_set, refs,
+                             self._device_held, live_pages)
+        return issues
+
+
 def make_validator(config=None, native: Optional[bool] = None):
     """The validator tier: native when the library builds (``native=True``
     requires it), the Python validator otherwise or with
@@ -451,4 +637,5 @@ def make_validator(config=None, native: Optional[bool] = None):
 
 
 __all__ = ["available", "NativePriorityQueue", "NativeAdmissionBatcher",
+           "NativePageAllocator",
            "NativeRequestValidator", "make_validator"]

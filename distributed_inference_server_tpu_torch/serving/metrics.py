@@ -64,6 +64,10 @@ class EngineStatus:
     speculation: Any = None
     mixed: Any = None
     loop: Any = None
+    # engine.host_tier_stats() (None while the host tier is off) and
+    # engine.latent_stats() (None without a latent codec)
+    host_tier: Any = None
+    latent: Any = None
 
     def to_dict(self) -> Dict[str, Any]:
         d = {
@@ -83,6 +87,10 @@ class EngineStatus:
             d["mixed"] = self.mixed
         if self.loop is not None:
             d["loop"] = self.loop
+        if self.host_tier is not None:
+            d["host_tier"] = self.host_tier
+        if self.latent is not None:
+            d["latent"] = self.latent
         return d
 
 
@@ -305,6 +313,25 @@ class MetricsCollector:
             "kv_prefix_hits_total",
             "Prefix-cache page hits by tier (hbm = shared in place, "
             "host = re-seated from the host-RAM tier)", "counter", ["tier"])
+        self.prefix_reload = fam(
+            "kv_prefix_reload_seconds",
+            "Host-side time to re-seat a host-tier prefix match into HBM "
+            "(decode + batched scatter dispatch, per prefill)", "histogram",
+            (), (0.0005, 0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1))
+        self.host_tier_bytes_g = fam(
+            "kv_host_tier_bytes",
+            "Bytes resident in the host-RAM prefix-cache tier", "gauge",
+            ["engine_id"])
+        self.host_tier_pages_g = fam(
+            "kv_host_tier_pages",
+            "Pages resident in the host-RAM prefix-cache tier", "gauge",
+            ["engine_id"])
+        self.kv_payload_bytes = fam(
+            "kv_payload_bytes_total",
+            "Serialized KV payload bytes moved, by encoding kind (raw | "
+            "int8 | qpool | latent | latent_int8), across handoff, "
+            "host-tier offload, prefix fetch, and the fleet KV data plane",
+            "counter", ["kind"])
         self.mixed_step_tokens = fam(
             "engine_mixed_step_tokens",
             "Tokens consumed by ragged mixed-step dispatches (prefill = "
@@ -390,6 +417,11 @@ class MetricsCollector:
         self._cache_hits = 0
         self._cache_misses = 0
         self._cache_evictions = 0
+        self._host_hit_pages = 0
+        self._reload_sum = 0.0
+        self._reload_count = 0
+        self._payload_bytes: Dict[str, int] = {}
+        self._latent: Dict[str, Dict[str, int]] = {}
         self._requests_expired = 0
         self._tenants_seen: set = set()
 
@@ -475,14 +507,21 @@ class MetricsCollector:
     def observe_engine(self, engine_id: str, cache: Any,
                        mixed: Optional[Dict[str, Any]],
                        loop: Optional[Dict[str, Any]],
-                       step_clock: Dict[str, Dict[str, Any]]) -> None:
+                       step_clock: Dict[str, Dict[str, Any]],
+                       host_tier: Optional[Dict[str, int]] = None,
+                       payload: Optional[Dict[str, int]] = None,
+                       reloads: Sequence[float] = (),
+                       latent: Optional[Dict[str, int]] = None) -> None:
         """Take one engine's cumulative counters, read at scrape time
         (``EngineRunner.status``): the allocator's hits, misses and
         evictions (``cache``; a hit is a page shared in place, tier
-        ``hbm``), ``mixed_stats()`` and ``loop_stats()`` (None while off) and
-        ``step_clock_stats()``. The engine's totals only grow, so the
-        counters are set to them; a labelled series appears once its
-        total is above zero."""
+        ``hbm``), ``mixed_stats()`` and ``loop_stats()`` (None while off),
+        ``step_clock_stats()``, ``host_tier_stats()`` (pages re-seated
+        from the host tier are tier ``host`` hits), the encoded payload
+        bytes by kind, the host-tier reload seconds drained since the last
+        read (each observed once) and ``latent_stats()``. The engine's
+        totals only grow, so the counters are set to them; a labelled
+        series appears once its total is above zero."""
 
         def total(family: _Family, value: float, **labels: str) -> None:
             if value > 0:
@@ -511,10 +550,28 @@ class MetricsCollector:
                   kind=kind)
         for event, n in step_clock["events"].items():
             total(self.step_events, n, engine_id=engine_id, event=event)
+        if host_tier is not None:
+            total(self.prefix_hits, host_tier["hit_pages"], tier="host")
+            self.host_tier_bytes_g.labels(engine_id=engine_id).set(
+                host_tier["bytes"])
+            self.host_tier_pages_g.labels(engine_id=engine_id).set(
+                host_tier["pages"])
+        for kind, n in (payload or {}).items():
+            total(self.kv_payload_bytes, n, kind=kind)
+        for dur in reloads:
+            self.prefix_reload.observe(dur)
         with self._lock:
             self._cache_hits = cache.hits
             self._cache_misses = cache.misses
             self._cache_evictions = cache.evictions
+            if host_tier is not None:
+                self._host_hit_pages = host_tier["hit_pages"]
+            self._reload_sum += sum(reloads)
+            self._reload_count += len(reloads)
+            if payload:
+                self._payload_bytes = {k: n for k, n in payload.items() if n}
+            if latent is not None:
+                self._latent[engine_id] = dict(latent)
 
     def request_started(self) -> None:
         with self._lock:
@@ -539,6 +596,34 @@ class MetricsCollector:
         for f in self._families:
             lines.extend(f.render())
         return ("\n".join(lines) + "\n").encode()
+
+    def _cache_block_locked(self, engine_statuses) -> Dict[str, Any]:
+        """The snapshot's prefix-cache block, in the JAX shape: allocator
+        totals, page hits by tier, host-tier reloads, the host tiers'
+        occupancy summed over ``engine_statuses``, and (once any moved)
+        payload bytes by kind and the latent codec's."""
+        tiers = [s.host_tier for s in engine_statuses if s.host_tier]
+        cache: Dict[str, Any] = {
+            "hits": self._cache_hits,
+            "misses": self._cache_misses,
+            "evictions": self._cache_evictions,
+            "prefix_hits": {"hbm": self._cache_hits,
+                            "host": self._host_hit_pages},
+            "reload_count": self._reload_count,
+            "reload_avg_ms": round(self._reload_sum
+                                   / max(1, self._reload_count) * 1000.0, 3),
+            "host_tier_bytes": sum(h["bytes"] for h in tiers),
+            "host_tier_pages": sum(h["pages"] for h in tiers),
+        }
+        if self._payload_bytes:
+            cache["payload_bytes"] = dict(self._payload_bytes)
+        latents = list(self._latent.values())
+        if latents:
+            cache["latent"] = {
+                "rank": latents[0]["rank"],
+                "encoded_bytes": sum(b["encoded_bytes"] for b in latents),
+                "saved_bytes": sum(b["saved_bytes"] for b in latents)}
+        return cache
 
     def _trim_locked(self, now: float) -> None:
         while (self._token_events
@@ -579,11 +664,7 @@ class MetricsCollector:
                 queue_depth=self._queue_depth,
                 worker_statuses=tuple(engine_statuses),
                 uptime_seconds=now - self._started_at,
-                cache={"hits": self._cache_hits,
-                       "misses": self._cache_misses,
-                       "evictions": self._cache_evictions,
-                       "prefix_hits": {"hbm": self._cache_hits,
-                                       "host": 0}},
+                cache=self._cache_block_locked(engine_statuses),
                 resilience=({"engine_restarts": {}, "redispatched": {},
                              "requests_expired": self._requests_expired}
                             if self._requests_expired else None),

@@ -301,17 +301,23 @@ class EngineRunner:
         and handed to the collector (zeros, and the collector untouched,
         when it cannot answer)."""
         used = total = cached = waiting = 0
-        mixed = loop = speculation = None
+        mixed = loop = speculation = host_tier = latent = None
         if self._healthy:
             try:
-                s, waiting, mixed, loop, clock, speculation = self.call(
+                (s, waiting, mixed, loop, clock, speculation, host_tier,
+                 latent, payload, reloads) = self.call(
                     lambda e: (e.cache_stats(), e.num_waiting(),
                                e.mixed_stats(), e.loop_stats(),
-                               e.step_clock_stats(), e.spec_stats()))
+                               e.step_clock_stats(), e.spec_stats(),
+                               e.host_tier_stats(), e.latent_stats(),
+                               e.payload_byte_counters(),
+                               e.drain_reload_durations()))
                 total, cached = s.pages_total, s.pages_cached
                 used = total - s.pages_free
-                self.metrics.observe_engine(self.engine_id, s, mixed, loop,
-                                            clock)
+                self.metrics.observe_engine(
+                    self.engine_id, s, mixed, loop, clock,
+                    host_tier=host_tier, payload=payload, reloads=reloads,
+                    latent=latent)
                 if speculation is not None:
                     self.metrics.set_speculation(self.engine_id, speculation)
             except (TimeoutError, RuntimeError) as e:
@@ -322,7 +328,7 @@ class EngineRunner:
             total_processed=self.requests_finished,
             memory_used_pages=used, memory_total_pages=total,
             pages_cached=cached, speculation=speculation, mixed=mixed,
-            loop=loop)
+            loop=loop, host_tier=host_tier, latent=latent)
 
     # -- runner thread -----------------------------------------------------
 

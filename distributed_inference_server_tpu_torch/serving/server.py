@@ -170,7 +170,8 @@ class InferenceServer:
 
     def stats(self) -> dict:
         """``/server/stats``: the ``MetricsSnapshot`` (its ``cache`` block
-        with the allocator's page counts added) and the port's blocks:
+        with the allocator's page counts and tier, native or python,
+        added) and the port's blocks:
         ``mixed`` (the engine's ``mixed_stats()``, null while the mixed
         step is off), ``loop`` (``loop_stats()``, null while looped blocks
         are off), ``step_clock`` (host wall time, dispatches, tokens and
@@ -186,8 +187,9 @@ class InferenceServer:
         if r.is_healthy():
             try:
                 cache, step_clock, memory = r.call(lambda e: (
-                    e.cache_stats().to_dict(), e.step_clock_stats(),
-                    e.memory_stats()))
+                    {**e.cache_stats().to_dict(),
+                     "allocator_tier": e.allocator_tier()},
+                    e.step_clock_stats(), e.memory_stats()))
             except (TimeoutError, RuntimeError):
                 pass
         out["cache"] = {**out["cache"], **(cache or {})}

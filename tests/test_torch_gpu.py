@@ -1614,3 +1614,125 @@ def test_spec_engine_graph_matches_eager_and_plain_decoding(cuda, kv_quant):
         eager, eager_counts = run(draft, graphs=False, **kw)
         assert got == eager == want, kw
         assert counts == eager_counts, kw
+
+
+def _kv_engine(cuda, graphs=True, **kw):
+    params = _scaled_params(TINY, cuda, torch.float32)
+    return LLMEngine(params, TINY, ByteTokenizer(), EngineConfig(
+        paged=PagedCacheConfig(32, 4, 16), max_batch=4,
+        prefill_buckets=(8, 32), **kw), dtype=torch.float32, device=cuda,
+        _graphs=graphs)
+
+
+def _kv_drain(eng, toks):
+    while eng.has_work() and not eng.handoff_ready_ids():
+        for o in eng.step():
+            assert o.error is None, o.error
+            if o.token_id is not None:
+                toks.append(o.token_id)
+    return toks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loop", [False, True])
+def test_raw_handoff_over_graph_replays_token_identical(cuda, loop):
+    """A raw handoff between two engines on the card, the target decoding
+    through graph replays (fixed or looped blocks, captured by warmup
+    before the import): the never-migrated engine's greedy tokens, the
+    imported pages written in place so the replays read them."""
+    tok = ByteTokenizer()
+    prompt = tok.encode("migrate this prompt across engines, please")
+    sp = SamplingParams(max_tokens=24, temperature=0.0)
+    ref = _kv_engine(cuda, loop_to_completion=loop)
+    ref.add_request("r", prompt, sp)
+    want = _kv_drain(ref, [])
+    src = _kv_engine(cuda, loop_to_completion=loop)
+    dst = _kv_engine(cuda, loop_to_completion=loop)
+    dst.warmup()  # every graph captured before the import
+    pools = (dst.state.k.data_ptr(), dst.state.v.data_ptr())
+    src.add_request("r", prompt, sp, prefill_only=True)
+    got = _kv_drain(src, [])
+    dst.import_sequence(src.export_handoff("r"))
+    kernels.reset_launch_counts()
+    _kv_drain(dst, got)
+    assert got == want
+    assert (dst.state.k.data_ptr(), dst.state.v.data_ptr()) == pools
+    assert kernels.launch_counts()["paged_decode"] > 0
+    assert src.audit_pages() == [] and dst.audit_pages() == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_host_tier_reload_over_graph_replays_token_identical(cuda, quant):
+    """A prefix demoted to the host tier (gathered on the engine stream,
+    copied into pinned memory behind an event) and reloaded by one
+    in-place scatter: the prefill chunk and decode graphs replayed after
+    it give a cold engine's greedy tokens (exactly, for the raw tier)."""
+    tok = ByteTokenizer()
+    prompt = list(range(40, 60)) + [7, 8]
+    sp = SamplingParams(max_tokens=8, temperature=0.0)
+    cold = _kv_engine(cuda)
+    cold.add_request("c", prompt, sp)
+    want = _kv_drain(cold, [])
+    eng = _kv_engine(cuda, host_tier_bytes=1 << 22, host_tier_quant=quant)
+    eng.warmup()
+    eng.add_request("w", prompt, sp)
+    _kv_drain(eng, [])
+    for i in range(8):  # cycle the pool: the prefix demotes
+        eng.add_request(f"c{i}", tok.encode(f"churn {i} " * 6),
+                        SamplingParams(max_tokens=2, temperature=0.0))
+        _kv_drain(eng, [])
+    eng.add_request("p", prompt, sp)
+    got = _kv_drain(eng, [])
+    assert eng.host_tier_stats()["hit_pages"] > 0
+    if quant == "none":
+        assert got == want
+    else:
+        assert len(got) == len(want)
+    assert eng.audit_pages() == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_pinned_pulls_equal_synchronous_copies(cuda, kv_quant):
+    """Payloads pulled through pinned memory behind an event carry the
+    bytes a synchronous ``.cpu()`` of the same slots reads, while the
+    engine stream is busy with other work."""
+    from distributed_inference_server_tpu_torch.engine import kv_cache as kv
+
+    eng = _kv_engine(cuda, kv_quant=kv_quant)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for pool in (eng.state.k, eng.state.v):
+        for t in ((pool.data, pool.scale) if kv_quant == "int8"
+                  else (pool,)):
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda) * 40)
+    pages = [5, 1, 9, 3, 30, 12]
+    slots = torch.tensor(kv._page_slots(pages, 4), device=cuda)
+    with torch.cuda.stream(eng._stream):
+        busy = torch.randn(4096, 4096, device=cuda)
+        for _ in range(8):
+            busy = busy @ busy  # queued ahead of the pulls
+        blob = kv.serialize_kv(eng.state, pages, 4, 24)
+        chunks = list(kv.serialize_kv_chunks(eng.state, pages, 4,
+                                             chunk_pages=2))
+    torch.cuda.synchronize()
+
+    def host(t):
+        return t.index_select(1, slots).cpu()
+
+    if kv_quant == "int8":
+        parts = (host(eng.state.k.data), host(eng.state.v.data),
+                 host(eng.state.k.scale), host(eng.state.v.scale))
+        kind, name = kv._KIND_QPOOL, "int8"
+    else:
+        parts = (host(eng.state.k), host(eng.state.v))
+        kind, name = kv._KIND_RAW, "float32"
+    want = kv._encode_payload(kind, name, tuple(parts[0].shape), 24, parts)
+    assert blob == want
+    fresh = _kv_engine(cuda, kv_quant=kv_quant)
+    sess = kv.KvImportSession(fresh.state, fresh.allocator, 4)
+    sess.reserve(len(pages))
+    for c in chunks:
+        sess.add_chunk(c)
+    _, got_pages = sess.finish(fresh.state, list(range(len(pages) * 4)))
+    assert kv.serialize_kv(fresh.state, got_pages, 4, 24) == want

@@ -544,7 +544,8 @@ SINGLE_REPLICA_FAMILIES = {
     "engine_step_seconds", "engine_step_dispatches", "engine_step_tokens",
     "engine_step_events", "requests_expired", "queue_tenant_depth",
     "speculation_acceptance_rate", "speculation_estimated_speedup",
-    "speculation_enabled",
+    "speculation_enabled", "kv_prefix_reload_seconds", "kv_host_tier_bytes",
+    "kv_host_tier_pages", "kv_payload_bytes",
 }
 
 
@@ -575,6 +576,13 @@ ENGINE_TOTALS = (
     {"steps": 4, "exits": {"eos": 1, "budget": 2}},
     {"kinds": {"prefill": {"dispatches": 2, "wall_s": 0.1, "tokens": 9}},
      "events": {"preempt": 1}})
+# the host tier's and the byte paths' counters, the same way
+HOST_TOTALS = dict(
+    host_tier={"budget_bytes": 1 << 20, "bytes": 4096, "pages": 2,
+               "hits": 3, "hit_pages": 3, "offloads": 5, "evictions": 0},
+    payload={"raw": 100, "int8": 40, "qpool": 0, "latent": 0,
+             "latent_int8": 0},
+    reloads=[0.002])
 
 
 def _record_jax(c):
@@ -587,11 +595,15 @@ def _record_jax(c):
     c.record_step_clock("engine-0", "prefill", dispatches=2, wall_s=0.1,
                         tokens=9)
     c.record_step_events("engine-0", {"preempt": 1})
+    c.record_prefix_hits(host=3)
+    c.set_host_tier("engine-0", 4096, 2)
+    c.record_prefix_reload(0.002)
+    c.record_kv_payload({"raw": 100, "int8": 40})
 
 
 def _record_port(c):
     _record_common(c)
-    c.observe_engine(*ENGINE_TOTALS)
+    c.observe_engine(*ENGINE_TOTALS, **HOST_TOTALS)
 
 
 def _families(text: str) -> dict:
@@ -634,7 +646,9 @@ def test_snapshot_matches_the_jax_collector():
     for key in ("total_requests", "active_requests", "average_ttft_ms",
                 "average_batch_size", "cache_hit_rate", "queue_depth"):
         assert ps[key] == js[key], key
-    for key in ("hits", "misses", "evictions", "prefix_hits"):
+    for key in ("hits", "misses", "evictions", "prefix_hits",
+                "reload_count", "reload_avg_ms", "host_tier_bytes",
+                "host_tier_pages", "payload_bytes"):
         assert ps["cache"][key] == js["cache"][key], key
 
 
