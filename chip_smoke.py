@@ -164,6 +164,28 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    codecs calibrated bit-identically (``kvpaths_timing`` line: payload
    bytes per kind, export / import ms per MB, the streamed stall,
    host-tier reload ms per page, PCIe rates).
+12. (``replicas``) several llama-3.2-1b bf16 replicas in one server
+   process on the card (``phase_replicas``): (a) two unified replicas,
+   round robin: the first mix's greedy texts == phase 4's one-engine
+   texts (or a one-engine server's started beside it), each replica
+   served, launches per forward on each replica == one engine's, then
+   ``POST /admin/scale`` 2 -> 3 -> 2 with a request in flight on the
+   retired replica (its text unchanged, the process's allocated bytes
+   back within 5 %); (b) a prefill/decode pair (streamed handoff): the
+   same texts, every decoded request handed off and finished on the
+   decode replica, both page audits clean; again with ``--disagg-stream
+   false`` and with ``--disagg-channel protowire``; (c) a crash
+   (``--faults-spec runner.step:nth=3``): a streamed request with tokens
+   ends ``engine_crashed``, a zero-token one reruns on the other replica
+   with (a)'s text, the health loop restarts the dead replica (one
+   restart), which serves (a)'s text with one engine's launches per
+   forward, allocated bytes back within 5 %; (d) ``cache_aware`` with
+   ``sched.fetch_decision`` armed: the p600 prompt's cached pages are
+   fetched to the cold replica, which prefills the tail, its text == the
+   warm hit's, ``kv_prefix_fetch_total{outcome="ok"}`` 1
+   (``replicas_timing`` line: warmups, walls, a cold 600-byte prompt's
+   lone TTFT unified and disaggregated, handoff ms per request and
+   bytes, crash to healthy seconds, memory, launches by role).
 
 It also prints whether ``safetensors`` and ``tokenizers`` import (for
 information: the port reads safetensors itself).
@@ -173,7 +195,8 @@ quantized matmuls' rows add ``*_prefill`` keys: their M = 2048 layer, and
 q8 ``*_verify`` keys: its M = 40 layer); the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
 and prints no result. ``--phases
-kernels,serve,quant,engine,ckpt,api,families,spec,admission,kvpaths`` selects
+kernels,serve,quant,engine,ckpt,api,families,spec,admission,kvpaths,replicas``
+selects
 phases (default: all; ``quant`` is phase 3's quantized kernels and phase
 4's quantized servers; ``families`` is item 7, ``api`` item 8, ``spec``
 item 9 and ``admission`` item 10, which write and serve item 6's
@@ -185,8 +208,10 @@ carry the families' times under ``families``, each family server's
 launches under ``launches_by_model``, the api phase's under
 ``launches_api``, the spec servers' under ``launches_spec (model)``, each
 KV byte path's (phase 11's handoff decode, peer-prefix serve and each
-host-tier server's repeat) under ``launches_kvpaths`` and the verify
-shape's times under ``verify``.
+host-tier server's repeat) under ``launches_kvpaths``, phase 12's by
+replica role (``unified``, ``prefill``, ``decode``, ``fetch_target``)
+under ``launches_replicas``, and the verify shape's times under
+``verify``.
 """
 
 from __future__ import annotations
@@ -1327,6 +1352,8 @@ def phase_serve(card: str, seed: int = 0, model: str = "llama-3.2-1b",
         got_per = _per_forward(before, stats)
         for name, want in (per_forward or {}).items():
             assert got_per[name] == want, (label, name, got_per)
+        if model == REPLICA_MODEL and not extra:  # phase 12's one engine
+            PER_FORWARD[label] = got_per
         hits = stats["cache"]["hits"]
         assert hits > 0, f"no prefix hit in /server/stats: {stats['cache']}"
         toks = sum(b["usage"]["completion_tokens"] for _, b, _ in results)
@@ -3449,11 +3476,404 @@ def phase_kvpaths(card: str, seed: int = 0) -> dict:
     return {"timing": line["kvpaths_timing"], "launches": path_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: several replicas on one card
+# ---------------------------------------------------------------------------
+
+REPLICA_MODEL = "llama-3.2-1b"
+# one engine's launches per forward at llama-3.2-1b (16 layers): one paged
+# decode a layer per decode step, one paged prefill a layer per chunk, two
+# RMSNorms a layer and the final one, RoPE on q and k a layer
+ONE_B_PER_FORWARD = {"paged_decode": 16, "paged_prefill": 16,
+                     "rms_norm": 2 * 16 + 1, "rope": 2 * 16}
+# phase 4's one-engine server's launches per forward, when it ran
+PER_FORWARD: dict = {}
+# a prompt of 1901 ids: four 512-token prefill chunks, one an engine step,
+# so its first token comes at the fourth step of its replica
+LONG_PROMPT = ("Four chunks of prefill before the first token. " * 40)[:1900]
+GREEDY64 = {"temperature": 0.0, "max_tokens": 64}
+GREEDY192 = {"temperature": 0.0, "max_tokens": 192}
+# 16 ids with BOS: one full page, so a handoff of it streams, and never a
+# prefix hit (a match leaves at least one token to compute), so every run
+# of it is cold: in bf16 a warm run prefills another chunk shape and may
+# round differently (ROADMAP queue 3)
+PAGE_PROMPT = "One page, cold."
+# a 600-byte prompt sent once per server, for a cold lone TTFT
+TTFT_PROMPT = "Cold TTFT: " + MIX_PROMPTS["p600"][11:]
+ROUND_ROBIN_2 = ["--server-num-engines", "2", "--server-strategy",
+                 "round_robin"]
+PREFILL_DECODE = ["--server-num-engines", "2", "--server-engine-roles",
+                  "prefill,decode"]
+
+
+def _stats(base) -> dict:
+    return _http("GET", base + "/server/stats")[1]
+
+
+def _replicas(stats) -> dict:
+    return {r["engine_id"]: r for r in stats["replicas"]}
+
+
+def _greedy(base, prompt, params=GREEDY) -> str:
+    st, body, _ = _gen(base, prompt, params)
+    _check_generate(st, body, params["max_tokens"])
+    return body["choices"][0]["text"]
+
+
+def _mix(base) -> float:
+    """The first mix's four concurrent requests (phase 4's jobs), each
+    checked; returns the wall."""
+    jobs = [(MIX_PROMPTS["p20"], GREEDY), (MIX_PROMPTS["p100"], GREEDY),
+            (MIX_PROMPTS["p600"], GREEDY),
+            (MIX_PROMPTS["p100"], {"temperature": 0.8, "top_p": 0.9,
+                                   "max_tokens": 24})]
+    t0 = time.monotonic()
+    with cf.ThreadPoolExecutor(len(jobs)) as ex:
+        results = list(ex.map(lambda j: _gen(base, *j), jobs))
+    wall = time.monotonic() - t0
+    for (_, params), (st, body, _) in zip(jobs, results):
+        _check_generate(st, body, params["max_tokens"])
+    return wall
+
+
+def _replica_launches(stats) -> dict:
+    return {eid: r["kernel_launches"] for eid, r in _replicas(stats).items()}
+
+
+def _check_per_forward(label, before, after) -> dict:
+    """Each replica that ran a decode step: its launches per forward
+    (``_per_forward`` over its own step clock and launch tally) equal one
+    engine's."""
+    out = {}
+    b = _replicas(before)
+    for eid, r in _replicas(after).items():
+        got = _per_forward(b[eid], r)
+        out[eid] = got
+        if got is None or not got.get("paged_decode"):
+            continue
+        want = {k: v for k, v in ONE_B_PER_FORWARD.items()
+                if r["kernel_launches"][k]}
+        assert {k: got[k] for k in want} == want, (label, eid, got)
+        for one in PER_FORWARD.values():  # phase 4's one-engine server
+            assert {k: got[k] for k in want} == {k: one[k] for k in want}, (
+                label, eid, got, one)
+    return out
+
+
+def _mem(stats) -> int:
+    """Device bytes allocated by the whole server process."""
+    return stats["memory"]["allocated_bytes"]
+
+
+def _wait(cond, what: str, timeout: float = 60.0, every: float = 0.1):
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise RuntimeError(f"timed out after {timeout} s: {what}")
+        time.sleep(every)
+    return time.monotonic() - t0
+
+
+def _handoffs(stats) -> dict:
+    return dict((stats.get("disagg") or {}).get("handoffs") or {})
+
+
+def _replicas_unified(card, base, texts, timing) -> dict:
+    """(a) two unified replicas, round robin: the first mix, launches per
+    decode step, the references the other parts compare with, the lone
+    p600 TTFT, then ``POST /admin/scale`` 2 -> 3 -> 2 with a request in
+    flight on the retired replica."""
+    stats0 = _stats(base)
+    _reset_counts(base)
+    before = _stats(base)
+    got = {name: _greedy(base, p) for name, p in MIX_PROMPTS.items()}
+    assert got == texts, ("two-replica greedy texts differ from the "
+                          "one-engine server's", got, texts)
+    wall = _mix(base)
+    after = _stats(base)
+    processed = {w["engine_id"]: w["total_processed"]
+                 for w in after["worker_statuses"]}
+    assert all(n >= 1 for n in processed.values()) and len(processed) == 2, (
+        processed)
+    per = _check_per_forward("round robin pair", before, after)
+    refs = {"page64": _greedy(base, PAGE_PROMPT, GREEDY64),
+            "long": _greedy(base, LONG_PROMPT),
+            "page192": _greedy(base, PAGE_PROMPT, GREEDY192)}
+    stream = _native_stream(base, "/generate", {
+        "prompt": TTFT_PROMPT, "stream": True, **GREEDY})
+    refs["ttft"] = stream["text"]
+    phase_done("replicas (a): round robin pair")
+
+    # scale 2 -> 3 -> 2 with a request in flight on the retired replica
+    mem2 = _mem(_stats(base))
+    t0 = time.monotonic()
+    st, body = _http("POST", base + "/admin/scale", {"num_engines": 3})
+    scale_up_s = time.monotonic() - t0
+    assert st == 200 and body["num_engines"] == 3, body
+    stats3 = _stats(base)
+    mem3 = _mem(stats3)
+    assert mem3 > mem2, (mem2, mem3)
+    jobs = []
+    with cf.ThreadPoolExecutor(3) as ex:
+        for _ in range(3):  # one admission batch each: one per replica
+            jobs.append(ex.submit(_gen, base, PAGE_PROMPT, GREEDY192))
+            time.sleep(0.08)
+
+        def third_busy():
+            h = _http("GET", base + "/health")[1]
+            return any(e["engine_id"] == "engine-2"
+                       and e["active_requests"] for e in h["engines"])
+
+        _wait(third_busy, "a request on engine-2", 30, 0.01)
+        st, body = _http("POST", base + "/admin/scale", {"num_engines": 2})
+        assert st == 200 and body["num_engines"] == 2, body
+        for fut in jobs:
+            st, out, _ = fut.result()
+            _check_generate(st, out, GREEDY192["max_tokens"])
+            assert out["choices"][0]["text"] == refs["page192"], out
+    release_s = _wait(
+        lambda: _mem(_stats(base)) <= mem2 * 1.05,
+        "the retired replica's memory released", 60, 0.2)
+    mem_down = _mem(_stats(base))
+    assert len(_stats(base)["replicas"]) == 2
+    phase_done("replicas (a): scale 2 -> 3 -> 2")
+    timing["round_robin"] = {
+        "warmup_s": {e: r["warmup_s"]
+                     for e, r in _replicas(stats0).items()},
+        "mix_wall_s": wall, "processed": processed,
+        "launches_per_forward": per,
+        "lone_cold_600_byte_ttft_s": stream["ttft_s"],
+        "scale_up_s": scale_up_s,
+        "warmup_s_engine_2": _replicas(stats3)["engine-2"]["warmup_s"],
+        "allocated_bytes_2_3_2": [mem2, mem3, mem_down],
+        "scale_down_release_s": release_s}
+    return {"refs": refs, "launches": {
+        "unified": _sum_launches(after["replicas"])}}
+
+
+def _sum_launches(replicas) -> dict:
+    out: dict = {}
+    for r in replicas:
+        for k, v in r["kernel_launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _replicas_disagg(card, base, texts, refs, timing) -> dict:
+    """(b) a prefill/decode pair, streamed handoff: the first mix and a
+    64-token request that streams, every decoded request handed off and
+    finished on the decode replica, both audits clean, a lone cold
+    600-byte prompt's TTFT and text (== (a)'s)."""
+    stats0 = _stats(base)
+    _reset_counts(base)
+    got = {name: _greedy(base, p) for name, p in MIX_PROMPTS.items()}
+    assert got == texts, ("prefill/decode greedy texts differ from the "
+                          "one-engine server's", got, texts)
+    wall = _mix(base)
+    assert _greedy(base, PAGE_PROMPT, GREEDY64) == refs["page64"]
+    stream = _native_stream(base, "/generate", {
+        "prompt": TTFT_PROMPT, "stream": True, **GREEDY})
+    assert stream["text"] == refs["ttft"], stream["text"]
+    after = _stats(base)
+    decoded = 3 + 4 + 1 + 1
+    assert _handoffs(after) == {"ok": decoded}, after["disagg"]
+    assert after["disagg"]["handoff_chunks"] > 0, after["disagg"]
+    processed = {w["engine_id"]: (w["role"], w["total_processed"])
+                 for w in after["worker_statuses"]}
+    assert processed == {"engine-0": ("prefill", 0),
+                         "engine-1": ("decode", decoded)}, processed
+    launches = _replica_launches(after)
+    assert launches["engine-0"]["paged_prefill"] > 0, launches
+    assert launches["engine-1"]["paged_decode"] > 0, launches
+    assert launches["engine-1"]["paged_prefill"] == 0, launches
+    for r in after["replicas"]:
+        assert r["audit"] == [], (r["engine_id"], r["audit"])
+    fams = _parse_prom(_get_text(base + "/metrics")[0])
+    n = _prom_sum(fams, "kv_handoff_latency_seconds",
+                  "kv_handoff_latency_seconds_count")
+    lat = _prom_sum(fams, "kv_handoff_latency_seconds",
+                    "kv_handoff_latency_seconds_sum")
+    h = after["handoff_s"]
+    timing["prefill_decode"] = {
+        "warmup_s": {e: r["warmup_s"]
+                     for e, r in _replicas(stats0).items()},
+        "mix_wall_s": wall, "lone_cold_600_byte_ttft_s": stream["ttft_s"],
+        "handoffs": after["disagg"],
+        "handoff_ms_per_request": {
+            "export": h["export"] * 1e3 / max(1, h["exports"]),
+            "channel": h["channel"] * 1e3 / decoded,
+            "import": h["import"] * 1e3 / max(1, h["imports"]),
+            "stall": after["disagg"]["handoff_stall_avg_ms"],
+            "latency": lat * 1e3 / n if n else None},
+        "handoff_bytes_per_request": after["disagg"]["handoff_bytes"]
+        / decoded}
+    phase_done("replicas (b): prefill/decode pair")
+    return {"prefill": launches["engine-0"], "decode": launches["engine-1"]}
+
+
+def _replicas_variant(base, texts, refs, label) -> dict:
+    """(b) again with one handoff flag changed: the lone greedy prompts
+    and a 64-token request, every one handed off."""
+    got = {name: _greedy(base, p) for name, p in MIX_PROMPTS.items()}
+    assert got == texts, (label, got, texts)
+    assert _greedy(base, PAGE_PROMPT, GREEDY64) == refs["page64"]
+    stats = _stats(base)
+    assert _handoffs(stats) == {"ok": 4}, (label, stats["disagg"])
+    for r in stats["replicas"]:
+        assert r["audit"] == [], (label, r["engine_id"], r["audit"])
+    phase_done(f"replicas (b): {label}")
+    return stats["disagg"]
+
+
+def _replicas_crash(card, base, texts, refs, timing) -> None:
+    """(c) two unified replicas with ``runner.step:nth=3`` armed: a
+    streamed request and the long prompt arrive in one admission batch on
+    one replica; its third engine step crashes it. The streamed request
+    had tokens: it ends with ``engine_crashed``; the long prompt had none:
+    it runs again on the other replica with (a)'s text. The health loop
+    restarts the dead replica, which then serves (a)'s texts with one
+    engine's launches per forward; device memory is back where it was."""
+    mem0 = _mem(_stats(base))
+    with cf.ThreadPoolExecutor(2) as ex:
+        streamed = ex.submit(_sse, base, "/generate", {
+            "prompt": MIX_PROMPTS["p20"], "stream": True, **GREEDY64})
+        time.sleep(0.01)  # the same 50 ms admission window
+        long_job = ex.submit(_gen, base, LONG_PROMPT, GREEDY)
+        frames = streamed.result()["frames"]
+        t_crash = time.monotonic()
+        st, body, _ = long_job.result()
+    events = [d for _, d in frames if d != "[DONE]"]
+    assert frames[-1][1] == "[DONE]", frames[-3:]
+    assert any(d["type"] == "token" for d in events[:-1]), events
+    assert events[-1]["type"] == "error", events[-1]
+    assert events[-1]["code"] == "engine_crashed", events[-1]
+    _check_generate(st, body, GREEDY["max_tokens"])
+    assert body["choices"][0]["text"] == refs["long"], body
+
+    def all_healthy():
+        h = _http("GET", base + "/health")[1]
+        return (len(h["engines"]) == 2
+                and all(e["healthy"] for e in h["engines"]))
+
+    healthy_s = _wait(all_healthy, "the crashed replica's restart", 120)
+    stats = _stats(base)
+    res = stats["resilience"]
+    assert sum(res["engine_restarts"].values()) == 1, res
+    assert res["redispatched"] == {"ok": 1}, res
+    _reset_counts(base)
+    before = _stats(base)
+    for _ in range(2):  # round robin: one on each replica
+        assert _greedy(base, MIX_PROMPTS["p20"]) == texts["p20"]
+    after = _stats(base)
+    per = _check_per_forward("restarted pair", before, after)
+    assert all(p is not None for p in per.values()), per
+    mem1 = _mem(after)
+    assert abs(mem1 - mem0) <= 0.05 * mem0, (mem0, mem1)
+    restarted = next(r for r in after["replicas"] if r["restarts"])
+    timing["crash"] = {
+        "crash_to_healthy_s": healthy_s,
+        "restart_warmup_s": restarted["warmup_s"],
+        "restarted": restarted["engine_id"],
+        "allocated_bytes_before_after": [mem0, mem1],
+        "launches_per_forward_after": per,
+        "resilience": res}
+    phase_done("replicas (c): crash, redispatch and restart")
+
+
+def _replicas_fetch(card, base, texts, timing) -> dict:
+    """(d) two replicas, cache_aware, ``sched.fetch_decision:nth=1``: the
+    p600 prompt cold on one replica (the one-engine text), then again:
+    its 37 cached pages are fetched to the cold replica, which prefills
+    the tail; then a third time, a warm hit. The fetched run's text ==
+    the warm hit's."""
+    cold = _greedy(base, MIX_PROMPTS["p600"])
+    assert cold == texts["p600"], cold
+    _reset_counts(base)
+    before = _stats(base)
+    fetched = _greedy(base, MIX_PROMPTS["p600"])
+    after = _stats(base)
+    warm = _greedy(base, MIX_PROMPTS["p600"])
+    assert fetched == warm, ("the fetched prefix's text differs from the "
+                             "warm hit's", fetched, warm)
+    served = {e: after["replicas"][i]["requests_finished"]
+              - before["replicas"][i]["requests_finished"]
+              for i, e in enumerate(r["engine_id"]
+                                    for r in after["replicas"])}
+    target = next(e for e, n in served.items() if n == 1)
+    launches = _replica_launches(after)[target]
+    assert launches["paged_prefill"] > 0, launches  # the tail
+    fams = _parse_prom(_get_text(base + "/metrics")[0])
+    ok = _prom_sum(fams, "kv_prefix_fetch_total", "kv_prefix_fetch_total",
+                   outcome="ok")
+    assert ok == 1, fams["kv_prefix_fetch_total"]
+    cache = after["cache"]
+    assert cache["route_decisions"].get("fetch") == 1, cache
+    for r in after["replicas"]:
+        assert r["audit"] == [], (r["engine_id"], r["audit"])
+    timing["fetch"] = {"target": target, "peer_fetch": cache["peer_fetch"],
+                       "route_decisions": cache["route_decisions"]}
+    phase_done("replicas (d): forced peer prefix fetch")
+    return launches
+
+
+def phase_replicas(card: str, seed: int = 0, texts=None) -> dict:
+    """Several llama-3.2-1b bf16 replicas on the card (random weights from
+    ``seed``, ``EngineConfig`` defaults), in two rounds of servers started
+    together: (a) and (b) (and a one-engine server for the reference
+    texts when phase 4 did not run), then (b)'s two handoff variants, (c)
+    and (d), the last three with warmup off where the part does not need
+    it. Returns the launches per replica role and the timing line."""
+    t_phase = time.monotonic()
+    timing: dict = {}
+    specs = [(ROUND_ROBIN_2, "server_replicas_rr.log", REPLICA_MODEL),
+             (PREFILL_DECODE, "server_replicas_pd.log", REPLICA_MODEL)]
+    if texts is None:
+        specs.append(([], "server_replicas_one.log", REPLICA_MODEL))
+    with _servers(seed, specs) as bases:
+        if texts is None:
+            texts = greedy_texts(bases[2])
+        got = _replicas_unified(card, bases[0], texts, timing)
+        refs, launches = got["refs"], got["launches"]
+        launches.update(_replicas_disagg(card, bases[1], texts, refs,
+                                         timing))
+    cold = ["--engine-warmup-compile", "false"]
+    specs = [
+        (PREFILL_DECODE + ["--disagg-stream", "false"] + cold,
+         "server_replicas_pd_mono.log", REPLICA_MODEL),
+        (PREFILL_DECODE + ["--disagg-channel", "protowire"] + cold,
+         "server_replicas_pd_wire.log", REPLICA_MODEL),
+        (ROUND_ROBIN_2 + ["--faults-spec", "runner.step:nth=3",
+                          "--server-health-check-interval-s", "0.2",
+                          "--server-restart-backoff-s", "0.5"],
+         "server_replicas_crash.log", REPLICA_MODEL),
+        # the digest lives on the Python page allocator, which a host
+        # tier takes; its depth covers the p600 prompt's 37 pages
+        (["--server-num-engines", "2", "--server-strategy", "cache_aware",
+          "--faults-spec", "sched.fetch_decision:nth=1",
+          "--cache-host-tier-bytes", str(HOST_TIER_BYTES),
+          "--cache-digest-depth", "64"] + cold,
+         "server_replicas_fetch.log", REPLICA_MODEL)]
+    with _servers(seed, specs) as (mono, wire, crash, fetch):
+        timing["monolithic"] = _replicas_variant(mono, texts, refs,
+                                                 "--disagg-stream false")
+        timing["protowire"] = _replicas_variant(
+            wire, texts, refs, "--disagg-channel protowire")
+        _replicas_crash(card, crash, texts, refs, timing)
+        launches["fetch_target"] = _replicas_fetch(card, fetch, texts,
+                                                   timing)
+    line = {"replicas_timing": {
+        "card": card, "model": "llama-3.2-1b bf16 random weights",
+        **timing, "launches_replicas": launches,
+        "phase_s": round(time.monotonic() - t_phase, 1)}}
+    log(json.dumps(line))
+    return {"timing": line["replicas_timing"], "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,serve,quant,engine,ckpt,api,families,"
-                            "spec,admission,kvpaths")
+                            "spec,admission,kvpaths,replicas")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--server-flags", default="",
                     help="flags added to every server started, split on "
@@ -3604,6 +4024,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         kv_launches = phase_kvpaths(card, args.seed)["launches"]
         phase_done("kv byte paths")
+    replica_launches = {}
+    if "replicas" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        replica_launches = phase_replicas(card, args.seed, texts)[
+            "launches"]
+        phase_done("replicas")
 
     rows = []
     for name, (route, source, replaces) in KERNEL_META.items():
@@ -3625,6 +4052,9 @@ def main(argv=None) -> int:
         if kv_launches:  # each KV byte path's own launches
             row["launches_kvpaths"] = {part: got.get(name)
                                        for part, got in kv_launches.items()}
+        if replica_launches:  # phase 12's launches by replica role
+            row["launches_replicas"] = {
+                role: got.get(name) for role, got in replica_launches.items()}
         verify = {r["case"]: {k: r.get(k) for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")}

@@ -11,7 +11,18 @@
 [--queue-tenant-weights a=2,b=1] [--batcher-window-ms MS]
 [--batcher-max-batch-size N] [--engine-num-pages N]
 [--cache-host-tier-bytes B] [--cache-host-tier-quant
-none|int8|latent|latent_int8] [--cache-latent-rank R]``.
+none|int8|latent|latent_int8] [--cache-latent-rank R]
+[--server-num-engines N] [--server-engine-roles prefill,decode]
+[--server-strategy round_robin|least_loaded|memory_aware|cache_aware]
+[--server-auto-restart true|false] [--server-health-check-interval-s S]
+[--server-restart-backoff-s S] [--server-restart-backoff-max-s S]
+[--server-max-redispatch N] [--disagg-handoff-timeout-s S]
+[--disagg-handoff-retries N] [--disagg-channel inproc|protowire]
+[--disagg-stream true|false] [--disagg-chunk-pages N]
+[--disagg-wire-quant none|int8|latent|latent_int8]
+[--cache-digest-depth N] [--cache-peer-fetch true|false]
+[--cache-fetch-min-pages N] [--cache-fetch-page-cost C]
+[--cache-fetch-load-cost C] [--faults-spec SPEC] [--faults-seed S]``.
 
 With ``--model-model-dir`` the config and weights come from that HF
 checkpoint directory (``models/loader.py load_checkpoint``) and the
@@ -58,6 +69,24 @@ pages in host RAM up to that many bytes, stored as
 the host tier runs on the Python page allocator (it needs the eviction
 hook), otherwise the port's native C++ allocator is taken when it builds
 (``/server/stats`` ``cache.allocator_tier``).
+
+Replicas: ``--server-num-engines`` engines, each with its own copy of
+the weights (the same draw from ``--seed``), KV pool, stream and CUDA
+graphs on the one device, are built one after another and routed by
+``--server-strategy`` (default least_loaded). ``--server-engine-roles``
+gives each a role: a ``prefill`` replica hands each prompt's KV to a
+``decode`` replica after the first token (``--disagg-*``: streamed or
+monolithic, over the ``inproc`` or ``protowire`` channel, with a wire
+encoding). ``cache_aware`` routes each request to the replica holding its
+prefix, or fetches the prefix from a warm peer onto a cold one
+(``--cache-peer-fetch``, the ``--cache-fetch-*`` cost weights, the digest
+of ``--cache-digest-depth`` pages; the digest needs the Python page
+allocator, which a host tier takes). The health loop restarts a dead
+replica (``--server-auto-restart``), and a request that had streamed no
+token when its replica died runs again on another
+(``--server-max-redispatch``). ``--faults-spec`` arms the fault-injection
+points (``serving/faults.py``; testing only). ``POST /admin/scale``
+changes the number of replicas at runtime.
 """
 
 from __future__ import annotations
@@ -71,7 +100,10 @@ import sys
 
 import torch
 
-from distributed_inference_server_tpu_torch.core.errors import ModelLoadError
+from distributed_inference_server_tpu_torch.core.errors import (
+    ConfigError,
+    ModelLoadError,
+)
 from distributed_inference_server_tpu_torch.core.queue import (
     QueueConfig,
     parse_tenant_weights,
@@ -85,6 +117,7 @@ from distributed_inference_server_tpu_torch.engine.kv_cache import (
     LATENT_QUANTS,
     WIRE_QUANTS,
     PagedCacheConfig,
+    encoded_page_fraction,
 )
 from distributed_inference_server_tpu_torch.engine.speculative import (
     SpecConfig,
@@ -106,8 +139,17 @@ from distributed_inference_server_tpu_torch.ops.quant import (
     init_random_quantized,
     quantize_params,
 )
+from distributed_inference_server_tpu_torch.serving import faults
 from distributed_inference_server_tpu_torch.serving.batcher import (
     BatcherConfig,
+)
+from distributed_inference_server_tpu_torch.serving.disagg import (
+    DisaggSettings,
+    parse_roles,
+)
+from distributed_inference_server_tpu_torch.serving.scheduler import (
+    FetchCosts,
+    SchedulingStrategy,
 )
 from distributed_inference_server_tpu_torch.serving.server import (
     InferenceServer,
@@ -208,7 +250,141 @@ def _parser() -> argparse.ArgumentParser:
                     help="latent page codec rank (0 = no codec)")
     ap.add_argument("--batcher-max-batch-size", type=int, default=32,
                     help="requests that close an admission batch early")
+    ap.add_argument("--server-num-engines", type=int, default=1,
+                    help="engine replicas on the device")
+    ap.add_argument("--server-engine-roles", default="",
+                    help="one role per replica, e.g. 'prefill,decode' "
+                         "(empty = all unified)")
+    ap.add_argument("--server-strategy", default="least_loaded",
+                    help="round_robin | least_loaded | memory_aware | "
+                         "cache_aware")
+    ap.add_argument("--server-auto-restart", default="true",
+                    help="the health loop restarts a dead replica")
+    ap.add_argument("--server-health-check-interval-s", type=float,
+                    default=1.0, help="seconds between health sweeps")
+    ap.add_argument("--server-restart-backoff-s", type=float, default=1.0,
+                    help="wait after a failed restart (doubles per "
+                         "failure)")
+    ap.add_argument("--server-restart-backoff-max-s", type=float,
+                    default=30.0, help="cap of the restart backoff")
+    ap.add_argument("--server-max-redispatch", type=int, default=2,
+                    help="moves off a dead replica per zero-token request "
+                         "(0 = off)")
+    ap.add_argument("--disagg-handoff-timeout-s", type=float, default=5.0,
+                    help="migration deadline (then decode in place)")
+    ap.add_argument("--disagg-handoff-retries", type=int, default=1,
+                    help="handoff attempts beyond the first")
+    ap.add_argument("--disagg-channel", default="inproc",
+                    help="inproc | protowire")
+    ap.add_argument("--disagg-stream", default="true",
+                    help="streamed handoff (false = monolithic export)")
+    ap.add_argument("--disagg-chunk-pages", type=int, default=8,
+                    help="pages per streamed KvChunk")
+    ap.add_argument("--disagg-wire-quant", default="none",
+                    help="handoff and fetch wire encoding: none | int8 | "
+                         "latent | latent_int8")
+    ap.add_argument("--cache-digest-depth", type=int, default=8,
+                    help="pages of each cached chain in the routing digest")
+    ap.add_argument("--cache-peer-fetch", default="true",
+                    help="cache_aware may fetch a prefix from a warm peer")
+    ap.add_argument("--cache-fetch-min-pages", type=int, default=2,
+                    help="least fetchable gain worth a transfer, pages")
+    ap.add_argument("--cache-fetch-page-cost", type=float, default=0.25,
+                    help="wire cost of one page in recompute pages")
+    ap.add_argument("--cache-fetch-load-cost", type=float, default=4.0,
+                    help="queueing cost of one request in pages")
+    ap.add_argument("--faults-spec", default="",
+                    help="fault-injection rules 'point:key=val,...;...' "
+                         "(testing only)")
+    ap.add_argument("--faults-seed", type=int, default=0,
+                    help="seed of the fault rules' random draws")
     return ap
+
+
+def _replica_settings(args, flags, ecfg: EngineConfig, cfg: ModelConfig,
+                      dtype) -> dict:
+    """The replica, scheduler, handoff and fetch settings as
+    ``InferenceServer`` arguments, plus the armed ``faults`` (None when
+    the spec is empty). Raises ``ValueError`` / ``ConfigError`` with the
+    reference's messages for a bad value."""
+    if args.server_num_engines < 1:
+        raise ValueError("server.num_engines must be >= 1")
+    try:
+        strategy = SchedulingStrategy.parse(args.server_strategy)
+    except ValueError:
+        raise ValueError(
+            f"server.strategy must be one of "
+            f"{', '.join(s.value for s in SchedulingStrategy)}, got "
+            f"{args.server_strategy!r}") from None
+    roles = parse_roles(args.server_engine_roles, args.server_num_engines)
+    if args.server_health_check_interval_s <= 0:
+        raise ValueError("server.health_check_interval_s must be positive")
+    if args.server_max_redispatch < 0:
+        raise ValueError("server.max_redispatch must be >= 0")
+    if args.server_restart_backoff_s <= 0:
+        raise ValueError("server.restart_backoff_s must be positive")
+    if args.server_restart_backoff_max_s < args.server_restart_backoff_s:
+        raise ValueError("server.restart_backoff_max_s must be >= "
+                         "server.restart_backoff_s")
+    if args.disagg_handoff_timeout_s <= 0:
+        raise ValueError("disagg.handoff_timeout_s must be positive")
+    if args.disagg_handoff_retries < 0:
+        raise ValueError("disagg.handoff_retries must be >= 0")
+    if args.disagg_channel not in ("inproc", "protowire"):
+        raise ValueError(f"disagg.channel must be inproc/protowire, got "
+                         f"{args.disagg_channel!r}")
+    if args.disagg_chunk_pages <= 0:
+        raise ValueError("disagg.chunk_pages must be positive")
+    wq = args.disagg_wire_quant
+    if wq not in WIRE_QUANTS:
+        raise ValueError(f"disagg.wire_quant must be none/int8/latent/"
+                         f"latent_int8, got {wq!r}")
+    if ecfg.latent_rank == 0 and wq in LATENT_QUANTS:
+        raise ValueError(f"disagg.wire_quant={wq!r} needs cache.latent_rank "
+                         "> 0 (the engine has no codec to encode with)")
+    if ecfg.digest_depth <= 0:
+        raise ValueError("cache.digest_depth must be positive")
+    if args.cache_fetch_min_pages < 1:
+        raise ValueError("cache.fetch_min_pages must be >= 1")
+    if args.cache_fetch_page_cost < 0:
+        raise ValueError("cache.fetch_page_cost must be >= 0")
+    if args.cache_fetch_load_cost < 0:
+        raise ValueError("cache.fetch_load_cost must be >= 0")
+    armed = None
+    if args.faults_spec:
+        try:
+            armed = faults.parse_spec(args.faults_spec, args.faults_seed)
+        except faults.FaultSpecError as e:
+            raise ValueError(f"faults.spec: {e}") from None
+    # the fetch term charges the wire's encoded bytes (quantized pools
+    # move their own codes whatever the wire setting)
+    wire_frac = 1.0
+    if wq != "none" and ecfg.kv_quant == "none":
+        wire_frac = encoded_page_fraction(
+            wq, torch.empty((), dtype=dtype).element_size(), cfg.head_dim,
+            ecfg.latent_rank)
+    return {
+        "num_engines": args.server_num_engines,
+        "strategy": strategy,
+        "engine_roles": roles,
+        "auto_restart": flags["server.auto_restart"],
+        "health_check_interval_s": args.server_health_check_interval_s,
+        "restart_backoff_s": args.server_restart_backoff_s,
+        "restart_backoff_max_s": args.server_restart_backoff_max_s,
+        "max_redispatch": args.server_max_redispatch,
+        "disagg_settings": DisaggSettings(
+            handoff_timeout_s=args.disagg_handoff_timeout_s,
+            handoff_retries=args.disagg_handoff_retries,
+            channel=args.disagg_channel, stream=flags["disagg.stream"],
+            chunk_pages=args.disagg_chunk_pages, wire_quant=wq),
+        "fetch_costs": FetchCosts(
+            enabled=flags["cache.peer_fetch"],
+            min_pages=args.cache_fetch_min_pages,
+            page_cost=args.cache_fetch_page_cost,
+            load_cost_pages=args.cache_fetch_load_cost,
+            wire_frac=wire_frac),
+        "faults": armed,
+    }
 
 
 def main(argv=None) -> int:
@@ -221,11 +397,17 @@ def main(argv=None) -> int:
         print(f"config error: engine.loop_to_completion: {e}",
               file=sys.stderr)
         return 2
-    try:
-        fair = _bool(args.queue_tenant_fairness)
-    except argparse.ArgumentTypeError as e:
-        print(f"config error: queue.tenant_fairness: {e}", file=sys.stderr)
-        return 2
+    flags = {}
+    for key, text in (("queue.tenant_fairness", args.queue_tenant_fairness),
+                      ("server.auto_restart", args.server_auto_restart),
+                      ("disagg.stream", args.disagg_stream),
+                      ("cache.peer_fetch", args.cache_peer_fetch)):
+        try:
+            flags[key] = _bool(text)
+        except argparse.ArgumentTypeError as e:
+            print(f"config error: {key}: {e}", file=sys.stderr)
+            return 2
+    fair = flags["queue.tenant_fairness"]
     ecfg = EngineConfig(seed=args.seed,
                         paged=PagedCacheConfig(
                             num_pages=args.engine_num_pages),
@@ -237,7 +419,8 @@ def main(argv=None) -> int:
                         pipeline_depth=args.engine_pipeline_depth,
                         warmup_compile=args.engine_warmup_compile,
                         loop_to_completion=loop,
-                        loop_max_steps=args.engine_loop_max_steps)
+                        loop_max_steps=args.engine_loop_max_steps,
+                        digest_depth=args.cache_digest_depth)
     model_dir = args.model_model_dir or None
     draft_dir = args.model_draft_model_dir or None
     draft_name = args.model_draft_model_name or None
@@ -321,10 +504,16 @@ def main(argv=None) -> int:
                 "engine.mixed_step_tokens with a draft model needs "
                 "engine.loop_to_completion")
         dtype = dtype_from_name(args.model_dtype)
+        replicas = _replica_settings(args, flags, ecfg, cfg, dtype)
+        armed = replicas.pop("faults")
         tokenizer = load_tokenizer(model_dir)
-    except (RuntimeError, KeyError, ValueError, ModelLoadError) as e:
+    except (RuntimeError, KeyError, ValueError, ModelLoadError,
+            ConfigError) as e:
         print(f"config error: {e}", file=sys.stderr)
         return 2
+
+    if armed is not None:
+        faults.install(armed)
 
     def engine_factory() -> LLMEngine:
         if model_dir:
@@ -358,7 +547,7 @@ def main(argv=None) -> int:
     server = InferenceServer(engine_factory, tokenizer,
                              model_name=args.model_model_name,
                              queue_config=queue_cfg,
-                             batcher_config=batcher_cfg)
+                             batcher_config=batcher_cfg, **replicas)
     try:
         server.start()
     except (RuntimeError, TimeoutError) as e:

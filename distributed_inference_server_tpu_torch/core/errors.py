@@ -15,6 +15,12 @@ class ServerError(Exception):
     """Internal server error, not exposed to clients directly."""
 
 
+class ConfigError(ServerError):
+    def __init__(self, detail: str):
+        super().__init__(f"Configuration error: {detail}")
+        self.detail = detail
+
+
 class ModelLoadError(ServerError):
     def __init__(self, detail: str):
         super().__init__(f"Model load error: {detail}")

@@ -378,6 +378,10 @@ class EngineConfig:
     # codec; latent wire and tier settings then degrade to "none"). Float
     # pools without a draft model only
     latent_rank: int = 0
+    # chain depth of the published routing digest: the first K page
+    # hashes of each cached chain, all the cache-aware router can score
+    # and peer-fetch (serving/scheduler.py plan_route)
+    digest_depth: int = DIGEST_DEPTH
 
 
 @dataclass
@@ -1069,10 +1073,22 @@ class LLMEngine:
         out, self._sc_samples = self._sc_samples, []
         return out
 
+    def release(self) -> None:
+        """Let go of the device state that outlives a stopped engine's
+        last reference only through its CUDA graphs: wait for the stream,
+        drop every graph and the graph pool. A runner calls it before it
+        builds a replacement engine."""
+        if self._stream is not None:
+            self._stream.synchronize()
+        self._pending.clear()
+        self._graphs.clear()
+        self._pool = None
+
     def memory_stats(self) -> Optional[Dict[str, object]]:
-        """Device memory (cuda only): the allocator's peak, its reserved
-        bytes, the bytes held by the CUDA graphs' private pool and the
-        number of graphs captured."""
+        """Device memory (cuda only): the bytes allocated now and the
+        allocator's peak (the whole process: every replica on the card),
+        its reserved bytes, the bytes held by this engine's CUDA graphs'
+        private pool and the number of graphs captured."""
         if self.device.type != "cuda":
             return None
         pool_bytes = None
@@ -1082,6 +1098,7 @@ class LLMEngine:
                 if tuple(seg.get("segment_pool_id") or ())
                 == tuple(self._pool))
         return {
+            "allocated_bytes": torch.cuda.memory_allocated(self.device),
             "max_allocated_bytes": torch.cuda.max_memory_allocated(
                 self.device),
             "reserved_bytes": torch.cuda.memory_reserved(self.device),
@@ -1233,10 +1250,13 @@ class LLMEngine:
             else:
                 self.allocator.evict_below(target_frac)
 
-    def prefix_digest(self, max_depth: int = DIGEST_DEPTH) -> frozenset:
+    def prefix_digest(self, max_depth: Optional[int] = None) -> frozenset:
         """Cached prefix chains' first ``max_depth`` page hashes (HBM and
-        host tier). Empty on the native allocator tier (it addresses pages
-        by its own hash)."""
+        host tier; None = ``ecfg.digest_depth``). Empty on the native
+        allocator tier (it addresses pages by its own hash): the router
+        then falls back to least-loaded."""
+        if max_depth is None:
+            max_depth = self.ecfg.digest_depth
         dig = getattr(self.allocator, "prefix_digest", None)
         out = dig(max_depth) if dig is not None else frozenset()
         if self.host_tier is not None:
@@ -1938,23 +1958,22 @@ class LLMEngine:
                     "graph (CUDAGraph.register_generator_state): sampled "
                     "decode blocks cannot be captured")
             graph.register_generator_state(generator)
-        before = kernels.launch_counts()
         # capture on the engine stream (current here) from the shared
         # pool; unlike torch.cuda.graph(), no garbage collection and no
         # emptying of the allocator's cache before each capture
         torch.cuda.synchronize(self.device)
-        graph.capture_begin(pool=self._pool,
-                            capture_error_mode="thread_local")
-        try:
-            body()
-        except BaseException:
-            with contextlib.suppress(Exception):
-                graph.capture_end()
-            raise
-        graph.capture_end()
-        after = kernels.launch_counts()
-        counts = {k: after[k] - before[k] for k in after
-                  if after[k] != before[k]}
+        # only this thread's launches: another replica may be serving on
+        # its own thread while this one captures
+        with kernels.recording() as counts:
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                body()
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
         kernels.add_launch_counts(counts, -1)  # capture launched nothing
         self._graphs[key] = _Graph(graph, counts)
 
@@ -3118,19 +3137,16 @@ class LLMEngine:
         for fn in (functools.partial(self._loop_prologue, spec),
                    functools.partial(body, mode)):
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            before = kernels.launch_counts()
-            graph.capture_begin(pool=self._pool,
-                                capture_error_mode="thread_local")
-            try:
-                fn()
-            except BaseException:
-                with contextlib.suppress(Exception):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
-            after = kernels.launch_counts()
-            counts = {k: after[k] - before[k] for k in after
-                      if after[k] != before[k]}
+            with kernels.recording() as counts:
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    fn()
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
             kernels.add_launch_counts(counts, -1)  # captured, not launched
             parts.append((graph, counts))
         (pro, pro_counts), (it, it_counts) = parts

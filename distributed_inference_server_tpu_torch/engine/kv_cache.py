@@ -66,6 +66,18 @@ from distributed_inference_server_tpu_torch.ops.quant import (
 
 logger = logging.getLogger(__name__)
 
+
+def _fault(point: str) -> bool:
+    """Fault-injection trampoline (``serving/faults.py``). The engine layer
+    does not import the serving package when it is imported, so the first
+    call resolves the real ``fire`` and rebinds this name: from then on an
+    injection point costs what it costs in the serving layer, one global
+    load and a ``None`` check."""
+    global _fault
+    from distributed_inference_server_tpu_torch.serving.faults import fire
+    _fault = fire
+    return fire(point)
+
 KV_QUANTS = ("none", "int8")
 
 
@@ -1049,6 +1061,10 @@ def _decode_payload(state: "PagedKVState", data: bytes,
                      _as_tensor(k_s, torch.float32),
                      _as_tensor(v_s, torch.float32))
         elif kind == _KIND_LATENT:
+            # injected latent-decode failure: the import wraps it into
+            # CacheDeserializationError and the caller degrades exactly
+            # once, as for any torn payload
+            _fault("kv.latent_decode")
             if quant:
                 raise ValueError(
                     "latent payload cannot restore into a quantized pool "
@@ -1159,6 +1175,9 @@ class KvImportSession:
     def add_chunk(self, chunk: KvChunk) -> None:
         if self._closed:
             raise CacheDeserializationError("import session already closed")
+        # injected import-validation failure: the session's owner must
+        # abort() and release every reserved page
+        _fault("kv.import_chunk")
         if chunk_crc(chunk.payload) != chunk.crc32:
             raise CacheDeserializationError(
                 f"chunk {chunk.index}: crc mismatch (corrupt payload)")
@@ -1364,6 +1383,10 @@ class HostTier:
         ``[i * page_size, (i + 1) * page_size)``. Window overflow drains
         only groups of EARLIER bursts (``new_burst=False`` continues the
         previous offer's burst); a window of 0 drains everything."""
+        # injected host-copy failure: the whole demotion burst drops
+        # instead of demoting; the allocator's hook boundary absorbs it,
+        # eviction itself never fails
+        _fault("kv.host_copy")
         if not isinstance(arrs, HostCopy):
             arrs = HostCopy(arrs)
         if new_burst:

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+from distributed_inference_server_tpu_torch.ops.kernels import _launches
+
 from distributed_inference_server_tpu_torch.ops.kernels.fused import (
     apply_rope,
     rms_norm,
@@ -49,14 +51,26 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    """Zero the process totals and every thread's tally."""
+    _launches.reset(KERNELS)
 
 
 def add_launch_counts(counts: Dict[str, int], sign: int = 1) -> None:
-    """Add ``sign * counts[name]`` to each wrapper's count: a CUDA graph
-    replay launches the kernels its capture recorded without calling the
-    wrappers, so the graph's owner adds the counts its capture made (and
-    takes them back from the capture itself, which launched nothing)."""
-    for name, n in counts.items():
-        KERNELS[name].launches += sign * n
+    """Add ``sign * counts[name]`` to each wrapper's count and to the
+    calling thread's tally: a CUDA graph replay launches the kernels its
+    capture recorded without calling the wrappers, so the graph's owner
+    adds the counts its capture made (and takes them back from the
+    capture itself, which launched nothing)."""
+    _launches.add(KERNELS, counts, sign)
+
+
+#: the calling thread's launches inside a ``with`` block, by kernel name;
+#: launches of other threads meanwhile are not in it (a capture's graph
+#: counts only its own)
+recording = _launches.recording
+
+
+def thread_launch_counts() -> Dict[str, int]:
+    """The calling thread's launches since the last reset: its engine
+    replica's, as each engine runs on one thread."""
+    return _launches.thread_counts()

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from distributed_inference_server_tpu_torch.ops.kernels import _launches
+
 _FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -69,7 +71,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
     _triton_fused.launch_rms_norm(x.view(M, H), weight, out.view(M, H),
                                   float(eps))
-    rms_norm.launches += 1
+    _launches.count(rms_norm)
     return out
 
 
@@ -103,9 +105,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
     _triton_fused.launch_rope(x.view(M, nh, D), positions.view(M),
                               inv_freq.contiguous(), out.view(M, nh, D))
-    apply_rope.launches += 1
+    _launches.count(apply_rope)
     return out
 
 
-rms_norm.launches = 0
-apply_rope.launches = 0
+_launches.register(rms_norm, "rms_norm")
+_launches.register(apply_rope, "rope")

@@ -56,7 +56,7 @@ from distributed_inference_server_tpu_torch.ops.attention import (
     gqa_attention,
     ragged_gqa_attention,
 )
-from distributed_inference_server_tpu_torch.ops.kernels import _build
+from distributed_inference_server_tpu_torch.ops.kernels import _build, _launches
 from distributed_inference_server_tpu_torch.ops.quant import (
     QuantPool,
     dequantize_kv,
@@ -490,7 +490,7 @@ def paged_decode(
         int(sliding_window), float(attn_softcap), _ptr(part_o),
         _ptr(part_ml), _ptr(ticket), splits, chunk, _stream(q))
     _build.check(err, "paged_decode launch")
-    paged_decode.launches += 1
+    _launches.count(paged_decode)
     return out
 
 
@@ -533,7 +533,7 @@ def paged_decode_int8(
         num_slots // page_size, int(sliding_window), float(attn_softcap),
         _ptr(part_o), _ptr(part_ml), _ptr(ticket), splits, chunk, _stream(q))
     _build.check(err, "paged_decode_int8 launch")
-    paged_decode_int8.launches += 1
+    _launches.count(paged_decode_int8)
     return out
 
 
@@ -580,7 +580,7 @@ def paged_prefill(
         P, num_slots // page_size, int(sliding_window), float(attn_softcap),
         _ptr(part_o), _ptr(part_ml), _ptr(ticket), splits, chunk, _stream(q))
     _build.check(err, "paged_prefill launch")
-    paged_prefill.launches += 1
+    _launches.count(paged_prefill)
     return out
 
 
@@ -637,12 +637,12 @@ def paged_ragged(
         float(attn_softcap), _ptr(part_o), _ptr(part_ml), _ptr(ticket),
         splits, chunk, _stream(q))
     _build.check(err, "paged_ragged launch")
-    paged_ragged.launches += 1
+    _launches.count(paged_ragged)
     return out
 
 
-paged_decode.launches = 0
-paged_decode_int8.launches = 0
-paged_prefill.launches = 0
-paged_ragged.launches = 0
+_launches.register(paged_decode, "paged_decode")
+_launches.register(paged_decode_int8, "paged_decode_int8")
+_launches.register(paged_prefill, "paged_prefill")
+_launches.register(paged_ragged, "paged_ragged")
 

@@ -29,7 +29,7 @@ import functools
 
 import torch
 
-from distributed_inference_server_tpu_torch.ops.kernels import _build
+from distributed_inference_server_tpu_torch.ops.kernels import _build, _launches
 from distributed_inference_server_tpu_torch.ops.quant import (
     Q4Tensor,
     Q8Tensor,
@@ -181,7 +181,7 @@ def quant_matmul_q8(x: torch.Tensor, w: Q8Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul runs on cpu or cuda, not {x.device}")
     out = _launch(x, w, packed=False)
-    quant_matmul_q8.launches += 1
+    _launches.count(quant_matmul_q8)
     return out
 
 
@@ -192,7 +192,7 @@ def quant_matmul_q4(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul runs on cpu or cuda, not {x.device}")
     out = _launch(x, w, packed=True)
-    quant_matmul_q4.launches += 1
+    _launches.count(quant_matmul_q4)
     return out
 
 
@@ -206,5 +206,5 @@ def quant_matmul(x: torch.Tensor, w) -> torch.Tensor:
     raise TypeError(f"quant_matmul takes a Q8Tensor or Q4Tensor, got {type(w)}")
 
 
-quant_matmul_q8.launches = 0
-quant_matmul_q4.launches = 0
+_launches.register(quant_matmul_q8, "quant_matmul_q8")
+_launches.register(quant_matmul_q4, "quant_matmul_q4")

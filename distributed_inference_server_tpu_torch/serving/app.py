@@ -11,14 +11,19 @@ not available where the port runs). One thread per connection, HTTP/1.1.
   handler, streamed as ``text_completion`` / ``chat.completion.chunk``
   objects;
 - ``GET /metrics``: Prometheus text (``serving/metrics.py``);
-- ``GET /health``: ``{status, accepting, engines: [EngineStatus]}`` plus
-  ``model`` and ``device``;
+- ``GET /health``: ``{status, accepting, engines: [EngineStatus]}`` (one
+  per replica; 200 while any replica is healthy) plus ``model`` and
+  ``device``;
 - ``GET /server/stats``: the ``MetricsSnapshot`` plus the port's own
   blocks (``serving/server.py stats``);
 - ``POST /admin/speculation``: body ``{"action": "reset"}`` clears every
   replica's speculation acceptance trackers and answers ``{"status":
   "ok", "engines_reset": n}`` (replicas without a draft count too, as in
   the reference); any other body is 400 ``invalid_body``;
+- ``POST /admin/scale``: body ``{"num_engines": N}`` (1 to 64) adds or
+  retires replicas (a retired one drains its requests first); answers
+  ``{"status": "ok", "num_engines", "engines"}``, 400 ``invalid_body`` for a bad
+  body, 500 ``scale_failed`` when a replica fails to start;
 - ``POST /server/kernel_counts/reset``: zero the kernels' launch counts
   (a measurement run brackets the path it measures with it);
 - ``POST /server/profile``: body ``{"steps": N}`` (optional
@@ -471,6 +476,22 @@ def make_handler(server: "InferenceServer") -> type:
                 n += 1
             self._send(200, {"status": "ok", "engines_reset": n})
 
+        def _scale(self) -> None:
+            n = self._json_body().get("num_engines")
+            if (not isinstance(n, int) or isinstance(n, bool)
+                    or not 1 <= n <= 64):
+                raise _InvalidBody("'num_engines' must be an integer in "
+                                   "[1, 64]")
+            try:
+                server.scale_to(n)
+            except Exception as e:  # noqa: BLE001 — a replica's failure
+                self._send(500, ErrorResponse.of(
+                    str(e), "server_error", "scale_failed").to_dict())
+                return
+            statuses = server.dispatcher.scheduler.statuses()
+            self._send(200, {"status": "ok", "num_engines": len(statuses),
+                             "engines": [st.to_dict() for st in statuses]})
+
         def _reset_counts(self) -> None:
             server.reset_kernel_counts()
             self._send(200, {"kernel_launches": server.kernel_counts()})
@@ -485,6 +506,7 @@ def make_handler(server: "InferenceServer") -> type:
             "/v1/embeddings": _embeddings,
             "/server/profile": _profile,
             "/admin/speculation": _speculation,
+            "/admin/scale": _scale,
             "/server/kernel_counts/reset": _reset_counts,
         }
 

@@ -1,5 +1,5 @@
-"""Dispatcher: queue -> admission batcher -> scheduler -> engine runner,
-plus the timeout sweep (port of the single-replica part of
+"""Dispatcher: queue -> admission batcher -> scheduler -> engine runners,
+plus the timeout sweep and crash-safe redispatch (port of
 ``distributed_inference_server_tpu/serving/dispatcher.py``).
 
 One dispatch thread runs::
@@ -7,15 +7,20 @@ One dispatch thread runs::
     loop:
       sweep queued requests older than the timeout -> 408 queue_timeout
       poll the admission batcher (50 ms window / 32 requests)
-      the scheduler picks a runner; the runner admits the batch in order
+      the scheduler picks a runner (cache_aware: one per request, a
+        "fetch" plan handed to the PrefixFetcher); the runner admits its
+        requests in order
       idle (queue and window empty): sleep until submit() wakes it or the
       next sweep is due; else wait the poll interval (2 ms)
 
 Backpressure surfaces at ``submit()`` as ``QueueFull`` (503 ``queue_full``)
 from the queue's hysteresis, or while the server drains. ``abort`` reaches
-a request wherever it is: queued, in the batching window, or in flight.
-``shutdown`` stops accepting, drains, and dispatches whatever is still in
-the window so no client hangs.
+a request wherever it is: queued, in the batching window, in a peer
+fetch, in the migration queue, or in flight. ``shutdown`` stops
+accepting, drains (in-flight migrations and fetches included), and
+dispatches whatever is still in the window so no client hangs.
+``redispatch`` takes a zero-token request off a dead replica and runs it
+on a healthy one, at most ``max_redispatch`` times.
 
 The queue and batcher tiers (``_make_queue`` / ``_make_batcher``): the
 native C++ ones (``native/``) when the library builds, the Python ones
@@ -23,10 +28,9 @@ otherwise, and always the Python ones under ``tenant_fairness`` (the
 native queue has no tenant lanes). The choice is logged and reported as
 ``tier``.
 
-Not ported yet: redispatch off a dead replica, cache-aware routing and
-peer prefix fetch, deadline-aware shedding (``AdmissionShed``), the
-degradation ladder's gates. ``SingleRunnerScheduler`` stands in for the
-reference's scheduler with its ``schedule()`` / ``engines()`` contract.
+Not ported yet: deadline-aware shedding (``AdmissionShed``) and the
+degradation ladder's gates; ``retry_budget`` (the shared retry budget)
+stays None.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import List, Optional
 
 from distributed_inference_server_tpu_torch.core.errors import QueueFull
 from distributed_inference_server_tpu_torch.core.queue import (
@@ -54,27 +58,14 @@ from distributed_inference_server_tpu_torch.serving.metrics import (
     MetricsCollector,
 )
 from distributed_inference_server_tpu_torch.serving.runner import (
-    EngineRunner,
     ServerRequest,
+)
+from distributed_inference_server_tpu_torch.serving.scheduler import (
+    AdaptiveScheduler,
+    SchedulingStrategy,
 )
 
 logger = logging.getLogger(__name__)
-
-
-class SingleRunnerScheduler:
-    """The scheduler contract over one replica: ``schedule()`` returns the
-    runner while it is healthy (None otherwise, which fails the batch with
-    ``no_workers``), ``engines()`` lists it."""
-
-    def __init__(self, runner: EngineRunner):
-        self._runner = runner
-
-    def schedule(self, prompt_ids: Optional[Sequence[int]] = None
-                 ) -> Optional[EngineRunner]:
-        return self._runner if self._runner.is_healthy() else None
-
-    def engines(self) -> List[EngineRunner]:
-        return [self._runner]
 
 
 def _make_queue(queue_config: Optional[QueueConfig],
@@ -115,13 +106,27 @@ def _make_batcher(queue, batcher_config: Optional[BatcherConfig]):
 class Dispatcher:
     """Owns the queue, the batcher and the dispatch / sweep thread."""
 
-    def __init__(self, scheduler: SingleRunnerScheduler,
+    def __init__(self, scheduler: AdaptiveScheduler,
                  queue_config: Optional[QueueConfig] = None,
                  batcher_config: Optional[BatcherConfig] = None,
                  metrics: Optional[MetricsCollector] = None,
                  poll_interval_s: float = 0.002,
-                 native_queue: Optional[bool] = None):
+                 native_queue: Optional[bool] = None,
+                 disagg=None, max_redispatch: int = 2,
+                 prefix_fetcher=None):
+        """``disagg``: the ``DisaggController`` of a disaggregated
+        topology (its migrations count toward the drain, aborts reach
+        requests parked there). ``max_redispatch``: moves off a dead
+        replica per request before it fails to its client (0 = off).
+        ``prefix_fetcher``: the ``PrefixFetcher`` that carries out the
+        cache_aware "fetch" decisions (None: they degrade to plain
+        submission)."""
         self.scheduler = scheduler
+        self.disagg = disagg
+        self.prefix_fetcher = prefix_fetcher
+        self.max_redispatch = max_redispatch
+        # the shared retry budget's hook (not ported: stays None)
+        self.retry_budget = None
         self.queue = _make_queue(queue_config, native_queue)
         self.batcher = _make_batcher(self.queue, batcher_config)
         self.metrics = metrics
@@ -161,7 +166,11 @@ class Dispatcher:
         while time.monotonic() < deadline:
             if (self.queue.is_empty() and self.batcher.pending_count() == 0
                     and not any(r.active_count()
-                                for r in self.scheduler.engines())):
+                                for r in self.scheduler.engines())
+                    and (self.disagg is None
+                         or self.disagg.pending_count() == 0)
+                    and (self.prefix_fetcher is None
+                         or self.prefix_fetcher.pending_count() == 0)):
                 break
             if self._stop.wait(0.01):
                 break
@@ -190,13 +199,60 @@ class Dispatcher:
         self._wake.set()
         self._publish_depths()
 
+    def redispatch(self, request: ServerRequest, from_engine: str,
+                   reason: str) -> bool:
+        """A runner died with ``request`` in flight having streamed no
+        token: run it from scratch on a healthy replica, unseen by the
+        client. Called from the dead runner's ``_fail_all_of`` (any
+        thread); True when this dispatcher took the request (it reaches
+        exactly one terminal event on its new replica), False when the
+        caller must fail it (draining, budget used up, or no healthy
+        replica). The caller already removed the request from its own
+        in-flight map, and ``runner.submit`` registers it with exactly
+        one new owner; a submit racing the new replica's own crash comes
+        back here with the count already raised, so ``max_redispatch``
+        bounds the recursion."""
+        if self.max_redispatch <= 0:
+            return False  # off: not an "exhausted" budget
+        if not self._accepting:
+            return False  # draining: the crash error is the truth
+        if request.redispatches >= self.max_redispatch:
+            if self.metrics:
+                self.metrics.record_redispatch("exhausted")
+            return False
+        if (self.retry_budget is not None
+                and not self.retry_budget.acquire("redispatch")):
+            if self.metrics:
+                self.metrics.record_redispatch("exhausted")
+            return False
+        runner = self.scheduler.schedule(request.prompt_ids)
+        if runner is None:
+            if self.metrics:
+                self.metrics.record_redispatch("exhausted")
+            return False
+        request.redispatches += 1
+        logger.info("redispatching %s from %s to %s (%s)",
+                    request.request_id, from_engine, runner.engine_id,
+                    reason)
+        runner.submit([request])
+        # counted after submit took the request
+        if self.metrics:
+            self.metrics.record_redispatch("ok")
+        return True
+
     def abort(self, request_id: RequestId) -> None:
         """Client went away: drop the request from the queue or the window
-        if it was not dispatched yet, else tell the runners (only its
-        owner finds it)."""
+        if it was not dispatched yet, flag it in a peer fetch or the
+        migration queue, else tell the runners (only its owner finds
+        it)."""
         if self.queue.cancel(request_id) is not None:
             return
         if self.batcher.cancel(request_id) is not None:
+            return
+        if (self.prefix_fetcher is not None
+                and self.prefix_fetcher.abort(request_id)):
+            return
+        if self.disagg is not None and self.disagg.abort(request_id):
             return
         for runner in self.scheduler.engines():
             runner.abort(request_id)
@@ -235,14 +291,53 @@ class Dispatcher:
             pad = (max(lens) * len(lens) / max(sum(lens), 1) - 1.0
                    if lens else 0.0)
             self.metrics.record_batch(len(requests), max(0.0, pad))
-        runner = self.scheduler.schedule()
-        if runner is None:
-            for r in requests:
-                r.sink.on_error("no healthy inference engine available",
-                                "no_workers")
-        else:
-            runner.submit(requests)
+        for runner, reqs in self._route(requests):
+            if runner is None:
+                for r in reqs:
+                    r.sink.on_error("no healthy inference engine available",
+                                    "no_workers")
+            else:
+                runner.submit(reqs)
         self._publish_depths()
+
+    def _route(self, requests: List[ServerRequest]) -> list:
+        """``(runner, requests)`` groups for one admission batch.
+        cache_aware routes per request against one snapshot of the
+        replicas (two requests of a window may be warm on different
+        replicas): with a fetcher by the three-way cost model, whose
+        "fetch" requests go to the ``PrefixFetcher`` (the warm peer's
+        pages land on the cold replica before the request does), else by
+        matched depth. Every other strategy sends the batch to one
+        replica."""
+        strategy = self.scheduler.strategy()
+        if strategy is not SchedulingStrategy.CACHE_AWARE:
+            return [(self.scheduler.schedule(), requests)]
+        prompts = [r.prompt_ids for r in requests]
+        if self.prefix_fetcher is None:
+            picks = zip(requests, self.scheduler.schedule_batch(prompts))
+        else:
+            picks = []
+            for r, (runner, plan) in zip(
+                    requests, self.scheduler.schedule_batch_plans(prompts)):
+                decision = plan.decision if plan is not None else "recompute"
+                if decision == "fetch" and runner is not None:
+                    peer = self.scheduler.get(plan.peer_id)
+                    if peer is not None:
+                        if self.metrics:
+                            self.metrics.record_prefix_route("fetch")
+                        self.prefix_fetcher.fetch_then_submit(
+                            runner, peer, r, plan)
+                        continue
+                    # the peer left since the snapshot: serve without it
+                    decision = "warm" if plan.depth else "recompute"
+                if self.metrics and runner is not None:
+                    self.metrics.record_prefix_route(decision)
+                picks.append((r, runner))
+        groups: dict = {}
+        for r, runner in picks:
+            key = runner.engine_id if runner is not None else None
+            groups.setdefault(key, (runner, []))[1].append(r)
+        return list(groups.values())
 
     def _publish_depths(self) -> None:
         if self.metrics:

@@ -1,8 +1,8 @@
 """Serving metrics: Prometheus text for ``GET /metrics`` and the JSON
 snapshot of ``GET /server/stats`` (port of
 ``distributed_inference_server_tpu/serving/metrics.py``: ``EngineStatus``,
-``MetricsSnapshot`` and the part of ``MetricsCollector`` that one
-unified-role replica records).
+``MetricsSnapshot`` and the part of ``MetricsCollector`` that the port's
+replicas record).
 
 The families, their types, label names and histogram buckets are the
 reference collector's. The text exposition format (version 0.0.4) is
@@ -12,10 +12,9 @@ per family, a counter's samples under ``<name>_total``, a histogram's as
 labels sorted by name. A family with labels shows samples only for the
 label values recorded so far; one without shows its zero from the start.
 
-Not here (they come with their modules): the host tier, disaggregated
-handoff, peer prefix fetch and routing, the fleet and its registry HA,
-restarts and redispatch, admission shedding and gray-failure health, the
-request-phase tracing and SLO accounting.
+Not here (they come with their modules): the fleet and its registry HA,
+admission shedding and gray-failure health, the request-phase tracing and
+SLO accounting.
 
 Requests, tokens, admission batches, the admission queue's depth by
 priority and tenant, queue expiries, TTFT and step seconds are recorded as
@@ -68,6 +67,16 @@ class EngineStatus:
     # engine.latent_stats() (None without a latent codec)
     host_tier: Any = None
     latent: Any = None
+    # cache-aware routing: the engine's rolling digest of cached prefix
+    # chains (first digest_depth page hashes of each, kv_cache.chain_hashes
+    # key space) and the page size they were hashed with. In-process
+    # routing state only, never serialized
+    prefix_digest: Any = None
+    page_size: int = 0
+    digest_depth: int = 0
+    # gray-failure verdict ("healthy" | "degraded" | "ejected"); the port
+    # has no health scorer yet, so every replica stays "healthy"
+    health: str = "healthy"
 
     def to_dict(self) -> Dict[str, Any]:
         d = {
@@ -91,6 +100,8 @@ class EngineStatus:
             d["host_tier"] = self.host_tier
         if self.latent is not None:
             d["latent"] = self.latent
+        if self.health != "healthy":
+            d["health"] = self.health
         return d
 
 
@@ -109,11 +120,14 @@ class MetricsSnapshot:
     queue_depth: int
     worker_statuses: Tuple[EngineStatus, ...] = ()
     uptime_seconds: float = 0.0
-    # prefix-cache block: allocator hit / miss / eviction totals and the
-    # page-granular prefix hits by tier
+    # disaggregated serving: handoff outcomes, bytes, chunks and stalls
+    # (None while no handoff happened and every replica is unified)
+    disagg: Optional[Dict[str, Any]] = None
+    # prefix-cache block: allocator hit / miss / eviction totals, the
+    # page-granular prefix hits by tier, peer fetches and route decisions
     cache: Optional[Dict[str, Any]] = None
-    # the reference's resilience block; None until a queued request
-    # expires (the port's only resilience counter so far)
+    # restarts by replica, redispatch outcomes and queue expiries (None
+    # until one of them happened)
     resilience: Optional[Dict[str, Any]] = None
 
     def to_dict(self) -> Dict[str, Any]:
@@ -130,6 +144,8 @@ class MetricsSnapshot:
             "worker_statuses": [w.to_dict() for w in self.worker_statuses],
             "uptime_seconds": round(self.uptime_seconds, 1),
         }
+        if self.disagg is not None:
+            out["disagg"] = self.disagg
         if self.cache is not None:
             out["cache"] = self.cache
         if self.resilience is not None:
@@ -405,6 +421,66 @@ class MetricsCollector:
             "reclaim = sliding-window pages released, retrace = a new "
             "program geometry compiled mid-serving)", "counter",
             ["engine_id", "event"])
+        # peer prefix fetch and the cache_aware route decisions behind it
+        self.prefix_fetches = fam(
+            "kv_prefix_fetch_total",
+            "Peer-to-peer prefix fetches by outcome (ok = fetched pages "
+            "seated on the cold replica, fallback = peer death / stale "
+            "registry / torn stream degraded the request to recompute) "
+            "and scope (local = in-process peer, remote = a fleet "
+            "member over its KV data channel)", "counter",
+            ["outcome", "scope"])
+        self.prefix_fetch_bytes = fam(
+            "kv_prefix_fetch_bytes_total",
+            "Serialized KV bytes moved by peer prefix fetches "
+            "(post wire-quantization), by peer scope (local | remote)",
+            "counter", ["scope"])
+        self.prefix_fetch_latency = fam(
+            "kv_prefix_fetch_seconds",
+            "Peer prefix fetch latency (route decision to request "
+            "submission on the target replica)", "histogram", (),
+            (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2))
+        self.prefix_routes = fam(
+            "kv_prefix_route_total",
+            "cache_aware route decisions (warm = routed to a matched "
+            "replica, fetch = peer-fetch onto a cold replica, recompute "
+            "= no usable match)", "counter", ["decision"])
+        # disaggregated prefill/decode serving (serving/disagg.py)
+        self.handoff_latency = fam(
+            "kv_handoff_latency_seconds",
+            "Prefill->decode KV handoff latency (export to resume)",
+            "histogram", (),
+            (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2, 5))
+        self.handoff_bytes = fam(
+            "kv_handoff_bytes_total",
+            "Serialized KV bytes moved over the handoff channel "
+            "(post wire-quantization)", "counter")
+        self.handoff_stall = fam(
+            "kv_handoff_stall_seconds",
+            "Decode pause observed by the migrated sequence", "histogram",
+            (), (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2, 5))
+        self.handoff_chunks = fam(
+            "kv_handoff_chunks_total",
+            "KvChunk frames moved over the handoff channel, by target "
+            "scope (local = in-process decode replica, remote = a fleet "
+            "member over its KV data channel)", "counter", ["scope"])
+        self.handoffs = fam(
+            "kv_handoff_total",
+            "KV handoffs by outcome (ok | fallback | retry)", "counter",
+            ["outcome"])
+        self.engines_by_role = fam(
+            "engines_by_role", "Engine replicas per disaggregation role",
+            "gauge", ["role"])
+        # restarts and crash-safe redispatch
+        self.engine_restarts = fam(
+            "engine_restarts_total",
+            "Engine replica restart attempts by the health loop",
+            "counter", ["engine_id"])
+        self.redispatches = fam(
+            "requests_redispatched_total",
+            "Zero-token in-flight requests moved off a dead engine "
+            "(ok = resubmitted to a healthy replica, exhausted = attempt "
+            "budget or healthy capacity ran out)", "counter", ["outcome"])
 
         # snapshot internals
         self._total_requests = 0
@@ -424,6 +500,18 @@ class MetricsCollector:
         self._latent: Dict[str, Dict[str, int]] = {}
         self._requests_expired = 0
         self._tenants_seen: set = set()
+        self._prefix_fetches: Dict[str, int] = {}
+        self._prefix_fetch_bytes = 0
+        self._fetch_sum = 0.0
+        self._fetch_count = 0
+        self._prefix_routes: Dict[str, int] = {}
+        self._handoffs: Dict[str, int] = {}
+        self._handoff_bytes = 0
+        self._handoff_chunks = 0
+        self._stall_sum = 0.0
+        self._stall_count = 0
+        self._engine_restarts: Dict[str, int] = {}
+        self._redispatches: Dict[str, int] = {}
 
     # -- recording ---------------------------------------------------------
 
@@ -583,6 +671,79 @@ class MetricsCollector:
             self._active_requests = max(0, self._active_requests - 1)
         self.active_requests_g.dec()
 
+    def record_prefix_fetch(self, outcome: str,
+                            seconds: Optional[float] = None,
+                            nbytes: int = 0, scope: str = "local") -> None:
+        """One peer prefix fetch (``disagg.PrefixFetcher``): ``outcome``
+        "ok" (pages seated on the cold replica) or "fallback" (the
+        request recomputed instead)."""
+        self.prefix_fetches.labels(outcome=outcome, scope=scope).inc()
+        if seconds is not None:
+            self.prefix_fetch_latency.observe(seconds)
+        if nbytes:
+            self.prefix_fetch_bytes.labels(scope=scope).inc(nbytes)
+        with self._lock:
+            self._prefix_fetches[outcome] = (
+                self._prefix_fetches.get(outcome, 0) + 1)
+            self._prefix_fetch_bytes += nbytes
+            if seconds is not None:
+                self._fetch_sum += seconds
+                self._fetch_count += 1
+
+    def record_prefix_route(self, decision: str) -> None:
+        """One cache_aware route decision: warm | fetch | recompute."""
+        self.prefix_routes.labels(decision=decision).inc()
+        with self._lock:
+            self._prefix_routes[decision] = (
+                self._prefix_routes.get(decision, 0) + 1)
+
+    def record_handoff(self, outcome: str, latency_s: Optional[float] = None,
+                       nbytes: int = 0, stall_s: Optional[float] = None,
+                       chunks: int = 0, scope: str = "local") -> None:
+        """One KV handoff event (``serving/disagg.py``): ``outcome`` "ok"
+        (resumed on a decode replica), "fallback" (decoded in place on the
+        source) or "retry" (a failed attempt that was retried);
+        ``stall_s`` is the decode pause the migrated sequence saw,
+        ``chunks`` its streamed KvChunk frames (0 = monolithic)."""
+        self.handoffs.labels(outcome=outcome).inc()
+        if latency_s is not None:
+            self.handoff_latency.observe(latency_s)
+        if stall_s is not None:
+            self.handoff_stall.observe(stall_s)
+        if nbytes:
+            self.handoff_bytes.inc(nbytes)
+        if chunks:
+            self.handoff_chunks.labels(scope=scope).inc(chunks)
+        with self._lock:
+            self._handoffs[outcome] = self._handoffs.get(outcome, 0) + 1
+            self._handoff_bytes += nbytes
+            self._handoff_chunks += chunks
+            if stall_s is not None:
+                self._stall_sum += stall_s
+                self._stall_count += 1
+
+    def set_engines_by_role(self, counts: Dict[str, int]) -> None:
+        """Replicas per role (prefill / decode / unified gauges)."""
+        for role in ("prefill", "decode", "unified"):
+            self.engines_by_role.labels(role=role).set(counts.get(role, 0))
+
+    def record_engine_restart(self, engine_id: str) -> None:
+        """One health-loop restart attempt of ``engine_id`` (counted when
+        the attempt starts: a crash loop shows even while it fails)."""
+        self.engine_restarts.labels(engine_id=engine_id).inc()
+        with self._lock:
+            self._engine_restarts[engine_id] = (
+                self._engine_restarts.get(engine_id, 0) + 1)
+
+    def record_redispatch(self, outcome: str) -> None:
+        """One crash-safe redispatch decision: "ok" (resubmitted to a
+        healthy replica) or "exhausted" (budget or capacity ran out and
+        the request failed to its sink)."""
+        self.redispatches.labels(outcome=outcome).inc()
+        with self._lock:
+            self._redispatches[outcome] = (
+                self._redispatches.get(outcome, 0) + 1)
+
     def set_engine_up(self, engine_id: str, up: bool) -> None:
         self.engine_up.labels(engine_id=engine_id).set(1 if up else 0)
 
@@ -615,6 +776,12 @@ class MetricsCollector:
             "host_tier_bytes": sum(h["bytes"] for h in tiers),
             "host_tier_pages": sum(h["pages"] for h in tiers),
         }
+        cache["peer_fetch"] = {
+            **self._prefix_fetches,
+            "bytes": self._prefix_fetch_bytes,
+            "avg_ms": round(self._fetch_sum / max(1, self._fetch_count)
+                            * 1000.0, 3)}
+        cache["route_decisions"] = dict(self._prefix_routes)
         if self._payload_bytes:
             cache["payload_bytes"] = dict(self._payload_bytes)
         latents = list(self._latent.values())
@@ -664,8 +831,28 @@ class MetricsCollector:
                 queue_depth=self._queue_depth,
                 worker_statuses=tuple(engine_statuses),
                 uptime_seconds=now - self._started_at,
+                disagg=self._disagg_block_locked(engine_statuses),
                 cache=self._cache_block_locked(engine_statuses),
-                resilience=({"engine_restarts": {}, "redispatched": {},
-                             "requests_expired": self._requests_expired}
-                            if self._requests_expired else None),
+                resilience=self._resilience_block_locked(),
             )
+
+    def _disagg_block_locked(self, engine_statuses) -> Optional[Dict]:
+        if not self._handoffs and all(s.role == "unified"
+                                      for s in engine_statuses):
+            return None
+        return {
+            "handoffs": dict(self._handoffs),
+            "handoff_bytes": self._handoff_bytes,
+            "handoff_chunks": self._handoff_chunks,
+            "handoff_stall_count": self._stall_count,
+            "handoff_stall_avg_ms": round(
+                self._stall_sum / max(1, self._stall_count) * 1000.0, 3),
+        }
+
+    def _resilience_block_locked(self) -> Optional[Dict]:
+        if not (self._engine_restarts or self._redispatches
+                or self._requests_expired):
+            return None
+        return {"engine_restarts": dict(self._engine_restarts),
+                "redispatched": dict(self._redispatches),
+                "requests_expired": self._requests_expired}

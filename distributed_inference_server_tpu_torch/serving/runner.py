@@ -1,32 +1,44 @@
-"""Engine runner: a dedicated thread owning one ``LLMEngine`` (port of
-``distributed_inference_server_tpu/serving/runner.py``: ``EngineRunner``,
-its inbox, the per-request result sinks, the embeddings jobs and the
-metrics hooks).
+"""Engine runner: a dedicated thread owning one ``LLMEngine`` replica (port
+of ``distributed_inference_server_tpu/serving/runner.py``: ``EngineRunner``,
+its inbox, the per-request result sinks, the embeddings jobs, the metrics
+hooks, restarts, roles, and the replica's side of the KV handoff and the
+peer prefix fetch).
 
 The engine is single-owner and synchronous; every interaction with it —
-admission, aborts, embeddings jobs, counter reads that touch engine state —
-goes through a thread-safe inbox drained on the runner thread between
-steps. Step outputs fan out to per-request ``ResultSink``s
-(``serving/streamer.py``); a sink with a ``flush`` method gets one call
-per step in which it received events.
+admission, aborts, imports, exports, embeddings jobs, counter reads that
+touch engine state — goes through a thread-safe inbox drained on the
+runner thread between steps. Step outputs fan out to per-request
+``ResultSink``s (``serving/streamer.py``); a sink with a ``flush`` method
+gets one call per step in which it received events.
 
 Embeddings (``submit_embed``) run as incremental jobs: one device batch
 (``engine.embed_step``) per loop iteration, between engine steps, so a
 large embeddings request never stalls the decoding requests.
 
-Requests arrive as admission batches from the dispatcher
-(``serving/dispatcher.py``), which has already recorded the batch.
-
-Metrics (``serving/metrics.py``): each request's time to first token
-(``submitted_at``, its arrival at the admission queue, to
-``first_token_at``), tokens and engine-step seconds as they happen;
-``status()`` hands the engine's cumulative counters (cache, mixed step,
-looped blocks, step clock, waiting queue, speculation) to the collector
-when it is read.
+Roles (``serving/disagg.py``): a ``prefill`` runner admits requests
+prefill-only and hands each finished prefill to the ``DisaggController``
+(streamed: the prefix pages serialize while the sequence decodes on; or
+monolithic); a ``decode`` runner takes migrated sequences
+(``submit_resume``, ``submit_import_open`` / ``_commit`` / ``_abort``).
+Any runner serves a peer's prefix fetch (``submit_prefix_export``) or
+takes one in (``submit_prefix_import``). Every such callback fires
+exactly once: on the runner thread, or at once or at a crash when the
+engine is (or becomes) unavailable.
 
 Failure semantics: a per-request failure arrives as ``StepOutput.error``
-and fails only that request; an exception escaping the step loop marks the
-runner unhealthy and fails every in-flight request and embeddings job.
+and fails only that request; an exception escaping the step loop marks
+the runner unhealthy and resolves everything in flight, exactly once
+each: a request that streamed no token goes back to the dispatcher
+(``redispatch``) to run on another replica, one that did ends with
+``engine_crashed``. The scheduler's health loop then ``restart``s the
+runner, which releases the dead engine's pools, CUDA graphs and graph
+pool before the factory builds a new one.
+
+Status: ``status()`` answers from snapshots the runner thread refreshes
+after each step (load, page counts, the rate-limited prefix digest), so
+the scheduler never waits for a replica; ``observe()`` reads the engine's
+cumulative counters on the runner thread and hands them to the collector
+(``/metrics``, ``/server/stats``, ``/health``).
 
 With ``EngineConfig.warmup_compile`` set, the runner runs
 ``engine.warmup()`` (every serving program once; on ``cuda`` every CUDA
@@ -36,6 +48,7 @@ graph captured) before it reports ready, and keeps its duration in
 
 from __future__ import annotations
 
+import gc
 import logging
 import threading
 import time
@@ -44,6 +57,7 @@ from typing import (Callable, Deque, Dict, List, Optional, Protocol,
                     Sequence)
 
 import numpy as np
+import torch
 
 from distributed_inference_server_tpu_torch.core.models import (
     FinishReason,
@@ -58,6 +72,8 @@ from distributed_inference_server_tpu_torch.engine.engine import (
     SamplingParams,
     StepOutput,
 )
+from distributed_inference_server_tpu_torch.ops import kernels
+from distributed_inference_server_tpu_torch.serving import faults
 from distributed_inference_server_tpu_torch.serving.metrics import (
     EngineStatus,
     MetricsCollector,
@@ -66,6 +82,7 @@ from distributed_inference_server_tpu_torch.serving.metrics import (
 logger = logging.getLogger(__name__)
 
 EmbedCallback = Callable[[Optional[np.ndarray], Optional[str]], None]
+DoneCallback = Callable[[bool, Optional[str]], None]
 
 
 class ResultSink(Protocol):
@@ -81,11 +98,13 @@ class ResultSink(Protocol):
 
 
 class ServerRequest:
-    """A validated, tokenized request on its way to the runner (through the
-    admission queue); ``tenant`` is its fair-admission lane."""
+    """A validated, tokenized request on its way to a runner (through the
+    admission queue); ``tenant`` is its fair-admission lane,
+    ``redispatches`` the moves off dead replicas it has used (bounded by
+    the dispatcher's ``max_redispatch``)."""
 
     __slots__ = ("request_id", "prompt_ids", "params", "sink",
-                 "submitted_at", "first_token_at", "tenant")
+                 "submitted_at", "first_token_at", "tenant", "redispatches")
 
     def __init__(self, request_id: RequestId, prompt_ids: List[int],
                  params: SamplingParams, sink: ResultSink,
@@ -97,6 +116,7 @@ class ServerRequest:
         self.tenant = tenant
         self.submitted_at = time.monotonic()
         self.first_token_at: Optional[float] = None
+        self.redispatches = 0
 
 
 class EngineRunner:
@@ -104,17 +124,42 @@ class EngineRunner:
 
     def __init__(self, engine_id: str,
                  engine_factory: Callable[[], LLMEngine],
-                 metrics: MetricsCollector):
+                 metrics: MetricsCollector, role: str = "unified",
+                 disagg=None):
+        """``role`` ("prefill" | "decode" | "unified") and ``disagg``
+        (the ``DisaggController``) enable disaggregated serving; unified
+        (the default) prefills and decodes in place."""
         self.engine_id = engine_id
+        self.role = role
+        self._disagg = disagg
         self._factory = engine_factory
         self.metrics = metrics
+        # crash-safe redispatch hook (the server wires the dispatcher's
+        # redispatch): called for an in-flight request that streamed no
+        # token when this runner dies; True = it took the request
+        self.redispatch: Optional[
+            Callable[[ServerRequest, str, str], bool]] = None
         self._inbox: Deque[Callable[[], None]] = deque()
         self._inbox_lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._healthy = False
         self._last_error: Optional[str] = None
+        # per-request dict ops are GIL-atomic; every terminal path pops
+        # the entry before resolving it, so each resolves exactly once
         self._inflight: Dict[RequestId, ServerRequest] = {}
+        # exactly-once callbacks not yet run by the runner thread (a
+        # crash or shutdown resolves them from _fail_all): resumes by
+        # request id, import opens and prefix imports, peer exports
+        self._pending_resumes: Dict[RequestId, DoneCallback] = {}
+        self._pending_opens: Dict[str, DoneCallback] = {}
+        self._pending_fetches: Dict[str, Callable] = {}
+        # streamed exports in flight ([session, request, stream job]),
+        # advanced between steps; owned by the runner thread
+        self._export_jobs: Dict[RequestId, list] = {}
+        # open import sessions awaiting their commit: id -> (session,
+        # engine)
+        self._import_sessions: Dict[RequestId, tuple] = {}
         self._engine: Optional[LLMEngine] = None
         self._thread: Optional[threading.Thread] = None
         # embeddings: callbacks by job token (each called exactly once)
@@ -123,12 +168,27 @@ class EngineRunner:
         self._embed_seq = 0
         self._embed_lock = threading.Lock()
         self._embed_jobs: Deque[dict] = deque()
+        # snapshots the runner thread refreshes, read by status() from any
+        # thread: (waiting, used, total, cached, page_size, digest_depth),
+        # the prefix digest (rate-limited) and observe()'s last blocks
+        self._load = (0, 0, 0, 0, 0, 0)
+        self._prefix_digest: frozenset = frozenset()
+        self._digest_ts = 0.0
+        self._observed: dict = {}
+        # each runner thread's kernel launch tally (one per start)
+        self._tallies: List[Dict[str, int]] = []
         # counters read from other threads (GIL-atomic int updates)
         self.requests_finished = 0
         self.tokens_generated = 0
         self.steps = 0
         self.step_seconds = 0.0
         self.warmup_seconds: Optional[float] = None
+        self.restarts = 0
+        # host seconds of the handoff's engine work on this replica:
+        # exports (prefix pumps, switchover or monolithic export) and
+        # imports (open + prefix chunks, commit, or monolithic import)
+        self.handoff_s = {"export": 0.0, "import": 0.0, "exports": 0,
+                          "imports": 0}
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -157,6 +217,37 @@ class EngineRunner:
         self.metrics.set_engine_up(self.engine_id, False)
         self._fail_all("engine shut down before request completion")
 
+    def restart(self, wait_ready: bool = True,
+                timeout: float = 600.0) -> None:
+        """Tear the engine down, release its device memory, and bring a
+        new one up from the factory."""
+        self.shutdown()
+        with self._inbox_lock:
+            self._inbox.clear()
+        self._inflight.clear()
+        self._export_jobs.clear()
+        self.release_engine()
+        self.restarts += 1
+        self.start(wait_ready=wait_ready, timeout=timeout)
+
+    def release_engine(self) -> None:
+        """Drop the (stopped) engine: its pools, CUDA graphs and graph
+        pool go back to the device before anything new is built."""
+        eng, self._engine = self._engine, None
+        if eng is None:
+            return
+        eng.release()
+        del eng
+        gc.collect()  # the engine's hooks form reference cycles
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+    def set_role(self, role: str) -> None:
+        """Re-role the runner: ``submit`` reads the role per batch, so
+        the next admission batch follows it while in-flight requests
+        finish under the old one."""
+        self.role = role
+
     # -- submission (any thread) -------------------------------------------
 
     def submit(self, requests: Sequence[ServerRequest]) -> None:
@@ -164,19 +255,24 @@ class EngineRunner:
         batch's order (strict priority, then FIFO)."""
         reqs = list(requests)
         # registered here, not on the runner thread: a crash before the
-        # inbox drains still fails these sinks
+        # inbox drains still resolves these requests
         for r in reqs:
             self._inflight[r.request_id] = r
         if not self._healthy:
-            for r in reqs:
-                self._fail(r, self._last_error or "engine unavailable")
+            self._fail_all_of(reqs, self._last_error or "engine unavailable")
             return
+        # with no decode replica left (scaled away) a prefill replica
+        # admits unified: prefill-only would export, retry and fall back
+        # on every request
+        prefill_only = (self.role == "prefill" and self._disagg is not None
+                        and self._disagg.has_decode_targets())
 
         def _do() -> None:
             for r in reqs:
                 if r.request_id in self._inflight:  # not aborted meanwhile
                     self._engine.add_request(r.request_id, r.prompt_ids,
-                                             r.params)
+                                             r.params,
+                                             prefill_only=prefill_only)
 
         self._post(_do)
 
@@ -189,6 +285,202 @@ class EngineRunner:
             self._engine.abort(request_id)
 
         self._post(_do)
+
+    def submit_resume(self, exp, req: ServerRequest,
+                      on_done: DoneCallback) -> None:
+        """Resume a migrated sequence here (``engine.import_sequence``).
+        ``on_done(ok, err)`` fires exactly once; on ok=False the request
+        is deregistered again and the caller (the controller) owns it."""
+        # the callback before the request: a concurrent _fail_all that saw
+        # the request but not the callback would fail it AND let the
+        # fallback resume it
+        self._pending_resumes[req.request_id] = on_done
+        self._inflight[req.request_id] = req
+        if not self._healthy:
+            self._inflight.pop(req.request_id, None)
+            cb = self._pending_resumes.pop(req.request_id, None)
+            if cb is not None:  # None: _fail_all resolved it
+                cb(False, self._last_error or "engine unavailable")
+            return
+
+        def _do() -> None:
+            cb = self._pending_resumes.pop(req.request_id, None)
+            if cb is None:
+                return  # resolved by _fail_all
+            if req.request_id not in self._inflight:
+                cb(True, "aborted")  # resolved, but not a transfer
+                return
+            t0 = time.monotonic()
+            try:
+                self._engine.import_sequence(exp)
+            except Exception as e:  # noqa: BLE001 — import fault domain
+                self._inflight.pop(req.request_id, None)
+                cb(False, str(e))
+                return
+            self._handoff_clock("import", t0, count=True)
+            cb(True, None)
+
+        self._post(_do)
+
+    def submit_import_open(self, request_id: RequestId, prefix_pages: int,
+                           chunks, on_done: DoneCallback) -> None:
+        """Phase 1 of a streamed handoff on the target: open an import
+        session, reserve the prefix pages and absorb the prefix chunks
+        while the source still decodes. ok=True: ready for the commit."""
+        token = f"open:{request_id}"
+        self._pending_opens[token] = on_done
+        if not self._healthy:
+            cb = self._pending_opens.pop(token, None)
+            if cb is not None:
+                cb(False, self._last_error or "engine unavailable")
+            return
+
+        def _do() -> None:
+            cb = self._pending_opens.pop(token, None)
+            if cb is None:
+                return  # resolved by _fail_all
+            engine = self._engine
+            session = None
+            t0 = time.monotonic()
+            try:
+                session = engine.import_stream_open(request_id, prefix_pages)
+                engine.import_stream_add(session, chunks)
+            except Exception as e:  # noqa: BLE001 — import fault domain
+                if session is not None:
+                    # the open reserved pages: a bad chunk hands them back
+                    try:
+                        engine.import_stream_abort(session)
+                    except Exception as abort_exc:  # noqa: BLE001
+                        self._absorbed("import_abort", abort_exc)
+                cb(False, str(e))
+                return
+            self._import_sessions[request_id] = (session, engine)
+            self._handoff_clock("import", t0)
+            cb(True, None)
+
+        self._post(_do)
+
+    def submit_import_commit(self, exp, req: ServerRequest,
+                             on_done: DoneCallback) -> None:
+        """Phase 2: absorb the tail delta, validate, publish and seat (the
+        part inside the migrated sequence's stall). Same contract as
+        ``submit_resume``."""
+        self._pending_resumes[req.request_id] = on_done
+        self._inflight[req.request_id] = req
+        if not self._healthy:
+            self._inflight.pop(req.request_id, None)
+            cb = self._pending_resumes.pop(req.request_id, None)
+            self._drop_import_session(req.request_id)
+            if cb is not None:
+                cb(False, self._last_error or "engine unavailable")
+            return
+
+        def _do() -> None:
+            cb = self._pending_resumes.pop(req.request_id, None)
+            if cb is None:
+                return  # resolved by _fail_all
+            entry = self._import_sessions.pop(req.request_id, None)
+            if req.request_id not in self._inflight:
+                if entry is not None:  # aborted between open and commit
+                    entry[1].import_stream_abort(entry[0])
+                cb(True, "aborted")
+                return
+            if entry is None:
+                self._inflight.pop(req.request_id, None)
+                cb(False, "no open import session (engine restarted?)")
+                return
+            session, engine = entry
+            if engine is not self._engine:
+                # restarted since the open: the reserved pages belong to
+                # the old pool
+                self._inflight.pop(req.request_id, None)
+                cb(False, "engine restarted mid-import")
+                return
+            t0 = time.monotonic()
+            try:
+                engine.import_stream_commit(session, exp)
+            except Exception as e:  # noqa: BLE001 — import fault domain
+                self._inflight.pop(req.request_id, None)
+                cb(False, str(e))
+                return
+            self._handoff_clock("import", t0, count=True)
+            cb(True, None)
+
+        self._post(_do)
+
+    def submit_import_abort(self, request_id: RequestId) -> None:
+        """Drop an opened, uncommitted import (the source cancelled the
+        stream): its reserved pages go back."""
+        self._post(lambda: self._drop_import_session(request_id))
+
+    def submit_prefix_export(self, request_id: RequestId,
+                             hashes: Sequence[int], chunk_pages: int,
+                             wire_quant: str,
+                             on_done: Callable[[Optional[tuple],
+                                                Optional[str]], None]
+                             ) -> None:
+        """Peer-fetch source: serialize this engine's cached chain for
+        ``hashes`` (HBM and host tier, consecutive from the head).
+        ``on_done((depth, chunks), None)`` or ``on_done(None, err)`` fires
+        exactly once, so a peer that dies mid-fetch degrades the caller to
+        recompute."""
+        token = f"pfx:{request_id}"
+        self._pending_fetches[token] = on_done
+        if not self._healthy:
+            cb = self._pending_fetches.pop(token, None)
+            if cb is not None:
+                cb(None, self._last_error or "engine unavailable")
+            return
+
+        def _do() -> None:
+            cb = self._pending_fetches.pop(token, None)
+            if cb is None:
+                return  # resolved by _fail_all
+            try:
+                depth, chunks = self._engine.export_prefix_chunks(
+                    hashes, chunk_pages=chunk_pages, wire_quant=wire_quant)
+            except Exception as e:  # noqa: BLE001 — export fault domain
+                cb(None, str(e))
+                return
+            cb((depth, chunks), None)
+
+        self._post(_do)
+
+    def submit_prefix_import(self, request_id: RequestId,
+                             tokens: Sequence[int], chunks,
+                             on_done: DoneCallback) -> None:
+        """Peer-fetch target: validate and scatter the fetched chunks into
+        this engine's prefix cache (``engine.import_prefix``), so the
+        request submitted next matches them. ok=False: the fetcher falls
+        back to recompute."""
+        token = f"pfx-import:{request_id}"
+        self._pending_opens[token] = on_done
+        if not self._healthy:
+            cb = self._pending_opens.pop(token, None)
+            if cb is not None:
+                cb(False, self._last_error or "engine unavailable")
+            return
+
+        def _do() -> None:
+            cb = self._pending_opens.pop(token, None)
+            if cb is None:
+                return  # resolved by _fail_all
+            try:
+                self._engine.import_prefix(tokens, chunks)
+            except Exception as e:  # noqa: BLE001 — import fault domain
+                cb(False, str(e))
+                return
+            cb(True, None)
+
+        self._post(_do)
+
+    def _drop_import_session(self, request_id: RequestId) -> None:
+        entry = self._import_sessions.pop(request_id, None)
+        if entry is not None:
+            try:
+                entry[1].import_stream_abort(entry[0])
+            except Exception as e:  # noqa: BLE001 — cleanup isolation
+                self._absorbed("import_abort", e)
 
     def submit_embed(self, ids_list: List[List[int]],
                      on_result: EmbedCallback) -> None:
@@ -235,6 +527,19 @@ class EngineRunner:
         if not box:
             raise RuntimeError("engine call failed")
         return box[0]
+
+    def audit(self, timeout_s: float = 30.0) -> List[str]:
+        """KV-page conservation audit on the runner thread, counting open
+        import sessions' reserved pages as live holders. Empty = clean; an
+        unhealthy runner audits clean (its pool died with it)."""
+        if not self._healthy:
+            return []
+        try:
+            return self.call(lambda e: e.audit_pages(
+                [p for (session, _e) in self._import_sessions.values()
+                 for p in session.pages]), timeout_s)
+        except TimeoutError:
+            return [f"{self.engine_id}: audit timed out after {timeout_s}s"]
 
     def profile_steps(self, n: int, timeout_s: float = 30.0) -> dict:
         """A device trace over the next ``n`` engine steps (the engine
@@ -295,13 +600,37 @@ class EngineRunner:
     def active_count(self) -> int:
         return len(self._inflight)
 
+    def launch_counts(self) -> Dict[str, int]:
+        """Kernel launches made on this runner's threads (its engines')
+        since the last reset of the counters."""
+        out: Dict[str, int] = {}
+        for tally in list(self._tallies):
+            for name, n in dict(tally).items():
+                out[name] = out.get(name, 0) + n
+        return out
+
     def status(self) -> EngineStatus:
-        """This replica's ``EngineStatus``. The engine's page and queue
-        counts and its cumulative counters are read on the runner thread
-        and handed to the collector (zeros, and the collector untouched,
-        when it cannot answer)."""
-        used = total = cached = waiting = 0
-        mixed = loop = speculation = host_tier = latent = None
+        """This replica's ``EngineStatus`` from the runner thread's latest
+        snapshots: it never waits for the replica (the scheduler reads it
+        for every admission window)."""
+        waiting, used, total, cached, page_size, depth = self._load
+        o = self._observed
+        return EngineStatus(
+            engine_id=self.engine_id, healthy=self._healthy,
+            active_requests=len(self._inflight), waiting_requests=waiting,
+            total_processed=self.requests_finished,
+            memory_used_pages=used, memory_total_pages=total,
+            pages_cached=cached, role=self.role,
+            speculation=o.get("speculation"), mixed=o.get("mixed"),
+            loop=o.get("loop"), host_tier=o.get("host_tier"),
+            latent=o.get("latent"), prefix_digest=self._prefix_digest,
+            page_size=page_size, digest_depth=depth)
+
+    def observe(self) -> EngineStatus:
+        """Read the engine's page and queue counts and its cumulative
+        counters on the runner thread, hand them to the collector, and
+        return the status (the snapshot, collector untouched, when it
+        cannot answer)."""
         if self._healthy:
             try:
                 (s, waiting, mixed, loop, clock, speculation, host_tier,
@@ -312,8 +641,12 @@ class EngineRunner:
                                e.host_tier_stats(), e.latent_stats(),
                                e.payload_byte_counters(),
                                e.drain_reload_durations()))
-                total, cached = s.pages_total, s.pages_cached
-                used = total - s.pages_free
+                _, _, _, _, ps, depth = self._load
+                self._load = (waiting, s.pages_total - s.pages_free,
+                              s.pages_total, s.pages_cached, ps, depth)
+                self._observed = {"mixed": mixed, "loop": loop,
+                                  "speculation": speculation,
+                                  "host_tier": host_tier, "latent": latent}
                 self.metrics.observe_engine(
                     self.engine_id, s, mixed, loop, clock,
                     host_tier=host_tier, payload=payload, reloads=reloads,
@@ -322,17 +655,12 @@ class EngineRunner:
                     self.metrics.set_speculation(self.engine_id, speculation)
             except (TimeoutError, RuntimeError) as e:
                 self._absorbed("status", e)
-        return EngineStatus(
-            engine_id=self.engine_id, healthy=self._healthy,
-            active_requests=len(self._inflight), waiting_requests=waiting,
-            total_processed=self.requests_finished,
-            memory_used_pages=used, memory_total_pages=total,
-            pages_cached=cached, speculation=speculation, mixed=mixed,
-            loop=loop, host_tier=host_tier, latent=latent)
+        return self.status()
 
     # -- runner thread -----------------------------------------------------
 
     def _run(self, ready: threading.Event) -> None:
+        self._tallies.append(kernels.thread_launch_counts())
         try:
             self._engine = self._factory()
             if self._engine.ecfg.warmup_compile:
@@ -341,6 +669,8 @@ class EngineRunner:
                 t0 = time.monotonic()
                 self._engine.warmup()
                 self.warmup_seconds = time.monotonic() - t0
+            self._refresh_load()
+            self._refresh_digest(force=True)
             self._healthy = True
         except Exception as e:  # noqa: BLE001 — startup failure isolation
             logger.exception("engine %s failed to start", self.engine_id)
@@ -359,11 +689,20 @@ class EngineRunner:
                     worked = True
                     t0 = time.monotonic()
                     outputs = self._engine.step()
+                    # crash mid-step: outputs computed, none delivered
+                    faults.fire("runner.step")
                     dt = time.monotonic() - t0
                     self.step_seconds += dt
                     self.steps += 1
                     self.metrics.record_inference(dt)
                     self._dispatch(outputs)
+                    self._refresh_load()
+                    # forced on the busy-to-idle edge: a request's last
+                    # step publishes its prefix chain, and with no later
+                    # step the rate-limited refresh would never see it
+                    self._refresh_digest(force=not self._engine.has_work())
+                if self._drain_handoffs():
+                    worked = True
                 worked |= self._embed_quantum()
                 if not worked:
                     self._wake.wait(0.005)
@@ -375,16 +714,174 @@ class EngineRunner:
             self.metrics.set_engine_up(self.engine_id, False)
             self._fail_all(str(e))
 
+    def _refresh_load(self) -> None:
+        e = self._engine
+        s = e.cache_stats()
+        self._load = (e.num_waiting(), s.pages_total - s.pages_free,
+                      s.pages_total, s.pages_cached, e.pcfg.page_size,
+                      e.ecfg.digest_depth)
+
+    def _refresh_digest(self, force: bool = False,
+                        min_interval_s: float = 0.25) -> None:
+        """Snapshot the engine's prefix digest for cache-aware routing
+        (runner thread only; rate-limited: the digest is advisory)."""
+        now = time.monotonic()
+        if not force and now - self._digest_ts < min_interval_s:
+            return
+        try:
+            self._prefix_digest = self._engine.prefix_digest()
+            self._digest_ts = now
+        except Exception as e:  # noqa: BLE001 — the digest is best-effort
+            self._absorbed("prefix_digest", e)
+
     def _drain_inbox(self) -> None:
         while True:
             with self._inbox_lock:
                 if not self._inbox:
                     break
                 fn = self._inbox.popleft()
+            # crash between submit and drain: requests registered, the
+            # engine never saw them (zero tokens: redispatchable). Outside
+            # the per-command try: it kills the runner
+            faults.fire("runner.inbox")
             try:
                 fn()
             except Exception as e:  # noqa: BLE001 — command isolation
                 self._absorbed("inbox", e)
+
+    # -- handoff exports (prefill role; runner thread) -----------------------
+
+    def _drain_handoffs(self) -> bool:
+        """Export the prefills the engine parked and queue their
+        migration. Streamed (the default): the sequence decodes on while
+        its prefix pages serialize; a loop iteration later the switchover
+        exports only the tail. Draft-model engines and short completions
+        take the monolithic export. True if it moved anything."""
+        if self._disagg is None or self._engine is None:
+            return False
+        worked = self._pump_export_jobs()
+        ids = self._engine.handoff_ready_ids()
+        if not ids:
+            return worked
+        settings = self._disagg.settings
+        stream = settings.stream and self._engine.draft_state is None
+        for rid in ids:
+            req = self._inflight.get(rid)
+            if req is None:  # aborted after readiness
+                self._engine.abort(rid)
+                continue
+            t0 = time.monotonic()
+            try:
+                if stream:
+                    session = self._engine.export_handoff_begin(
+                        rid, chunk_pages=settings.chunk_pages,
+                        wire_quant=settings.wire_quant)
+                    if session is not None:
+                        entry = [session, req, None]
+                        self._export_jobs[rid] = entry
+                        # serialize and open the target now: the pulls
+                        # overlap the decode pipeline in flight
+                        self._advance_export_job(rid, entry)
+                        self._advance_export_job(rid, entry)
+                        continue
+                    # not worth streaming (tiny prefix or short budget)
+                stalled_at = time.monotonic()
+                exp = self._engine.export_handoff(
+                    rid, wire_quant=settings.wire_quant)
+                self._handoff_clock("export", t0, count=True)
+            except Exception as e:  # noqa: BLE001 — per-request isolation
+                # the engine may still hold the sequence and its pages
+                self._engine.abort(rid)
+                self._inflight.pop(rid, None)
+                self._sink_error(req, f"KV export failed: {e}",
+                                 "handoff_failed")
+                continue
+            if exp is None:
+                continue
+            exp.source_engine = self.engine_id
+            exp.stalled_at = stalled_at
+            self._inflight.pop(rid, None)
+            self._disagg.enqueue(exp, req, self)
+        return True
+
+    def _pump_export_jobs(self) -> bool:
+        """Advance each streamed export one stage per loop iteration (the
+        sequence decodes a block between stages: the overlap window)."""
+        if not self._export_jobs:
+            return False
+        for rid, entry in list(self._export_jobs.items()):
+            self._advance_export_job(rid, entry)
+        return True
+
+    def _advance_export_job(self, rid, entry) -> None:
+        """One stage of one streamed export: serialize the prefix, open
+        the target (phase 1), wait for it, then switch over (export the
+        tail and commit, phase 2). A failure before the switchover costs
+        nothing: the sequence keeps decoding here."""
+        session, req, job = entry
+        try:
+            if session.dead:
+                self._drop_export_job(rid, job, record=False)
+                return
+            if not session.prefix_done:
+                t0 = time.monotonic()
+                self._engine.export_handoff_pump(session)
+                self._handoff_clock("export", t0)
+                return  # the target opens while the next block decodes
+            if job is None:
+                job = self._disagg.open_stream(
+                    rid, session.chunks, len(session.prefix_pages),
+                    session.wire_quant, req, self)
+                if job is None:  # controller not accepting
+                    self._cancel_export(rid, session, None, record=False)
+                    return
+                entry[2] = job
+                return
+            if job.status == "opening":
+                if time.monotonic() > job.deadline:
+                    self._cancel_export(rid, session, job, record=True)
+                return
+            if job.status in ("failed", "cancelled"):
+                self._cancel_export(rid, session, job,
+                                    record=job.status == "failed")
+                return
+            # target ready: switch over
+            t0 = time.monotonic()
+            exp, outputs = self._engine.export_handoff_finish(session)
+            self._handoff_clock("export", t0, count=True)
+            self._dispatch(outputs)
+            self._export_jobs.pop(rid, None)
+            if exp is None or rid not in self._inflight:
+                # finished, aborted or preempted in place meanwhile
+                self._disagg.cancel_stream(job, record=False)
+                return
+            exp.source_engine = self.engine_id
+            self._inflight.pop(rid, None)
+            self._disagg.commit_stream(job, exp)
+        except Exception as e:  # noqa: BLE001 — per-request isolation
+            self._drop_export_job(rid, job, record=False)
+            self._engine.abort(rid)
+            self._inflight.pop(rid, None)
+            self._sink_error(req, f"KV export failed: {e}", "handoff_failed")
+
+    def _handoff_clock(self, kind: str, t0: float,
+                       count: bool = False) -> None:
+        self.handoff_s[kind] += time.monotonic() - t0
+        if count:
+            self.handoff_s[kind + "s"] += 1
+
+    def _cancel_export(self, rid, session, job, record: bool) -> None:
+        """Abandon a streamed export before the switchover: the sequence
+        keeps decoding here; the target's reserved pages are released."""
+        self._engine.export_handoff_cancel(session)
+        self._drop_export_job(rid, job, record=record)
+
+    def _drop_export_job(self, rid, job, record: bool) -> None:
+        self._export_jobs.pop(rid, None)
+        if job is not None and self._disagg is not None:
+            self._disagg.cancel_stream(job, record=record)
+
+    # -- step outputs (runner thread) ----------------------------------------
 
     def _embed_quantum(self) -> bool:
         """Advance the oldest embeddings job by one device batch. Returns
@@ -464,17 +961,76 @@ class EngineRunner:
         self._last_error = f"{site}: {exc}"
         self.metrics.record_error(f"runner.{site}")
 
-    def _fail(self, req: ServerRequest, message: str) -> None:
-        self._inflight.pop(req.request_id, None)
+    def _sink_error(self, req: ServerRequest, message: str,
+                    code: str) -> None:
         try:
-            req.sink.on_error(message, "engine_unavailable")
+            req.sink.on_error(message, code)
         except Exception as e:  # noqa: BLE001 — sink isolation
             self._absorbed("sink", e)
 
     def _fail_all(self, message: str) -> None:
-        for req in list(self._inflight.values()):
-            self._fail(req, message)
+        """Resolve everything in flight, exactly once each, when the
+        engine dies or stops."""
+        # streamed exports die with the engine: cancel their stream jobs
+        # so the targets' reserved pages are released
+        for rid, entry in list(self._export_jobs.items()):
+            self._drop_export_job(rid, entry[2], record=False)
+        self._export_jobs.clear()
+        # un-run resumes first, out of _inflight: on_done(False) hands the
+        # request back to the controller's fallback, which owns it
+        for rid in list(self._pending_resumes):
+            cb = self._pending_resumes.pop(rid, None)
+            if cb is None:
+                continue
+            self._inflight.pop(rid, None)
+            try:
+                cb(False, message)
+            except Exception as e:  # noqa: BLE001 — callback isolation
+                self._absorbed("resume_callback", e)
+        # un-run opens and prefix imports (the stream falls back to
+        # decoding on its source, the fetch to recompute), then peer
+        # exports (the fetcher recomputes on its target)
+        for token in list(self._pending_opens):
+            cb = self._pending_opens.pop(token, None)
+            if cb is not None:
+                try:
+                    cb(False, message)
+                except Exception as e:  # noqa: BLE001 — callback isolation
+                    self._absorbed("open_callback", e)
+        for token in list(self._pending_fetches):
+            cb = self._pending_fetches.pop(token, None)
+            if cb is not None:
+                try:
+                    cb(None, message)
+                except Exception as e:  # noqa: BLE001 — callback isolation
+                    self._absorbed("fetch_callback", e)
+        for rid in list(self._import_sessions):
+            self._drop_import_session(rid)
+        self._fail_all_of(list(self._inflight.values()), message)
+        self._inflight.clear()
         with self._embed_lock:
             tokens = list(self._pending_embeds)
         for token in tokens:
             self._resolve_embed(token, None, message)
+
+    def _fail_all_of(self, reqs: Sequence[ServerRequest],
+                     message: str) -> None:
+        """Resolve dead in-flight requests, exactly once each: each is
+        popped from ``_inflight`` first, then takes one terminal path —
+        redispatch (no token streamed yet: the dispatcher runs it on
+        another replica), or a sink error: ``worker_failure`` for a
+        zero-token request the dispatcher declined, ``engine_crashed``
+        for one that streamed tokens (a re-run could continue the stream
+        differently)."""
+        for req in reqs:
+            if self._inflight.pop(req.request_id, None) is None:
+                continue  # another failure path owns it
+            if req.first_token_at is None and self.redispatch is not None:
+                try:
+                    if self.redispatch(req, self.engine_id, message):
+                        continue  # the new owner resolves the sink
+                except Exception as e:  # noqa: BLE001 — hook isolation
+                    self._absorbed("redispatch", e)
+            code = ("worker_failure" if req.first_token_at is None
+                    else "engine_crashed")
+            self._sink_error(req, message, code)

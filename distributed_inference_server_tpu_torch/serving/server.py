@@ -1,24 +1,32 @@
-"""Inference server: one engine runner behind a standard-library HTTP
-server (the counterpart of ``distributed_inference_server_tpu/serving/
-server.py`` for one replica).
+"""Inference server: engine replicas behind the adaptive scheduler and a
+standard-library HTTP server (the counterpart of
+``distributed_inference_server_tpu/serving/server.py`` without the fleet,
+hot swap, tracing and the gray-failure control plane).
 
-It wires the ``MetricsCollector``, the ``EngineRunner`` (which records
-into it), the ``Dispatcher`` in front of it (``serving/dispatcher.py``:
-the priority queue with backpressure, the windowed admission batcher and
-the timeout sweep; the server starts it after the runner and drains it on
-shutdown) and the ``InferenceHandler`` (``serving/handler.py``: the
-``/generate``, ``/chat``, ``/v1/*`` and ``/embeddings`` lifecycles), and
-``serve`` runs a ``ThreadingHTTPServer`` (one thread per connection) on
-the app in ``serving/app.py``. Not ported yet: several replicas behind a
-scheduler, and the fleet.
+It wires the ``MetricsCollector``; ``num_engines`` ``EngineRunner``
+replicas, each built by ``engine_factory(replica_index)`` (or a
+zero-argument factory) on its own thread, with its role (``prefill``,
+``decode`` or ``unified``); the ``AdaptiveScheduler`` over them (its
+strategy, health loop and automatic restarts); the ``DisaggController``
+when any role is prefill or decode, and the ``PrefixFetcher`` for the
+cache_aware route's peer fetches (``serving/disagg.py``); the
+``Dispatcher`` in front (queue, batching window, timeout sweep, crash-safe
+redispatch); and the ``InferenceHandler``. ``serve`` runs a
+``ThreadingHTTPServer`` (one thread per connection) on the app in
+``serving/app.py``. ``scale_to`` adds replicas or retires them (unified
+ones first, youngest first), draining a retired replica before it stops.
+
+``server.runner`` is the first replica (``engine-0``): it is never
+retired, and a restart keeps its runner object.
 """
 
 from __future__ import annotations
 
+import inspect
 import threading
 import time
 from http.server import ThreadingHTTPServer
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,9 +38,15 @@ from distributed_inference_server_tpu_torch.serving.app import make_handler
 from distributed_inference_server_tpu_torch.serving.batcher import (
     BatcherConfig,
 )
+from distributed_inference_server_tpu_torch.serving.disagg import (
+    DisaggController,
+    DisaggSettings,
+    PrefixFetcher,
+    make_channel,
+    parse_roles,
+)
 from distributed_inference_server_tpu_torch.serving.dispatcher import (
     Dispatcher,
-    SingleRunnerScheduler,
 )
 from distributed_inference_server_tpu_torch.serving.handler import (
     InferenceHandler,
@@ -43,6 +57,11 @@ from distributed_inference_server_tpu_torch.serving.metrics import (
 from distributed_inference_server_tpu_torch.serving.runner import (
     EngineRunner,
 )
+from distributed_inference_server_tpu_torch.serving.scheduler import (
+    AdaptiveScheduler,
+    FetchCosts,
+    SchedulingStrategy,
+)
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -52,36 +71,93 @@ class _HTTPServer(ThreadingHTTPServer):
     request_queue_size = 128
 
 
+def _bind_factory(factory: Callable, idx: int) -> Callable[[], LLMEngine]:
+    """Bind a replica index: a factory that takes one (``def f(i)``) gets
+    it, a zero-argument factory passes through."""
+    try:
+        takes_index = bool(inspect.signature(factory).parameters)
+    except (TypeError, ValueError):
+        takes_index = False
+    return (lambda: factory(idx)) if takes_index else factory
+
+
 class InferenceServer:
-    """Serving spine for one engine replica."""
+    """Serving spine for one model's engine replicas."""
 
     def __init__(
         self,
-        engine_factory: Callable[[], LLMEngine],
+        engine_factory: Callable[..., LLMEngine],
         tokenizer: Tokenizer,
         model_name: str,
         queue_config: Optional[QueueConfig] = None,
         batcher_config: Optional[BatcherConfig] = None,
+        num_engines: int = 1,
+        strategy: SchedulingStrategy = SchedulingStrategy.LEAST_LOADED,
+        engine_roles: Optional[Sequence[str]] = None,
+        disagg_settings: Optional[DisaggSettings] = None,
+        fetch_costs: Optional[FetchCosts] = None,
+        auto_restart: bool = True,
+        health_check_interval_s: float = 1.0,
+        restart_backoff_s: float = 1.0,
+        restart_backoff_max_s: float = 30.0,
+        max_redispatch: int = 2,
     ):
         """``queue_config`` / ``batcher_config``: the admission queue's
         watermarks, timeout, cap and tenant lanes, and the batching window
-        (the reference defaults when None). The queue takes the native C++
-        tier when it builds and tenant lanes are off."""
+        (the reference defaults when None). ``engine_roles``: one role per
+        replica, or a comma-separated string (None / all unified: every
+        replica prefills and decodes in place); ``disagg_settings``: the
+        handoff's timeout, retries, channel, streaming, chunk size and
+        wire encoding, also the peer fetch's channel and encoding.
+        ``fetch_costs``: the cache_aware cost model's weights.
+        ``auto_restart``: the health loop (every
+        ``health_check_interval_s``) restarts a dead replica, backing off
+        ``restart_backoff_s`` doubling up to ``restart_backoff_max_s``
+        after a failed restart. ``max_redispatch``: moves off a dead
+        replica per zero-token request (0 = off)."""
         from distributed_inference_server_tpu_torch import native
 
         self.tok = tokenizer
         self.model_name = model_name
+        self.engine_factory = engine_factory
         self.metrics = MetricsCollector()
-        self.runner = EngineRunner("engine-0", engine_factory, self.metrics)
+        self.scheduler = AdaptiveScheduler(
+            strategy=strategy,
+            health_check_interval_s=health_check_interval_s,
+            auto_restart=auto_restart, metrics=self.metrics,
+            restart_backoff_s=restart_backoff_s,
+            restart_backoff_max_s=restart_backoff_max_s,
+            fetch_costs=fetch_costs)
+        if isinstance(engine_roles, str):
+            engine_roles = parse_roles(engine_roles, num_engines)
+        self._roles: List[str] = list(engine_roles or [])
+        settings = disagg_settings or DisaggSettings()
+        self.disagg: Optional[DisaggController] = None
+        if any(r in ("prefill", "decode") for r in self._roles):
+            self.disagg = DisaggController(
+                self.scheduler, metrics=self.metrics,
+                channel=make_channel(settings.channel), settings=settings)
+            self.metrics.set_engines_by_role(
+                DisaggController.role_counts(self._roles))
+        # always built: whether it runs is the cost model's decision,
+        # which says "fetch" only under cache_aware with peer fetch on
+        self.prefix_fetcher = PrefixFetcher(
+            channel=make_channel(settings.channel), settings=settings,
+            metrics=self.metrics)
         self.batcher_config = batcher_config or BatcherConfig()
         self.dispatcher = Dispatcher(
-            SingleRunnerScheduler(self.runner), queue_config,
-            self.batcher_config, self.metrics)
+            self.scheduler, queue_config, self.batcher_config, self.metrics,
+            disagg=self.disagg, max_redispatch=max_redispatch,
+            prefix_fetcher=self.prefix_fetcher)
         # the validator's tier, as the reference picks it: native when the
         # library builds
         self.handler = InferenceHandler(self.dispatcher, tokenizer,
                                         model_name, self.metrics,
                                         native.make_validator())
+        self._num_engines = num_engines
+        self._next_engine_idx = 0
+        self._scale_lock = threading.Lock()
+        self.runner: Optional[EngineRunner] = None
         self._accepting = False
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._http_thread: Optional[threading.Thread] = None
@@ -90,7 +166,14 @@ class InferenceServer:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self, wait_ready: bool = True) -> None:
-        self.runner.start(wait_ready=wait_ready)
+        """Start the controller, the replicas one after another (each
+        warms up before the next is built), the health loop and the
+        dispatcher."""
+        if self.disagg is not None:
+            self.disagg.start()
+        for _ in range(self._num_engines):
+            self._spawn_engine(wait_ready=wait_ready)
+        self.scheduler.start_health_loop()
         self.dispatcher.start()
         self._accepting = True
 
@@ -110,9 +193,10 @@ class InferenceServer:
         return bound
 
     def shutdown(self, drain_timeout_s: float = 30.0) -> None:
-        """Stop accepting, drain the admission queue and the in-flight
-        requests (up to ``drain_timeout_s``), then stop HTTP and the
-        runner."""
+        """Stop accepting, drain the admission queue, the migrations, the
+        fetches and the in-flight requests (up to ``drain_timeout_s``),
+        then stop HTTP, the controller (leftover migrations resume in
+        place), the health loop and the replicas."""
         self._accepting = False
         self.dispatcher.shutdown(drain_timeout_s)
         if self._httpd is not None:
@@ -121,7 +205,59 @@ class InferenceServer:
             self._httpd = None
         if self._http_thread is not None:
             self._http_thread.join(10)
-        self.runner.shutdown()
+        if self.disagg is not None:
+            self.disagg.shutdown()
+        self.scheduler.stop_health_loop()
+        for runner in self.scheduler.engines():
+            runner.shutdown()
+
+    # -- elasticity --------------------------------------------------------
+
+    def _spawn_engine(self, wait_ready: bool = True) -> EngineRunner:
+        idx = self._next_engine_idx
+        self._next_engine_idx += 1
+        # replicas beyond the role list (scale_to) come up unified
+        role = self._roles[idx] if idx < len(self._roles) else "unified"
+        runner = EngineRunner(
+            f"engine-{idx}", _bind_factory(self.engine_factory, idx),
+            self.metrics, role=role, disagg=self.disagg)
+        # crash-safe redispatch: a dead runner hands its zero-token
+        # requests back to the dispatcher
+        runner.redispatch = self.dispatcher.redispatch
+        if self.runner is None:
+            self.runner = runner
+        runner.start(wait_ready=wait_ready)
+        self.scheduler.register(runner)
+        return runner
+
+    def scale_to(self, n: int) -> None:
+        """Add or retire replicas at runtime. A retired replica leaves the
+        routing set at once and stops once its in-flight requests finish;
+        unified replicas go first (youngest first), so scaling down never
+        takes a disaggregated topology's only decode replica while a
+        unified spare exists."""
+        with self._scale_lock:
+            current = self.scheduler.engines()
+            for _ in range(n - len(current)):
+                self._spawn_engine()
+            if n < len(current):
+                unified = [r for r in current if r.role == "unified"]
+                roled = [r for r in current if r.role != "unified"]
+                for runner in (unified[::-1] + roled[::-1])[
+                        :len(current) - n]:
+                    self.scheduler.unregister(runner.engine_id)
+                    self._drain_and_stop(runner)
+
+    def _drain_and_stop(self, runner: EngineRunner) -> None:
+        def _wait() -> None:
+            deadline = time.monotonic() + 60.0
+            while runner.active_count() and time.monotonic() < deadline:
+                time.sleep(0.05)
+            runner.shutdown()
+            runner.release_engine()
+
+        threading.Thread(target=_wait, name=f"retire-{runner.engine_id}",
+                         daemon=True).start()
 
     # -- endpoints ---------------------------------------------------------
 
@@ -148,67 +284,112 @@ class InferenceServer:
             return torch.cuda.get_device_name(eng_dev)
         return str(eng_dev)
 
+    def _observe_all(self) -> Tuple:
+        return tuple(r.observe() for r in self.scheduler.engines())
+
     def health(self) -> Tuple[int, dict]:
         """``/health``: the reference's ``{status, accepting, engines}``
-        and the port's ``model``, ``device`` and the runner's last error;
-        503 while the engine is unhealthy."""
-        status = self.runner.status()
-        return (200 if status.healthy else 503), {
-            "status": "ok" if status.healthy else "unhealthy",
+        over every replica (200 while any is healthy, else 503) and the
+        port's ``model``, ``device`` and the first replica's last error
+        while it is down."""
+        statuses = self._observe_all()
+        healthy = any(s.healthy for s in statuses)
+        r = self.runner
+        return (200 if healthy else 503), {
+            "status": "ok" if healthy else "unhealthy",
             "accepting": self._accepting and self.dispatcher.is_accepting(),
-            "engines": [status.to_dict()],
+            "engines": [s.to_dict() for s in statuses],
             "model": self.model_name,
             "device": self.device_name(),
-            "error": None if status.healthy else self.runner.last_error(),
+            "error": None if r.is_healthy() else r.last_error(),
         }
 
     def metrics_text(self) -> bytes:
-        """``/metrics``: the collector's Prometheus text, with the
-        engine's cumulative counters read at this scrape."""
-        self.runner.status()
+        """``/metrics``: the collector's Prometheus text, with every
+        replica's cumulative counters read at this scrape."""
+        self._observe_all()
         return self.metrics.prometheus_text()
 
+    @staticmethod
+    def _engine_blocks(r: EngineRunner) -> dict:
+        """One replica's allocator, step clock and device memory, read on
+        its thread (empty when it cannot answer)."""
+        if not r.is_healthy():
+            return {}
+        try:
+            cache, step_clock, memory = r.call(lambda e: (
+                {**e.cache_stats().to_dict(),
+                 "allocator_tier": e.allocator_tier()},
+                e.step_clock_stats(), e.memory_stats()))
+        except (TimeoutError, RuntimeError):
+            return {}
+        return {"cache": cache, "step_clock": step_clock, "memory": memory}
+
     def stats(self) -> dict:
-        """``/server/stats``: the ``MetricsSnapshot`` (its ``cache`` block
-        with the allocator's page counts and tier, native or python,
-        added) and the port's blocks:
-        ``mixed`` (the engine's ``mixed_stats()``, null while the mixed
-        step is off), ``loop`` (``loop_stats()``, null while looped blocks
-        are off), ``step_clock`` (host wall time, dispatches, tokens and
-        rows per dispatch kind, and the pressure events), ``admission``
-        (the queue tier, native or python, the queue's depth by priority,
-        whether it accepts, the batching window and size), ``memory``
-        (device memory, null on the CPU), the warmup's seconds, the
-        runner's counters and each kernel's launch count."""
-        r = self.runner
-        status = r.status()
-        out = self.metrics.snapshot((status,)).to_dict()
-        cache = step_clock = memory = None
-        if r.is_healthy():
-            try:
-                cache, step_clock, memory = r.call(lambda e: (
-                    {**e.cache_stats().to_dict(),
-                     "allocator_tier": e.allocator_tier()},
-                    e.step_clock_stats(), e.memory_stats()))
-            except (TimeoutError, RuntimeError):
-                pass
-        out["cache"] = {**out["cache"], **(cache or {})}
+        """``/server/stats``: the ``MetricsSnapshot`` over every replica
+        (with its ``disagg`` and ``resilience`` blocks; its ``cache`` block
+        with the first replica's allocator page counts and tier, native or
+        python, added) and the port's blocks: the counters summed over the
+        replicas (requests in flight and finished, tokens, engine steps and
+        their seconds), and for the first replica ``mixed``
+        (``mixed_stats()``, null while the mixed step is off), ``loop``
+        (``loop_stats()``, null while looped blocks are off),
+        ``step_clock`` (host wall time, dispatches, tokens and rows per
+        dispatch kind, and the pressure events), ``memory`` (device
+        memory, null on the CPU) and ``warmup_s``; ``admission`` (the
+        queue tier, the queue's depth by priority, whether it accepts, the
+        batching window and size); ``replicas``, one entry per replica
+        (id, role, health, warmup seconds, restarts, steps, requests
+        finished, kernel launches on its thread, its cache, step clock and
+        memory, and its page audit: empty when clean); with a prefill /
+        decode topology ``handoff_s`` (host seconds of the handoff's
+        exports and imports on the replicas and in the channel, and their
+        counts); and each kernel's launch count in the process."""
+        runners = self.scheduler.engines()
+        statuses = tuple(r.observe() for r in runners)
+        out = self.metrics.snapshot(statuses).to_dict()
+        blocks = {r.engine_id: self._engine_blocks(r) for r in runners}
+        first = blocks.get(self.runner.engine_id, {})
+        first_status = next((s for s in statuses
+                             if s.engine_id == self.runner.engine_id), None)
+        out["cache"] = {**out["cache"], **(first.get("cache") or {})}
         out.update({
             "model": self.model_name,
             "device": self.device_name(),
-            "healthy": r.is_healthy(),
+            "healthy": any(s.healthy for s in statuses),
             "uptime_s": time.time() - self.started_at,
-            "requests_in_flight": r.active_count(),
-            "requests_finished": r.requests_finished,
-            "tokens_generated": r.tokens_generated,
-            "engine_steps": r.steps,
-            "engine_step_seconds": r.step_seconds,
-            "warmup_s": r.warmup_seconds,
+            "strategy": self.scheduler.strategy().value,
+            "requests_in_flight": sum(r.active_count() for r in runners),
+            "requests_finished": sum(r.requests_finished for r in runners),
+            "tokens_generated": sum(r.tokens_generated for r in runners),
+            "engine_steps": sum(r.steps for r in runners),
+            "engine_step_seconds": sum(r.step_seconds for r in runners),
+            "warmup_s": self.runner.warmup_seconds,
             "admission": self.admission_stats(),
-            "mixed": status.mixed,
-            "loop": status.loop,
-            "step_clock": step_clock,
-            "memory": memory,
+            "mixed": first_status.mixed if first_status else None,
+            "loop": first_status.loop if first_status else None,
+            "step_clock": first.get("step_clock"),
+            "memory": first.get("memory"),
+            "replicas": [{
+                "engine_id": r.engine_id,
+                "role": r.role,
+                "healthy": r.is_healthy(),
+                "warmup_s": r.warmup_seconds,
+                "restarts": r.restarts,
+                "engine_steps": r.steps,
+                "requests_finished": r.requests_finished,
+                "kernel_launches": r.launch_counts(),
+                "audit": r.audit(),
+                **blocks[r.engine_id],
+            } for r in runners],
             "kernel_launches": self.kernel_counts(),
         })
+        if self.disagg is not None:
+            out["handoff_s"] = {
+                "export": sum(r.handoff_s["export"] for r in runners),
+                "import": sum(r.handoff_s["import"] for r in runners),
+                "channel": self.disagg.channel_s,
+                "exports": sum(r.handoff_s["exports"] for r in runners),
+                "imports": sum(r.handoff_s["imports"] for r in runners),
+            }
         return out

@@ -66,13 +66,16 @@ from distributed_inference_server_tpu_torch.models.tokenizer import (
 from distributed_inference_server_tpu_torch.serving import batcher as pb
 from distributed_inference_server_tpu_torch.serving.dispatcher import (
     Dispatcher,
-    SingleRunnerScheduler,
 )
 from distributed_inference_server_tpu_torch.serving.metrics import (
+    EngineStatus,
     MetricsCollector,
 )
 from distributed_inference_server_tpu_torch.serving.runner import (
     ServerRequest,
+)
+from distributed_inference_server_tpu_torch.serving.scheduler import (
+    AdaptiveScheduler,
 )
 from distributed_inference_server_tpu_torch.serving.server import (
     InferenceServer,
@@ -413,6 +416,8 @@ class RecordingSink:
 class FakeRunner:
     """A replica that records the batches it is handed."""
 
+    engine_id = "engine-0"
+
     def __init__(self, healthy=True):
         self.healthy = healthy
         self.batches = []
@@ -420,6 +425,11 @@ class FakeRunner:
 
     def is_healthy(self):
         return self.healthy
+
+    def status(self):
+        return EngineStatus(engine_id=self.engine_id, healthy=self.healthy,
+                            active_requests=0, waiting_requests=0,
+                            total_processed=0)
 
     def submit(self, requests):
         self.batches.append([r.request_id for r in requests])
@@ -435,8 +445,15 @@ def _sreq(rid="r"):
     return ServerRequest(rid, [1, 2, 3], SamplingParams(), RecordingSink())
 
 
+def _scheduler(runner):
+    """The server's scheduler over one replica."""
+    s = AdaptiveScheduler()
+    s.register(runner)
+    return s
+
+
 def _dispatcher(tier, runner=None, **kw):
-    return Dispatcher(SingleRunnerScheduler(runner or FakeRunner()),
+    return Dispatcher(_scheduler(runner or FakeRunner()),
                       native_queue=tier == "native", **kw)
 
 
@@ -566,11 +583,11 @@ def test_idle_dispatcher_sleeps_until_submit(tier):
 
 
 def test_tenant_fairness_takes_the_python_tier():
-    d = Dispatcher(SingleRunnerScheduler(FakeRunner()),
+    d = Dispatcher(_scheduler(FakeRunner()),
                    queue_config=pq.QueueConfig(tenant_fairness=True))
     assert d.tier == "python"
     with pytest.raises(RuntimeError, match="tenant"):
-        Dispatcher(SingleRunnerScheduler(FakeRunner()),
+        Dispatcher(_scheduler(FakeRunner()),
                    queue_config=pq.QueueConfig(tenant_fairness=True),
                    native_queue=True)
 

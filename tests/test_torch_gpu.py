@@ -1736,3 +1736,90 @@ def test_pinned_pulls_equal_synchronous_copies(cuda, kv_quant):
         sess.add_chunk(c)
     _, got_pages = sess.finish(fresh.state, list(range(len(pages) * 4)))
     assert kv.serialize_kv(fresh.state, got_pages, 4, 24) == want
+
+
+def _served_greedy(server, prompts, max_tokens=30):
+    import concurrent.futures as cf
+    import json
+    import urllib.request
+
+    base = f"http://127.0.0.1:{server.serve('127.0.0.1', 0, block=False)}"
+
+    def post(prompt):
+        body = {"prompt": prompt, "max_tokens": max_tokens,
+                "temperature": 0.0}
+        req = urllib.request.Request(base + "/generate",
+                                     json.dumps(body).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())["choices"][0]["text"]
+
+    lone = [post(p) for p in prompts]
+    with cf.ThreadPoolExecutor(len(prompts)) as ex:
+        return lone, list(ex.map(post, prompts))
+
+
+# each prompt and its 30 new tokens fit the 64-token capacity
+REPLICA_PROMPTS = ["replicas on the card", "a longer prompt, pages", "z",
+                   "hand the pages over"]
+
+
+def _replica_servers(cuda, **kw):
+    """A one-engine server and a two-replica one (``kw``) on the card,
+    the same TINY f32 weights: their greedy texts, lone and concurrent."""
+    from distributed_inference_server_tpu_torch.serving.server import (
+        InferenceServer,
+    )
+
+    params = _scaled_params(TINY, cuda, torch.float32)
+
+    def factory():
+        return LLMEngine(params, TINY, ByteTokenizer(), EngineConfig(
+            paged=PagedCacheConfig(64, 4, 16), max_batch=4,
+            prefill_buckets=(8, 32)), dtype=torch.float32, device=cuda)
+
+    out = []
+    for extra in ({}, kw):
+        server = InferenceServer(factory, ByteTokenizer(), "tiny", **extra)
+        server.start()
+        try:
+            out.append(_served_greedy(server, REPLICA_PROMPTS))
+            if extra:
+                stats = server.stats()
+                assert all(r["audit"] == [] for r in stats["replicas"])
+                out.append(stats)
+        finally:
+            server.shutdown()
+    return out
+
+
+@pytest.mark.gpu
+def test_two_replicas_match_one_engine_on_the_card(cuda):
+    """Two unified replicas (round robin) on one card give one engine's
+    greedy texts, lone and concurrent, and each replica served."""
+    from distributed_inference_server_tpu_torch.serving.scheduler import (
+        SchedulingStrategy,
+    )
+
+    one, two, stats = _replica_servers(
+        cuda, num_engines=2, strategy=SchedulingStrategy.ROUND_ROBIN)
+    assert two == one
+    assert all(r["requests_finished"] for r in stats["replicas"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream", [True, False])
+def test_prefill_decode_pair_matches_one_engine_on_the_card(cuda, stream):
+    """A prefill/decode pair on one card (streamed or monolithic handoff)
+    gives one engine's greedy texts; every request decodes on the decode
+    replica."""
+    from distributed_inference_server_tpu_torch.serving.disagg import (
+        DisaggSettings,
+    )
+
+    one, pair, stats = _replica_servers(
+        cuda, num_engines=2, engine_roles="prefill,decode",
+        disagg_settings=DisaggSettings(stream=stream, chunk_pages=2))
+    assert pair == one
+    n = 2 * len(REPLICA_PROMPTS)
+    assert stats["disagg"]["handoffs"] == {"ok": n}
+    assert [r["requests_finished"] for r in stats["replicas"]] == [0, n]

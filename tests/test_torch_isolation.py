@@ -95,3 +95,66 @@ def test_chip_smoke_refuses_without_a_card():
                          timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_two_replica_servers_serve_where_jax_cannot():
+    """Two unified replicas, and a prefill/decode pair, each start and
+    answer a greedy ``/generate`` in a process where ``import jax``
+    raises; the two texts agree."""
+    script = textwrap.dedent(f"""
+        import json, sys, urllib.request
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {FORBIDDEN!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import torch
+        from distributed_inference_server_tpu_torch.engine.engine import (
+            EngineConfig, LLMEngine)
+        from distributed_inference_server_tpu_torch.models import llama
+        from distributed_inference_server_tpu_torch.models.configs import (
+            TINY)
+        from distributed_inference_server_tpu_torch.models.tokenizer import (
+            ByteTokenizer)
+        from distributed_inference_server_tpu_torch.serving.server import (
+            InferenceServer)
+
+        def factory(i):
+            gen = torch.Generator().manual_seed(0)
+            params = llama.init_params(TINY, gen, dtype=torch.float32,
+                                       device="cpu")
+            return LLMEngine(params, TINY, ByteTokenizer(), EngineConfig(),
+                             dtype=torch.float32, device="cpu")
+
+        texts = []
+        for roles in ("", "prefill,decode"):
+            srv = InferenceServer(factory, ByteTokenizer(), "tiny",
+                                  num_engines=2, engine_roles=roles)
+            srv.start()
+            port = srv.serve("127.0.0.1", 0, block=False)
+            body = json.dumps({{"prompt": "no jax here", "max_tokens": 8,
+                               "temperature": 0.0}}).encode()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{{port}}/generate", data=body,
+                method="POST")
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                assert resp.status == 200
+                texts.append(json.loads(resp.read())["choices"][0]["text"])
+            stats = srv.stats()
+            assert len(stats["replicas"]) == 2, stats["replicas"]
+            if roles:
+                assert stats["disagg"]["handoffs"] == {{"ok": 1}}
+            srv.shutdown(drain_timeout_s=5.0)
+        assert texts[0] == texts[1] and texts[0], texts
+        leaked = [k for k in sys.modules
+                  if k.split(".")[0] in {FORBIDDEN!r}]
+        assert not leaked, leaked
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

@@ -547,6 +547,12 @@ SINGLE_REPLICA_FAMILIES = {
     "speculation_enabled", "kv_prefix_reload_seconds", "kv_host_tier_bytes",
     "kv_host_tier_pages", "kv_payload_bytes",
 }
+REPLICA_FAMILIES = {
+    "kv_prefix_fetch", "kv_prefix_fetch_bytes", "kv_prefix_fetch_seconds",
+    "kv_prefix_route", "kv_handoff_latency_seconds", "kv_handoff_bytes",
+    "kv_handoff_stall_seconds", "kv_handoff_chunks", "kv_handoff",
+    "engines_by_role", "engine_restarts", "requests_redispatched",
+}
 
 
 def _record_common(c):
@@ -630,9 +636,12 @@ def test_metrics_families_match_the_jax_collector():
     _record_port(p)
     jf = _families(j.prometheus_text().decode())
     pf = _families(p.prometheus_text().decode())
-    assert SINGLE_REPLICA_FAMILIES <= set(jf)
-    assert set(pf) == SINGLE_REPLICA_FAMILIES
-    for name in SINGLE_REPLICA_FAMILIES:
+    # and the replica families (restarts, redispatch, handoff, prefix
+    # fetch and route, roles), which both declare from the start
+    families = SINGLE_REPLICA_FAMILIES | REPLICA_FAMILIES
+    assert families <= set(jf)
+    assert set(pf) == families
+    for name in families:
         assert pf[name][:2] == jf[name][:2], name
         assert pf[name][2] == pytest.approx(jf[name][2]), name
 
