@@ -186,6 +186,39 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    (``replicas_timing`` line: warmups, walls, a cold 600-byte prompt's
    lone TTFT unified and disaggregated, handoff ms per request and
    bytes, crash to healthy seconds, memory, launches by role).
+13. (``control``) configuration, control and observability
+   (``phase_control``): (a) a llama-3.2-1b bf16 server started from a
+   TOML file with one ``DIS_TPU_*`` env override and one CLI override, at
+   the JAX schema's engine defaults (2048 pages, ``max_batch`` 64):
+   ``/server/stats`` shows the precedence and the pool, the mix is
+   served with one engine's launches per forward, its greedy texts are
+   compared with phase 4's (reported, not required: a wider batch may
+   round differently in bf16) and a 40,000-byte prompt is a 400; (b) the
+   file rewritten (``batcher.window_ms`` 0, ``server.strategy``
+   round_robin, and the non-hot ``queue.max_queue_size``): within 3 s the
+   hot keys apply and the other does not; the lone TTFT before and after;
+   (c) the mix's spans with their parent links, a timeline per request
+   whose phases sum to no more than the client's wall, ``/server/perf``
+   TTFT / TBT windows and SLO verdicts counted once per request, the new
+   ``/metrics`` families, the script's own OTLP collector receiving the
+   spans, and a second server with a 1 ms ``admission.deadline_ms``
+   shedding with 503 ``admission_shed`` once its estimator is warm; (d) in
+   process, a server with a resolver over {llama-3.2-1b bf16, llama-3.2-1b
+   int4 with a zero final norm, a factory that raises}: the degradation
+   ladder stepped through
+   0.75 / 0.85 / 0.92 / 0.97 / 0.5 (batcher divisor, cached pages evicted
+   to the target, 503 for low priority then for all, gates lifted), a
+   swap to int4 while a streamed request runs (that request finishes with
+   its pre-swap tokens; new requests launch the q4 matmul and give the new
+   model's tokens: the int4 model's final norm is zero, so every logit is
+   0 and its logprobs tell it apart; random weights emit ids past the byte
+   range, so the streams' (text, logprob) pairs are compared), the broken
+   swap
+   keeping the model, the swap back giving the cold pre-swap tokens, and
+   allocated bytes back within 1 % (``control_timing`` line). Every
+   earlier phase's servers read ``build/chip_smoke_engine.toml``, which
+   keeps the engine settings they ran before the port read the JAX
+   config (``max_batch`` 8, 1024 pages, 128 a sequence).
 
 It also prints whether ``safetensors`` and ``tokenizers`` import (for
 information: the port reads safetensors itself).
@@ -195,7 +228,7 @@ quantized matmuls' rows add ``*_prefill`` keys: their M = 2048 layer, and
 q8 ``*_verify`` keys: its M = 40 layer); the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
 and prints no result. ``--phases
-kernels,serve,quant,engine,ckpt,api,families,spec,admission,kvpaths,replicas``
+kernels,serve,quant,engine,ckpt,api,families,spec,admission,kvpaths,replicas,control``
 selects
 phases (default: all; ``quant`` is phase 3's quantized kernels and phase
 4's quantized servers; ``families`` is item 7, ``api`` item 8, ``spec``
@@ -210,8 +243,9 @@ launches under ``launches_by_model``, the api phase's under
 KV byte path's (phase 11's handoff decode, peer-prefix serve and each
 host-tier server's repeat) under ``launches_kvpaths``, phase 12's by
 replica role (``unified``, ``prefill``, ``decode``, ``fetch_target``)
-under ``launches_replicas``, and the verify shape's times under
-``verify``.
+under ``launches_replicas``, phase 13's (the defaults server's mix and
+the int4 engine's requests after the swap) under ``launches_control``,
+and the verify shape's times under ``verify``.
 """
 
 from __future__ import annotations
@@ -1053,19 +1087,43 @@ def _check_generate(status, body, max_tokens):
 # A/B of one server option within one tree)
 SERVER_FLAGS: list = []
 
+# the engine settings every server of phases 4-12 ran before the port read
+# the JAX package's config (whose schema defaults are wider), kept so their
+# records stay comparable; written by main()
+ENGINE_TOML = os.path.join("build", "chip_smoke_engine.toml")
+ENGINE_SETTINGS = """[engine]
+max_batch = 8
+num_pages = 1024
+page_size = 16
+max_pages_per_seq = 128
+prefill_batch = 4
+prefill_token_budget = 2048
+"""
 
-def _launch(seed: int, extra, log_name: str, model: str):
+
+def write_engine_toml() -> None:
+    os.makedirs(os.path.dirname(ENGINE_TOML), exist_ok=True)
+    with open(ENGINE_TOML, "w") as f:
+        f.write(ENGINE_SETTINGS)
+
+
+def _launch(seed: int, extra, log_name: str, model: str,
+            config: str = ENGINE_TOML, env=None):
     """Start ``python -m distributed_inference_server_tpu_torch`` serving
-    ``model`` on a free port: (process, base URL, its log file)."""
+    ``model`` on a free port from the config file ``config`` (the flags
+    override it): (process, base URL, its log file)."""
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
     cmd = [sys.executable, "-m", "distributed_inference_server_tpu_torch",
+           "--config", os.path.abspath(config),
            "--model-model-name", model, "--server-port", str(port),
            "--seed", str(seed), *extra, *SERVER_FLAGS]
     log("[serve] " + " ".join(cmd))
     os.makedirs("chiprun_out", exist_ok=True)
     errlog = open(os.path.join("chiprun_out", log_name), "w")
-    proc = subprocess.Popen(cmd, stdout=errlog, stderr=subprocess.STDOUT)
+    proc = subprocess.Popen(cmd, stdout=errlog, stderr=subprocess.STDOUT,
+                            env=None if env is None else {**os.environ,
+                                                          **env})
     return proc, base, errlog
 
 
@@ -1089,13 +1147,13 @@ def _wait_healthy(proc, base: str, log_name: str, t0: float) -> None:
 
 @contextlib.contextmanager
 def _servers(seed: int, specs):
-    """Start one server per (extra flags, log name, model) in ``specs``,
-    all at once, and wait until each is healthy; yields their base URLs
-    and stops every process on exit."""
+    """Start one server per (extra flags, log name, model[, config file,
+    env]) in ``specs``, all at once, and wait until each is healthy;
+    yields their base URLs and stops every process on exit."""
     launched = []
     try:
-        for extra, log_name, model in specs:
-            launched.append((*_launch(seed, extra, log_name, model),
+        for extra, log_name, model, *more in specs:
+            launched.append((*_launch(seed, extra, log_name, model, *more),
                              log_name))
         t0 = time.monotonic()
         for proc, base, _, log_name in launched:
@@ -3869,11 +3927,470 @@ def phase_replicas(card: str, seed: int = 0, texts=None) -> dict:
     return {"timing": line["replicas_timing"], "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: configuration, control and observability
+# ---------------------------------------------------------------------------
+
+CONTROL_TOML = os.path.join("build", "control.toml")
+# the families of /metrics that phase 13 requires (the reference's names)
+CONTROL_FAMILIES = (
+    "trace_spans_dropped_total", "request_phase_seconds",
+    "slo_requests_total", "slo_goodput_tokens_total", "requests_shed_total",
+    "engine_health_state", "health_transitions_total",
+    "retry_budget_exhausted_total", "fleet_breaker_transitions_total")
+# prompts of at most 15 bytes (16 ids with BOS): never a prefix hit, so
+# every run of them is cold
+SWAP_PROMPTS = ("Swap one here.", "Second prompt!")
+SWAP_MID = "Swap mid-flight"
+# the in-process server's pool: small, so a few prompts fill it with
+# cached pages for the ladder's eviction rung
+CONTROL_POOL = (160, 16, 128)
+FILL_PROMPTS = [(f"Fill {i}: cached prefix pages for the eviction rung. "
+                 * 20)[:1000] for i in range(3)]
+
+
+def _control_toml(otlp_port: int, window_ms: float, strategy: str,
+                  max_queue: int) -> str:
+    """Phase 13's config file: the JAX schema's engine defaults (no
+    ``[engine]`` section), queue and batcher values that the env and the
+    CLI override, an SLO and the script's OTLP collector."""
+    return f"""[model]
+model_name = "llama-3.2-1b"
+[server]
+strategy = "{strategy}"
+[queue]
+high_watermark = 800
+max_queue_size = {max_queue}
+[batcher]
+window_ms = {window_ms}
+max_batch_size = 16
+[slo]
+ttft_ms = 5000.0
+[tracing]
+otlp_endpoint = "http://127.0.0.1:{otlp_port}/v1/traces"
+"""
+
+
+def _write_control_toml(*args) -> None:
+    os.makedirs(os.path.dirname(CONTROL_TOML), exist_ok=True)
+    tmp = CONTROL_TOML + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(_control_toml(*args))
+    os.replace(tmp, CONTROL_TOML)  # the atomic writer's idiom
+
+
+def _http_any(method, url, body=None, timeout=600.0):
+    """(status, headers, JSON body), an HTTP error's included."""
+    if method == "POST":
+        _count_post(url)
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+class _OtlpCollector:
+    """A standard-library OTLP/HTTP collector on localhost: counts the
+    spans it receives by name."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        self.names: "collections.Counter" = collections.Counter()
+        self.posts = 0
+        owner = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 — http.server API
+                n = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(n))
+                owner.posts += 1
+                for rs in body["resourceSpans"]:
+                    for ss in rs["scopeSpans"]:
+                        for sp in ss["spans"]:
+                            owner.names[sp["name"]] += 1
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.srv.server_port
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+
+    def close(self) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def _control_mix(base):
+    """Phase 4's four concurrent requests: [(body, client wall s)]."""
+    jobs = [(MIX_PROMPTS["p20"], GREEDY), (MIX_PROMPTS["p100"], GREEDY),
+            (MIX_PROMPTS["p600"], GREEDY),
+            (MIX_PROMPTS["p100"], {"temperature": 0.8, "top_p": 0.9,
+                                   "max_tokens": 24})]
+    with cf.ThreadPoolExecutor(len(jobs)) as ex:
+        results = list(ex.map(lambda j: _gen(base, *j), jobs))
+    for (_, params), (st, body, _) in zip(jobs, results):
+        _check_generate(st, body, params["max_tokens"])
+    return [(body, wall) for _, body, wall in results]
+
+
+def _control_observe(base, mix) -> dict:
+    """(c) on the mix's requests: each request's span tree (the root
+    ``request.generate`` and its ``engine.infer`` child, parent-linked)
+    and flight-recorder timeline (phases summing to no more than the
+    client's wall)."""
+    spans = 0
+    slack = []
+    for body, wall in mix:
+        rid = body["id"][len("cmpl-"):]
+        st, _, tr = _http_any("GET", f"{base}/server/trace?request_id={rid}")
+        assert st == 200, tr
+        by_name = {s["name"]: s for s in tr["spans"]}
+        root, eng = by_name["request.generate"], by_name["engine.infer"]
+        assert eng["parent_id"] == root["span_id"], (root, eng)
+        assert eng["trace_id"] == root["trace_id"]
+        assert root["parent_id"] is None and root["status"] == "ok"
+        spans += len(tr["spans"])
+        st, _, tl = _http_any("GET", f"{base}/server/requests/{rid}")
+        assert st == 200 and tl["status"] == "ok", tl
+        total = sum(tl["phases"].values())
+        assert abs(total - tl["wall_s"]) < 1e-3, tl
+        assert total <= wall + 1e-3, (total, wall, tl)
+        assert tl["trace_id"] == root["trace_id"]
+        assert "slo" in tl, tl
+        slack.append(wall - total)
+    return {"spans": spans, "phase_sum_under_wall_s": slack}
+
+
+def _allocated() -> tuple:
+    """(bytes allocated, the same after dropping cuBLAS's workspaces).
+    PyTorch keeps one cuBLAS workspace per (handle, stream) until the
+    process ends; every engine has its own stream, so each engine built
+    adds one (32 MiB on this card) that outlives it. The engines' own
+    bytes are the second number."""
+    gc.collect()
+    torch.cuda.synchronize()
+    raw = torch.cuda.memory_allocated()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return raw, torch.cuda.memory_allocated()
+
+
+def _fingerprint(frames) -> list:
+    """A greedy stream's tokens as (text, sampled logprob) pairs: random
+    weights emit ids past the byte range, which decode to no text, so the
+    logprobs are what tells two continuations apart."""
+    return [(f["token"], round(f["logprob"], 4)) for _, f in frames
+            if isinstance(f, dict) and f.get("type") == "token"
+            and "logprob" in f]
+
+
+def _stream_fp(base, prompt, max_tokens: int = 24) -> list:
+    return _fingerprint(_sse(base, "/generate", {
+        "prompt": prompt, "stream": True, "temperature": 0.0,
+        "max_tokens": max_tokens})["frames"])
+
+
+def _control_inprocess(seed: int) -> dict:
+    """(d): an in-process server with a model resolver. The degradation
+    ladder stepped by hand (its loop stopped), then the hot swaps."""
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        EngineConfig,
+        LLMEngine,
+    )
+    from distributed_inference_server_tpu_torch.engine.kv_cache import (
+        PagedCacheConfig,
+    )
+    from distributed_inference_server_tpu_torch.models.configs import (
+        get_config,
+    )
+    from distributed_inference_server_tpu_torch.models.tokenizer import (
+        ByteTokenizer,
+    )
+    from distributed_inference_server_tpu_torch.ops.quant import (
+        init_random_quantized,
+    )
+    from distributed_inference_server_tpu_torch.serving.batcher import (
+        BatcherConfig,
+    )
+    from distributed_inference_server_tpu_torch.serving.server import (
+        InferenceServer,
+    )
+
+    cfg = get_config("llama-3.2-1b")
+    pool = PagedCacheConfig(*CONTROL_POOL)
+    box: dict = {}
+
+    def factory(quant: str, stream_after_warmup: bool = False):
+        def make() -> LLMEngine:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            params = init_random_quantized(cfg, quant, gen,
+                                           dtype=torch.bfloat16,
+                                           device="cuda")
+            if stream_after_warmup:
+                # a model apart from the bf16 one (every logit 0, greedy
+                # emits id 0 at logprob -log V): a request served by the
+                # new model shows in its tokens
+                params["final_norm"].zero_()
+            eng = LLMEngine(params, cfg, ByteTokenizer(), EngineConfig(
+                seed=seed, paged=pool, warmup_compile=not
+                stream_after_warmup), dtype=torch.bfloat16, device="cuda")
+            if stream_after_warmup:
+                # warm up here, then start the streamed request and hand
+                # the engine over once it decodes: the swap installs with
+                # that request mid-flight on the old model
+                eng.warmup()
+                runner = box["server"].runner
+                tokens0 = runner.tokens_generated
+                box["stream"] = box["pool"].submit(
+                    _sse, box["base"], "/generate", {
+                        "prompt": SWAP_MID, "stream": True,
+                        "temperature": 0.0, "max_tokens": 256})
+                _wait(lambda: runner.tokens_generated > tokens0 + 8,
+                      "the streamed request decodes", timeout=30,
+                      every=0.002)
+            return eng
+
+        return make
+
+    def broken():
+        raise RuntimeError("weights corrupted")
+
+    models = {"llama-3.2-1b": factory("none"),
+              "llama-3.2-1b-int4": factory("int4", stream_after_warmup=True),
+              "broken": broken}
+    t0 = time.monotonic()
+    server = InferenceServer(factory("none"), ByteTokenizer(),
+                             "llama-3.2-1b",
+                             batcher_config=BatcherConfig(window_ms=0.0),
+                             model_resolver=models.__getitem__)
+    server.start()
+    startup_s = time.monotonic() - t0
+    base = f"http://127.0.0.1:{server.serve('127.0.0.1', 0, block=False)}"
+    box.update(base=base, server=server, pool=cf.ThreadPoolExecutor(1))
+    out: dict = {"startup_s": startup_s}
+    try:
+        server.degradation.stop()  # stepped by hand below
+        pre = [_stream_fp(base, p) for p in SWAP_PROMPTS]
+        mid_ref = _stream_fp(base, SWAP_MID, 256)
+        raw0, mem0 = _allocated()
+
+        # the ladder: fill the pool with cached prefix pages first
+        for p in FILL_PROMPTS:
+            _greedy(base, p, {"temperature": 0.0, "max_tokens": 2})
+        target = int(0.70 * pool.num_pages)
+        rungs = []
+        for pressure in (0.75, 0.85, 0.92, 0.97, 0.5):
+            level = server.degradation.evaluate(pressure=pressure)
+            if pressure in (0.85, 0.97):
+                _wait(lambda: server.runner.status().memory_used_pages
+                      <= target, f"eviction to {target} pages", timeout=30)
+            gates = {}
+            for prio in ("low", "normal"):
+                st, _, body = _http_any("POST", base + "/generate", {
+                    "prompt": "gate probe.", "max_tokens": 2,
+                    "temperature": 0.0, "priority": prio})
+                gates[prio] = (st, (body.get("error") or {}).get("code"))
+            rungs.append({
+                "pressure": pressure, "level": level.name,
+                "size_divisor": server.dispatcher.batcher.size_divisor,
+                "pages_cached": server.runner.status().pages_cached,
+                "gates": gates})
+        log("[control] ladder: " + json.dumps(rungs))
+        want = [("REDUCED_BATCH_SIZE", 2, 200, 200),
+                ("AGGRESSIVE_CACHE_EVICTION", 2, 200, 200),
+                ("REJECT_LOW_PRIORITY", 2, 503, 200),
+                ("EMERGENCY", 2, 503, 503), ("NORMAL", 1, 200, 200)]
+        got = [(r["level"], r["size_divisor"], r["gates"]["low"][0],
+                r["gates"]["normal"][0]) for r in rungs]
+        assert got == want, got
+        assert rungs[0]["pages_cached"] > target, rungs  # the pool filled
+        assert rungs[1]["pages_cached"] <= target, rungs  # evicted
+        out["ladder"] = rungs
+
+        # the swap to int4 with a streamed request in flight
+        t = time.monotonic()
+        ok, err = server.swap_model(models["llama-3.2-1b-int4"],
+                                    model_name="llama-3.2-1b-int4")
+        out["swap_to_int4_s"] = time.monotonic() - t
+        assert ok, err
+        frames = box.pop("stream").result(timeout=120)["frames"]
+        mid = _fingerprint(frames)
+        done = [f for _, f in frames if isinstance(f, dict)
+                and f.get("type") == "done"]
+        assert done and len(mid) == 256 and mid == mid_ref, (
+            "the in-flight request left its old model's tokens")
+        _wait(lambda: not server.runner._draining,
+              "the old engine drained and released", timeout=60)
+        server.reset_kernel_counts()
+        int4 = [_stream_fp(base, p) for p in SWAP_PROMPTS]
+        assert all(len(fp) == 24 for fp in pre + int4), (pre, int4)
+        assert all(a != b for a, b in zip(int4, pre)), (
+            "the new model's tokens", pre, int4)
+        launches = server.kernel_counts()
+        assert launches["quant_matmul_q4"] > 0, launches
+        assert launches["quant_matmul_q8"] == 0, launches
+        out["launches_int4"] = launches
+
+        t = time.monotonic()
+        ok, err = server.swap_by_name("broken")
+        out["broken_swap_s"] = time.monotonic() - t
+        assert not ok and "weights corrupted" in err, (ok, err)
+        assert [_stream_fp(base, p) for p in SWAP_PROMPTS] == int4
+
+        t = time.monotonic()
+        ok, err = server.swap_model(models["llama-3.2-1b"],
+                                    model_name="llama-3.2-1b")
+        out["swap_back_s"] = time.monotonic() - t
+        assert ok, err
+        post = [_stream_fp(base, p) for p in SWAP_PROMPTS]
+        assert post == pre, ("the swap back differs from the cold "
+                             "pre-swap tokens", post, pre)
+        _wait(lambda: not server.runner._draining, "drained", timeout=60)
+        raw1, mem1 = _allocated()
+        out.update(allocated_before=mem0, allocated_after=mem1,
+                   allocated_change=(mem1 - mem0) / mem0,
+                   allocated_with_cublas_workspaces=[raw0, raw1],
+                   first_tokens={"bf16": [fp[:3] for fp in pre],
+                                 "int4": [fp[:3] for fp in int4]})
+        assert abs(mem1 - mem0) <= 0.01 * mem0, (mem0, mem1)
+    finally:
+        server.shutdown(drain_timeout_s=10.0)
+        box["pool"].shutdown(wait=False)
+        del server, box["server"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_control(card: str, seed: int = 0, texts=None) -> dict:
+    """Phase 13 (see the module docstring). Returns the launches of the
+    defaults server's mix and of the int4 engine's requests."""
+    t_phase = time.monotonic()
+    coll = _OtlpCollector()
+    _write_control_toml(coll.port, 50.0, "least_loaded", 2000)
+    env = {"DIS_TPU_QUEUE__HIGH_WATERMARK": "900"}
+    specs = [(["--batcher-max-batch-size", "24"], "server_control.log",
+              "llama-3.2-1b", CONTROL_TOML, env),
+             (["--admission-deadline-ms", "1", "--engine-warmup-compile",
+               "false"], "server_control_shed.log", "llama-3.2-1b")]
+    timing: dict = {}
+    try:
+        with _servers(seed, specs) as (base, shed_base):
+            timing["startup_s"] = time.monotonic() - t_phase
+            # (a) precedence and the pool
+            stats = _stats(base)
+            adm, eng = stats["admission"], stats["engine"]
+            assert adm["high_watermark"] == 900, adm  # env over the file
+            assert adm["max_batch_size"] == 24, adm  # CLI over the file
+            assert adm["window_ms"] == 50.0, adm  # the file
+            assert (eng["max_batch"], eng["num_pages"],
+                    eng["max_pages_per_seq"], eng["prefill_batch"],
+                    eng["prefill_token_budget"]) == (64, 2048, 512, 16,
+                                                     8192), eng
+            assert stats["worker_statuses"][0]["memory_total_pages"] == 2048
+            got_texts = greedy_texts(base)
+            sent = len(got_texts)
+            timing["texts_equal_phase4"] = (None if texts is None
+                                            else got_texts == texts)
+            if texts is not None and got_texts != texts:
+                timing["texts_differing"] = sorted(
+                    k for k in texts if got_texts[k] != texts[k])
+            _reset_counts(base)
+            before = _stats(base)
+            t = time.monotonic()
+            mix = _control_mix(base)
+            timing["mix_wall_s"] = time.monotonic() - t
+            sent += len(mix)
+            after = _stats(base)
+            launches = after["kernel_launches"]
+            per = _per_forward(before, after)
+            for k, v in ONE_B_PER_FORWARD.items():
+                assert per[k] == v, ("launches per forward", k, per)
+            timing["launches_per_forward"] = per
+            st, _, body = _http_any("POST", base + "/generate", {
+                "prompt": "x" * 40000, "max_tokens": 4})
+            assert st == 400, (st, body)
+            # (c) spans and timelines of the mix
+            timing.update(_control_observe(base, mix))
+            # (b) hot reload
+            timing["lone_ttft_window_s"] = _lone_ttfts(base, 4)
+            t = time.monotonic()
+            _write_control_toml(coll.port, 0.0, "round_robin", 3000)
+            _wait(lambda: _stats(base)["admission"]["window_ms"] == 0.0
+                  and _stats(base)["strategy"] == "round_robin",
+                  "the hot keys reloaded", timeout=3.0, every=0.05)
+            timing["reload_s"] = time.monotonic() - t
+            stats = _stats(base)
+            assert stats["admission"]["max_queue_size"] == 2000, (
+                "a non-hot key leaked into the running server",
+                stats["admission"])
+            assert stats["admission"]["high_watermark"] == 900
+            timing["lone_ttft_no_window_s"] = _lone_ttfts(base, 4)
+            sent += 8
+            # (c) perf windows, SLO verdicts once per request, /metrics,
+            # OTLP
+            _, _, perf = _http_any("GET", base + "/server/perf")
+            win = perf["windows"]
+            assert win["ttft_ms"]["count"] == sent, (win, sent)
+            assert win["tbt_ms"]["count"] >= sent - 1, win
+            verdicts = sum(n for per_t in perf["slo"]["requests"].values()
+                           for n in per_t.values())
+            assert verdicts == sent, (perf["slo"], sent)
+            timing["perf_windows"] = {k: win[k] for k in (
+                "ttft_ms", "tbt_ms", "queue_wait_ms")}
+            timing["slo"] = perf["slo"]["requests"]
+            with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+                prom = r.read().decode()
+            missing = [f for f in CONTROL_FAMILIES
+                       if f"# TYPE {f} " not in prom]
+            assert not missing, missing
+            _wait(lambda: coll.names["request.generate"] >= sent,
+                  "the mix's spans at the OTLP collector", timeout=15)
+            timing["otlp_spans"] = dict(coll.names)
+            timing["otlp_posts"] = coll.posts
+            # the shedding server: 503 admission_shed once warm
+            shed_at, shed = None, None
+            for i in range(40):
+                st, headers, body = _http_any("POST", shed_base + "/generate",
+                                              {"prompt": f"shed {i}",
+                                               "max_tokens": 2,
+                                               "temperature": 0.0})
+                if st == 503:
+                    shed_at, shed = i, (headers, body)
+                    break
+                assert st == 200, (st, body)
+            assert shed_at is not None and shed_at >= 8, shed_at
+            assert shed[1]["error"]["code"] == "admission_shed", shed
+            assert int(shed[0]["Retry-After"]) >= 1, shed[0]
+            timing["shed_after_requests"] = shed_at
+            timing["shed_stats"] = _stats(shed_base)["resilience"][
+                "requests_shed"]
+    finally:
+        coll.close()
+    phase_done("control (a)-(c)")
+    timing["inprocess"] = _control_inprocess(seed)
+    timing["phase_s"] = round(time.monotonic() - t_phase, 1)
+    log(json.dumps({"control_timing": "llama-3.2-1b bf16 (and int4 after "
+                    "the swap), random weights", "card": card, **timing}))
+    return {"mix": launches, "int4": timing["inprocess"]["launches_int4"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,serve,quant,engine,ckpt,api,families,"
-                            "spec,admission,kvpaths,replicas")
+                            "spec,admission,kvpaths,replicas,control")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--server-flags", default="",
                     help="flags added to every server started, split on "
@@ -3903,6 +4420,7 @@ def main(argv=None) -> int:
     from distributed_inference_server_tpu_torch.ops import kernels
     from distributed_inference_server_tpu_torch.ops.kernels import _build
 
+    write_engine_toml()
     t0 = time.monotonic()
     built = _build.build_all(verbose=True)
     log(f"[build] {sorted(built)} in {time.monotonic() - t0:.1f} s")
@@ -4031,6 +4549,12 @@ def main(argv=None) -> int:
         replica_launches = phase_replicas(card, args.seed, texts)[
             "launches"]
         phase_done("replicas")
+    control_launches = {}
+    if "control" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        control_launches = phase_control(card, args.seed, texts)
+        phase_done("control")
 
     rows = []
     for name, (route, source, replaces) in KERNEL_META.items():
@@ -4055,6 +4579,9 @@ def main(argv=None) -> int:
         if replica_launches:  # phase 12's launches by replica role
             row["launches_replicas"] = {
                 role: got.get(name) for role, got in replica_launches.items()}
+        if control_launches:  # phase 13's mix and int4 requests
+            row["launches_control"] = {
+                part: got.get(name) for part, got in control_launches.items()}
         verify = {r["case"]: {k: r.get(k) for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")}

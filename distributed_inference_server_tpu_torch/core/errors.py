@@ -127,6 +127,29 @@ class QueueFullApiError(ApiError):
         return "queue_full"
 
 
+class AdmissionShedApiError(ApiError):
+    """HTTP 503 / rate_limit_error with a ``Retry-After`` hint and the
+    distinct ``admission_shed`` code: deadline-aware admission
+    (``serving/health.py``) found the queue-wait estimate already past
+    the request's deadline."""
+
+    def __init__(self, retry_after_s: float = 1.0):
+        super().__init__(
+            "Request shed at admission: the current queue-wait estimate "
+            "exceeds this request's latency deadline"
+        )
+        self.retry_after_s = max(1.0, retry_after_s)
+
+    def status_code(self) -> int:
+        return 503
+
+    def error_type(self) -> str:
+        return "rate_limit_error"
+
+    def code(self) -> str:
+        return "admission_shed"
+
+
 class RequestTimeoutApiError(ApiError):
     """HTTP 408 / timeout_error. ``code`` is ``request_timeout``, or
     ``queue_timeout`` for a request that expired in the admission queue

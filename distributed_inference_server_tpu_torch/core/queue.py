@@ -325,28 +325,3 @@ class PriorityQueueManager(Generic[T]):
         else:
             if total > self.config.high_watermark:
                 self._backpressure_active = True
-
-
-def parse_tenant_weights(spec: str, key: str = "queue.tenant_weights"
-                         ) -> Dict[str, float]:
-    """Parse a ``"tenantA=2,tenantB=1"`` DRR weight map (unlisted tenants
-    weigh 1; "" = all equal). Raises ValueError, naming ``key``, on a
-    malformed entry or a weight that is not positive."""
-    out: Dict[str, float] = {}
-    for part in (spec or "").split(","):
-        part = part.strip()
-        if not part:
-            continue
-        name, sep, value = part.partition("=")
-        name = name.strip()
-        if not sep or not name:
-            raise ValueError(f"{key}: {part!r} is not tenant=value")
-        try:
-            weight = float(value)
-        except ValueError:
-            raise ValueError(f"{key}: value {value!r} for {name!r} is not "
-                             "a number") from None
-        if weight <= 0.0:
-            raise ValueError(f"{key}: value for {name!r} must be positive")
-        out[name] = weight
-    return out

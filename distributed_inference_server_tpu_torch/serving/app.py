@@ -24,6 +24,18 @@ not available where the port runs). One thread per connection, HTTP/1.1.
   retires replicas (a retired one drains its requests first); answers
   ``{"status": "ok", "num_engines", "engines"}``, 400 ``invalid_body`` for a bad
   body, 500 ``scale_failed`` when a replica fails to start;
+- ``GET /server/trace`` (``?n=``, 1 to 10000, ``trace_id=``,
+  ``request_id=``): finished spans, sorted by start (``{"spans": [...]}``);
+- ``GET /server/requests`` (``?n=``, 1 to 1000, ``verdict=ok|violated``):
+  the flight recorder's newest timelines and its stats;
+  ``GET /server/requests/<id>``: one request's timeline, phases and
+  TTFT / TBT (404 ``unknown_request`` when it is not kept);
+- ``GET /server/perf``: the windowed latency digests, per-engine step
+  clock and SLO burn (``serving/teledigest.py build_perf_payload``);
+- ``POST /admin/model-swap``: body ``{"model": NAME}`` swaps every replica
+  to the model the server's resolver builds for NAME (501
+  ``swap_unavailable`` without a resolver, as at the normal entry point;
+  500 ``swap_failed`` when a replica's build fails: the old model stays);
 - ``POST /server/kernel_counts/reset``: zero the kernels' launch counts
   (a measurement run brackets the path it measures with it);
 - ``POST /server/profile``: body ``{"steps": N}`` (optional
@@ -38,7 +50,8 @@ went away) aborts every request of the stream, whose pages go back to the
 allocator; so does a client that closes its socket while the stream waits
 for its next event. Errors are ``ErrorResponse`` JSON with the reference's
 status mapping (400 validation, 503 queue_full when the admission queue
-pushes back, 408 timeout or queue_timeout, 500 engine failure). Every
+pushes back or admission_shed with ``Retry-After`` when deadline-aware
+admission sheds, 408 timeout or queue_timeout, 500 engine failure). Every
 POST to a route is observed in ``request_latency_seconds`` by path and
 status; as in the reference, a stream its client abandoned counts as 500.
 """
@@ -50,6 +63,7 @@ import select
 import socket
 import time
 from http.server import BaseHTTPRequestHandler
+from urllib.parse import parse_qs, unquote, urlsplit
 from typing import TYPE_CHECKING, List, Optional
 
 from distributed_inference_server_tpu_torch.core.errors import ApiError
@@ -69,6 +83,7 @@ MAX_BODY_BYTES = 8 << 20
 # sequence
 MAX_N = 16
 _GONE = (BrokenPipeError, ConnectionResetError, ConnectionAbortedError)
+_TRACE_N_MAX = 10_000
 
 
 class _InvalidBody(ApiError):
@@ -336,22 +351,36 @@ def make_handler(server: "InferenceServer") -> type:
 
         # -- plain responses -------------------------------------------
 
-        def _send_bytes(self, status: int, body: bytes,
-                        ctype: str) -> None:
+        def _send_bytes(self, status: int, body: bytes, ctype: str,
+                        headers: Optional[dict] = None) -> None:
             self._status = status
             self.send_response(status)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
 
-        def _send(self, status: int, obj) -> None:
+        def _send(self, status: int, obj,
+                  headers: Optional[dict] = None) -> None:
             self._send_bytes(status, json.dumps(obj).encode(),
-                             "application/json")
+                             "application/json", headers)
 
         def _send_error(self, err: ApiError) -> None:
+            headers = None
+            retry_after = getattr(err, "retry_after_s", None)
+            if retry_after is not None:
+                # an admission shed: the standard backoff hint
+                headers = {"Retry-After":
+                           str(int(max(1, round(retry_after))))}
             self._send(err.status_code(), ErrorResponse.of(
-                str(err), err.error_type(), err.code()).to_dict())
+                str(err), err.error_type(), err.code()).to_dict(), headers)
+
+        def _bad_param(self, message: str) -> None:
+            self._send(400, ErrorResponse.of(
+                message, "invalid_request_error",
+                "invalid_parameter").to_dict())
 
         def _not_found(self) -> None:
             self._send(404, {"error": {"message": "not found",
@@ -492,6 +521,67 @@ def make_handler(server: "InferenceServer") -> type:
             self._send(200, {"status": "ok", "num_engines": len(statuses),
                              "engines": [st.to_dict() for st in statuses]})
 
+        def _model_swap(self) -> None:
+            if server.model_resolver is None:
+                self._send(501, ErrorResponse.of(
+                    "model swap not configured", "invalid_request_error",
+                    "swap_unavailable").to_dict())
+                return
+            name = self._json_body().get("model")
+            if not isinstance(name, str) or not name:
+                self._send(400, ErrorResponse.of(
+                    "body must contain 'model'", "invalid_request_error",
+                    "invalid_body").to_dict())
+                return
+            ok, err = server.swap_by_name(name)
+            if not ok:
+                self._send(500, ErrorResponse.of(
+                    err, "server_error", "swap_failed").to_dict())
+                return
+            self._send(200, {"status": "ok", "model": name})
+
+        def _trace(self, query: dict) -> None:
+            try:
+                n = int(query.get("n", "100"))
+                if not 1 <= n <= _TRACE_N_MAX:
+                    raise ValueError
+            except ValueError:
+                self._bad_param("query parameter 'n' must be an integer "
+                                f"in [1, {_TRACE_N_MAX}]")
+                return
+            spans = server.tracer.recent(
+                n, trace_id=query.get("trace_id"),
+                request_id=query.get("request_id"))
+            self._send(200, {"spans": [sp.to_dict() for sp in spans]})
+
+        def _request_list(self, query: dict) -> None:
+            try:
+                n = int(query.get("n", "50"))
+                if not 1 <= n <= 1000:
+                    raise ValueError
+            except ValueError:
+                self._bad_param("query parameter 'n' must be an integer "
+                                "in [1, 1000]")
+                return
+            verdict = query.get("verdict")
+            if verdict is not None and verdict not in ("ok", "violated"):
+                self._bad_param("query parameter 'verdict' must be 'ok' "
+                                "or 'violated'")
+                return
+            rec = server.recorder
+            self._send(200, {"requests": rec.recent(n, verdict=verdict),
+                             "stats": rec.stats()})
+
+        def _request_timeline(self, rid: str) -> None:
+            tl = server.recorder.timeline(rid)
+            if tl is None:
+                self._send(404, ErrorResponse.of(
+                    "no timeline for this request id (expired from the "
+                    "bounded recorder, or never admitted)",
+                    "invalid_request_error", "unknown_request").to_dict())
+                return
+            self._send(200, tl)
+
         def _reset_counts(self) -> None:
             server.reset_kernel_counts()
             self._send(200, {"kernel_launches": server.kernel_counts()})
@@ -507,20 +597,33 @@ def make_handler(server: "InferenceServer") -> type:
             "/server/profile": _profile,
             "/admin/speculation": _speculation,
             "/admin/scale": _scale,
+            "/admin/model-swap": _model_swap,
             "/server/kernel_counts/reset": _reset_counts,
         }
 
         def do_GET(self) -> None:  # noqa: N802 — http.server API
+            url = urlsplit(self.path)
+            path = url.path
+            query = {k: v[-1] for k, v in parse_qs(url.query).items()}
             try:
-                if self.path == "/health":
+                if path == "/health":
                     status, body = server.health()
                     self._send(status, body)
-                elif self.path == "/server/stats":
+                elif path == "/server/stats":
                     self._send(200, server.stats())
-                elif self.path == "/metrics":
+                elif path == "/metrics":
                     self._send_bytes(200, server.metrics_text(),
                                      "text/plain; version=0.0.4; "
                                      "charset=utf-8")
+                elif path == "/server/trace":
+                    self._trace(query)
+                elif path == "/server/perf":
+                    self._send(200, server.perf_stats())
+                elif path == "/server/requests":
+                    self._request_list(query)
+                elif path.startswith("/server/requests/"):
+                    self._request_timeline(
+                        unquote(path[len("/server/requests/"):]))
                 else:
                     self._not_found()
             except _GONE:

@@ -96,7 +96,8 @@ class DisaggSettings:
     wire_quant: str = "none"  # none | int8 | latent | latent_int8
 
 
-def parse_roles(spec: str, num_engines: int) -> List[str]:
+def parse_roles(spec: str, num_engines: int,
+                fleet: bool = False) -> List[str]:
     """Parse/validate ``server.engine_roles`` ("prefill,decode", ...).
 
     Empty spec = every engine ``unified`` (today's behavior). Raises
@@ -104,8 +105,10 @@ def parse_roles(spec: str, num_engines: int) -> List[str]:
     ``server.num_engines``, and nonsensical topologies: decode engines
     with no prefill engine would never receive work, and prefill engines
     with no decode engine would have nowhere to hand off (the messages
-    are the reference's, whose fleet mode relaxes these two checks; the
-    fleet is not ported).
+    are the reference's). ``fleet`` relaxes the two topology checks, as
+    in the reference, where the counterpart role may live on another
+    fleet member; the port refuses the fleet settings themselves
+    (``ServerConfig.check_ported``).
     """
     if not spec.strip():
         return [ROLE_UNIFIED] * num_engines
@@ -123,7 +126,7 @@ def parse_roles(spec: str, num_engines: int) -> List[str]:
         )
     n_prefill = roles.count(ROLE_PREFILL)
     n_decode = roles.count(ROLE_DECODE)
-    if n_decode and not n_prefill:
+    if n_decode and not n_prefill and not fleet:
         raise ConfigError(
             "server.engine_roles: decode engines without any prefill "
             "engine would sit idle — prompts are only admitted to "
@@ -131,7 +134,7 @@ def parse_roles(spec: str, num_engines: int) -> List[str]:
             "migrate (a decode-only topology is legal in fleet worker "
             "mode, where the prefill fleet lives on other members)"
         )
-    if n_prefill and not n_decode:
+    if n_prefill and not n_decode and not fleet:
         raise ConfigError(
             "server.engine_roles: prefill engines need at least one "
             "decode engine to hand off to (a prefill-only topology is "

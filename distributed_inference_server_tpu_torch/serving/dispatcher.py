@@ -28,9 +28,16 @@ otherwise, and always the Python ones under ``tenant_fairness`` (the
 native queue has no tenant lanes). The choice is logged and reported as
 ``tier``.
 
-Not ported yet: deadline-aware shedding (``AdmissionShed``) and the
-degradation ladder's gates; ``retry_budget`` (the shared retry budget)
-stays None.
+Admission control at ``submit``: the degradation ladder's gates
+(``reject_all``, ``reject_low_priority``: 503 ``queue_full``), then
+deadline-aware shedding (``admission``, ``serving/health.py``
+``AdmissionControl``: ``AdmissionShed``, answered 503 ``admission_shed``
+with ``Retry-After``). Admits feed the shared ``retry_budget``, from which
+redispatch draws. With a ``tracer`` each admission batch that reaches a
+replica gets a ``batch.dispatch`` span and its requests' spans a
+``dispatched`` event; with a ``recorder`` the schedule and route
+decisions, sheds, expiries and redispatch hops land in the requests'
+timelines.
 """
 
 from __future__ import annotations
@@ -113,20 +120,30 @@ class Dispatcher:
                  poll_interval_s: float = 0.002,
                  native_queue: Optional[bool] = None,
                  disagg=None, max_redispatch: int = 2,
-                 prefix_fetcher=None):
+                 prefix_fetcher=None, tracer=None, recorder=None,
+                 admission=None, retry_budget=None):
         """``disagg``: the ``DisaggController`` of a disaggregated
         topology (its migrations count toward the drain, aborts reach
         requests parked there). ``max_redispatch``: moves off a dead
         replica per request before it fails to its client (0 = off).
         ``prefix_fetcher``: the ``PrefixFetcher`` that carries out the
         cache_aware "fetch" decisions (None: they degrade to plain
-        submission)."""
+        submission). ``tracer`` / ``recorder``: the spans and the
+        flight-recorder notes (None: off). ``admission``: the
+        ``AdmissionControl`` that sheds at submit (None: no shedding).
+        ``retry_budget``: the shared ``RetryBudget`` that admits feed and
+        redispatch draws from (None: unbudgeted)."""
         self.scheduler = scheduler
         self.disagg = disagg
         self.prefix_fetcher = prefix_fetcher
         self.max_redispatch = max_redispatch
-        # the shared retry budget's hook (not ported: stays None)
-        self.retry_budget = None
+        self.tracer = tracer
+        self.recorder = recorder
+        self.admission = admission
+        self.retry_budget = retry_budget
+        # the degradation ladder's gates (serving/degradation.py)
+        self.reject_low_priority = False
+        self.reject_all = False
         self.queue = _make_queue(queue_config, native_queue)
         self.batcher = _make_batcher(self.queue, batcher_config)
         self.metrics = metrics
@@ -189,13 +206,36 @@ class Dispatcher:
 
     def submit(self, request: ServerRequest,
                priority: Priority = Priority.NORMAL) -> None:
-        """Enqueue; raises ``QueueFull`` while backpressure is active or the
-        server is draining."""
-        if not self._accepting:
+        """Enqueue; raises ``QueueFull`` while backpressure is active, the
+        server is draining or a degradation gate is shut, and its
+        ``AdmissionShed`` subclass when deadline-aware admission sheds the
+        request."""
+        if not self._accepting or self.reject_all:
             raise QueueFull()
+        if self.reject_low_priority and priority is Priority.LOW:
+            raise QueueFull()
+        tenant = request.tenant or "default"
+        if self.admission is not None:
+            shed = self.admission.check(tenant)
+            if shed is not None:
+                if self.metrics:
+                    self.metrics.record_shed(tenant, shed.reason)
+                if self.recorder is not None:
+                    # the shed is the request's whole timeline
+                    self.recorder.note(
+                        request.request_id, "admission_shed",
+                        tenant=tenant, reason=shed.reason,
+                        estimate_ms=round(shed.estimate_ms, 3),
+                        deadline_ms=round(shed.deadline_ms, 3),
+                        retry_after_s=shed.retry_after_s)
+                    self.recorder.finish(request.request_id, "error",
+                                         code="admission_shed")
+                raise shed
+        if self.retry_budget is not None:
+            self.retry_budget.note_admit()
         self.queue.enqueue(QueuedRequest(
             id=request.request_id, data=request, priority=priority,
-            tenant=request.tenant))
+            tenant=tenant))
         self._wake.set()
         self._publish_depths()
 
@@ -234,6 +274,17 @@ class Dispatcher:
         logger.info("redispatching %s from %s to %s (%s)",
                     request.request_id, from_engine, runner.engine_id,
                     reason)
+        if self.tracer is not None and request.span is not None:
+            request.span.set(redispatch_from=from_engine,
+                             redispatch_to=runner.engine_id,
+                             redispatch_reason=reason)
+            request.span.event("redispatched", from_engine=from_engine,
+                               to_engine=runner.engine_id, reason=reason)
+        if self.recorder is not None:
+            self.recorder.note(request.request_id, "redispatch",
+                               from_engine=from_engine,
+                               to_engine=runner.engine_id, reason=reason,
+                               attempt=request.redispatches)
         runner.submit([request])
         # counted after submit took the request
         if self.metrics:
@@ -292,13 +343,37 @@ class Dispatcher:
                    if lens else 0.0)
             self.metrics.record_batch(len(requests), max(0.0, pad))
         for runner, reqs in self._route(requests):
-            if runner is None:
-                for r in reqs:
-                    r.sink.on_error("no healthy inference engine available",
-                                    "no_workers")
-            else:
-                runner.submit(reqs)
+            self._submit_group(runner, reqs)
         self._publish_depths()
+
+    def _submit_group(self, runner, requests: List[ServerRequest]) -> None:
+        if runner is None:
+            # no healthy replica: fail the batch, gracefully
+            for r in requests:
+                if self.tracer is not None and r.span is not None:
+                    r.span.set(dispatch_failed="no_workers")
+                    r.span.event("dispatch_failed", reason="no_workers")
+                if self.recorder is not None:
+                    self.recorder.finish(r.request_id, "error",
+                                         code="no_workers")
+                r.sink.on_error("no healthy inference engine available",
+                                "no_workers")
+            return
+        if self.recorder is not None:
+            strategy = self.scheduler.strategy().value
+            for r in requests:
+                self.recorder.note(r.request_id, "schedule",
+                                   engine=runner.engine_id,
+                                   strategy=strategy)
+        if self.tracer is not None:
+            with self.tracer.span(
+                    "batch.dispatch", size=len(requests),
+                    engine_id=runner.engine_id,
+                    request_ids=[str(r.request_id) for r in requests]):
+                for r in requests:
+                    if r.span is not None:
+                        r.span.event("dispatched")
+        runner.submit(requests)
 
     def _route(self, requests: List[ServerRequest]) -> list:
         """``(runner, requests)`` groups for one admission batch.
@@ -320,11 +395,22 @@ class Dispatcher:
             for r, (runner, plan) in zip(
                     requests, self.scheduler.schedule_batch_plans(prompts)):
                 decision = plan.decision if plan is not None else "recompute"
+                if self.recorder is not None and plan is not None:
+                    # the decision with its cost terms: "why there"
+                    self.recorder.note(
+                        r.request_id, "route_plan", strategy="cache_aware",
+                        decision=decision, engine=plan.engine_id,
+                        depth=plan.depth, peer_depth=plan.peer_depth,
+                        **({"peer": plan.peer_id} if plan.peer_id else {}))
                 if decision == "fetch" and runner is not None:
                     peer = self.scheduler.get(plan.peer_id)
                     if peer is not None:
                         if self.metrics:
                             self.metrics.record_prefix_route("fetch")
+                        if self.tracer is not None and r.span is not None:
+                            r.span.set(prefix_fetch_from=peer.engine_id,
+                                       prefix_fetch_to=runner.engine_id)
+                            r.span.event("prefix_fetch")
                         self.prefix_fetcher.fetch_then_submit(
                             runner, peer, r, plan)
                         continue
@@ -353,6 +439,9 @@ class Dispatcher:
         counted in ``requests_expired_total``."""
         expired = self.queue.remove_expired(now)
         for q in expired:
+            if self.recorder is not None:
+                self.recorder.finish(q.data.request_id, "error",
+                                     code="queue_timeout")
             q.data.sink.on_error("request expired in queue before dispatch",
                                  "queue_timeout")
         if expired and self.metrics:

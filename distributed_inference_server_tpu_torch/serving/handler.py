@@ -9,7 +9,12 @@ behind the dispatcher and a threaded HTTP server).
     response
 
 The body's ``priority`` picks the admission queue's level and its
-``tenant`` (``_tenant_of``) the fair-admission lane.
+``tenant`` (``_tenant_of``) the fair-admission lane. A request shed by
+deadline-aware admission is a 503 ``admission_shed`` with ``Retry-After``.
+
+With a ``tracer`` each request gets a ``request.<endpoint>`` root span,
+finished when its answer or stream ends; with a ``recorder`` its
+flight-recorder timeline opens at admission (``serving/flightrec.py``).
 
 Transport-agnostic: ``serving/app.py`` only frames HTTP and SSE around
 these calls, which block the calling (handler) thread. The streaming calls
@@ -22,9 +27,10 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 from distributed_inference_server_tpu_torch.core.errors import (
+    AdmissionShedApiError,
     ApiError,
     InternalApiError,
     QueueFull,
@@ -67,6 +73,9 @@ from distributed_inference_server_tpu_torch.models.tokenizer import (
 )
 from distributed_inference_server_tpu_torch.serving.dispatcher import (
     Dispatcher,
+)
+from distributed_inference_server_tpu_torch.serving.health import (
+    AdmissionShed,
 )
 from distributed_inference_server_tpu_torch.serving.metrics import (
     MetricsCollector,
@@ -120,23 +129,24 @@ class EventStream:
         self._indexed = indexed
         self._ended = [False] * len(rids)
 
-    def _end(self, i: int) -> None:
+    def _end(self, i: int, status: str = "ok") -> None:
         if not self._ended[i]:
             self._ended[i] = True
             self._handler._finished()
+            self._handler._finish_span(self._rids[i], status)
 
     def _pairs(self) -> Iterator[Tuple[int, TokenEvent]]:
         try:
             for idx, ev in drain(self._channel, len(self._rids),
                                  REQUEST_TIMEOUT_S, idle=self._idle):
                 if ev.type in ("done", "error"):
-                    self._end(idx)
+                    self._end(idx, "ok" if ev.type == "done" else "error")
                 yield idx, ev
         except TimeoutError:
             for i, rid in enumerate(self._rids):
                 if not self._ended[i]:
                     self._handler.dispatcher.abort(rid)
-                    self._end(i)
+                    self._end(i, "timeout")
                     yield i, TokenEvent.error_event("request timed out",
                                                     "request_timeout")
 
@@ -146,19 +156,25 @@ class EventStream:
 
     def close(self) -> None:
         for i in range(len(self._rids)):
-            self._end(i)
+            self._end(i, "cancelled")
 
 
 class InferenceHandler:
     """Endpoint logic shared by the HTTP layer and the tests."""
 
     def __init__(self, dispatcher: Dispatcher, tokenizer: Tokenizer,
-                 model_name: str, metrics: MetricsCollector, validator=None):
+                 model_name: str, metrics: MetricsCollector, validator=None,
+                 tracer=None, recorder=None):
         self.dispatcher = dispatcher
         self.tok = tokenizer
         self.model_name = model_name
         self.validator = validator or RequestValidator()
         self.metrics = metrics
+        self.tracer = tracer
+        self.recorder = recorder
+        # request id -> its root span, popped when the request ends
+        self._spans: Dict[RequestId, object] = {}
+        self._spans_lock = threading.Lock()
 
     @property
     def chat_family(self) -> str:
@@ -169,20 +185,52 @@ class InferenceHandler:
     # -- shared internals --------------------------------------------------
 
     def _submit(self, prompt_ids: List[int], params: SamplingParams,
-                sink, priority: Priority, tenant: str) -> RequestId:
+                sink, priority: Priority, tenant: str,
+                endpoint: str = "generate") -> RequestId:
         request_id = new_request_id()
+        span = None
+        if self.tracer is not None:
+            span = self.tracer.start(
+                f"request.{endpoint}", request_id=str(request_id),
+                prompt_tokens=len(prompt_ids), priority=priority.name)
         self.metrics.request_started()
         try:
             self.dispatcher.submit(
                 ServerRequest(request_id, prompt_ids, params, sink,
-                              tenant=tenant), priority)
+                              tenant=tenant, span=span), priority)
+        except AdmissionShed as e:
+            # the dispatcher recorded the shed and its timeline
+            self.metrics.request_finished()
+            if span is not None:
+                self.tracer.finish(span, status="shed")
+            raise AdmissionShedApiError(e.retry_after_s) from None
         except QueueFull:
             self.metrics.request_finished()
+            if span is not None:
+                self.tracer.finish(span, status="rejected")
             raise QueueFullApiError() from None
+        if span is not None:
+            span.event("queued")
+            with self._spans_lock:
+                self._spans[request_id] = span
+        if self.recorder is not None:
+            # the timeline opens at admission; trace_id links it to the
+            # span tree
+            self.recorder.admit(
+                request_id, endpoint=endpoint,
+                prompt_tokens=len(prompt_ids), priority=priority.name,
+                tenant=tenant,
+                **({"trace_id": span.trace_id} if span is not None else {}))
         return request_id
 
     def _finished(self) -> None:
         self.metrics.request_finished()
+
+    def _finish_span(self, request_id: RequestId, status: str) -> None:
+        with self._spans_lock:
+            span = self._spans.pop(request_id, None)
+        if span is not None:
+            self.tracer.finish(span, status=status)
 
     def _await_completion(self, sink: CollectingSink, request_id: RequestId):
         try:
@@ -191,8 +239,10 @@ class InferenceHandler:
             self._finished()
         if result is None:
             self.dispatcher.abort(request_id)
+            self._finish_span(request_id, "timeout")
             raise RequestTimeoutApiError()
         text, reason, usage, err, code = result
+        self._finish_span(request_id, "ok" if err is None else "error")
         if err is not None:
             raise _error_to_api(err, code)
         return text, reason, usage
@@ -238,7 +288,9 @@ class InferenceHandler:
         else:
             req = self.parse_generate(obj)
             ids = self.tok.encode(req.prompt)
-            priority = req.priority or Priority.NORMAL
+            # not ``or``: Priority.LOW is 0, and falsy
+            priority = (Priority.NORMAL if req.priority is None
+                        else req.priority)
         return ids, SamplingParams(
             max_tokens=req.max_tokens, temperature=req.temperature,
             top_p=req.top_p, stop_sequences=tuple(req.stop_sequences)
@@ -284,18 +336,20 @@ class InferenceHandler:
     def _submit_fanout(self, obj: dict, chat: bool, n: int, make_sink):
         ids, params, priority = self._parse_one(obj, chat)
         tenant = _tenant_of(obj)
+        endpoint = "chat" if chat else "generate"
         sinks, rids = [], []
         try:
             for i in range(n):
                 sink = make_sink(i)
                 rids.append(self._submit(ids, params, sink, priority,
-                                         tenant))
+                                         tenant, endpoint))
                 sinks.append(sink)
         except ApiError:
             # a refused choice takes its submitted siblings with it
             for rid in rids:
                 self.dispatcher.abort(rid)
                 self._finished()
+                self._finish_span(rid, "aborted")
             raise
         return sinks, rids
 

@@ -12,9 +12,14 @@ per family, a counter's samples under ``<name>_total``, a histogram's as
 labels sorted by name. A family with labels shows samples only for the
 label values recorded so far; one without shows its zero from the start.
 
-Not here (they come with their modules): the fleet and its registry HA,
-admission shedding and gray-failure health, the request-phase tracing and
-SLO accounting.
+With them: the perf store (``serving/teledigest.py`` ``PerfTelemetry``)
+behind ``GET /server/perf``, fed the TTFT, request latency, queue-wait and
+TBT digests, the engine step clock (``record_step_perf``, after each
+engine step: the counters the health scorer's wedge signal reads, and the
+per-dispatch ``step_ms.<kind>`` digests) and the SLO verdict counts; the
+gray-failure families (admission sheds, health transitions, breaker flips,
+retry-budget denials), the dropped spans and the request phases. Not here:
+the fleet and its registry HA.
 
 Requests, tokens, admission batches, the admission queue's depth by
 priority and tenant, queue expiries, TTFT and step seconds are recorded as
@@ -36,10 +41,17 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
+from distributed_inference_server_tpu_torch.serving.teledigest import (
+    PerfTelemetry,
+    window_stats,
+)
+
 # rolling windows for the snapshot's derived values
 _TOKEN_WINDOW_S = 10.0
 _TTFT_WINDOW = 1024
-_LATENCY_WINDOW_S = 60.0
+# tenant label values kept per family before new tenants fold into
+# "other" (tenant is a client-chosen string; counter series stay forever)
+_SLO_TENANT_CAP = 32
 
 
 @dataclass(frozen=True)
@@ -126,9 +138,13 @@ class MetricsSnapshot:
     # prefix-cache block: allocator hit / miss / eviction totals, the
     # page-granular prefix hits by tier, peer fetches and route decisions
     cache: Optional[Dict[str, Any]] = None
-    # restarts by replica, redispatch outcomes and queue expiries (None
-    # until one of them happened)
+    # restarts by replica, redispatch outcomes, queue expiries, admission
+    # sheds, retry-budget denials and breaker flips (None until one of
+    # them happened)
     resilience: Optional[Dict[str, Any]] = None
+    # dropped spans and the flight recorder's phase sums (None until a
+    # span dropped or a request finished)
+    tracing: Optional[Dict[str, Any]] = None
 
     def to_dict(self) -> Dict[str, Any]:
         out = {
@@ -150,6 +166,8 @@ class MetricsSnapshot:
             out["cache"] = self.cache
         if self.resilience is not None:
             out["resilience"] = self.resilience
+        if self.tracing is not None:
+            out["tracing"] = self.tracing
         return out
 
 
@@ -481,13 +499,70 @@ class MetricsCollector:
             "Zero-token in-flight requests moved off a dead engine "
             "(ok = resubmitted to a healthy replica, exhausted = attempt "
             "budget or healthy capacity ran out)", "counter", ["outcome"])
+        # gray-failure defense (serving/health.py)
+        self.requests_shed = fam(
+            "requests_shed_total",
+            "Requests shed at admission by deadline-aware control "
+            "(deadline = the windowed queue-wait estimate blows the "
+            "tenant's SLO-derived deadline, brownout = a low-weight "
+            "tenant shed early as the backlog grows); tenants beyond "
+            "a bounded label set fold into \"other\"", "counter",
+            ["tenant", "reason"])
+        self.engine_health = fam(
+            "engine_health_state",
+            "Latency-scored health verdict per engine "
+            "(0 healthy, 1 degraded, 2 ejected)", "gauge", ["engine_id"])
+        self.health_transitions = fam(
+            "health_transitions_total",
+            "Health-state transitions applied by the scorer, by the "
+            "state entered (healthy | degraded | ejected)", "counter",
+            ["state"])
+        self.breaker_transitions = fam(
+            "fleet_breaker_transitions_total",
+            "KV data-channel circuit-breaker transitions, by the state "
+            "entered (closed | open | half_open)", "counter", ["state"])
+        self.retry_denied = fam(
+            "retry_budget_exhausted_total",
+            "Retries declined by the shared windowed retry budget, by "
+            "consumer site (redispatch | handoff_retry | kv_reconnect) "
+            "— each denial degraded to its exactly-once fallback",
+            "counter", ["site"])
+        # tracing and the flight recorder (utils/tracing.py,
+        # serving/flightrec.py)
+        self.trace_drops = fam(
+            "trace_spans_dropped_total",
+            "Finished spans dropped before reaching an operator (ring = "
+            "evicted from the bounded in-memory ring, exporter = an "
+            "exporter failed or overflowed, wire = the fleet span buffer "
+            "overflowed before shipping)", "counter", ["reason"])
+        self.request_phases = fam(
+            "request_phase_seconds",
+            "Per-request wall-clock attributed to lifecycle phases by "
+            "the flight recorder (serving/flightrec.py): queue_wait | "
+            "prefill | peer_fetch | handoff_stall | decode | detok",
+            "histogram", ["phase"],
+            (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2, 5, 10,
+             30))
+        # SLO / goodput accounting (fed by flightrec.finish)
+        self.slo_requests = fam(
+            "slo_requests_total",
+            "Finished requests with an applicable SLO, by tenant and "
+            "verdict (ok | violated); tenants beyond a bounded label "
+            "set fold into \"other\"", "counter", ["tenant", "verdict"])
+        self.slo_goodput = fam(
+            "slo_goodput_tokens_total",
+            "Output tokens of requests that MET their SLO (goodput; "
+            "compare against tokens_generated_total for the waste share)",
+            "counter", ["tenant"])
+
+        # the windowed digests behind GET /server/perf
+        self.perf = PerfTelemetry()
 
         # snapshot internals
         self._total_requests = 0
         self._active_requests = 0
         self._queue_depth = 0
         self._token_events: Deque[Tuple[float, int]] = deque()
-        self._latencies: Deque[Tuple[float, float]] = deque()
         self._ttfts_ms: Deque[float] = deque(maxlen=_TTFT_WINDOW)
         self._batch_sizes: Deque[int] = deque(maxlen=_TTFT_WINDOW)
         self._cache_hits = 0
@@ -512,6 +587,16 @@ class MetricsCollector:
         self._stall_count = 0
         self._engine_restarts: Dict[str, int] = {}
         self._redispatches: Dict[str, int] = {}
+        self._requests_shed: Dict[Tuple[str, str], int] = {}
+        self._shed_tenants: set = set()
+        self._health_transitions: Dict[str, int] = {}
+        self._breaker_transitions: Dict[str, int] = {}
+        self._retry_denied: Dict[str, int] = {}
+        self._trace_drops: Dict[str, int] = {}
+        self._phase_sums: Dict[str, float] = {}
+        self._phase_requests = 0
+        self._slo_counts: Dict[str, Dict[str, int]] = {}
+        self._slo_goodput: Dict[str, int] = {}
 
     # -- recording ---------------------------------------------------------
 
@@ -519,11 +604,10 @@ class MetricsCollector:
                        latency_s: float) -> None:
         self.request_latency.labels(endpoint=endpoint,
                                     status=str(status)).observe(latency_s)
-        now = time.monotonic()
+        # the windowed digest behind the snapshot's mean and p99
+        self.perf.observe("latency_ms", latency_s * 1000.0)
         with self._lock:
             self._total_requests += 1
-            self._latencies.append((now, latency_s * 1000.0))
-            self._trim_locked(now)
 
     def record_batch(self, size: int, padding_ratio: float = 0.0) -> None:
         """One dispatched admission batch of ``size`` requests and the
@@ -589,6 +673,7 @@ class MetricsCollector:
 
     def record_ttft(self, seconds: float) -> None:
         self.ttft.observe(seconds)
+        self.perf.observe("ttft_ms", seconds * 1000.0)
         with self._lock:
             self._ttfts_ms.append(seconds * 1000.0)
 
@@ -750,6 +835,142 @@ class MetricsCollector:
     def record_error(self, site: str) -> None:
         self.errors_total.labels(site=site).inc()
 
+    # -- gray-failure defense ------------------------------------------------
+
+    def record_shed(self, tenant: str, reason: str) -> None:
+        """One request shed at admission (``health.AdmissionControl``):
+        ``reason`` "deadline" or "brownout"."""
+        with self._lock:
+            if (tenant not in self._shed_tenants
+                    and len(self._shed_tenants) >= _SLO_TENANT_CAP):
+                tenant = "other"
+            self._shed_tenants.add(tenant)
+            key = (tenant, reason)
+            self._requests_shed[key] = self._requests_shed.get(key, 0) + 1
+        self.requests_shed.labels(tenant=tenant, reason=reason).inc()
+
+    def record_health_transition(self, engine_id: str, state: str) -> None:
+        """One transition of the health scorer: the replica's gauge
+        follows the state entered (0/1/2), the counter counts it."""
+        rank = {"healthy": 0, "degraded": 1, "ejected": 2}.get(state, 0)
+        self.engine_health.labels(engine_id=engine_id).set(rank)
+        self.health_transitions.labels(state=state).inc()
+        with self._lock:
+            self._health_transitions[state] = (
+                self._health_transitions.get(state, 0) + 1)
+
+    def remove_engine_health(self, engine_id: str) -> None:
+        """Drop a retired replica's health gauge series."""
+        try:
+            self.engine_health.remove(engine_id)
+        except KeyError:
+            pass
+
+    def record_breaker_transition(self, state: str) -> None:
+        """One circuit-breaker transition, by state entered."""
+        self.breaker_transitions.labels(state=state).inc()
+        with self._lock:
+            self._breaker_transitions[state] = (
+                self._breaker_transitions.get(state, 0) + 1)
+
+    def record_retry_denied(self, site: str) -> None:
+        """One retry declined by the shared retry budget."""
+        self.retry_denied.labels(site=site).inc()
+        with self._lock:
+            self._retry_denied[site] = self._retry_denied.get(site, 0) + 1
+
+    # -- tracing, phases, SLOs -----------------------------------------------
+
+    def record_trace_drops(self, reason: str, n: int = 1) -> None:
+        """``n`` finished spans lost for ``reason`` (ring | exporter |
+        wire): the tracer's ``on_drop``."""
+        if n <= 0:
+            return
+        self.trace_drops.labels(reason=reason).inc(n)
+        with self._lock:
+            self._trace_drops[reason] = self._trace_drops.get(reason, 0) + n
+
+    def record_request_phases(self, phases: Dict[str, float],
+                              tbt_s: Optional[float] = None) -> None:
+        """One finished request's phase attribution (seconds per phase);
+        its queue wait and mean TBT also feed the windowed digests."""
+        for phase, seconds in phases.items():
+            self.request_phases.labels(phase=phase).observe(seconds)
+        self.perf.observe("queue_wait_ms",
+                          phases.get("queue_wait", 0.0) * 1000.0)
+        if tbt_s is not None:
+            self.perf.observe("tbt_ms", tbt_s * 1000.0)
+        with self._lock:
+            self._phase_requests += 1
+            for phase, seconds in phases.items():
+                self._phase_sums[phase] = (self._phase_sums.get(phase, 0.0)
+                                           + seconds)
+
+    def record_slo(self, tenant: str, verdict: str, tokens: int = 0) -> None:
+        """One finished request's SLO verdict: counts, goodput tokens and
+        the windowed burn-rate digests."""
+        with self._lock:
+            if (tenant not in self._slo_counts
+                    and len(self._slo_counts) >= _SLO_TENANT_CAP):
+                tenant = "other"
+            per = self._slo_counts.setdefault(tenant, {})
+            per[verdict] = per.get(verdict, 0) + 1
+            if verdict == "ok" and tokens:
+                self._slo_goodput[tenant] = (
+                    self._slo_goodput.get(tenant, 0) + tokens)
+        self.slo_requests.labels(tenant=tenant, verdict=verdict).inc()
+        if verdict == "ok" and tokens:
+            self.slo_goodput.labels(tenant=tenant).inc(tokens)
+        self.perf.count("slo.violated" if verdict == "violated"
+                        else "slo.ok")
+
+    def slo_counts(self) -> Tuple[Dict[str, Dict[str, int]], Dict[str, int]]:
+        """(per-tenant verdict counts, per-tenant goodput tokens)."""
+        with self._lock:
+            return ({t: dict(v) for t, v in self._slo_counts.items()},
+                    dict(self._slo_goodput))
+
+    # -- the perf store --------------------------------------------------------
+
+    def record_step_perf(self, engine_id: str, kind: str,
+                         dispatches: int = 0, wall_s: float = 0.0,
+                         tokens: int = 0, rows: int = 0) -> None:
+        """Step-clock deltas of one dispatch kind into the perf store's
+        cumulative counters (the Prometheus step families are set from the
+        engine's totals at scrape time instead)."""
+        base = f"step.{engine_id}.{kind}"
+        for field, value in (("dispatches", dispatches), ("wall_s", wall_s),
+                             ("tokens", tokens), ("rows", rows)):
+            if value:
+                self.perf.add_counter(f"{base}.{field}", value)
+
+    def record_step_events_perf(self, engine_id: str,
+                                deltas: Dict[str, int]) -> None:
+        """Step-loop pressure-event deltas into the perf store."""
+        for event, n in deltas.items():
+            if n > 0:
+                self.perf.add_counter(f"events.{engine_id}.{event}", n)
+
+    def observe_step(self, kind: str, seconds: float) -> None:
+        """One dispatch's host wall time into the per-kind digest."""
+        self.perf.observe(f"step_ms.{kind}", seconds * 1000.0)
+
+    def configure_perf(self, epoch_s: float, window_s: float) -> None:
+        """Boot-time digest geometry (``slo.epoch_s`` / ``slo.window_s``)."""
+        self.perf.configure(epoch_s, window_s)
+
+    def perf_store(self) -> PerfTelemetry:
+        return self.perf
+
+    def perf_wire(self) -> Dict[str, Any]:
+        return self.perf.wire()
+
+    def perf_window_s(self) -> float:
+        return self.perf.window_s
+
+    def perf_epoch_s(self) -> float:
+        return self.perf.epoch_s
+
     # -- rendering ---------------------------------------------------------
 
     def prometheus_text(self) -> bytes:
@@ -796,24 +1017,22 @@ class MetricsCollector:
         while (self._token_events
                and self._token_events[0][0] < now - _TOKEN_WINDOW_S):
             self._token_events.popleft()
-        while (self._latencies
-               and self._latencies[0][0] < now - _LATENCY_WINDOW_S):
-            self._latencies.popleft()
 
     def snapshot(self, engine_statuses: Tuple[EngineStatus, ...] = ()
                  ) -> MetricsSnapshot:
         """The rates and latencies over trailing windows: tokens per
-        second over 10 s, the request latency's mean and p99 over 60 s
-        (exact, nearest rank), the TTFT and batch-size means over the last
-        1024."""
+        second over 10 s, the request latency's mean and p99 over the perf
+        store's window (``slo.window_s``, 60 s by default; the p99 a
+        bucket's midpoint, as the reference reads it), the TTFT and
+        batch-size means over the last 1024."""
         now = time.monotonic()
+        lat = window_stats(self.perf.wire_digest("latency_ms"),
+                           self.perf.window_s, self.perf.as_of_epoch())
         with self._lock:
             self._trim_locked(now)
             window_tokens = sum(n for _, n in self._token_events)
             span = (max(now - self._token_events[0][0], 1e-3)
                     if self._token_events else _TOKEN_WINDOW_S)
-            lat = sorted(ms for _, ms in self._latencies)
-            p99 = lat[max(0, math.ceil(0.99 * len(lat)) - 1)] if lat else 0.0
             total_cache = self._cache_hits + self._cache_misses
             return MetricsSnapshot(
                 total_requests=self._total_requests,
@@ -821,8 +1040,8 @@ class MetricsCollector:
                 tokens_per_second=window_tokens / span,
                 average_ttft_ms=(sum(self._ttfts_ms) / len(self._ttfts_ms)
                                  if self._ttfts_ms else 0.0),
-                average_latency_ms=sum(lat) / len(lat) if lat else 0.0,
-                p99_latency_ms=p99,
+                average_latency_ms=lat.get("mean", 0.0),
+                p99_latency_ms=lat.get("p99", 0.0),
                 average_batch_size=(
                     sum(self._batch_sizes) / len(self._batch_sizes)
                     if self._batch_sizes else 0.0),
@@ -834,6 +1053,7 @@ class MetricsCollector:
                 disagg=self._disagg_block_locked(engine_statuses),
                 cache=self._cache_block_locked(engine_statuses),
                 resilience=self._resilience_block_locked(),
+                tracing=self._tracing_block_locked(),
             )
 
     def _disagg_block_locked(self, engine_statuses) -> Optional[Dict]:
@@ -851,8 +1071,28 @@ class MetricsCollector:
 
     def _resilience_block_locked(self) -> Optional[Dict]:
         if not (self._engine_restarts or self._redispatches
-                or self._requests_expired):
+                or self._requests_expired or self._requests_shed
+                or self._retry_denied or self._breaker_transitions):
             return None
-        return {"engine_restarts": dict(self._engine_restarts),
-                "redispatched": dict(self._redispatches),
-                "requests_expired": self._requests_expired}
+        out: Dict[str, Any] = {
+            "engine_restarts": dict(self._engine_restarts),
+            "redispatched": dict(self._redispatches),
+            "requests_expired": self._requests_expired}
+        if self._requests_shed:
+            shed: Dict[str, Dict[str, int]] = {}
+            for (tenant, reason), n in self._requests_shed.items():
+                shed.setdefault(tenant, {})[reason] = n
+            out["requests_shed"] = shed
+        if self._retry_denied:
+            out["retry_denied"] = dict(self._retry_denied)
+        if self._breaker_transitions:
+            out["breaker_transitions"] = dict(self._breaker_transitions)
+        return out
+
+    def _tracing_block_locked(self) -> Optional[Dict]:
+        if not (self._trace_drops or self._phase_requests):
+            return None
+        return {"spans_dropped": dict(self._trace_drops),
+                "phase_requests": self._phase_requests,
+                "phase_seconds": {k: round(v, 6) for k, v in
+                                  sorted(self._phase_sums.items())}}

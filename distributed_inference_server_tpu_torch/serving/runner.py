@@ -44,6 +44,19 @@ With ``EngineConfig.warmup_compile`` set, the runner runs
 ``engine.warmup()`` (every serving program once; on ``cuda`` every CUDA
 graph captured) before it reports ready, and keeps its duration in
 ``warmup_seconds``.
+
+Observability: with a ``tracer`` each admitted request gets an
+``engine.infer`` span parented on its request span; with a ``recorder``
+(``serving/flightrec.py``) its tokens and terminal event land in its
+timeline. After every engine step the step clock's deltas go to the perf
+store (``record_step_perf``: the health scorer's wedge signal and the
+``step_ms`` digests).
+
+Hot swap (``swap_model``): the new engine is built and warmed up on a
+background thread while the old one serves, installed at an inbox drain
+(new requests go to it), and the old one finishes its in-flight requests
+(stepped between the new engine's steps) and is then released, as a dead
+engine is at a restart. A failed build keeps the old model.
 """
 
 from __future__ import annotations
@@ -85,6 +98,18 @@ EmbedCallback = Callable[[Optional[np.ndarray], Optional[str]], None]
 DoneCallback = Callable[[bool, Optional[str]], None]
 
 
+def _release(engines: List[LLMEngine]) -> None:
+    """Release stopped or replaced engines: their pools, CUDA graphs and
+    graph pools go back to the device. The list is emptied, so with the
+    caller holding no other reference the engines are collected here."""
+    for eng in engines:
+        eng.release()
+    engines.clear()
+    gc.collect()  # the engine's hooks form reference cycles
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 class ResultSink(Protocol):
     """Receives one request's outputs, on the runner thread; methods must
     not block or raise."""
@@ -104,11 +129,12 @@ class ServerRequest:
     the dispatcher's ``max_redispatch``)."""
 
     __slots__ = ("request_id", "prompt_ids", "params", "sink",
-                 "submitted_at", "first_token_at", "tenant", "redispatches")
+                 "submitted_at", "first_token_at", "tenant", "redispatches",
+                 "span", "engine_span")
 
     def __init__(self, request_id: RequestId, prompt_ids: List[int],
                  params: SamplingParams, sink: ResultSink,
-                 tenant: str = DEFAULT_TENANT):
+                 tenant: str = DEFAULT_TENANT, span=None):
         self.request_id = request_id
         self.prompt_ids = prompt_ids
         self.params = params
@@ -117,6 +143,10 @@ class ServerRequest:
         self.submitted_at = time.monotonic()
         self.first_token_at: Optional[float] = None
         self.redispatches = 0
+        # the request's root span (owned by the handler) and its
+        # engine.infer child (owned by the runner that serves it)
+        self.span = span
+        self.engine_span = None
 
 
 class EngineRunner:
@@ -125,13 +155,17 @@ class EngineRunner:
     def __init__(self, engine_id: str,
                  engine_factory: Callable[[], LLMEngine],
                  metrics: MetricsCollector, role: str = "unified",
-                 disagg=None):
+                 disagg=None, tracer=None, recorder=None):
         """``role`` ("prefill" | "decode" | "unified") and ``disagg``
         (the ``DisaggController``) enable disaggregated serving; unified
-        (the default) prefills and decodes in place."""
+        (the default) prefills and decodes in place. ``tracer`` /
+        ``recorder``: the engine spans and the flight-recorder notes
+        (None: off)."""
         self.engine_id = engine_id
         self.role = role
         self._disagg = disagg
+        self.tracer = tracer
+        self.recorder = recorder
         self._factory = engine_factory
         self.metrics = metrics
         # crash-safe redispatch hook (the server wires the dispatcher's
@@ -184,6 +218,11 @@ class EngineRunner:
         self.step_seconds = 0.0
         self.warmup_seconds: Optional[float] = None
         self.restarts = 0
+        # old engines finishing their in-flight requests after a hot
+        # swap (runner thread only)
+        self._draining: List[LLMEngine] = []
+        # step-clock totals already reported to the perf store
+        self._sc_seen: Dict[str, Dict] = {"kinds": {}, "events": {}}
         # host seconds of the handoff's engine work on this replica:
         # exports (prefix pumps, switchover or monolithic export) and
         # imports (open + prefix chunks, commit, or monolithic import)
@@ -231,16 +270,14 @@ class EngineRunner:
         self.start(wait_ready=wait_ready, timeout=timeout)
 
     def release_engine(self) -> None:
-        """Drop the (stopped) engine: its pools, CUDA graphs and graph
-        pool go back to the device before anything new is built."""
-        eng, self._engine = self._engine, None
-        if eng is None:
-            return
-        eng.release()
-        del eng
-        gc.collect()  # the engine's hooks form reference cycles
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
+        """Drop the (stopped) engine and any old engine still draining
+        after a swap: their pools, CUDA graphs and graph pools go back to
+        the device before anything new is built."""
+        engines = [e for e in [self._engine] + self._draining
+                   if e is not None]
+        self._engine = None
+        self._draining = []
+        _release(engines)
 
     def set_role(self, role: str) -> None:
         """Re-role the runner: ``submit`` reads the role per batch, so
@@ -270,6 +307,12 @@ class EngineRunner:
         def _do() -> None:
             for r in reqs:
                 if r.request_id in self._inflight:  # not aborted meanwhile
+                    if self.tracer is not None and r.span is not None:
+                        r.engine_span = self.tracer.start(
+                            "engine.infer", parent=r.span.context(),
+                            engine_id=self.engine_id,
+                            request_id=str(r.request_id),
+                            prompt_tokens=len(r.prompt_ids))
                     self._engine.add_request(r.request_id, r.prompt_ids,
                                              r.params,
                                              prefill_only=prefill_only)
@@ -282,7 +325,10 @@ class EngineRunner:
         self._inflight.pop(request_id, None)
 
         def _do() -> None:
-            self._engine.abort(request_id)
+            if not self._engine.abort(request_id):
+                # still on an old engine draining after a swap
+                for eng in self._draining:
+                    eng.abort(request_id)
 
         self._post(_do)
 
@@ -499,12 +545,16 @@ class EngineRunner:
             return
 
         def _enqueue() -> None:
+            # the job keeps its engine: a swap mid-job must not mix two
+            # models' hidden states
+            engine = self._engine
             try:
-                state = self._engine.embed_start(ids_list)
+                state = engine.embed_start(ids_list)
             except Exception as e:  # noqa: BLE001 — called exactly once
                 self._resolve_embed(token, None, str(e))
                 return
-            self._embed_jobs.append({"token": token, "state": state})
+            self._embed_jobs.append({"token": token, "engine": engine,
+                                     "state": state})
 
         self._post(_enqueue)
 
@@ -583,6 +633,130 @@ class EngineRunner:
             self._engine.set_mixed_prefill_frac(frac)
 
         self._post(_do)
+
+    def set_loop_cap_frac(self, frac: float) -> None:
+        """Shrink (or restore) the looped block's iteration cap, on the
+        engine thread (a no-op while looped blocks are off)."""
+
+        def _do() -> None:
+            self._engine.set_loop_cap_frac(frac)
+
+        self._post(_do)
+
+    def evict_cache(self, target_frac: float,
+                    drop_host_tier: bool = False) -> None:
+        """Evict cached (refcount-0) prefix pages until used / total <=
+        ``target_frac``, on the engine thread: they demote to the host
+        tier when there is one; ``drop_host_tier`` drops them and clears
+        the tier (the ladder's last rung)."""
+
+        def _do() -> None:
+            self._engine.evict_cache(target_frac,
+                                     drop_host_tier=drop_host_tier)
+            self._refresh_load()
+            self._refresh_digest(force=True)
+
+        self._post(_do)
+
+    # -- model hot swap ------------------------------------------------------
+
+    def swap_model(self, factory: Callable[[], LLMEngine],
+                   on_done: Optional[DoneCallback] = None,
+                   cancelled: Optional[threading.Event] = None) -> None:
+        """Swap the model: build (and, with ``warmup_compile``, warm up)
+        the new engine on a background thread while this one serves, then
+        install it at an inbox drain. New requests go to the new engine;
+        in-flight ones finish on the old, which is released once it has
+        no work. A failed build keeps the old model (``on_done(False,
+        err)``); ``cancelled``, checked at the install, abandons a swap
+        that missed its deadline. The new engine starts with an empty
+        cache and fresh counters; restarts come back on the new model."""
+
+        def _build() -> None:
+            self._tallies.append(kernels.thread_launch_counts())
+            try:
+                eng = factory()
+                if eng.ecfg.warmup_compile:
+                    eng.warmup()  # the new model must not serve cold
+            except Exception as e:  # noqa: BLE001 — keep the old model
+                logger.exception("engine %s: model swap failed",
+                                 self.engine_id)
+                self._last_error = f"model swap failed: {e}"
+                gc.collect()
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+                if on_done is not None:
+                    on_done(False, str(e))
+                return
+
+            built = [eng]  # the one reference the install hands over
+            del eng
+
+            def _install() -> None:
+                if cancelled is not None and cancelled.is_set():
+                    _release([built.pop()])
+                    if on_done is not None:
+                        on_done(False, "swap cancelled")
+                    return
+                old = [self._engine]
+                self._engine = built.pop()
+                self._factory = factory
+                self._sc_seen = {"kinds": {}, "events": {}}
+                if old[0] is None:
+                    old.clear()
+                elif old[0].has_work():
+                    self._draining.append(old.pop())
+                if old:
+                    _release(old)
+                self._refresh_load()
+                self._refresh_digest(force=True)
+                if on_done is not None:
+                    on_done(True, None)
+
+            self._post(_install)
+            if not self._healthy:
+                # no runner thread drains the inbox: nothing to swap on
+                with self._inbox_lock:
+                    if _install in self._inbox:
+                        self._inbox.remove(_install)
+                        _release([built.pop()])
+                        if on_done is not None:
+                            on_done(False, "engine unavailable")
+
+        threading.Thread(target=_build, name=f"swap-{self.engine_id}",
+                         daemon=True).start()
+
+    def tokenizer(self):
+        """The installed engine's tokenizer (None before it is built):
+        the server retargets the handler's tokenizer after a swap."""
+        eng = self._engine
+        return eng.tok if eng is not None else None
+
+    def _step_draining(self) -> bool:
+        """Step the old engines still finishing requests after a swap; a
+        crash there fails only their requests. An engine with no work
+        left is released."""
+        worked = False
+        i = 0
+        while i < len(self._draining):
+            # indexed, never bound to a local: a released engine must
+            # have no reference left for the collector
+            if not self._draining[i].has_work():
+                _release([self._draining.pop(i)])
+                continue
+            worked = True
+            try:
+                self._dispatch(self._draining[i].step())
+            except Exception as e:  # noqa: BLE001 — old-model isolation
+                ids = set(self._draining[i]._by_id)
+                _release([self._draining.pop(i)])
+                self._fail_all_of(
+                    [r for r in list(self._inflight.values())
+                     if r.request_id in ids],
+                    f"old model failed during drain: {e}")
+                continue
+            i += 1
+        return worked
 
     def _post(self, fn: Callable[[], None]) -> None:
         with self._inbox_lock:
@@ -663,6 +837,7 @@ class EngineRunner:
         self._tallies.append(kernels.thread_launch_counts())
         try:
             self._engine = self._factory()
+            self._sc_seen = {"kinds": {}, "events": {}}
             if self._engine.ecfg.warmup_compile:
                 # every serving program before reporting ready: the first
                 # request must not pay graph capture in its latency
@@ -696,6 +871,7 @@ class EngineRunner:
                     self.steps += 1
                     self.metrics.record_inference(dt)
                     self._dispatch(outputs)
+                    self._report_step_clock()
                     self._refresh_load()
                     # forced on the busy-to-idle edge: a request's last
                     # step publishes its prefix chain, and with no later
@@ -703,6 +879,8 @@ class EngineRunner:
                     self._refresh_digest(force=not self._engine.has_work())
                 if self._drain_handoffs():
                     worked = True
+                if self._draining:
+                    worked |= self._step_draining()
                 worked |= self._embed_quantum()
                 if not worked:
                     self._wake.wait(0.005)
@@ -713,6 +891,32 @@ class EngineRunner:
             self._healthy = False
             self.metrics.set_engine_up(self.engine_id, False)
             self._fail_all(str(e))
+
+    def _report_step_clock(self) -> None:
+        """The step clock's deltas since the last report into the perf
+        store, and each segment's wall time into its ``step_ms`` digest
+        (runner thread, after a step)."""
+        e = self._engine
+        clock = e.step_clock_stats()
+        seen = self._sc_seen["kinds"]
+        for kind, cur in clock["kinds"].items():
+            prev = seen.get(kind, {})
+            d = {f: cur[f] - prev.get(f, 0)
+                 for f in ("dispatches", "wall_s", "tokens", "rows")}
+            if d["dispatches"] > 0 or d["wall_s"] > 0 or d["tokens"] > 0:
+                self.metrics.record_step_perf(
+                    self.engine_id, kind,
+                    dispatches=max(0, int(d["dispatches"])),
+                    wall_s=max(0.0, d["wall_s"]),
+                    tokens=max(0, int(d["tokens"])),
+                    rows=max(0, int(d["rows"])))
+        prev_events = self._sc_seen["events"]
+        self.metrics.record_step_events_perf(self.engine_id, {
+            ev: int(n - prev_events.get(ev, 0))
+            for ev, n in clock["events"].items()})
+        self._sc_seen = clock
+        for kind, wall_s in e.drain_step_samples():
+            self.metrics.observe_step(kind, wall_s)
 
     def _refresh_load(self) -> None:
         e = self._engine
@@ -894,8 +1098,8 @@ class EngineRunner:
             return True
         result = error = None
         try:
-            if self._engine.embed_step(job["state"]):
-                result = self._engine.embed_finish(job["state"])
+            if job["engine"].embed_step(job["state"]):
+                result = job["engine"].embed_finish(job["state"])
         except Exception as e:  # noqa: BLE001 — isolation boundary
             error = str(e)
         if result is not None or error is not None:
@@ -922,19 +1126,35 @@ class EngineRunner:
             touched[out.request_id] = req.sink
             try:
                 if out.error is not None:
+                    if self.recorder is not None:
+                        self.recorder.finish(out.request_id, "error",
+                                             code="inference_failed")
                     req.sink.on_error(out.error, "inference_failed")
                 elif out.token_id is not None or out.text:
                     if req.first_token_at is None:
                         req.first_token_at = time.monotonic()
                         self.metrics.record_ttft(
                             req.first_token_at - req.submitted_at)
+                        if req.engine_span is not None:
+                            req.engine_span.event("first_token")
                     if out.token_id is not None:
                         tokens += 1
+                        if self.recorder is not None:
+                            self.recorder.token(out.request_id)
                     if not out.finished:
                         req.sink.on_token(out.token_id, out.text,
                                           out.token_index, out.logprob)
                 if out.finished:
+                    # the span and the timeline end before the client
+                    # hears of it: a client that reads /server/trace or
+                    # /server/requests/<id> right after its answer finds
+                    # them finished
+                    self._finish_engine_span(
+                        req, "ok" if out.error is None else "error",
+                        out.usage)
                     if out.error is None:
+                        if self.recorder is not None:
+                            self.recorder.finish(out.request_id, "ok")
                         if out.text:  # final delta rides the done event
                             req.sink.on_token(None, out.text,
                                               out.token_index)
@@ -953,6 +1173,14 @@ class EngineRunner:
         self.tokens_generated += tokens
         self.metrics.record_tokens(tokens)
 
+    def _finish_engine_span(self, req: ServerRequest, status: str,
+                            usage: Optional[Usage] = None) -> None:
+        span, req.engine_span = req.engine_span, None
+        if span is not None and self.tracer is not None:
+            if usage is not None:
+                span.set(completion_tokens=usage.completion_tokens)
+            self.tracer.finish(span, status=status)
+
     def _absorbed(self, site: str, exc: BaseException) -> None:
         """An exception eaten at an isolation boundary: logged, kept as
         the last error and counted in ``errors_total``."""
@@ -963,6 +1191,9 @@ class EngineRunner:
 
     def _sink_error(self, req: ServerRequest, message: str,
                     code: str) -> None:
+        self._finish_engine_span(req, "error")
+        if self.recorder is not None:
+            self.recorder.finish(req.request_id, "error", code=code)
         try:
             req.sink.on_error(message, code)
         except Exception as e:  # noqa: BLE001 — sink isolation
@@ -1026,6 +1257,9 @@ class EngineRunner:
             if self._inflight.pop(req.request_id, None) is None:
                 continue  # another failure path owns it
             if req.first_token_at is None and self.redispatch is not None:
+                # the dead replica's engine span ends here; the new
+                # replica opens its own under the same request span
+                self._finish_engine_span(req, "error")
                 try:
                     if self.redispatch(req, self.engine_id, message):
                         continue  # the new owner resolves the sink

@@ -1,7 +1,6 @@
 """Inference server: engine replicas behind the adaptive scheduler and a
 standard-library HTTP server (the counterpart of
-``distributed_inference_server_tpu/serving/server.py`` without the fleet,
-hot swap, tracing and the gray-failure control plane).
+``distributed_inference_server_tpu/serving/server.py`` without the fleet).
 
 It wires the ``MetricsCollector``; ``num_engines`` ``EngineRunner``
 replicas, each built by ``engine_factory(replica_index)`` (or a
@@ -16,6 +15,16 @@ redispatch); and the ``InferenceHandler``. ``serve`` runs a
 ``serving/app.py``. ``scale_to`` adds replicas or retires them (unified
 ones first, youngest first), draining a retired replica before it stops.
 
+As the reference's server it always builds the observability and control
+plane: a ``Tracer`` (with the OTLP exporter when ``otlp_endpoint`` is set)
+and a ``FlightRecorder`` (SLO verdicts with ``slo_settings``), the shared
+``RetryBudget`` (redispatch and the handoff retry draw from it), the
+``HealthScorer`` (on by default; its verdicts ride ``statuses()``),
+``AdmissionControl`` (deadline-aware shedding) and the
+``DegradationController`` (the memory-pressure and SLO-burn ladder).
+``swap_model`` hot-swaps every replica's model; ``apply_hot_config`` takes
+the ``ConfigWatcher``'s hot-reloadable changes.
+
 ``server.runner`` is the first replica (``engine-0``): it is never
 retired, and a restart keeps its runner object.
 """
@@ -23,17 +32,23 @@ retired, and a restart keeps its runner object.
 from __future__ import annotations
 
 import inspect
+import logging
 import threading
 import time
+from dataclasses import replace
 from http.server import ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from distributed_inference_server_tpu_torch.core.queue import QueueConfig
+from distributed_inference_server_tpu_torch.core.validator import (
+    ValidatorConfig,
+)
 from distributed_inference_server_tpu_torch.engine.engine import LLMEngine
 from distributed_inference_server_tpu_torch.models.tokenizer import Tokenizer
 from distributed_inference_server_tpu_torch.ops import kernels
+from distributed_inference_server_tpu_torch.serving import faults
 from distributed_inference_server_tpu_torch.serving.app import make_handler
 from distributed_inference_server_tpu_torch.serving.batcher import (
     BatcherConfig,
@@ -45,11 +60,24 @@ from distributed_inference_server_tpu_torch.serving.disagg import (
     make_channel,
     parse_roles,
 )
+from distributed_inference_server_tpu_torch.serving.degradation import (
+    DegradationController,
+)
 from distributed_inference_server_tpu_torch.serving.dispatcher import (
     Dispatcher,
 )
+from distributed_inference_server_tpu_torch.serving.flightrec import (
+    FlightRecorder,
+)
 from distributed_inference_server_tpu_torch.serving.handler import (
     InferenceHandler,
+)
+from distributed_inference_server_tpu_torch.serving.health import (
+    AdmissionControl,
+    AdmissionSettings,
+    HealthScorer,
+    HealthSettings,
+    RetryBudget,
 )
 from distributed_inference_server_tpu_torch.serving.metrics import (
     MetricsCollector,
@@ -62,6 +90,13 @@ from distributed_inference_server_tpu_torch.serving.scheduler import (
     FetchCosts,
     SchedulingStrategy,
 )
+from distributed_inference_server_tpu_torch.serving.teledigest import (
+    SloSettings,
+    build_perf_payload,
+)
+from distributed_inference_server_tpu_torch.utils.tracing import Tracer
+
+logger = logging.getLogger(__name__)
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -101,6 +136,13 @@ class InferenceServer:
         restart_backoff_s: float = 1.0,
         restart_backoff_max_s: float = 30.0,
         max_redispatch: int = 2,
+        validator_config: Optional[ValidatorConfig] = None,
+        model_resolver: Optional[Callable[[str], Callable]] = None,
+        otlp_endpoint: str = "",
+        otlp_service_name: str = "distributed-inference-server-tpu",
+        slo_settings: Optional[SloSettings] = None,
+        health_settings: Optional[HealthSettings] = None,
+        admission_settings: Optional[AdmissionSettings] = None,
     ):
         """``queue_config`` / ``batcher_config``: the admission queue's
         watermarks, timeout, cap and tenant lanes, and the batching window
@@ -114,13 +156,41 @@ class InferenceServer:
         ``health_check_interval_s``) restarts a dead replica, backing off
         ``restart_backoff_s`` doubling up to ``restart_backoff_max_s``
         after a failed restart. ``max_redispatch``: moves off a dead
-        replica per zero-token request (0 = off)."""
+        replica per zero-token request (0 = off). ``validator_config``:
+        the request validator's limits. ``model_resolver(name) ->
+        engine_factory`` enables ``POST /admin/model-swap`` (None: 501).
+        ``otlp_endpoint``: a collector's ``/v1/traces`` URL (empty: spans
+        stay in the in-memory ring). ``slo_settings``: SLO verdicts and
+        the digests' window geometry. ``health_settings`` /
+        ``admission_settings``: the health scorer, retry budget, SLO-burn
+        ladder input and deadline-aware shedding (None: the defaults)."""
         from distributed_inference_server_tpu_torch import native
+        from distributed_inference_server_tpu_torch.utils.otlp import (
+            OTLPExporter,
+        )
 
         self.tok = tokenizer
         self.model_name = model_name
         self.engine_factory = engine_factory
+        self.model_resolver = model_resolver
         self.metrics = MetricsCollector()
+        self.slo_settings = slo_settings
+        if slo_settings is not None:
+            # boot time: the rings are still empty
+            self.metrics.configure_perf(slo_settings.epoch_s,
+                                        slo_settings.window_s)
+        self.tracer = Tracer()
+        self.tracer.on_drop = self.metrics.record_trace_drops
+        self.recorder = FlightRecorder(metrics=self.metrics,
+                                       slo=slo_settings)
+        # fault arm / disarm hops land in the recorder's global window
+        self._fault_observer = self.recorder.note_global
+        faults.add_observer(self._fault_observer)
+        self.otlp: Optional[OTLPExporter] = None
+        if otlp_endpoint:
+            self.otlp = OTLPExporter(
+                otlp_endpoint, service_name=otlp_service_name
+            ).attach(self.tracer)
         self.scheduler = AdaptiveScheduler(
             strategy=strategy,
             health_check_interval_s=health_check_interval_s,
@@ -128,6 +198,23 @@ class InferenceServer:
             restart_backoff_s=restart_backoff_s,
             restart_backoff_max_s=restart_backoff_max_s,
             fetch_costs=fetch_costs)
+        self.health_settings = health_settings or HealthSettings()
+        self.retry_budget = RetryBudget(
+            ratio=self.health_settings.retry_budget_ratio,
+            min_retries=self.health_settings.retry_budget_min,
+            window_s=self.health_settings.retry_window_s,
+            metrics=self.metrics)
+        self.health_scorer: Optional[HealthScorer] = None
+        if self.health_settings.enabled:
+            self.health_scorer = HealthScorer(
+                self.health_settings, self.scheduler, metrics=self.metrics,
+                recorder=self.recorder)
+            self.scheduler.health_scorer = self.health_scorer
+        self.admission = AdmissionControl(
+            admission_settings or AdmissionSettings(), slo=slo_settings,
+            metrics=self.metrics,
+            tenant_weights=(queue_config.tenant_weights
+                            if queue_config is not None else None))
         if isinstance(engine_roles, str):
             engine_roles = parse_roles(engine_roles, num_engines)
         self._roles: List[str] = list(engine_roles or [])
@@ -136,24 +223,34 @@ class InferenceServer:
         if any(r in ("prefill", "decode") for r in self._roles):
             self.disagg = DisaggController(
                 self.scheduler, metrics=self.metrics,
-                channel=make_channel(settings.channel), settings=settings)
+                channel=make_channel(settings.channel), settings=settings,
+                tracer=self.tracer, recorder=self.recorder)
+            # the handoff retry draws from the shared budget
+            self.disagg.retry_budget = self.retry_budget
             self.metrics.set_engines_by_role(
                 DisaggController.role_counts(self._roles))
         # always built: whether it runs is the cost model's decision,
         # which says "fetch" only under cache_aware with peer fetch on
         self.prefix_fetcher = PrefixFetcher(
             channel=make_channel(settings.channel), settings=settings,
-            metrics=self.metrics)
-        self.batcher_config = batcher_config or BatcherConfig()
+            metrics=self.metrics, tracer=self.tracer,
+            recorder=self.recorder)
         self.dispatcher = Dispatcher(
-            self.scheduler, queue_config, self.batcher_config, self.metrics,
+            self.scheduler, queue_config, batcher_config, self.metrics,
             disagg=self.disagg, max_redispatch=max_redispatch,
-            prefix_fetcher=self.prefix_fetcher)
+            prefix_fetcher=self.prefix_fetcher, tracer=self.tracer,
+            recorder=self.recorder, admission=self.admission,
+            retry_budget=self.retry_budget)
         # the validator's tier, as the reference picks it: native when the
         # library builds
-        self.handler = InferenceHandler(self.dispatcher, tokenizer,
-                                        model_name, self.metrics,
-                                        native.make_validator())
+        self.handler = InferenceHandler(
+            self.dispatcher, tokenizer, model_name, self.metrics,
+            native.make_validator(validator_config), tracer=self.tracer,
+            recorder=self.recorder)
+        self.degradation = DegradationController(
+            self.dispatcher, self.scheduler, metrics=self.metrics,
+            burn_high=self.health_settings.slo_burn_high,
+            burn_min_requests=self.health_settings.slo_burn_min_requests)
         self._num_engines = num_engines
         self._next_engine_idx = 0
         self._scale_lock = threading.Lock()
@@ -175,6 +272,9 @@ class InferenceServer:
             self._spawn_engine(wait_ready=wait_ready)
         self.scheduler.start_health_loop()
         self.dispatcher.start()
+        self.degradation.start()
+        if self.health_scorer is not None:
+            self.health_scorer.start()
         self._accepting = True
 
     def serve(self, host: str = "0.0.0.0", port: int = 8000,
@@ -198,6 +298,9 @@ class InferenceServer:
         then stop HTTP, the controller (leftover migrations resume in
         place), the health loop and the replicas."""
         self._accepting = False
+        self.degradation.stop()
+        if self.health_scorer is not None:
+            self.health_scorer.stop()
         self.dispatcher.shutdown(drain_timeout_s)
         if self._httpd is not None:
             self._httpd.shutdown()
@@ -210,6 +313,9 @@ class InferenceServer:
         self.scheduler.stop_health_loop()
         for runner in self.scheduler.engines():
             runner.shutdown()
+        if self.otlp is not None:
+            self.otlp.shutdown()
+        faults.remove_observer(self._fault_observer)
 
     # -- elasticity --------------------------------------------------------
 
@@ -220,7 +326,8 @@ class InferenceServer:
         role = self._roles[idx] if idx < len(self._roles) else "unified"
         runner = EngineRunner(
             f"engine-{idx}", _bind_factory(self.engine_factory, idx),
-            self.metrics, role=role, disagg=self.disagg)
+            self.metrics, role=role, disagg=self.disagg, tracer=self.tracer,
+            recorder=self.recorder)
         # crash-safe redispatch: a dead runner hands its zero-token
         # requests back to the dispatcher
         runner.redispatch = self.dispatcher.redispatch
@@ -259,7 +366,124 @@ class InferenceServer:
         threading.Thread(target=_wait, name=f"retire-{runner.engine_id}",
                          daemon=True).start()
 
+    # -- model hot swap ----------------------------------------------------
+
+    def swap_model(self, engine_factory: Callable[..., LLMEngine],
+                   model_name: Optional[str] = None,
+                   timeout_s: float = 600.0) -> Tuple[bool, Optional[str]]:
+        """Swap every replica to a new model: each builds its new engine
+        in the background and switches at an inbox drain; in-flight
+        requests finish on the old model. Returns ``(ok, error)``. A
+        replica whose build fails keeps its old model and the call fails;
+        replicas past ``timeout_s`` are cancelled (they never install
+        late). On success the handler serves under ``model_name`` with the
+        new model's tokenizer (its chat template follows)."""
+        runners = self.scheduler.engines()
+        results: Dict[str, Tuple[bool, Optional[str]]] = {}
+        events = []
+        cancelled = threading.Event()
+        for idx, runner in enumerate(runners):
+            ev = threading.Event()
+            events.append(ev)
+
+            def _cb(ok, err, eid=runner.engine_id, ev=ev):
+                results[eid] = (ok, err)
+                ev.set()
+
+            runner.swap_model(_bind_factory(engine_factory, idx), _cb,
+                              cancelled=cancelled)
+        deadline = time.monotonic() + timeout_s
+        for ev in events:
+            if not ev.wait(max(0.0, deadline - time.monotonic())):
+                cancelled.set()
+                installed = sorted(e for e, (ok, _) in results.items()
+                                   if ok)
+                return False, (
+                    f"model swap timed out after {timeout_s}s; replicas "
+                    f"already on the new model: {installed or 'none'} — "
+                    "retry the swap to converge")
+        failed = {e: err for e, (ok, err) in results.items() if not ok}
+        if failed:
+            return False, f"swap failed on {failed}"
+        self.engine_factory = engine_factory
+        if model_name is not None:
+            self.model_name = model_name
+            self.handler.model_name = model_name
+        # the chat template follows the tokenizer and the model name:
+        # templating for the new family with the old tokenizer would
+        # garble every /chat prompt
+        for runner in runners:
+            tok = runner.tokenizer()
+            if tok is not None:
+                self.tok = self.handler.tok = tok
+                break
+        else:
+            logger.error("model swap to %r succeeded but no replica "
+                         "yielded a tokenizer; the handler keeps the old "
+                         "one", model_name)
+        return True, None
+
+    def swap_by_name(self, name: str) -> Tuple[bool, Optional[str]]:
+        """``POST /admin/model-swap``: resolve ``name`` to an engine
+        factory and swap to it."""
+        try:
+            factory = self.model_resolver(name)
+        except Exception as e:  # noqa: BLE001 — unknown model etc.
+            return False, str(e)
+        return self.swap_model(factory, model_name=name)
+
+    # -- hot reload ----------------------------------------------------------
+
+    def apply_hot_config(self, diff: dict, new_config) -> None:
+        """Apply the hot-reloadable changes (the ``ConfigWatcher``'s
+        subscriber): the batching window and size, the queue watermarks
+        and timeout, the scheduling strategy. Only the diffed hot keys
+        apply; a non-hot key changed in the same edit does not."""
+        batcher = {k: v for (sec, k), v in diff.items() if sec == "batcher"}
+        if batcher:
+            self.dispatcher.batcher.config = replace(
+                self.dispatcher.batcher.config, **batcher)
+        queue = {k: v for (sec, k), v in diff.items() if sec == "queue"}
+        if queue:
+            self.dispatcher.queue.config = replace(
+                self.dispatcher.queue.config, **queue)
+        if ("server", "strategy") in diff:
+            self.scheduler.set_strategy(new_config.strategy())
+
     # -- endpoints ---------------------------------------------------------
+
+    def perf_stats(self) -> dict:
+        """``GET /server/perf``: per-engine step clock, windowed latency
+        percentiles, SLO burn and the raw digests."""
+        slo_counts, goodput = self.metrics.slo_counts()
+        return build_perf_payload(self.metrics.perf_store(),
+                                  self.slo_settings, slo_counts=slo_counts,
+                                  goodput=goodput)
+
+    def health_stats(self) -> dict:
+        """The ``health`` block of ``/server/stats``: the scorer's states
+        and evidence, the retry budget and the admission estimator."""
+        out: dict = {}
+        if self.health_scorer is not None:
+            out.update(self.health_scorer.stats())
+        out["retry_budget"] = self.retry_budget.stats()
+        out["admission"] = self.admission.stats()
+        return out
+
+    def _engine_settings(self) -> Optional[dict]:
+        """The first replica's engine settings (batch, pool, prefill)."""
+        eng = self.runner._engine if self.runner is not None else None
+        if eng is None:
+            return None
+        e, p = eng.ecfg, eng.pcfg
+        return {"max_batch": e.max_batch, "num_pages": p.num_pages,
+                "page_size": p.page_size,
+                "max_pages_per_seq": p.max_pages_per_seq,
+                "prefill_batch": e.prefill_batch,
+                "prefill_token_budget": e.prefill_token_budget,
+                "prefill_buckets": list(e.prefill_buckets),
+                "decode_block_size": e.decode_block_size,
+                "mixed_step_tokens": e.mixed_step_tokens}
 
     def admission_stats(self) -> dict:
         d = self.dispatcher.queue.queue_depth()
@@ -268,8 +492,14 @@ class InferenceServer:
             "accepting": self.dispatcher.is_accepting(),
             "queue": {"high": d.high, "normal": d.normal, "low": d.low,
                       "total": d.total},
-            "window_ms": self.batcher_config.window_ms,
-            "max_batch_size": self.batcher_config.max_batch_size,
+            "window_ms": self.dispatcher.batcher.config.window_ms,
+            "max_batch_size": self.dispatcher.batcher.config.max_batch_size,
+            "max_queue_size": self.dispatcher.queue.config.max_queue_size,
+            "high_watermark": self.dispatcher.queue.config.high_watermark,
+            "degradation": self.degradation.level.name,
+            "reject_low_priority": self.dispatcher.reject_low_priority,
+            "reject_all": self.dispatcher.reject_all,
+            "size_divisor": self.dispatcher.batcher.size_divisor,
         }
 
     def kernel_counts(self) -> Dict[str, int]:
@@ -336,9 +566,16 @@ class InferenceServer:
         (``loop_stats()``, null while looped blocks are off),
         ``step_clock`` (host wall time, dispatches, tokens and rows per
         dispatch kind, and the pressure events), ``memory`` (device
-        memory, null on the CPU) and ``warmup_s``; ``admission`` (the
+        memory, null on the CPU) and ``warmup_s``; ``engine`` (the first
+        replica's batch, pool and prefill settings); ``admission`` (the
         queue tier, the queue's depth by priority, whether it accepts, the
-        batching window and size); ``replicas``, one entry per replica
+        live batching window and size, the queue's cap and high
+        watermark, the degradation level and its gates); the reference's
+        ``health`` block (the scorer's states and evidence, the retry
+        budget, the admission estimator) and ``tracing`` block (spans
+        dropped, the flight recorder's phase sums and counts, and with an
+        OTLP endpoint its exported and dropped spans); ``replicas``, one
+        entry per replica
         (id, role, health, warmup seconds, restarts, steps, requests
         finished, kernel launches on its thread, its cache, step clock and
         memory, and its page audit: empty when clean); with a prefill /
@@ -383,7 +620,15 @@ class InferenceServer:
                 **blocks[r.engine_id],
             } for r in runners],
             "kernel_launches": self.kernel_counts(),
+            "engine": self._engine_settings(),
+            "health": self.health_stats(),
         })
+        tracing = out.setdefault("tracing", {})
+        tracing["tracer_dropped"] = self.tracer.dropped()
+        tracing["flight_recorder"] = self.recorder.stats()
+        if self.otlp is not None:
+            tracing["otlp"] = {"exported": self.otlp.exported,
+                               "dropped": self.otlp.dropped}
         if self.disagg is not None:
             out["handoff_s"] = {
                 "export": sum(r.handoff_s["export"] for r in runners),

@@ -299,11 +299,19 @@ def test_tenant_fair_levels_fifo_depths_and_late_tenant():
 
 
 def test_parse_tenant_weights():
-    assert pq.parse_tenant_weights("a=2, b=0.5,") == {"a": 2.0, "b": 0.5}
-    assert pq.parse_tenant_weights("") == {}
+    # the config's parser (serving/config.py), which builds QueueConfig
+    from distributed_inference_server_tpu_torch.core.errors import (
+        ConfigError,
+    )
+    from distributed_inference_server_tpu_torch.serving.config import (
+        parse_tenant_weights,
+    )
+
+    assert parse_tenant_weights("a=2, b=0.5,") == {"a": 2.0, "b": 0.5}
+    assert parse_tenant_weights("") == {}
     for bad in ("a", "=2", "a=x", "a=0", "a=-1"):
-        with pytest.raises(ValueError, match="tenant_weights"):
-            pq.parse_tenant_weights(bad)
+        with pytest.raises(ConfigError, match="tenant_weights"):
+            parse_tenant_weights(bad)
 
 
 # ---------------------------------------------------------------------------

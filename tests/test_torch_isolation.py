@@ -158,3 +158,65 @@ def test_two_replica_servers_serve_where_jax_cannot():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+# the configuration, control and observability modules
+CONTROL_MODULES = (
+    "distributed_inference_server_tpu_torch.utils.compat",
+    "distributed_inference_server_tpu_torch.utils.tracing",
+    "distributed_inference_server_tpu_torch.utils.otlp",
+    "distributed_inference_server_tpu_torch.serving.config",
+    "distributed_inference_server_tpu_torch.serving.teledigest",
+    "distributed_inference_server_tpu_torch.serving.flightrec",
+    "distributed_inference_server_tpu_torch.serving.health",
+    "distributed_inference_server_tpu_torch.serving.degradation",
+    "distributed_inference_server_tpu_torch.__main__",
+)
+
+
+def test_no_module_imports_yaml_at_module_level():
+    """``yaml`` (absent on the card's machine) is imported only inside the
+    function that reads a YAML file."""
+    offenders = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            offenders += [f"{path.relative_to(ROOT)}: {n}" for n in names
+                          if n.split(".")[0] == "yaml"]
+    assert offenders == []
+
+
+def test_control_modules_import_each_by_itself():
+    """Each new module imports on its own (the package's modules purged
+    before each), where jax, the JAX package, aiohttp, prometheus_client
+    and yaml cannot be imported."""
+    blocked = FORBIDDEN + ("yaml",)
+    script = textwrap.dedent(f"""
+        import importlib, sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {blocked!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        for m in {CONTROL_MODULES!r}:
+            for k in [k for k in sys.modules
+                      if k.startswith("distributed_inference_server_tpu_torch")]:
+                del sys.modules[k]
+            importlib.import_module(m)
+            leaked = [k for k in sys.modules
+                      if k.split(".")[0] in {blocked!r}]
+            assert not leaked, (m, leaked)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

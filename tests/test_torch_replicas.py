@@ -806,16 +806,20 @@ def test_cli_config_errors(flags, message, capsys):
 
 
 def test_cli_builds_the_replica_settings():
-    args = cli._parser().parse_args(_BASE + [
+    from distributed_inference_server_tpu_torch.serving.config import (
+        ServerConfig,
+    )
+
+    cfg = ServerConfig.load(cli_args=[
+        "--model-model-name", "tiny",
         "--server-num-engines", "2", "--server-engine-roles",
         "prefill,decode", "--server-strategy", "cache_aware",
         "--disagg-channel", "protowire", "--disagg-wire-quant", "int8",
         "--disagg-stream", "false", "--cache-digest-depth", "12",
-        "--faults-spec", "runner.step:nth=3", "--faults-seed", "5"])
-    flags = {"server.auto_restart": True, "disagg.stream": False,
-             "cache.peer_fetch": True}
-    ecfg = EngineConfig(digest_depth=12)
-    got = cli._replica_settings(args, flags, ecfg, TINY, torch.float32)
+        "--faults-spec", "runner.step:nth=3", "--faults-seed", "5"],
+        environ={})
+    got = cli._replica_settings(cfg, TINY, torch.float32)
+    assert cli.engine_settings(cfg).digest_depth == 12
     assert got["engine_roles"] == ["prefill", "decode"]
     assert got["strategy"] is SchedulingStrategy.CACHE_AWARE
     assert got["disagg_settings"].channel == "protowire"

@@ -302,7 +302,7 @@ def test_cli_accepts_int8_kv_with_mixed_step(monkeypatch, capsys):
 
     monkeypatch.setattr(cli.InferenceServer, "start", refuse)
     assert cli.main(["--device", "cpu", "--model-model-name", "tiny",
-                     "--engine-kv-quant", "int8",
+                     "--engine-kv-quant", "int8", "--engine-max-batch", "8",
                      "--engine-mixed-step-tokens", "12",
                      "--engine-loop-to-completion", "true"]) == 1
     err = capsys.readouterr().err

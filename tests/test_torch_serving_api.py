@@ -553,9 +553,24 @@ REPLICA_FAMILIES = {
     "kv_handoff_stall_seconds", "kv_handoff_chunks", "kv_handoff",
     "engines_by_role", "engine_restarts", "requests_redispatched",
 }
+# the tracing, SLO and gray-failure families (the control slice)
+CONTROL_FAMILIES = {
+    "trace_spans_dropped", "request_phase_seconds", "slo_requests",
+    "slo_goodput_tokens", "requests_shed", "engine_health_state",
+    "health_transitions", "retry_budget_exhausted",
+    "fleet_breaker_transitions",
+}
 
 
 def _record_common(c):
+    c.record_trace_drops("ring", 2)
+    c.record_shed("gold", "deadline")
+    c.record_health_transition("engine-0", "degraded")
+    c.record_retry_denied("redispatch")
+    c.record_breaker_transition("open")
+    c.record_request_phases({"queue_wait": 0.01, "prefill": 0.2,
+                             "decode": 0.5}, tbt_s=0.02)
+    c.record_slo("default", "ok", tokens=5)
     c.record_request("/generate", 200, 0.03)
     c.record_request("/chat", 400, 0.001)
     c.record_batch(3)
@@ -637,8 +652,9 @@ def test_metrics_families_match_the_jax_collector():
     jf = _families(j.prometheus_text().decode())
     pf = _families(p.prometheus_text().decode())
     # and the replica families (restarts, redispatch, handoff, prefix
-    # fetch and route, roles), which both declare from the start
-    families = SINGLE_REPLICA_FAMILIES | REPLICA_FAMILIES
+    # fetch and route, roles), which both declare from the start, and the
+    # control slice's
+    families = SINGLE_REPLICA_FAMILIES | REPLICA_FAMILIES | CONTROL_FAMILIES
     assert families <= set(jf)
     assert set(pf) == families
     for name in families:
