@@ -220,6 +220,37 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    keeps the engine settings they ran before the port read the JAX
    config (``max_batch`` 8, 1024 pages, 128 a sequence).
 
+14. (``parallel``) multi-device parallelism over meshes whose slots all
+   name the one card (each shard its own weights, pool and launches; the
+   collectives local copies): (a) phase 3's decode, prefill, int8-pool
+   decode and q8 layer at the per-shard shapes of llama-3-8b under tensor
+   2 (H 16, KV 4) and tensor 8 (H 4, KV 1); 2-layer engines at the 8B
+   width in f32 on tensor 1, 2, 4 and 8, each with the kernels and with the
+   plain versions (greedy tokens all equal; ``paged_decode``,
+   ``paged_prefill`` and ``rope`` launched tp times the unsharded
+   engine's, ``rms_norm`` as often), a looped block and the mixed step
+   at tensor 2, and int8 weights + int8 KV at tensor 2 (the q8 bodies and
+   the int8-pool decode at the shard shapes); (b) llama-3-8b int8 + int8
+   KV at full depth served in process (``InferenceServer``) on tensor 2
+   at ``build/chip_smoke_engine.toml``'s settings: the first mix, its
+   texts against phase 4's 8B int8 server's (the first divergence
+   reported, not required: bf16 partial sums add in another order),
+   launches per forward, graphs, and a ``parallel_timing`` line; (c)
+   stage 2 in 2 microbatches at 2 layers of the 1B width, seq 2 (ring and
+   Ulysses) on a prompt past ``cp_min_tokens`` decoding from the pages
+   the sequence-parallel pass wrote, and expert 2 on 2 layers of the
+   mixtral-8x7b width with int8 experts, each with the unsharded engine's
+   greedy tokens in f32; (d) ``--engine-tensor-parallel 2`` at the entry
+   point: with one card it exits 2 with the device-count error (the line
+   says the multi-card path did not run); with two or more it serves the
+   first mix over two cards.
+
+Each phase's first server (phase 4's 1B quantum server, the first
+quantized server, the first family server, the first speculative server)
+traces the card for its ``busy_share``; the servers after it in the same
+phase print ``null`` there (one trace a phase keeps the script inside its
+time limit; each trace took about 13 s).
+
 It also prints whether ``safetensors`` and ``tokenizers`` import (for
 information: the port reads safetensors itself).
 
@@ -228,7 +259,7 @@ quantized matmuls' rows add ``*_prefill`` keys: their M = 2048 layer, and
 q8 ``*_verify`` keys: its M = 40 layer); the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
 and prints no result. ``--phases
-kernels,serve,quant,engine,ckpt,api,families,spec,admission,kvpaths,replicas,control``
+kernels,serve,quant,engine,ckpt,api,families,spec,admission,kvpaths,replicas,control,parallel``
 selects
 phases (default: all; ``quant`` is phase 3's quantized kernels and phase
 4's quantized servers; ``families`` is item 7, ``api`` item 8, ``spec``
@@ -245,7 +276,8 @@ host-tier server's repeat) under ``launches_kvpaths``, phase 12's by
 replica role (``unified``, ``prefill``, ``decode``, ``fetch_target``)
 under ``launches_replicas``, phase 13's (the defaults server's mix and
 the int4 engine's requests after the swap) under ``launches_control``,
-and the verify shape's times under ``verify``.
+the verify shape's times under ``verify``, phase 14's per-shard shapes
+under ``tp_shards`` and phase 14's launches under ``launches_parallel``.
 """
 
 from __future__ import annotations
@@ -1200,12 +1232,22 @@ def _clock_ms(before: dict, after: dict, kind: str, per: int = 1):
     return (b["wall_s"] - a["wall_s"]) * 1e3 / (n * per) if n else None
 
 
-def _profiled(base, run, steps: int = 12) -> dict:
+# the phases whose one device trace has been taken (_profiled)
+_TRACED: set = set()
+_UNTRACED = {"busy_share": None, "device_busy_s": None, "wall_s": None,
+             "top_device_ms": [], "traced": "no: one trace a phase"}
+
+
+def _profiled(base, run, steps: int = 12, phase: str = "") -> dict:
     """The device busy time and share of a trace of the card over
     ``steps`` engine steps (``POST /server/profile``) while ``run()`` (the
     server's request mix) runs again and again: the share under that
     mix's sustained load. A one-step trace first starts the profiler,
-    whose first start is slow."""
+    whose first start is slow. Only the first server of each ``phase``
+    is traced; the others get ``_UNTRACED``."""
+    if phase in _TRACED:
+        return dict(_UNTRACED)
+    _TRACED.add(phase)
     prof = None
     for n in (1, steps):
         with cf.ThreadPoolExecutor(1) as ex:
@@ -1349,6 +1391,11 @@ MIX_PROMPTS = {
     "p600": ("Long prompt chunked past the 512 bucket. " * 15)[:600],
 }
 GREEDY = {"temperature": 0.0, "max_tokens": 24}
+# each phase 4 / 7 server's greedy texts by label, and the log-
+# probabilities of phase 4's 8B int8 server (phase 14 compares)
+SERVED_TEXTS: dict = {}
+SERVED_LOGPROBS: dict = {}
+PARALLEL_8B = "llama-3-8b int8 weights + int8 KV, random weights"
 
 
 def greedy_texts(base) -> dict:
@@ -1364,8 +1411,8 @@ def greedy_texts(base) -> dict:
 def phase_serve(card: str, seed: int = 0, model: str = "llama-3.2-1b",
                 extra=(), log_name: str = "server.log",
                 label: str = "llama-3.2-1b bf16 random weights",
-                required=QUANTUM_KERNELS, absent=(), per_forward=None
-                ) -> tuple:
+                required=QUANTUM_KERNELS, absent=(), per_forward=None,
+                trace_phase: str = "serve") -> tuple:
     """The first mix's greedy prompts one at a time, then four concurrent
     requests (greedy and sampled, ~20 to 600 bytes), then a lone greedy
     repeat; every kernel in ``required`` must launch and none in
@@ -1433,10 +1480,15 @@ def phase_serve(card: str, seed: int = 0, model: str = "llama-3.2-1b",
             "note": "smoke numbers, not a benchmark",
         }))
         phase_done(f"{label}: mix and lone request")
-        prof = _profiled(base, run_jobs)
+        prof = _profiled(base, run_jobs, phase=trace_phase)
         phase_done(f"{label}: profile")
         _timing_line(label, card, stats0, before, stats, wall, dt_again,
                      prof)
+        SERVED_TEXTS[label] = texts
+        if label == PARALLEL_8B:  # phase 14's reference log-probabilities
+            SERVED_LOGPROBS[label] = {
+                name: _v1_logprobs(base, p)[1]
+                for name, p in MIX_PROMPTS.items()}
         return launches, texts
 
 
@@ -1446,7 +1498,8 @@ def phase_serve_mixed(card: str, seed: int = 0, extra=(),
                       log_name: str = "server_mixed.log",
                       model: str = "llama-3.2-1b",
                       required=MIXED_KERNELS,
-                      absent=("paged_prefill",)) -> dict:
+                      absent=("paged_prefill",),
+                      trace_phase: str = "serve") -> dict:
     """The ragged mixed step served (each mixed step one CUDA graph
     replay): two chats decode while a ~1500-byte and a 600-byte prompt
     load. ``extra`` adds server flags (the K-block form under
@@ -1521,7 +1574,7 @@ def phase_serve_mixed(card: str, seed: int = 0, extra=(),
             "note": "smoke numbers, not a benchmark",
         }))
         _, now = _http("GET", base + "/server/stats")
-        prof = _profiled(base, lambda: run_mix(now))
+        prof = _profiled(base, lambda: run_mix(now), phase=trace_phase)
         _timing_line(label, card, boot, stats0, stats, wall, dt_lone, prof)
         return launches
 
@@ -3019,7 +3072,7 @@ def phase_serve_spec(card: str, seed: int, extra, label: str,
         # the device's share and top kernels over 8 engine steps of the mix
         # run again and again (a spec block is one graph replay: the
         # profiler sees its kernels)
-        prof = _profiled(base, run_jobs, steps=8)
+        prof = _profiled(base, run_jobs, steps=8, phase="spec")
         st, reset = _http("POST", base + "/admin/speculation",
                           {"action": "reset"})
         assert st == 200 and reset == {"status": "ok", "engines_reset": 1}, \
@@ -4386,11 +4439,433 @@ def phase_control(card: str, seed: int = 0, texts=None) -> dict:
     return {"mix": launches, "int4": timing["inprocess"]["launches_int4"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-device parallelism over meshes on the one card
+# ---------------------------------------------------------------------------
+
+# llama-3-8b's per-shard attention heads under tensor 2 and 8: (tp, H, KV)
+TP_SHARDS = ((2, 16, 4), (8, 4, 1))
+PARALLEL_PROMPTS = ["tensor parallel identity",
+                    "per-shard kernels against their plain versions " * 3,
+                    "z" * 40]
+# every kernel a tensor shard launches once per shard, and those launched
+# once per forward whatever the shards (the replicated norms)
+PER_SHARD = ("paged_decode", "paged_prefill", "paged_decode_int8", "rope",
+             "quant_matmul_q8")
+REPLICATED = ("rms_norm",)
+
+
+def _tp_layer(tp: int) -> list:
+    """One llama-3-8b layer's seven products on one of ``tp`` shards:
+    column-parallel N / tp (wq, wk, wv, w_gate, w_up), row-parallel
+    K / tp (wo, w_down)."""
+    return [(name, K // tp if name in ("wo", "w_down") else K,
+             N if name in ("wo", "w_down") else N // tp)
+            for name, K, N in LAYER_8B]
+
+
+def phase_parallel_kernels() -> dict:
+    """Phase 3's attention kernels and the q8 layer at llama-3-8b's
+    per-shard shapes (``tp_shards`` in the summary rows)."""
+    lengths = [1, 15, 16, 17, 300, 1000, 2047, 2048]
+    out = {"paged_decode": [], "paged_prefill": [], "paged_decode_int8": [],
+           "quant_matmul_q8": []}
+    for tp, H, KV in TP_SHARDS:
+        tag = f"tp{tp} shard 8B H{H} KV{KV} D128"
+        out["paged_decode"].append(
+            check_decode(f"{tag} B8", lengths, H=H, KV=KV, D=128))
+        out["paged_prefill"].append(check_prefill(
+            f"{tag} B4 T512", 512, [0, 100, 1500, 0], [512, 400, 1537, 0],
+            H=H, KV=KV, D=128))
+    out["paged_decode_int8"].append(check_decode_int8(
+        "tp2 shard 8B H16 KV4 D128 B8", lengths, H=16, KV=4, D=128))
+    for M in (8, 2048):
+        out["quant_matmul_q8"] += check_quant_layer(
+            "tp2 shard llama-3-8b int8", M, _tp_layer(2), False)
+    torch.cuda.empty_cache()
+    for name, recs in out.items():
+        for r in recs:
+            log(json.dumps({"kernel_check": name, **r}))
+    return out
+
+
+def _drive_tokens(eng, prompts, max_tokens: int = 12) -> dict:
+    """Greedy tokens of ``prompts`` through ``eng`` (all queued at once)."""
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        SamplingParams,
+    )
+
+    for i, p in enumerate(prompts):
+        eng.add_request(f"r{i}", list(p.encode()),
+                        SamplingParams(max_tokens=max_tokens,
+                                       temperature=0.0))
+    toks: dict = {}
+    for _ in range(4000):
+        if not eng.has_work():
+            break
+        for o in eng.step():
+            assert o.error is None, o.error
+            if o.token_id is not None:
+                toks.setdefault(o.request_id, []).append(o.token_id)
+    assert not eng.has_work(), "the engine did not drain"
+    return toks
+
+
+def _mesh_run(params, cfg, axes: dict, prompts, max_tokens=12, **kw):
+    """(greedy tokens, this thread's launches, engine) of an engine on a
+    mesh of ``axes`` whose slots all name cuda:0 (no mesh for {}); the
+    launch counts are zeroed just before the requests and read after."""
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        EngineConfig,
+        LLMEngine,
+    )
+    from distributed_inference_server_tpu_torch.models.tokenizer import (
+        ByteTokenizer,
+    )
+    from distributed_inference_server_tpu_torch.ops import kernels
+    from distributed_inference_server_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+
+    mesh = None
+    if axes:
+        spec = MeshSpec(**axes)
+        n = 1
+        for size in spec.sizes():
+            n *= size
+        mesh = make_mesh(spec, devices=[torch.device("cuda", 0)] * n)
+    eng = LLMEngine(params, cfg, ByteTokenizer(), EngineConfig(**kw),
+                    dtype=torch.float32, device="cuda", mesh=mesh)
+    kernels.reset_launch_counts()
+    toks = _drive_tokens(eng, prompts, max_tokens)
+    torch.cuda.synchronize()
+    return toks, dict(kernels.thread_launch_counts()), eng
+
+
+def _assert_shard_launches(label, tp: int, got: dict, base: dict) -> None:
+    """The sharded engine launched each per-shard kernel tp times as often
+    as the unsharded engine on the same requests, each replicated kernel
+    as often."""
+    for name in PER_SHARD + REPLICATED:
+        want = base.get(name, 0) * (tp if name in PER_SHARD else 1)
+        assert got.get(name, 0) == want, (label, name, got, base)
+
+
+def phase_parallel_engines(seed: int = 0) -> dict:
+    """Phase 14 (a) and (c): 2-layer engines on meshes over the one card
+    against the unsharded engine, greedy tokens in f32."""
+    from distributed_inference_server_tpu_torch.models import llama
+    from distributed_inference_server_tpu_torch.models.configs import (
+        LLAMA_3_2_1B,
+        LLAMA_3_8B,
+        MIXTRAL_8X7B,
+    )
+    from distributed_inference_server_tpu_torch.ops.quant import (
+        init_random_quantized,
+        quantize_params,
+    )
+
+    out: dict = {"launches": {}}
+    cfg = LLAMA_3_8B.with_overrides(num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init_params(cfg, gen, dtype=torch.float32, device="cuda")
+    base = {}
+    for tp in (1, 2, 4, 8):
+        axes = {"tensor": tp} if tp > 1 else {}
+        runs = {}
+        for impl in ("kernel", "plain"):
+            toks, counts, eng = _mesh_run(params, cfg, axes,
+                                          PARALLEL_PROMPTS,
+                                          attention_impl=impl)
+            runs[impl] = (toks, counts)
+            del eng
+        assert runs["kernel"][0] == runs["plain"][0], (tp, runs)
+        assert all(not v for v in runs["plain"][1].values()), runs["plain"]
+        if tp == 1:
+            base = runs["kernel"]
+        else:
+            assert runs["kernel"][0] == base[0], (tp, runs["kernel"][0],
+                                                  base[0])
+            _assert_shard_launches(f"tensor {tp}", tp, runs["kernel"][1],
+                                   base[1])
+        out["launches"][f"tensor {tp}"] = runs["kernel"][1]
+        torch.cuda.empty_cache()
+    for label, kw in (("tensor 2 looped", dict(loop_to_completion=True)),
+                      ("tensor 2 mixed K=1", dict(mixed_step_tokens=128))):
+        toks, counts, eng = _mesh_run(params, cfg, {"tensor": 2},
+                                      PARALLEL_PROMPTS, **kw)
+        assert toks == base[0], (label, toks, base[0])
+        if "mixed_step_tokens" in kw:
+            assert eng.mixed_stats()["steps"] > 0, eng.mixed_stats()
+            assert counts.get("paged_ragged", 0) > 0, counts
+        else:
+            assert eng.loop_stats()["blocks"] > 0, eng.loop_stats()
+        out["launches"][label] = counts
+        del eng
+    log(json.dumps({"parallel_f32_8b_width_2layer":
+                    "tensor 1/2/4/8 kernel == plain == unsharded tokens; "
+                    "looped and mixed at tensor 2 too",
+                    "tokens": base[0]}))
+    # int8 weights + int8 KV at tensor 2: the q8 bodies and the int8-pool
+    # decode at the shard shapes
+    qparams = quantize_params(params, "int8")
+    del params
+    q = {}
+    for label, axes, impl in (("unsharded", {}, "kernel"),
+                              ("tensor 2", {"tensor": 2}, "kernel"),
+                              ("tensor 2 plain", {"tensor": 2}, "plain")):
+        toks, counts, eng = _mesh_run(qparams, cfg, axes, PARALLEL_PROMPTS,
+                                      attention_impl=impl, kv_quant="int8")
+        q[label] = (toks, counts)
+        del eng
+    assert q["unsharded"][0] == q["tensor 2"][0] == q["tensor 2 plain"][0], q
+    _assert_shard_launches("tensor 2 int8", 2, q["tensor 2"][1],
+                           q["unsharded"][1])
+    assert q["tensor 2"][1]["quant_matmul_q8"] > 0
+    assert q["tensor 2"][1]["paged_decode_int8"] > 0
+    out["launches"]["tensor 2 int8 + int8 KV"] = q["tensor 2"][1]
+    del qparams
+    torch.cuda.empty_cache()
+
+    # (c) pipeline, sequence and expert parallelism
+    cfg1 = LLAMA_3_2_1B.with_overrides(num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    p1 = llama.init_params(cfg1, gen, dtype=torch.float32, device="cuda")
+    long = ("a prompt past cp_min_tokens takes the sequence-parallel "
+            "prefill, then decodes from its pages. " * 4)[:300]
+    prompts = PARALLEL_PROMPTS + [long]
+    ref, ref_counts, eng = _mesh_run(p1, cfg1, {}, prompts)
+    del eng
+    from distributed_inference_server_tpu_torch.parallel import cp
+
+    real_cp = cp.cp_paged_prefill_any
+    cp_calls = []
+
+    def counted_cp(*a, **k):  # the engine imports it at each call
+        cp_calls.append(tuple(a[3].shape))
+        return real_cp(*a, **k)
+
+    for label, axes, kw in (
+            ("stage 2, 2 microbatches", {"stage": 2},
+             dict(pp_microbatches=2)),
+            ("seq 2 ring", {"seq": 2}, dict(cp_min_tokens=200)),
+            ("seq 2 ulysses", {"seq": 2},
+             dict(cp_min_tokens=200, sp_impl="ulysses"))):
+        cp_calls.clear()
+        cp.cp_paged_prefill_any = counted_cp
+        try:
+            toks, counts, eng = _mesh_run(p1, cfg1, axes, prompts, **kw)
+        finally:
+            cp.cp_paged_prefill_any = real_cp
+        assert toks == ref, (label, toks, ref)
+        assert eng.audit_pages() == []
+        if "pp_microbatches" in kw:
+            # every kernel once per microbatch of a forward
+            for name in QUANTUM_KERNELS:
+                assert counts[name] == 2 * ref_counts[name], (
+                    label, name, counts, ref_counts)
+        else:
+            # the long prompt prefilled in one sequence-parallel pass (a
+            # 512-token buffer), then decoded from the pages it wrote
+            assert cp_calls == [(1, 512)], (label, cp_calls)
+            assert counts["paged_decode"] > 0, (label, counts)
+        out["launches"][label] = counts
+        del eng
+    del p1
+    torch.cuda.empty_cache()
+    cfgx = MIXTRAL_8X7B.with_overrides(num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    px = init_random_quantized(cfgx, "int8", gen, dtype=torch.float32,
+                               device="cuda")
+    small = dict(max_batch=4, prefill_buckets=(64, 256), prefill_batch=2)
+    ref, ref_counts, eng = _mesh_run(px, cfgx, {}, PARALLEL_PROMPTS, **small)
+    del eng
+    toks, counts, eng = _mesh_run(px, cfgx, {"expert": 2}, PARALLEL_PROMPTS,
+                                  **small)
+    assert eng.params.moe_impl == "ep"
+    assert toks == ref, ("expert 2", toks, ref)
+    assert counts["quant_matmul_q8"] > 0, counts
+    out["launches"]["expert 2 (mixtral width, int8 experts)"] = counts
+    del eng, px
+    torch.cuda.empty_cache()
+    log(json.dumps({"parallel_f32_2layer":
+                    "stage 2 (2 microbatches), seq 2 ring and ulysses, "
+                    "expert 2: unsharded tokens",
+                    "launches": out["launches"]}))
+    return out
+
+
+def phase_parallel_served(card: str, seed: int = 0) -> dict:
+    """Phase 14 (b): llama-3-8b int8 + int8 KV at full depth served in
+    process over a tensor 2 mesh on the one card, at the other servers'
+    engine settings."""
+    from distributed_inference_server_tpu_torch.__main__ import (
+        engine_settings,
+        validator_settings,
+    )
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        LLMEngine,
+    )
+    from distributed_inference_server_tpu_torch.models.configs import (
+        get_config,
+    )
+    from distributed_inference_server_tpu_torch.models.tokenizer import (
+        load_tokenizer,
+    )
+    from distributed_inference_server_tpu_torch.ops.quant import (
+        init_random_quantized,
+    )
+    from distributed_inference_server_tpu_torch.parallel.mesh import tp_mesh
+    from distributed_inference_server_tpu_torch.serving.config import (
+        ServerConfig,
+    )
+    from distributed_inference_server_tpu_torch.serving.server import (
+        InferenceServer,
+    )
+
+    label = PARALLEL_8B
+    cfg = ServerConfig.load(cli_args=[
+        "--config", os.path.abspath(ENGINE_TOML), "--model-model-name",
+        "llama-3-8b", "--model-quantization", "int8", "--engine-kv-quant",
+        "int8"], environ={})
+    ecfg = engine_settings(cfg, seed)
+    mcfg = get_config("llama-3-8b")
+    box: dict = {}
+
+    def factory():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)  # the entry point's draw: phase 4's weights
+        params = init_random_quantized(mcfg, "int8", gen,
+                                       dtype=torch.bfloat16, device="cuda")
+        eng = LLMEngine(params, mcfg, load_tokenizer(None), ecfg,
+                        dtype=torch.bfloat16, device="cuda",
+                        mesh=tp_mesh(2, devices=[torch.device("cuda", 0)]
+                                     * 2))
+        box["engine"] = eng
+        return eng
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    server = InferenceServer(factory, load_tokenizer(None), "llama-3-8b",
+                             queue_config=cfg.queue_config(),
+                             batcher_config=cfg.batcher_config(),
+                             validator_config=validator_settings(cfg))
+    server.start()
+    startup_s = time.monotonic() - t0
+    base = f"http://127.0.0.1:{server.serve('127.0.0.1', 0, block=False)}"
+    try:
+        _, stats0 = _http("GET", base + "/server/stats")
+        texts = greedy_texts(base)
+        _reset_counts(base)
+        _, before = _http("GET", base + "/server/stats")
+        jobs = [(MIX_PROMPTS["p20"], GREEDY), (MIX_PROMPTS["p100"], GREEDY),
+                (MIX_PROMPTS["p600"], GREEDY),
+                (MIX_PROMPTS["p100"], {"temperature": 0.8, "top_p": 0.9,
+                                       "max_tokens": 24})]
+        t_all = time.monotonic()
+        with cf.ThreadPoolExecutor(len(jobs)) as ex:
+            results = list(ex.map(lambda j: _gen(base, *j), jobs))
+        wall = time.monotonic() - t_all
+        _, stats = _http("GET", base + "/server/stats")
+        for (_, params), (st, body, _) in zip(jobs, results):
+            _check_generate(st, body, params["max_tokens"])
+        per = _per_forward(before, stats)
+        # one engine's 32 layers, each shard its own launches
+        want = {"paged_decode_int8": 2 * 32, "rope": 2 * 2 * 32,
+                "rms_norm": 2 * 32 + 1, "quant_matmul_q8": 2 * 7 * 32}
+        for name, n in want.items():
+            assert per[name] == n, (name, per)
+        assert not stats["kernel_launches"].get("paged_decode"), stats
+        mem = stats.get("memory") or {}
+        assert mem.get("graphs", 0) > 0, mem
+        eng = box["engine"]
+        pool_bytes = [
+            sum(t.numel() * t.element_size()
+                for t in (eng.state.k.data.parts[0][s],
+                          eng.state.k.scale.parts[0][s],
+                          eng.state.v.data.parts[0][s],
+                          eng.state.v.scale.parts[0][s]))
+            for s in range(2)]
+        sc0, sc1 = before["step_clock"], stats["step_clock"]
+        ref = SERVED_TEXTS.get(label)
+        compare = {}
+        if ref is not None:
+            # texts (mostly empty for random weights: ids past the byte
+            # range) and each greedy token's log-probability: the first
+            # token whose log-probability moved by more than 1e-2, the gap
+            # there and the largest gap (bf16 partials summed in shard
+            # order)
+            for name, prompt in MIX_PROMPTS.items():
+                lps = _v1_logprobs(base, prompt)[1]
+                want_lps = SERVED_LOGPROBS[label][name]
+                gaps = [abs(a - b) for a, b in zip(lps, want_lps)]
+                first = next((i for i, g in enumerate(gaps) if g > 1e-2),
+                             None)
+                compare[name] = {
+                    "text_first_divergence": _first_divergence(
+                        texts[name], ref[name]),
+                    "logprob_first_divergence": first,
+                    "logprob_gap_there": None if first is None
+                    else gaps[first],
+                    "max_logprob_gap": max(gaps, default=0.0),
+                    "logprobs": [lps[:4], want_lps[:4]],
+                }
+        log(json.dumps({
+            "parallel_timing": label + ", tensor 2 on [cuda:0] * 2 "
+                                       "(in process)",
+            "card": card, "startup_s": startup_s,
+            "warmup_s": stats0["warmup_s"], "mix_wall_s": wall,
+            "decode_step_ms": _clock_ms(sc0, sc1, "decode_block", 8),
+            "prefill_chunk_ms": _clock_ms(sc0, sc1, "prefill"),
+            "launches_per_forward": per, "graphs": mem.get("graphs"),
+            "max_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "graph_pool_bytes": mem.get("graph_pool_bytes"),
+            "pool_bytes_per_shard": pool_bytes,
+            "texts_vs_phase4_8b_int8": compare or "phase 4 not run",
+        }))
+        return {"launches": stats["kernel_launches"], "texts": texts}
+    finally:
+        server.shutdown(drain_timeout_s=10.0)
+        box.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_parallel_entry(seed: int = 0) -> dict:
+    """Phase 14 (d): ``--engine-tensor-parallel 2`` at the entry point.
+    One card: exit 2 with the device-count error. Two or more: the first
+    mix served over two cards."""
+    n = torch.cuda.device_count()
+    flags = ["--engine-tensor-parallel", "2"]
+    if n >= 2:
+        with _server(seed, flags, "server_tp2_two_cards.log") as base:
+            texts = greedy_texts(base)
+        log(json.dumps({"parallel_entry": "multi-card path ran: "
+                        f"tensor 2 over two of {n} cards",
+                        "texts": texts}))
+        return {"ran": True}
+    cmd = [sys.executable, "-m", "distributed_inference_server_tpu_torch",
+           "--config", os.path.abspath(ENGINE_TOML), "--model-model-name",
+           "llama-3.2-1b", "--server-port", str(_free_port()), *flags]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2, (out.returncode, out.stderr[-2000:])
+    assert "config error:" in out.stderr and \
+        "needs 2 devices, have 1" in out.stderr, out.stderr[-2000:]
+    log(json.dumps({"parallel_entry": "multi-card path did not run: one "
+                    "card; --engine-tensor-parallel 2 exits 2 with "
+                    + out.stderr.strip().splitlines()[-1]}))
+    return {"ran": False}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,serve,quant,engine,ckpt,api,families,"
-                            "spec,admission,kvpaths,replicas,control")
+                            "spec,admission,kvpaths,replicas,control,"
+                            "parallel")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--server-flags", default="",
                     help="flags added to every server started, split on "
@@ -4437,6 +4912,10 @@ def main(argv=None) -> int:
         for name, recs in phase_family_kernels().items():
             checks.setdefault(name, []).extend(recs)
         phase_done("family kernels")
+    if "parallel" in phases:
+        for name, recs in phase_parallel_kernels().items():
+            checks.setdefault(name, []).extend(recs)
+        phase_done("parallel kernels (per-shard shapes)")
     launches = {}
     texts = None
     if "serve" in phases:
@@ -4474,7 +4953,7 @@ def main(argv=None) -> int:
         for label, model, flags, need, absent in QUANT_SERVERS:
             got, _ = phase_serve(card, args.seed, model, flags,
                                  f"server_{model}_{flags[1]}.log", label,
-                                 need, absent)
+                                 need, absent, trace_phase="quant")
             for name in need:
                 if name.startswith(("quant_matmul", "paged_decode_int8")):
                     launches[name] = got[name]
@@ -4487,14 +4966,14 @@ def main(argv=None) -> int:
             "llama-3-8b",
             ("quant_matmul_q8", "paged_decode_int8", "rms_norm", "rope"),
             ("paged_ragged", "paged_prefill", "paged_decode",
-             "quant_matmul_q4"))
+             "quant_matmul_q4"), trace_phase="quant")
         phase_done("serve llama-3-8b int8 mixed")
     if "families" in phases:
         torch.cuda.empty_cache()
         for label, model, flags, need, absent, per in FAMILY_SERVERS:
             got, _ = phase_serve(card, args.seed, model, flags,
                                  f"server_{model}.log", label, need, absent,
-                                 per)
+                                 per, trace_phase="families")
             for name in need:  # each family server's own launches
                 launches[f"{name} ({model})"] = got[name]
             phase_done(f"serve {label}")
@@ -4555,6 +5034,17 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         control_launches = phase_control(card, args.seed, texts)
         phase_done("control")
+    parallel_launches = {}
+    if "parallel" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        parallel_launches = phase_parallel_engines(args.seed)["launches"]
+        phase_done("parallel engines (tensor, stage, seq, expert)")
+        parallel_launches["served llama-3-8b int8 tensor 2"] = \
+            phase_parallel_served(card, args.seed)["launches"]
+        phase_done("parallel served llama-3-8b int8 tensor 2")
+        phase_parallel_entry(args.seed)
+        phase_done("parallel entry point")
 
     rows = []
     for name, (route, source, replaces) in KERNEL_META.items():
@@ -4582,6 +5072,15 @@ def main(argv=None) -> int:
         if control_launches:  # phase 13's mix and int4 requests
             row["launches_control"] = {
                 part: got.get(name) for part, got in control_launches.items()}
+        if parallel_launches:  # phase 14's meshes
+            row["launches_parallel"] = {
+                part: got.get(name) for part, got in parallel_launches.items()}
+        shards = {r["case"]: {k: r.get(k) for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")}
+            for r in checks.get(name, []) if r["case"].startswith("tp")}
+        if shards:  # phase 14's per-shard shapes
+            row["tp_shards"] = shards
         verify = {r["case"]: {k: r.get(k) for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")}

@@ -11,9 +11,19 @@ engine is the one ``python -m distributed_inference_server_tpu`` builds
 (``max_batch`` 64, 2048 pages of 16 tokens, 512 pages per sequence,
 prefill batches of 16 rows within 8192 tokens). An invalid value exits 2
 with ``config error:``, and so does a setting whose subsystem the port
-does not have yet (``engine.tensor_parallel`` / ``pipeline_parallel`` /
-``context_parallel`` above 1, ``distributed.num_processes`` above 1,
-``server.grpc_port``, the ``fleet``): ``<section.key> is not ported yet``.
+does not have yet (``server.grpc_port``, the ``fleet``): ``<section.key>
+is not ported yet``.
+
+``engine.tensor_parallel`` / ``pipeline_parallel`` / ``context_parallel``
+give each replica a device mesh (``parallel/mesh.py``) over a disjoint
+slice of this process's devices: the cards, or on ``--device cpu`` the
+``--xla_force_host_platform_device_count`` of ``XLA_FLAGS``, as the JAX
+entry point counts them. Too few devices, ``context_parallel`` with
+``pipeline_parallel``, or a draft model with ``pipeline_parallel`` exit 2
+with ``config error:``. ``distributed.num_processes`` above 1 joins the
+process group at ``distributed.coordinator_address`` before any device
+is touched (``parallel/distributed.py``); meshes then hold this process's
+devices only.
 ``server.compile_cache_dir`` is accepted and has no effect: the kernels
 build into ``build/``. The validator's context limit is lowered to what
 the engine can seat (``page_size x max_pages_per_seq - 1``), so an
@@ -52,6 +62,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import math
 import os
 import signal
 import sys
@@ -94,6 +105,15 @@ from distributed_inference_server_tpu_torch.models.tokenizer import (
 from distributed_inference_server_tpu_torch.ops.quant import (
     init_random_quantized,
     quantize_params,
+)
+from distributed_inference_server_tpu_torch.parallel.distributed import (
+    DistributedConfig,
+    initialize,
+    local_devices,
+)
+from distributed_inference_server_tpu_torch.parallel.mesh import (
+    MeshSpec,
+    make_mesh,
 )
 from distributed_inference_server_tpu_torch.serving import faults
 from distributed_inference_server_tpu_torch.serving.config import (
@@ -142,7 +162,10 @@ def engine_settings(cfg: ServerConfig, seed: int = 0) -> EngineConfig:
         host_tier_bytes=g("cache", "host_tier_bytes"),
         host_tier_quant=g("cache", "host_tier_quant"),
         latent_rank=g("cache", "latent_rank"),
-        digest_depth=g("cache", "digest_depth"))
+        digest_depth=g("cache", "digest_depth"),
+        pp_microbatches=g("engine", "pp_microbatches"),
+        cp_min_tokens=g("engine", "cp_min_tokens") or None,
+        sp_impl=g("engine", "sp_impl"))
 
 
 def spec_settings(cfg: ServerConfig) -> Optional[SpecConfig]:
@@ -232,6 +255,47 @@ def _port_checks(cfg: ServerConfig, ecfg: EngineConfig) -> None:
             raise ConfigError(f"model.{key} {d!r} has no config.json")
 
 
+def _join_process_group(cfg: ServerConfig) -> None:
+    """Join the multi-process runtime when ``distributed.num_processes`` >
+    1 (``parallel/distributed.py``); a no-op for one process."""
+    initialize(DistributedConfig(
+        coordinator_address=cfg.get("distributed", "coordinator_address"),
+        num_processes=cfg.get("distributed", "num_processes"),
+        process_id=cfg.get("distributed", "process_id")))
+
+
+def _replica_devices(cfg: ServerConfig, device: torch.device,
+                     draft_cfg: Optional[ModelConfig]
+                     ) -> Tuple[List[torch.device], Optional[MeshSpec]]:
+    """This process's devices and each replica's mesh shape (None: one
+    device per replica). Raises ``ConfigError`` for the combinations the
+    JAX entry point refuses and for too few devices."""
+    g = cfg.get
+    nproc = g("distributed", "num_processes")
+    tp, pp, cp = (g("engine", "tensor_parallel"),
+                  g("engine", "pipeline_parallel"),
+                  g("engine", "context_parallel"))
+    if cp > 1 and pp > 1:
+        raise ConfigError("engine.context_parallel > 1 with "
+                          "engine.pipeline_parallel > 1 is not supported")
+    if draft_cfg is not None and pp > 1:
+        raise ConfigError("speculative decoding (model.draft_model_*) with "
+                          "engine.pipeline_parallel > 1 is not supported")
+    per_replica = tp * pp * cp
+    if per_replica <= 1:
+        return [], None
+    devices = local_devices(device)
+    num_engines = g("server", "num_engines")
+    needed = per_replica * num_engines
+    if needed > len(devices):
+        raise ConfigError(
+            f"{num_engines} engines x (tensor_parallel={tp} x "
+            f"pipeline_parallel={pp} x context_parallel={cp}) needs "
+            f"{needed} devices, have {len(devices)}"
+            + (" on this host" if nproc > 1 else ""))
+    return devices, MeshSpec(tensor=tp, stage=pp, seq=cp)
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
@@ -239,6 +303,7 @@ def main(argv=None) -> int:
     try:
         cfg = ServerConfig.load(cli_args=rest)
         cfg.check_ported()
+        _join_process_group(cfg)  # before any device is touched
         ecfg = engine_settings(cfg, own.seed)
         _port_checks(cfg, ecfg)
         model_dir = cfg.get("model", "model_dir") or None
@@ -264,6 +329,7 @@ def main(argv=None) -> int:
         armed = replicas.pop("faults")
         spec = spec_settings(cfg)
         tokenizer = load_tokenizer(model_dir)
+        devices, mesh_spec = _replica_devices(cfg, device, draft_cfg)
     except (RuntimeError, KeyError, ValueError, ModelLoadError,
             ConfigError) as e:
         print(f"config error: {e}", file=sys.stderr)
@@ -272,7 +338,13 @@ def main(argv=None) -> int:
     if armed is not None:
         faults.install(armed)
 
-    def engine_factory() -> LLMEngine:
+    def engine_factory(replica_idx: int) -> LLMEngine:
+        mesh = None
+        if mesh_spec is not None:
+            # each replica owns a DISJOINT slice of this process's devices
+            n = math.prod(mesh_spec.sizes())
+            mesh = make_mesh(mesh_spec,
+                             devices[replica_idx * n:(replica_idx + 1) * n])
         if model_dir:
             params, model_cfg = load_checkpoint(model_dir, dtype=dtype,
                                                 device=device)
@@ -296,7 +368,7 @@ def main(argv=None) -> int:
                                              device=device)
         return LLMEngine(params, model_cfg, tokenizer, ecfg, dtype=dtype,
                          device=device, draft_params=draft_params,
-                         draft_cfg=draft_model_cfg, spec=spec)
+                         draft_cfg=draft_model_cfg, spec=spec, mesh=mesh)
 
     server = InferenceServer(
         engine_factory, tokenizer,

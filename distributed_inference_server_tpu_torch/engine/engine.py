@@ -123,7 +123,25 @@ with every ``EngineConfig`` default, and the ragged mixed step).
   library is missing (``native_allocator`` forces either). The choice is
   logged.
 
-Not ported yet: meshes.
+- **Device meshes** (``mesh=``, ``parallel/mesh.py``): one engine over a
+  mesh with ``tensor``, ``stage``, ``seq``, ``expert`` and ``data`` axes,
+  as the JAX engine over a ``jax.sharding.Mesh``. The params are cut per
+  shard (``parallel/tp.py shard_params``) and every (stage, tensor) shard
+  keeps its own ``[L/S, slots + 1, KV/tp, D]`` pool on its slot's device
+  (``ShardedPool``, for the draft too); each shard launches its own
+  kernels at its own head counts, and the row-parallel partials meet in
+  ``parallel/comm.py``'s collectives. A ``stage`` axis runs GPipe
+  microbatches (``pp_microbatches``); an ``expert`` axis the
+  capacity-based MoE dispatch (``ops/moe.py``) at a dropless capacity
+  factor; a ``seq`` axis the long-prompt path: prompts of at least
+  ``cp_min_tokens`` prefill in one sequence-parallel pass (``sp_impl``
+  ring or Ulysses, ``parallel/cp.py``) straight into their pages, then
+  decode from them. The host logic (allocator, scheduler, sampling,
+  graphs) stays one copy. On ``cuda`` every shard's launches are captured
+  in the engine's graphs when all slots name one card; over distinct
+  cards the engine runs eagerly. The byte paths, the host tier and the
+  embeddings see the global pool (heads in shard order) and give the
+  unsharded engine's bytes and vectors.
 
 Threading: the engine is synchronous and single-owner (one ``step()``
 caller); the serving layer runs it on a dedicated thread.
@@ -205,6 +223,9 @@ from distributed_inference_server_tpu_torch.ops.sampling import (
     nucleus_probs,
     sample_tokens,
 )
+from distributed_inference_server_tpu_torch.parallel import tp as tp_rules
+from distributed_inference_server_tpu_torch.parallel.mesh import Mesh
+from distributed_inference_server_tpu_torch.parallel.pp import validate_pp
 from distributed_inference_server_tpu_torch.utils.device import (
     DeviceLike,
     resolve_device,
@@ -382,6 +403,17 @@ class EngineConfig:
     # hashes of each cached chain, all the cache-aware router can score
     # and peer-fetch (serving/scheduler.py plan_route)
     digest_depth: int = DIGEST_DEPTH
+    # GPipe microbatches per forward when the mesh has a stage axis; must
+    # divide max_batch and prefill_batch
+    pp_microbatches: int = 1
+    # with a seq mesh axis: prompts at least this long prefill in one
+    # sequence-parallel pass over it, straight into their pages. None =
+    # one past the largest prefill bucket
+    cp_min_tokens: Optional[int] = None
+    # that pass's attention: "ring" (K/V chunks rotate, any axis size) or
+    # "ulysses" (all-to-all head scatter; the axis must divide the
+    # per-tensor-shard query and KV head counts)
+    sp_impl: str = "ring"
 
 
 @dataclass
@@ -523,7 +555,8 @@ class _Graph:
 
 
 class LLMEngine:
-    """Single-model continuous-batching engine on one device."""
+    """Single-model continuous-batching engine on one device or one device
+    mesh."""
 
     def __init__(
         self,
@@ -537,16 +570,26 @@ class LLMEngine:
         draft_params: Optional[llama.Params] = None,
         draft_cfg: Optional[ModelConfig] = None,
         spec: Optional[SpecConfig] = None,
+        mesh: Optional[Mesh] = None,
     ):
         """``params``: the ``models/llama.py`` tree (moved to ``device`` if
         it lives elsewhere); ``dtype``: the KV pools' dtype; ``device``:
-        ``cuda`` unless the caller asks for ``cpu``. Quantized weights
+        ``cuda`` unless the caller asks for ``cpu``. ``mesh``: a device
+        mesh (``parallel/mesh.py``) to shard the model over; the engine's
+        device is then the mesh's first slot's. Quantized weights
         (``Q8Tensor`` / ``Q4Tensor`` leaves) pass through as they are.
         ``_graphs=False`` runs the quantum path eagerly on ``cuda`` too
         (for comparing the graph path with the eager one).
         ``draft_params`` / ``draft_cfg``: a draft model (the target's
         vocabulary) enabling speculative decoding with ``spec`` (default
         ``SpecConfig()``)."""
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and resolve_device(device).type != \
+                    mesh.primary.type:
+                raise ValueError(f"device {device} differs from the mesh's "
+                                 f"{mesh.primary}")
+            device = mesh.primary
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tok = tokenizer
@@ -593,6 +636,8 @@ class LLMEngine:
         if self.spec.num_draft_tokens < 1:
             raise ValueError(f"num_draft_tokens must be >= 1, got "
                              f"{self.spec.num_draft_tokens}")
+        if mesh is not None:
+            self._validate_mesh(mesh, cfg, draft_params, draft_cfg)
         self.draft_cfg = draft_cfg if draft_params is not None else None
         self.spec_trackers = (PatternTrackers(self.spec)
                               if draft_params is not None else None)
@@ -601,25 +646,22 @@ class LLMEngine:
         # draft tokens proposed and accepted
         self._spec_totals = {"blocks": 0, "row_rounds": 0, "proposed": 0,
                              "accepted": 0}
-        self.params = _to_device(params, self.device)
-        if self.params["embed"].dtype != torch.float32:
-            # f32 logits every step: keep the f32 unembedding once
-            self.params["unembed_f32"] = llama.unembed_weight_f32(
-                self.params, cfg)
-        self.state = PagedKVState.create(cfg, self.pcfg, dtype=dtype,
-                                         device=self.device,
-                                         kv_quant=self.ecfg.kv_quant)
+        if self._moe_impl() == "ep":
+            # serving is dropless: no expert takes more than N tokens (the
+            # top k are distinct per token), so a capacity factor of E/k
+            # keeps every assignment
+            dropless = cfg.num_experts / cfg.num_experts_per_tok
+            if cfg.moe_capacity_factor < dropless:
+                self.cfg = cfg = cfg.with_overrides(
+                    moe_capacity_factor=dropless)
+        self.params = self._place_model(params, cfg)
+        self.state = self._make_state(cfg)
         # the draft's pool: the target's page geometry and kv_quant, the
         # target's block tables and write slots
         self.draft_params = self.draft_state = None
         if draft_params is not None:
-            self.draft_params = _to_device(draft_params, self.device)
-            if self.draft_params["embed"].dtype != torch.float32:
-                self.draft_params["unembed_f32"] = llama.unembed_weight_f32(
-                    self.draft_params, draft_cfg)
-            self.draft_state = PagedKVState.create(
-                draft_cfg, self.pcfg, dtype=dtype, device=self.device,
-                kv_quant=self.ecfg.kv_quant)
+            self.draft_params = self._place_model(draft_params, draft_cfg)
+            self.draft_state = self._make_state(draft_cfg)
         if self.ecfg.host_tier_bytes < 0:
             raise ValueError("host_tier_bytes must be >= 0")
         if self.ecfg.host_tier_quant not in WIRE_QUANTS:
@@ -769,7 +811,10 @@ class LLMEngine:
         self._pending: Deque[tuple] = deque()
         # CUDA graphs on the quantum path (cuda only), captured on the
         # engine's own stream from one shared memory pool
-        self._use_graphs = dev.type == "cuda" and _graphs
+        # graphs capture one card's launches: a mesh over distinct cards
+        # runs eagerly
+        self._use_graphs = (dev.type == "cuda" and _graphs and (
+            mesh is None or len(mesh.distinct_devices()) == 1))
         self._graphs: Dict[tuple, _Graph] = {}
         self._stream = None
         self._pool = None
@@ -824,6 +869,86 @@ class LLMEngine:
             else:
                 self.latent_codec = self._calibrate_latent(
                     self.ecfg.latent_rank)
+
+    def _validate_mesh(self, mesh: Mesh, cfg: ModelConfig, draft_params,
+                       draft_cfg: Optional[ModelConfig]) -> None:
+        """The JAX engine's mesh refusals: the mixed step on tensor-only
+        meshes, ``sp_impl`` and Ulysses' divisibility, the tensor and
+        pipeline splits of target and draft; and the ``data`` axis's
+        split of the decode and prefill rows."""
+        shape, ecfg = mesh.shape, self.ecfg
+        if ecfg.mixed_step_tokens and (shape["stage"] > 1 or shape["seq"] > 1
+                                       or shape["data"] > 1):
+            raise ValueError(
+                "mixed_step_tokens supports single-device and tensor-axis "
+                "meshes only (the ragged attend shards heads; stage/seq/"
+                "data axes take the quantum path)")
+        if ecfg.sp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"sp_impl must be 'ring' or 'ulysses', got "
+                             f"{ecfg.sp_impl!r}")
+        tp, sp_ax = shape["tensor"], shape["seq"]
+        if sp_ax > 1 and ecfg.sp_impl == "ulysses" and (
+                (cfg.num_heads // tp) % sp_ax
+                or (cfg.num_kv_heads // tp) % sp_ax):
+            raise ValueError(
+                f"Ulysses seq axis {sp_ax} must divide the per-tensor-shard "
+                f"head counts ({cfg.num_heads // tp} q / "
+                f"{cfg.num_kv_heads // tp} kv); use sp_impl='ring' for "
+                "larger axes")
+        tp_rules.validate_tp(cfg, tp)
+        if shape["stage"] > 1:
+            for c in (cfg, draft_cfg if draft_params is not None else None):
+                if c is None:
+                    continue
+                validate_pp(c, shape["stage"], ecfg.max_batch,
+                            ecfg.pp_microbatches)
+                validate_pp(c, shape["stage"], ecfg.prefill_batch,
+                            ecfg.pp_microbatches)
+        if draft_params is not None:
+            tp_rules.validate_tp(draft_cfg, tp)
+        dp = shape["data"]
+        if ecfg.max_batch % dp or ecfg.prefill_batch % dp:
+            raise ValueError(
+                f"data axis {dp} must divide max_batch ({ecfg.max_batch}) "
+                f"and prefill_batch ({ecfg.prefill_batch})")
+
+    def _moe_impl(self) -> str:
+        """The capacity-based expert-parallel dispatch (``ops/moe.py``)
+        when the mesh has an expert axis; else every expert on every
+        token (exact, no capacity drops)."""
+        if (self.cfg.is_moe and self.mesh is not None
+                and self.mesh.shape["expert"] > 1):
+            return "ep"
+        return "dense"
+
+    def _place_model(self, params: llama.Params, cfg: ModelConfig):
+        """The params on the engine's device, or cut over its mesh (a
+        ``ShardedParams`` carrying the microbatches and MoE dispatch)."""
+        if self.mesh is None:
+            out = _to_device(params, self.device)
+            if out["embed"].dtype != torch.float32:
+                # f32 logits every step: keep the f32 unembedding once
+                out["unembed_f32"] = llama.unembed_weight_f32(out, cfg)
+            return out
+        sp = tp_rules.shard_params(params, self.mesh, cfg)
+        ep = cfg.is_moe and self.mesh.shape["expert"] > 1
+        factor = cfg.moe_capacity_factor
+        if ep:
+            factor = max(factor, cfg.num_experts / cfg.num_experts_per_tok)
+        return sp.with_options(microbatches=self.ecfg.pp_microbatches,
+                               moe_impl="ep" if ep else "dense",
+                               moe_capacity_factor=factor)
+
+    def _make_state(self, cfg: ModelConfig) -> PagedKVState:
+        """A model's paged pools: one pair on the device, or per (stage,
+        tensor) shard over the mesh."""
+        if self.mesh is None:
+            return PagedKVState.create(cfg, self.pcfg, dtype=self.dtype,
+                                       device=self.device,
+                                       kv_quant=self.ecfg.kv_quant)
+        return PagedKVState(*tp_rules.make_sharded_pools(
+            self.mesh, cfg, self.pcfg.num_pages * self.pcfg.page_size,
+            self.dtype, self.ecfg.kv_quant))
 
     # ------------------------------------------------------------------
     # public API
@@ -961,6 +1086,9 @@ class LLMEngine:
         lengths = [min(b, cap) for b in self.ecfg.prefill_buckets]
         if cap > max(lengths, default=0):
             lengths.append(cap)
+        thr = self._cp_threshold()
+        if thr is not None:
+            lengths.append(min(thr, cap))
         self._in_warmup = True
         try:
             for i, n in enumerate(lengths):
@@ -2145,9 +2273,33 @@ class LLMEngine:
         ps = self.pcfg.page_size
         P = self.pcfg.max_pages_per_seq
         dispatched = []
+        thr = self._cp_threshold()
+        if thr is not None:
+            # at most ONE sequence-parallel prefill a step, and it takes
+            # the step's whole prefill budget: seated rows get a decode
+            # block between long-prompt admissions
+            for slot, s in enumerate(self.slots):
+                if (s is not None and s.next_token is None
+                        and len(s.token_ids) >= thr):
+                    remaining = len(s.token_ids) - s.seq_len
+                    try:
+                        self._cp_prefill_seq(slot, s, outputs)
+                        sc_tokens += remaining
+                        sc_rows += 1
+                        sc_disp += 1
+                    except Exception as e:  # failure isolation
+                        self.slots[slot] = None
+                        self._by_id.pop(s.request_id, None)
+                        self._release_seq(s)
+                        outputs.append(StepOutput(
+                            request_id=s.request_id, finished=True,
+                            error=str(e)))
+                    budget = 0
+                    break
         while budget > 0:
             group = [(i, s) for i, s in enumerate(self.slots)
-                     if s is not None and _mid_prefill(s)][:Bp]
+                     if s is not None and _mid_prefill(s)
+                     and (thr is None or len(s.token_ids) < thr)][:Bp]
             if not group:
                 break
             bucket = self._pick_bucket(max(
@@ -2234,6 +2386,80 @@ class LLMEngine:
                     self._handoff_ready[s.request_id] = s
                 else:
                     self._stage_seat(slot, s)
+
+    # ------------------------------------------------------------------
+    # sequence-parallel prefill: the long-prompt path on a seq mesh axis
+    # ------------------------------------------------------------------
+
+    def _cp_threshold(self) -> Optional[int]:
+        """Prompt length from which the prefill runs sequence-parallel over
+        the ``seq`` axis (None: no seq axis, or Ulysses on a stage mesh,
+        which takes the chunked prefill as in the JAX engine)."""
+        if self.mesh is None or self.mesh.shape["seq"] <= 1:
+            return None
+        if self.mesh.shape["stage"] > 1 and self.ecfg.sp_impl != "ring":
+            return None
+        if self.ecfg.cp_min_tokens is not None:
+            return self.ecfg.cp_min_tokens
+        return self.ecfg.prefill_buckets[-1] + 1
+
+    def _cp_bucket(self, n: int) -> int:
+        """The prompt buffer of a sequence-parallel prefill: a power of two
+        (at least 16 and the axis size), an exact multiple of the axis for
+        other sizes, clamped to the longest admissible prompt."""
+        seq_ax = self.mesh.shape["seq"]
+        cap = -(-self.pcfg.max_seq_len // seq_ax) * seq_ax
+        b = max(16, seq_ax)
+        while b < n:
+            b *= 2
+        if b % seq_ax:
+            b = -(-n // seq_ax) * seq_ax
+        return min(b, max(cap, -(-n // seq_ax) * seq_ax))
+
+    def _cp_prefill_seq(self, slot: int, s: _Seq,
+                        outputs: List[StepOutput]) -> None:
+        """Prefill one long prompt in one sequence-parallel pass (ring or
+        Ulysses over ``seq``, ``parallel/cp.py``), its K/V written into its
+        pages (the draft's too), sample the first token and seat it for
+        decode. The whole prompt runs from position 0: prefix-shared pages
+        are rewritten with the same contents. Eager, as every prompt
+        length is its own shape."""
+        from distributed_inference_server_tpu_torch.parallel.cp import (
+            cp_paged_prefill_any,
+        )
+
+        n = len(s.token_ids)
+        T = self._cp_bucket(n)
+        ps = self.pcfg.page_size
+        ids = np.zeros((1, T), np.int32)
+        ids[0, :n] = s.token_ids
+        pos = np.arange(T)
+        table = np.asarray(s.block_table, np.int64)
+        page = pos // ps
+        ok = (pos < n) & (page < len(table))
+        write = np.where(ok, table[np.minimum(page, len(table) - 1)] * ps
+                         + pos % ps, self._num_slots_flat)[None]
+        d_ids = self._device_array(ids)
+        d_valid = self._device_array(np.array([n], np.int32))
+        d_write = self._device_array(write.astype(np.int64))
+        impl = self.ecfg.attention_impl
+        logits, _, _ = cp_paged_prefill_any(
+            self.params, self.cfg, self.mesh, d_ids, d_valid, self.state.k,
+            self.state.v, d_write, self.ecfg.sp_impl, impl)
+        if self.draft_params is not None:
+            cp_paged_prefill_any(
+                self.draft_params, self.draft_cfg, self.mesh, d_ids, d_valid,
+                self.draft_state.k, self.draft_state.v, d_write,
+                self.ecfg.sp_impl, impl)
+        mode = _sample_mode([s])
+        flts = self._device_array(np.array(
+            [s.params.temperature, s.params.top_p], np.float32))
+        toks = _sample(logits, flts[:1], flts[1:], self._gen, mode)
+        lps = _chosen_logprob(logits, toks)
+        s.seq_len = n
+        both = torch.stack([toks.float(), lps]).cpu().numpy()
+        self._reap_first_tokens([(slot, s)], [True], both[0], both[1],
+                                outputs)
 
     def _pick_bucket(self, remaining: int) -> int:
         for b in self.ecfg.prefill_buckets:

@@ -45,7 +45,7 @@ activations' dtype before it multiplies them.
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +64,11 @@ from distributed_inference_server_tpu_torch.ops.kernels.quant_matmul import (
     quant_matmul,
     quant_matmul_plain,
 )
+from distributed_inference_server_tpu_torch.ops.moe import (
+    expert_capacity,
+    moe_mlp_ep,
+    moe_route,
+)
 from distributed_inference_server_tpu_torch.ops.norms import rms_norm
 from distributed_inference_server_tpu_torch.ops.quant import (
     QuantPool,
@@ -76,6 +81,12 @@ from distributed_inference_server_tpu_torch.ops.quant import (
 from distributed_inference_server_tpu_torch.ops.rotary import (
     apply_rope,
     rope_frequencies,
+)
+from distributed_inference_server_tpu_torch.parallel import comm
+from distributed_inference_server_tpu_torch.parallel.tp import (
+    ShardedParams,
+    ShardedPool,
+    pool_shards,
 )
 
 Params = Dict[str, object]
@@ -186,10 +197,12 @@ def make_paged_write_fn(write_slots: torch.Tensor, num_slots: int,
         flat = new.reshape(-1, *new.shape[2:])
         if kv_quantized:
             codes, scale = quantize_kv(flat)
-            pool.data[l].index_copy_(0, idx, codes)
-            pool.scale[l].index_copy_(0, idx, scale)
+            i = comm.to(idx, codes.device)
+            pool.data[l].index_copy_(0, i, codes)
+            pool.scale[l].index_copy_(0, i, scale)
         else:
-            pool[l].index_copy_(0, idx, flat.to(pool.dtype))
+            pool[l].index_copy_(0, comm.to(idx, pool.device),
+                                flat.to(pool.dtype))
         return pool
 
     return write_fn
@@ -309,18 +322,6 @@ def _mlp(h: torch.Tensor, layers: Dict[str, object], l: int, impl: str,
     return _mm(gate * up, layer_weight(layers["w_down"], l), impl)
 
 
-def moe_route(router_logits: torch.Tensor, k: int
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-``k`` routing of f32 logits [N, E]: (softmax weights over the k
-    chosen experts [N, k], their ids [N, k]), largest first and, among
-    equal logits, the lower expert id first — ``lax.top_k``'s order (a
-    stable descending sort keeps equal logits in id order; ``torch.topk``
-    promises no order among ties)."""
-    vals, idx = torch.sort(router_logits, dim=-1, descending=True,
-                           stable=True)
-    return torch.softmax(vals[:, :k], dim=-1), idx[:, :k]
-
-
 def _moe_mlp(h: torch.Tensor, layers: Dict[str, object], l: int,
              cfg: ModelConfig, impl: str) -> torch.Tensor:
     """Mixtral-style MoE in the dense-compute form the JAX engine runs on
@@ -353,16 +354,122 @@ def _moe_mlp(h: torch.Tensor, layers: Dict[str, object], l: int,
     return out.reshape(B, T, H)
 
 
-def _unembed(params: Params, cfg: ModelConfig, h: torch.Tensor
-             ) -> torch.Tensor:
+def _moe_ep(x: torch.Tensor, layers: Dict[str, object],
+            experts: List[List[Dict[str, object]]], l: int,
+            cfg: ModelConfig, impl: str, capacity_factor: float,
+            valid_tokens: Optional[torch.Tensor]) -> torch.Tensor:
+    """Layer ``l``'s MoE through the capacity-based dispatch over the
+    expert shards (``ops/moe.py moe_mlp_ep``); ``experts[e][t]`` are the
+    layer trees of expert shard ``e``, tensor shard ``t``."""
+    B, T, _ = x.shape
+    cap = expert_capacity(B * T, cfg.num_experts, cfg.num_experts_per_tok,
+                          capacity_factor)
+    shards = [[{n: layer_weight(tree[n], l)
+                for n in ("w_gate", "w_up", "w_down")} for tree in row]
+              for row in experts]
+    return moe_mlp_ep(x, {"router": layers["router"][l]}, cfg.num_experts,
+                      cfg.num_experts_per_tok, capacity=cap,
+                      valid_tokens=valid_tokens, expert_shards=shards,
+                      impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# Shards: the mesh's pieces as the layer loop walks them
+# ---------------------------------------------------------------------------
+
+
+class _Stage(NamedTuple):
+    """One pipeline stage as the layer loop sees it: its tensor shards'
+    layer trees (one tree when unsharded), the expert shards' trees
+    ([expert][tensor]; the expert-parallel dispatch only), its pools per
+    tensor shard, the global index of its first layer, and the device its
+    residual stream runs on (None: wherever it is)."""
+
+    layers: List[Dict[str, object]]
+    experts: Optional[List[List[Dict[str, object]]]]
+    pools_k: list
+    pools_v: list
+    first: int
+    device: Optional[torch.device]
+
+
+def _stage_pools(pool, s: int) -> list:
+    """Stage ``s``'s per-tensor-shard pools: of a ``ShardedPool`` (or a
+    ``QuantPool`` of them), of ``[stage][tensor]`` lists (dense caches),
+    or the one pool of an unsharded model."""
+    if isinstance(pool, list):
+        return pool[s]
+    if isinstance(pool, ShardedPool) or (
+            isinstance(pool, QuantPool) and isinstance(pool.data, ShardedPool)):
+        return pool_shards(pool, s)
+    return [pool]
+
+
+def _stages(params, cfg: ModelConfig, pool_k, pool_v) -> List[_Stage]:
+    if not isinstance(params, ShardedParams):
+        return [_Stage([params["layers"]], None, [pool_k], [pool_v], 0, None)]
+    per = cfg.num_layers // params.pp
+    out = []
+    for s in range(params.pp):
+        experts = None
+        if params.moe_impl == "ep" and cfg.is_moe:
+            experts = [[params.tree(s, e, t)["layers"]
+                        for t in range(params.tp)] for e in range(params.ep)]
+        out.append(_Stage([t["layers"] for t in params.stage_trees(s)],
+                          experts, _stage_pools(pool_k, s),
+                          _stage_pools(pool_v, s), s * per,
+                          params.mesh.device(stage=s)))
+    return out
+
+
+def _embed(params, cfg: ModelConfig, input_ids: torch.Tensor
+           ) -> torch.Tensor:
+    """Token embeddings [B, T, hidden], Gemma's scaling applied. A tied
+    table under tensor parallelism is vocab-split: each shard looks the
+    ids up in its slice (others masked to zero) and the rows meet in
+    ``comm.all_reduce``."""
+    ids = input_ids.long().clamp(0, cfg.vocab_size - 1)
+    if not isinstance(params, ShardedParams):
+        h = params["embed"][ids]
+    else:
+        trees = params.stage_trees(0)
+        if cfg.tie_word_embeddings and len(trees) > 1:
+            parts = []
+            for tree in trees:
+                lo, hi = tree["vocab"]
+                table = tree["embed"]
+                local = comm.to(ids, table.device) - lo
+                hit = (local >= 0) & (local < hi - lo)
+                rows = table[local.clamp(0, hi - lo - 1)]
+                parts.append(torch.where(hit[..., None], rows,
+                                         rows.new_zeros(())))
+            h = comm.all_reduce(parts, params.device)
+        else:
+            table = trees[0]["embed"]
+            h = table[comm.to(ids, table.device)]
+    if cfg.scale_embeddings:  # Gemma: sqrt(hidden), in h's dtype
+        h = h * _in_dtype(cfg.hidden_size ** 0.5, h.dtype)
+    return h
+
+
+def _unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """f32 logits [..., V]: the hidden state is upcast BEFORE the product
     (the JAX einsum's preferred_element_type=f32 on bf16 operands); then
     the final-logit soft-cap ``tanh(logits / cap) * cap`` where the model
-    has one (Gemma-2)."""
-    w = params.get("unembed_f32")
-    if w is None:
-        w = unembed_weight_f32(params, cfg)
-    logits = F.linear(h.float(), w)
+    has one (Gemma-2). Sharded params are vocab-parallel: each tensor
+    shard of the last stage projects its vocabulary slice and the logits
+    are gathered in shard order onto the mesh's first device."""
+    if isinstance(params, ShardedParams):
+        parts = []
+        for tree in params.stage_trees(params.pp - 1):
+            w = tree["unembed_f32"]
+            parts.append(F.linear(comm.to(h, w.device).float(), w))
+        logits = comm.all_gather(parts, dim=-1, device=params.device)
+    else:
+        w = params.get("unembed_f32")
+        if w is None:
+            w = unembed_weight_f32(params, cfg)
+        logits = F.linear(h.float(), w)
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         logits = torch.tanh(logits / cap) * cap
@@ -371,85 +478,138 @@ def _unembed(params: Params, cfg: ModelConfig, h: torch.Tensor
 
 def layer_block(
     cfg: ModelConfig,
-    layers: Dict[str, torch.Tensor],
+    shards: List[Dict[str, object]],
     l: int,
     h: torch.Tensor,
     positions: torch.Tensor,
-    pool_k: torch.Tensor,
-    pool_v: torch.Tensor,
+    pools_k: list,
+    pools_v: list,
     write_fn,
     attend_fn,
     inv_freq: torch.Tensor,
     impl: str,
     window: int = 0,
     view=pool_at,
+    experts=None,
+    moe_kw: Optional[dict] = None,
+    attend_new: bool = False,
 ) -> torch.Tensor:
     """One transformer block: write this step's K/V into layer ``l`` of the
     stacked pools, then attend against ``view(pool, l)`` (the paged pool's
-    readable slots by default), then the MLP. Returns the new hidden state
-    [B, T, hidden]."""
+    readable slots by default; with ``attend_new`` against this step's own
+    K/V, the sequence-parallel prefill's form), then the MLP. Returns the
+    new hidden state [B, T, hidden].
+
+    ``shards`` are the tensor shards' layer trees (one tree unsharded) and
+    ``pools_k`` / ``pools_v`` their pools: every shard runs its own q/k/v
+    products (H/tp query and KV/tp KV heads), RoPE, pool writes, attention
+    launch and row-parallel ``wo`` / ``w_down`` partials on its own device;
+    the partials meet in ``comm.all_reduce`` in shard order (one shard:
+    its partial as it is), and the norms run once on ``h``'s device. ``experts`` (with ``moe_kw``: the capacity
+    factor and valid tokens): the expert shards' trees for the
+    capacity-based expert-parallel MoE."""
+    tp = len(shards)
     B, T, _ = h.shape
-    eps = cfg.rms_norm_eps
+    eps, D = cfg.rms_norm_eps, cfg.head_dim
+    nh, nkv = cfg.num_heads // tp, cfg.num_kv_heads // tp
 
-    def w(name):
-        return layer_weight(layers[name], l)
+    x = rms_norm(h, shards[0]["attn_norm"][l], eps, impl)
+    parts = []
+    for lay, pk, pv in zip(shards, pools_k, pools_v):
+        def w(name):
+            return layer_weight(lay[name], l)
 
-    x = rms_norm(h, layers["attn_norm"][l], eps, impl)
-    q, k, v = _mm(x, w("wq"), impl), _mm(x, w("wk"), impl), \
-        _mm(x, w("wv"), impl)
-    if cfg.attention_bias:  # Qwen2
-        q, k, v = q + w("bq"), k + w("bk"), v + w("bv")
-    q = q.view(B, T, cfg.num_heads, cfg.head_dim)
-    k = k.view(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = v.view(B, T, cfg.num_kv_heads, cfg.head_dim)
-    q = apply_rope(q, positions, inv_freq, impl)
-    k = apply_rope(k, positions, inv_freq, impl)
-    if cfg.query_pre_attn_scalar is not None:
-        # Gemma: the kernels scale by 1/sqrt(D), so q times
-        # sqrt(D / scalar) nets 1/sqrt(query_pre_attn_scalar)
-        q = q * _in_dtype((cfg.head_dim / cfg.query_pre_attn_scalar) ** 0.5,
-                          q.dtype)
-    write_fn(pool_k, l, k)
-    write_fn(pool_v, l, v)
-    attn = attend_fn(q, view(pool_k, l), view(pool_v, l), window)
-    attn_out = _mm(attn.reshape(B, T, cfg.q_size), w("wo"), impl)
+        xs = comm.to(x, lay["attn_norm"].device)
+        q, k, v = _mm(xs, w("wq"), impl), _mm(xs, w("wk"), impl), \
+            _mm(xs, w("wv"), impl)
+        if cfg.attention_bias:  # Qwen2
+            q, k, v = q + w("bq"), k + w("bk"), v + w("bv")
+        q = q.view(B, T, nh, D)
+        k = k.view(B, T, nkv, D)
+        v = v.view(B, T, nkv, D)
+        pos, freq = comm.to(positions, xs.device), comm.to(inv_freq, xs.device)
+        q = apply_rope(q, pos, freq, impl)
+        k = apply_rope(k, pos, freq, impl)
+        if cfg.query_pre_attn_scalar is not None:
+            # Gemma: the kernels scale by 1/sqrt(D), so q times
+            # sqrt(D / scalar) nets 1/sqrt(query_pre_attn_scalar)
+            q = q * _in_dtype((D / cfg.query_pre_attn_scalar) ** 0.5,
+                              q.dtype)
+        write_fn(pk, l, k)
+        write_fn(pv, l, v)
+        attn = (attend_fn(q, k, v, window) if attend_new
+                else attend_fn(q, view(pk, l), view(pv, l), window))
+        parts.append(_mm(attn.reshape(B, T, nh * D), w("wo"), impl))
+    attn_out = comm.all_reduce(parts, h.device)
     if cfg.sandwich_norms:  # Gemma-2 post-attention norm
-        attn_out = rms_norm(attn_out, layers["post_attn_norm"][l], eps, impl)
+        attn_out = rms_norm(attn_out, shards[0]["post_attn_norm"][l], eps,
+                            impl)
     h = h + attn_out
-    x = rms_norm(h, layers["mlp_norm"][l], eps, impl)
-    mlp_out = (_moe_mlp(x, layers, l, cfg, impl) if cfg.is_moe
-               else _mlp(x, layers, l, impl, cfg.activation))
+    x = rms_norm(h, shards[0]["mlp_norm"][l], eps, impl)
+    if experts is not None:
+        mlp_out = _moe_ep(x, shards[0], experts, l, cfg, impl, **moe_kw)
+    else:
+        mlp_out = comm.all_reduce([
+            _moe_mlp(comm.to(x, lay["mlp_norm"].device), lay, l, cfg, impl)
+            if cfg.is_moe else
+            _mlp(comm.to(x, lay["mlp_norm"].device), lay, l, impl,
+                 cfg.activation)
+            for lay in shards], h.device)
     if cfg.sandwich_norms:  # Gemma-2 post-MLP norm
-        mlp_out = rms_norm(mlp_out, layers["post_mlp_norm"][l], eps, impl)
+        mlp_out = rms_norm(mlp_out, shards[0]["post_mlp_norm"][l], eps, impl)
     return h + mlp_out
 
 
-def _run_layers(params: Params, cfg: ModelConfig, input_ids: torch.Tensor,
-                positions: torch.Tensor, pool_k: torch.Tensor,
-                pool_v: torch.Tensor, write_slots: torch.Tensor, attend_fn,
-                impl: str, write_fn=None, view=pool_at) -> torch.Tensor:
+def _final_norm(params) -> torch.Tensor:
+    if isinstance(params, ShardedParams):
+        return params.stage_trees(params.pp - 1)[0]["final_norm"]
+    return params["final_norm"]
+
+
+def _run_layers(params, cfg: ModelConfig, input_ids: torch.Tensor,
+                positions: torch.Tensor, pool_k, pool_v,
+                write_slots: Optional[torch.Tensor], attend_fn, impl: str,
+                write_fn=None, view=pool_at, attend_new: bool = False,
+                valid_tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Embed, run every layer block (each writes its new K/V at
     ``write_slots`` through the paged write, or through ``write_fn`` when
     given, then attends ``view(pool, l)`` through ``attend_fn``) and the
-    final norm. Returns the hidden state [B, T, hidden]."""
+    final norm. Returns the hidden state [B, T, hidden] (on the last
+    stage's device).
+
+    Sharded params run stage by stage: the residual stream hops to each
+    stage's device (the stages' ``ppermute``), and each stage's layers
+    run over its tensor shards (``layer_block``). ``valid_tokens`` ([B,
+    T] bool) keeps padding out of the expert-parallel MoE's capacity
+    (default: the tokens whose paged write slot is in range)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    kv_quantized = isinstance(pool_k, QuantPool)
-    codes = pool_k.data if kv_quantized else pool_k
+    stages = _stages(params, cfg, pool_k, pool_v)
+    pool0 = stages[0].pools_k[0]
+    kv_quantized = isinstance(pool0, QuantPool)
+    codes = pool0.data if kv_quantized else pool0
     inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
                          str(codes.device))
     if write_fn is None:
         write_fn = make_paged_write_fn(write_slots, codes.shape[1] - 1,
                                        kv_quantized)
-    vocab = params["embed"].shape[0]
-    h = params["embed"][input_ids.long().clamp(0, vocab - 1)]  # [B, T, H]
-    if cfg.scale_embeddings:  # Gemma: sqrt(hidden), in h's dtype
-        h = h * _in_dtype(cfg.hidden_size ** 0.5, h.dtype)
-    for l, window in enumerate(cfg.layer_windows()):
-        h = layer_block(cfg, params["layers"], l, h, positions, pool_k,
-                        pool_v, write_fn, attend_fn, inv_freq, impl, window,
-                        view)
-    return rms_norm(h, params["final_norm"], cfg.rms_norm_eps, impl)
+    moe_kw = None
+    if any(st.experts is not None for st in stages):
+        if valid_tokens is None and write_slots is not None:
+            valid_tokens = write_slots < codes.shape[1] - 1
+        moe_kw = {"capacity_factor": params.moe_capacity_factor,
+                  "valid_tokens": valid_tokens}
+    h = _embed(params, cfg, input_ids)
+    windows = cfg.layer_windows()
+    for st in stages:
+        if st.device is not None:
+            h = comm.to(h, st.device)
+        for l in range(st.layers[0]["attn_norm"].shape[0]):
+            h = layer_block(cfg, st.layers, l, h, positions, st.pools_k,
+                            st.pools_v, write_fn, attend_fn, inv_freq, impl,
+                            windows[st.first + l], view, st.experts, moe_kw,
+                            attend_new)
+    return rms_norm(h, _final_norm(params), cfg.rms_norm_eps, impl)
 
 
 def forward(
@@ -467,7 +627,9 @@ def forward(
     Args:
       input_ids: [B, T] new token ids (prefill: the prompt; decode: T=1).
       positions: [B, T] absolute positions of those tokens.
-      cache: dense KV cache to read and write (updated IN PLACE).
+      cache: dense KV cache to read and write (updated IN PLACE); for
+        sharded params, ``[stage][tensor]`` lists of per-shard caches
+        (``dense_caches``) in ``cache.k`` / ``cache.v``.
       write_pos: [B, T] cache slot for each new token's K/V (>= max_seq
         drops it, e.g. padding).
       kv_valid_len: [B] valid cache length per row AFTER this write.
@@ -483,23 +645,47 @@ def forward(
     return _unembed(params, cfg, h), cache
 
 
+def dense_caches(params, cfg: ModelConfig, batch: int, max_seq: int,
+                 dtype: torch.dtype) -> KVCache:
+    """A dense KV cache for ``params``: one ``KVCache`` on the params'
+    device, or for sharded params ``[stage][tensor]`` lists of per-shard
+    [L/S, B, S, KV/tp, D] caches on their shards' devices."""
+    if not isinstance(params, ShardedParams):
+        return KVCache.create(cfg, batch, max_seq, dtype=dtype,
+                              device=params["embed"].device)
+    L, kv = cfg.num_layers // params.pp, cfg.num_kv_heads // params.tp
+
+    def member():
+        return [[torch.zeros((L, batch, max_seq, kv, cfg.head_dim),
+                             dtype=dtype,
+                             device=params.mesh.device(tensor=t, stage=s))
+                 for t in range(params.tp)] for s in range(params.pp)]
+
+    return KVCache(member(), member())
+
+
 def _dense_trunk(params, cfg, input_ids, positions, cache: KVCache,
                  write_pos, kv_valid_len, impl) -> torch.Tensor:
     """``_run_layers`` over the dense cache: the writes at ``write_pos``,
     attention by ``gqa_attention``. Returns the normed hidden state."""
     def write_fn(pool, l, new):
-        return _write_kv(pool, l, new, write_pos)
+        return _write_kv(pool, l, new, comm.to(write_pos, pool.device))
 
     def attend_fn(q, k, v, window):
-        return gqa_attention(q, k, v, positions, kv_valid_len, window,
+        return gqa_attention(q, k, v, comm.to(positions, q.device),
+                             comm.to(kv_valid_len, q.device), window,
                              cfg.attn_logit_softcap)
 
+    valid = None
+    if isinstance(params, ShardedParams) and params.moe_impl == "ep":
+        S = (cache.k[0][0] if isinstance(cache.k, list) else cache.k).shape[2]
+        valid = (write_pos >= 0) & (write_pos < S)
     return _run_layers(params, cfg, input_ids, positions, cache.k, cache.v,
                        write_pos, attend_fn, impl, write_fn=write_fn,
-                       view=lambda pool, l: pool[l])
+                       view=lambda pool, l: pool[l], valid_tokens=valid)
 
 
-def hidden_states(params: Params, cfg: ModelConfig, input_ids: torch.Tensor,
+def hidden_states(params, cfg: ModelConfig, input_ids: torch.Tensor,
                   positions: torch.Tensor, kv_valid_len: torch.Tensor,
                   impl: str = "kernel") -> torch.Tensor:
     """Final-layer hidden states (after the final norm, before the
@@ -507,10 +693,72 @@ def hidden_states(params: Params, cfg: ModelConfig, input_ids: torch.Tensor,
     [B, T] ids, each token's K/V written at its position in a scratch
     dense cache of T slots. Returns [B, T, hidden] f32."""
     B, T = input_ids.shape
-    cache = KVCache.create(cfg, B, T, dtype=params["embed"].dtype,
-                           device=input_ids.device)
-    return _dense_trunk(params, cfg, input_ids, positions, cache, positions,
-                        kv_valid_len, impl).float()
+    if isinstance(params, ShardedParams):
+        cache = dense_caches(params, cfg, B, T, params.dtype)
+    else:
+        cache = KVCache.create(cfg, B, T, dtype=params["embed"].dtype,
+                               device=input_ids.device)
+    h = _dense_trunk(params, cfg, input_ids, positions, cache, positions,
+                     kv_valid_len, impl).float()
+    return comm.to(h, input_ids.device)
+
+
+def _paged_trunk(params, cfg: ModelConfig, input_ids, positions, pool_k,
+                 pool_v, write_slots, page_tables, kv_valid_len, impl: str,
+                 page_size: int, data: int) -> torch.Tensor:
+    """``_run_layers`` over the paged pools for one group of rows (a GPipe
+    microbatch, or the whole batch): the kernels (or the plain gathered
+    window) read each shard's own pool; a ``data`` axis of ``data`` > 1
+    splits every attention launch's rows that many ways."""
+    softcap = cfg.attn_logit_softcap or 0.0
+    page_tables = page_tables.to(torch.int32).contiguous()
+    kv_valid_len = kv_valid_len.to(torch.int32).contiguous()
+    decode_step = input_ids.shape[1] == 1
+    kv_quantized = isinstance(pool_k, QuantPool)
+    q_start = None
+    if impl == "kernel" and not decode_step:
+        q_start = positions[:, 0].to(torch.int32).contiguous()
+
+    def attend_rows(q, k_layer, v_layer, window, r):
+        dev = q.device
+        tables = comm.to(page_tables, dev)[r]
+        valid = comm.to(kv_valid_len, dev)[r]
+        if kv_quantized and not (impl == "kernel" and decode_step):
+            pos = comm.to(positions, dev)[r]
+            kd, vd = gather_kv_window(k_layer.data, v_layer.data, tables,
+                                      page_size)
+            ks, vs = gather_kv_window(k_layer.scale, v_layer.scale, tables,
+                                      page_size)
+            return gqa_attention(q, dequantize_kv(kd, ks, q.dtype),
+                                 dequantize_kv(vd, vs, q.dtype), pos, valid,
+                                 window, cfg.attn_logit_softcap)
+        if impl == "kernel":
+            if decode_step:
+                return paged_decode(
+                    q[:, 0], k_layer, v_layer, tables, valid,
+                    page_size=page_size, sliding_window=window,
+                    attn_softcap=softcap)[:, None]
+            return paged_prefill(
+                q, k_layer, v_layer, tables, comm.to(q_start, dev)[r], valid,
+                page_size=page_size, sliding_window=window,
+                attn_softcap=softcap)
+        k_seq, v_seq = gather_kv_window(k_layer, v_layer, tables, page_size)
+        return gqa_attention(q, k_seq, v_seq, comm.to(positions, dev)[r],
+                             valid, window, cfg.attn_logit_softcap)
+
+    def attend_fn(q, k_layer, v_layer, window):
+        B = q.shape[0]
+        if data == 1:
+            return attend_rows(q, k_layer, v_layer, window, slice(None))
+        if B % data:
+            raise ValueError(f"data axis {data} does not divide {B} rows")
+        n = B // data
+        return torch.cat([
+            attend_rows(q[i * n:(i + 1) * n], k_layer, v_layer, window,
+                        slice(i * n, (i + 1) * n)) for i in range(data)])
+
+    return _run_layers(params, cfg, input_ids, positions, pool_k, pool_v,
+                       write_slots, attend_fn, impl)
 
 
 def paged_forward(
@@ -530,6 +778,14 @@ def paged_forward(
     """Forward pass over the paged KV pool (engine/kv_cache.py).
 
     Args:
+      params: the parameter tree, or a ``ShardedParams`` (parallel/tp.py)
+        with the pools ``ShardedPool``s (or ``QuantPool`` pairs of them):
+        every tensor shard then launches its own kernels on its own heads
+        and pool (``layer_block``), a ``stage`` axis runs the layers stage
+        by stage in ``params.microbatches`` GPipe microbatches of rows
+        (issued microbatch-major, so on distinct cards stage s works on
+        one microbatch while stage s + 1 works on the one before), and a
+        ``data`` axis splits each attention launch's rows.
       input_ids, positions: [B, T] new tokens and absolute positions (int).
       pool_k, pool_v: [L, num_slots + 1, KV, D] stacked pools (the last
         slot is the drop slot); updated IN PLACE. Or int8 ``QuantPool``
@@ -549,44 +805,23 @@ def paged_forward(
 
     Returns (logits [B, T or 1, V] f32, pool_k, pool_v).
     """
-    softcap = cfg.attn_logit_softcap or 0.0
-    page_tables = page_tables.to(torch.int32).contiguous()
-    kv_valid_len = kv_valid_len.to(torch.int32).contiguous()
-    decode_step = input_ids.shape[1] == 1
-    kv_quantized = isinstance(pool_k, QuantPool)
-    if impl == "kernel" and not decode_step:
-        q_start = positions[:, 0].to(torch.int32).contiguous()
-
-    def attend_fn(q, k_layer, v_layer, window):
-        if kv_quantized and not (impl == "kernel" and decode_step):
-            kd, vd = gather_kv_window(k_layer.data, v_layer.data,
-                                      page_tables, page_size)
-            ks, vs = gather_kv_window(k_layer.scale, v_layer.scale,
-                                      page_tables, page_size)
-            return gqa_attention(q, dequantize_kv(kd, ks, q.dtype),
-                                 dequantize_kv(vd, vs, q.dtype), positions,
-                                 kv_valid_len, window,
-                                 cfg.attn_logit_softcap)
-        if impl == "kernel":
-            if decode_step:
-                return paged_decode(
-                    q[:, 0], k_layer, v_layer, page_tables, kv_valid_len,
-                    page_size=page_size, sliding_window=window,
-                    attn_softcap=softcap)[:, None]
-            return paged_prefill(
-                q, k_layer, v_layer, page_tables, q_start, kv_valid_len,
-                page_size=page_size, sliding_window=window,
-                attn_softcap=softcap)
-        k_seq, v_seq = gather_kv_window(k_layer, v_layer, page_tables,
-                                        page_size)
-        return gqa_attention(q, k_seq, v_seq, positions, kv_valid_len,
-                             window, cfg.attn_logit_softcap)
-
-    h = _run_layers(params, cfg, input_ids, positions, pool_k, pool_v,
-                    write_slots, attend_fn, impl)
+    sharded = isinstance(params, ShardedParams)
+    M = params.microbatches if sharded else 1
+    data = params.mesh.shape["data"] if sharded else 1
+    B = input_ids.shape[0]
+    if B % M:
+        raise ValueError(f"{M} microbatches do not divide batch={B}")
+    hs = []
+    for m in range(M):
+        r = slice(m * B // M, (m + 1) * B // M)
+        hs.append(_paged_trunk(
+            params, cfg, input_ids[r], positions[r], pool_k, pool_v,
+            write_slots[r], page_tables[r], kv_valid_len[r], impl, page_size,
+            data))
+    h = hs[0] if M == 1 else torch.cat(hs)
     if logits_idx is not None:
         rows = torch.arange(h.shape[0], device=h.device)
-        h = h[rows, logits_idx.long()][:, None]
+        h = h[rows, comm.to(logits_idx, h.device).long()][:, None]
     return _unembed(params, cfg, h), pool_k, pool_v
 
 
@@ -610,6 +845,9 @@ def ragged_paged_forward(
     prefill chunks back-to-back, each token attending its own row's pages.
 
     Args:
+      params: the parameter tree, or a ``ShardedParams`` of a tensor-only
+        mesh (each tensor shard attends its own heads; the engine refuses
+        the mixed step on other meshes).
       input_ids, positions: [1, S] packed tokens and absolute positions.
       pool_k, pool_v: [L, num_slots + 1, KV, D] stacked pools (updated IN
         PLACE; the last slot is the drop slot), or int8 ``QuantPool``
@@ -636,11 +874,14 @@ def ragged_paged_forward(
     flat_pos = positions[0].to(torch.int32).contiguous()
 
     def attend_fn(q, k_layer, v_layer, window):
+        dev = q.device
+        tables, valid = comm.to(page_tables, dev), comm.to(kv_valid_len, dev)
+        rows, fpos = comm.to(tok_row, dev), comm.to(flat_pos, dev)
         if kv_quantized:
-            kd, vd = gather_kv_window(k_layer.data, v_layer.data,
-                                      page_tables, page_size)
-            ks, vs = gather_kv_window(k_layer.scale, v_layer.scale,
-                                      page_tables, page_size)
+            kd, vd = gather_kv_window(k_layer.data, v_layer.data, tables,
+                                      page_size)
+            ks, vs = gather_kv_window(k_layer.scale, v_layer.scale, tables,
+                                      page_size)
             k_seq = dequantize_kv(kd, ks, q.dtype)
             v_seq = dequantize_kv(vd, vs, q.dtype)
             # each packed token attends alone, so chunks of the token axis
@@ -648,22 +889,22 @@ def ragged_paged_forward(
             return torch.cat([
                 ragged_gqa_attention(
                     q[0, c:c + _RAGGED_TOKEN_CHUNK], k_seq, v_seq,
-                    tok_row[c:c + _RAGGED_TOKEN_CHUNK],
-                    flat_pos[c:c + _RAGGED_TOKEN_CHUNK], kv_valid_len,
+                    rows[c:c + _RAGGED_TOKEN_CHUNK],
+                    fpos[c:c + _RAGGED_TOKEN_CHUNK], valid,
                     window, cfg.attn_logit_softcap)
                 for c in range(0, q.shape[1], _RAGGED_TOKEN_CHUNK)])[None]
         if impl == "kernel":
             return paged_ragged(
-                q[0], k_layer, v_layer, page_tables, tok_row, flat_pos,
-                kv_valid_len, page_size=page_size, sliding_window=window,
+                q[0], k_layer, v_layer, tables, rows, fpos, valid,
+                page_size=page_size, sliding_window=window,
                 attn_softcap=softcap)[None]
-        k_seq, v_seq = gather_kv_window(k_layer, v_layer, page_tables,
-                                        page_size)
+        k_seq, v_seq = gather_kv_window(k_layer, v_layer, tables, page_size)
         return ragged_gqa_attention(
-            q[0], k_seq, v_seq, tok_row, flat_pos, kv_valid_len, window,
+            q[0], k_seq, v_seq, rows, fpos, valid, window,
             cfg.attn_logit_softcap)[None]
 
     h = _run_layers(params, cfg, input_ids, positions, pool_k, pool_v,
                     write_slots, attend_fn, impl)
     # unembed only the sampled positions: [1, S, H] -> [N, V]
-    return _unembed(params, cfg, h[0, logits_idx.long()]), pool_k, pool_v
+    idx = comm.to(logits_idx, h.device).long()
+    return _unembed(params, cfg, h[0, idx]), pool_k, pool_v

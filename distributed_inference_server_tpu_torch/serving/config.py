@@ -1060,17 +1060,11 @@ class ServerConfig:
 
     def check_ported(self) -> None:
         """Refuse, with a ``ConfigError`` naming the key, a setting whose
-        subsystem the port does not have yet: multi-device parallelism,
-        the multi-process runtime, the gRPC transport and the fleet.
-        ``validate`` (the reference's checks) passes such settings; the
-        entry point calls this after it, so none is ignored quietly."""
+        subsystem the port does not have yet: the gRPC transport and the
+        fleet. ``validate`` (the reference's checks) passes such settings;
+        the entry point calls this after it, so none is ignored
+        quietly."""
         r = self.raw
-        for key in ("tensor_parallel", "pipeline_parallel",
-                    "context_parallel"):
-            if r["engine"][key] > 1:
-                raise ConfigError(f"engine.{key} is not ported yet")
-        if r["distributed"]["num_processes"] > 1:
-            raise ConfigError("distributed.num_processes is not ported yet")
         if r["server"]["grpc_port"] != 0:
             raise ConfigError("server.grpc_port is not ported yet")
         f = r["fleet"]

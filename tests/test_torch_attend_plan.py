@@ -64,6 +64,14 @@ SHAPES = [
     ("qwen2-7b prefill [4, 512] (G 7)", 28, 4, 512, 4, 16, 128),
     ("qwen2-7b ragged S512 Bm12 (G 7)", 28, 4, 512, 12, 16, 128),
     ("mistral-7b past the window", 32, 8, 512, 4, 16, 320),
+    # per-shard head counts under tensor parallelism
+    ("8B tp2 prefill [4, 512] (H16 KV4)", 16, 4, 512, 4, 16, 128),
+    ("8B tp2 verify [8, 5] (H16 KV4)", 16, 4, 5, 8, 16, 128),
+    ("8B tp2 ragged S512 Bm12 (H16 KV4)", 16, 4, 512, 12, 16, 128),
+    ("8B tp8 prefill [4, 512] (H4 KV1)", 4, 1, 512, 4, 16, 128),
+    ("8B tp8 ragged S512 Bm12 (H4 KV1)", 4, 1, 512, 12, 16, 128),
+    ("qwen2-7b tp4 prefill [4, 512] (G7 KV1)", 7, 1, 512, 4, 16, 128),
+    ("qwen2-7b tp4 ragged S512 Bm12 (G7 KV1)", 7, 1, 512, 12, 16, 128),
 ]
 PER_SM = (1, 2, 3)
 

@@ -220,22 +220,43 @@ def test_cli_exits_2_with_config_error(capsys):
     assert err.startswith("config error:") and "server.port" in err
 
 
+# the parallel settings and the multi-process runtime are ported: past the
+# devices there are (the suite's 8 virtual CPU devices) or without a
+# coordinator they exit 2 with their own config error
+_PORTED_REFUSALS = {
+    "engine.tensor_parallel": "needs 16 devices, have 8",
+    "engine.pipeline_parallel": "needs 16 devices, have 8",
+    "engine.context_parallel": "needs 16 devices, have 8",
+    "distributed.num_processes": "distributed.",
+}
+
+
 @pytest.mark.parametrize("flags,key", [
-    (["--engine-tensor-parallel", "2"], "engine.tensor_parallel"),
-    (["--engine-pipeline-parallel", "2"], "engine.pipeline_parallel"),
-    (["--engine-context-parallel", "2"], "engine.context_parallel"),
+    (["--engine-tensor-parallel", "16"], "engine.tensor_parallel"),
+    (["--engine-pipeline-parallel", "16"], "engine.pipeline_parallel"),
+    (["--engine-context-parallel", "16"], "engine.context_parallel"),
     (["--distributed-num-processes", "2"], "distributed.num_processes"),
     (["--server-grpc-port", "50051"], "server.grpc_port"),
     (["--fleet-enabled", "true"], "fleet.enabled"),
     (["--fleet-connect", "host:7070"], "fleet.connect"),
 ])
-def test_unported_settings_are_refused(flags, key, capsys):
+def test_unported_settings_are_refused(flags, key, capsys, monkeypatch):
+    """The gRPC transport and the fleet exit 2 as not ported yet; the
+    ported parallel settings exit 2 with the device-count or coordinator
+    error instead, never as unported."""
     from distributed_inference_server_tpu_torch.__main__ import main
 
+    monkeypatch.setenv("XLA_FLAGS",
+                       "--xla_force_host_platform_device_count=8")
+    monkeypatch.delenv("RANK", raising=False)
     assert main(flags + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert err.startswith("config error:")
-    assert f"{key} is not ported yet" in err
+    if key in _PORTED_REFUSALS:
+        assert "not ported" not in err
+        assert _PORTED_REFUSALS[key] in err
+    else:
+        assert f"{key} is not ported yet" in err
 
 
 def test_compile_cache_dir_is_accepted():

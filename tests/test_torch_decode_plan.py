@@ -52,6 +52,16 @@ SHAPES = [
     ("gemma2-9b B8 D256", 8, 16, 8, 256, 16, 128),
     ("qwen2-7b B8 G7", 8, 28, 4, 128, 16, 128),
     ("mistral-7b past the window", 8, 32, 8, 128, 16, 320),
+    # per-shard head counts under tensor parallelism
+    ("8B tp2 shard B8 (H16 KV4)", 8, 16, 4, 128, 16, 128),
+    ("8B tp8 shard B8 (H4 KV1)", 8, 4, 1, 128, 16, 128),
+    ("1B tp8 shard B8 (H4 KV1)", 8, 4, 1, 64, 16, 128),
+    ("gemma2-9b tp8 shard (H2 KV1 D256)", 8, 2, 1, 256, 16, 128),
+    ("KV1 G4 D64 B1", 1, 4, 1, 64, 16, 128),
+    ("KV1 G4 D256", 8, 4, 1, 256, 16, 128),
+    ("qwen2-7b tp4 shard (G7 KV1 D128)", 8, 7, 1, 128, 16, 128),
+    ("KV1 G7 D64", 8, 7, 1, 64, 16, 128),
+    ("KV1 G7 D256 B2", 2, 7, 1, 256, 16, 128),
 ]
 
 

@@ -220,3 +220,94 @@ def test_control_modules_import_each_by_itself():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+# the multi-device parallelism modules
+PARALLEL_MODULES = (
+    "distributed_inference_server_tpu_torch.parallel",
+    "distributed_inference_server_tpu_torch.parallel.mesh",
+    "distributed_inference_server_tpu_torch.parallel.comm",
+    "distributed_inference_server_tpu_torch.parallel.tp",
+    "distributed_inference_server_tpu_torch.parallel.pp",
+    "distributed_inference_server_tpu_torch.parallel.cp",
+    "distributed_inference_server_tpu_torch.parallel.distributed",
+    "distributed_inference_server_tpu_torch.ops.moe",
+    "distributed_inference_server_tpu_torch.ops.ring_attention",
+    "distributed_inference_server_tpu_torch.ops.ulysses",
+)
+
+
+def test_mesh_engines_run_where_jax_cannot():
+    """Each parallel module imports on its own where jax, the JAX package,
+    aiohttp and prometheus_client cannot be imported; there, engines on
+    tensor 2, stage 2 (2 microbatches), seq 2 (the ring prefill), Ulysses
+    and expert 2 meshes decode the unsharded engine's greedy tokens."""
+    script = textwrap.dedent(f"""
+        import importlib, sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {FORBIDDEN!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        for m in {PARALLEL_MODULES!r}:
+            for k in [k for k in sys.modules
+                      if k.startswith("distributed_inference_server_tpu_torch")]:
+                del sys.modules[k]
+            importlib.import_module(m)
+        import torch
+        from distributed_inference_server_tpu_torch.engine.engine import (
+            EngineConfig, LLMEngine, SamplingParams)
+        from distributed_inference_server_tpu_torch.engine.kv_cache import (
+            PagedCacheConfig)
+        from distributed_inference_server_tpu_torch.models import configs
+        from distributed_inference_server_tpu_torch.models import llama
+        from distributed_inference_server_tpu_torch.models.tokenizer import (
+            ByteTokenizer)
+        from distributed_inference_server_tpu_torch.parallel.mesh import (
+            MeshSpec, make_mesh)
+
+        def tokens(cfg, axes=None, **kw):
+            gen = torch.Generator().manual_seed(0)
+            p = llama.init_params(cfg, gen, dtype=torch.float32,
+                                  device="cpu")
+            for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+                p["layers"][k] = p["layers"][k] * 8
+            mesh = None if axes is None else make_mesh(
+                MeshSpec(**axes), devices=[torch.device("cpu")] * 8)
+            e = LLMEngine(p, cfg, ByteTokenizer(), EngineConfig(
+                max_batch=2, prefill_buckets=(16,), cp_min_tokens=24,
+                paged=PagedCacheConfig(32, 4, 16), **kw),
+                dtype=torch.float32, device="cpu", mesh=mesh)
+            out = {{}}
+            for i, p_ in enumerate((b"no jax here", b"x" * 30)):
+                e.add_request(i, list(p_), SamplingParams(
+                    temperature=0.0, max_tokens=6))
+            for _ in range(200):
+                if not e.has_work():
+                    break
+                for o in e.step():
+                    if o.token_id is not None:
+                        out.setdefault(o.request_id, []).append(o.token_id)
+            assert e.audit_pages() == []
+            return out
+
+        for name, axes, kw in (
+                ("tiny", dict(tensor=2), {{}}),
+                ("tiny", dict(stage=2), dict(pp_microbatches=2)),
+                ("tiny", dict(seq=2), {{}}),
+                ("tiny", dict(seq=2), dict(sp_impl="ulysses")),
+                ("tiny-moe", dict(expert=2), {{}})):
+            cfg = configs.get_config(name)
+            assert tokens(cfg, axes, **kw) == tokens(cfg), (name, axes)
+        leaked = [k for k in sys.modules
+                  if k.split(".")[0] in {FORBIDDEN!r}]
+        assert not leaked, leaked
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
