@@ -244,6 +244,31 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    point: with one card it exits 2 with the device-count error (the line
    says the multi-card path did not run); with two or more it serves the
    first mix over two cards.
+15. (``fleet``) the fleet's control plane across two entry-point
+   processes on the card (``phase_fleet``), llama-3.2-1b bf16 at
+   ``build/chip_smoke_engine.toml``'s settings and ``--batcher-window-ms
+   0``, started at once: a registry host (one engine, ``--fleet-enabled
+   true --server-strategy round_robin``) and a member (``--fleet-connect``
+   to it). The member joins (start to ``alive`` seconds); the first mix's
+   greedy prompts go once to each engine (round robin alternates them),
+   the member's (text, sampled logprob) pairs equal the host engine's and
+   the host launches nothing for the member's, which runs one engine's
+   launches per forward on ``cuda``; lone streamed TTFT host engine
+   against member (the fleet wire's share); a remote request's
+   ``trace_id`` holds the host's root span and the member's
+   ``fleet.serve`` and ``engine.infer`` spans, parent-linked; the member
+   stopped (``SIGSTOP``) with a zero-token request in flight and then
+   killed (``SIGKILL``): the request completes once, redispatched to the
+   host's engine, with the member's cold pairs for its prompt, the member
+   reads ``dead`` (kill to dead and to completed seconds); the member
+   restarted under its id rejoins (one ``rejoin`` heartbeat) and serves
+   the cold pairs again (``fleet_timing`` line). The role balancer has
+   nothing on the device and is covered by the CPU tests.
+
+Phase 4's four 1B servers start together, and so do phase 3's three
+quantized servers (``_prestart``): only their startups overlap, each
+server is measured alone while the others idle (``warmup_s`` is read
+under that shared startup).
 
 Each phase's first server (phase 4's 1B quantum server, the first
 quantized server, the first family server, the first speculative server)
@@ -259,7 +284,7 @@ quantized matmuls' rows add ``*_prefill`` keys: their M = 2048 layer, and
 q8 ``*_verify`` keys: its M = 40 layer); the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
 and prints no result. ``--phases
-kernels,serve,quant,engine,ckpt,api,families,spec,admission,kvpaths,replicas,control,parallel``
+kernels,serve,quant,engine,ckpt,api,families,spec,admission,kvpaths,replicas,control,parallel,fleet``
 selects
 phases (default: all; ``quant`` is phase 3's quantized kernels and phase
 4's quantized servers; ``families`` is item 7, ``api`` item 8, ``spec``
@@ -277,7 +302,9 @@ replica role (``unified``, ``prefill``, ``decode``, ``fetch_target``)
 under ``launches_replicas``, phase 13's (the defaults server's mix and
 the int4 engine's requests after the swap) under ``launches_control``,
 the verify shape's times under ``verify``, phase 14's per-shard shapes
-under ``tp_shards`` and phase 14's launches under ``launches_parallel``.
+under ``tp_shards``, phase 14's launches under ``launches_parallel`` and
+phase 15's (the member's, over the remote-served greedy prompts) under
+``launches_fleet``.
 """
 
 from __future__ import annotations
@@ -1202,9 +1229,37 @@ def _servers(seed: int, specs):
             errlog.close()
 
 
+# servers started ahead by ``_prestart``: log name -> (flags, model, base
+# URL); ``_server`` hands such a server out instead of starting one
+PRESTARTED: dict = {}
+
+
+@contextlib.contextmanager
+def _prestart(seed: int, specs):
+    """Start the servers of ``specs`` ((extra flags, log name, model)) all
+    at once and wait until each is healthy; the ``_server`` call of each
+    (the same log name, flags and model) then gets its base URL. They are
+    measured one after another, the others idle meanwhile: only their
+    startups overlap."""
+    with _servers(seed, specs) as bases:
+        for (extra, log_name, model), base in zip(specs, bases):
+            PRESTARTED[log_name] = (list(extra), model, base)
+        try:
+            yield
+        finally:
+            for _, log_name, _ in specs:
+                PRESTARTED.pop(log_name, None)
+
+
 @contextlib.contextmanager
 def _server(seed: int, extra, log_name: str, model: str = "llama-3.2-1b"):
-    """One server (``_servers``); yields its base URL."""
+    """One server (``_servers``), or the one ``_prestart`` started under
+    ``log_name``; yields its base URL."""
+    pre = PRESTARTED.pop(log_name, None)
+    if pre is not None:
+        assert pre[:2] == (list(extra), model), (log_name, pre, extra)
+        yield pre[2]
+        return
     with _servers(seed, [(extra, log_name, model)]) as (base,):
         yield base
 
@@ -1357,6 +1412,25 @@ QUANT_SERVERS = (
       "rope"),
      ("paged_decode_int8", "quant_matmul_q8")),
 )
+
+# phase 4's servers and phase 3's quantized servers, each group started
+# together (``_prestart``): (flags, log name, model) as the phases start
+# them
+LOOPED_FLAGS = ["--engine-loop-to-completion", "true"]
+K_BLOCK_FLAGS = ["--engine-loop-to-completion", "true",
+                 "--engine-loop-max-steps", "8"]
+MIXED_FLAGS = ["--engine-mixed-step-tokens", "512"]
+QUANT_8B_FLAGS = ["--model-quantization", "int8", "--engine-kv-quant", "int8"]
+SERVE_SERVERS = (
+    ([], "server.log", "llama-3.2-1b"),
+    (LOOPED_FLAGS, "server_loop.log", "llama-3.2-1b"),
+    (MIXED_FLAGS, "server_mixed.log", "llama-3.2-1b"),
+    (MIXED_FLAGS + K_BLOCK_FLAGS, "server_mixed_loop.log", "llama-3.2-1b"))
+QUANT_SERVER_SPECS = tuple(
+    (flags, f"server_{model}_{flags[1]}.log", model)
+    for _, model, flags, _, _ in QUANT_SERVERS) + (
+    (MIXED_FLAGS + QUANT_8B_FLAGS, "server_llama-3-8b_mixed.log",
+     "llama-3-8b"),)
 
 # the model families at full width and depth, random weights from the
 # seed: (label, model, flags, kernels that must launch, kernels that must
@@ -4860,12 +4934,289 @@ def phase_parallel_entry(seed: int = 0) -> dict:
     return {"ran": False}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the fleet's control plane across two processes
+# ---------------------------------------------------------------------------
+
+FLEET_MEMBER = "chip-member"
+FLEET_FLAGS = ["--batcher-window-ms", "0", "--fleet-heartbeat-interval-s",
+               "0.2"]
+# a prompt no engine of the phase sees before the member's death: the
+# member's cold pairs for it are what the redispatched request must give
+KILL_PROMPT = "Zero tokens when the member dies."
+
+
+def _pairs(base, prompt) -> list:
+    """A greedy request's (text, sampled logprobs to 4 places)."""
+    text, lps = _v1_logprobs(base, prompt)
+    return [text, [round(x, 4) for x in lps]]
+
+
+def _host_launches(host) -> int:
+    return sum(_stats(host)["kernel_launches"].values())
+
+
+def _routed(host, fn):
+    """``fn()``'s result and whether the registry host sent it to the
+    member: a request the host's own engine serves launches its kernels, a
+    remote one launches none there."""
+    n0 = _host_launches(host)
+    out = fn()
+    return out, _host_launches(host) == n0
+
+
+def _until_routed(host, remote: bool, prompt=MIX_PROMPTS["p20"]) -> None:
+    """Send greedy ``prompt`` until one lands where ``remote`` says, so
+    that round robin sends the next request to the other engine."""
+    for _ in range(2):
+        if _routed(host, lambda: _greedy(host, prompt))[1] == remote:
+            return
+    raise AssertionError("round robin did not alternate host and member")
+
+
+def _member_state(host):
+    members = _stats(host)["fleet"]["members"]
+    return next((m["state"] for m in members
+                 if m["member_id"] == FLEET_MEMBER), None)
+
+
+def _wait_member(host, proc, state: str, what: str) -> float:
+    def ready():
+        if proc is not None and proc.poll() is not None:
+            raise RuntimeError(f"the member exited with {proc.returncode}")
+        return _member_state(host) == state
+    return _wait(ready, what, 120.0, 0.02)
+
+
+def _logged_at(log_name: str, needle: str) -> float:
+    """The epoch seconds of the last line of a server's log (its
+    ``%(asctime)s`` stamp, milliseconds) that holds ``needle``."""
+    import datetime
+
+    with open(os.path.join("chiprun_out", log_name)) as f:
+        line = [ln for ln in f if needle in ln][-1]
+    stamp = datetime.datetime.strptime(" ".join(line.split()[:2]),
+                                       "%Y-%m-%d %H:%M:%S,%f")
+    return stamp.timestamp()
+
+
+def _stop_proc(proc, errlog) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    errlog.close()
+
+
+def phase_fleet(card: str, seed: int = 0) -> dict:
+    """Phase 15 (see the module docstring). Returns the member's launches
+    over the remote-served greedy prompts and the timing line."""
+    import signal
+
+    t_phase = time.monotonic()
+    timing: dict = {}
+    fport = _free_port()
+    host_flags = FLEET_FLAGS + ["--fleet-enabled", "true", "--fleet-port",
+                                str(fport), "--server-strategy",
+                                "round_robin"]
+    member_flags = FLEET_FLAGS + ["--fleet-connect", f"127.0.0.1:{fport}",
+                                  "--fleet-member-id", FLEET_MEMBER]
+    remote_id = f"{FLEET_MEMBER}:engine-0"
+    procs = []
+    try:
+        # 1. both processes started at once; the member redials until the
+        # host listens
+        t0 = time.monotonic()
+        hproc, host, hlog = _launch(seed, host_flags, "server_fleet_host.log",
+                                    REPLICA_MODEL)
+        procs.append((hproc, hlog))
+        mproc, member, mlog = _launch(seed, member_flags,
+                                      "server_fleet_member.log",
+                                      REPLICA_MODEL)
+        procs.append((mproc, mlog))
+        _wait_healthy(hproc, host, "server_fleet_host.log", t0)
+        timing["host_healthy_s"] = time.monotonic() - t0
+        _wait_healthy(mproc, member, "server_fleet_member.log", t0)
+        _wait_member(host, mproc, "alive", "the member's join")
+        timing["member_start_to_alive_s"] = time.monotonic() - t0
+        phase_done("fleet: host and member up, member alive")
+
+        # 2-3. the first mix's greedy prompts, one to each engine: the
+        # member's pairs equal the host engine's, the host launches
+        # nothing for the member's, the member one engine's launches
+        _reset_counts(host)
+        _reset_counts(member)
+        m_before = _stats(member)
+        pairs = {False: {}, True: {}}
+        for name in ("p20", "p100", "p600"):
+            for _ in range(2):
+                got, remote = _routed(host,
+                                      lambda: _pairs(host, MIX_PROMPTS[name]))
+                assert name not in pairs[remote], (name, remote)
+                pairs[remote][name] = got
+        assert pairs[True] == pairs[False], pairs
+        _wait(lambda: _stats(member)["requests_finished"]
+              == m_before["requests_finished"] + 3,
+              "the member's three requests", 10.0)
+        m_after = _stats(member)
+        launches = {k: v for k, v in m_after["kernel_launches"].items() if v}
+        assert set(launches) == set(QUANTUM_KERNELS), launches
+        per = _per_forward(m_before, m_after)
+        assert {k: per[k] for k in ONE_B_PER_FORWARD} == ONE_B_PER_FORWARD, (
+            per)
+        assert m_after["device"] == torch.cuda.get_device_name(0), (
+            m_after["device"])
+        timing["remote_pairs_equal_local"] = True
+        timing["member_launches"] = launches
+        timing["member_launches_per_forward"] = per
+        phase_done("fleet: remote serving and the member's kernels")
+
+        # 4. lone streamed TTFT at the client, host engine against member
+        ttft = {False: [], True: []}
+        for _ in range(8):
+            res, remote = _routed(host, lambda: _sse(host, "/generate", {
+                "prompt": MIX_PROMPTS["p20"], "stream": True, **GREEDY}))
+            ttft[remote].append(next(
+                t for t, f in res["frames"]
+                if isinstance(f, dict) and f.get("type") == "token"))
+        assert len(ttft[True]) == len(ttft[False]) == 4, ttft
+        local_ms = _pct(ttft[False], 0.5) * 1e3
+        remote_ms = _pct(ttft[True], 0.5) * 1e3
+        timing["lone_ttft_ms"] = {
+            "local": [t * 1e3 for t in ttft[False]],
+            "remote": [t * 1e3 for t in ttft[True]],
+            "local_p50": local_ms, "remote_p50": remote_ms,
+            "fleet_wire_share_p50": remote_ms - local_ms}
+
+        # 5. one remote request's trace holds spans from both processes
+        _until_routed(host, remote=False)
+        body, remote = _routed(host, lambda: _gen(
+            host, MIX_PROMPTS["p20"], GREEDY)[1])
+        assert remote, "round robin did not send the request to the member"
+        rid = body["id"][len("cmpl-"):]
+
+        def tree():
+            spans = _http("GET", host + f"/server/trace?request_id={rid}")[
+                1]["spans"]
+            by = {s["name"]: s for s in spans}
+            return by if {"request.generate", "fleet.serve",
+                          "engine.infer"} <= set(by) else None
+
+        _wait(tree, "the member's spans at the host", 10.0)
+        by = tree()
+        root, serve, infer = (by["request.generate"], by["fleet.serve"],
+                              by["engine.infer"])
+        assert "member" not in root["attributes"], root
+        assert serve["attributes"]["member"] == FLEET_MEMBER, serve
+        assert infer["attributes"]["member"] == FLEET_MEMBER, infer
+        assert serve["parent_id"] == root["span_id"], (root, serve)
+        assert infer["parent_id"] == serve["span_id"], (serve, infer)
+        assert len({root["trace_id"], serve["trace_id"],
+                    infer["trace_id"]}) == 1
+        timing["trace_spans"] = {
+            name: {"member": s["attributes"].get("member"),
+                   "duration_ms": s["duration_ms"]}
+            for name, s in sorted(by.items())}
+        phase_done("fleet: lone latency and the stitched trace")
+
+        # 6. the member stopped with a zero-token request in flight, then
+        # killed: the request completes once, on the host's engine
+        _until_routed(host, remote=False)
+        kill_ref, remote = _routed(host, lambda: _pairs(host, KILL_PROMPT))
+        assert remote, "the kill prompt's reference did not run remote"
+        _until_routed(host, remote=False)
+        red0 = _stats(host).get("resilience") or {}
+        ok0 = (red0.get("redispatched") or {}).get("ok", 0)
+        os.kill(mproc.pid, signal.SIGSTOP)
+        done = {}
+
+        def kill_request():
+            done["pairs"] = _pairs(host, KILL_PROMPT)
+            done["t"] = time.monotonic()
+
+        with cf.ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(kill_request)
+
+            def in_flight():
+                st = next(s for s in _stats(host)["worker_statuses"]
+                          if s["engine_id"] == remote_id)
+                return st["active_requests"] >= 1
+
+            _wait(in_flight, "the request at the stopped member", 10.0,
+                  0.01)
+            t_kill, t_kill_wall = time.monotonic(), time.time()
+            os.kill(mproc.pid, signal.SIGKILL)
+            mproc.wait()
+            timing["kill_to_exited_s"] = time.monotonic() - t_kill
+            _wait_member(host, None, "dead", "the member read dead")
+            fut.result()
+        # when the host logged the death: polling /server/stats would add
+        # the wait for its engine, busy with the redispatched request
+        timing["kill_to_dead_s"] = _logged_at(
+            "server_fleet_host.log", "-> dead") - t_kill_wall
+        timing["kill_to_completed_s"] = done["t"] - t_kill
+        assert done["pairs"] == kill_ref, (done["pairs"], kill_ref)
+        stats = _stats(host)
+        redispatched = (stats.get("resilience") or {}).get("redispatched",
+                                                            {})
+        assert redispatched.get("ok", 0) == ok0 + 1, redispatched
+        assert not any(s["engine_id"] == remote_id
+                       for s in stats["worker_statuses"]), stats
+        assert stats["replicas"][0]["audit"] == [], stats["replicas"]
+        prom = _get_text(host + "/metrics")[0]
+        assert 'fleet_members{state="dead"} 1.0' in prom
+        phase_done("fleet: kill and redispatch")
+
+        # 7. the member restarts under its id: a rejoin, and it serves
+        t_restart = time.monotonic()
+        mproc, member, mlog = _launch(seed, member_flags,
+                                      "server_fleet_member_rejoin.log",
+                                      REPLICA_MODEL)
+        procs.append((mproc, mlog))
+        _wait_member(host, mproc, "alive", "the member's rejoin")
+        timing["restart_to_alive_s"] = time.monotonic() - t_restart
+        stats = _stats(host)
+        fleet = stats["fleet"]
+        assert fleet["heartbeats"].get("rejoin", 0) == 1, fleet
+        # the host's health scorer may have demoted its own engine by now
+        # (the redispatched request's TTFT counts the member's stop), and
+        # routing then prefers the member: send until one lands there
+        timing["host_health_after_kill"] = {
+            eid: [e.get("state"), e.get("reasons")] for eid, e in
+            (stats["health"].get("engines") or {}).items()}
+        for _ in range(2):
+            again, remote = _routed(
+                host, lambda: _pairs(host, MIX_PROMPTS["p20"]))
+            if remote:
+                break
+        assert remote, "the rejoined member served nothing"
+        assert again == pairs[False]["p20"], (again, pairs[False]["p20"])
+        timing["heartbeats"] = fleet["heartbeats"]
+        phase_done("fleet: rejoin")
+    finally:
+        for proc, errlog in procs:
+            _stop_proc(proc, errlog)
+    line = {"fleet_timing": {
+        "card": card, "model": "llama-3.2-1b bf16 random weights, host and "
+        "member processes on the one card", **timing,
+        "role_balancer": "not driven here: host logic with nothing on the "
+        "device, whose decode target needs the fleet's KV data plane "
+        "(not ported); tests/test_torch_fleet.py and "
+        "tests/test_torch_fleet_chaos.py (rerole_flap) cover it",
+        "phase_s": round(time.monotonic() - t_phase, 1)}}
+    log(json.dumps(line))
+    return {"timing": line["fleet_timing"], "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,serve,quant,engine,ckpt,api,families,"
                             "spec,admission,kvpaths,replicas,control,"
-                            "parallel")
+                            "parallel,fleet")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--server-flags", default="",
                     help="flags added to every server started, split on "
@@ -4918,56 +5269,62 @@ def main(argv=None) -> int:
         phase_done("parallel kernels (per-shard shapes)")
     launches = {}
     texts = None
-    if "serve" in phases:
-        launches, texts = phase_serve(card, args.seed)
-        # the ragged kernel's count is the mixed server's (the only path
-        # that runs it)
-        phase_done("serve")
-        _, loop_texts = phase_serve(
-            card, args.seed, extra=["--engine-loop-to-completion", "true"],
-            log_name="server_loop.log",
-            label="llama-3.2-1b bf16 random weights, "
-                  "--engine-loop-to-completion true")
-        assert loop_texts == texts, ("looped server differs from the fixed "
-                                     "server", loop_texts, texts)
-        phase_done("serve looped")
-        phase_loop_timing(card, args.seed)
-        torch.cuda.empty_cache()
-        phase_done("loop timing")
-        launches["paged_ragged"] = phase_serve_mixed(
-            card, args.seed)["paged_ragged"]
-        phase_done("serve mixed")
-        # looped blocks of at most 8 iterations keep the chats decoding
-        # while the prompts load (uncapped, a chat's whole budget is one
-        # block and the prompts find no decode row)
-        phase_serve_mixed(
-            card, args.seed, ["--engine-loop-to-completion", "true",
-                              "--engine-loop-max-steps", "8"],
-            "llama-3.2-1b bf16 random weights, --engine-mixed-step-tokens "
-            "512 --engine-loop-to-completion true --engine-loop-max-steps 8 "
-            "(K-block mixed step)", "server_mixed_loop.log")
-        phase_done("serve mixed K-block")
+    serve_group = (_prestart(args.seed, SERVE_SERVERS) if "serve" in phases
+                   else contextlib.nullcontext())
+    with serve_group:
+        if "serve" in phases:
+            launches, texts = phase_serve(card, args.seed)
+            # the ragged kernel's count is the mixed server's (the only
+            # path that runs it)
+            phase_done("serve")
+            _, loop_texts = phase_serve(
+                card, args.seed, extra=LOOPED_FLAGS,
+                log_name="server_loop.log",
+                label="llama-3.2-1b bf16 random weights, "
+                      "--engine-loop-to-completion true")
+            assert loop_texts == texts, ("looped server differs from the "
+                                         "fixed server", loop_texts, texts)
+            phase_done("serve looped")
+            phase_loop_timing(card, args.seed)
+            torch.cuda.empty_cache()
+            phase_done("loop timing")
+            launches["paged_ragged"] = phase_serve_mixed(
+                card, args.seed)["paged_ragged"]
+            phase_done("serve mixed")
+            # looped blocks of at most 8 iterations keep the chats
+            # decoding while the prompts load (uncapped, a chat's whole
+            # budget is one block and the prompts find no decode row)
+            phase_serve_mixed(
+                card, args.seed, K_BLOCK_FLAGS,
+                "llama-3.2-1b bf16 random weights, "
+                "--engine-mixed-step-tokens 512 --engine-loop-to-completion "
+                "true --engine-loop-max-steps 8 (K-block mixed step)",
+                "server_mixed_loop.log")
+            phase_done("serve mixed K-block")
     if "quant" in phases:
         # each quantized kernel's count is its server's
         torch.cuda.empty_cache()
-        for label, model, flags, need, absent in QUANT_SERVERS:
-            got, _ = phase_serve(card, args.seed, model, flags,
-                                 f"server_{model}_{flags[1]}.log", label,
-                                 need, absent, trace_phase="quant")
-            for name in need:
-                if name.startswith(("quant_matmul", "paged_decode_int8")):
-                    launches[name] = got[name]
-            phase_done(f"serve {label}")
-        phase_serve_mixed(
-            card, args.seed,
-            ["--model-quantization", "int8", "--engine-kv-quant", "int8"],
-            "llama-3-8b int8 weights + int8 KV, random weights, "
-            "--engine-mixed-step-tokens 512", "server_llama-3-8b_mixed.log",
-            "llama-3-8b",
-            ("quant_matmul_q8", "paged_decode_int8", "rms_norm", "rope"),
-            ("paged_ragged", "paged_prefill", "paged_decode",
-             "quant_matmul_q4"), trace_phase="quant")
-        phase_done("serve llama-3-8b int8 mixed")
+        with _prestart(args.seed, QUANT_SERVER_SPECS):
+            for label, model, flags, need, absent in QUANT_SERVERS:
+                got, _ = phase_serve(card, args.seed, model, flags,
+                                     f"server_{model}_{flags[1]}.log",
+                                     label, need, absent,
+                                     trace_phase="quant")
+                for name in need:
+                    if name.startswith(("quant_matmul",
+                                        "paged_decode_int8")):
+                        launches[name] = got[name]
+                phase_done(f"serve {label}")
+            phase_serve_mixed(
+                card, args.seed, QUANT_8B_FLAGS,
+                "llama-3-8b int8 weights + int8 KV, random weights, "
+                "--engine-mixed-step-tokens 512",
+                "server_llama-3-8b_mixed.log", "llama-3-8b",
+                ("quant_matmul_q8", "paged_decode_int8", "rms_norm",
+                 "rope"),
+                ("paged_ragged", "paged_prefill", "paged_decode",
+                 "quant_matmul_q4"), trace_phase="quant")
+            phase_done("serve llama-3-8b int8 mixed")
     if "families" in phases:
         torch.cuda.empty_cache()
         for label, model, flags, need, absent, per in FAMILY_SERVERS:
@@ -5045,6 +5402,12 @@ def main(argv=None) -> int:
         phase_done("parallel served llama-3-8b int8 tensor 2")
         phase_parallel_entry(args.seed)
         phase_done("parallel entry point")
+    fleet_launches = {}
+    if "fleet" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        fleet_launches = phase_fleet(card, args.seed)["launches"]
+        phase_done("fleet")
 
     rows = []
     for name, (route, source, replaces) in KERNEL_META.items():
@@ -5075,6 +5438,8 @@ def main(argv=None) -> int:
         if parallel_launches:  # phase 14's meshes
             row["launches_parallel"] = {
                 part: got.get(name) for part, got in parallel_launches.items()}
+        if fleet_launches:  # phase 15's member, remote-served prompts
+            row["launches_fleet"] = fleet_launches.get(name)
         shards = {r["case"]: {k: r.get(k) for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")}

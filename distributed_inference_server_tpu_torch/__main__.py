@@ -11,8 +11,16 @@ engine is the one ``python -m distributed_inference_server_tpu`` builds
 (``max_batch`` 64, 2048 pages of 16 tokens, 512 pages per sequence,
 prefill batches of 16 rows within 8192 tokens). An invalid value exits 2
 with ``config error:``, and so does a setting whose subsystem the port
-does not have yet (``server.grpc_port``, the ``fleet``): ``<section.key>
-is not ported yet``.
+does not have yet (``server.grpc_port``, ``fleet.registries``):
+``<section.key> is not ported yet``.
+
+The fleet's control plane (``serving/fleet.py``): ``--fleet-enabled true``
+makes the process a registry host listening at ``fleet.host:fleet.port``
+(its members' engines join its routing set); ``--fleet-connect host:port``
+joins such a host as a member once the server has started, printing
+``joined fleet at <host:port> as <member id>``; a refused dial is retried
+for up to ``FLEET_JOIN_TIMEOUT_S``. A member that cannot reach its host
+exits 1 (``fleet join failed``) and never serves alone.
 
 ``engine.tensor_parallel`` / ``pipeline_parallel`` / ``context_parallel``
 give each replica a device mesh (``parallel/mesh.py``) over a disjoint
@@ -120,6 +128,9 @@ from distributed_inference_server_tpu_torch.serving.config import (
     ConfigWatcher,
     ServerConfig,
 )
+from distributed_inference_server_tpu_torch.serving.remote_runner import (
+    FleetWorker,
+)
 from distributed_inference_server_tpu_torch.serving.server import (
     InferenceServer,
 )
@@ -127,6 +138,10 @@ from distributed_inference_server_tpu_torch.utils.device import (
     dtype_from_name,
     resolve_device,
 )
+
+# seconds a member keeps redialing a registry host that refuses (a host
+# started beside it is still warming its engines up)
+FLEET_JOIN_TIMEOUT_S = 120.0
 
 
 def _port_args(argv: List[str]) -> Tuple[argparse.Namespace, List[str]]:
@@ -219,6 +234,7 @@ def _replica_settings(cfg: ServerConfig, mcfg: ModelConfig,
         "max_redispatch": cfg.get("server", "max_redispatch"),
         "disagg_settings": cfg.disagg_settings(),
         "fetch_costs": fetch_costs,
+        "fleet_settings": cfg.fleet_settings(),
         "faults": (faults.parse_spec(spec, cfg.get("faults", "seed"))
                    if spec else None),
     }
@@ -388,6 +404,23 @@ def main(argv=None) -> int:
         server.shutdown(drain_timeout_s=0)
         return 1
 
+    fleet_worker = None
+    if cfg.get("fleet", "connect"):
+        # worker mode: join the registry host; the local engines keep
+        # their own HTTP surface too
+        fleet_worker = FleetWorker(server.scheduler, cfg.fleet_settings(),
+                                   metrics=server.metrics,
+                                   tracer=server.tracer)
+        try:
+            # the host may still be warming its engines up
+            fleet_worker.start(connect_timeout_s=FLEET_JOIN_TIMEOUT_S)
+        except OSError as e:
+            print(f"fleet join failed: {e}", file=sys.stderr)
+            server.shutdown(drain_timeout_s=0)
+            return 1
+        print(f"joined fleet at {cfg.get('fleet', 'connect')} as "
+              f"{fleet_worker.member_id}", flush=True)
+
     watcher = ConfigWatcher(cfg)
     watcher.subscribe(server.apply_hot_config)
     watcher.start()
@@ -405,6 +438,8 @@ def main(argv=None) -> int:
         pass
     finally:
         watcher.stop()
+        if fleet_worker is not None:
+            fleet_worker.stop()
         server.shutdown(drain_timeout_s=cfg.get("server", "drain_timeout_s"))
     return 0
 

@@ -500,7 +500,7 @@ def make_handler(server: "InferenceServer") -> type:
                     "invalid_body").to_dict())
                 return
             n = 0
-            for runner in server.dispatcher.scheduler.engines():
+            for runner in server.local_runners():  # not the fleet's
                 runner.reset_speculation()
                 n += 1
             self._send(200, {"status": "ok", "engines_reset": n})

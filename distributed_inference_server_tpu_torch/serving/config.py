@@ -30,7 +30,7 @@ import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional
 
 from distributed_inference_server_tpu_torch.core.errors import ConfigError
 from distributed_inference_server_tpu_torch.core.queue import QueueConfig
@@ -39,6 +39,9 @@ from distributed_inference_server_tpu_torch.core.validator import (
 )
 from distributed_inference_server_tpu_torch.serving.batcher import (
     BatcherConfig,
+)
+from distributed_inference_server_tpu_torch.serving.fleet import (
+    parse_connect,
 )
 from distributed_inference_server_tpu_torch.serving.scheduler import (
     SchedulingStrategy,
@@ -472,17 +475,6 @@ def parse_tenant_weights(spec: str,
     return out
 
 
-def parse_connect(connect: str) -> Tuple[str, int]:
-    """Parse a ``host:port`` fleet endpoint (``fleet.connect``,
-    ``fleet.registries``)."""
-    host, sep, port = connect.rpartition(":")
-    if not sep or not host or not port.isdigit():
-        raise ConfigError(
-            f"fleet.connect must be host:port, got {connect!r}"
-        )
-    return host, int(port)
-
-
 def _defaults() -> Dict[str, Dict[str, Any]]:
     return {
         sec: {k: copy.copy(d) for k, (_, d) in fields.items()}
@@ -680,6 +672,31 @@ class ServerConfig:
             wire_quant=d["wire_quant"],
         )
 
+    def fleet_settings(self):
+        """The fleet control plane's knobs (``serving/fleet.py``
+        ``FleetSettings``); the keys of the KV data plane, the mesh and
+        registry HA have no field there yet."""
+        from distributed_inference_server_tpu_torch.serving.fleet import (
+            FleetSettings,
+        )
+
+        f = self.raw["fleet"]
+        return FleetSettings(
+            enabled=f["enabled"],
+            host=f["host"],
+            port=f["port"],
+            connect=f["connect"],
+            member_id=f["member_id"],
+            heartbeat_interval_s=f["heartbeat_interval_s"],
+            suspect_after_s=f["suspect_after_s"],
+            dead_after_s=f["dead_after_s"],
+            rerole=f["rerole"],
+            rerole_high_ratio=f["rerole_high_ratio"],
+            rerole_low_ratio=f["rerole_low_ratio"],
+            rerole_cooldown_s=f["rerole_cooldown_s"],
+            rerole_interval_s=f["rerole_interval_s"],
+        )
+
     def slo_settings(self):
         """SLO / performance-telemetry knobs (teledigest.SloSettings);
         always constructed — the window/epoch geometry shapes the
@@ -758,6 +775,7 @@ class ServerConfig:
             min_pages=c["fetch_min_pages"],
             page_cost=c["fetch_page_cost"],
             load_cost_pages=c["fetch_load_cost"],
+            remote_page_cost=self.raw["fleet"]["kv_page_cost"],
             wire_frac=self._wire_frac(),
         )
 
@@ -1061,16 +1079,14 @@ class ServerConfig:
     def check_ported(self) -> None:
         """Refuse, with a ``ConfigError`` naming the key, a setting whose
         subsystem the port does not have yet: the gRPC transport and the
-        fleet. ``validate`` (the reference's checks) passes such settings;
-        the entry point calls this after it, so none is ignored
-        quietly."""
+        fleet's registry HA. ``validate`` (the reference's checks) passes
+        such settings; the entry point calls this after it, so none is
+        ignored quietly."""
         r = self.raw
         if r["server"]["grpc_port"] != 0:
             raise ConfigError("server.grpc_port is not ported yet")
-        f = r["fleet"]
-        for key in ("enabled", "connect", "registries", "rerole"):
-            if f[key]:
-                raise ConfigError(f"fleet.{key} is not ported yet")
+        if r["fleet"]["registries"]:
+            raise ConfigError("fleet.registries is not ported yet")
 
     def hot_diff(self, other: "ServerConfig") -> Dict[tuple, Any]:
         """(section, key) -> new value for hot-reloadable keys that differ."""

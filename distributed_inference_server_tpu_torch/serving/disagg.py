@@ -1063,8 +1063,12 @@ class DisaggController:
         (health is deliberately ignored: a transiently unhealthy decode
         engine is worth the retry/fallback path, a topology with no
         decode replicas at all is not — prefill runners then admit
-        unified and skip the per-request serialize/fallback churn)."""
+        unified and skip the per-request serialize/fallback churn). A
+        fleet member's decode replica counts only when it can import KV
+        (``supports_kv_import``)."""
         return any(getattr(r, "role", "unified") == "decode"
+                   and (not getattr(r, "is_remote", False)
+                        or getattr(r, "supports_kv_import", False))
                    for r in self.scheduler.engines())
 
     @staticmethod

@@ -18,8 +18,10 @@ TBT digests, the engine step clock (``record_step_perf``, after each
 engine step: the counters the health scorer's wedge signal reads, and the
 per-dispatch ``step_ms.<kind>`` digests) and the SLO verdict counts; the
 gray-failure families (admission sheds, health transitions, breaker flips,
-retry-budget denials), the dropped spans and the request phases. Not here:
-the fleet and its registry HA.
+retry-budget denials), the dropped spans and the request phases; the fleet
+control plane's families (members by state, heartbeat outcomes, reroles,
+telemetry frames and the per-member step tokens and TTFT p99). Not here:
+the KV data plane's, the mesh's and registry HA's families.
 
 Requests, tokens, admission batches, the admission queue's depth by
 priority and tenant, queue expiries, TTFT and step seconds are recorded as
@@ -86,8 +88,14 @@ class EngineStatus:
     prefix_digest: Any = None
     page_size: int = 0
     digest_depth: int = 0
-    # gray-failure verdict ("healthy" | "degraded" | "ejected"); the port
-    # has no health scorer yet, so every replica stays "healthy"
+    # the fleet: True for a RemoteRunner proxy's status rebuilt from a
+    # member's heartbeat (serving/fleet.py). data_plane: the member has a
+    # KV data channel, which makes it a handoff target and a fetch
+    # source; the port has none yet, so it stays False
+    remote: bool = False
+    data_plane: bool = False
+    # gray-failure verdict ("healthy" | "degraded" | "ejected"), stamped
+    # by the health scorer in AdaptiveScheduler.statuses()
     health: str = "healthy"
 
     def to_dict(self) -> Dict[str, Any]:
@@ -112,6 +120,10 @@ class EngineStatus:
             d["host_tier"] = self.host_tier
         if self.latent is not None:
             d["latent"] = self.latent
+        if self.remote:
+            d["remote"] = True
+            if self.data_plane:
+                d["data_plane"] = True
         if self.health != "healthy":
             d["health"] = self.health
         return d
@@ -554,6 +566,38 @@ class MetricsCollector:
             "Output tokens of requests that MET their SLO (goodput; "
             "compare against tokens_generated_total for the waste share)",
             "counter", ["tenant"])
+        # the fleet control plane (serving/fleet.py)
+        self.fleet_members = fam(
+            "fleet_members",
+            "Fleet members by registry state (alive = beating, suspect "
+            "= missed beats past fleet.suspect_after_s, dead = aged out "
+            "or connection lost)", "gauge", ["state"])
+        self.fleet_heartbeats = fam(
+            "fleet_heartbeats_total",
+            "Heartbeat ingest outcomes (ok = applied, rejoin = revived "
+            "a suspect/dead member, dropped = lost before the registry "
+            "— the fleet.heartbeat partition fault)", "counter",
+            ["outcome"])
+        self.fleet_reroles = fam(
+            "fleet_reroles_total",
+            "Dynamic role flips by the RoleBalancer (to_prefill = "
+            "prompt-queue pressure crossed fleet.rerole_high_ratio, "
+            "to_unified = it drained below fleet.rerole_low_ratio)",
+            "counter", ["direction"])
+        self.fleet_telemetry_frames = fam(
+            "fleet_telemetry_frames_total",
+            "FleetTelemetry frames by outcome (sent/failed on a worker, "
+            "ingested on the registry host)", "counter", ["outcome"])
+        self.fleet_member_step_tokens = fam(
+            "fleet_member_step_tokens",
+            "A member's cumulative step-clock tokens by dispatch kind "
+            "(from its last FleetTelemetry frame)", "gauge",
+            ["member", "kind"])
+        self.fleet_member_ttft_p99 = fam(
+            "fleet_member_ttft_p99_ms",
+            "A member's windowed TTFT p99 (ms) from its last shipped "
+            "digest (0 until it has a windowed sample)", "gauge",
+            ["member"])
 
         # the windowed digests behind GET /server/perf
         self.perf = PerfTelemetry()
@@ -597,6 +641,11 @@ class MetricsCollector:
         self._phase_requests = 0
         self._slo_counts: Dict[str, Dict[str, int]] = {}
         self._slo_goodput: Dict[str, int] = {}
+        self._fleet_heartbeats: Dict[str, int] = {}
+        self._fleet_reroles: Dict[str, int] = {}
+        # member -> the step-token kinds published for it, so a pruned
+        # member's series can be removed
+        self._member_kinds: Dict[str, set] = {}
 
     # -- recording ---------------------------------------------------------
 
@@ -671,9 +720,16 @@ class MetricsCollector:
     def record_inference(self, duration_s: float) -> None:
         self.inference_seconds.inc(duration_s)
 
-    def record_ttft(self, seconds: float) -> None:
+    def record_ttft(self, seconds: float, local: bool = True) -> None:
+        """``local=False`` (a ``RemoteRunner`` proxy's request): the
+        histogram and the snapshot's mean record it, the windowed
+        ``ttft_ms`` digest does not. The member ships its own digest, so
+        counting the request here too would weigh it twice in the fleet
+        view and drag the host's series toward a slow member's, the
+        comparison the health scorer demotes on."""
         self.ttft.observe(seconds)
-        self.perf.observe("ttft_ms", seconds * 1000.0)
+        if local:
+            self.perf.observe("ttft_ms", seconds * 1000.0)
         with self._lock:
             self._ttfts_ms.append(seconds * 1000.0)
 
@@ -970,6 +1026,68 @@ class MetricsCollector:
 
     def perf_epoch_s(self) -> float:
         return self.perf.epoch_s
+
+    # -- the fleet control plane (serving/fleet.py) ------------------------
+
+    def record_telemetry_frame(self, outcome: str) -> None:
+        """One FleetTelemetry frame: sent | failed (worker side),
+        ingested | epoch_mismatch (registry host)."""
+        self.fleet_telemetry_frames.labels(outcome=outcome).inc()
+
+    def set_member_telemetry(self, member: str,
+                             step_tokens: Dict[str, float],
+                             ttft_p99_ms: Optional[float]) -> None:
+        """The ``fleet_member_*{member}`` series from an ingested
+        FleetTelemetry frame."""
+        with self._lock:
+            self._member_kinds.setdefault(member, set()).update(step_tokens)
+            for kind, tokens in step_tokens.items():
+                self.fleet_member_step_tokens.labels(
+                    member=member, kind=kind).set(tokens)
+            self.fleet_member_ttft_p99.labels(member=member).set(
+                ttft_p99_ms or 0.0)
+
+    def remove_member_telemetry(self, member: str) -> None:
+        """Drop a pruned member's ``fleet_member_*`` series: its last
+        values must stop reading as live."""
+        with self._lock:
+            for kind in self._member_kinds.pop(member, set()):
+                try:
+                    self.fleet_member_step_tokens.remove(member, kind)
+                except KeyError:
+                    pass
+            try:
+                self.fleet_member_ttft_p99.remove(member)
+            except KeyError:
+                pass
+
+    def set_fleet_members(self, counts: Dict[str, int]) -> None:
+        """Members per registry state; all three states are published, so
+        a dead member reads ``fleet_members{state="dead"} 1.0``."""
+        for state in ("alive", "suspect", "dead"):
+            self.fleet_members.labels(state=state).set(counts.get(state, 0))
+
+    def record_fleet_heartbeat(self, outcome: str) -> None:
+        """One heartbeat ingest: ok | rejoin | dropped."""
+        self.fleet_heartbeats.labels(outcome=outcome).inc()
+        with self._lock:
+            self._fleet_heartbeats[outcome] = (
+                self._fleet_heartbeats.get(outcome, 0) + 1)
+
+    def record_rerole(self, direction: str) -> None:
+        """One role flip: to_prefill | to_unified."""
+        self.fleet_reroles.labels(direction=direction).inc()
+        with self._lock:
+            self._fleet_reroles[direction] = (
+                self._fleet_reroles.get(direction, 0) + 1)
+
+    def fleet_counters(self) -> Dict[str, Any]:
+        """The heartbeat and rerole counts of the ``/server/stats``
+        fleet block (the reference's ``kv_intros`` belong to the KV
+        mesh, not ported)."""
+        with self._lock:
+            return {"heartbeats": dict(self._fleet_heartbeats),
+                    "reroles": dict(self._fleet_reroles)}
 
     # -- rendering ---------------------------------------------------------
 

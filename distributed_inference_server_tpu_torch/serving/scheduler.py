@@ -1,6 +1,8 @@
 """Adaptive scheduler: routes admission batches to engine replicas (port
 of ``distributed_inference_server_tpu/serving/scheduler.py``, without the
-fleet's remote replicas, learned wire rates and mesh routes).
+fleet's learned wire rates and mesh routes). A fleet member's engines are
+replicas too: ``RemoteRunner`` proxies (``serving/remote_runner.py``),
+registered and unregistered by the registry host's ``FleetServer``.
 
 - **round-robin**: rotate over healthy engines;
 - **least-loaded**: fewest active + waiting requests;
@@ -111,6 +113,9 @@ class FetchCosts:
     # one active or waiting request on a replica costs this many pages of
     # queueing delay
     load_cost_pages: float = 4.0
+    # wire cost of one page from a remote peer over the fleet's KV data
+    # channel (``fleet.kv_page_cost``)
+    remote_page_cost: float = 0.6
     # encoded bytes per page as a fraction of raw pool bytes for the
     # configured wire encoding (kv_cache.encoded_page_fraction): the wire
     # term charges what crosses the wire
@@ -151,7 +156,13 @@ def plan_route(
     cheapest option wins; ties prefer route over fetch, then load, then
     engine id, so the plan is deterministic given its inputs. The
     ``sched.fetch_decision`` fault flag forces the cheapest fetch option
-    when one exists. None when no healthy admissible replica exists."""
+    when one exists. None when no healthy admissible replica exists.
+
+    A fleet member's replica (``remote``) takes warm and recompute
+    routes like any other (its heartbeated digest scores), but sources a
+    fetch only with a KV data channel (``data_plane``, at
+    ``remote_page_cost`` a page) and is never a fetch target: the import
+    seats pages in this host's engine."""
     costs = costs or FetchCosts()
     healthy = [s for s in statuses if s.healthy]
     admissible = (healthy if roles is None else
@@ -167,14 +178,23 @@ def plan_route(
     n_pages = len(prefix_hashes) if prefix_hashes else 0
     depths = {s.engine_id: prefix_match_depth(s, prefix_hashes)
               for s in healthy}
-    # an ejected replica never sources a fetch (its engine is what the
-    # scorer judged broken); deepest match wins, then load, then id
+    # a fetch source serves an export: a local replica, or a remote one
+    # with a data channel, and never an ejected one (its engine or wire
+    # is what the scorer judged broken); deepest match wins, a local peer
+    # before a remote one, then load, then id
     fetchable = [s for s in healthy
-                 if health_rank(getattr(s, "health", "healthy")) < 2]
+                 if (not getattr(s, "remote", False)
+                     or getattr(s, "data_plane", False))
+                 and health_rank(getattr(s, "health", "healthy")) < 2]
     peer = (min(fetchable,
-                key=lambda s: (-depths[s.engine_id], load(s), s.engine_id))
+                key=lambda s: (-depths[s.engine_id],
+                               1 if getattr(s, "remote", False) else 0,
+                               load(s), s.engine_id))
             if fetchable else None)
     peer_depth = depths[peer.engine_id] if peer is not None else 0
+    peer_page_cost = (costs.remote_page_cost
+                      if peer is not None and getattr(peer, "remote", False)
+                      else costs.page_cost)
     best_depth = max((depths[s.engine_id] for s in admissible), default=0)
     if n_pages == 0 or (peer_depth == 0 and best_depth == 0):
         eng = min(admissible, key=lambda s: (load(s), s.engine_id))
@@ -190,8 +210,9 @@ def plan_route(
                         "route", s, d))
         if (costs.enabled and peer is not None
                 and s.engine_id != peer.engine_id
+                and not getattr(s, "remote", False)
                 and peer_depth - d >= costs.min_pages):
-            per_page = costs.page_cost * costs.wire_frac
+            per_page = peer_page_cost * costs.wire_frac
             options.append((base + (n_pages - peer_depth)
                             + per_page * peer_depth,
                             1, load(s), s.engine_id, "fetch", s, d))
@@ -288,8 +309,8 @@ class AdaptiveScheduler:
         self._health_thread: Optional[threading.Thread] = None
         # replicas with a restart worker in flight; guarded by _lock
         self._restarting: set = set()
-        # gray-failure scorer hook (not ported: stays None); when set,
-        # statuses() stamps its verdicts
+        # the gray-failure scorer (serving/health.py), wired by the
+        # server; when set, statuses() stamps its verdicts
         self.health_scorer = None
 
     # -- registration ------------------------------------------------------
@@ -301,6 +322,16 @@ class AdaptiveScheduler:
     def unregister(self, engine_id: str) -> Optional[EngineRunner]:
         with self._lock:
             return self._engines.pop(engine_id, None)
+
+    def unregister_if(self, engine_id: str,
+                      runner: EngineRunner) -> Optional[EngineRunner]:
+        """Unregister ``engine_id`` only while it maps to ``runner``: a
+        fleet session's late detach must not evict the fresh proxy a
+        reconnect registered under the same id."""
+        with self._lock:
+            if self._engines.get(engine_id) is runner:
+                return self._engines.pop(engine_id)
+            return None
 
     def engines(self) -> List[EngineRunner]:
         with self._lock:
@@ -421,9 +452,13 @@ class AdaptiveScheduler:
                         ) -> Optional[EngineRunner]:
         """The migration target of a finished prefill: the least-loaded
         healthy decode-role replica (``exclude`` drops the source). None
-        = no decode capacity; the caller decodes in place."""
+        = no decode capacity; the caller decodes in place. A fleet
+        member's replica qualifies only when it can import KV
+        (``supports_kv_import``, false without a data channel)."""
         statuses = [r.status() for r in self.engines()
-                    if r.engine_id != exclude]
+                    if r.engine_id != exclude
+                    and (not getattr(r, "is_remote", False)
+                         or getattr(r, "supports_kv_import", False))]
         if self.health_scorer is not None:
             statuses = self.health_scorer.stamp(statuses)
         engine_id = choose_engine(SchedulingStrategy.LEAST_LOADED, statuses,
@@ -452,6 +487,10 @@ class AdaptiveScheduler:
     def _health_loop(self) -> None:
         while not self._stop.wait(self._interval):
             for runner in self.engines():
+                if not getattr(runner, "supports_restart", True):
+                    # a fleet proxy: its member restarts the engine, the
+                    # registry ages the proxy out
+                    continue
                 healthy = runner.is_healthy()
                 if healthy and self._auto_restart and faults.flag(
                         "sched.health_flap"):

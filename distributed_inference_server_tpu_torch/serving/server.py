@@ -1,6 +1,7 @@
 """Inference server: engine replicas behind the adaptive scheduler and a
 standard-library HTTP server (the counterpart of
-``distributed_inference_server_tpu/serving/server.py`` without the fleet).
+``distributed_inference_server_tpu/serving/server.py`` without the fleet's
+KV data plane, mesh and registry HA).
 
 It wires the ``MetricsCollector``; ``num_engines`` ``EngineRunner``
 replicas, each built by ``engine_factory(replica_index)`` (or a
@@ -24,6 +25,14 @@ and a ``FlightRecorder`` (SLO verdicts with ``slo_settings``), the shared
 ``DegradationController`` (the memory-pressure and SLO-burn ladder).
 ``swap_model`` hot-swaps every replica's model; ``apply_hot_config`` takes
 the ``ConfigWatcher``'s hot-reloadable changes.
+
+With ``fleet_settings.enabled`` the server is a fleet's registry host
+(``serving/fleet.py``): a ``FleetRegistry`` and a ``FleetServer`` whose
+``RemoteRunner`` proxies put the members' engines in the scheduler; with
+``fleet_settings.rerole`` a ``RoleBalancer`` flips local engines between
+unified and prefill. The proxies are not the server's to scale, swap or
+report per replica: ``scale_to``, ``swap_model`` and the ``replicas``
+block cover the local replicas only.
 
 ``server.runner`` is the first replica (``engine-0``): it is never
 retired, and a restart keeps its runner object.
@@ -65,6 +74,12 @@ from distributed_inference_server_tpu_torch.serving.degradation import (
 )
 from distributed_inference_server_tpu_torch.serving.dispatcher import (
     Dispatcher,
+)
+from distributed_inference_server_tpu_torch.serving.fleet import (
+    FleetRegistry,
+    FleetServer,
+    FleetSettings,
+    RoleBalancer,
 )
 from distributed_inference_server_tpu_torch.serving.flightrec import (
     FlightRecorder,
@@ -143,6 +158,7 @@ class InferenceServer:
         slo_settings: Optional[SloSettings] = None,
         health_settings: Optional[HealthSettings] = None,
         admission_settings: Optional[AdmissionSettings] = None,
+        fleet_settings: Optional[FleetSettings] = None,
     ):
         """``queue_config`` / ``batcher_config``: the admission queue's
         watermarks, timeout, cap and tenant lanes, and the batching window
@@ -163,7 +179,9 @@ class InferenceServer:
         stay in the in-memory ring). ``slo_settings``: SLO verdicts and
         the digests' window geometry. ``health_settings`` /
         ``admission_settings``: the health scorer, retry budget, SLO-burn
-        ladder input and deadline-aware shedding (None: the defaults)."""
+        ladder input and deadline-aware shedding (None: the defaults).
+        ``fleet_settings``: ``enabled`` makes this a registry host,
+        ``rerole`` arms the role balancer (None: neither)."""
         from distributed_inference_server_tpu_torch import native
         from distributed_inference_server_tpu_torch.utils.otlp import (
             OTLPExporter,
@@ -251,6 +269,26 @@ class InferenceServer:
             self.dispatcher, self.scheduler, metrics=self.metrics,
             burn_high=self.health_settings.slo_burn_high,
             burn_min_requests=self.health_settings.slo_burn_min_requests)
+        self.fleet_settings = fleet_settings or FleetSettings()
+        self.fleet_registry: Optional[FleetRegistry] = None
+        self.fleet_server: Optional[FleetServer] = None
+        self.role_balancer: Optional[RoleBalancer] = None
+        if self.fleet_settings.enabled:
+            self.fleet_registry = FleetRegistry(self.fleet_settings,
+                                                metrics=self.metrics)
+            self.fleet_server = FleetServer(
+                self.fleet_registry, self.scheduler, self.fleet_settings,
+                metrics=self.metrics, redispatch=self.dispatcher.redispatch,
+                tracer=self.tracer, recorder=self.recorder)
+            if self.health_scorer is not None:
+                # the scorer compares the members' latency with the
+                # frames /server/perf merges
+                self.health_scorer.telemetry_fn = (
+                    self.fleet_server.telemetry_snapshot)
+        if self.fleet_settings.rerole:
+            self.role_balancer = RoleBalancer(
+                self.scheduler, self.dispatcher, self.fleet_settings,
+                metrics=self.metrics, recorder=self.recorder)
         self._num_engines = num_engines
         self._next_engine_idx = 0
         self._scale_lock = threading.Lock()
@@ -275,6 +313,10 @@ class InferenceServer:
         self.degradation.start()
         if self.health_scorer is not None:
             self.health_scorer.start()
+        if self.fleet_server is not None:
+            self.fleet_server.start()
+        if self.role_balancer is not None:
+            self.role_balancer.start()
         self._accepting = True
 
     def serve(self, host: str = "0.0.0.0", port: int = 8000,
@@ -301,6 +343,8 @@ class InferenceServer:
         self.degradation.stop()
         if self.health_scorer is not None:
             self.health_scorer.stop()
+        if self.role_balancer is not None:
+            self.role_balancer.stop()
         self.dispatcher.shutdown(drain_timeout_s)
         if self._httpd is not None:
             self._httpd.shutdown()
@@ -308,6 +352,10 @@ class InferenceServer:
             self._httpd = None
         if self._http_thread is not None:
             self._http_thread.join(10)
+        if self.fleet_server is not None:
+            # after the drain (remote requests counted), before the local
+            # engines stop: the member sessions detach cleanly
+            self.fleet_server.stop()
         if self.disagg is not None:
             self.disagg.shutdown()
         self.scheduler.stop_health_loop()
@@ -318,6 +366,12 @@ class InferenceServer:
         faults.remove_observer(self._fault_observer)
 
     # -- elasticity --------------------------------------------------------
+
+    def local_runners(self) -> List[EngineRunner]:
+        """This process's replicas: the scheduler's engines without the
+        fleet's remote proxies (their members own them)."""
+        return [r for r in self.scheduler.engines()
+                if not getattr(r, "is_remote", False)]
 
     def _spawn_engine(self, wait_ready: bool = True) -> EngineRunner:
         idx = self._next_engine_idx
@@ -344,7 +398,7 @@ class InferenceServer:
         takes a disaggregated topology's only decode replica while a
         unified spare exists."""
         with self._scale_lock:
-            current = self.scheduler.engines()
+            current = self.local_runners()
             for _ in range(n - len(current)):
                 self._spawn_engine()
             if n < len(current):
@@ -378,7 +432,7 @@ class InferenceServer:
         replicas past ``timeout_s`` are cancelled (they never install
         late). On success the handler serves under ``model_name`` with the
         new model's tokenizer (its chat template follows)."""
-        runners = self.scheduler.engines()
+        runners = self.local_runners()
         results: Dict[str, Tuple[bool, Optional[str]]] = {}
         events = []
         cancelled = threading.Event()
@@ -456,9 +510,29 @@ class InferenceServer:
         """``GET /server/perf``: per-engine step clock, windowed latency
         percentiles, SLO burn and the raw digests."""
         slo_counts, goodput = self.metrics.slo_counts()
-        return build_perf_payload(self.metrics.perf_store(),
-                                  self.slo_settings, slo_counts=slo_counts,
-                                  goodput=goodput)
+        return build_perf_payload(
+            self.metrics.perf_store(), self.slo_settings,
+            slo_counts=slo_counts, goodput=goodput,
+            fleet_members=(self.fleet_server.telemetry_snapshot()
+                           if self.fleet_server is not None else None))
+
+    def fleet_stats(self) -> Optional[dict]:
+        """The ``fleet`` block of ``/server/stats`` (None without a
+        registry or a balancer): the members with their state and
+        last-beat age, the count per state, the balancer's signal,
+        flipped engines and history, the role of every routed engine and
+        the heartbeat and rerole counts."""
+        if self.fleet_registry is None and self.role_balancer is None:
+            return None
+        out: dict = {}
+        if self.fleet_registry is not None:
+            out.update(self.fleet_registry.stats())
+        if self.role_balancer is not None:
+            out["rebalancer"] = self.role_balancer.stats()
+        out["role_map"] = {r.engine_id: r.role
+                           for r in self.scheduler.engines()}
+        out.update(self.metrics.fleet_counters())
+        return out
 
     def health_stats(self) -> dict:
         """The ``health`` block of ``/server/stats``: the scorer's states
@@ -581,9 +655,13 @@ class InferenceServer:
         memory, and its page audit: empty when clean); with a prefill /
         decode topology ``handoff_s`` (host seconds of the handoff's
         exports and imports on the replicas and in the channel, and their
-        counts); and each kernel's launch count in the process."""
-        runners = self.scheduler.engines()
-        statuses = tuple(r.observe() for r in runners)
+        counts); each kernel's launch count in the process; and on a
+        registry host or with the balancer armed, the ``fleet`` block
+        (``fleet_stats``). The snapshot's ``worker_statuses`` include the
+        fleet's remote proxies; ``replicas`` and the sums are the local
+        replicas'."""
+        statuses = self._observe_all()
+        runners = self.local_runners()
         out = self.metrics.snapshot(statuses).to_dict()
         blocks = {r.engine_id: self._engine_blocks(r) for r in runners}
         first = blocks.get(self.runner.engine_id, {})
@@ -623,6 +701,9 @@ class InferenceServer:
             "engine": self._engine_settings(),
             "health": self.health_stats(),
         })
+        fleet = self.fleet_stats()
+        if fleet is not None:
+            out["fleet"] = fleet
         tracing = out.setdefault("tracing", {})
         tracing["tracer_dropped"] = self.tracer.dropped()
         tracing["flight_recorder"] = self.recorder.stats()

@@ -222,12 +222,16 @@ def test_cli_exits_2_with_config_error(capsys):
 
 # the parallel settings and the multi-process runtime are ported: past the
 # devices there are (the suite's 8 virtual CPU devices) or without a
-# coordinator they exit 2 with their own config error
+# coordinator they exit 2 with their own config error; so are the fleet's
+# control-plane keys, which exit 2 with their own checks' errors
 _PORTED_REFUSALS = {
     "engine.tensor_parallel": "needs 16 devices, have 8",
     "engine.pipeline_parallel": "needs 16 devices, have 8",
     "engine.context_parallel": "needs 16 devices, have 8",
     "distributed.num_processes": "distributed.",
+    "fleet.enabled": "fleet.port must be in [0, 65536)",
+    "fleet.connect": "fleet.connect must be host:port",
+    "fleet.rerole": "fleet.rerole_low_ratio must be below",
 }
 
 
@@ -237,13 +241,16 @@ _PORTED_REFUSALS = {
     (["--engine-context-parallel", "16"], "engine.context_parallel"),
     (["--distributed-num-processes", "2"], "distributed.num_processes"),
     (["--server-grpc-port", "50051"], "server.grpc_port"),
-    (["--fleet-enabled", "true"], "fleet.enabled"),
-    (["--fleet-connect", "host:7070"], "fleet.connect"),
+    (["--fleet-enabled", "true", "--fleet-port", "70000"], "fleet.enabled"),
+    (["--fleet-connect", "no-port"], "fleet.connect"),
+    (["--fleet-registries", "127.0.0.1:7070"], "fleet.registries"),
+    (["--fleet-rerole", "true", "--fleet-rerole-low-ratio", "9"],
+     "fleet.rerole"),
 ])
 def test_unported_settings_are_refused(flags, key, capsys, monkeypatch):
-    """The gRPC transport and the fleet exit 2 as not ported yet; the
-    ported parallel settings exit 2 with the device-count or coordinator
-    error instead, never as unported."""
+    """The gRPC transport and registry HA exit 2 as not ported yet; the
+    ported parallel and fleet settings exit 2 with the device-count,
+    coordinator or value error instead, never as unported."""
     from distributed_inference_server_tpu_torch.__main__ import main
 
     monkeypatch.setenv("XLA_FLAGS",

@@ -1761,11 +1761,20 @@ def _served_greedy(server, prompts, max_tokens=30):
 # each prompt and its 30 new tokens fit the 64-token capacity
 REPLICA_PROMPTS = ["replicas on the card", "a longer prompt, pages", "z",
                    "hand the pages over"]
+# the prefill/decode pair's budget: a streamed handoff runs at least six
+# stages of the source's loop before its switchover (three prefix chunks
+# of 2 pages, the open, the wait for the target, the switch), each beside
+# a decode block of 8 tokens; a request whose budget runs out first ends
+# in place (no handoff counted), so the pair's requests get 15 blocks.
+# Each prompt and its 120 new tokens fit 40 pages of 4.
+PAIR_MAX_TOKENS = 120
+PAIR_PAGED = (256, 4, 40)
 
 
-def _replica_servers(cuda, **kw):
+def _replica_servers(cuda, max_tokens=30, paged=(64, 4, 16), **kw):
     """A one-engine server and a two-replica one (``kw``) on the card,
-    the same TINY f32 weights: their greedy texts, lone and concurrent."""
+    the same TINY f32 weights: their greedy texts, lone and concurrent,
+    ``max_tokens`` new tokens a request, ``paged`` the pool."""
     from distributed_inference_server_tpu_torch.serving.server import (
         InferenceServer,
     )
@@ -1774,7 +1783,7 @@ def _replica_servers(cuda, **kw):
 
     def factory():
         return LLMEngine(params, TINY, ByteTokenizer(), EngineConfig(
-            paged=PagedCacheConfig(64, 4, 16), max_batch=4,
+            paged=PagedCacheConfig(*paged), max_batch=4,
             prefill_buckets=(8, 32)), dtype=torch.float32, device=cuda)
 
     out = []
@@ -1782,7 +1791,7 @@ def _replica_servers(cuda, **kw):
         server = InferenceServer(factory, ByteTokenizer(), "tiny", **extra)
         server.start()
         try:
-            out.append(_served_greedy(server, REPLICA_PROMPTS))
+            out.append(_served_greedy(server, REPLICA_PROMPTS, max_tokens))
             if extra:
                 stats = server.stats()
                 assert all(r["audit"] == [] for r in stats["replicas"])
@@ -1817,9 +1826,14 @@ def test_prefill_decode_pair_matches_one_engine_on_the_card(cuda, stream):
     )
 
     one, pair, stats = _replica_servers(
-        cuda, num_engines=2, engine_roles="prefill,decode",
+        cuda, max_tokens=PAIR_MAX_TOKENS, paged=PAIR_PAGED, num_engines=2,
+        engine_roles="prefill,decode",
         disagg_settings=DisaggSettings(stream=stream, chunk_pages=2))
     assert pair == one
     n = 2 * len(REPLICA_PROMPTS)
-    assert stats["disagg"]["handoffs"] == {"ok": n}
-    assert [r["requests_finished"] for r in stats["replicas"]] == [0, n]
+    # on failure: the handoff outcomes and where each request finished (a
+    # request that ends on the prefill replica ended in place)
+    seen = (stats["disagg"],
+            [r["requests_finished"] for r in stats["replicas"]])
+    assert stats["disagg"]["handoffs"] == {"ok": n}, seen
+    assert seen[1] == [0, n], seen

@@ -311,3 +311,104 @@ def test_mesh_engines_run_where_jax_cannot():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+# the fleet's control plane
+FLEET_MODULES = (
+    "distributed_inference_server_tpu_torch.serving.fleet",
+    "distributed_inference_server_tpu_torch.serving.remote_runner",
+)
+
+
+def test_fleet_serves_where_jax_cannot():
+    """The fleet modules import each by itself where jax, the JAX
+    package, aiohttp and prometheus_client cannot be imported; there, a
+    registry host and a member joined over localhost serve a request
+    through the member with the host engine's greedy tokens."""
+    script = textwrap.dedent(f"""
+        import importlib, sys, threading, time
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {FORBIDDEN!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        for m in {FLEET_MODULES!r}:
+            for k in [k for k in sys.modules
+                      if k.startswith("distributed_inference_server_tpu_torch")]:
+                del sys.modules[k]
+            importlib.import_module(m)
+        import torch
+        from distributed_inference_server_tpu_torch.engine.engine import (
+            EngineConfig, LLMEngine, SamplingParams)
+        from distributed_inference_server_tpu_torch.engine.kv_cache import (
+            PagedCacheConfig)
+        from distributed_inference_server_tpu_torch.models import llama
+        from distributed_inference_server_tpu_torch.models.configs import TINY
+        from distributed_inference_server_tpu_torch.models.tokenizer import (
+            ByteTokenizer)
+        from distributed_inference_server_tpu_torch.serving.fleet import (
+            FleetSettings)
+        from distributed_inference_server_tpu_torch.serving.remote_runner \\
+            import FleetWorker
+        from distributed_inference_server_tpu_torch.serving.runner import (
+            ServerRequest)
+        from distributed_inference_server_tpu_torch.serving.server import (
+            InferenceServer)
+
+        p = llama.init_params(TINY, torch.Generator().manual_seed(0),
+                              dtype=torch.float32, device="cpu")
+
+        def factory():
+            return LLMEngine(p, TINY, ByteTokenizer(), EngineConfig(
+                max_batch=2, prefill_buckets=(16,),
+                paged=PagedCacheConfig(32, 4, 16)),
+                dtype=torch.float32, device="cpu")
+
+        host = InferenceServer(factory, ByteTokenizer(), "tiny",
+                               fleet_settings=FleetSettings(
+                                   enabled=True, heartbeat_interval_s=0.1))
+        host.start()
+        member = InferenceServer(factory, ByteTokenizer(), "tiny")
+        member.start()
+        w = FleetWorker(member.scheduler, FleetSettings(
+            connect=f"127.0.0.1:{{host.fleet_server.bound_port}}",
+            heartbeat_interval_s=0.1), member_id="w1")
+        w.start()
+        deadline = time.monotonic() + 30
+        while not any(getattr(r, "is_remote", False) and r.is_healthy()
+                      for r in host.scheduler.engines()):
+            assert time.monotonic() < deadline, "no join"
+            time.sleep(0.05)
+
+        class Sink:
+            def __init__(self):
+                self.toks, self.ev = [], threading.Event()
+            def on_token(self, t, text, i, lp=None):
+                self.toks.append(t)
+            def on_done(self, reason, usage):
+                self.ev.set()
+            def on_error(self, message, code):
+                raise AssertionError(message)
+
+        out = []
+        for r in host.scheduler.engines():
+            s = Sink()
+            r.submit([ServerRequest(r.engine_id, list(b"no jax here"),
+                                    SamplingParams(max_tokens=6,
+                                                   temperature=0.0), s)])
+            assert s.ev.wait(60)
+            out.append(s.toks)
+        w.stop(); member.shutdown(5); host.shutdown(5)
+        assert len(out) == 2 and out[0] == out[1], out
+        leaked = [k for k in sys.modules
+                  if k.split(".")[0] in {FORBIDDEN!r}]
+        assert not leaked, leaked
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

@@ -42,12 +42,93 @@ def _disarm():
 # ---------------------------------------------------------------------------
 
 
+JAX_PROTO = ROOT / "distributed_inference_server_tpu/serving/inference.proto"
+PORT_PROTO = (ROOT / "distributed_inference_server_tpu_torch/serving/"
+              "inference.proto")
+
+# The one place the port's contract differs from the JAX package's.
+# ``TeleDigest.epochs`` collides with ``epoch_s`` under protoc's proto3
+# rule (field names compared lowercased without underscores; a
+# ``json_name`` alone does not lift it), so the port names the field
+# ``epoch_ring`` and gives it back the JSON name ``epochs``. The field
+# number and type, hence every byte on the wire, and the codec's
+# tables (keyed ``epochs``) stay the JAX package's.
+_JAX_EPOCHS = ("  repeated TeleEpoch epochs = 3;      "
+               "// bounded: the sliding ring only")
+_PORT_EPOCHS = ('  repeated TeleEpoch epoch_ring = 3 [json_name = "epochs"];'
+                "  // bounded:\n"
+                "                                      "
+                "// the sliding ring only")
+
+
 def test_schema_tables_and_contract_match_the_jax_package():
     assert pw.MESSAGES == jpw.MESSAGES
     assert pw.ENUMS == jpw.ENUMS
-    j = ROOT / "distributed_inference_server_tpu/serving/inference.proto"
-    p = ROOT / "distributed_inference_server_tpu_torch/serving/inference.proto"
-    assert p.read_text() == j.read_text()
+    j, p = JAX_PROTO.read_text(), PORT_PROTO.read_text()
+    assert j.count(_JAX_EPOCHS) == 1 and p.count(_PORT_EPOCHS) == 1
+    # any other difference from the JAX contract fails here
+    assert p.replace(_PORT_EPOCHS, _JAX_EPOCHS) == j
+
+
+def _compile_port_contract(tmp_path):
+    import shutil
+    import subprocess
+
+    protoc = shutil.which("protoc")
+    if protoc is None:
+        pytest.skip("protoc is not installed")
+    out = tmp_path / "inference.pb"
+    subprocess.run([protoc, "--proto_path", str(PORT_PROTO.parent),
+                    "--include_imports", "--descriptor_set_out", str(out),
+                    PORT_PROTO.name], check=True, capture_output=True)
+    return out.read_bytes()
+
+
+def test_port_contract_is_protoc_valid(tmp_path):
+    """protoc compiles the port's contract (the JAX package's own fails on
+    the ``TeleDigest`` collision), and the renamed field keeps its number,
+    type and JSON name."""
+    from google.protobuf import descriptor_pb2
+
+    fds = descriptor_pb2.FileDescriptorSet.FromString(
+        _compile_port_contract(tmp_path))
+    (f,) = [f for f in fds.file if f.name == PORT_PROTO.name]
+    (tele,) = [m for m in f.message_type if m.name == "TeleDigest"]
+    fields = {x.number: x for x in tele.field}
+    assert fields[3].name == "epoch_ring"
+    assert fields[3].json_name == "epochs"
+    assert fields[3].type_name == ".dis.tpu.TeleEpoch"
+    assert fields[2].name == "epoch_s"
+
+
+def test_port_contract_encodes_the_codec_bytes(tmp_path):
+    """The protobuf runtime, built from the compiled port contract, writes
+    a ``FleetTelemetry`` frame to the bytes both codecs write."""
+    from google.protobuf import descriptor_pb2, descriptor_pool
+    from google.protobuf import message_factory
+
+    fds = descriptor_pb2.FileDescriptorSet.FromString(
+        _compile_port_contract(tmp_path))
+    pool = descriptor_pool.DescriptorPool()
+    for f in fds.file:
+        pool.Add(f)
+    cls = message_factory.GetMessageClass(
+        pool.FindMessageTypeByName("dis.tpu.FleetTelemetry"))
+    frame = {"member_id": "w1", "digests": [
+        {"name": "ttft_ms", "epoch_s": 5.0, "epochs": [
+            {"index": 7, "buckets": [3, 9], "counts": [1, 4], "n": 5,
+             "sum_us": 12345}]}],
+        "counters": [{"name": "step.engine-0.decode.tokens",
+                      "value": 96.0}]}
+    msg = cls(member_id="w1")
+    d = msg.digests.add(name="ttft_ms", epoch_s=5.0)
+    d.epoch_ring.add(index=7, buckets=[3, 9], counts=[1, 4], n=5,
+                     sum_us=12345)
+    msg.counters.add(name="step.engine-0.decode.tokens", value=96.0)
+    want = msg.SerializeToString()
+    assert pw.encode("FleetTelemetry", frame) == want
+    assert jpw.encode("FleetTelemetry", frame) == want
+    assert pw.decode("FleetTelemetry", want) == frame
 
 
 _U32 = st.integers(0, 2**32 - 1)

@@ -560,9 +560,22 @@ CONTROL_FAMILIES = {
     "health_transitions", "retry_budget_exhausted",
     "fleet_breaker_transitions",
 }
+# the fleet control plane's families
+FLEET_FAMILIES = {
+    "fleet_members", "fleet_heartbeats", "fleet_reroles",
+    "fleet_telemetry_frames", "fleet_member_step_tokens",
+    "fleet_member_ttft_p99_ms",
+}
 
 
 def _record_common(c):
+    c.set_fleet_members({"alive": 1, "dead": 2})
+    c.record_fleet_heartbeat("ok")
+    c.record_fleet_heartbeat("rejoin")
+    c.record_rerole("to_prefill")
+    c.record_telemetry_frame("ingested")
+    c.set_member_telemetry("w1", {"prefill": 16.0, "decode_block": 7.0},
+                           37.5)
     c.record_trace_drops("ring", 2)
     c.record_shed("gold", "deadline")
     c.record_health_transition("engine-0", "degraded")
@@ -652,9 +665,10 @@ def test_metrics_families_match_the_jax_collector():
     jf = _families(j.prometheus_text().decode())
     pf = _families(p.prometheus_text().decode())
     # and the replica families (restarts, redispatch, handoff, prefix
-    # fetch and route, roles), which both declare from the start, and the
-    # control slice's
-    families = SINGLE_REPLICA_FAMILIES | REPLICA_FAMILIES | CONTROL_FAMILIES
+    # fetch and route, roles), which both declare from the start, the
+    # control slice's and the fleet control plane's
+    families = (SINGLE_REPLICA_FAMILIES | REPLICA_FAMILIES
+                | CONTROL_FAMILIES | FLEET_FAMILIES)
     assert families <= set(jf)
     assert set(pf) == families
     for name in families:
