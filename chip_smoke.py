@@ -244,31 +244,50 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    point: with one card it exits 2 with the device-count error (the line
    says the multi-card path did not run); with two or more it serves the
    first mix over two cards.
-15. (``fleet``) the fleet's control plane across two entry-point
-   processes on the card (``phase_fleet``), llama-3.2-1b bf16 at
-   ``build/chip_smoke_engine.toml``'s settings and ``--batcher-window-ms
-   0``, started at once: a registry host (one engine, ``--fleet-enabled
-   true --server-strategy round_robin``) and a member (``--fleet-connect``
-   to it). The member joins (start to ``alive`` seconds); the first mix's
-   greedy prompts go once to each engine (round robin alternates them),
-   the member's (text, sampled logprob) pairs equal the host engine's and
-   the host launches nothing for the member's, which runs one engine's
-   launches per forward on ``cuda``; lone streamed TTFT host engine
-   against member (the fleet wire's share); a remote request's
-   ``trace_id`` holds the host's root span and the member's
-   ``fleet.serve`` and ``engine.infer`` spans, parent-linked; the member
-   stopped (``SIGSTOP``) with a zero-token request in flight and then
-   killed (``SIGKILL``): the request completes once, redispatched to the
-   host's engine, with the member's cold pairs for its prompt, the member
-   reads ``dead`` (kill to dead and to completed seconds); the member
-   restarted under its id rejoins (one ``rejoin`` heartbeat) and serves
-   the cold pairs again (``fleet_timing`` line). The role balancer has
-   nothing on the device and is covered by the CPU tests.
+15. (``fleet``) the fleet across four entry-point processes on the card
+   (``phase_fleet``), llama-3.2-1b bf16 at ``build/chip_smoke_engine.toml``'s
+   settings, ``--batcher-window-ms 0``, heartbeats every 0.2 s, a 4 s
+   lease, the Python page allocator (a host tier) and a 96-page digest,
+   all started at once: registry r0 (``--fleet-enabled true``, one
+   engine, round robin, its warmup off so that it holds the lease first),
+   registry r1 (the standby: one prefill engine, cache_aware,
+   ``--fleet-standby-http false``, the mesh on), member 1 (unified) and
+   member 2 (decode), both dialing both registries with the mesh on.
+   (1)-(7) through r0 and member 1: the join; the first
+   mix's greedy prompts once to each engine, the member's (text, sampled
+   logprob) pairs equal the host engine's and the host launches nothing
+   for the member's, which runs one engine's launches per forward on
+   ``cuda``; lone streamed TTFT host engine against member; a remote
+   request's stitched trace; member 1 stopped with a zero-token request
+   in flight and killed: the request completes once on r0's engine with
+   its cold pairs; member 1 restarted under its id rejoins and serves.
+   (8) With member 1 dead: r0's engine gives the reference pairs (cold)
+   of the handoff's and the failover's prompts; member 2 warms a
+   1200-token prompt through its own front door; r0, switched to
+   cache_aware (a hot config rewrite), serves it with the 75 pages
+   fetched over member 2's data channel: the warm member's pairs, and
+   fewer ``paged_prefill`` launches than a cold run of the same length.
+   (9) r1 answers ingress 503 ``queue_full``. (10) r0 killed
+   (``SIGKILL``): r1 promotes within the lease and a tick at epoch + 1
+   (its log's stamp), then serves through its own front door on member 1
+   with the cold pairs. (11) The mesh: r1's promotion introduced the
+   members (``fleet_kv_intro_total``); a prompt warmed on member 2 is
+   fetched by member 1 straight from member 2 (r1's ``delegated``, member
+   1's ``ok`` mesh fetch, no byte through r1, fewer prefill launches than
+   cold, the warm pairs), and r1 learns the wire's
+   ``fleet_kv_wire_rate_bytes_per_s``. (12) r1, back on round robin,
+   prefills on its engine and hands off to member 2 over the data
+   channel, whole (24 tokens) and streamed (64): the reference pairs, the
+   prefill kernels on r1, the decode kernel on member 2 and no prefill
+   there; the bytes, the latency and the learned wire rate
+   (``fleet_timing`` line). The role balancer has nothing on the device
+   and is covered by the CPU tests.
 
 Phase 4's four 1B servers start together, and so do phase 3's three
-quantized servers (``_prestart``): only their startups overlap, each
-server is measured alone while the others idle (``warmup_s`` is read
-under that shared startup).
+quantized servers, and item 6's checkpoint server with the admission
+phase's two and the spec phase's 1B server (``_prestart``): only their
+startups overlap, each server is measured alone while the others idle
+(``warmup_s`` is read under that shared startup).
 
 Each phase's first server (phase 4's 1B quantum server, the first
 quantized server, the first family server, the first speculative server)
@@ -304,7 +323,8 @@ the int4 engine's requests after the swap) under ``launches_control``,
 the verify shape's times under ``verify``, phase 14's per-shard shapes
 under ``tp_shards``, phase 14's launches under ``launches_parallel`` and
 phase 15's (the member's, over the remote-served greedy prompts) under
-``launches_fleet``.
+``launches_fleet`` and its KV parts' (each fetch's target, each handoff's
+source and target) under ``launches_fleet_kv``.
 """
 
 from __future__ import annotations
@@ -1786,33 +1806,43 @@ def phase_checkpoint(card: str, seed: int, want, api: bool = False,
                    "bos_token": "<|begin_of_text|>",
                    "eos_token": "<|eot_id|>"}, f)
     launches, spec_launches = {}, {}
-    with _server(seed, ["--model-model-dir", ckpt], "server_ckpt.log") as base:
-        _, stats = _http("GET", base + "/server/stats")
-        got = greedy_texts(base)
-        if want is not None:
-            assert got == want, ("checkpoint server differs from the "
-                                 "random-weight server", got, want)
-        log(json.dumps({"checkpoint": "llama-3.2-1b bf16 random weights "
-                        "from --seed, saved and served from "
-                        "--model-model-dir", "card": card, "bytes": nbytes,
-                        "save_s": save_s, "load_s": load_s,
-                        "load_gb_per_s": nbytes / load_s / 1e9,
-                        "server_warmup_s": stats["warmup_s"],
-                        "texts_match_random_weight_server":
-                        want is not None}))
-        if api:
-            phase_done("checkpoint")
-            launches = phase_api(card, base, ckpt, got)
-        if admission:
-            phase_done("api")
-            phase_admission(card, seed, base)
+    # the checkpoint's server, the admission phase's two and the spec
+    # phase's start together (1B each): only their startups overlap
+    ckpt_flags = ["--model-model-dir", ckpt]
+    spec_flags = ckpt_flags + ["--model-draft-model-dir", ckpt]
+    specs = [(ckpt_flags, "server_ckpt.log", "llama-3.2-1b")]
+    if admission:
+        specs += ADMISSION_SERVERS
     if spec:
-        phase_done("admission")
-        spec_launches["llama-3.2-1b"] = phase_serve_spec(
-            card, seed, ["--model-model-dir", ckpt,
-                         "--model-draft-model-dir", ckpt],
-            "llama-3.2-1b bf16 checkpoint, the same checkpoint as draft",
-            "server_spec_1b.log", "llama-3.2-1b", want=got)["launches"]
+        specs.append((spec_flags, "server_spec_1b.log", "llama-3.2-1b"))
+    with _prestart(seed, specs):
+        with _server(seed, ckpt_flags, "server_ckpt.log") as base:
+            _, stats = _http("GET", base + "/server/stats")
+            got = greedy_texts(base)
+            if want is not None:
+                assert got == want, ("checkpoint server differs from the "
+                                     "random-weight server", got, want)
+            log(json.dumps({"checkpoint": "llama-3.2-1b bf16 random weights "
+                            "from --seed, saved and served from "
+                            "--model-model-dir", "card": card,
+                            "bytes": nbytes, "save_s": save_s,
+                            "load_s": load_s,
+                            "load_gb_per_s": nbytes / load_s / 1e9,
+                            "server_warmup_s": stats["warmup_s"],
+                            "texts_match_random_weight_server":
+                            want is not None}))
+            if api:
+                phase_done("checkpoint")
+                launches = phase_api(card, base, ckpt, got)
+            if admission:
+                phase_done("api")
+                phase_admission(card, seed, base)
+        if spec:
+            phase_done("admission")
+            spec_launches["llama-3.2-1b"] = phase_serve_spec(
+                card, seed, spec_flags,
+                "llama-3.2-1b bf16 checkpoint, the same checkpoint as draft",
+                "server_spec_1b.log", "llama-3.2-1b", want=got)["launches"]
     shutil.rmtree(ckpt, ignore_errors=True)
     return {"api": launches, "spec": spec_launches}
 
@@ -3214,6 +3244,15 @@ def _burst(base, prios):
     return burst, wall
 
 
+# the admission phase's own servers (flags, log name, model): the lone
+# TTFT without the batching window, and the Python tier
+ADMISSION_SERVERS = (
+    (["--batcher-window-ms", "0"], "server_window0.log", "llama-3.2-1b"),
+    (["--queue-tenant-fairness", "true"], "server_python_tier.log",
+     "llama-3.2-1b"),
+)
+
+
 def phase_admission(card: str, seed: int, base: str) -> dict:
     """On an already-running llama-3.2-1b server (the reference's
     admission defaults): the queue tier must be native; lone streamed TTFT
@@ -3233,15 +3272,14 @@ def phase_admission(card: str, seed: int, base: str) -> dict:
     by_prio = {p: sorted(r[2] for r, q in zip(burst, prios) if q == p)
                for p in ("high", "normal", "low")}
     _, after = _http("GET", base + "/server/stats")
-    with _server(seed, ["--batcher-window-ms", "0"],
-                 "server_window0.log") as base0:
+    (window0, log0, _), (python_tier, log_py, _) = ADMISSION_SERVERS
+    with _server(seed, window0, log0) as base0:
         _, s0 = _http("GET", base0 + "/server/stats")
         assert s0["admission"]["window_ms"] == 0.0, s0["admission"]
         lone0 = _lone_ttfts(base0)
     # the Python tier at the same defaults: tenant fairness forces it (one
     # tenant here, so its lanes order requests as the native queue does)
-    with _server(seed, ["--queue-tenant-fairness", "true"],
-                 "server_python_tier.log") as base_py:
+    with _server(seed, python_tier, log_py) as base_py:
         _, spy = _http("GET", base_py + "/server/stats")
         assert spy["admission"]["tier"] == "python", spy["admission"]
         lone_py = _lone_ttfts(base_py)
@@ -4935,21 +4973,65 @@ def phase_parallel_entry(seed: int = 0) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the fleet's control plane across two processes
+# phase 15: the fleet across four processes: the control plane, the KV
+# data plane, the mesh and registry HA
 # ---------------------------------------------------------------------------
 
 FLEET_MEMBER = "chip-member"
+FLEET_MEMBER2 = "chip-member2"
+# every process: no batching window, beats every 0.2 s, the Python page
+# allocator (a host tier; the prefix digest lives there) and a digest as
+# deep as the long prompts below
+FLEET_TICK_S = 0.2
+FLEET_LEASE_S = 4.0
 FLEET_FLAGS = ["--batcher-window-ms", "0", "--fleet-heartbeat-interval-s",
-               "0.2"]
+               str(FLEET_TICK_S), "--cache-host-tier-bytes", "67108864",
+               "--cache-digest-depth", "96", "--fleet-lease-s",
+               str(FLEET_LEASE_S), "--fleet-lease-suspect-s",
+               str(FLEET_LEASE_S / 2)]
 # a prompt no engine of the phase sees before the member's death: the
 # member's cold pairs for it are what the redispatched request must give
 KILL_PROMPT = "Zero tokens when the member dies."
+# the handoff's prompts: the first with 24 new tokens hands off whole
+# (monolithic: a budget inside the streamed export's overlap of three
+# decode blocks), the second with 64 streams its prefix while it decodes
+HANDOFF_MONO = ("A prefill here, the decode on another process. " * 3)[:120]
+HANDOFF_STREAM = ("Pages stream over the data channel while the source "
+                  "keeps decoding. " * 4)[:250]
+STREAM_TOKENS = 64
+FAILOVER_PROMPT = "After the failover, through the new primary."
+# ~1200-token prompts (1201 ids with BOS: 75 full pages): two warmed on
+# the decode member and fetched, two cold baselines of the same length
+LONG_FLEET = {name: (f"{name}: a long prefix whose pages cross the wire. "
+                     * 40)[:1200]
+              for name in ("relay", "mesh", "relay-cold", "mesh-cold")}
+FLEET_R0_TOML = os.path.join("build", "chip_smoke_fleet_r0.toml")
+FLEET_R1_TOML = os.path.join("build", "chip_smoke_fleet_r1.toml")
 
 
-def _pairs(base, prompt) -> list:
+def _write_fleet_toml(path: str, strategy: str) -> None:
+    """A registry's config file: the engine settings and its strategy (a
+    hot key: the server's watcher applies a rewrite within a second)."""
+    with open(path, "w") as f:
+        f.write(ENGINE_SETTINGS + f'\n[server]\nstrategy = "{strategy}"\n')
+
+
+def _set_strategy(base: str, path: str, strategy: str) -> float:
+    _write_fleet_toml(path, strategy)
+    return _wait(lambda: _stats(base)["strategy"] == strategy,
+                 f"the strategy {strategy} at {base}", 15.0, 0.1)
+
+
+def _pairs(base, prompt, max_tokens: int = 24) -> list:
     """A greedy request's (text, sampled logprobs to 4 places)."""
-    text, lps = _v1_logprobs(base, prompt)
-    return [text, [round(x, 4) for x in lps]]
+    st, v1 = _http("POST", base + "/v1/completions",
+                   {"prompt": prompt, "temperature": 0.0,
+                    "max_tokens": max_tokens, "logprobs": 0})
+    assert st == 200, v1
+    ch = v1["choices"][0]
+    lps = ch["logprobs"]["token_logprobs"]
+    assert len(lps) >= 1, v1
+    return [ch["text"], [round(x, 4) for x in lps]]
 
 
 def _host_launches(host) -> int:
@@ -4957,7 +5039,7 @@ def _host_launches(host) -> int:
 
 
 def _routed(host, fn):
-    """``fn()``'s result and whether the registry host sent it to the
+    """``fn()``'s result and whether the registry host sent it to a
     member: a request the host's own engine serves launches its kernels, a
     remote one launches none there."""
     n0 = _host_launches(host)
@@ -4974,18 +5056,24 @@ def _until_routed(host, remote: bool, prompt=MIX_PROMPTS["p20"]) -> None:
     raise AssertionError("round robin did not alternate host and member")
 
 
-def _member_state(host):
+def _member_state(host, member=FLEET_MEMBER):
     members = _stats(host)["fleet"]["members"]
     return next((m["state"] for m in members
-                 if m["member_id"] == FLEET_MEMBER), None)
+                 if m["member_id"] == member), None)
 
 
-def _wait_member(host, proc, state: str, what: str) -> float:
+def _wait_member(host, proc, state: str, what: str,
+                 member=FLEET_MEMBER) -> float:
     def ready():
         if proc is not None and proc.poll() is not None:
             raise RuntimeError(f"the member exited with {proc.returncode}")
-        return _member_state(host) == state
+        return _member_state(host, member) == state
     return _wait(ready, what, 120.0, 0.02)
+
+
+def _remote_status(host, member):
+    return next((s for s in _stats(host)["worker_statuses"]
+                 if s["engine_id"] == f"{member}:engine-0"), None)
 
 
 def _logged_at(log_name: str, needle: str) -> float:
@@ -5011,38 +5099,317 @@ def _stop_proc(proc, errlog) -> None:
     errlog.close()
 
 
+def _prom(base) -> dict:
+    return _parse_prom(_get_text(base + "/metrics")[0])
+
+
+def _warm_fetch_source(r, m2, prompt) -> list:
+    """Warm ``prompt`` on the decode member through its own front door
+    (a cold run, then a warm hit) and wait until the registry ``r`` sees
+    its 75 new pages in the member's heartbeated status; returns the warm
+    hit's pairs (what a fetched prefix must give: the same tail prefill
+    over the same pages)."""
+    def cached():
+        return (_remote_status(r, FLEET_MEMBER2) or {}).get(
+            "pages_cached", 0)
+
+    before = cached()
+    _pairs(m2, prompt)
+    warm = _pairs(m2, prompt)
+    _wait(lambda: cached() >= before + 75, "the decode member's digest",
+          10.0, 0.05)
+    return warm
+
+
+def _engine_prefills(base) -> int:
+    return _stats(base)["replicas"][0]["kernel_launches"]["paged_prefill"]
+
+
+def _fleet_relay(r0, m2, timing) -> dict:
+    """Phase 15 part 8 (see the module docstring), with the unified member
+    dead, so the primary ``r0``'s own engine is its one admission engine:
+    the decode member ``m2``'s warm 1200-token prefix crosses its data
+    channel into that engine, whose prefill launches fall below a cold
+    run's of the same length there. Returns the target's launches."""
+    _reset_counts(r0)
+    cold, remote = _routed(r0, lambda: _pairs(r0, LONG_FLEET["relay-cold"]))
+    assert not remote, "the relay baseline ran remote"
+    cold_prefills = _engine_prefills(r0)
+    warm = _warm_fetch_source(r0, m2, LONG_FLEET["relay"])
+    timing["strategy_switch_s"] = _set_strategy(r0, FLEET_R0_TOML,
+                                                "cache_aware")
+    _reset_counts(r0)
+    b0 = _stats(r0)["fleet"]["kv_channels"].get(FLEET_MEMBER2, {})
+    t = time.monotonic()
+    got = _pairs(r0, LONG_FLEET["relay"])
+    relay_s = time.monotonic() - t
+    assert got == warm, ("the fetched prefix's pairs differ from the warm "
+                         "member's", got, warm)
+    stats = _stats(r0)
+    fetched_prefills = stats["replicas"][0]["kernel_launches"][
+        "paged_prefill"]
+    assert 0 < fetched_prefills < cold_prefills, (fetched_prefills,
+                                                  cold_prefills)
+    fams = _prom(r0)
+    assert _prom_sum(fams, "kv_prefix_fetch_total", "kv_prefix_fetch_total",
+                     outcome="ok", scope="remote") == 1, fams.get(
+        "kv_prefix_fetch_total")
+    ch = stats["fleet"]["kv_channels"][FLEET_MEMBER2]
+    relay_bytes = ch["bytes_received"] - b0.get("bytes_received", 0)
+    assert relay_bytes > 0, ch
+    assert stats["replicas"][0]["audit"] == [], stats["replicas"]
+    timing["relay_fetch"] = {
+        "paged_prefill": {"fetched": fetched_prefills,
+                          "cold": cold_prefills},
+        "bytes": relay_bytes, "request_s": relay_s,
+        "wire": next((w for w in stats["fleet"]["kv_wires"]
+                      if w["dst"] == FLEET_MEMBER2), None)}
+    _set_strategy(r0, FLEET_R0_TOML, "round_robin")
+    phase_done("fleet: remote prefix fetch into the registry's engine")
+    return stats["replicas"][0]["kernel_launches"]
+
+
+def _fleet_kv(card, r0, r1, m1, m2, refs, timing, kill_r0) -> dict:
+    """Phase 15 parts 9-12 (see the module docstring): ``r0`` is the
+    primary registry (round robin, mesh off), ``r1`` the standby
+    (cache_aware, mesh on, its one engine prefill, its front door shut
+    while it stands by), ``m1`` the unified member, ``m2`` the decode
+    member. Returns the launches of the mesh fetch's target and of the
+    handoff's two sides."""
+    launches = {}
+    # 9. the standby's front door is shut until it holds the lease
+    st, _, body = _http_any("POST", r1 + "/generate",
+                            {"prompt": FAILOVER_PROMPT, **GREEDY})
+    assert st == 503 and body["error"]["code"] == "queue_full", (st, body)
+    reg0 = _stats(r0)["fleet"]["registry"]
+    reg1 = _stats(r1)["fleet"]["registry"]
+    assert reg0["role"] == "primary" and reg1["role"] == "standby", (
+        reg0, reg1)
+    assert reg1["epoch"] == reg0["epoch"] >= 1, (reg0, reg1)
+    assert reg1["lease"]["holder"] == reg0["registry_id"], reg1
+
+    # 10. the primary killed: the standby promotes at epoch + 1 within
+    # the lease and a tick, and serves through its own front door on a
+    # member with the cold pairs
+    t_kill, t_kill_wall = kill_r0()
+    _wait(lambda: _stats(r1)["fleet"]["registry"]["role"] == "primary",
+          "the standby's promotion", FLEET_LEASE_S * 4, 0.02)
+    promoted_s = _logged_at("server_fleet_r1.log",
+                            "PROMOTED to primary") - t_kill_wall
+    reg1 = _stats(r1)["fleet"]["registry"]
+    assert reg1["epoch"] == reg0["epoch"] + 1, (reg0, reg1)
+    assert reg1["takeovers"] == {"lease_expired": 1}, reg1
+    assert promoted_s <= FLEET_LEASE_S + FLEET_TICK_S + 0.1, promoted_s
+    m1_done = _stats(m1)["requests_finished"]
+    n1 = _host_launches(r1)
+    got = _pairs(r1, FAILOVER_PROMPT)
+    assert got == refs["failover"], (got, refs["failover"])
+    assert _host_launches(r1) == n1, "the failover request ran on r1"
+    _wait(lambda: _stats(m1)["requests_finished"] == m1_done + 1,
+          "the member's failover request", 10.0)
+    timing["failover"] = {"kill_to_promoted_s": promoted_s,
+                          "lease_s": FLEET_LEASE_S, "tick_s": FLEET_TICK_S,
+                          "epoch": [reg0["epoch"], reg1["epoch"]],
+                          "first_request_s": time.monotonic() - t_kill}
+    phase_done("fleet: registry failover")
+
+    # 11. the mesh: the new primary introduces the members to each other;
+    # the decode member's warm prefix goes straight to the unified member
+    # (the cold wires price alike, and its id sorts first), never through
+    # the registry
+    _reset_counts(m1)
+    idle = lambda: (_remote_status(r1, FLEET_MEMBER) or {}).get(  # noqa
+        "active_requests", 1) == 0
+    cold, remote = _routed(r1, lambda: _pairs(r1, LONG_FLEET["mesh-cold"]))
+    assert remote, "the mesh baseline ran on r1"
+    cold_prefills = _engine_prefills(m1)
+    warm = _warm_fetch_source(r1, m2, LONG_FLEET["mesh"])
+    _wait(idle, "the unified member idle at r1", 10.0, 0.05)
+    _reset_counts(m1)
+    b1 = _stats(r1)["fleet"]["kv_channels"].get(FLEET_MEMBER2, {})
+    t = time.monotonic()
+    got, remote = _routed(r1, lambda: _pairs(r1, LONG_FLEET["mesh"]))
+    mesh_s = time.monotonic() - t
+    assert remote, "the mesh fetch's request ran on r1"
+    assert got == warm, ("the mesh-fetched prefix's pairs differ from the "
+                         "warm member's", got, warm)
+    fetched_prefills = _engine_prefills(m1)
+    assert 0 < fetched_prefills < cold_prefills, (fetched_prefills,
+                                                  cold_prefills)
+    fams = _prom(r1)
+    delegated = _prom_sum(fams, "kv_prefix_fetch_total",
+                          "kv_prefix_fetch_total", outcome="delegated",
+                          scope="mesh")
+    intros = _prom_sum(fams, "fleet_kv_intro_total", "fleet_kv_intro_total",
+                       outcome="sent")
+    assert delegated == 1 and intros >= 2, (delegated, intros)
+    mfams = _prom(m1)
+    assert _prom_sum(mfams, "kv_prefix_fetch_total", "kv_prefix_fetch_total",
+                     outcome="ok", scope="mesh") == 1, mfams.get(
+        "kv_prefix_fetch_total")
+    b1_after = _stats(r1)["fleet"]["kv_channels"].get(FLEET_MEMBER2, {})
+    assert (b1_after.get("bytes_received", 0)
+            == b1.get("bytes_received", 0)), ("the mesh fetch relayed "
+                                              "through r1", b1, b1_after)
+
+    def wire_rate():
+        return _prom_sum(_prom(r1), "fleet_kv_wire_rate_bytes_per_s",
+                         "fleet_kv_wire_rate_bytes_per_s",
+                         src=FLEET_MEMBER, dst=FLEET_MEMBER2)
+
+    _wait(lambda: wire_rate() > 0, "the mesh wire's learned rate at r1",
+          10.0, 0.1)
+    stats = _stats(m1)
+    assert stats["replicas"][0]["audit"] == [], stats["replicas"]
+    launches["mesh_fetch_target"] = stats["replicas"][0]["kernel_launches"]
+    mesh_bytes = _prom_sum(mfams, "kv_prefix_fetch_bytes_total",
+                           "kv_prefix_fetch_bytes_total", scope="mesh")
+    timing["mesh_fetch"] = {
+        "paged_prefill": {"fetched": fetched_prefills,
+                          "cold": cold_prefills},
+        "bytes": mesh_bytes, "request_s": mesh_s,
+        "kv_intro_sent": intros,
+        "wire_rate_bytes_per_s": wire_rate(),
+        "kv_wires": _stats(r1)["fleet"]["kv_wires"]}
+    phase_done("fleet: the mesh's member-to-member fetch")
+
+    # 12. the handoff: the new primary's prefill engine prefills, the
+    # decode member decodes over the data channel; whole (24 tokens) and
+    # streamed (64): one unified engine's pairs, cold against cold
+    _set_strategy(r1, FLEET_R1_TOML, "round_robin")
+    handoff = {}
+    for label, prompt, n in (("monolithic", HANDOFF_MONO, 24),
+                             ("streamed", HANDOFF_STREAM, STREAM_TOKENS)):
+        _until_routed(r1, remote=True)
+        _reset_counts(r1)
+        _reset_counts(m2)
+        before = _stats(r1)
+        fb = _prom(r1)
+        t = time.monotonic()
+        got, remote = _routed(r1, lambda: _pairs(r1, prompt, n))
+        wall = time.monotonic() - t
+        assert not remote, f"the {label} handoff's request ran remote"
+        assert got == refs[label], (label, got, refs[label])
+        after = _stats(r1)
+        _wait(lambda: _stats(m2)["requests_in_flight"] == 0,
+              "the decode member's request", 10.0, 0.05)
+        m2s = _stats(m2)
+        src = {k: v for k, v in after["kernel_launches"].items() if v}
+        dst = {k: v for k, v in m2s["kernel_launches"].items() if v}
+        assert {"paged_prefill", "rms_norm", "rope"} <= set(src), src
+        assert dst.get("paged_decode", 0) > 0, dst
+        assert "paged_prefill" not in dst, dst
+        ok = _handoffs(after).get("ok", 0) - _handoffs(before).get("ok", 0)
+        assert ok == 1, (_handoffs(before), _handoffs(after))
+        fa = _prom(r1)
+        chunks = (_prom_sum(fa, "kv_handoff_chunks_total",
+                            "kv_handoff_chunks_total", scope="remote")
+                  - _prom_sum(fb, "kv_handoff_chunks_total",
+                              "kv_handoff_chunks_total", scope="remote"))
+        assert (chunks > 0) == (label == "streamed"), (label, chunks)
+
+        def delta(fam, sample):
+            return (_prom_sum(fa, fam, sample) - _prom_sum(fb, fam, sample))
+
+        ch0 = before["fleet"]["kv_channels"].get(FLEET_MEMBER2, {})
+        ch1 = after["fleet"]["kv_channels"][FLEET_MEMBER2]
+        handoff[label] = {
+            "source_launches": src, "target_launches": dst,
+            "chunks": chunks, "request_s": wall,
+            "payload_bytes": delta("kv_handoff_bytes_total",
+                                   "kv_handoff_bytes_total"),
+            "channel_bytes_sent": (ch1["bytes_sent"]
+                                   - ch0.get("bytes_sent", 0)),
+            "latency_s": delta("kv_handoff_latency_seconds",
+                               "kv_handoff_latency_seconds_sum"),
+            "export_s": (after["handoff_s"]["export"]
+                         - before["handoff_s"]["export"]),
+            "import_s_at_target": m2s["handoff_s"]["import"]}
+        launches[f"handoff_{label}_source"] = src
+        launches[f"handoff_{label}_target"] = dst
+    wires = _stats(r1)["fleet"]["kv_wires"]
+    timing["handoff"] = handoff
+    timing["registry_wire"] = next((w for w in wires
+                                    if w["src"] == "registry"
+                                    and w["dst"] == FLEET_MEMBER2), None)
+    for base in (r1, m1, m2):
+        for r in _stats(base)["replicas"]:
+            assert r["audit"] == [], (base, r["engine_id"], r["audit"])
+    phase_done("fleet: cross-process handoff, whole and streamed")
+    return launches
+
+
 def phase_fleet(card: str, seed: int = 0) -> dict:
     """Phase 15 (see the module docstring). Returns the member's launches
-    over the remote-served greedy prompts and the timing line."""
+    over the remote-served greedy prompts, the KV parts' launches and the
+    timing line."""
     import signal
 
     t_phase = time.monotonic()
     timing: dict = {}
-    fport = _free_port()
-    host_flags = FLEET_FLAGS + ["--fleet-enabled", "true", "--fleet-port",
-                                str(fport), "--server-strategy",
-                                "round_robin"]
-    member_flags = FLEET_FLAGS + ["--fleet-connect", f"127.0.0.1:{fport}",
+    p0, p1 = _free_port(), _free_port()
+    regs = f"127.0.0.1:{p0},127.0.0.1:{p1}"
+    _write_fleet_toml(FLEET_R0_TOML, "round_robin")
+    _write_fleet_toml(FLEET_R1_TOML, "cache_aware")
+    # the primary to be skips its warmup: up first, it holds the lease
+    # before the standby's election starts
+    r0_flags = FLEET_FLAGS + ["--fleet-enabled", "true", "--fleet-port",
+                              str(p0), "--fleet-registries", regs,
+                              "--engine-warmup-compile", "false"]
+    r1_flags = FLEET_FLAGS + ["--fleet-enabled", "true", "--fleet-port",
+                              str(p1), "--fleet-registries", regs,
+                              "--fleet-standby-http", "false",
+                              "--fleet-mesh-enabled", "true",
+                              "--server-engine-roles", "prefill"]
+    member_flags = FLEET_FLAGS + ["--fleet-connect", f"127.0.0.1:{p0}",
+                                  "--fleet-registries", regs,
+                                  "--fleet-mesh-enabled", "true",
                                   "--fleet-member-id", FLEET_MEMBER]
+    member2_flags = FLEET_FLAGS + ["--fleet-connect", f"127.0.0.1:{p0}",
+                                   "--fleet-registries", regs,
+                                   "--fleet-mesh-enabled", "true",
+                                   "--fleet-member-id", FLEET_MEMBER2,
+                                   "--server-engine-roles", "decode"]
     remote_id = f"{FLEET_MEMBER}:engine-0"
     procs = []
+    kv_launches = {}
     try:
-        # 1. both processes started at once; the member redials until the
-        # host listens
+        # 1. the four processes started at once; the members redial until
+        # a registry listens
         t0 = time.monotonic()
-        hproc, host, hlog = _launch(seed, host_flags, "server_fleet_host.log",
-                                    REPLICA_MODEL)
+        hproc, host, hlog = _launch(seed, r0_flags, "server_fleet_host.log",
+                                    REPLICA_MODEL, FLEET_R0_TOML)
         procs.append((hproc, hlog))
+        r1proc, r1, r1log = _launch(seed, r1_flags, "server_fleet_r1.log",
+                                    REPLICA_MODEL, FLEET_R1_TOML)
+        procs.append((r1proc, r1log))
         mproc, member, mlog = _launch(seed, member_flags,
                                       "server_fleet_member.log",
                                       REPLICA_MODEL)
         procs.append((mproc, mlog))
+        m2proc, member2, m2log = _launch(seed, member2_flags,
+                                         "server_fleet_member2.log",
+                                         REPLICA_MODEL)
+        procs.append((m2proc, m2log))
         _wait_healthy(hproc, host, "server_fleet_host.log", t0)
         timing["host_healthy_s"] = time.monotonic() - t0
-        _wait_healthy(mproc, member, "server_fleet_member.log", t0)
-        _wait_member(host, mproc, "alive", "the member's join")
+        for proc, base, name in ((r1proc, r1, "server_fleet_r1.log"),
+                                 (mproc, member, "server_fleet_member.log"),
+                                 (m2proc, member2,
+                                  "server_fleet_member2.log")):
+            _wait_healthy(proc, base, name, t0)
+        for reg in (host, r1):
+            for name, proc in ((FLEET_MEMBER, mproc),
+                               (FLEET_MEMBER2, m2proc)):
+                _wait_member(reg, proc, "alive", f"{name} at {reg}",
+                             member=name)
+        _wait(lambda: _stats(host)["fleet"]["registry"]["role"] == "primary",
+              "the first registry's election", 20.0)
+        _wait(lambda: _stats(r1)["fleet"]["registry"]["lease"]["holder"]
+              is not None, "the standby's lease watch", 20.0)
         timing["member_start_to_alive_s"] = time.monotonic() - t0
-        phase_done("fleet: host and member up, member alive")
+        phase_done("fleet: two registries and two members up, alive at "
+                   "both")
 
         # 2-3. the first mix's greedy prompts, one to each engine: the
         # member's pairs equal the host engine's, the host launches
@@ -5170,6 +5537,18 @@ def phase_fleet(card: str, seed: int = 0) -> dict:
         assert 'fleet_members{state="dead"} 1.0' in prom
         phase_done("fleet: kill and redispatch")
 
+        # the references of the KV parts, cold runs on the primary's
+        # unified engine (with the unified member dead, the one admission
+        # engine), and the relayed prefix fetch into it
+        refs = {}
+        for label, prompt, n in (("monolithic", HANDOFF_MONO, 24),
+                                 ("streamed", HANDOFF_STREAM, STREAM_TOKENS),
+                                 ("failover", FAILOVER_PROMPT, 24)):
+            refs[label], remote = _routed(host,
+                                          lambda: _pairs(host, prompt, n))
+            assert not remote, f"the {label} reference ran remote"
+        relay_launches = _fleet_relay(host, member2, timing)
+
         # 7. the member restarts under its id: a rejoin, and it serves
         t_restart = time.monotonic()
         mproc, member, mlog = _launch(seed, member_flags,
@@ -5177,6 +5556,9 @@ def phase_fleet(card: str, seed: int = 0) -> dict:
                                       REPLICA_MODEL)
         procs.append((mproc, mlog))
         _wait_member(host, mproc, "alive", "the member's rejoin")
+        _wait_member(r1, mproc, "alive", "the member's rejoin at r1")
+        _wait_healthy(mproc, member, "server_fleet_member_rejoin.log",
+                      t_restart)
         timing["restart_to_alive_s"] = time.monotonic() - t_restart
         stats = _stats(host)
         fleet = stats["fleet"]
@@ -5196,19 +5578,29 @@ def phase_fleet(card: str, seed: int = 0) -> dict:
         assert again == pairs[False]["p20"], (again, pairs[False]["p20"])
         timing["heartbeats"] = fleet["heartbeats"]
         phase_done("fleet: rejoin")
+
+        def kill_r0():
+            t, wall = time.monotonic(), time.time()
+            os.kill(hproc.pid, signal.SIGKILL)
+            hproc.wait()
+            return t, wall
+
+        kv_launches = {"relay_fetch_target": relay_launches,
+                       **_fleet_kv(card, host, r1, member, member2, refs,
+                                   timing, kill_r0)}
     finally:
         for proc, errlog in procs:
             _stop_proc(proc, errlog)
     line = {"fleet_timing": {
-        "card": card, "model": "llama-3.2-1b bf16 random weights, host and "
-        "member processes on the one card", **timing,
+        "card": card, "model": "llama-3.2-1b bf16 random weights, two "
+        "registry and two member processes on the one card", **timing,
         "role_balancer": "not driven here: host logic with nothing on the "
-        "device, whose decode target needs the fleet's KV data plane "
-        "(not ported); tests/test_torch_fleet.py and "
+        "device; tests/test_torch_fleet.py and "
         "tests/test_torch_fleet_chaos.py (rerole_flap) cover it",
         "phase_s": round(time.monotonic() - t_phase, 1)}}
     log(json.dumps(line))
-    return {"timing": line["fleet_timing"], "launches": launches}
+    return {"timing": line["fleet_timing"], "launches": launches,
+            "kv_launches": kv_launches}
 
 
 def main(argv=None) -> int:
@@ -5403,10 +5795,13 @@ def main(argv=None) -> int:
         phase_parallel_entry(args.seed)
         phase_done("parallel entry point")
     fleet_launches = {}
+    fleet_kv_launches = {}
     if "fleet" in phases:
         gc.collect()
         torch.cuda.empty_cache()
-        fleet_launches = phase_fleet(card, args.seed)["launches"]
+        got = phase_fleet(card, args.seed)
+        fleet_launches, fleet_kv_launches = got["launches"], got[
+            "kv_launches"]
         phase_done("fleet")
 
     rows = []
@@ -5440,6 +5835,9 @@ def main(argv=None) -> int:
                 part: got.get(name) for part, got in parallel_launches.items()}
         if fleet_launches:  # phase 15's member, remote-served prompts
             row["launches_fleet"] = fleet_launches.get(name)
+        if fleet_kv_launches:  # phase 15's KV parts, each process's own
+            row["launches_fleet_kv"] = {
+                part: got.get(name) for part, got in fleet_kv_launches.items()}
         shards = {r["case"]: {k: r.get(k) for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")}

@@ -11,16 +11,24 @@ engine is the one ``python -m distributed_inference_server_tpu`` builds
 (``max_batch`` 64, 2048 pages of 16 tokens, 512 pages per sequence,
 prefill batches of 16 rows within 8192 tokens). An invalid value exits 2
 with ``config error:``, and so does a setting whose subsystem the port
-does not have yet (``server.grpc_port``, ``fleet.registries``):
-``<section.key> is not ported yet``.
+does not have yet (``server.grpc_port``): ``<section.key> is not ported
+yet``.
 
-The fleet's control plane (``serving/fleet.py``): ``--fleet-enabled true``
-makes the process a registry host listening at ``fleet.host:fleet.port``
-(its members' engines join its routing set); ``--fleet-connect host:port``
+The fleet (``serving/fleet.py``): ``--fleet-enabled true`` makes the
+process a registry host listening at ``fleet.host:fleet.port`` (its
+members' engines join its routing set); ``--fleet-connect host:port``
 joins such a host as a member once the server has started, printing
-``joined fleet at <host:port> as <member id>``; a refused dial is retried
-for up to ``FLEET_JOIN_TIMEOUT_S``. A member that cannot reach its host
-exits 1 (``fleet join failed``) and never serves alone.
+``joined fleet at <endpoints> as <member id>``; a refused dial is retried
+for up to ``FLEET_JOIN_TIMEOUT_S``. A member that cannot reach any
+registry exits 1 (``fleet join failed``) and never serves alone. A member
+binds a KV data listener (``fleet.kv_data_port``; off with
+``--fleet-kv-enabled false``), so requests hand off and fetch prefixes
+across processes; ``--fleet-mesh-enabled true`` on the host and members
+lets members fetch from each other directly. Registry HA:
+``--fleet-registries h1:p1,h2:p2`` on each registry (with
+``--fleet-enabled true`` and its own ``--fleet-port``) elects a
+lease-holding primary, and on a member (without ``--fleet-enabled``) it
+dials every registry listed.
 
 ``engine.tensor_parallel`` / ``pipeline_parallel`` / ``context_parallel``
 give each replica a device mesh (``parallel/mesh.py``) over a disjoint
@@ -312,6 +320,16 @@ def _replica_devices(cfg: ServerConfig, device: torch.device,
     return devices, MeshSpec(tensor=tp, stage=pp, seq=cp)
 
 
+def worker_mode(cfg: ServerConfig) -> bool:
+    """Whether this process joins a fleet as a member: ``fleet.connect``
+    is set, or ``fleet.registries`` is set on a process that is not a
+    registry itself (a registry given the list runs the HA election and
+    does not also join as its own member)."""
+    return bool(cfg.get("fleet", "connect")
+                or (cfg.get("fleet", "registries")
+                    and not cfg.get("fleet", "enabled")))
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
@@ -405,9 +423,9 @@ def main(argv=None) -> int:
         return 1
 
     fleet_worker = None
-    if cfg.get("fleet", "connect"):
-        # worker mode: join the registry host; the local engines keep
-        # their own HTTP surface too
+    if worker_mode(cfg):
+        # worker mode: join the registries; the local engines keep their
+        # own HTTP surface too
         fleet_worker = FleetWorker(server.scheduler, cfg.fleet_settings(),
                                    metrics=server.metrics,
                                    tracer=server.tracer)
@@ -418,7 +436,7 @@ def main(argv=None) -> int:
             print(f"fleet join failed: {e}", file=sys.stderr)
             server.shutdown(drain_timeout_s=0)
             return 1
-        print(f"joined fleet at {cfg.get('fleet', 'connect')} as "
+        print(f"joined fleet at {', '.join(fleet_worker.endpoints)} as "
               f"{fleet_worker.member_id}", flush=True)
 
     watcher = ConfigWatcher(cfg)

@@ -673,9 +673,7 @@ class ServerConfig:
         )
 
     def fleet_settings(self):
-        """The fleet control plane's knobs (``serving/fleet.py``
-        ``FleetSettings``); the keys of the KV data plane, the mesh and
-        registry HA have no field there yet."""
+        """The fleet's knobs (``serving/fleet.py`` ``FleetSettings``)."""
         from distributed_inference_server_tpu_torch.serving.fleet import (
             FleetSettings,
         )
@@ -695,6 +693,17 @@ class ServerConfig:
             rerole_low_ratio=f["rerole_low_ratio"],
             rerole_cooldown_s=f["rerole_cooldown_s"],
             rerole_interval_s=f["rerole_interval_s"],
+            kv_enabled=f["kv_enabled"],
+            kv_data_port=f["kv_data_port"],
+            kv_max_streams=f["kv_max_streams"],
+            kv_connect_timeout_s=f["kv_connect_timeout_s"],
+            mesh_enabled=f["mesh_enabled"],
+            kv_rate_window_s=f["kv_rate_window_s"],
+            kv_rate_prior=f["kv_rate_prior"],
+            registries=tuple(f["registries"]),
+            lease_s=f["lease_s"],
+            lease_suspect_s=f["lease_suspect_s"],
+            standby_http=f["standby_http"],
         )
 
     def slo_settings(self):
@@ -1078,15 +1087,11 @@ class ServerConfig:
 
     def check_ported(self) -> None:
         """Refuse, with a ``ConfigError`` naming the key, a setting whose
-        subsystem the port does not have yet: the gRPC transport and the
-        fleet's registry HA. ``validate`` (the reference's checks) passes
-        such settings; the entry point calls this after it, so none is
-        ignored quietly."""
-        r = self.raw
-        if r["server"]["grpc_port"] != 0:
+        subsystem the port does not have yet: the gRPC transport.
+        ``validate`` (the reference's checks) passes such settings; the
+        entry point calls this after it, so none is ignored quietly."""
+        if self.raw["server"]["grpc_port"] != 0:
             raise ConfigError("server.grpc_port is not ported yet")
-        if r["fleet"]["registries"]:
-            raise ConfigError("fleet.registries is not ported yet")
 
     def hot_diff(self, other: "ServerConfig") -> Dict[tuple, Any]:
         """(section, key) -> new value for hot-reloadable keys that differ."""

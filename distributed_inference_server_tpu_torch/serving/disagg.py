@@ -1,8 +1,9 @@
 """Disaggregated prefill/decode serving: engine roles, the KV handoff
 channel, the migration controller and the peer prefix fetcher (port of
-``distributed_inference_server_tpu/serving/disagg.py`` for replicas in
-one process: the fleet's remote replicas and KV data channels are not
-ported).
+``distributed_inference_server_tpu/serving/disagg.py``). A fleet member's
+replica behind a KV data channel (``serving/fleet_kv.py``) is a handoff
+target and a fetch source like a local one: its frames go over that
+channel instead of the in-process one.
 
 The serving spine (queue → batcher → scheduler → engine runners) treats
 every engine as a monolith that prefills and decodes in place, which
@@ -734,6 +735,8 @@ class DisaggController:
     def _open_stream(self, job: _StreamJob) -> None:
         """Worker half of phase 1: move the prefix chunks through the
         channel, pick a decode target, and open an import session there.
+        A remote target (a member's decode replica) skips the in-process
+        channel: its data channel frames the chunks on its own thread.
         Failure just flips the job to "failed" — the source
         sequence never stopped decoding, so there is nothing to fall
         back FROM."""
@@ -749,17 +752,23 @@ class DisaggController:
             for _ in job.chunks:
                 faults.fire("disagg.chunk")
             target = self.scheduler.schedule_decode(
-                exclude=job.source.engine_id)
+                exclude=job.source.engine_id,
+                # a remote candidate is charged its wire's learned rate
+                # for these pages
+                pages=job.n_prefix_pages)
             if target is None:
                 raise HandoffError("no healthy decode engine")
-            t0 = time.monotonic()
-            try:
-                wired = self.channel.transfer_chunks(
-                    job.request_id, job.wire_quant, job.chunks,
-                    trace=self._trace_ctx(job.req),
-                )
-            finally:
-                self.channel_s += time.monotonic() - t0
+            if getattr(target, "is_remote", False):
+                wired = job.chunks  # the data channel frames them
+            else:
+                t0 = time.monotonic()
+                try:
+                    wired = self.channel.transfer_chunks(
+                        job.request_id, job.wire_quant, job.chunks,
+                        trace=self._trace_ctx(job.req),
+                    )
+                finally:
+                    self.channel_s += time.monotonic() - t0
         except Exception as e:  # noqa: BLE001 — channel/sched fault domain
             with self._cv:
                 if job.status == "opening":
@@ -771,7 +780,8 @@ class DisaggController:
 
         def _opened(ok: bool, err: Optional[str],
                     job=job, target=target) -> None:
-            # runs on the target runner's thread
+            # the target runner's thread (the data channel's reader for a
+            # remote target)
             cancelled = False
             with self._cv:
                 if job.status == "cancelled":
@@ -785,9 +795,14 @@ class DisaggController:
             if cancelled and ok:
                 target.submit_import_abort(job.request_id)
 
-        target.submit_import_open(
-            job.request_id, job.n_prefix_pages, wired, _opened
-        )
+        if getattr(target, "is_remote", False):
+            target.submit_import_open(
+                job.request_id, job.n_prefix_pages, wired, _opened,
+                wire_quant=job.wire_quant, trace=self._trace_ctx(job.req))
+        else:
+            target.submit_import_open(
+                job.request_id, job.n_prefix_pages, wired, _opened
+            )
 
     def commit_stream(self, job: _StreamJob, exp: SequenceExport) -> None:
         """Queue phase 2 (called on the source runner's thread right
@@ -846,6 +861,7 @@ class DisaggController:
                 job.target.submit_import_abort(job.request_id)
             return
         n_prefix = len(job.chunks)
+        remote_target = getattr(job.target, "is_remote", False)
         try:
             tail = (mjob.exp.kv_chunks or [])[n_prefix:]
             # commit dropped on the channel (docs/RESILIENCE.md): the
@@ -855,11 +871,16 @@ class DisaggController:
             faults.fire("disagg.commit")
             for _ in tail:
                 faults.fire("disagg.chunk")
-            t0 = time.monotonic()
-            try:
-                wired = self.channel.transfer_commit(mjob.exp, tail)
-            finally:
-                self.channel_s += time.monotonic() - t0
+            if remote_target:
+                # the data channel frames the tail itself: the export with
+                # only the tail's chunks (the member holds the prefix)
+                wired = dataclasses.replace(mjob.exp, kv_chunks=list(tail))
+            else:
+                t0 = time.monotonic()
+                try:
+                    wired = self.channel.transfer_commit(mjob.exp, tail)
+                finally:
+                    self.channel_s += time.monotonic() - t0
         except Exception as e:  # noqa: BLE001 — channel fault domain
             if job.target is not None:
                 job.target.submit_import_abort(job.request_id)
@@ -896,6 +917,9 @@ class DisaggController:
                         nbytes=mjob.exp.kv_bytes(),
                         stall_s=stall,
                         chunks=len(mjob.exp.kv_chunks or []),
+                        scope=("remote"
+                               if getattr(target, "is_remote", False)
+                               else "local"),
                     )
             else:
                 logger.warning(
@@ -936,7 +960,10 @@ class DisaggController:
                 return
             job.attempts += 1
             target = self.scheduler.schedule_decode(
-                exclude=job.source.engine_id)
+                exclude=job.source.engine_id,
+                # the pages the move puts on the wire (0 for a monolithic
+                # export: the election stays least-loaded)
+                pages=sum(c.page_count for c in job.exp.kv_chunks or ()))
             if target is None:
                 last_err = "no healthy decode engine"
                 if self.metrics:
@@ -947,11 +974,14 @@ class DisaggController:
                 faults.fire("disagg.transfer")
                 for _ in job.exp.kv_chunks or ():
                     faults.fire("disagg.chunk")
-                t0 = time.monotonic()
-                try:
-                    wired = self.channel.transfer(job.exp)
-                finally:
-                    self.channel_s += time.monotonic() - t0
+                if getattr(target, "is_remote", False):
+                    wired = job.exp  # the member's data channel frames it
+                else:
+                    t0 = time.monotonic()
+                    try:
+                        wired = self.channel.transfer(job.exp)
+                    finally:
+                        self.channel_s += time.monotonic() - t0
             except Exception as e:  # noqa: BLE001 — channel fault domain
                 last_err = f"channel {self.channel.name}: {e}"
                 if self.metrics:
@@ -999,6 +1029,9 @@ class DisaggController:
                             nbytes=job.exp.kv_bytes(),
                             stall_s=stall,
                             chunks=len(job.exp.kv_chunks or []),
+                            scope=("remote"
+                                   if getattr(target, "is_remote", False)
+                                   else "local"),
                         )
                 else:
                     logger.warning(
@@ -1114,15 +1147,23 @@ class PrefixFetcher:
     def __init__(self, channel: Optional[KVTransferChannel] = None,
                  settings: Optional[DisaggSettings] = None,
                  metrics: Optional[MetricsCollector] = None,
-                 tracer=None, recorder=None):
+                 tracer=None, recorder=None, mesh_route=None):
         """``tracer``/``recorder``: a ``kv.prefix_fetch`` span parented on
         the trace context that round-tripped the KvPrefixFetch wire
-        fields, and a ``prefix_fetch`` timeline event (None: neither)."""
+        fields, and a ``prefix_fetch`` timeline event (None: neither).
+
+        ``mesh_route(target_member, peer_member) -> bool``: when target
+        and warm peer are both fleet members and the registry introduced
+        them, the fetch is handed over: the request goes to the target
+        with a fetch hint, and the target's member pulls the chunks from
+        the peer over its own channel (the bytes never touch this
+        host)."""
         self.channel = channel or InProcessChannel()
         self.settings = settings or DisaggSettings()
         self.metrics = metrics
         self.tracer = tracer
         self.recorder = recorder
+        self.mesh_route = mesh_route  # set once by the server
         self._lock = threading.Lock()
         # request_id -> aborted? for fetches in flight (score→submit)
         self._fetching: Dict[Any, bool] = {}
@@ -1156,6 +1197,39 @@ class PrefixFetcher:
         ps = max(1, plan.page_size)
         t0 = time.monotonic()
         fetch_span = [None]  # set after the request half round-trips
+        # a remote peer (a member behind a KV data channel): both halves
+        # cross the real wire, framed by the channel's own threads, so the
+        # in-process framing and the local wire stage are skipped
+        remote_peer = getattr(peer, "is_remote", False)
+        if (remote_peer and getattr(target, "is_remote", False)
+                and self.mesh_route is not None):
+            # member to member through the mesh: ship the fetch plan to
+            # the target, not the bytes through this host. Any failure
+            # over there recomputes on the member, once; the submit
+            # happens now (the hint rides the FleetSubmit), so nothing
+            # enters _fetching and the member settles its own metrics.
+            t_member = target.engine_id.rsplit(":", 1)[0]
+            p_member = peer.engine_id.rsplit(":", 1)[0]
+            if t_member != p_member and self.mesh_route(t_member,
+                                                        p_member):
+                if self.metrics:
+                    self.metrics.record_prefix_fetch("delegated",
+                                                     scope="mesh")
+                if self.recorder is not None:
+                    self.recorder.note(rid, "prefix_fetch",
+                                       outcome="delegated", seconds=0.0,
+                                       bytes=0, peer=peer.engine_id,
+                                       target=target.engine_id)
+                target.submit([req], fetch_hint={
+                    "fetch_member": p_member,
+                    "fetch_source_engine": getattr(
+                        peer, "local_engine_id", peer.engine_id),
+                    "fetch_hashes": list(plan.prefix_hashes or ()),
+                    "fetch_chunk_pages": self.settings.chunk_pages,
+                    "fetch_wire_quant": self.settings.wire_quant,
+                })
+                return
+        scope = "remote" if remote_peer else "local"
         with self._lock:
             self._fetching[rid] = False
 
@@ -1179,7 +1253,7 @@ class PrefixFetcher:
                                    target=target.engine_id)
             if self.metrics:
                 self.metrics.record_prefix_fetch(
-                    outcome, seconds=seconds, nbytes=nbytes)
+                    outcome, seconds=seconds, nbytes=nbytes, scope=scope)
             try:
                 if not aborted:
                     target.submit([req])
@@ -1224,7 +1298,8 @@ class PrefixFetcher:
 
         def _on_export(result, err: Optional[str]) -> None:
             # the peer runner's thread (or the caller's, peer already
-            # down): only hand the chunks off, no wire work here
+            # down; the data channel's reader for a remote peer): only
+            # hand the chunks off, no wire work here
             if result is None:
                 logger.debug("prefix fetch for %s: peer %s export failed "
                              "(%s); recomputing", rid, peer.engine_id, err)
@@ -1236,16 +1311,32 @@ class PrefixFetcher:
                 # more of it than the target) since the routing score
                 _settle("fallback")
                 return
+            if remote_peer:
+                # the chunks crossed the real wire, each crc-checked:
+                # import directly (the import only posts to the target)
+                nbytes = sum(len(c.payload) for c in chunks)
+                tokens = list(req.prompt_ids[: depth * ps])
+                target.submit_prefix_import(
+                    rid, tokens, chunks,
+                    lambda ok, ierr: _on_import(ok, ierr, nbytes))
+                return
             self._submit_wire(lambda: _wire(depth, chunks))
 
         try:
             # the request half crosses the channel too, so the
-            # KvPrefixFetch wire format is exercised on every fetch
-            rid_w, hashes_w, chunk_pages, wire_quant, trace_w = (
-                self.channel.transfer_fetch_request(
-                    rid, plan.prefix_hashes or (),
-                    self.settings.chunk_pages, self.settings.wire_quant,
-                    trace=self._trace(req)))
+            # KvPrefixFetch wire format is exercised on every fetch (a
+            # remote peer's data channel frames it itself)
+            if remote_peer:
+                rid_w, hashes_w = rid, list(plan.prefix_hashes or ())
+                chunk_pages = self.settings.chunk_pages
+                wire_quant = self.settings.wire_quant
+                trace_w = self._trace(req)
+            else:
+                rid_w, hashes_w, chunk_pages, wire_quant, trace_w = (
+                    self.channel.transfer_fetch_request(
+                        rid, plan.prefix_hashes or (),
+                        self.settings.chunk_pages, self.settings.wire_quant,
+                        trace=self._trace(req)))
         except Exception as e:  # noqa: BLE001 — channel fault domain
             logger.debug("prefix fetch for %s: request framing failed "
                          "(%s); recomputing", rid, e)
@@ -1256,8 +1347,12 @@ class PrefixFetcher:
                 "kv.prefix_fetch", parent=tuple(trace_w),
                 request_id=str(rid), peer=peer.engine_id,
                 target=target.engine_id)
-        peer.submit_prefix_export(rid_w, hashes_w, chunk_pages, wire_quant,
-                                  _on_export)
+        if remote_peer:
+            peer.submit_prefix_export(rid_w, hashes_w, chunk_pages,
+                                      wire_quant, _on_export, trace=trace_w)
+        else:
+            peer.submit_prefix_export(rid_w, hashes_w, chunk_pages,
+                                      wire_quant, _on_export)
 
     @staticmethod
     def _trace(req) -> Optional[tuple]:

@@ -45,7 +45,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 from distributed_inference_server_tpu_torch.core.errors import QueueFull
 from distributed_inference_server_tpu_torch.core.queue import (
@@ -144,6 +144,12 @@ class Dispatcher:
         # the degradation ladder's gates (serving/degradation.py)
         self.reject_low_priority = False
         self.reject_all = False
+        # registry HA's front door (serving/fleet_ha.py): with
+        # fleet.standby_http false the server sets RegistryHA.is_primary
+        # here, and a standby turns ingress away (QueueFull) until it
+        # holds the lease. Only submit() asks it: redispatch and the
+        # fleet's own paths go straight to runners.
+        self.ingress_gate: Optional[Callable[[], bool]] = None
         self.queue = _make_queue(queue_config, native_queue)
         self.batcher = _make_batcher(self.queue, batcher_config)
         self.metrics = metrics
@@ -211,6 +217,8 @@ class Dispatcher:
         ``AdmissionShed`` subclass when deadline-aware admission sheds the
         request."""
         if not self._accepting or self.reject_all:
+            raise QueueFull()
+        if self.ingress_gate is not None and not self.ingress_gate():
             raise QueueFull()
         if self.reject_low_priority and priority is Priority.LOW:
             raise QueueFull()

@@ -1,15 +1,15 @@
 """The fleet's control plane: the federated engine registry, the fleet wire
 and role rebalancing (the port of ``distributed_inference_server_tpu/
-serving/fleet.py``, without its KV data plane, KV mesh and registry HA).
+serving/fleet.py``), with the hooks of the KV data plane
+(``serving/fleet_kv.py``), the KV mesh (``serving/fleet_mesh.py``) and
+registry HA (``serving/fleet_ha.py``).
 
 - **The fleet wire**: one duplex TCP connection per member carrying
   length-delimited protowire frames (a u32 payload length, a u8 kind, the
   encoded message), byte for byte the JAX package's. ``FleetHeartbeat``,
   ``FleetEvent``, ``FleetSpans`` and ``FleetTelemetry`` flow member to
-  registry host, ``FleetSubmit`` flows back. The kinds of the KV mesh and
-  registry HA (``KvIntro``, ``RegistryLease``, ``RegistryState``) are not
-  known here: a frame of theirs is a ``FleetWireError``, which ends the
-  session.
+  registry host; ``FleetSubmit`` and the mesh's ``KvIntro`` flow back;
+  ``RegistryLease`` and ``RegistryState`` go registry to registry.
 - **FleetRegistry**: membership. A member joins by heartbeating its
   replicas' ``EngineStatus`` (digests included); missed beats age it
   ``alive -> suspect -> dead``, and a dead member is pruned after
@@ -19,8 +19,11 @@ serving/fleet.py``, without its KV data plane, KV mesh and registry HA).
   ``RemoteRunner`` proxy per remote engine (``serving/remote_runner.py``)
   in the scheduler, so the dispatch spine routes remote replicas like
   local ones. Member spans merge into the host's tracer; member telemetry
-  frames feed ``/server/perf`` and the health scorer's per-member latency
-  comparison.
+  frames feed ``/server/perf``, the health scorer's per-member latency
+  comparison and the learned wire rates. A heartbeat's ``data_port``
+  gives the member a ``KvDataChannel`` (cross-process handoff and fetch),
+  and with ``fleet.mesh_enabled`` the host introduces members to each
+  other's data ports (``KvIntro``).
 - **RoleBalancer**: flips a local ``unified`` engine to ``prefill`` when
   queued and waiting prompts per admission replica pass
   ``fleet.rerole_high_ratio``, and back below ``fleet.rerole_low_ratio``,
@@ -33,7 +36,7 @@ mid-stream ones fail as ``engine_crashed``. Fault points:
 ``fleet.heartbeat`` (the registry drops a beat: the partition model),
 ``fleet.submit`` (a forwarded submit dies on the wire, or the member
 crashes on receipt), ``sched.rerole`` (flag: force the rebalance signal
-high for one evaluation).
+high for one evaluation), ``fleet.kv_intro`` (an intro is dropped).
 """
 
 from __future__ import annotations
@@ -66,8 +69,7 @@ MEMBER_STATES = (MEMBER_ALIVE, MEMBER_SUSPECT, MEMBER_DEAD)
 
 @dataclass(frozen=True)
 class FleetSettings:
-    """The control plane's knobs (config section ``fleet``; the keys of
-    the KV data plane, the mesh and registry HA are not ported)."""
+    """The fleet's knobs (config section ``fleet``)."""
 
     enabled: bool = False
     host: str = "127.0.0.1"
@@ -85,6 +87,36 @@ class FleetSettings:
     # dead members stay visible this long, then leave the table (every
     # restarted worker mints a new hostname:pid identity)
     dead_retention_s: float = 300.0
+    # the KV data plane (serving/fleet_kv.py): a member binds a data
+    # listener (kv_data_port; 0 = ephemeral) and advertises it in every
+    # heartbeat; the registry host dials it lazily, with at most
+    # kv_max_streams bulk streams in flight per member. kv_enabled=False
+    # keeps a member control-plane only.
+    kv_enabled: bool = True
+    kv_data_port: int = 0
+    kv_max_streams: int = 4
+    kv_connect_timeout_s: float = 5.0
+    # the KV mesh (serving/fleet_mesh.py): the registry brokers member
+    # endpoints over KvIntro frames and members fetch from each other
+    # directly. Off: every fetch relays through the registry host.
+    mesh_enabled: bool = False
+    # the learned wire rates: observations older than the window are
+    # forgotten; kv_rate_prior (bytes/s) is the rate fleet.kv_page_cost
+    # prices (a wire measured at the prior costs the constant; <= 0
+    # turns learned pricing off)
+    kv_rate_window_s: float = 30.0
+    kv_rate_prior: float = 125000000.0
+    # registry HA (serving/fleet_ha.py): the ordered registry endpoints
+    # every process shares; members dial all of them, registries elect a
+    # lease-fenced primary (list order breaks ties). () = one registry.
+    registries: Tuple[str, ...] = ()
+    # the lease's aging on a standby: suspect after lease_suspect_s
+    # without a beat, taken over after lease_s
+    lease_s: float = 3.0
+    lease_suspect_s: float = 1.5
+    # False: a standby's dispatcher turns ingress away (QueueFull) until
+    # it holds the lease
+    standby_http: bool = True
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +129,9 @@ FRAME_KINDS: Dict[int, str] = {
     3: "FleetEvent",
     4: "FleetSpans",
     5: "FleetTelemetry",
+    6: "KvIntro",  # the mesh's introductions, registry host to member
+    7: "RegistryLease",  # registry HA: the primary's lease beat
+    8: "RegistryState",  # registry HA: a standby's echo
 }
 _KIND_BY_NAME = {name: kind for kind, name in FRAME_KINDS.items()}
 
@@ -485,6 +520,9 @@ class _MemberSession:
         self.member_id: Optional[str] = None
         # member-local engine id -> RemoteRunner proxy; guarded by _lock
         self.runners: Dict[str, Any] = {}
+        # the member's KV data channel, made when a heartbeat advertises a
+        # data_port; guarded by _lock
+        self.kv_channel: Any = None
         self._lock = threading.Lock()
         self._send_lock = threading.Lock()
         self._closed = False
@@ -497,7 +535,9 @@ class _MemberSession:
 
     def run(self) -> None:
         """The reader loop: what members send (heartbeats, events, spans,
-        telemetry). A FleetSubmit only flows host to member; one arriving
+        telemetry), and a peer registry's lease and state frames, which go
+        to the HA module (such a session claims no member id). A
+        FleetSubmit or KvIntro only flows host to member; one arriving
         here is a confused peer and is ignored."""
         try:
             while True:
@@ -517,6 +557,8 @@ class _MemberSession:
                 elif name == "FleetTelemetry":
                     self.server.ingest_telemetry(
                         obj, self.member_id or obj.get("member_id", ""))
+                elif name in ("RegistryLease", "RegistryState"):
+                    self.server.on_registry_frame(name, obj)
         except (OSError, FleetWireError) as e:
             logger.debug("fleet session %s reader ended: %s", self.peer, e)
         finally:
@@ -541,6 +583,9 @@ class _MemberSession:
         prev = self.server.registry.observe(member_id, statuses)
         if prev is None:
             return  # dropped by the fleet.heartbeat fault: no refresh
+        data_port = obj.get("data_port", 0)
+        self.server._ensure_kv_channel(self, member_id, data_port)
+        self.server._broker_intros(self, member_id, data_port)
         self.server._refresh_runners(self, obj.get("engines", []), statuses,
                                      rejoined=prev == MEMBER_DEAD)
 
@@ -558,6 +603,12 @@ class _MemberSession:
         with self._lock:
             runners = list(self.runners.values())
             self.runners.clear()
+            kv_channel, self.kv_channel = self.kv_channel, None
+        if kv_channel is not None:
+            # fails every KV stream in flight (handoffs decode in place,
+            # fetches recompute) and the migrated requests whose events
+            # rode it (engine_crashed)
+            kv_channel.close(message)
         for runner in runners:
             # identity-checked: a reconnect's fresh proxy under the same
             # id survives this session's late detach
@@ -596,12 +647,22 @@ class FleetServer:
         redispatch: Optional[Callable] = None,
         tracer=None,
         recorder=None,
+        health_settings=None,
+        retry_budget=None,
     ):
         """``redispatch``: the dispatcher's, for the proxies' zero-token
         requests. ``tracer``: the host's ``Tracer``; member spans merge
         into it, one stitched trace per request. ``recorder``: the host's
         ``FlightRecorder``; the proxies note remote token and terminal
-        events into its timelines."""
+        events into its timelines. ``health_settings``: shapes each data
+        channel's circuit breaker (``wire_failures``, ``breaker_open_s``);
+        ``retry_budget``: its redials draw from it."""
+        from distributed_inference_server_tpu_torch.serving.fleet_mesh \
+            import MeshWireRates
+        from distributed_inference_server_tpu_torch.serving.health import (
+            HealthSettings,
+        )
+
         self.registry = registry
         self.scheduler = scheduler
         self.settings = settings or FleetSettings()
@@ -609,6 +670,20 @@ class FleetServer:
         self.redispatch = redispatch
         self.tracer = tracer
         self.recorder = recorder
+        self.health_settings = health_settings or HealthSettings()
+        self.retry_budget = retry_budget
+        # learned wire rates: the host's channels observe locally, member
+        # to member wires arrive as kvwire counters on member telemetry;
+        # a cold wire prices at the configured constant
+        self.mesh_rates = MeshWireRates(
+            window_s=self.settings.kv_rate_window_s,
+            prior_rate=self.settings.kv_rate_prior, metrics=metrics)
+        # the intro broker (guarded by _lock): member id -> its published
+        # (host, data_port), and the kvwire counters last seen per
+        # (member, src, dst), so telemetry feeds the rates deltas
+        self._intro_endpoints: Dict[str, Tuple[str, int]] = {}
+        self._kvwire_last: Dict[Tuple[str, str, str],
+                                Tuple[float, float, float]] = {}
         # re-bases ingested spans from epoch ns into this monotonic clock
         self._epoch_offset_ns = time.time_ns() - time.monotonic_ns()
         self._sessions: List[_MemberSession] = []
@@ -623,6 +698,10 @@ class FleetServer:
         self._thread: Optional[threading.Thread] = None
         self._stopping = False
         self.bound_port: int = 0
+        # registry HA (serving/fleet_ha.py), set by the server when
+        # fleet.registries is configured; None: every HA hook below keeps
+        # the single-registry behaviour
+        self.ha = None
         registry.on_state_change = self._on_member_state
 
     # -- lifecycle ---------------------------------------------------------
@@ -694,6 +773,40 @@ class FleetServer:
                     and self._by_member.get(session.member_id) is session):
                 self._by_member.pop(session.member_id, None)
 
+    # -- registry HA hooks (serving/fleet_ha.py) ---------------------------
+
+    def control_epoch(self) -> int:
+        """The epoch stamped on every control frame this registry sends
+        (submits, aborts, intros); 0 without HA, which members treat as
+        unfenced."""
+        ha = self.ha
+        return ha.epoch if ha is not None else 0
+
+    def on_registry_frame(self, name: str, obj: Dict[str, Any]) -> None:
+        """A peer registry's RegistryLease or RegistryState frame, on a
+        session's reader thread."""
+        ha = self.ha
+        if ha is not None:
+            ha.on_peer_frame(name, obj)
+
+    def on_ha_promote(self) -> None:
+        """This registry just took the lease. Its member table, proxies and
+        rates are warm (the dual heartbeat kept them live); the intro
+        broker re-publishes every known endpoint at the new epoch, so
+        members fence the old primary's intros."""
+        if not self.settings.mesh_enabled:
+            return
+        with self._lock:
+            endpoints = dict(self._intro_endpoints)
+            sessions = dict(self._by_member)
+        grant = self.settings.kv_max_streams
+        for member_id, session in sessions.items():
+            for other_id, ep in endpoints.items():
+                if other_id != member_id:
+                    self._send_intro(session, {
+                        "member_id": other_id, "host": ep[0],
+                        "data_port": ep[1], "max_streams": grant})
+
     # -- span ingest (session reader threads) ------------------------------
 
     def ingest_spans(self, obj: Dict[str, Any], member_id: str) -> None:
@@ -754,6 +867,7 @@ class FleetServer:
                                        "counters": counters, "at": now}
             pruned = self._prune_telemetry_locked(now)
         self._drop_member_series(pruned)
+        self._ingest_wire_counters(member, counters)
         if self.metrics is None:
             return
         # one outcome per frame
@@ -781,10 +895,59 @@ class FleetServer:
             del self._telemetry[member]
         return stale
 
+    def _ingest_wire_counters(self, member: str,
+                              counters: Dict[str, float]) -> None:
+        """Feed a member's cumulative ``kvwire|src|dst|*`` counters (its
+        mesh channels' bulk bytes, seconds and chunks) into the learned
+        rates, as deltas against its last frame. A counter that ran
+        backwards means the member's telemetry restarted: the value is
+        then the delta."""
+        from distributed_inference_server_tpu_torch.serving.fleet_mesh \
+            import WIRE_COUNTER_PREFIX
+
+        wires: Dict[Tuple[str, str], Dict[str, float]] = {}
+        for name, value in counters.items():
+            if not name.startswith(WIRE_COUNTER_PREFIX):
+                continue
+            parts = name.split("|")
+            if len(parts) != 4 or parts[3] not in ("bytes", "seconds",
+                                                   "chunks"):
+                continue
+            wires.setdefault((parts[1], parts[2]), {})[parts[3]] = value
+        for (src, dst), vals in wires.items():
+            cur = (vals.get("bytes", 0.0), vals.get("seconds", 0.0),
+                   vals.get("chunks", 0.0))
+            key = (member, src, dst)
+            with self._lock:
+                last = self._kvwire_last.get(key, (0.0, 0.0, 0.0))
+                self._kvwire_last[key] = cur
+            if any(c < p for c, p in zip(cur, last)):
+                last = (0.0, 0.0, 0.0)  # the member's telemetry restarted
+            d_bytes, d_secs, d_chunks = (c - p for c, p in zip(cur, last))
+            if d_bytes > 0 and d_secs > 0:
+                self.mesh_rates.observe(src, dst, int(d_bytes), d_secs,
+                                        chunks=int(d_chunks))
+
     def _drop_member_series(self, members: List[str]) -> None:
         if self.metrics is not None:
             for member in members:
                 self.metrics.remove_member_telemetry(member)
+        if members:
+            self._forget_wires(members)
+
+    def _forget_wires(self, members: List[str]) -> None:
+        """Drop pruned or dead members' rate state: their wire series
+        leave the gauge and their counters leave the delta table."""
+        for member in members:
+            self.mesh_rates.drop_member(member)
+        with self._lock:
+            for member in members:
+                self._intro_endpoints.pop(member, None)
+            gone = [k for k in self._kvwire_last
+                    if k[0] in members or k[1] in members
+                    or k[2] in members]
+            for key in gone:
+                del self._kvwire_last[key]
 
     def telemetry_snapshot(self) -> Dict[str, Dict[str, Any]]:
         """Per member, its last telemetry frame and its age: the
@@ -801,6 +964,174 @@ class FleetServer:
             }
         self._drop_member_series(pruned)
         return out
+
+    # -- the KV data plane (session reader threads) ------------------------
+
+    def _ensure_kv_channel(self, session: _MemberSession, member_id: str,
+                           data_port: int) -> None:
+        """Make (or retire) the member's data channel to match its
+        advertised ``data_port``. The channel dials lazily: the first
+        handoff or fetch pays the connect, not the heartbeat path."""
+        from distributed_inference_server_tpu_torch.serving.fleet_kv import (
+            KvDataChannel,
+        )
+
+        host = session.peer.rsplit(":", 1)[0]
+        with session._lock:
+            if session._closed:
+                return
+            current = session.kv_channel
+            if data_port <= 0:
+                session.kv_channel = None
+                stale = current
+            elif (current is not None
+                    and current.address == (host, data_port)):
+                return
+            else:
+                stale = current
+                session.kv_channel = KvDataChannel(
+                    member_id, host, data_port,
+                    max_streams=self.settings.kv_max_streams,
+                    connect_timeout_s=self.settings.kv_connect_timeout_s,
+                    metrics=self.metrics,
+                    on_event=session._on_event,
+                    on_lost_requests=lambda rids, reason,
+                    s=session: self._fail_kv_requests(s, rids, reason),
+                    breaker_threshold=self.health_settings.wire_failures,
+                    breaker_open_s=self.health_settings.breaker_open_s,
+                    retry_budget=self.retry_budget,
+                    # the host's channels are the ("registry", member)
+                    # wires of the rate table
+                    rate_estimator=self.mesh_rates.estimator(
+                        "registry", member_id))
+            for runner in session.runners.values():
+                runner.kv_channel = session.kv_channel
+        if stale is not None:
+            stale.close("member advertised a new kv data port")
+
+    def _fail_kv_requests(self, session: _MemberSession,
+                          request_ids: List[str], reason: str) -> None:
+        """The data channel died under migrated requests' decode: fail
+        exactly those (they streamed tokens: engine_crashed)."""
+        with session._lock:
+            runners = list(session.runners.values())
+        for runner in runners:
+            runner.fail_requests(request_ids, reason)
+
+    def kv_stats(self) -> Dict[str, Any]:
+        """Each member's data channel (connected, streams in flight,
+        bytes) for the ``/server/stats`` fleet block."""
+        with self._lock:
+            sessions = [(s.member_id, s) for s in self._sessions
+                        if s.member_id is not None]
+        out: Dict[str, Any] = {}
+        for member_id, session in sessions:
+            with session._lock:
+                channel = session.kv_channel
+            if channel is not None:
+                out[member_id] = channel.stats()
+        return out
+
+    # -- the KV mesh's intro broker (session reader threads) ---------------
+
+    def _broker_intros(self, session: _MemberSession, member_id: str,
+                       data_port: int) -> None:
+        """Keep every member introduced to every other member's data
+        endpoint. Called per heartbeat; intros cross the wire only when an
+        endpoint is new or changed, plus a full catch-up for a member
+        whose endpoint just (re)appeared. A standby only tracks endpoints:
+        on promotion ``on_ha_promote`` publishes them at its epoch."""
+        if not self.settings.mesh_enabled:
+            return
+        host = session.peer.rsplit(":", 1)[0]
+        endpoint = (host, int(data_port)) if data_port > 0 else None
+        if self.ha is not None and not self.ha.is_primary():
+            with self._lock:
+                if endpoint is None:
+                    self._intro_endpoints.pop(member_id, None)
+                else:
+                    self._intro_endpoints[member_id] = endpoint
+            return
+        with self._lock:
+            prev = self._intro_endpoints.get(member_id)
+            if endpoint == prev:
+                return
+            if endpoint is None:
+                self._intro_endpoints.pop(member_id, None)
+            else:
+                self._intro_endpoints[member_id] = endpoint
+            others = [(m, s, self._intro_endpoints.get(m))
+                      for m, s in self._by_member.items() if m != member_id]
+        if endpoint is None:
+            # the member stopped advertising a data plane: retract it
+            for _other_id, other_session, _ep in others:
+                self._send_intro(other_session,
+                                 {"member_id": member_id, "gone": True})
+            return
+        grant = self.settings.kv_max_streams
+        for other_id, other_session, other_ep in others:
+            # both ways: the fleet learns the endpoint, and the (re)joiner
+            # learns the fleet's
+            self._send_intro(other_session, {
+                "member_id": member_id, "host": endpoint[0],
+                "data_port": endpoint[1], "max_streams": grant})
+            if other_ep is not None:
+                self._send_intro(session, {
+                    "member_id": other_id, "host": other_ep[0],
+                    "data_port": other_ep[1], "max_streams": grant})
+
+    def _send_intro(self, session: _MemberSession,
+                    obj: Dict[str, Any]) -> None:
+        """One KvIntro send, counted by outcome. The broker is best
+        effort: a lost intro costs the mesh route (the fetch recomputes),
+        never an error."""
+        ha = getattr(self, "ha", None)
+        if ha is not None and ha.epoch:
+            # members ignore intros older than the highest epoch seen
+            obj = dict(obj, epoch=ha.epoch)
+        try:
+            faults.fire("fleet.kv_intro")
+            session.send("KvIntro", obj)
+            outcome = "gone" if obj.get("gone") else "sent"
+        except faults.InjectedFault:
+            outcome = "dropped"
+        except (FleetWireError, OSError) as e:
+            logger.debug("kv intro to %s failed: %s", session.member_id, e)
+            outcome = "failed"
+        if self.metrics is not None:
+            self.metrics.record_kv_intro(outcome)
+
+    def mesh_route(self, target_member: str, peer_member: str) -> bool:
+        """Whether the mesh introduced (or will introduce, at the next
+        beat) ``target_member`` to ``peer_member``: the gate for handing
+        a member-to-member fetch to the member instead of relaying the
+        chunks through this host."""
+        if not self.settings.mesh_enabled or target_member == peer_member:
+            return False
+        with self._lock:
+            return (target_member in self._intro_endpoints
+                    and peer_member in self._intro_endpoints)
+
+    def kv_wire_stats(self) -> List[Dict[str, Any]]:
+        """The ``kv_wires`` table of ``/server/stats``: one row per
+        directed wire with its learned rate and lifetime bytes and
+        chunks. The host's own wires carry their channel's connection and
+        breaker state; member-to-member wires say whether the pair is
+        introduced (their sockets live in the members)."""
+        rows: Dict[Tuple[str, str], Dict[str, Any]] = {
+            (r["src"], r["dst"]): r for r in self.mesh_rates.snapshot()}
+        for member_id, st in self.kv_stats().items():
+            row = rows.setdefault(("registry", member_id), {
+                "src": "registry", "dst": member_id,
+                "rate_bytes_per_s": None, "bytes": 0, "chunks": 0})
+            row["connected"] = st.get("connected", False)
+            row["breaker"] = st.get("breaker")
+        with self._lock:
+            introduced = set(self._intro_endpoints)
+        for (src, dst), row in rows.items():
+            if "connected" not in row:
+                row["introduced"] = src in introduced and dst in introduced
+        return [rows[k] for k in sorted(rows)]
 
     # -- runner materialization (session reader threads) -------------------
 
@@ -830,6 +1161,10 @@ class FleetServer:
                         send=session.send, metrics=self.metrics,
                         recorder=self.recorder)
                     runner.redispatch = self.redispatch
+                    runner.kv_channel = session.kv_channel
+                    # stamps submits and aborts with this registry's
+                    # control epoch (0: unfenced)
+                    runner.epoch_fn = self.control_epoch
                     session.runners[local_id] = runner
                     self.scheduler.register(runner)
                     logger.info("fleet: registered remote engine %s "
@@ -857,6 +1192,18 @@ class FleetServer:
             # mid-stream ones fail fast
             session.detach_runners(
                 f"fleet member {member_id} dead (missed heartbeats)")
+            # the mesh retracts the dead member's endpoint (each receiver
+            # closes its wire) and its rate series go
+            if self.settings.mesh_enabled:
+                with self._lock:
+                    known = member_id in self._intro_endpoints
+                    others = [s for m, s in self._by_member.items()
+                              if m != member_id]
+                if known:
+                    for other in others:
+                        self._send_intro(other, {"member_id": member_id,
+                                                 "gone": True})
+            self._forget_wires([member_id])
         elif new == MEMBER_SUSPECT or old == MEMBER_SUSPECT:
             # suspect leaves routing, suspect -> alive returns; dead ->
             # alive is the heartbeat path's (fresh proxies)
@@ -896,6 +1243,9 @@ class RoleBalancer:
         self._history: Deque[Dict[str, Any]] = deque(maxlen=64)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # registry HA: only the lease holder balances (the server wires
+        # RegistryHA.is_primary); None: always active
+        self.active_fn: Optional[Callable[[], bool]] = None
 
     def signal(self) -> float:
         """Prompt pressure: queued and engine-waiting prompts per healthy
@@ -911,6 +1261,10 @@ class RoleBalancer:
         None. At most one engine flips per evaluation, never within
         ``rerole_cooldown_s`` of the last flip."""
         if not self.settings.rerole:
+            return None
+        if self.active_fn is not None and not self.active_fn():
+            # a standby's balancer stays quiet: two balancers flipping
+            # one fleet would fight
             return None
         now = time.monotonic() if now is None else now
         # gates only the to_prefill direction (a restore must run with

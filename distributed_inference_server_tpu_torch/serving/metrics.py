@@ -598,6 +598,38 @@ class MetricsCollector:
             "A member's windowed TTFT p99 (ms) from its last shipped "
             "digest (0 until it has a windowed sample)", "gauge",
             ["member"])
+        # the KV mesh (serving/fleet_mesh.py): learned wire rates (src and
+        # dst are member ids, "registry" for this host; a dead member's
+        # series go) and the intro broker's sends
+        self.kv_wire_rate = fam(
+            "fleet_kv_wire_rate_bytes_per_s",
+            "Learned KV wire transfer rate over the configured window "
+            "(fleet.kv_rate_window_s); absent while the wire is cold "
+            "(it then prices at the fleet.kv_rate_prior constant)",
+            "gauge", ["src", "dst"])
+        self.kv_intros = fam(
+            "fleet_kv_intro_total",
+            "KvIntro broker sends by outcome (sent | gone = retraction "
+            "| dropped = injected fleet.kv_intro fault | failed = "
+            "member session wire error)", "counter", ["outcome"])
+        # registry HA (serving/fleet_ha.py): both role series are always
+        # published, one of them 1; the epoch is the fencing token
+        self.registry_role = fam(
+            "fleet_registry_role",
+            "This registry's HA role as a 0/1 gauge per role label "
+            "(primary | standby); exactly one series is 1 at a time",
+            "gauge", ["role"])
+        self.registry_takeovers = fam(
+            "fleet_registry_takeovers_total",
+            "Registry HA role transitions by reason (lease_expired = "
+            "standby promoted after the primary lease aged out | "
+            "fenced = a primary demoted on seeing a higher-epoch or "
+            "lower-index peer lease)", "counter", ["reason"])
+        self.registry_epoch = fam(
+            "fleet_registry_epoch",
+            "This registry's current control epoch (the fencing token "
+            "stamped on FleetSubmit/KvIntro frames; members reject "
+            "control from lower epochs)", "gauge")
 
         # the windowed digests behind GET /server/perf
         self.perf = PerfTelemetry()
@@ -643,6 +675,8 @@ class MetricsCollector:
         self._slo_goodput: Dict[str, int] = {}
         self._fleet_heartbeats: Dict[str, int] = {}
         self._fleet_reroles: Dict[str, int] = {}
+        self._kv_intros: Dict[str, int] = {}
+        self._registry_takeovers: Dict[str, int] = {}
         # member -> the step-token kinds published for it, so a pruned
         # member's series can be removed
         self._member_kinds: Dict[str, set] = {}
@@ -1081,13 +1115,51 @@ class MetricsCollector:
             self._fleet_reroles[direction] = (
                 self._fleet_reroles.get(direction, 0) + 1)
 
+    def record_kv_intro(self, outcome: str) -> None:
+        """One KvIntro send: sent | gone | dropped | failed."""
+        self.kv_intros.labels(outcome=outcome).inc()
+        with self._lock:
+            self._kv_intros[outcome] = self._kv_intros.get(outcome, 0) + 1
+
+    def set_registry_role(self, role: str) -> None:
+        """This registry's HA role: both series are written (the role 1,
+        the other 0), so a flip never leaves two reading 1."""
+        self.registry_role.labels(role="primary").set(
+            1 if role == "primary" else 0)
+        self.registry_role.labels(role="standby").set(
+            1 if role == "standby" else 0)
+
+    def record_registry_takeover(self, reason: str) -> None:
+        """One HA role transition: lease_expired (a standby promoted) or
+        fenced (a primary stepped down)."""
+        self.registry_takeovers.labels(reason=reason).inc()
+        with self._lock:
+            self._registry_takeovers[reason] = (
+                self._registry_takeovers.get(reason, 0) + 1)
+
+    def set_registry_epoch(self, epoch: int) -> None:
+        self.registry_epoch.set(epoch)
+
+    def set_kv_wire_rate(self, src: str, dst: str, rate: float) -> None:
+        """One wire's learned rate (``MeshWireRates`` is the only writer
+        and drives the removals, so the label set follows live wires)."""
+        with self._lock:
+            self.kv_wire_rate.labels(src=src, dst=dst).set(rate)
+
+    def remove_kv_wire_rate(self, src: str, dst: str) -> None:
+        with self._lock:
+            try:
+                self.kv_wire_rate.remove(src, dst)
+            except KeyError:
+                pass
+
     def fleet_counters(self) -> Dict[str, Any]:
-        """The heartbeat and rerole counts of the ``/server/stats``
-        fleet block (the reference's ``kv_intros`` belong to the KV
-        mesh, not ported)."""
+        """The heartbeat, rerole and intro counts of the ``/server/stats``
+        fleet block."""
         with self._lock:
             return {"heartbeats": dict(self._fleet_heartbeats),
-                    "reroles": dict(self._fleet_reroles)}
+                    "reroles": dict(self._fleet_reroles),
+                    "kv_intros": dict(self._kv_intros)}
 
     # -- rendering ---------------------------------------------------------
 

@@ -29,7 +29,7 @@ import random
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from distributed_inference_server_tpu_torch.engine.kv_cache import (
     DIGEST_DEPTH,
@@ -143,6 +143,8 @@ def plan_route(
     roles: Optional[Sequence[str]] = None,
     costs: Optional[FetchCosts] = None,
     page_size: int = 0,
+    wire_cost: Optional[Callable] = None,
+    mesh_route: Optional[Callable] = None,
 ) -> Optional[PrefixRoutePlan]:
     """Three-way cache_aware routing, scored per admissible replica in
     pages::
@@ -161,8 +163,15 @@ def plan_route(
     A fleet member's replica (``remote``) takes warm and recompute
     routes like any other (its heartbeated digest scores), but sources a
     fetch only with a KV data channel (``data_plane``, at
-    ``remote_page_cost`` a page) and is never a fetch target: the import
-    seats pages in this host's engine."""
+    ``remote_page_cost`` a page), and is a fetch target only through the
+    mesh: ``mesh_route(target, peer)`` true for a remote peer and a
+    target with a data channel (its member then pulls the chunks over
+    its own wire, from a fetch hint).
+
+    ``wire_cost(target, peer)``: the learned per-page cost of the wire a
+    fetch would cross (``serving/fleet_mesh.py``); None for a cold wire,
+    which is charged the constant (``page_cost`` or
+    ``remote_page_cost``)."""
     costs = costs or FetchCosts()
     healthy = [s for s in statuses if s.healthy]
     admissible = (healthy if roles is None else
@@ -208,11 +217,21 @@ def plan_route(
         base = costs.load_cost_pages * load(s)
         options.append((base + (n_pages - d), 0, load(s), s.engine_id,
                         "route", s, d))
+        target_ok = (not getattr(s, "remote", False)
+                     or (mesh_route is not None and peer is not None
+                         and getattr(peer, "remote", False)
+                         and getattr(s, "data_plane", False)
+                         and mesh_route(s, peer)))
         if (costs.enabled and peer is not None
-                and s.engine_id != peer.engine_id
-                and not getattr(s, "remote", False)
+                and s.engine_id != peer.engine_id and target_ok
                 and peer_depth - d >= costs.min_pages):
-            per_page = peer_page_cost * costs.wire_frac
+            # the fetch moves the whole chain (pages 0..peer_depth), priced
+            # at the wire's learned rate when warm, else the constant, in
+            # encoded bytes (wire_frac)
+            per_page = wire_cost(s, peer) if wire_cost is not None else None
+            if per_page is None:
+                per_page = peer_page_cost
+            per_page *= costs.wire_frac
             options.append((base + (n_pages - peer_depth)
                             + per_page * peer_depth,
                             1, load(s), s.engine_id, "fetch", s, d))
@@ -312,6 +331,12 @@ class AdaptiveScheduler:
         # the gray-failure scorer (serving/health.py), wired by the
         # server; when set, statuses() stamps its verdicts
         self.health_scorer = None
+        # the learned wire prices and the mesh gate (serving/fleet_mesh.py),
+        # wired by a registry host's server: wire_cost prices the wire a
+        # fetch or handoff would cross, mesh_route admits remote fetch
+        # targets whose member has a direct wire to the peer
+        self.wire_cost: Optional[Callable] = None
+        self.mesh_route: Optional[Callable] = None
 
     # -- registration ------------------------------------------------------
 
@@ -441,28 +466,60 @@ class AdaptiveScheduler:
                         max_pages=min(digest_depth, cap))
                 plan = plan_route(statuses, prefix_hashes, roles=roles,
                                   costs=self._fetch_costs,
-                                  page_size=hash_ps)
+                                  page_size=hash_ps,
+                                  wire_cost=self.wire_cost,
+                                  mesh_route=self.mesh_route)
                 if plan is None:
                     out.append((None, None))
                     continue
                 out.append((self._engines.get(plan.engine_id), plan))
         return out
 
-    def schedule_decode(self, exclude: Optional[str] = None
-                        ) -> Optional[EngineRunner]:
+    def schedule_decode(self, exclude: Optional[str] = None,
+                        pages: int = 0) -> Optional[EngineRunner]:
         """The migration target of a finished prefill: the least-loaded
         healthy decode-role replica (``exclude`` drops the source). None
         = no decode capacity; the caller decodes in place. A fleet
         member's replica qualifies only when it can import KV
-        (``supports_kv_import``, false without a data channel)."""
+        (``supports_kv_import``: a data channel whose breaker is not
+        open).
+
+        With ``wire_cost`` wired and ``pages`` known (the handoff's
+        size), each remote candidate is also charged the learned cost of
+        moving the pages over its wire, in ``plan_route``'s page units: a
+        congested wire loses to a slightly busier local replica."""
         statuses = [r.status() for r in self.engines()
                     if r.engine_id != exclude
                     and (not getattr(r, "is_remote", False)
                          or getattr(r, "supports_kv_import", False))]
         if self.health_scorer is not None:
             statuses = self.health_scorer.stamp(statuses)
-        engine_id = choose_engine(SchedulingStrategy.LEAST_LOADED, statuses,
-                                  0, roles=("decode",))
+        if self.wire_cost is not None and pages > 0:
+            decode = [s for s in statuses if s.healthy
+                      and getattr(s, "role", "unified") == "decode"]
+            if not decode:
+                return None
+            costs = self._fetch_costs
+
+            def score(s: EngineStatus):
+                wire_pages = 0.0
+                if getattr(s, "remote", False):
+                    # this host is the source: the (registry -> member)
+                    # wire; a cold one is charged the constant
+                    per_page = self.wire_cost(s, None)
+                    if per_page is None:
+                        per_page = costs.remote_page_cost
+                    wire_pages = per_page * costs.wire_frac * pages
+                return (health_rank(getattr(s, "health", "healthy")),
+                        costs.load_cost_pages
+                        * (s.active_requests + s.waiting_requests)
+                        + wire_pages,
+                        s.engine_id)
+
+            engine_id = min(decode, key=score).engine_id
+        else:
+            engine_id = choose_engine(SchedulingStrategy.LEAST_LOADED,
+                                      statuses, 0, roles=("decode",))
         if engine_id is None:
             return None
         with self._lock:

@@ -1,7 +1,6 @@
 """Inference server: engine replicas behind the adaptive scheduler and a
 standard-library HTTP server (the counterpart of
-``distributed_inference_server_tpu/serving/server.py`` without the fleet's
-KV data plane, mesh and registry HA).
+``distributed_inference_server_tpu/serving/server.py``).
 
 It wires the ``MetricsCollector``; ``num_engines`` ``EngineRunner``
 replicas, each built by ``engine_factory(replica_index)`` (or a
@@ -30,9 +29,16 @@ With ``fleet_settings.enabled`` the server is a fleet's registry host
 (``serving/fleet.py``): a ``FleetRegistry`` and a ``FleetServer`` whose
 ``RemoteRunner`` proxies put the members' engines in the scheduler; with
 ``fleet_settings.rerole`` a ``RoleBalancer`` flips local engines between
-unified and prefill. The proxies are not the server's to scale, swap or
-report per replica: ``scale_to``, ``swap_model`` and the ``replicas``
-block cover the local replicas only.
+unified and prefill. The registry host prices the fleet's KV wires from
+their learned rates (``serving/fleet_mesh.py``): the scheduler's
+``wire_cost`` and ``mesh_route`` and the fetcher's ``mesh_route``. With
+``fleet_settings.registries`` it runs ``RegistryHA``
+(``serving/fleet_ha.py``): the lease election, the epoch on every control
+frame, the balancer active only on the primary, and with
+``standby_http`` false a standby's dispatcher turning ingress away. The
+proxies are not the server's to scale, swap or report per replica:
+``scale_to``, ``swap_model`` and the ``replicas`` block cover the local
+replicas only.
 
 ``server.runner`` is the first replica (``engine-0``): it is never
 retired, and a restart keeps its runner object.
@@ -273,22 +279,41 @@ class InferenceServer:
         self.fleet_registry: Optional[FleetRegistry] = None
         self.fleet_server: Optional[FleetServer] = None
         self.role_balancer: Optional[RoleBalancer] = None
+        self.fleet_ha = None
         if self.fleet_settings.enabled:
             self.fleet_registry = FleetRegistry(self.fleet_settings,
                                                 metrics=self.metrics)
             self.fleet_server = FleetServer(
                 self.fleet_registry, self.scheduler, self.fleet_settings,
                 metrics=self.metrics, redispatch=self.dispatcher.redispatch,
-                tracer=self.tracer, recorder=self.recorder)
+                tracer=self.tracer, recorder=self.recorder,
+                health_settings=self.health_settings,
+                retry_budget=self.retry_budget)
             if self.health_scorer is not None:
                 # the scorer compares the members' latency with the
                 # frames /server/perf merges
                 self.health_scorer.telemetry_fn = (
                     self.fleet_server.telemetry_snapshot)
+            self._wire_fleet_prices(self.fleet_server)
+            if self.fleet_settings.registries:
+                from distributed_inference_server_tpu_torch.serving.fleet_ha \
+                    import RegistryHA
+
+                self.fleet_ha = RegistryHA(
+                    self.fleet_server, self.fleet_settings,
+                    metrics=self.metrics, recorder=self.recorder)
+                self.fleet_server.ha = self.fleet_ha
+                if not self.fleet_settings.standby_http:
+                    # one front door: a standby turns ingress away until
+                    # it holds the lease
+                    self.dispatcher.ingress_gate = self.fleet_ha.is_primary
         if self.fleet_settings.rerole:
             self.role_balancer = RoleBalancer(
                 self.scheduler, self.dispatcher, self.fleet_settings,
                 metrics=self.metrics, recorder=self.recorder)
+            if self.fleet_ha is not None:
+                # only the lease holder balances roles
+                self.role_balancer.active_fn = self.fleet_ha.is_primary
         self._num_engines = num_engines
         self._next_engine_idx = 0
         self._scale_lock = threading.Lock()
@@ -297,6 +322,36 @@ class InferenceServer:
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._http_thread: Optional[threading.Thread] = None
         self.started_at = time.time()
+
+    def _wire_fleet_prices(self, fs: FleetServer) -> None:
+        """Price the fleet's KV wires from their learned rates: a status
+        pair becomes the (src, dst) key of the wire a move crosses (a
+        member id, or "registry" for this host and for the handoff's
+        source), and ``mesh_route`` admits member-to-member fetches."""
+
+        def member_of(status) -> str:
+            if status is None or not getattr(status, "remote", False):
+                return "registry"
+            return status.engine_id.rsplit(":", 1)[0]
+
+        def wire_cost(target, peer):
+            dst, src = member_of(target), member_of(peer)
+            if src == dst:
+                return None  # no wire crossed
+            base = self.scheduler._fetch_costs.remote_page_cost
+            # rates are keyed by the channel that carries the chunks: the
+            # host's channels are ("registry", member) either way
+            if "registry" in (src, dst):
+                member = dst if src == "registry" else src
+                return fs.mesh_rates.page_cost("registry", member, base)
+            return fs.mesh_rates.page_cost(dst, src, base)
+
+        def mesh_route(target, peer) -> bool:
+            return fs.mesh_route(member_of(target), member_of(peer))
+
+        self.scheduler.wire_cost = wire_cost
+        self.scheduler.mesh_route = mesh_route
+        self.prefix_fetcher.mesh_route = fs.mesh_route
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -315,6 +370,11 @@ class InferenceServer:
             self.health_scorer.start()
         if self.fleet_server is not None:
             self.fleet_server.start()
+        if self.fleet_ha is not None:
+            # after the listener: the lease wire's identity is the bound
+            # port (fleet.port 0 binds an ephemeral one)
+            self.fleet_ha.start(
+                f"{self.fleet_settings.host}:{self.fleet_server.bound_port}")
         if self.role_balancer is not None:
             self.role_balancer.start()
         self._accepting = True
@@ -352,6 +412,10 @@ class InferenceServer:
             self._httpd = None
         if self._http_thread is not None:
             self._http_thread.join(10)
+        if self.fleet_ha is not None:
+            # before the listener: the lease loop must not race its
+            # teardown (peers see the lease age out)
+            self.fleet_ha.stop()
         if self.fleet_server is not None:
             # after the drain (remote requests counted), before the local
             # engines stop: the member sessions detach cleanly
@@ -520,13 +584,21 @@ class InferenceServer:
         """The ``fleet`` block of ``/server/stats`` (None without a
         registry or a balancer): the members with their state and
         last-beat age, the count per state, the balancer's signal,
-        flipped engines and history, the role of every routed engine and
-        the heartbeat and rerole counts."""
+        flipped engines and history, the role of every routed engine, the
+        heartbeat, rerole and intro counts, each member's data channel
+        (``kv_channels``), every priced wire with its learned rate
+        (``kv_wires``) and, with HA, this registry's role, epoch, lease and
+        peers (``registry``)."""
         if self.fleet_registry is None and self.role_balancer is None:
             return None
         out: dict = {}
         if self.fleet_registry is not None:
             out.update(self.fleet_registry.stats())
+        if self.fleet_server is not None:
+            out["kv_channels"] = self.fleet_server.kv_stats()
+            out["kv_wires"] = self.fleet_server.kv_wire_stats()
+        if self.fleet_ha is not None:
+            out["registry"] = self.fleet_ha.stats()
         if self.role_balancer is not None:
             out["rebalancer"] = self.role_balancer.stats()
         out["role_map"] = {r.engine_id: r.role

@@ -232,6 +232,7 @@ _PORTED_REFUSALS = {
     "fleet.enabled": "fleet.port must be in [0, 65536)",
     "fleet.connect": "fleet.connect must be host:port",
     "fleet.rerole": "fleet.rerole_low_ratio must be below",
+    "fleet.registries": "fleet.lease_s must exceed fleet.lease_suspect_s",
 }
 
 
@@ -243,14 +244,16 @@ _PORTED_REFUSALS = {
     (["--server-grpc-port", "50051"], "server.grpc_port"),
     (["--fleet-enabled", "true", "--fleet-port", "70000"], "fleet.enabled"),
     (["--fleet-connect", "no-port"], "fleet.connect"),
-    (["--fleet-registries", "127.0.0.1:7070"], "fleet.registries"),
+    (["--fleet-registries", "127.0.0.1:7070", "--fleet-lease-s", "1.0"],
+     "fleet.registries"),
     (["--fleet-rerole", "true", "--fleet-rerole-low-ratio", "9"],
      "fleet.rerole"),
 ])
 def test_unported_settings_are_refused(flags, key, capsys, monkeypatch):
-    """The gRPC transport and registry HA exit 2 as not ported yet; the
-    ported parallel and fleet settings exit 2 with the device-count,
-    coordinator or value error instead, never as unported."""
+    """The gRPC transport exits 2 as not ported yet; the ported parallel
+    and fleet settings (registry HA included) exit 2 with the
+    device-count, coordinator or value error instead, never as
+    unported."""
     from distributed_inference_server_tpu_torch.__main__ import main
 
     monkeypatch.setenv("XLA_FLAGS",

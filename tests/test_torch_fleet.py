@@ -12,7 +12,8 @@ through both packages with the results compared.
   dones, errors, redispatches) over the same event sequences.
 - Remote-aware ``plan_route``, the ``RoleBalancer``'s decisions, the
   ``fleet`` config mapping and its validation, ``unregister_if``, and
-  ``check_ported`` still refusing registry HA and the gRPC port.
+  ``check_ported`` accepting registry HA and still refusing the gRPC
+  port.
 """
 
 from __future__ import annotations
@@ -226,19 +227,20 @@ class TestFleetWire:
             assert got[1] == jpw.decode(name, port_bytes[5:])
 
     def test_frame_kinds_are_the_jax_control_plane_kinds(self):
-        for kind, name in fleet.FRAME_KINDS.items():
-            assert jfleet.FRAME_KINDS[kind] == name
-        # the KV mesh's and registry HA's kinds are not spoken yet: a
-        # KvIntro frame from a JAX host ends the session
+        # all eight kinds, the KV mesh's and registry HA's included
+        assert fleet.FRAME_KINDS == jfleet.FRAME_KINDS
+        assert len(fleet.FRAME_KINDS) == 8
+        # a KvIntro frame from a JAX host is decoded, not fatal
+        intro = {"member_id": "w2", "host": "h", "data_port": 9}
         a, b = socket.socketpair()
         try:
-            jfleet.send_frame(a, "KvIntro", {"member_id": "w2", "host": "h",
-                                             "data_port": 9})
-            with pytest.raises(fleet.FleetWireError):
-                fleet.recv_frame(b)
+            jfleet.send_frame(a, "KvIntro", intro)
+            name, got = fleet.recv_frame(b)
         finally:
             a.close()
             b.close()
+        assert name == "KvIntro"
+        assert got == jpw.decode("KvIntro", jpw.encode("KvIntro", intro))
 
     def test_event_without_token_id_decodes_absent(self):
         a, b = socket.socketpair()
@@ -631,6 +633,7 @@ class TestRemoteRunner:
     def test_no_kv_import_without_a_data_channel(self):
         r, _ = _remote(PORT)
         jr, _ = _remote(JAX)
+        assert r.kv_channel is None and jr.kv_channel is None
         assert r.supports_kv_import is False
         assert jr.supports_kv_import is False  # no data channel wired
         assert r.status().data_plane is False
@@ -887,7 +890,14 @@ class TestFleetConfig:
         ({"DIS_TPU_SERVER__GRPC_PORT": "50051"}, "server.grpc_port"),
     ])
     def test_check_ported_still_refuses(self, env, key):
+        """The gRPC port is still refused; registry HA is ported, so
+        ``fleet.registries`` is accepted and maps to the JAX settings."""
         cfg = ServerConfig.load(environ=env)
+        if key == "fleet.registries":
+            cfg.check_ported()
+            assert cfg.fleet_settings().registries == (
+                JServerConfig.load(environ=env).fleet_settings().registries)
+            return
         with pytest.raises(ConfigError, match=f"{key} is not ported yet"):
             cfg.check_ported()
 

@@ -15,10 +15,18 @@ shared with a JAX engine (the ``fleet_pair`` of ``tests/test_fleet.py``).
 - Stitched tracing and telemetry: a remote-served HTTP request's
   ``trace_id`` holds spans from both servers with intact parent links, and
   the host's ``/server/perf`` ``fleet`` block counts the member's digests.
+- The KV data plane across the packages: the port member serves a JAX
+  registry's ``KvDataChannel`` and a JAX member serves a port registry's.
+  A prefix fetched over the wire is byte for byte (KVP1 payloads and
+  crcs) what the member's engine exports locally, and the other package's
+  engine continues from it with the JAX engine's greedy tokens; a handoff
+  exported by the registry's package decodes on the other package's
+  member with the same tokens.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import threading
 import time
@@ -36,6 +44,9 @@ from distributed_inference_server_tpu.engine.engine import (
 from distributed_inference_server_tpu.engine.engine import LLMEngine as JEngine
 from distributed_inference_server_tpu.engine.engine import (
     SamplingParams as JSamplingParams,
+)
+from distributed_inference_server_tpu.engine.kv_cache import (
+    KvChunk as JKvChunk,
 )
 from distributed_inference_server_tpu.engine.kv_cache import (
     PagedCacheConfig as JPagedCacheConfig,
@@ -58,7 +69,9 @@ from distributed_inference_server_tpu_torch.engine.engine import (
     SamplingParams,
 )
 from distributed_inference_server_tpu_torch.engine.kv_cache import (
+    KvChunk,
     PagedCacheConfig,
+    chain_hashes,
 )
 from distributed_inference_server_tpu_torch.models.configs import TINY
 from distributed_inference_server_tpu_torch.models.convert import (
@@ -95,6 +108,10 @@ BUCKETS = (16, 64)
 PROMPT = "fleet e2e prompt"
 MAX_TOKENS = 8
 BEAT = dict(heartbeat_interval_s=0.1, suspect_after_s=0.4, dead_after_s=0.9)
+# the data plane's interop tests compile JAX engines while their fleets
+# run, which can starve the beat threads for a second: wider aging there
+KV_BEAT = dict(heartbeat_interval_s=0.1, suspect_after_s=3.0,
+               dead_after_s=6.0)
 
 
 def _tree():
@@ -111,12 +128,14 @@ J_PARAMS = jax.tree_util.tree_map(jnp.asarray, TREE)
 
 
 def _port_factory():
+    # the Python page allocator: a prefix export needs its chain lookup
     params = params_from_numpy(TREE, device="cpu", dtype=torch.float32)
 
     def make() -> LLMEngine:
         return LLMEngine(params, TINY, ByteTokenizer(),
                          EngineConfig(max_batch=4, prefill_buckets=BUCKETS,
-                                      paged=PagedCacheConfig(*PAGED)),
+                                      paged=PagedCacheConfig(*PAGED),
+                                      native_allocator=False),
                          dtype=torch.float32, device="cpu")
 
     return make
@@ -126,20 +145,26 @@ def _jax_engine() -> JEngine:
     return JEngine(J_PARAMS, J_TINY, jtok.ByteTokenizer(),
                    JEngineConfig(max_batch=4, prefill_buckets=BUCKETS,
                                  paged=JPagedCacheConfig(*PAGED),
-                                 warmup_compile=False),
+                                 warmup_compile=False,
+                                 native_allocator=False),
                    dtype=jnp.float32)
+
+
+def _drain(eng, toks=None) -> list:
+    """Step until idle or a handoff is ready, collecting token ids."""
+    toks = [] if toks is None else toks
+    while eng.has_work() and not eng.handoff_ready_ids():
+        for o in eng.step():
+            if o.token_id is not None:
+                toks.append(o.token_id)
+    return toks
 
 
 def _jax_greedy(prompt: str = PROMPT) -> list:
     eng = _jax_engine()
     eng.add_request("ref", list(prompt.encode()), JSamplingParams(
         max_tokens=MAX_TOKENS, temperature=0.0))
-    toks = []
-    while eng.has_work():
-        for o in eng.step():
-            if o.token_id is not None:
-                toks.append(o.token_id)
-    return toks
+    return _drain(eng)
 
 
 class _Sink:
@@ -162,9 +187,10 @@ class _Sink:
         self.ev.set()
 
 
-def _serve(runner, rid, req_cls=ServerRequest, params_cls=SamplingParams):
+def _serve(runner, rid, req_cls=ServerRequest, params_cls=SamplingParams,
+           prompt=PROMPT):
     sink = _Sink()
-    runner.submit([req_cls(rid, list(PROMPT.encode()),
+    runner.submit([req_cls(rid, list(prompt.encode()),
                            params_cls(max_tokens=MAX_TOKENS,
                                       temperature=0.0), sink)])
     assert sink.ev.wait(90), f"{rid} never terminated"
@@ -304,6 +330,168 @@ def test_jax_worker_joins_a_port_registry_host(fleet_pair):
         stats = reg.stats()
         assert stats["members"][0]["engines"] == {
             "j-w1:engine-0": "unified"}
+    finally:
+        jworker.stop()
+        server.stop()
+        jr.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the KV data plane across the packages
+# ---------------------------------------------------------------------------
+
+KV_PROMPT = "the kv pages cross between the two packages' members"
+KV_IDS = list(KV_PROMPT.encode())
+KV_HASHES = chain_hashes(KV_IDS, PAGED[1], max_pages=(len(KV_IDS) - 1)
+                         // PAGED[1])
+
+
+def _callback():
+    box = {"ev": threading.Event()}
+
+    def cb(*args):
+        box["args"] = args
+        box["ev"].set()
+
+    return box, cb
+
+
+def _exported(source, rid):
+    """(depth, chunks) of ``source.submit_prefix_export`` for KV_PROMPT's
+    chain, two pages a chunk."""
+    box, cb = _callback()
+    source.submit_prefix_export(rid, KV_HASHES, 2, "none", cb)
+    assert box["ev"].wait(60), f"{rid}: the export never resolved"
+    result, err = box["args"]
+    assert err is None, err
+    return result
+
+
+def _same_chunks(got, want) -> None:
+    """The KVP1 payloads, crcs and geometry, byte for byte."""
+    assert [(c.index, c.total, c.page_start, c.page_count, c.crc32,
+             c.payload) for c in got] == [
+        (c.index, c.total, c.page_start, c.page_count, c.crc32, c.payload)
+        for c in want]
+
+
+def _continue_from_prefix(eng, depth, chunks, chunk_cls, params_cls) -> list:
+    """Seat the fetched chain in ``eng`` (the other package's engine) and
+    run KV_PROMPT's greedy request on it."""
+    seated = eng.import_prefix(
+        KV_IDS[:depth * PAGED[1]],
+        [chunk_cls(**dataclasses.asdict(c)) for c in chunks])
+    assert seated == depth
+    eng.add_request("probe", list(KV_IDS), params_cls(
+        max_tokens=MAX_TOKENS, temperature=0.0))
+    toks = _drain(eng)
+    assert eng.audit_pages() == []
+    return toks
+
+
+def _prefill_export(eng, params_cls):
+    """A prefill-only run of KV_PROMPT on ``eng`` and its monolithic
+    export; returns (the prefill's tokens, the export)."""
+    eng.add_request("ho", list(KV_IDS), params_cls(max_tokens=MAX_TOKENS,
+                                                   temperature=0.0),
+                    prefill_only=True)
+    first = _drain(eng)
+    assert eng.handoff_ready_ids() == ["ho"]
+    exp = eng.export_handoff("ho")
+    assert exp is not None and exp.kv
+    return first, exp
+
+
+def _resumed(proxy, exp, req_cls, params_cls) -> list:
+    """Hand ``exp`` to the member behind ``proxy``; the tokens it decodes
+    come back over the data channel."""
+    box, cb = _callback()
+    sink = _Sink()
+    proxy.submit_resume(exp, req_cls("ho", list(KV_IDS), params_cls(
+        max_tokens=MAX_TOKENS, temperature=0.0), sink), cb)
+    assert box["ev"].wait(60) and box["args"][0] is True, box.get("args")
+    assert sink.ev.wait(60) and sink.errors == [] and sink.dones == 1
+    return sink.toks
+
+
+def test_port_kv_member_serves_a_jax_registry(fleet_pair):
+    """A JAX ``FleetServer``'s ``KvDataChannel`` to the port member: the
+    fetched chain is the port engine's local export byte for byte, and the
+    JAX engine continues from it with its greedy tokens; a JAX export
+    handed to the port member decodes to the same tokens."""
+    ref = _jax_greedy(KV_PROMPT)
+    jsettings = jfleet.FleetSettings(enabled=True, **KV_BEAT)
+    jreg = jfleet.FleetRegistry(jsettings, metrics=JMetrics())
+    jscheduler = jsched.AdaptiveScheduler()
+    jserver = jfleet.FleetServer(jreg, jscheduler, jsettings)
+    jserver.start()
+    worker = FleetWorker(fleet_pair.member.scheduler, FleetSettings(
+        connect=f"127.0.0.1:{jserver.bound_port}", heartbeat_interval_s=0.1),
+        member_id="t-w3")
+    try:
+        worker.start()
+        _wait(lambda: any(r.is_healthy() and r.supports_kv_import
+                          for r in _remote_of(jscheduler)),
+              what="the port member's data channel at the JAX host")
+        (proxy,) = _remote_of(jscheduler)
+        local = fleet_pair.member.local_runners()[0]
+        warm = _serve(local, "kvx-warm", prompt=KV_PROMPT)
+        assert warm.toks == ref
+        depth, want = _exported(local, "kvx-local")
+        got_depth, got = _exported(proxy, "kvx-wire")
+        assert depth == got_depth == len(KV_HASHES)
+        _same_chunks(got, want)
+        assert _continue_from_prefix(_jax_engine(), depth, got, JKvChunk,
+                                     JSamplingParams) == ref
+        first, exp = _prefill_export(_jax_engine(), JSamplingParams)
+        assert first + _resumed(proxy, exp, jrunner.ServerRequest,
+                                JSamplingParams) == ref
+        assert local.audit() == []
+    finally:
+        worker.stop()
+        jserver.stop()
+
+
+def test_jax_kv_member_serves_a_port_registry():
+    """A port ``FleetServer``'s ``KvDataChannel`` to a JAX member: the
+    fetched chain is the JAX engine's local export byte for byte, and the
+    port engine continues from it with the JAX engine's greedy tokens; a
+    port export handed to the JAX member decodes to the same tokens."""
+    ref = _jax_greedy(KV_PROMPT)
+    settings = FleetSettings(enabled=True, **KV_BEAT)
+    reg = FleetRegistry(settings, metrics=MetricsCollector())
+    scheduler = AdaptiveScheduler()
+    server = FleetServer(reg, scheduler, settings, metrics=MetricsCollector())
+    server.start()
+    jscheduler = jsched.AdaptiveScheduler()
+    jr = jrunner.EngineRunner("engine-0", _jax_engine, JMetrics())
+    jr.start(wait_ready=True)
+    jscheduler.register(jr)
+    jworker = jremote.FleetWorker(jscheduler, jfleet.FleetSettings(
+        connect=f"127.0.0.1:{server.bound_port}", heartbeat_interval_s=0.1),
+        member_id="j-w2")
+    try:
+        jworker.start()
+        _wait(lambda: any(r.is_healthy() and r.supports_kv_import
+                          for r in _remote_of(scheduler)),
+              what="the JAX member's data channel at the port host")
+        (proxy,) = _remote_of(scheduler)
+        warm = _serve(jr, "kvy-warm", jrunner.ServerRequest, JSamplingParams,
+                      prompt=KV_PROMPT)
+        assert warm.toks == ref
+        depth, want = _exported(jr, "kvy-local")
+        got_depth, got = _exported(proxy, "kvy-wire")
+        assert depth == got_depth == len(KV_HASHES)
+        _same_chunks(got, want)
+        assert _continue_from_prefix(_port_factory()(), depth, got, KvChunk,
+                                     SamplingParams) == ref
+        first, exp = _prefill_export(_port_factory()(), SamplingParams)
+        assert first + _resumed(proxy, exp, ServerRequest,
+                                SamplingParams) == ref
+        stats = server.kv_stats()["j-w2"]
+        assert stats["bytes_sent"] > len(exp.kv)
+        assert stats["bytes_received"] == sum(len(c.payload) for c in got)
+        assert jr.audit() == []
     finally:
         jworker.stop()
         server.stop()

@@ -560,11 +560,14 @@ CONTROL_FAMILIES = {
     "health_transitions", "retry_budget_exhausted",
     "fleet_breaker_transitions",
 }
-# the fleet control plane's families
+# the fleet's families: the control plane's, the KV mesh's and registry
+# HA's
 FLEET_FAMILIES = {
     "fleet_members", "fleet_heartbeats", "fleet_reroles",
     "fleet_telemetry_frames", "fleet_member_step_tokens",
-    "fleet_member_ttft_p99_ms",
+    "fleet_member_ttft_p99_ms", "fleet_kv_wire_rate_bytes_per_s",
+    "fleet_kv_intro", "fleet_registry_role", "fleet_registry_takeovers",
+    "fleet_registry_epoch",
 }
 
 
@@ -576,6 +579,14 @@ def _record_common(c):
     c.record_telemetry_frame("ingested")
     c.set_member_telemetry("w1", {"prefill": 16.0, "decode_block": 7.0},
                            37.5)
+    c.set_kv_wire_rate("w1", "w2", 2.5e8)
+    c.set_kv_wire_rate("registry", "w1", 1.0e8)
+    c.remove_kv_wire_rate("registry", "w1")
+    c.record_kv_intro("sent")
+    c.record_kv_intro("gone")
+    c.set_registry_role("primary")
+    c.set_registry_epoch(3)
+    c.record_registry_takeover("lease_expired")
     c.record_trace_drops("ring", 2)
     c.record_shed("gold", "deadline")
     c.record_health_transition("engine-0", "degraded")
