@@ -282,6 +282,34 @@ nothing of JAX. Phases, each of which must pass (any failure exits 1):
    there; the bytes, the latency and the learned wire rate
    (``fleet_timing`` line). The role balancer has nothing on the device
    and is covered by the CPU tests.
+16. (``router``) on item 6's checkpoint server and the admission phase's
+   two 1B servers (they start with it when either phase is selected):
+   the port's router started through its entry point, round robin over
+   the three and a dead URL; the first mix's greedy prompts three times
+   through it == the checkpoint server's texts, 3 requests to each live
+   backend by the router's ``/server/stats`` and by each backend's own
+   processed count, the paged kernels launching in the backends (counts
+   zeroed before, read after); the dead backend unhealthy with a
+   ``last_error`` while ``/health`` stays 200; a router over dead URLs
+   only answers 503 ``no_backend``; a stream through it joins into the
+   non-streamed text; a client that closes mid-stream leaves no backend
+   holding a request or a page. A third router, in front of the window-0
+   server alone, times lone streamed TTFT and a non-streamed request's
+   wall against direct (``router_timing`` line).
+17. (``grpc``) where ``grpcio`` imports, the checkpoint server starts with
+   ``--server-grpc-port``: all six methods on the JSON and the protobuf
+   wire through the port's ``GrpcClient`` (greedy ``Generate`` and the
+   joined ``GenerateStream`` frames == the HTTP texts, ``Chat`` ==
+   ``ChatStream``, ``Embeddings``, ``Health``, ``INVALID_ARGUMENT`` for a
+   bad request), the paged kernels launching, a cancelled stream leaving
+   no request or page held; lone streamed TTFT over gRPC beside SSE
+   (``grpc_timing`` line). Where ``grpcio`` is missing one line says the
+   transport is unverified on the card.
+18. (``native``, right after the build) the native tier's race harness
+   (``native/stress.cpp``) built with this machine's g++, plain and under
+   ThreadSanitizer, each run must print ``stress OK`` (TSan with
+   ``halt_on_error=1``); a TSan build that does not link here is printed
+   and recorded, not failed (``native_stress`` line).
 
 Phase 4's four 1B servers start together, and so do phase 3's three
 quantized servers, and item 6's checkpoint server with the admission
@@ -303,12 +331,13 @@ quantized matmuls' rows add ``*_prefill`` keys: their M = 2048 layer, and
 q8 ``*_verify`` keys: its M = 40 layer); the
 last line is ``{"ok": true, "device": {...}}``. Without a card it exits 2
 and prints no result. ``--phases
-kernels,serve,quant,engine,ckpt,api,families,spec,admission,kvpaths,replicas,control,parallel,fleet``
+native,kernels,serve,quant,engine,ckpt,api,families,spec,admission,router,grpc,kvpaths,replicas,control,parallel,fleet``
 selects
 phases (default: all; ``quant`` is phase 3's quantized kernels and phase
 4's quantized servers; ``families`` is item 7, ``api`` item 8, ``spec``
-item 9 and ``admission`` item 10, which write and serve item 6's
-checkpoint themselves when ``ckpt`` is not selected). ``--server-flags
+item 9, ``admission`` item 10, ``router`` item 16 and ``grpc`` item 17,
+which write and serve item 6's checkpoint themselves when ``ckpt`` is not
+selected; ``native`` is item 18). ``--server-flags
 '...'`` adds flags to every server the script starts (an A/B of one
 server option within one tree, e.g. ``--batcher-window-ms 0`` with
 ``--phases serve``). The summary rows
@@ -324,7 +353,9 @@ the verify shape's times under ``verify``, phase 14's per-shard shapes
 under ``tp_shards``, phase 14's launches under ``launches_parallel`` and
 phase 15's (the member's, over the remote-served greedy prompts) under
 ``launches_fleet`` and its KV parts' (each fetch's target, each handoff's
-source and target) under ``launches_fleet_kv``.
+source and target) under ``launches_fleet_kv``, and the backends' under
+the router's mix and the checkpoint server's under the gRPC methods
+under ``launches_router`` and ``launches_grpc``.
 """
 
 from __future__ import annotations
@@ -1756,7 +1787,8 @@ def phase_loop_timing(card: str, seed: int = 0) -> dict:
 
 
 def phase_checkpoint(card: str, seed: int, want, api: bool = False,
-                     spec: bool = False, admission: bool = False) -> dict:
+                     spec: bool = False, admission: bool = False,
+                     router: bool = False, grpc: bool = False) -> dict:
     """The port's saver writes the random llama-3.2-1b bf16 weights of
     ``seed`` (what the bf16 server draws) to a directory under the
     gitignored ``build/``, beside a ``tokenizer_config.json`` with this
@@ -1764,10 +1796,14 @@ def phase_checkpoint(card: str, seed: int, want, api: bool = False,
     then a server started with ``--model-model-dir`` on it must answer the
     first mix's greedy prompts with the random-weight server's texts
     (``want``, when given). With ``api`` the same server then runs the
-    ``api`` phase, with ``admission`` the admission phase, and with ``spec``
-    a second server serves the same directory as target and draft
-    (phase 9). Returns {"api": the api phase's launches, "spec":
-    {"llama-3.2-1b": the spec server's launches}} (empty without them)."""
+    ``api`` phase, with ``admission`` the admission phase, with ``router``
+    the router phase (in front of it and the admission phase's two
+    servers), with ``grpc`` the gRPC phase (the server then starts with
+    ``--server-grpc-port``, where ``grpcio`` is installed), and with
+    ``spec`` a second server serves the same directory as target and
+    draft (phase 9). Returns {"api": the api phase's launches, "spec":
+    {"llama-3.2-1b": the spec server's launches}, "router": ..., "grpc":
+    ...} (empty without them)."""
     from distributed_inference_server_tpu_torch.models import llama
     from distributed_inference_server_tpu_torch.models.configs import (
         LLAMA_3_2_1B,
@@ -1805,17 +1841,28 @@ def phase_checkpoint(card: str, seed: int, want, api: bool = False,
         json.dump({"chat_template": CHAT_TEMPLATE,
                    "bos_token": "<|begin_of_text|>",
                    "eos_token": "<|eot_id|>"}, f)
-    launches, spec_launches = {}, {}
+    launches, spec_launches, transports = {}, {}, {}
     # the checkpoint's server, the admission phase's two and the spec
     # phase's start together (1B each): only their startups overlap
     ckpt_flags = ["--model-model-dir", ckpt]
     spec_flags = ckpt_flags + ["--model-draft-model-dir", ckpt]
+    grpc_port = 0
+    if grpc and importlib.util.find_spec("grpc") is None:
+        log(json.dumps({"grpc": "grpcio is not installed on this machine: "
+                        "the gRPC transport is unverified on the card"}))
+    elif grpc:
+        grpc_port = _free_port()
+        ckpt_flags = ckpt_flags + ["--server-grpc-port", str(grpc_port)]
     specs = [(ckpt_flags, "server_ckpt.log", "llama-3.2-1b")]
-    if admission:
+    if admission or router:
         specs += ADMISSION_SERVERS
     if spec:
         specs.append((spec_flags, "server_spec_1b.log", "llama-3.2-1b"))
     with _prestart(seed, specs):
+        # the admission servers' URLs, before the admission phase takes
+        # them from PRESTARTED: the router phase fronts them too
+        others = [PRESTARTED[log_name][2] for _, log_name, _ in
+                  ADMISSION_SERVERS if log_name in PRESTARTED]
         with _server(seed, ckpt_flags, "server_ckpt.log") as base:
             _, stats = _http("GET", base + "/server/stats")
             got = greedy_texts(base)
@@ -1837,14 +1884,22 @@ def phase_checkpoint(card: str, seed: int, want, api: bool = False,
             if admission:
                 phase_done("api")
                 phase_admission(card, seed, base)
+                phase_done("admission")
+            if router:
+                transports["router"] = phase_router(card, base, others,
+                                                    got)["launches"]
+                phase_done("router")
+            if grpc_port:
+                transports["grpc"] = phase_grpc(
+                    card, base, f"127.0.0.1:{grpc_port}", got)["launches"]
+                phase_done("grpc")
         if spec:
-            phase_done("admission")
             spec_launches["llama-3.2-1b"] = phase_serve_spec(
                 card, seed, spec_flags,
                 "llama-3.2-1b bf16 checkpoint, the same checkpoint as draft",
                 "server_spec_1b.log", "llama-3.2-1b", want=got)["launches"]
     shutil.rmtree(ckpt, ignore_errors=True)
-    return {"api": launches, "spec": spec_launches}
+    return {"api": launches, "spec": spec_launches, **transports}
 
 
 # ---------------------------------------------------------------------------
@@ -3295,6 +3350,353 @@ def phase_admission(card: str, seed: int, base: str) -> dict:
            "burst_latency_s_by_priority": by_prio,
            "average_batch_size": after["average_batch_size"],
            "queue_after": after["admission"]["queue"]}
+    log(json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the cross-host router, the gRPC transport and the native tier's harness
+# ---------------------------------------------------------------------------
+
+# a backend URL that refuses every dial (nothing listens on port 1)
+DEAD_URL = "http://127.0.0.1:1"
+# the kernels the router's and the gRPC transport's requests must launch
+# in their backends (the same 1B forward as the API routes)
+TRANSPORT_KERNELS = API_KERNELS
+TIMING_N = 8  # lone requests a side in the router's and gRPC's timings
+
+
+def _processed(base) -> int:
+    return sum(w["total_processed"] for w in _stats(base)["worker_statuses"])
+
+
+def _held(base) -> tuple:
+    """(requests in flight, (live pages, allocatable pages)) of a
+    one-replica server."""
+    stats = _stats(base)
+    (w,) = stats["worker_statuses"]
+    return stats["requests_in_flight"], (
+        w["memory_used_pages"] - w["pages_cached"],
+        stats["cache"]["pages_free"] + stats["cache"]["pages_cached"])
+
+
+def _sum_counts(bases) -> dict:
+    out = collections.Counter()
+    for base in bases:
+        out.update(_stats(base)["kernel_launches"])
+    return dict(out)
+
+
+def _check_transport_launches(label, launches) -> None:
+    for name in TRANSPORT_KERNELS:
+        assert launches.get(name), (
+            f"{label}: {name} never launched in the backends", launches)
+
+
+@contextlib.contextmanager
+def _routers(specs):
+    """Start one ``python -m distributed_inference_server_tpu_torch.serving.
+    router`` per (backend URLs, strategy, log name under ``build/``) of
+    ``specs``, all at once, on free ports (health checked every 0.5 s);
+    yields [(base URL, seconds from its start to its first ``/health``
+    answer)] and stops every process on exit."""
+    launched = []
+    try:
+        for backends, strategy, log_name in specs:
+            port = _free_port()
+            cmd = [sys.executable, "-m",
+                   "distributed_inference_server_tpu_torch.serving.router",
+                   "--backends", ",".join(backends), "--host", "127.0.0.1",
+                   "--port", str(port), "--strategy", strategy,
+                   "--health-interval", "0.5"]
+            log("[router] " + " ".join(cmd))
+            errlog = open(os.path.join("build", log_name), "w")
+            launched.append((subprocess.Popen(
+                cmd, stdout=errlog, stderr=subprocess.STDOUT), errlog,
+                f"http://127.0.0.1:{port}", time.monotonic(), log_name))
+        out = []
+        for proc, errlog, base, t0, log_name in launched:
+            while True:
+                if proc.poll() is not None:
+                    errlog.flush()
+                    with open(errlog.name) as f:
+                        tail = f.read()[-2000:]
+                    raise RuntimeError(f"router exited with {proc.returncode}"
+                                       f":\n{tail}")
+                try:
+                    _http_any("GET", base + "/health", timeout=5)
+                    break
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    pass
+                if time.monotonic() - t0 > 30:
+                    raise RuntimeError("the router did not answer in 30 s")
+                time.sleep(0.01)
+            out.append((base, time.monotonic() - t0))
+        yield out
+    finally:
+        for proc, errlog, _, _, _ in launched:
+            _stop_proc(proc, errlog)
+
+
+def _wait_released(bases, before, what: str) -> None:
+    """Until every server of ``bases`` holds no request and its pages are
+    as in ``before`` (their ``_held``)."""
+    _wait(lambda: [_held(b) for b in bases] == before, what, timeout=30,
+          every=0.05)
+
+
+def phase_router(card: str, base: str, others, want: dict) -> dict:
+    """The port's router (its entry point, as a subprocess) on the card's
+    1B servers: the checkpoint server ``base`` and the admission phase's
+    two (``others``; all llama-3.2-1b bf16 from the seed), plus a dead
+    URL, round robin. (3) The dead backend is unhealthy with a
+    ``last_error`` and ``/health`` stays 200; (1) the first mix's greedy
+    prompts, three rounds, give ``want`` (the checkpoint server's texts),
+    with the paged kernels launching in the backends; (2) round robin
+    routed 3 to each live backend, by the router's ``/server/stats`` and
+    each backend's own processed count; (4) a second router over dead URLs
+    only answers 503 ``no_backend``; (5) a streamed request's frames join
+    into the non-streamed text; (6) a client that closes mid-stream leaves
+    no backend with a request or a page held. A third router in front of
+    the window-0 server alone times lone streamed TTFT through the router
+    against direct (``TIMING_N`` each, alternating) and the router's added
+    wall for a non-streamed request; one ``router_timing`` line. Returns
+    the backends' kernel launches over the mix."""
+    live = [base, *others]
+    dead_only = [DEAD_URL, "http://127.0.0.1:2"]
+    with _routers([(live + [DEAD_URL], "round_robin", "router_rr.log"),
+                   (dead_only, "round_robin", "router_dead.log"),
+                   ([others[0]], "least_loaded", "router_one.log")]) as (
+            (rr, rr_start_s), (dead, _), (one, _)):
+        # (3) the dead backend, seen by the health loop's first round
+        _wait(lambda: not _http_any("GET", rr + "/health")[2]["backends"][
+            3]["healthy"], "the router marks the dead backend", timeout=30)
+        st, _, health = _http_any("GET", rr + "/health")
+        assert st == 200 and health["status"] == "ok", health
+        assert health["backends"][3]["backend"] == DEAD_URL, health
+        assert health["backends"][3]["last_error"], health
+        assert all(b["healthy"] for b in health["backends"][:3]), health
+        # (1), (2) the mix through the router
+        processed0 = [_processed(b) for b in live]
+        for b in live:
+            _reset_counts(b)
+        t = time.monotonic()
+        for i in range(3):
+            got = greedy_texts(rr)
+            assert got == want, ("the router's texts differ from the "
+                                 "checkpoint server's", i, got, want)
+        mix_wall_s = time.monotonic() - t
+        launches = _sum_counts(live)
+        _check_transport_launches("router", launches)
+        _, _, stats = _http_any("GET", rr + "/server/stats")
+        routed = [b["total_routed"] for b in stats["router"]]
+        assert routed == [3, 3, 3, 0], stats["router"]
+        processed = [_processed(b) - p for b, p in zip(live, processed0)]
+        assert processed == [3, 3, 3], processed
+        assert set(stats["backends"]) == set(live + [DEAD_URL]), stats
+        assert "error" in stats["backends"][DEAD_URL], stats["backends"]
+        phase_done("router: mix, spread and the dead backend")
+        # (4) dead URLs only
+        st, _, body = _http_any("POST", dead + "/generate",
+                                {"prompt": "nowhere", **GREEDY})
+        assert st == 503 and body["error"]["code"] == "no_backend", (st, body)
+        # (5) a stream through the router
+        streamed = _native_stream(rr, "/generate", {
+            "prompt": MIX_PROMPTS["p100"], "stream": True, **GREEDY})
+        assert streamed["text"] == want["p100"], (streamed["text"], want)
+        assert streamed["reads"] > 1, streamed["reads"]
+        # (6) a client that goes away mid-stream
+        before = [_held(b) for b in live]
+        assert all(n == 0 for n, _ in before), before
+        gone = _sse(rr, "/generate", {"prompt": MIX_PROMPTS["p100"],
+                                      "max_tokens": 1500, "temperature": 0.0,
+                                      "stream": True}, close_after=3)
+        assert len(gone["frames"]) >= 3
+        t = time.monotonic()
+        _wait_released(live, before, "the stream abandoned through the "
+                       "router still holds its request or pages")
+        release_s = time.monotonic() - t
+        _, _, stats = _http_any("GET", rr + "/server/stats")
+        assert all(b["active_requests"] == 0 for b in stats["router"]), stats
+        phase_done("router: streams and the client that goes away")
+        # timing: the window-0 server direct and through its own router
+        ttft = {"direct": [], "router": []}
+        wall = {"direct": [], "router": []}
+        body = {"prompt": MIX_PROMPTS["p20"], "stream": True, **GREEDY}
+        for _ in range(TIMING_N):
+            for side, url in (("direct", others[0]), ("router", one)):
+                ttft[side].append(_native_stream(url, "/generate",
+                                                 body)["ttft_s"])
+        for _ in range(TIMING_N):
+            for side, url in (("direct", others[0]), ("router", one)):
+                st, out, w = _gen(url, MIX_PROMPTS["p20"], GREEDY)
+                _check_generate(st, out, GREEDY["max_tokens"])
+                wall[side].append(w)
+    rec = {"router_timing": "llama-3.2-1b bf16 servers behind the port's "
+           "router (round robin over 3 live + 1 dead backend; timing on "
+           "the --batcher-window-ms 0 server alone)", "card": card,
+           "router_start_s": rr_start_s, "mix_requests": 9,
+           "mix_wall_s": mix_wall_s, "routed": routed,
+           "abandoned_stream_released_s": release_s,
+           "ttft_ms_direct": [t * 1e3 for t in ttft["direct"]],
+           "ttft_ms_router": [t * 1e3 for t in ttft["router"]],
+           "ttft_ms_p50_direct": _pct(ttft["direct"], 0.5) * 1e3,
+           "ttft_ms_p50_router": _pct(ttft["router"], 0.5) * 1e3,
+           "wall_ms_direct": [w * 1e3 for w in wall["direct"]],
+           "wall_ms_router": [w * 1e3 for w in wall["router"]],
+           "added_wall_ms_p50": (_pct(wall["router"], 0.5)
+                                 - _pct(wall["direct"], 0.5)) * 1e3,
+           "launches": {k: launches.get(k) for k in TRANSPORT_KERNELS}}
+    log(json.dumps(rec))
+    return {"launches": launches, "timing": rec}
+
+
+def _grpc_ttft(client, prompt: str) -> float:
+    """Seconds from the call to the first token-bearing frame (one with a
+    log-probability, as ``_native_stream`` reads SSE) of a greedy
+    ``GenerateStream``; the stream is read to its end."""
+    t0 = time.monotonic()
+    first = None
+    for ev in client.generate_stream({"prompt": prompt, **GREEDY},
+                                     timeout=600):
+        if first is None and ev.get("type") == "token" and "logprob" in ev:
+            first = time.monotonic() - t0
+    assert first is not None
+    return first
+
+
+def phase_grpc(card: str, base: str, target: str, want: dict) -> dict:
+    """The port's gRPC transport on the checkpoint server (started with
+    ``--server-grpc-port``; ``target`` is host:port), through the port's
+    ``GrpcClient`` on the JSON and the protobuf wire: ``Health``; greedy
+    ``Generate`` of the first mix == ``want`` (the server's HTTP texts)
+    and the ``GenerateStream`` frames joined == the same; ``Chat`` and the
+    ``ChatStream`` frames joined == each other; ``Embeddings`` (2 inputs,
+    2048 wide); a request without a prompt is ``INVALID_ARGUMENT``; the
+    paged kernels launch (counts zeroed before, read after); a stream
+    cancelled after three frames leaves no request and no page held. Then
+    lone streamed TTFT over gRPC (JSON wire) beside SSE on the same server
+    (``TIMING_N`` each, alternating); one ``grpc_timing`` line. Returns
+    the kernel launches of the six methods' requests."""
+    from distributed_inference_server_tpu_torch.serving import (
+        grpc_server as pgrpc,
+    )
+
+    _reset_counts(base)
+    chat_req = {"messages": CHAT_MESSAGES, "max_tokens": 16,
+                "temperature": 0.0}
+    per_wire = {}
+    for wire in ("json", "proto"):
+        t = time.monotonic()
+        with pgrpc.GrpcClient(target, wire=wire) as c:
+            h = c.health(timeout=30)
+            assert h["status"] == "ok" and h["accepting"], h
+            assert h["engines"][0]["healthy"], h
+            for name, prompt in MIX_PROMPTS.items():
+                r = c.generate({"prompt": prompt, **GREEDY}, timeout=600)
+                assert r["choices"][0]["text"] == want[name], (wire, name,
+                                                               r, want)
+                frames = list(c.generate_stream({"prompt": prompt, **GREEDY},
+                                                timeout=600))
+                assert frames[-1]["type"] == "done", frames[-2:]
+                joined = "".join(f.get("token", "") for f in frames
+                                 if f["type"] == "token")
+                assert joined == want[name], (wire, name, joined, want)
+            chat = c.chat(chat_req, timeout=600)
+            cframes = list(c.chat_stream(chat_req, timeout=600))
+            assert cframes[-1]["type"] == "done", cframes[-2:]
+            assert "".join(f.get("token", "") for f in cframes
+                           if f["type"] == "token") == \
+                chat["choices"][0]["message"]["content"], (wire, chat)
+            emb = c.embeddings({"input": ["one", "two words"]}, timeout=600)
+            assert len(emb["data"]) == 2, emb.keys()
+            assert len(emb["data"][0]["embedding"]) == 2048
+            try:
+                c.generate({"max_tokens": 4}, timeout=60)
+                raise AssertionError("a request without a prompt passed")
+            except pgrpc.grpc.RpcError as e:
+                assert e.code().name == "INVALID_ARGUMENT", e
+                assert json.loads(e.details())["error"]["error_type"] == \
+                    "invalid_request_error", e.details()
+        per_wire[wire] = time.monotonic() - t
+    launches = _stats(base)["kernel_launches"]
+    _check_transport_launches("grpc", launches)
+    phase_done("grpc: six methods on both wires")
+    # a cancelled stream
+    before = [_held(base)]
+    assert before[0][0] == 0, before
+    with pgrpc.GrpcClient(target) as c:
+        call = c.generate_stream({"prompt": MIX_PROMPTS["p100"],
+                                  "max_tokens": 1500, "temperature": 0.0},
+                                 timeout=600)
+        for i, _ in enumerate(call):
+            if i == 2:
+                call.cancel()
+                break
+    t = time.monotonic()
+    _wait_released([base], before, "the cancelled gRPC stream still holds "
+                   "its request or pages")
+    release_s = time.monotonic() - t
+    # timing: gRPC against SSE on the same server
+    ttft = {"grpc": [], "sse": []}
+    body = {"prompt": MIX_PROMPTS["p20"], "stream": True, **GREEDY}
+    with pgrpc.GrpcClient(target) as c:
+        for _ in range(TIMING_N):
+            ttft["grpc"].append(_grpc_ttft(c, MIX_PROMPTS["p20"]))
+            ttft["sse"].append(_native_stream(base, "/generate",
+                                              body)["ttft_s"])
+    rec = {"grpc_timing": "llama-3.2-1b bf16 checkpoint server, "
+           "--server-grpc-port (50 ms batching window)", "card": card,
+           "grpcio": pgrpc.grpc.__version__,
+           "wire_s": per_wire, "cancelled_stream_released_s": release_s,
+           "ttft_ms_grpc": [t * 1e3 for t in ttft["grpc"]],
+           "ttft_ms_sse": [t * 1e3 for t in ttft["sse"]],
+           "ttft_ms_p50_grpc": _pct(ttft["grpc"], 0.5) * 1e3,
+           "ttft_ms_p50_sse": _pct(ttft["sse"], 0.5) * 1e3,
+           "launches": {k: launches.get(k) for k in TRANSPORT_KERNELS}}
+    log(json.dumps(rec))
+    return {"launches": launches, "timing": rec}
+
+
+def phase_native(card: str) -> dict:
+    """Build the native tier's race harness (``native/stress.cpp`` with
+    the tier's sources) with this machine's g++, plain and under
+    ThreadSanitizer, and run both (TSan with ``halt_on_error=1``): each
+    must exit 0 and print ``stress OK``. A TSan build that does not link
+    here is printed with the compiler's message and recorded, not failed;
+    a TSan report fails the phase. One ``native_stress`` line."""
+    from distributed_inference_server_tpu_torch import native
+
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    assert cxx, "no C++ compiler on this machine"
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[0]
+    rec = {"native_stress": "distributed_inference_server_tpu_torch/native/"
+           "stress.cpp", "card": card, "cxx": version,
+           "cores": os.cpu_count()}
+    for kind in ("plain", "tsan"):
+        t0 = time.monotonic()
+        try:
+            path = native.build_stress((kind,))[kind]
+        except RuntimeError as e:
+            if kind != "tsan":
+                raise
+            log(f"[native] the TSan build failed here: {e}")
+            rec[kind] = {"built": False, "error": str(e)[-2000:]}
+            continue
+        build_s = time.monotonic() - t0
+        env = dict(os.environ)
+        if kind == "tsan":
+            env["TSAN_OPTIONS"] = "halt_on_error=1"
+        t0 = time.monotonic()
+        run = subprocess.run([str(path)], capture_output=True, text=True,
+                             timeout=300, env=env)
+        run_s = time.monotonic() - t0
+        assert run.returncode == 0 and "stress OK" in run.stdout, (
+            f"stress_{kind} exited {run.returncode}:\n{run.stdout[-1000:]}"
+            f"\n{run.stderr[-4000:]}")
+        rec[kind] = {"built": True, "build_s": build_s, "run_s": run_s,
+                     "stdout": run.stdout.strip()}
     log(json.dumps(rec))
     return rec
 
@@ -5606,9 +6008,9 @@ def phase_fleet(card: str, seed: int = 0) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,serve,quant,engine,ckpt,api,families,"
-                            "spec,admission,kvpaths,replicas,control,"
-                            "parallel,fleet")
+                    default="native,kernels,serve,quant,engine,ckpt,api,"
+                            "families,spec,admission,router,grpc,kvpaths,"
+                            "replicas,control,parallel,fleet")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--server-flags", default="",
                     help="flags added to every server started, split on "
@@ -5646,6 +6048,9 @@ def main(argv=None) -> int:
     attend_report()
 
     phase_done("build")
+    if "native" in phases:
+        phase_native(card)
+        phase_done("native stress harness (plain and TSan)")
     checks = phase_kernels() if "kernels" in phases else {}
     phase_done("kernels")
     if "quant" in phases:
@@ -5729,16 +6134,21 @@ def main(argv=None) -> int:
     api_launches = {}
     spec_launches = {}
     kv_launches = {}
-    if phases & {"ckpt", "api", "spec", "admission"}:
+    transport_launches = {}
+    if phases & {"ckpt", "api", "spec", "admission", "router", "grpc"}:
         if texts is None and "ckpt" in phases:
             # the random-weight server's texts to match
             with _server(args.seed, [], "server.log") as base:
                 texts = greedy_texts(base)
         got = phase_checkpoint(card, args.seed, texts, api="api" in phases,
                                spec="spec" in phases,
-                               admission="admission" in phases)
+                               admission="admission" in phases,
+                               router="router" in phases,
+                               grpc="grpc" in phases)
         api_launches, spec_launches = got["api"], got["spec"]
-        phase_done("checkpoint, api, admission and spec 1B")
+        transport_launches = {k: got[k] for k in ("router", "grpc")
+                              if k in got}
+        phase_done("checkpoint, api, admission, router, grpc and spec 1B")
     if "spec" in phases:
         torch.cuda.empty_cache()
         spec_launches["llama-3-8b"] = phase_serve_spec(
@@ -5819,6 +6229,10 @@ def main(argv=None) -> int:
         }
         if api_launches:  # the streamed and OpenAI routes' own launches
             row["launches_api"] = api_launches.get(name)
+        for transport, got in transport_launches.items():
+            # the backends' launches under the router's mix, and the
+            # checkpoint server's under the gRPC methods
+            row[f"launches_{transport}"] = got.get(name)
         for model, got in spec_launches.items():  # the spec servers' mixes
             row[f"launches_spec ({model})"] = got.get(name)
         if kv_launches:  # each KV byte path's own launches

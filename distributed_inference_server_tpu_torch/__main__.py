@@ -10,9 +10,10 @@ environment variables < ``--<section>-<field>`` flags, e.g.
 engine is the one ``python -m distributed_inference_server_tpu`` builds
 (``max_batch`` 64, 2048 pages of 16 tokens, 512 pages per sequence,
 prefill batches of 16 rows within 8192 tokens). An invalid value exits 2
-with ``config error:``, and so does a setting whose subsystem the port
-does not have yet (``server.grpc_port``): ``<section.key> is not ported
-yet``.
+with ``config error:``. ``--server-grpc-port P`` serves the gRPC transport
+(``serving/grpc_server.py``) on port P beside HTTP, over the same handler;
+where ``grpcio`` is not installed it exits 2 with a ``config error:`` that
+names ``server.grpc_port`` and ``grpcio``.
 
 The fleet (``serving/fleet.py``): ``--fleet-enabled true`` makes the
 process a registry host listening at ``fleet.host:fleet.port`` (its
@@ -448,10 +449,12 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGTERM, _stop)
     host, port = cfg.get("server", "host"), cfg.get("server", "port")
+    grpc_port = cfg.get("server", "grpc_port")
     print(f"serving {model_dir or cfg.get('model', 'model_name')} on "
-          f"{device} at {host}:{port}", flush=True)
+          f"{device} at {host}:{port}"
+          + (f" (grpc :{grpc_port})" if grpc_port else ""), flush=True)
     try:
-        server.serve(host, port)
+        server.serve(host, port, grpc_port=grpc_port)
     except KeyboardInterrupt:
         pass
     finally:

@@ -17,6 +17,10 @@ The shared library is built with ``g++`` on first use into
 the hash covers the sources and flags, so a stale library is never
 loaded). When no compiler is there, ``available()`` is False and the
 dispatcher takes the Python tier; it logs the tier it chose.
+
+``build_stress`` builds the tier's race harness (``stress.cpp``) beside the
+library, under ThreadSanitizer and plain (``tests/test_torch_native_stress.py``
+runs both).
 """
 
 from __future__ import annotations
@@ -42,28 +46,66 @@ _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
 
 
+def _digest(flags: Sequence[str], sources: Sequence[str]) -> str:
+    digest = hashlib.sha1(" ".join(flags).encode())
+    for name in sources:
+        digest.update((_DIR / name).read_bytes())
+    return digest.hexdigest()[:12]
+
+
+def _build_dir() -> Path:
+    return _DIR.parents[1] / "build" / "native"
+
+
 def lib_path() -> Path:
     """Where the library for the current sources lives."""
-    digest = hashlib.sha1(" ".join(_FLAGS).encode())
-    for name in _SOURCES:
-        digest.update((_DIR / name).read_bytes())
-    return (_DIR.parents[1] / "build" / "native"
-            / f"libdis_torch_native-{digest.hexdigest()[:12]}.so")
+    return (_build_dir()
+            / f"libdis_torch_native-{_digest(_FLAGS, _SOURCES)}.so")
 
 
-def _compile(out: Path) -> None:
+def _compile(out: Path, flags: Sequence[str] = tuple(_FLAGS),
+             sources: Sequence[str] = _SOURCES) -> None:
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++) found")
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [cxx, *_FLAGS, *(str(_DIR / s) for s in _SOURCES), "-o", str(tmp)]
+    cmd = [cxx, *flags, *(str(_DIR / s) for s in sources), "-o", str(tmp)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed (exit {proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
+
+
+# the race harness (stress.cpp) over the whole tier, in the JAX package
+# Makefile's two builds: ThreadSanitizer, and plain
+STRESS_FLAGS = {
+    "tsan": ("-O1", "-g", "-std=c++17", "-fsanitize=thread", "-Wall",
+             "-Wextra"),
+    "plain": ("-O2", "-std=c++17", "-Wall", "-Wextra"),
+}
+
+
+def build_stress(kinds: Sequence[str] = tuple(STRESS_FLAGS)
+                 ) -> Dict[str, Path]:
+    """Build the stress harness (``stress.cpp`` linked with the tier's
+    sources) once per kind of ``STRESS_FLAGS`` into
+    ``build/native/stress_<kind>-<hash>``, the hash over its sources and
+    flags; a binary already there is reused. Returns {kind: path}; a
+    failed build raises ``RuntimeError`` with the compiler's message.
+    Run the TSan binary with ``TSAN_OPTIONS=halt_on_error=1``: a data race
+    then exits non-zero; a clean run prints ``stress OK``."""
+    sources = (*_SOURCES, "stress.cpp")
+    out = {}
+    for kind in kinds:
+        flags = STRESS_FLAGS[kind]
+        path = _build_dir() / f"stress_{kind}-{_digest(flags, sources)}"
+        if not path.exists():
+            _compile(path, flags, sources)
+        out[kind] = path
+    return out
 
 
 def _load() -> Optional[ctypes.CDLL]:

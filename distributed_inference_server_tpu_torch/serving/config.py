@@ -9,9 +9,9 @@ config.py``: the same schema, so one config file loads in both packages).
   ``ConfigError`` that says so.
 - **Validation** (Property 27): range checks on load; the entry point
   exits 2 with ``config error:`` on an invalid value.
-  ``check_ported`` refuses the settings whose subsystem the port does not
-  have (multi-device parallelism, the multi-process runtime, gRPC, the
-  fleet) instead of ignoring them.
+  ``check_ported`` refuses a setting whose subsystem cannot run here
+  instead of failing at serve time: ``server.grpc_port`` where the
+  ``grpcio`` package is not installed.
 - **Hot reload**: ``ConfigWatcher`` polls the file's mtime; on a change
   the hot-reloadable subset (batching window and size, queue watermarks
   and timeout, scheduling strategy) goes to the subscribers. A torn or
@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import importlib.util
 import logging
 import os
 import threading
@@ -1087,11 +1088,16 @@ class ServerConfig:
 
     def check_ported(self) -> None:
         """Refuse, with a ``ConfigError`` naming the key, a setting whose
-        subsystem the port does not have yet: the gRPC transport.
-        ``validate`` (the reference's checks) passes such settings; the
-        entry point calls this after it, so none is ignored quietly."""
-        if self.raw["server"]["grpc_port"] != 0:
-            raise ConfigError("server.grpc_port is not ported yet")
+        subsystem cannot run in this installation: ``server.grpc_port``
+        (the gRPC transport, ``serving/grpc_server.py``) where ``grpcio``
+        is not installed. ``validate`` (the reference's checks) passes
+        such settings; the entry point calls this after it, so the
+        process exits 2 at once instead of failing at serve time."""
+        if (self.raw["server"]["grpc_port"] != 0
+                and importlib.util.find_spec("grpc") is None):
+            raise ConfigError(
+                "server.grpc_port needs the grpcio package (import grpc), "
+                "which is not installed")
 
     def hot_diff(self, other: "ServerConfig") -> Dict[tuple, Any]:
         """(section, key) -> new value for hot-reloadable keys that differ."""

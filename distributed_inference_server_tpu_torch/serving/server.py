@@ -12,7 +12,8 @@ cache_aware route's peer fetches (``serving/disagg.py``); the
 ``Dispatcher`` in front (queue, batching window, timeout sweep, crash-safe
 redispatch); and the ``InferenceHandler``. ``serve`` runs a
 ``ThreadingHTTPServer`` (one thread per connection) on the app in
-``serving/app.py``. ``scale_to`` adds replicas or retires them (unified
+``serving/app.py`` and, with ``grpc_port``, the gRPC transport
+(``serving/grpc_server.py``) on the same handler. ``scale_to`` adds replicas or retires them (unified
 ones first, youngest first), draining a retired replica before it stops.
 
 As the reference's server it always builds the observability and control
@@ -321,6 +322,7 @@ class InferenceServer:
         self._accepting = False
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._http_thread: Optional[threading.Thread] = None
+        self._grpc = None  # the gRPC transport, with ``grpc_port``
         self.started_at = time.time()
 
     def _wire_fleet_prices(self, fs: FleetServer) -> None:
@@ -380,9 +382,18 @@ class InferenceServer:
         self._accepting = True
 
     def serve(self, host: str = "0.0.0.0", port: int = 8000,
-              block: bool = True) -> int:
-        """Serve HTTP on ``host:port`` (0 = an ephemeral port). Blocks
-        unless ``block`` is False; returns the bound port."""
+              block: bool = True, grpc_port: int = 0) -> int:
+        """Serve HTTP on ``host:port`` (0 = an ephemeral port) and, with
+        ``grpc_port`` > 0, the gRPC transport on ``host:grpc_port`` over
+        the same handler (``serving/grpc_server.py``; needs ``grpcio``).
+        Blocks unless ``block`` is False; returns the bound HTTP port."""
+        if grpc_port:
+            # the only import of grpc: a server without the port never
+            # needs the package
+            from distributed_inference_server_tpu_torch.serving.grpc_server \
+                import serve_grpc
+
+            self._grpc = serve_grpc(self.handler, host, grpc_port)
         self._httpd = _HTTPServer((host, port), make_handler(self))
         self._httpd.daemon_threads = True
         bound = self._httpd.server_address[1]
@@ -397,7 +408,7 @@ class InferenceServer:
     def shutdown(self, drain_timeout_s: float = 30.0) -> None:
         """Stop accepting, drain the admission queue, the migrations, the
         fetches and the in-flight requests (up to ``drain_timeout_s``),
-        then stop HTTP, the controller (leftover migrations resume in
+        then stop gRPC (5 s of grace) and HTTP, the controller (leftover migrations resume in
         place), the health loop and the replicas."""
         self._accepting = False
         self.degradation.stop()
@@ -406,6 +417,12 @@ class InferenceServer:
         if self.role_balancer is not None:
             self.role_balancer.stop()
         self.dispatcher.shutdown(drain_timeout_s)
+        if self._grpc is not None:
+            from distributed_inference_server_tpu_torch.serving.grpc_server \
+                import stop_grpc
+
+            stop_grpc(self._grpc)  # RPCs in progress get its grace
+            self._grpc = None
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()

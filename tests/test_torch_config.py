@@ -250,23 +250,32 @@ _PORTED_REFUSALS = {
      "fleet.rerole"),
 ])
 def test_unported_settings_are_refused(flags, key, capsys, monkeypatch):
-    """The gRPC transport exits 2 as not ported yet; the ported parallel
-    and fleet settings (registry HA included) exit 2 with the
-    device-count, coordinator or value error instead, never as
-    unported."""
+    """Every setting is ported. ``server.grpc_port`` where ``grpcio``
+    cannot be imported (blocked here) exits 2 with a config error that
+    names the key and the package, before any engine is built; the
+    parallel and fleet settings (registry HA included) exit 2 with the
+    device-count, coordinator or value error, never as unported."""
+    import importlib.util
+
     from distributed_inference_server_tpu_torch.__main__ import main
 
     monkeypatch.setenv("XLA_FLAGS",
                        "--xla_force_host_platform_device_count=8")
     monkeypatch.delenv("RANK", raising=False)
+    find_spec = importlib.util.find_spec
+    monkeypatch.setattr(
+        importlib.util, "find_spec",
+        lambda name, *a: None if name.split(".")[0] == "grpc"
+        else find_spec(name, *a))
     assert main(flags + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert err.startswith("config error:")
+    assert "not ported" not in err
     if key in _PORTED_REFUSALS:
-        assert "not ported" not in err
         assert _PORTED_REFUSALS[key] in err
     else:
-        assert f"{key} is not ported yet" in err
+        assert key == "server.grpc_port"
+        assert f"{key} needs the grpcio package" in err
 
 
 def test_compile_cache_dir_is_accepted():

@@ -890,16 +890,20 @@ class TestFleetConfig:
         ({"DIS_TPU_SERVER__GRPC_PORT": "50051"}, "server.grpc_port"),
     ])
     def test_check_ported_still_refuses(self, env, key):
-        """The gRPC port is still refused; registry HA is ported, so
-        ``fleet.registries`` is accepted and maps to the JAX settings."""
+        """Both keys are ported: registry HA's ``fleet.registries`` is
+        accepted and maps to the JAX settings, and ``server.grpc_port``
+        passes where ``grpc`` imports (the gRPC transport), with the JAX
+        value."""
+        if key == "server.grpc_port":
+            pytest.importorskip("grpc")
         cfg = ServerConfig.load(environ=env)
+        cfg.check_ported()
         if key == "fleet.registries":
-            cfg.check_ported()
             assert cfg.fleet_settings().registries == (
                 JServerConfig.load(environ=env).fleet_settings().registries)
             return
-        with pytest.raises(ConfigError, match=f"{key} is not ported yet"):
-            cfg.check_ported()
+        assert cfg.get("server", "grpc_port") == 50051 == (
+            JServerConfig.load(environ=env).get("server", "grpc_port"))
 
 
 class TestSchedulerUnregisterIf:

@@ -5,7 +5,9 @@ raise.
 
 ``ops/kernels/_triton_fused.py`` imports ``triton`` at module level (it is
 loaded only by the launching functions, on a machine with a card), so the
-import test skips that one module where ``triton`` is missing.
+import test skips that one module where ``triton`` is missing; so does it
+``serving/grpc_server.py`` (the one module that imports ``grpc``) where
+``grpcio`` is missing.
 """
 
 import ast
@@ -68,8 +70,11 @@ def test_port_imports_where_jax_cannot():
 
         sys.meta_path.insert(0, Block())
         has_triton = importlib.util.find_spec("triton") is not None
+        has_grpc = importlib.util.find_spec("grpc") is not None
         for m in {modules!r}:
             if m.endswith("_triton_fused") and not has_triton:
+                continue
+            if m.endswith(".grpc_server") and not has_grpc:
                 continue
             importlib.import_module(m)
         leaked = [k for k in sys.modules
@@ -410,5 +415,74 @@ def test_fleet_serves_where_jax_cannot():
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                          capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+# the transports: the router on the standard library, gRPC on grpcio
+GRPC_MODULE = "distributed_inference_server_tpu_torch/serving/grpc_server.py"
+
+
+def test_only_grpc_server_imports_grpc():
+    """No module of the port but ``serving/grpc_server.py`` imports
+    ``grpc``; the server imports that module only inside ``serve``."""
+    offenders = []
+    for path in _port_files():
+        rel = path.relative_to(ROOT).as_posix()
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{rel}: {n}" for n in names
+                          if n.split(".")[0] == "grpc"
+                          and rel != GRPC_MODULE]
+    assert offenders == []
+
+
+def test_server_router_and_entry_point_import_without_grpc():
+    """``serving/server.py``, ``serving/router.py`` and ``__main__`` import
+    where ``grpc`` (and jax, the JAX package, aiohttp and
+    prometheus_client) cannot; the router imports no ``torch`` either; and
+    the entry point refuses ``--server-grpc-port`` there with exit 2."""
+    blocked = FORBIDDEN + ("grpc",)
+    script = textwrap.dedent(f"""
+        import contextlib, importlib, io, sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {blocked!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        importlib.import_module(
+            "distributed_inference_server_tpu_torch.serving.router")
+        assert "torch" not in sys.modules
+        for m in ("distributed_inference_server_tpu_torch.serving.server",
+                  "distributed_inference_server_tpu_torch.__main__"):
+            importlib.import_module(m)
+        from distributed_inference_server_tpu_torch.__main__ import main
+        import importlib.util
+        real = importlib.util.find_spec
+        importlib.util.find_spec = (lambda name, *a: None
+                                    if name.split(".")[0] == "grpc"
+                                    else real(name, *a))
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = main(["--server-grpc-port", "50051", "--device", "cpu"])
+        assert rc == 2, rc
+        assert "server.grpc_port" in err.getvalue(), err.getvalue()
+        assert "grpcio" in err.getvalue(), err.getvalue()
+        leaked = [k for k in sys.modules
+                  if k.split(".")[0] in {blocked!r}]
+        assert not leaked, leaked
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
