@@ -63,7 +63,15 @@ with every ``EngineConfig`` default, and the ragged mixed step).
   CPU everything runs eagerly.
 - **Step clock** (``step_clock_stats``): host wall time, dispatches,
   tokens and rows per dispatch kind, and the pressure events, under the
-  JAX engine's kinds and names.
+  JAX engine's kinds and names; and the port's own fields: model
+  ``forwards`` and ``capacity`` (the tokens a dispatch computes, padding
+  included) per kind, and on ``cuda`` the device clock
+  (``device_clock.py``): ``device_s`` per kind from timing events around
+  each dispatch, read where the engine already waits on the device, and
+  ``idle``, the engine stream's gaps between dispatches by what the
+  engine thread was doing meanwhile. Each sequence's first token carries
+  its prefill chunks' first and last issue times and counts
+  (``StepOutput.prefill``).
 
 - **Sliding-window page reclaim** (``_reclaim_window_pages``): for a model
   whose every layer slides (Mistral), pages wholly behind every future
@@ -171,6 +179,12 @@ from distributed_inference_server_tpu_torch.core.models import (
     Usage,
 )
 from distributed_inference_server_tpu_torch.core.types import RequestId
+from distributed_inference_server_tpu_torch.engine.device_clock import (
+    CAUSES as IDLE_CAUSES,
+)
+from distributed_inference_server_tpu_torch.engine.device_clock import (
+    DeviceClock,
+)
 from distributed_inference_server_tpu_torch.engine.graph_loop import LoopGraph
 from distributed_inference_server_tpu_torch.engine.kv_cache import (
     _KIND_LATENT,
@@ -482,6 +496,9 @@ class StepOutput:
     finish_reason: Optional[FinishReason] = None
     usage: Optional[Usage] = None
     error: Optional[str] = None
+    # on a sequence's first token: (first chunk issued, last chunk issued,
+    # chunks, engine steps they spanned) of its prefill on this engine
+    prefill: Optional[Tuple[float, float, int, int]] = None
 
 
 class _Seq:
@@ -491,7 +508,8 @@ class _Seq:
         "request_id", "token_ids", "prompt_len", "block_table", "seq_len",
         "next_token", "params", "output_text", "emitted_upto",
         "emitted_tokens", "dev_pos", "dev_steps_left", "pending_ids",
-        "freed_upto", "prefill_only", "exporting",
+        "freed_upto", "prefill_only", "exporting", "chunk_t0", "chunk_t1",
+        "chunks", "chunk_step0", "chunk_step1",
     )
 
     def __init__(self, request_id: RequestId, prompt_ids: List[int],
@@ -521,6 +539,10 @@ class _Seq:
         # a streamed export is in flight: the sequence decodes here while
         # its prefix pages serialize (window reclaim must not free them)
         self.exporting = False
+        # prefill chunks issued: the first's and the last's monotonic time
+        # and engine step, and their count
+        self.chunk_t0 = self.chunk_t1 = 0.0
+        self.chunks = self.chunk_step0 = self.chunk_step1 = 0
 
     def num_output_tokens(self) -> int:
         return len(self.token_ids) - self.prompt_len
@@ -838,11 +860,17 @@ class LLMEngine:
         self._mixed_density_sum = 0.0
         # engine step clock: host wall time, dispatches, tokens and rows
         # per dispatch kind (time.monotonic around the host sections,
-        # never a device sync), plus the step loop's pressure events
+        # never a device sync), model forwards and the tokens computed
+        # with padding, plus the step loop's pressure events
         self._sc_kinds: Dict[str, Dict[str, float]] = {
-            k: {"dispatches": 0, "wall_s": 0.0, "tokens": 0, "rows": 0}
+            k: {"dispatches": 0, "wall_s": 0.0, "tokens": 0, "rows": 0,
+                "forwards": 0, "capacity": 0}
             for k in ("prefill", "decode_block", "mixed", "loop")
         }
+        # the device clock (cuda): device seconds per kind and idle gaps
+        self._dclock = (DeviceClock(self._stream)
+                        if self._stream is not None else None)
+        self._nsteps = 0
         self._sc_events: Dict[str, int] = {
             "cache_full": 0, "preempt": 0, "reclaim": 0, "retrace": 0,
         }
@@ -1007,9 +1035,12 @@ class LLMEngine:
         block instead of the K-step block, processed right after it ends
         (looped blocks do not pipeline)."""
         outputs: List[StepOutput] = []
+        self._nsteps += 1
         self._prof_begin()
-        with self._on_stream():
+        self._dc_segment("admit")
+        with self._on_stream(taint=False):
             self._admit(outputs)
+            self._dc_segment(None)
             if self.ecfg.mixed_step_tokens and any(
                     s is not None and _mid_prefill(s) for s in self.slots):
                 launched = self._mixed_step(outputs)
@@ -1024,6 +1055,7 @@ class LLMEngine:
                     or not launched):
                 self._process_block(outputs)
         self._prof_end_step()
+        self._dc_segment("runner")
         return outputs
 
     def profile_steps(self, n: int):
@@ -1056,7 +1088,7 @@ class LLMEngine:
             holder["error"] = str(e)
             ev.set()
             return
-        self._prof_active = [n, trace, ev, holder]
+        self._prof_active = [n, trace, ev, holder, self.step_clock_stats()]
 
     def _prof_end_step(self) -> None:
         if self._prof_active is None:
@@ -1064,11 +1096,18 @@ class LLMEngine:
         self._prof_active[0] -= 1
         if self._prof_active[0] > 0:
             return
-        n, trace, ev, holder = self._prof_active
+        n, trace, ev, holder, clock0 = self._prof_active
         self._prof_active = None
         try:
             holder.update(trace.stop())
             holder["mode"] = "steps"
+            # the stop waited for the card: every dispatch has resolved
+            clock1 = self.step_clock_stats()
+            holder["engine_device_s"] = {
+                k: c["device_s"] - clock0["kinds"][k]["device_s"]
+                for k, c in clock1["kinds"].items()}
+            holder["engine_idle_s"] = {
+                k: s - clock0["idle"][k] for k, s in clock1["idle"].items()}
         except Exception as e:  # noqa: BLE001 — profiler teardown failure
             holder["error"] = str(e)
         ev.set()
@@ -1106,11 +1145,13 @@ class LLMEngine:
                 while self.has_work():
                     self.step()  # outputs discarded
             if self._use_graphs:
-                with self._on_stream():
+                with self._on_stream(taint=False):
                     self._drain_pending([])
                     self._capture_all()
         finally:
             self._in_warmup = False
+        if self._dclock is not None:
+            self._dclock.anchor()
 
     def set_mixed_prefill_frac(self, frac: float) -> None:
         """Shrink (or restore) the prefill share of the mixed step's packed
@@ -1189,11 +1230,26 @@ class LLMEngine:
     def step_clock_stats(self) -> Dict[str, Dict[str, object]]:
         """Cumulative step-clock counters: per dispatch kind (prefill,
         decode_block, mixed, loop) the dispatches, host wall seconds,
-        tokens and rows; and the events (cache_full, preempt, reclaim,
-        retrace: a CUDA graph captured while serving)."""
+        tokens and rows; model ``forwards`` (K per decode block, the
+        iterations of a looped block, gamma + 2 per speculative round:
+        the draft's decodes and the verify), ``capacity`` (the tokens the
+        dispatches compute, padding included: prefill_batch x bucket a
+        chunk, max_batch x K a decode block, the packed width a mixed
+        step) and ``device_s`` (their device seconds between timing
+        events; 0 on the CPU); the events (cache_full, preempt, reclaim,
+        retrace: a CUDA graph captured while serving); ``idle``, the
+        engine stream's gaps between dispatches by host cause (zeros on
+        the CPU; ``device_clock.py``). Resolves the dispatches that have
+        completed. Engine thread."""
+        dc = self._dclock
+        if dc is not None:
+            dc.poll()
+        kinds = {k: {**v, "device_s": dc.device_s.get(k, 0.0) if dc else 0.0}
+                 for k, v in self._sc_kinds.items()}
         return {
-            "kinds": {k: dict(v) for k, v in self._sc_kinds.items()},
+            "kinds": kinds,
             "events": dict(self._sc_events),
+            "idle": dict(dc.idle) if dc else {c: 0.0 for c in IDLE_CAUSES},
         }
 
     def drain_step_samples(self) -> List[Tuple[str, float]]:
@@ -1297,6 +1353,7 @@ class LLMEngine:
         start = len(seq.block_table)  # pages already shared from HBM
         if tier.empty or (start + 1) * ps >= n:
             return
+        self._dc_taint()  # a scatter outside any dispatch
         hash_it = iter_chain_hashes(prompt, ps)
         for _ in range(start):  # the hashes the HBM match covered
             next(hash_it)
@@ -2012,13 +2069,16 @@ class LLMEngine:
     # ------------------------------------------------------------------
 
     def _clock(self, kind: str, wall_s: float, tokens: int = 0,
-               rows: int = 0, dispatches: int = 0) -> None:
+               rows: int = 0, dispatches: int = 0, forwards: int = 0,
+               capacity: int = 0) -> None:
         """Attribute one host wall-time segment to a dispatch kind."""
         c = self._sc_kinds[kind]
         c["dispatches"] += dispatches
         c["wall_s"] += wall_s
         c["tokens"] += tokens
         c["rows"] += rows
+        c["forwards"] += forwards
+        c["capacity"] += capacity
         self._sc_samples.append((kind, wall_s))
         if len(self._sc_samples) > 4096:
             # a headless engine (tests, tools) must stay bounded too
@@ -2029,15 +2089,50 @@ class LLMEngine:
             return  # a graph captured at boot, not mid-serving
         self._sc_events[name] = self._sc_events.get(name, 0) + n
 
+    # the device clock (device_clock.py; no-ops on the CPU): dispatches
+    # are bracketed from their first upload to their result copy, except
+    # during warmup, whose captures are boot cost
+
+    def _dc_segment(self, name: Optional[str]) -> Optional[str]:
+        return None if self._dclock is None else self._dclock.segment(name)
+
+    def _dc_begin(self) -> None:
+        if self._dclock is not None and not self._in_warmup:
+            self._dclock.begin()
+
+    def _dc_end(self, kind: str) -> None:
+        if self._dclock is not None:
+            self._dclock.end(kind)
+
+    def _dc_poll(self) -> None:
+        if self._dclock is not None:
+            self._dclock.poll()
+
+    def _dc_taint(self) -> None:
+        if self._dclock is not None:
+            self._dclock.taint()
+
+    def _stamp_chunk(self, seq: _Seq, now: float) -> None:
+        """One prefill chunk of ``seq`` issued at ``now``."""
+        if not seq.chunks:
+            seq.chunk_t0, seq.chunk_step0 = now, self._nsteps
+        seq.chunks += 1
+        seq.chunk_t1, seq.chunk_step1 = now, self._nsteps
+
     # ------------------------------------------------------------------
     # device plumbing: the engine stream, uploads, CUDA graphs
     # ------------------------------------------------------------------
 
-    def _on_stream(self):
+    def _on_stream(self, taint: bool = True):
         """Run on the engine's own stream (cuda): eager work, graph
-        captures and replays share it, so they run in issue order."""
+        captures and replays share it, so they run in issue order. Device
+        work outside a dispatch (``taint``: every caller but ``step`` and
+        ``warmup``) keeps the next gap out of the device clock's idle
+        count."""
         if self._stream is None:
             return contextlib.nullcontext()
+        if taint:
+            self._dc_taint()
         return torch.cuda.stream(self._stream)
 
     def _upload(self, dst: torch.Tensor, arr: np.ndarray) -> None:
@@ -2078,6 +2173,7 @@ class LLMEngine:
         each replay draws new numbers. Raises on failure (the eager path
         is never taken in its place)."""
         self._event("retrace")
+        self._dc_taint()
         graph = torch.cuda.CUDAGraph()
         if key[-1] != 0:  # a sampled mode draws from the generator
             if not hasattr(graph, "register_generator_state"):
@@ -2267,7 +2363,9 @@ class LLMEngine:
         whose last chunk ran sample their first token on the device and
         are staged into the decode carry."""
         sc_t0 = time.monotonic()
-        sc_tokens = sc_rows = sc_disp = 0
+        sc_tokens = sc_rows = sc_disp = sc_fwd = sc_cap = 0
+        # the draft prefills beside the target in every chunk
+        fwd = 1 if self.draft_params is None else 2
         budget = self.ecfg.prefill_token_budget
         Bp = self.ecfg.prefill_batch
         ps = self.pcfg.page_size
@@ -2283,10 +2381,11 @@ class LLMEngine:
                         and len(s.token_ids) >= thr):
                     remaining = len(s.token_ids) - s.seq_len
                     try:
-                        self._cp_prefill_seq(slot, s, outputs)
+                        sc_cap += self._cp_prefill_seq(slot, s, outputs)
                         sc_tokens += remaining
                         sc_rows += 1
                         sc_disp += 1
+                        sc_fwd += fwd
                     except Exception as e:  # failure isolation
                         self.slots[slot] = None
                         self._by_id.pop(s.request_id, None)
@@ -2302,6 +2401,7 @@ class LLMEngine:
                      and (thr is None or len(s.token_ids) < thr)][:Bp]
             if not group:
                 break
+            self._dc_segment("schedule")
             bucket = self._pick_bucket(max(
                 len(s.token_ids) - s.seq_len for _, s in group))
             n = Bp * bucket
@@ -2333,6 +2433,7 @@ class LLMEngine:
                 last_idx[j] = t - 1
                 flts[j] = s.params.temperature
                 flts[Bp + j] = s.params.top_p
+            self._dc_begin()
             self._upload(self._p_int[bucket], ints)
             self._upload(self._p_flt[bucket], flts)
             mode = _sample_mode([s for _, s in group])
@@ -2340,25 +2441,37 @@ class LLMEngine:
                 self._prefill_body, bucket, mode), self._gen)
             # the next chunk of this bucket overwrites the static output
             res = self._p_out[bucket].clone()
+            self._dc_end("prefill")
             budget -= Bp * bucket
             sc_tokens += sum(chunk_lens)
             sc_rows += len(group)
             sc_disp += 1
+            sc_fwd += fwd
+            sc_cap += Bp * bucket
             done: List[bool] = []
+            now = time.monotonic()
             for j, (_, s) in enumerate(group):
                 s.seq_len += chunk_lens[j]
+                self._stamp_chunk(s, now)
                 done.append(s.seq_len >= len(s.token_ids))
             dispatched.append((res, list(group), done))
 
         # reap: one read per chunk that finished a prompt
+        self._dc_segment("reap")
+        waited = False
         for res, group, done in dispatched:
             if not any(done):
                 continue
             both = res.cpu().numpy()
+            if not waited:  # every chunk issued has run
+                waited = True
+                self._dc_poll()
             self._reap_first_tokens(group, done, both[0], both[1], outputs)
+        self._dc_segment(None)
         if sc_disp:
             self._clock("prefill", time.monotonic() - sc_t0,
-                        tokens=sc_tokens, rows=sc_rows, dispatches=sc_disp)
+                        tokens=sc_tokens, rows=sc_rows, dispatches=sc_disp,
+                        forwards=sc_fwd, capacity=sc_cap)
 
     def _reap_first_tokens(self, group, done, toks, lps,
                            outputs: List[StepOutput]) -> None:
@@ -2368,8 +2481,13 @@ class LLMEngine:
         for j, (slot, s) in enumerate(group):
             if not done[j] or self._by_id.get(s.request_id) is not s:
                 continue
+            first = len(outputs)
             try:
                 self._emit_token(s, int(toks[j]), outputs, float(lps[j]))
+                if s.chunks and len(outputs) > first:
+                    outputs[first].prefill = (
+                        s.chunk_t0, s.chunk_t1, s.chunks,
+                        s.chunk_step1 - s.chunk_step0 + 1)
             except Exception as e:  # failure isolation
                 self.slots[slot] = None
                 self._by_id.pop(s.request_id, None)
@@ -2417,17 +2535,19 @@ class LLMEngine:
         return min(b, max(cap, -(-n // seq_ax) * seq_ax))
 
     def _cp_prefill_seq(self, slot: int, s: _Seq,
-                        outputs: List[StepOutput]) -> None:
+                        outputs: List[StepOutput]) -> int:
         """Prefill one long prompt in one sequence-parallel pass (ring or
         Ulysses over ``seq``, ``parallel/cp.py``), its K/V written into its
         pages (the draft's too), sample the first token and seat it for
         decode. The whole prompt runs from position 0: prefix-shared pages
         are rewritten with the same contents. Eager, as every prompt
-        length is its own shape."""
+        length is its own shape. Returns the tokens it computed (the
+        padded prompt buffer)."""
         from distributed_inference_server_tpu_torch.parallel.cp import (
             cp_paged_prefill_any,
         )
 
+        self._dc_segment("schedule")
         n = len(s.token_ids)
         T = self._cp_bucket(n)
         ps = self.pcfg.page_size
@@ -2439,6 +2559,7 @@ class LLMEngine:
         ok = (pos < n) & (page < len(table))
         write = np.where(ok, table[np.minimum(page, len(table) - 1)] * ps
                          + pos % ps, self._num_slots_flat)[None]
+        self._dc_begin()
         d_ids = self._device_array(ids)
         d_valid = self._device_array(np.array([n], np.int32))
         d_write = self._device_array(write.astype(np.int64))
@@ -2457,9 +2578,16 @@ class LLMEngine:
         toks = _sample(logits, flts[:1], flts[1:], self._gen, mode)
         lps = _chosen_logprob(logits, toks)
         s.seq_len = n
-        both = torch.stack([toks.float(), lps]).cpu().numpy()
+        both = torch.stack([toks.float(), lps])
+        self._dc_end("prefill")
+        self._stamp_chunk(s, time.monotonic())
+        self._dc_segment("reap")
+        both = both.cpu().numpy()
+        self._dc_poll()
         self._reap_first_tokens([(slot, s)], [True], both[0], both[1],
                                 outputs)
+        self._dc_segment(None)
+        return T
 
     def _pick_bucket(self, remaining: int) -> int:
         for b in self.ecfg.prefill_buckets:
@@ -2545,6 +2673,7 @@ class LLMEngine:
         Returns whether a block was launched."""
         sc_t0 = time.monotonic()
         sc_excl = 0.0  # drained frames clock their own processing
+        self._dc_segment("schedule")
         while True:
             seated = [(i, s) for i, s in enumerate(self.slots)
                       if s is not None]
@@ -2582,9 +2711,15 @@ class LLMEngine:
             # no floor: negatives reconcile exactly when the block is read
             s.dev_pos += adv
             s.dev_steps_left -= adv
+        K, B = self.ecfg.decode_block_size, self.ecfg.max_batch
+        # a speculative round: gamma + 1 draft decodes and one verify
+        # forward, emitting up to gamma + 1 tokens a row
+        W = self.spec.num_draft_tokens + 1 if use_spec else 1
         self._clock("decode_block",
                     max(0.0, time.monotonic() - sc_t0 - sc_excl),
-                    rows=len(seated), dispatches=1)
+                    rows=len(seated), dispatches=1,
+                    forwards=K * (W + 1 if use_spec else 1),
+                    capacity=B * K * W)
         return True
 
     def _stage_decode_inputs(self) -> None:
@@ -2601,6 +2736,8 @@ class LLMEngine:
             ints[4 * B + slot] = steps
         self._slot_updates.clear()
         ints[5 * B:] = self._bt.reshape(-1)
+        # the first upload of every decode-carrying dispatch
+        self._dc_begin()
         self._upload(self._d_int, ints)
         self._upload(self._d_flt, np.concatenate([self._temp, self._topp]))
 
@@ -2691,13 +2828,14 @@ class LLMEngine:
             self._run(("spec", mode), functools.partial(self._spec_body,
                                                         mode),
                       self._decode_gen)
-            self._pending.append((*self._read_later(self._s_out), snapshot,
-                                  "decode_block"))
-            return
-        self._run(("decode", mode), functools.partial(self._decode_body,
-                                                      mode), self._decode_gen)
-        self._pending.append((*self._read_later(self._d_out), snapshot,
+            out = self._s_out
+        else:
+            self._run(("decode", mode), functools.partial(
+                self._decode_body, mode), self._decode_gen)
+            out = self._d_out
+        self._pending.append((*self._read_later(out), snapshot,
                               "decode_block"))
+        self._dc_end("decode_block")
 
     # ------------------------------------------------------------------
     # speculative blocks
@@ -2928,9 +3066,11 @@ class LLMEngine:
         only wait on the device), then reconcile each row's projected
         advance with what it emitted."""
         sc_t0 = time.monotonic()
+        seg = self._dc_segment("walk")
         host, ev, snapshot, kind = self._pending.popleft()
         if ev is not None:
             ev.synchronize()
+            self._dc_poll()
         both = host.numpy() if isinstance(host, torch.Tensor) else host
         if both.ndim == 1:  # a speculative block's flat frame
             emitted = self._walk_spec_frame(both, snapshot, outputs)
@@ -2938,6 +3078,7 @@ class LLMEngine:
             emitted = self._walk_block(both[0], both[1], snapshot, outputs)
         self._clock(kind, time.monotonic() - sc_t0,
                     tokens=emitted if kind == "decode_block" else 0)
+        self._dc_segment(seg)
 
     def _walk_block(self, toks: np.ndarray, lps: np.ndarray, snapshot,
                     outputs: List[StepOutput],
@@ -3085,6 +3226,7 @@ class LLMEngine:
         once; the [K, B] decode frame joins the pending blocks."""
         sc_t0 = time.monotonic()
         sc_excl = 0.0
+        self._dc_segment("schedule")
         S = self.ecfg.mixed_step_tokens
         B = self.ecfg.max_batch
         Sp = S - B
@@ -3162,6 +3304,7 @@ class LLMEngine:
         self._run(("mixed", K, mode), functools.partial(
             self._mixed_body, mode, K), self._decode_gen)
         host, ev = self._read_later(self._m_out)
+        self._dc_end("mixed")
 
         for _, s in decode_seated:
             s.dev_pos += advs[id(s)]
@@ -3172,8 +3315,11 @@ class LLMEngine:
         self._mixed_decode_tokens += decode_tokens
         self._mixed_density_sum += (prefill_tokens + decode_tokens) / S
         done = []
+        now = time.monotonic()
         for j, (_, s) in enumerate(group):
             s.seq_len += chunk_lens[j]
+            if chunk_lens[j] > 0:
+                self._stamp_chunk(s, now)
             done.append(chunk_lens[j] > 0 and s.seq_len >= len(s.token_ids))
         # the decode rows' [K, B] frame joins the pending blocks, so
         # blocks are walked in launch order
@@ -3181,15 +3327,18 @@ class LLMEngine:
                               [(i, s, advs[id(s)]) for i, s in decode_seated],
                               "mixed"))
         if any(done):  # the first-token candidates: read only when needed
+            self._dc_segment("reap")
             if ev is not None:
                 ev.synchronize()
+                self._dc_poll()
             both = host.numpy()
             self._reap_first_tokens(group, done, both[0, K * B:],
                                     both[1, K * B:], outputs)
+            self._dc_segment(None)
         self._clock("mixed", max(0.0, time.monotonic() - sc_t0 - sc_excl),
                     tokens=prefill_tokens + decode_tokens,
                     rows=len(decode_seated) + sum(1 for t in chunk_lens if t),
-                    dispatches=1)
+                    dispatches=1, forwards=K, capacity=S + (K - 1) * B)
         return True
 
     # ------------------------------------------------------------------
@@ -3357,6 +3506,7 @@ class LLMEngine:
         (``graph_loop.LoopGraph``). Sampled iterations draw
         ``counter_uniform`` noise, not the generator. Raises on failure."""
         self._event("retrace")
+        self._dc_taint()
         parts = []
         torch.cuda.synchronize(self.device)
         body = self._spec_loop_body if spec else self._loop_body
@@ -3392,6 +3542,7 @@ class LLMEngine:
             self._drain_pending(outputs)
         sc_t0 = time.monotonic()
         sc_excl = 0.0
+        self._dc_segment("schedule")
         cap = self._loop_cap()
         while True:
             seated = [(i, s) for i, s in enumerate(self.slots)
@@ -3455,13 +3606,17 @@ class LLMEngine:
         results = (self._read_later(self._l_state)[0],
                    *self._read_later(self._ls_out if use_spec
                                      else self._l_out))
+        self._dc_end("loop")
         for _, s in seated:
             s.dev_pos += advs[id(s)]
             s.dev_steps_left -= advs[id(s)]
-        emitted = self._process_loop_block(results, launched, snapshot,
-                                           drawn, outputs)
+        emitted, n_iter = self._process_loop_block(results, launched,
+                                                   snapshot, drawn, outputs)
+        B = self.ecfg.max_batch
         self._clock("loop", max(0.0, time.monotonic() - sc_t0 - sc_excl),
-                    tokens=emitted, rows=len(seated), dispatches=1)
+                    tokens=emitted, rows=len(seated), dispatches=1,
+                    forwards=n_iter * (W + 1 if use_spec else 1),
+                    capacity=B * n_iter * W)
         return True
 
     def _process_loop_block(self, results, graph: Optional[_Graph],
@@ -3475,12 +3630,15 @@ class LLMEngine:
         through ``reconcile_device``. Then the K-step path's token walk,
         the re-staging of rows the free-list starved (exit 3) and the
         exit counters; a launched ``graph`` adds its iteration's launches
-        times the iterations run. Returns the tokens emitted."""
+        times the iterations run. Returns the tokens emitted and the
+        iterations run."""
         B = self.ecfg.max_batch
         P = self.pcfg.max_pages_per_seq
         state, out, ev = results
+        seg = self._dc_segment("walk")
         if ev is not None:
             ev.synchronize()
+            self._dc_poll()
         state, out = state.numpy(), out.numpy()
         # iterations run: steps, or rounds of a speculative block
         n_steps = int(state[0])
@@ -3521,7 +3679,8 @@ class LLMEngine:
         self._loop_blocks += 1
         self._loop_steps += n_steps
         self._loop_decode_tokens += emitted
-        return emitted
+        self._dc_segment(seg)
+        return emitted, n_steps
 
     # ------------------------------------------------------------------
     # token emission & completion

@@ -41,8 +41,16 @@ not available where the port runs). One thread per connection, HTTP/1.1.
 - ``POST /server/profile``: body ``{"steps": N}`` (optional
   ``timeout_s``, default 30): trace the card over the next N engine steps
   with ``torch.profiler`` and return the window's device busy time and
-  share (``utils/profiler.py``); 409 with an ``error`` when the trace
-  could not run (no card, another trace, an idle engine).
+  share (``utils/profiler.py``), with the engine's device seconds by
+  dispatch kind and idle seconds by cause over those steps
+  (``engine_device_s``, ``engine_idle_s``: its step clock's deltas); 409
+  with an ``error`` when the trace could not run (no card, another trace,
+  an idle engine).
+
+Each POST is stamped at its receipt (line and headers read, body not
+yet): the flight recorder's ``ingress`` phase runs from there to
+admission, and a stream's first written token frame is noted
+(``request_first_frame_seconds``).
 
 A stream is written with ``Transfer-Encoding: chunked``, one chunk per
 frame, each written straight to the socket. A write that fails (the client
@@ -424,8 +432,11 @@ def make_handler(server: "InferenceServer") -> type:
         def _stream(self, rids, events, encode) -> None:
             """Write ``events`` as SSE frames (``encode`` makes a frame's
             bytes), then ``[DONE]``; abort ``rids`` if the client goes
-            away."""
+            away. Each choice's first token frame, once written, is noted
+            in the flight recorder (``first_frame``)."""
             consumed = False
+            recorder = handler.recorder
+            unwritten = set(range(len(rids))) if recorder else set()
             try:
                 self._status = 200
                 self.send_response(200)
@@ -435,6 +446,11 @@ def make_handler(server: "InferenceServer") -> type:
                 self.end_headers()
                 for item in events:
                     self._chunk(encode(item))
+                    if unwritten:
+                        i, ev = item if isinstance(item, tuple) else (0, item)
+                        if ev.type == "token" and i in unwritten:
+                            unwritten.discard(i)
+                            recorder.first_frame(rids[i])
                 consumed = True
                 self._chunk(SSE_DONE)
                 self.wfile.write(b"0\r\n\r\n")
@@ -453,27 +469,31 @@ def make_handler(server: "InferenceServer") -> type:
             their /v1 counterparts."""
             obj = self._json_body()
             opts = V1Opts()
+            at = self._received
             if v1:
                 obj, opts = openai_fields(obj, chat=chat)
             if obj.get("stream") is True and v1:
                 rids, events = handler.stream_many(
-                    obj, chat=chat, n=opts.n, idle=self._idle_check)
+                    obj, chat=chat, n=opts.n, idle=self._idle_check,
+                    received_at=at)
                 self._stream(rids, events, v1_chunk_encoder(
                     rids, chat=chat, opts=opts, model=handler.model_name))
             elif obj.get("stream") is True:
                 stream = handler.chat_stream if chat else \
                     handler.generate_stream
-                rid, events = stream(obj, idle=self._idle_check)
+                rid, events = stream(obj, idle=self._idle_check,
+                                     received_at=at)
                 self._stream([rid], events, sse_encode)
             elif v1:
-                rid, choices, usage = handler.complete_many(obj, chat=chat,
-                                                            n=opts.n)
+                rid, choices, usage = handler.complete_many(
+                    obj, chat=chat, n=opts.n, received_at=at)
                 self._send(200, v1_response(rid, choices, usage, chat=chat,
                                             opts=opts,
                                             model=handler.model_name,
                                             tok=handler.tok))
             else:
-                resp = (handler.chat if chat else handler.generate)(obj)
+                resp = (handler.chat if chat else handler.generate)(
+                    obj, received_at=at)
                 self._send(200, resp.to_dict())
 
         def _embeddings(self) -> None:
@@ -634,7 +654,9 @@ def make_handler(server: "InferenceServer") -> type:
             if route is None:
                 self._not_found()
                 return
-            t0 = time.monotonic()
+            # the request's receipt: its line and headers are read, its
+            # body not yet (the flight recorder's ingress phase starts here)
+            t0 = self._received = time.monotonic()
             self._status = 500
             try:
                 route(self)

@@ -33,9 +33,10 @@ Admission control at ``submit``: the degradation ladder's gates
 deadline-aware shedding (``admission``, ``serving/health.py``
 ``AdmissionControl``: ``AdmissionShed``, answered 503 ``admission_shed``
 with ``Retry-After``). Admits feed the shared ``retry_budget``, from which
-redispatch draws. With a ``tracer`` each admission batch that reaches a
-replica gets a ``batch.dispatch`` span and its requests' spans a
-``dispatched`` event; with a ``recorder`` the schedule and route
+redispatch draws. With a ``tracer`` the spans of an admission batch's
+requests get a ``dispatched`` event with the replica's ``engine_id`` and
+the batch's ``size`` (the batch has no span of its own: one would take
+ring slots from request spans); with a ``recorder`` the schedule and route
 decisions, sheds, expiries and redispatch hops land in the requests'
 timelines.
 """
@@ -374,13 +375,10 @@ class Dispatcher:
                                    engine=runner.engine_id,
                                    strategy=strategy)
         if self.tracer is not None:
-            with self.tracer.span(
-                    "batch.dispatch", size=len(requests),
-                    engine_id=runner.engine_id,
-                    request_ids=[str(r.request_id) for r in requests]):
-                for r in requests:
-                    if r.span is not None:
-                        r.span.event("dispatched")
+            for r in requests:
+                if r.span is not None:
+                    r.span.event("dispatched", engine_id=runner.engine_id,
+                                 size=len(requests))
         runner.submit(requests)
 
     def _route(self, requests: List[ServerRequest]) -> list:

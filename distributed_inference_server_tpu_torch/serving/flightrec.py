@@ -4,14 +4,28 @@ phase-attributed latency (the port's copy of
 
 The serving spine notes events into a bounded timeline as the request
 moves (admit -> route_plan / schedule -> prefix_fetch / handoff phases ->
-first_token -> decode blocks -> terminal, redispatch hops in between). At
-the terminal event ``finish`` partitions the request's wall clock into
-``queue_wait``, ``prefill``, ``peer_fetch``, ``handoff_stall``, ``decode``
-and ``detok``: each window is subtracted from the span that contains it,
-so the phases sum to the wall clock exactly. They export as
+prefill_start -> first_token -> decode blocks -> terminal, redispatch hops
+in between). At the terminal event ``finish`` partitions the request's
+wall clock into ``ingress``, ``queue_wait``, ``engine_wait``,
+``prefill``, ``peer_fetch``, ``handoff_stall``, ``decode`` and ``detok``:
+each window is subtracted from the span that contains it, so the phases
+sum to the wall clock exactly. They export as
 ``request_phase_seconds{phase}``, feed the ``queue_wait_ms`` / ``tbt_ms``
 digests, and with ``slo`` set derive the request's SLO verdict. ``GET
 /server/requests/<id>`` serves the timeline.
+
+The port's phases beside the JAX package's: ``ingress`` runs from the
+HTTP handler's receipt of the request (``admit(received_at=...)``) to its
+admission, and the wall clock starts at the receipt (0 without one; the
+SLO verdict's TTFT still starts at admission). ``engine_wait`` runs from
+the dispatch to the engine's issue of the request's first prefill chunk
+(the runner's ``prefill_start`` note, whose ``at`` is that instant), and
+``prefill`` from there to the first token; a request with no
+``prefill_start`` (a handoff import) keeps the whole dispatch -> first
+token as ``prefill``, and ``engine_wait + prefill`` is always the JAX
+package's ``prefill``. ``first_frame`` (the stream writer's first
+written frame) exports the delay from the first token to that write as
+``request_first_frame_seconds``: not a phase, as it overlaps decode.
 
 Memory is bounded twice: ``max_requests`` timelines (oldest evicted) and
 ``max_events`` events each (the terminal event always lands). Token events
@@ -36,8 +50,8 @@ from distributed_inference_server_tpu_torch.serving.teledigest import (
     slo_verdict,
 )
 
-PHASES = ("queue_wait", "prefill", "peer_fetch", "handoff_stall",
-          "decode", "detok")
+PHASES = ("ingress", "queue_wait", "engine_wait", "prefill", "peer_fetch",
+          "handoff_stall", "decode", "detok")
 
 
 class _Timeline:
@@ -49,12 +63,18 @@ class _Timeline:
         "request_id", "admitted_at", "events", "events_dropped", "tokens",
         "first_token_at", "last_token_at", "dispatch_at", "terminal_at",
         "status", "code", "peer_fetch_s", "handoff_stall_s", "trace_id",
-        "attrs", "slo", "_block_anchor",
+        "attrs", "slo", "_block_anchor", "received_at", "prefill_start_at",
+        "first_frame_at",
     )
 
     def __init__(self, request_id, now: float):
         self.request_id = request_id
         self.admitted_at = now
+        # the HTTP receipt (the wall clock's start) and the engine's first
+        # prefill chunk, when known; the first frame written to a stream
+        self.received_at = now
+        self.prefill_start_at: Optional[float] = None
+        self.first_frame_at: Optional[float] = None
         self.events: List[Tuple[float, str, Dict[str, Any]]] = []
         self.events_dropped = 0
         self.tokens = 0
@@ -103,12 +123,17 @@ class FlightRecorder:
 
     # -- recording (any thread) --------------------------------------------
 
-    def admit(self, request_id, **attrs) -> None:
+    def admit(self, request_id, received_at: Optional[float] = None,
+              **attrs) -> None:
         """The request entered the spine (handler submit). ``trace_id``
-        in ``attrs`` links the timeline to its stitched trace."""
+        in ``attrs`` links the timeline to its stitched trace;
+        ``received_at`` (this recorder's clock) is the HTTP receipt, the
+        start of the ``ingress`` phase."""
         now = self.clock()
         with self._lock:
             tl = self._get_or_create_locked(request_id, now)
+            if received_at is not None:
+                tl.received_at = min(float(received_at), tl.admitted_at)
             tl.attrs.update(attrs)
             tid = attrs.get("trace_id")
             if tid:
@@ -120,12 +145,17 @@ class FlightRecorder:
         phase model: ``route_plan``/``schedule`` anchor the dispatch
         instant; a ``seconds`` attr on ``prefix_fetch`` accumulates the
         peer_fetch window; a ``stall_s`` attr (handoff events)
-        accumulates the handoff_stall window."""
+        accumulates the handoff_stall window; ``prefill_start`` with its
+        ``at`` (this recorder's clock; the event lands at that instant)
+        ends the engine_wait window."""
         now = self.clock()
         with self._lock:
             tl = self._get_or_create_locked(request_id, now)
             if name in ("route_plan", "schedule") and tl.dispatch_at is None:
                 tl.dispatch_at = now
+            if name == "prefill_start" and "at" in attrs:
+                attrs = dict(attrs)
+                now = tl.prefill_start_at = float(attrs.pop("at"))
             if name == "prefix_fetch" and "seconds" in attrs:
                 try:
                     tl.peer_fetch_s += max(0.0, float(attrs["seconds"]))
@@ -159,6 +189,21 @@ class FlightRecorder:
                 self._append_locked(tl, now, "decode_block",
                                     {"tokens": count,
                                      "total": tl.tokens})
+
+    def first_frame(self, request_id) -> None:
+        """The stream writer wrote the request's first token frame:
+        observes the delay from the first token as
+        ``request_first_frame_seconds`` (once a request)."""
+        now = self.clock()
+        with self._lock:
+            tl = self._timelines.get(request_id)
+            if (tl is None or tl.first_token_at is None
+                    or tl.first_frame_at is not None):
+                return
+            tl.first_frame_at = now
+            delay = max(0.0, now - tl.first_token_at)
+        if self.metrics is not None:
+            self.metrics.record_first_frame(delay)
 
     def finish(self, request_id, status: str,
                code: Optional[str] = None) -> Optional[Dict[str, float]]:
@@ -250,9 +295,11 @@ class FlightRecorder:
 
     def _phases_locked(self, tl: _Timeline,
                        now: float) -> Dict[str, float]:
-        """Partition [admit, terminal] into the six phases. Windowed
+        """Partition [receipt, terminal] into the eight phases. Windowed
         costs (peer fetch, handoff stall) are clamped to the span that
-        contains them, so the partition stays exact."""
+        contains them, and the prefill start to dispatch -> first token,
+        so the partition stays exact. The peer fetch is taken from
+        ``prefill`` first, then from ``engine_wait``."""
         t0 = tl.admitted_at
         tt = tl.terminal_at if tl.terminal_at is not None else now
         tf = tl.first_token_at
@@ -272,8 +319,14 @@ class FlightRecorder:
             td = tt
         queue_wait = max(0.0, td - t0)
         first = tf if tf is not None else tt
-        fetch = min(tl.peer_fetch_s, max(0.0, first - td))
-        prefill = max(0.0, first - td - fetch)
+        span = max(0.0, first - td)
+        fetch = min(tl.peer_fetch_s, span)
+        ps = tl.prefill_start_at
+        wait = 0.0 if ps is None else min(max(0.0, ps - td), span)
+        prefill = span - wait
+        taken = min(fetch, prefill)
+        prefill -= taken
+        wait -= fetch - taken
         if tf is not None and tlast is not None:
             stall = min(tl.handoff_stall_s, max(0.0, tlast - tf))
             decode = max(0.0, tlast - tf - stall)
@@ -281,8 +334,10 @@ class FlightRecorder:
         else:
             stall = decode = detok = 0.0
         return {
+            "ingress": max(0.0, t0 - tl.received_at),
             "queue_wait": queue_wait,
-            "prefill": prefill,
+            "engine_wait": max(0.0, wait),
+            "prefill": max(0.0, prefill),
             "peer_fetch": fetch,
             "handoff_stall": stall,
             "decode": decode,
@@ -331,7 +386,7 @@ class FlightRecorder:
                 "request_id": str(tl.request_id),
                 "status": tl.status,
                 "tokens": tl.tokens,
-                "wall_s": round(tt - t0, 6),
+                "wall_s": round(tt - tl.received_at, 6),
                 "phases": {k: round(v, 6) for k, v in phases.items()},
                 "events": events,
                 "events_dropped": tl.events_dropped,

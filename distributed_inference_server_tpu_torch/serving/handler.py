@@ -27,7 +27,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 from distributed_inference_server_tpu_torch.core.errors import (
     AdmissionShedApiError,
@@ -186,7 +186,8 @@ class InferenceHandler:
 
     def _submit(self, prompt_ids: List[int], params: SamplingParams,
                 sink, priority: Priority, tenant: str,
-                endpoint: str = "generate") -> RequestId:
+                endpoint: str = "generate",
+                received_at: Optional[float] = None) -> RequestId:
         request_id = new_request_id()
         span = None
         if self.tracer is not None:
@@ -214,10 +215,10 @@ class InferenceHandler:
             with self._spans_lock:
                 self._spans[request_id] = span
         if self.recorder is not None:
-            # the timeline opens at admission; trace_id links it to the
-            # span tree
+            # the timeline opens at admission, its wall clock at the
+            # receipt; trace_id links it to the span tree
             self.recorder.admit(
-                request_id, endpoint=endpoint,
+                request_id, received_at=received_at, endpoint=endpoint,
                 prompt_tokens=len(prompt_ids), priority=priority.name,
                 tenant=tenant,
                 **({"trace_id": span.trace_id} if span is not None else {}))
@@ -298,8 +299,13 @@ class InferenceHandler:
 
     # -- /generate and /chat -----------------------------------------------
 
-    def generate(self, obj: dict) -> GenerateResponse:
-        rid, choices, usage = self.complete_many(obj, chat=False)
+    # ``received_at``: the transport's monotonic receipt of the request
+    # (the flight recorder's ingress phase; None where it has none)
+
+    def generate(self, obj: dict, received_at: Optional[float] = None
+                 ) -> GenerateResponse:
+        rid, choices, usage = self.complete_many(obj, chat=False,
+                                                 received_at=received_at)
         return GenerateResponse(
             id=f"cmpl-{rid}", object="text_completion",
             created=int(time.time()), model=self.model_name,
@@ -308,8 +314,10 @@ class InferenceHandler:
                                     ["finish_reason"]),),
             usage=usage)
 
-    def chat(self, obj: dict) -> ChatResponse:
-        rid, choices, usage = self.complete_many(obj, chat=True)
+    def chat(self, obj: dict, received_at: Optional[float] = None
+             ) -> ChatResponse:
+        rid, choices, usage = self.complete_many(obj, chat=True,
+                                                 received_at=received_at)
         return ChatResponse(
             id=f"chatcmpl-{rid}", object="chat.completion",
             created=int(time.time()), model=self.model_name,
@@ -319,21 +327,26 @@ class InferenceHandler:
                 finish_reason=choices[0]["finish_reason"]),),
             usage=usage)
 
-    def generate_stream(self, obj: dict, idle=None
+    def generate_stream(self, obj: dict, idle=None,
+                        received_at: Optional[float] = None
                         ) -> Tuple[RequestId, Iterator[TokenEvent]]:
         """Validate and submit; returns (request id, TokenEvent
         iterator). ``idle`` as for ``stream_many``."""
-        rids, events = self._stream(obj, False, 1, idle, indexed=False)
+        rids, events = self._stream(obj, False, 1, idle, indexed=False,
+                                    received_at=received_at)
         return rids[0], events
 
-    def chat_stream(self, obj: dict, idle=None
+    def chat_stream(self, obj: dict, idle=None,
+                    received_at: Optional[float] = None
                     ) -> Tuple[RequestId, Iterator[TokenEvent]]:
-        rids, events = self._stream(obj, True, 1, idle, indexed=False)
+        rids, events = self._stream(obj, True, 1, idle, indexed=False,
+                                    received_at=received_at)
         return rids[0], events
 
     # -- n-choice fan-out (/v1) ---------------------------------------------
 
-    def _submit_fanout(self, obj: dict, chat: bool, n: int, make_sink):
+    def _submit_fanout(self, obj: dict, chat: bool, n: int, make_sink,
+                       received_at: Optional[float] = None):
         ids, params, priority = self._parse_one(obj, chat)
         tenant = _tenant_of(obj)
         endpoint = "chat" if chat else "generate"
@@ -342,7 +355,7 @@ class InferenceHandler:
             for i in range(n):
                 sink = make_sink(i)
                 rids.append(self._submit(ids, params, sink, priority,
-                                         tenant, endpoint))
+                                         tenant, endpoint, received_at))
                 sinks.append(sink)
         except ApiError:
             # a refused choice takes its submitted siblings with it
@@ -353,7 +366,8 @@ class InferenceHandler:
             raise
         return sinks, rids
 
-    def complete_many(self, obj: dict, *, chat: bool, n: int = 1):
+    def complete_many(self, obj: dict, *, chat: bool, n: int = 1,
+                      received_at: Optional[float] = None):
         """One validated request as ``n`` engine sequences sharing the
         prompt, each run to completion. Returns ``(request id, choices,
         usage)``: ``choices[i]`` has text / finish_reason / token_ids /
@@ -361,7 +375,8 @@ class InferenceHandler:
         completions. The first choice's error is raised after all are
         done."""
         sinks, rids = self._submit_fanout(obj, chat, n,
-                                          lambda i: CollectingSink())
+                                          lambda i: CollectingSink(),
+                                          received_at)
         results = []
         for sink, rid in zip(sinks, rids):
             try:
@@ -379,7 +394,8 @@ class InferenceHandler:
         return rids[0], choices, Usage.of(results[0][2].prompt_tokens,
                                           completion)
 
-    def stream_many(self, obj: dict, *, chat: bool, n: int = 1, idle=None
+    def stream_many(self, obj: dict, *, chat: bool, n: int = 1, idle=None,
+                    received_at: Optional[float] = None
                     ) -> Tuple[List[RequestId], EventStream]:
         """Streaming: ``n`` sequences whose event streams merge into one
         ``EventStream`` of ``(choice index, TokenEvent)`` pairs. Returns
@@ -388,13 +404,15 @@ class InferenceHandler:
         ``idle()`` runs while no event has come for ``IDLE_POLL_S`` (the
         HTTP layer checks its client there, and may raise to end the
         stream)."""
-        return self._stream(obj, chat, n, idle, indexed=True)
+        return self._stream(obj, chat, n, idle, indexed=True,
+                            received_at=received_at)
 
-    def _stream(self, obj: dict, chat: bool, n: int, idle, indexed: bool
+    def _stream(self, obj: dict, chat: bool, n: int, idle, indexed: bool,
+                received_at: Optional[float] = None
                 ) -> Tuple[List[RequestId], EventStream]:
         channel: queue.Queue = queue.Queue()
         _, rids = self._submit_fanout(
-            obj, chat, n, lambda i: StreamingSink(channel, i))
+            obj, chat, n, lambda i: StreamingSink(channel, i), received_at)
         return rids, EventStream(self, channel, rids, idle, indexed)
 
     # -- /embeddings ---------------------------------------------------------

@@ -23,6 +23,17 @@ control plane's families (members by state, heartbeat outcomes, reroles,
 telemetry frames and the per-member step tokens and TTFT p99). Not here:
 the KV data plane's, the mesh's and registry HA's families.
 
+The port's own series: ``engine_device_seconds_total{engine_id,kind}``
+(the device clock's seconds per dispatch kind, ``engine/device_clock.py``),
+``engine_device_idle_seconds_total{engine_id,cause}`` (the engine
+stream's gaps between dispatches by what the engine thread was doing:
+admit, schedule, walk, reap, runner, other), the flight recorder's port
+phases ``ingress`` and ``engine_wait`` under ``request_phase_seconds``,
+and ``request_first_frame_seconds`` (first token to the stream's first
+written frame). The admission batch's ``batch.dispatch`` span is gone:
+each request's ``dispatched`` span event carries its ``engine_id`` and
+the batch's ``size``.
+
 Requests, tokens, admission batches, the admission queue's depth by
 priority and tenant, queue expiries, TTFT and step seconds are recorded as
 they happen; the engine's own cumulative counters (cache, mixed step,
@@ -431,6 +442,17 @@ class MetricsCollector:
             "engine_step_dispatches_total",
             "Engine dispatches by kind (the step clock's denominator)",
             "counter", ["engine_id", "kind"])
+        self.device_seconds = fam(
+            "engine_device_seconds_total",
+            "Device seconds of engine dispatches by kind, between timing "
+            "events around each dispatch (cuda only)", "counter",
+            ["engine_id", "kind"])
+        self.device_idle = fam(
+            "engine_device_idle_seconds_total",
+            "Idle seconds of the engine stream between dispatches, by "
+            "what the engine thread was doing (admit | schedule | walk | "
+            "reap | runner | other; cuda only)", "counter",
+            ["engine_id", "cause"])
         self.step_tokens = fam(
             "engine_step_tokens_total",
             "Tokens moved per dispatch kind (prefill = prompt tokens "
@@ -555,6 +577,12 @@ class MetricsCollector:
             "histogram", ["phase"],
             (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2, 5, 10,
              30))
+        self.first_frame = fam(
+            "request_first_frame_seconds",
+            "Runner's first-token delivery to the stream's first written "
+            "frame (serving/flightrec.py)", "histogram", (),
+            (0.0001, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.25, 1))
         # SLO / goodput accounting (fed by flightrec.finish)
         self.slo_requests = fam(
             "slo_requests_total",
@@ -811,6 +839,11 @@ class MetricsCollector:
                   kind=kind)
             total(self.step_tokens, c["tokens"], engine_id=engine_id,
                   kind=kind)
+            total(self.device_seconds, c.get("device_s", 0.0),
+                  engine_id=engine_id, kind=kind)
+        for cause, seconds in step_clock.get("idle", {}).items():
+            total(self.device_idle, seconds, engine_id=engine_id,
+                  cause=cause)
         for event, n in step_clock["events"].items():
             total(self.step_events, n, engine_id=engine_id, event=event)
         if host_tier is not None:
@@ -995,6 +1028,9 @@ class MetricsCollector:
             for phase, seconds in phases.items():
                 self._phase_sums[phase] = (self._phase_sums.get(phase, 0.0)
                                            + seconds)
+
+    def record_first_frame(self, seconds: float) -> None:
+        self.first_frame.observe(seconds)
 
     def record_slo(self, tenant: str, verdict: str, tokens: int = 0) -> None:
         """One finished request's SLO verdict: counts, goodput tokens and

@@ -1135,6 +1135,8 @@ class EngineRunner:
                         req.first_token_at = time.monotonic()
                         self.metrics.record_ttft(
                             req.first_token_at - req.submitted_at)
+                        if out.prefill is not None:
+                            self._note_prefill(req, out.prefill)
                         if req.engine_span is not None:
                             req.engine_span.event("first_token")
                     if out.token_id is not None:
@@ -1172,6 +1174,21 @@ class EngineRunner:
                 flush()
         self.tokens_generated += tokens
         self.metrics.record_tokens(tokens)
+
+    def _note_prefill(self, req: ServerRequest, prefill) -> None:
+        """The engine's prefill chunks of a request whose first token is
+        being delivered: the first chunk's issue time as the recorder's
+        ``prefill_start``, and ``first_chunk`` / ``last_chunk`` events at
+        their issue times on the engine span."""
+        t0, t1, chunks, steps = prefill
+        if self.recorder is not None:
+            self.recorder.note(req.request_id, "prefill_start", at=t0,
+                               chunks=chunks, steps=steps)
+        span = req.engine_span
+        if span is not None:
+            span.event("first_chunk", at_ns=int(t0 * 1e9))
+            span.event("last_chunk", at_ns=int(t1 * 1e9), chunks=chunks,
+                       steps=steps)
 
     def _finish_engine_span(self, req: ServerRequest, status: str,
                             usage: Optional[Usage] = None) -> None:

@@ -10,7 +10,12 @@ activity of the process (kernels, graph replays' kernels, copies and
 fills) and is summarized instead of written out: the window's wall time,
 the time the card was busy (the union of the traced device intervals)
 and its share of the window, and the kernels that took the most device
-time. Only one trace runs at a time.
+time. Only one trace runs at a time. The engine adds its own step
+clock's deltas over the same steps to the summary: device seconds by
+dispatch kind (``engine_device_s``, timing events around each dispatch,
+which see inside looped blocks' WHILE graphs where this trace does not)
+and the engine stream's idle seconds by host cause (``engine_idle_s``;
+``engine/device_clock.py``). No second trace is taken.
 """
 
 from __future__ import annotations

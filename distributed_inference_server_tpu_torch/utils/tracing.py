@@ -64,13 +64,16 @@ class Span:
         self.attributes.update(attrs)
         return self
 
-    def event(self, name: str, **attrs) -> None:
+    def event(self, name: str, at_ns: Optional[int] = None,
+              **attrs) -> None:
         """Record a structured span event; ``attrs`` ride with the event
-        (``span.event("redispatched", reason=...)``)."""
+        (``span.event("redispatched", reason=...)``). ``at_ns``: the
+        event's monotonic time when it happened earlier than now."""
         # a span is owned by one thread at a time — its context() hands
         # off with the request (module docstring); list.append is
         # GIL-atomic for the rare overlap
-        self.events.append((time.monotonic_ns(), name, attrs))
+        self.events.append((time.monotonic_ns() if at_ns is None else at_ns,
+                            name, attrs))
 
     def context(self) -> Tuple[str, str]:
         """(trace_id, span_id) to parent a child span on another thread."""

@@ -367,10 +367,23 @@ def test_trace_and_timeline_in_the_jax_shape(stack):
                          "status"}
     assert [e["name"] for e in root["events"]][:2] == ["queued",
                                                        "dispatched"]
+    # the admission batch's replica and size ride on the request's own
+    # event; the batch has no span of its own
+    dispatched = root["events"][1]["attributes"]
+    assert dispatched["engine_id"] == eng["attributes"]["engine_id"]
+    assert set(dispatched) == {"engine_id", "size"}
+    assert dispatched["size"] >= 1
+    status, every = _get(stack.base, "/server/trace?n=500")
+    assert "batch.dispatch" not in {s["name"] for s in every["spans"]}
+    assert [e["name"] for e in eng["events"]] == ["first_chunk",
+                                                  "last_chunk",
+                                                  "first_token"]
     status, tl = _get(stack.base, f"/server/requests/{rid}")
     assert status == 200 and tl["status"] == "ok" and tl["tokens"] == 6
     assert tl["trace_id"] == root["trace_id"]
     assert abs(sum(tl["phases"].values()) - tl["wall_s"]) < 1e-4
+    assert "prefill_start" in {e["name"] for e in tl["events"]}
+    assert tl["phases"]["ingress"] >= 0.0
     assert tl["slo"]["verdict"] == "ok"
     assert [e["name"] for e in tl["events"]][0] == "admit"
     status, listing = _get(stack.base, "/server/requests?n=5")

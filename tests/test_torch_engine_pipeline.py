@@ -468,11 +468,14 @@ def test_step_clock_has_the_jax_keys(shared):
     _lockstep(je, te, [("add", "a", TOK.encode("abcdefgh"), _greedy(10)),
                        ("add", "b", TOK.encode("12345678"), _greedy(10))])
     js, ts = je.step_clock_stats(), te.step_clock_stats()
-    assert set(ts) == set(js) == {"kinds", "events"}
+    assert set(js) == {"kinds", "events"}
+    # the port's device clock beside them: idle gaps by cause
+    assert set(ts) == set(js) | {"idle"}
     assert set(ts["events"]) == set(js["events"])
     assert set(ts["kinds"]) == set(js["kinds"])
     for kind, jc in js["kinds"].items():
-        assert set(ts["kinds"][kind]) == set(jc), kind
+        assert set(ts["kinds"][kind]) == set(jc) | {
+            "forwards", "capacity", "device_s"}, kind
         for key in ("dispatches", "tokens", "rows"):
             assert ts["kinds"][kind][key] == jc[key], (kind, key)
     for name in ("cache_full", "preempt", "reclaim"):
@@ -481,6 +484,42 @@ def test_step_clock_has_the_jax_keys(shared):
     samples = te.drain_step_samples()
     assert samples and {k for k, _ in samples} <= set(ts["kinds"])
     assert te.drain_step_samples() == []
+
+
+def test_step_clock_counts_forwards_and_capacity(shared):
+    """Two 700-token prompts at buckets 32/128/512, four prefill rows and
+    a 2048-token budget: one [4, 512] chunk a step, twice (the rest, 188
+    tokens, still takes the 512 bucket), so 2 forwards over 2 x 4 x 512
+    computed tokens for 1400 prompt tokens; each decode block K forwards
+    over max_batch x K. On the CPU no device time and no idle gap is
+    read. Each first token carries its prefill chunks: both issue times,
+    2 chunks over 2 engine steps."""
+    te = LLMEngine(shared[1], TINY, TOK, EngineConfig(
+        max_batch=4, paged=PagedCacheConfig(256, 16, 64)),
+        dtype=torch.float32, device="cpu")
+    for rid, first in (("a", 5), ("b", 6)):
+        te.add_request(rid, [first] * 700, SamplingParams(**_greedy(17)))
+    marks = {}
+    while te.has_work():
+        for o in te.step():
+            if o.prefill is not None:
+                marks[o.request_id] = o.prefill
+    sc = te.step_clock_stats()
+    pre, dec = sc["kinds"]["prefill"], sc["kinds"]["decode_block"]
+    assert (pre["dispatches"], pre["forwards"]) == (2, 2)
+    assert (pre["tokens"], pre["capacity"]) == (1400, 2 * 4 * 512)
+    K = te.ecfg.decode_block_size
+    assert dec["dispatches"] >= 1
+    assert dec["forwards"] == K * dec["dispatches"]
+    assert dec["capacity"] == 4 * K * dec["dispatches"]
+    assert sc["kinds"]["mixed"]["capacity"] == sc["kinds"]["loop"][
+        "forwards"] == 0
+    assert all(c["device_s"] == 0.0 for c in sc["kinds"].values())
+    assert sc["idle"] == {c: 0.0 for c in (
+        "admit", "schedule", "walk", "reap", "runner", "other")}
+    assert set(marks) == {"a", "b"}
+    for t0, t1, chunks, steps in marks.values():
+        assert t0 < t1 and (chunks, steps) == (2, 2)
 
 
 def test_pipeline_depth_must_be_non_negative(shared):

@@ -13,6 +13,8 @@ Tolerances: 1e-4 in float32 (summation order only), 2e-2 absolute plus
 2^-7 relative in bfloat16 (about two bf16 ulps at the outputs' scale).
 """
 
+import time
+
 import pytest
 import torch
 
@@ -928,6 +930,10 @@ def test_profile_steps_traces_the_card(cuda):
     assert ev.is_set() and "error" not in holder, holder
     assert holder["device_events"] > 0
     assert 0.0 < holder["busy_share"] <= 1.0 + 1e-6
+    # the step clock's device seconds and idle gaps over the traced steps
+    assert holder["engine_device_s"]["decode_block"] > 0
+    assert set(holder["engine_idle_s"]) == {"admit", "schedule", "walk",
+                                            "reap", "runner", "other"}
 
 
 # ---------------------------------------------------------------------------
@@ -1173,6 +1179,44 @@ def test_failed_loop_and_mixed_capture_raises(cuda, monkeypatch, path):
             eng.step()
     if path == "loop":
         assert ("loop", 0) not in eng._graphs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loop", [False, True], ids=["blocks", "looped"])
+def test_device_clock_times_dispatches_and_gaps(cuda, loop):
+    """The device clock on the card (``engine/device_clock.py``): after
+    warmup's anchor, every prefill chunk and decode block (or looped
+    block, one WHILE-graph launch) reads positive device seconds, at most
+    the synchronized host wall they ran in; the idle causes sum to the
+    gaps of the chained timeline (its span minus the device seconds),
+    which fits in the host wall since the anchor."""
+    params = _scaled_params(TINY, cuda, torch.float32)
+    tok = ByteTokenizer()
+    eng = _loop_engine(cuda, TINY, params, torch.float32,
+                       loop_to_completion=loop)
+    eng.warmup()
+    t_anchor = time.monotonic()
+    sc0 = eng.step_clock_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _drive_tiny(eng, tok, ["chat one", "chat two!"], "a long prompt " * 5)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    sc = eng.step_clock_stats()
+    kind = "loop" if loop else "decode_block"
+    dev = {k: sc["kinds"][k]["device_s"] - sc0["kinds"][k]["device_s"]
+           for k in sc["kinds"]}
+    assert dev["prefill"] > 0 and dev[kind] > 0
+    assert dev["prefill"] + dev[kind] <= wall
+    assert sc["kinds"][kind]["forwards"] >= sc["kinds"][kind]["dispatches"]
+    dc = eng._dclock
+    assert not dc._pending and dc.observations > 0
+    span = dc._last[1]  # chained device seconds since the anchor
+    assert sum(sc["idle"].values()) == pytest.approx(
+        span - sum(dc.device_s.values()), abs=1e-6)
+    assert span <= time.monotonic() - t_anchor + 1e-3
+    assert set(sc["idle"]) == {"admit", "schedule", "walk", "reap",
+                               "runner", "other"}
 
 
 @pytest.mark.gpu

@@ -560,6 +560,9 @@ CONTROL_FAMILIES = {
     "health_transitions", "retry_budget_exhausted",
     "fleet_breaker_transitions",
 }
+# the port's own: the device clock's counters and the first-frame delay
+PORT_ONLY_FAMILIES = {"engine_device_seconds", "engine_device_idle_seconds",
+                      "request_first_frame_seconds"}
 # the fleet's families: the control plane's, the KV mesh's and registry
 # HA's
 FLEET_FAMILIES = {
@@ -681,10 +684,41 @@ def test_metrics_families_match_the_jax_collector():
     families = (SINGLE_REPLICA_FAMILIES | REPLICA_FAMILIES
                 | CONTROL_FAMILIES | FLEET_FAMILIES)
     assert families <= set(jf)
-    assert set(pf) == families
+    # beside them, the port's own device clock and first-frame families
+    assert set(pf) == families | PORT_ONLY_FAMILIES
     for name in families:
         assert pf[name][:2] == jf[name][:2], name
         assert pf[name][2] == pytest.approx(jf[name][2]), name
+
+
+def test_device_clock_series_read_the_engine_totals():
+    """The device clock's totals (``step_clock_stats`` ``device_s`` per
+    kind and ``idle`` per cause) become the port's own counters at a
+    scrape; a step clock without them (a CPU engine reads zeros) adds no
+    series."""
+    p = pmetrics.MetricsCollector()
+    eid, cache, mixed, loop, clock = ENGINE_TOTALS
+    clock = {"kinds": {"prefill": {**clock["kinds"]["prefill"],
+                                   "device_s": 0.25},
+                       "decode_block": {"dispatches": 3, "wall_s": 0.2,
+                                        "tokens": 24, "device_s": 0.0}},
+             "events": clock["events"],
+             "idle": {"walk": 0.125, "runner": 0.0, "other": 0.5}}
+    p.observe_engine(eid, cache, mixed, loop, clock)
+    fams = _families(p.prometheus_text().decode())
+    assert fams["engine_device_seconds"][2] == [
+        ("engine_device_seconds_total",
+         (("engine_id", "engine-0"), ("kind", "prefill")), 0.25)]
+    assert fams["engine_device_idle_seconds"][2] == [
+        ("engine_device_idle_seconds_total",
+         (("cause", "other"), ("engine_id", "engine-0")), 0.5),
+        ("engine_device_idle_seconds_total",
+         (("cause", "walk"), ("engine_id", "engine-0")), 0.125)]
+    q = pmetrics.MetricsCollector()
+    q.observe_engine(*ENGINE_TOTALS)
+    fams = _families(q.prometheus_text().decode())
+    assert fams["engine_device_seconds"][2] == []
+    assert fams["engine_device_idle_seconds"][2] == []
 
 
 def test_snapshot_matches_the_jax_collector():

@@ -3,7 +3,10 @@ package's, on the same seeded latencies under one fake clock: the digests'
 wire dicts, merges, window statistics and SLO verdicts are equal, the
 ``/server/perf`` payload is the same, and the recorder's timelines, phase
 sums, listings and the metrics they feed are the same for the same
-notes."""
+notes. The port's phases ``ingress`` and ``engine_wait`` fold back into
+the JAX package's partition (``engine_wait + prefill`` is its
+``prefill``; ``ingress`` is 0 without a receipt stamp) and are tested on
+their own, with the first-frame histogram."""
 
 from __future__ import annotations
 
@@ -345,16 +348,34 @@ def test_recorder_equal(name, slo, clock):
                      if k in ("queue_wait_ms", "tbt_ms", "slo.ok",
                               "slo.violated")},
         }
-    assert outs["torch"] == outs["jax"]
     for tl in outs["torch"]["timelines"].values():
         if tl["status"] != "live":
             # the phases partition the wall clock (clamped windows never
             # make them exceed it)
             assert sum(tl["phases"].values()) <= tl["wall_s"] + 1e-5
+    assert _fold_port_phases(outs["torch"]) == outs["jax"]
+
+
+def _fold_port_phases(obj):
+    """The port's phase dicts in the JAX package's partition: its
+    ``engine_wait`` added back into ``prefill`` and its ``ingress``
+    (0 here: no receipt stamp is given) dropped."""
+    if isinstance(obj, dict):
+        out = {k: _fold_port_phases(v) for k, v in obj.items()}
+        if "engine_wait" in out:
+            assert out.pop("ingress") == 0.0
+            wait = out.pop("engine_wait")
+            out["prefill"] = round(out["prefill"] + wait, 6) if wait else (
+                out["prefill"])
+        return out
+    if isinstance(obj, list):
+        return [_fold_port_phases(v) for v in obj]
+    return obj
 
 
 def test_phase_metrics_and_prometheus_lines(clock):
     texts = {}
+    port_only = set()
     for which in ("jax", "torch"):
         clock.t = 1_000_000.0
         rec, m = _recorder(which, clock, slo={"ttft_ms": 1e4})
@@ -373,10 +394,121 @@ def test_phase_metrics_and_prometheus_lines(clock):
                 "retry_budget_exhausted_total",
                 "fleet_breaker_transitions_total",
                 "request_phase_seconds_count")}
+        if which == "torch":
+            port_only = {ln for ln in texts[which]
+                         if 'phase="ingress"' in ln
+                         or 'phase="engine_wait"' in ln}
+            texts[which] -= port_only
     assert texts["torch"] == texts["jax"]
+    assert port_only == {'request_phase_seconds_count{phase="ingress"} 1.0',
+                         'request_phase_seconds_count{phase="engine_wait"} '
+                         '1.0'}
     # 8 token events, two of them carrying 2 tokens
     assert ('slo_goodput_tokens_total{tenant="default"} 10.0'
             in texts["torch"])
     snap = pmet.MetricsCollector()
     snap.record_request_phases({"queue_wait": 0.1, "decode": 0.2}, 0.01)
     assert snap.snapshot().to_dict()["tracing"]["phase_requests"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the port's own phases: ingress, engine_wait and the narrowed prefill
+# ---------------------------------------------------------------------------
+
+# the engine's first prefill chunk, seconds after the dispatch (None: the
+# runner noted no prefill_start, as for a handoff import); the first token
+# comes 0.08 s after the dispatch
+PREFILL_STARTS = {"absent": None, "early": -0.01, "at_dispatch": 0.0,
+                  "inside": 0.03, "late": 0.5}
+
+
+@pytest.mark.parametrize("fetch_s", [0.0, 0.02, 0.06, 99.0],
+                         ids=["no_fetch", "fetch_in_prefill",
+                              "fetch_past_prefill", "fetch_clamped"])
+@pytest.mark.parametrize("start", sorted(PREFILL_STARTS))
+def test_port_phases_partition_the_wall_clock(clock, start, fetch_s):
+    rec, m = _recorder("torch", clock, slo={"ttft_ms": 1e4})
+    received = clock.t
+    clock.advance(0.004)
+    rec.admit("p1", received_at=received, endpoint="generate")
+    admitted = clock.t
+    clock.advance(0.05)
+    rec.note("p1", "schedule", engine="engine-0")
+    dispatched = clock.t
+    if fetch_s:
+        rec.note("p1", "prefix_fetch", outcome="ok", seconds=fetch_s)
+    clock.advance(0.08)
+    offset = PREFILL_STARTS[start]
+    if offset is not None:
+        rec.note("p1", "prefill_start", at=dispatched + offset, chunks=2,
+                 steps=2)
+    rec.token("p1")
+    first = clock.t
+    clock.advance(0.002)
+    rec.first_frame("p1")
+    rec.first_frame("p1")  # once a request
+    for _ in range(3):
+        clock.advance(0.01)
+        rec.token("p1")
+    clock.advance(0.001)
+    phases = rec.finish("p1", "ok")
+    tl = rec.timeline("p1")
+
+    span = first - dispatched
+    fetch = min(fetch_s, span)
+    wait = 0.0 if offset is None else min(max(offset, 0.0), span)
+    taken = min(fetch, span - wait)
+    want_wait = wait - (fetch - taken)
+    want_prefill = span - wait - taken
+    approx = dict(abs=1e-9)
+    assert list(phases) == list(pfr.PHASES)
+    assert phases["ingress"] == pytest.approx(0.004, **approx)
+    assert phases["queue_wait"] == pytest.approx(0.05, **approx)
+    assert phases["engine_wait"] == pytest.approx(want_wait, **approx)
+    assert phases["prefill"] == pytest.approx(want_prefill, **approx)
+    assert phases["peer_fetch"] == pytest.approx(fetch, **approx)
+    # the JAX package's prefill, and TTFT from admission, exactly
+    assert phases["engine_wait"] + phases["prefill"] == pytest.approx(
+        span - fetch, **approx)
+    assert (phases["queue_wait"] + phases["engine_wait"]
+            + phases["prefill"] + phases["peer_fetch"]) == pytest.approx(
+        first - admitted, **approx)
+    assert tl["ttft_s"] == pytest.approx(first - admitted, abs=1e-6)
+    # the partition of the wall clock from the receipt
+    assert sum(phases.values()) == pytest.approx(clock.t - received,
+                                                 **approx)
+    assert tl["wall_s"] == pytest.approx(clock.t - received, abs=1e-6)
+    events = {e["name"]: e for e in tl["events"]}
+    if offset is None:
+        assert "prefill_start" not in events
+    else:
+        assert events["prefill_start"]["t_ms"] == pytest.approx(
+            (dispatched + offset - admitted) * 1e3, abs=1e-3)
+        assert events["prefill_start"]["attributes"] == {"chunks": 2,
+                                                         "steps": 2}
+    text = m.prometheus_text().decode()
+    for phase in ("ingress", "engine_wait"):
+        assert f'request_phase_seconds_count{{phase="{phase}"}} 1.0' in text
+    assert "request_first_frame_seconds_count 1.0" in text
+    assert _sample(text, "request_first_frame_seconds_sum") == (
+        pytest.approx(0.002, abs=1e-9))
+
+
+def test_first_frame_needs_a_first_token(clock):
+    rec, m = _recorder("torch", clock)
+    rec.first_frame("unknown")
+    rec.admit("q1")
+    clock.advance(0.01)
+    rec.first_frame("q1")  # no token yet: nothing observed
+    rec.token("q1")
+    clock.advance(0.003)
+    rec.first_frame("q1")
+    text = m.prometheus_text().decode()
+    assert "request_first_frame_seconds_count 1.0" in text
+    assert _sample(text, "request_first_frame_seconds_sum") == (
+        pytest.approx(0.003, abs=1e-9))
+
+
+def _sample(text: str, name: str) -> float:
+    (line,) = [ln for ln in text.splitlines() if ln.startswith(name + " ")]
+    return float(line.split()[1])

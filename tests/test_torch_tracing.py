@@ -337,6 +337,49 @@ def test_runner_records_tokens_terminal_and_engine_span(error):
         assert [n for _, n, _ in eng.events] == ["first_token"]
 
 
+def test_runner_notes_the_engine_prefill_chunks():
+    """A first token that carries the engine's prefill chunks becomes the
+    recorder's ``prefill_start`` (at the first chunk's issue time, ending
+    the ``engine_wait`` phase) and ``first_chunk`` / ``last_chunk``
+    events at their issue times on the engine span."""
+    import time
+
+    from distributed_inference_server_tpu_torch.core.models import (
+        FinishReason,
+        Usage,
+    )
+    from distributed_inference_server_tpu_torch.engine.engine import (
+        StepOutput,
+    )
+    from distributed_inference_server_tpu_torch.serving.flightrec import (
+        FlightRecorder,
+    )
+
+    tracer, recorder = ptr.Tracer(), FlightRecorder()
+    r, req, sink = _runner_and_request(tracer, recorder)
+    recorder.admit("r1")
+    recorder.note("r1", "schedule", engine="e0")
+    t0 = time.monotonic()
+    t1 = t0 + 1e-4
+    time.sleep(0.002)
+    r._dispatch([StepOutput("r1", token_id=7, text="x",
+                            prefill=(t0, t1, 3, 2))])
+    r._dispatch([StepOutput("r1", finished=True,
+                            finish_reason=FinishReason.STOP,
+                            usage=Usage.of(3, 1))])
+    tl = recorder.timeline("r1")
+    ev = {e["name"]: e for e in tl["events"]}
+    assert ev["prefill_start"]["attributes"] == {"chunks": 3, "steps": 2}
+    assert tl["phases"]["engine_wait"] > 0 and tl["phases"]["prefill"] > 0
+    (eng,) = tracer.recent()
+    assert [n for _, n, _ in eng.events] == ["first_chunk", "last_chunk",
+                                             "first_token"]
+    (_, _, a0), (_, _, a1) = eng.events[:2]
+    assert eng.events[0][0] == int(t0 * 1e9)
+    assert eng.events[1][0] == int(t1 * 1e9)
+    assert a0 == {} and a1 == {"chunks": 3, "steps": 2}
+
+
 def test_fault_observer_registry_fans_out_and_unregisters():
     from distributed_inference_server_tpu_torch.serving import faults
 
